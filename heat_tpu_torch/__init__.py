@@ -1,0 +1,20 @@
+"""heat_tpu_torch — heat_tpu's distributed n-D arrays on PyTorch and CUDA.
+
+The PyTorch/CUDA port of heat_tpu, beside it in the same repository and held against it
+by the tests. A DNDarray holds this rank's local ``torch.Tensor``; ranks talk over
+``torch.distributed``. Usage mirrors heat_tpu::
+
+    import heat_tpu_torch as ht
+    x = ht.arange(10, split=0)
+    x.sum()
+
+Entry points run on the CUDA card unless the caller asks for the CPU
+(``ht.use_device("cpu")`` or ``device="cpu"``). Hand-written kernels are built at their
+first launch, so importing the package needs neither CUDA nor nvcc.
+"""
+
+from .core import *
+from . import core
+from . import spatial
+from . import cluster
+from . import interop

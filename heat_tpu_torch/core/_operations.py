@@ -1,0 +1,288 @@
+"""The dispatch wrappers: binary, local (elementwise) and reduction operations with
+Heat's split and type semantics (counterpart of heat_tpu/core/_operations.py, eager
+torch only).
+
+Each wrapper works on this rank's local tensors. A binary operation first brings both
+operands to the output's distribution (the dominant-split rule, :func:`_out_split_binary`);
+a reduction over the split axis is a local reduction followed by one ``all_reduce``.
+Result dtypes follow heat_tpu's, which are JAX's with x64 enabled: Python scalars are
+weak, integer true division gives float32 (float64 from int64), and sums of small
+integer types accumulate in int64.
+"""
+
+from __future__ import annotations
+
+import builtins
+from typing import Callable, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from . import sanitation, types
+from .dndarray import DNDarray
+from .stride_tricks import broadcast_shapes, sanitize_axis
+
+__all__ = ["wrap_result", "binary_op", "local_op", "reduce_op"]
+
+_PY_SCALARS = (builtins.bool, builtins.int, builtins.float, builtins.complex)
+_COMPARISONS = (torch.eq, torch.ne, torch.lt, torch.le, torch.gt, torch.ge)
+
+
+def _is_weak(x) -> bool:
+    """Python scalars are weakly typed (numpy scalars are not)."""
+    return isinstance(x, _PY_SCALARS) and not isinstance(x, np.generic)
+
+
+def _strong_type(x):
+    if isinstance(x, DNDarray):
+        return x.dtype
+    return types.canonical_heat_type(getattr(x, "dtype", None) or np.asarray(x).dtype)
+
+
+def _weak_promote(strong, weak) -> type:
+    """JAX's promotion of a strongly typed operand with a Python scalar (x64 on)."""
+    if isinstance(weak, builtins.bool):
+        return strong
+    if isinstance(weak, builtins.int):
+        return types.int64 if strong is types.bool else strong
+    if isinstance(weak, builtins.float):
+        return types.float64 if types.heat_type_is_exact(strong) else strong
+    if issubclass(strong, types.complexfloating):
+        return strong
+    return types.complex64 if strong in (types.float16, types.bfloat16, types.float32) else types.complex128
+
+
+def _inexact(t) -> type:
+    """The float type an exact type turns into under true division / mean."""
+    if types.heat_type_is_inexact(t):
+        return t
+    return types.float64 if t is types.int64 else types.float32
+
+
+def _binary_types(t1, t2, operation) -> Tuple[type, type]:
+    """(compute type, result type) of ``operation(t1, t2)``; at most one operand is a
+    Python scalar."""
+    if _is_weak(t1):
+        compute = _weak_promote(_strong_type(t2), t1)
+    elif _is_weak(t2):
+        compute = _weak_promote(_strong_type(t1), t2)
+    else:
+        compute = types.promote_types(_strong_type(t1), _strong_type(t2))
+    if operation is torch.true_divide:
+        compute = _inexact(compute)
+    if operation is torch.pow and not _is_weak(t1) and _strong_type(t1) is types.bool:
+        # jnp.power raises a bool base to a bool or Python-int exponent in int32
+        if compute in (types.bool, types.int64) and (_is_weak(t2) or _strong_type(t2) is types.bool):
+            compute = types.int32
+    if operation in _COMPARISONS:
+        return compute, types.bool
+    return compute, compute
+
+
+def wrap_result(
+    value: torch.Tensor, proto: DNDarray, split: Optional[int], gshape: Optional[Sequence[int]] = None
+) -> DNDarray:
+    """Wrap this rank's local ``value`` in a DNDarray with ``proto``'s device/comm.
+    ``gshape`` is the global shape; it may be left out when the value is whole on
+    every rank (``split`` None or a single rank). An out-of-range split becomes None."""
+    if split is not None and (value.ndim == 0 or split >= value.ndim or split < 0):
+        split = None
+    if gshape is None:
+        if split is not None and proto.comm.size > 1:
+            raise ValueError("wrap_result needs the global shape of a distributed result")
+        gshape = tuple(value.shape)
+    return DNDarray(
+        value, tuple(gshape), types.canonical_heat_type(value.dtype), split, proto.device, proto.comm, True
+    )
+
+
+def handle_out(res: DNDarray, out: Optional[DNDarray]) -> DNDarray:
+    """Write ``res`` into a user-provided ``out`` buffer, casting to its dtype."""
+    if out is None:
+        return res
+    sanitation.sanitize_out(out, res.gshape, res.split)
+    out.larray = res.larray.to(out.dtype.torch_type())
+    return out
+
+
+def _out_split_binary(out_shape: Tuple[int, ...], *operands) -> Optional[int]:
+    """Dominant-operand split rule (heat_tpu/core/_operations.py:250): a split operand
+    beats an unsplit one; a split on a non-broadcast dim beats a split on a broadcast dim;
+    the first operand beats the second."""
+    nd = len(out_shape)
+    best = None
+    for arr in operands:
+        if not isinstance(arr, DNDarray) or arr.split is None:
+            continue
+        s = arr.split + (nd - arr.ndim)
+        broadcasted = arr.gshape[arr.split] == 1 and out_shape[s] != 1
+        if not broadcasted:
+            return s
+        if best is None:
+            best = s
+    return best
+
+
+def _local_operand(arr: DNDarray, out_shape: Tuple[int, ...], out_split: Optional[int]) -> torch.Tensor:
+    """``arr``'s local tensor laid out like the output: chunked along the output's
+    split where ``arr`` spans it, whole where it broadcasts against it."""
+    if out_split is None:
+        return arr._relayout(None)
+    d = out_split - (len(out_shape) - arr.ndim)
+    if d < 0 or (arr.gshape[d] == 1 and out_shape[out_split] != 1):
+        return arr._relayout(None)
+    return arr._relayout(d)
+
+
+def binary_op(
+    operation: Callable,
+    t1,
+    t2,
+    out: Optional[DNDarray] = None,
+    where=None,
+    fn_kwargs: Optional[dict] = None,
+) -> DNDarray:
+    """Apply a binary torch operation with Heat's split/type semantics."""
+    from . import factories
+
+    if where is not None:
+        raise NotImplementedError("where= is not ported yet (ROADMAP.md Queue 1 item 4)")
+    fn_kwargs = fn_kwargs or {}
+    if np.isscalar(t1) and np.isscalar(t2):
+        # two Python scalars compute at numpy's (x64) types: int → int64, float → float64
+        t1 = factories.array(np.asarray(t1))
+    proto = next((t for t in (t1, t2) if isinstance(t, DNDarray)), None)
+    kw = {} if proto is None else {"device": proto.device, "comm": proto.comm}
+    t1, t2 = (t if np.isscalar(t) or isinstance(t, DNDarray) else factories.array(t, **kw) for t in (t1, t2))
+    if proto is None:
+        proto = next(t for t in (t1, t2) if isinstance(t, DNDarray))
+
+    compute, result = _binary_types(t1, t2, operation)
+    shapes = [t.gshape for t in (t1, t2) if isinstance(t, DNDarray)]
+    out_shape = broadcast_shapes(*shapes)
+    out_split = _out_split_binary(out_shape, t1, t2)
+    ct = compute.torch_type()
+
+    def _operand(t):
+        if isinstance(t, DNDarray):
+            return _local_operand(t, out_shape, out_split).to(ct)
+        return t.item() if isinstance(t, np.generic) else t
+
+    value = operation(_operand(t1), _operand(t2), **fn_kwargs).to(result.torch_type())
+    if out_split is not None and out_split >= len(out_shape):
+        out_split = None
+    res = DNDarray(value, out_shape, result, out_split, proto.device, proto.comm, True)
+    return handle_out(res, out)
+
+
+def local_op(operation: Callable, x: DNDarray, out: Optional[DNDarray] = None, **fn_kwargs) -> DNDarray:
+    """Elementwise operation on the local tensor, no communication."""
+    sanitation.sanitize_in(x)
+    value = operation(x.larray, **fn_kwargs)
+    res = DNDarray(
+        value, x.gshape, types.canonical_heat_type(value.dtype), x.split, x.device, x.comm, x.balanced
+    )
+    return handle_out(res, out)
+
+
+def _out_split_reduce(
+    x: DNDarray, axis: Optional[Union[int, Tuple[int, ...]]], keepdims: bool
+) -> Optional[int]:
+    """Split bookkeeping for reductions (heat_tpu/core/_operations.py:1039)."""
+    if x.split is None:
+        return None
+    if axis is None:
+        return None
+    axes = axis if isinstance(axis, tuple) else (axis,)
+    if x.split in axes:
+        return None
+    if keepdims:
+        return x.split
+    return x.split - builtins.sum(1 for ax in axes if ax < x.split)
+
+
+# the identity element each reduction fills an empty local chunk with
+# (heat_tpu/core/_operations.py:1055-1081), and the all_reduce that merges ranks
+_REDUCTIONS = {
+    "sum": ("zero", "sum"),
+    "prod": ("one", "prod"),
+    "mean": ("zero", "sum"),
+    "min": ("highest", "min"),
+    "max": ("lowest", "max"),
+}
+
+
+def _neutral(kind: str, dtype: torch.dtype):
+    if kind == "zero":
+        return 0
+    if kind == "one":
+        return 1
+    if dtype == torch.bool:
+        return kind == "highest"
+    if not dtype.is_floating_point and not dtype.is_complex:
+        info = torch.iinfo(dtype)
+        return info.max if kind == "highest" else info.min
+    return float("inf") if kind == "highest" else float("-inf")
+
+
+def _reduce_type(kind: str, t) -> type:
+    """heat_tpu's result type: sum/prod accumulate small exact types in int64, mean
+    turns exact types into floats, min/max keep the type."""
+    if kind in ("sum", "prod") and types.heat_type_is_exact(t):
+        return types.int64
+    if kind == "mean":
+        return _inexact(t)
+    return t
+
+
+def _local_reduce(kind: str, value: torch.Tensor, axes: Tuple[int, ...], keepdims: bool) -> torch.Tensor:
+    if kind in ("sum", "mean"):
+        return torch.sum(value, dim=axes, keepdim=keepdims)
+    if kind == "min":
+        return torch.amin(value, dim=axes, keepdim=keepdims)
+    if kind == "max":
+        return torch.amax(value, dim=axes, keepdim=keepdims)
+    for ax in sorted(axes, reverse=True):  # torch.prod takes one dim at a time
+        value = torch.prod(value, dim=ax, keepdim=keepdims)
+    return value
+
+
+def reduce_op(
+    kind: str,
+    x: DNDarray,
+    axis: Optional[Union[int, Sequence[int]]] = None,
+    out: Optional[DNDarray] = None,
+    keepdims: bool = False,
+) -> DNDarray:
+    """Reduce ``x`` (``kind``: sum, prod, mean, min, max) over ``axis``.
+
+    Over the split axis this is a local reduction followed by one ``all_reduce``; an
+    empty local chunk contributes the reduction's identity element."""
+    sanitation.sanitize_in(x)
+    neutral_kind, merge = _REDUCTIONS[kind]
+    axis = sanitize_axis(x.gshape, axis)
+    out_split = _out_split_reduce(x, axis, keepdims)
+    axes = tuple(range(x.ndim)) if axis is None else (axis if isinstance(axis, tuple) else (axis,))
+    rtype = _reduce_type(kind, x.dtype)
+    value = x.larray.to(rtype.torch_type())
+    crosses = x.is_distributed() and x.split in axes
+    if crosses and value.shape[x.split] == 0:
+        shape = list(value.shape)
+        shape[x.split] = 1
+        value = torch.full(shape, _neutral(neutral_kind, value.dtype), dtype=value.dtype, device=value.device)
+    if x.ndim == 0:
+        result = value.clone()
+    else:
+        result = _local_reduce(kind, value, axes, keepdims)
+    if crosses:
+        x.comm.all_reduce(result, merge)
+    if kind == "mean":
+        result = result / int(np.prod([x.gshape[a] for a in axes]))
+    if keepdims:
+        gshape = tuple(1 if i in axes else s for i, s in enumerate(x.gshape))
+    else:
+        gshape = tuple(s for i, s in enumerate(x.gshape) if i not in axes)
+    if out_split is not None and out_split >= len(gshape):
+        out_split = None
+    res = DNDarray(result, gshape, rtype, out_split, x.device, x.comm, True)
+    return handle_out(res, out)

@@ -1,0 +1,24 @@
+"""Hand-written CUDA kernels for Hopper (counterparts of heat_tpu/core/kernels/).
+
+Each kernel module keeps its plain PyTorch version beside the wrapper, used for CPU
+tensors and by the tests, and a ``launches`` counter. Importing a kernel module needs
+neither CUDA nor nvcc: a kernel is built at its first launch.
+"""
+
+from . import kmeans
+from .kmeans import fused_assign_update, fused_assign_update_reference
+
+__all__ = ["KERNELS", "fused_assign_update", "fused_assign_update_reference", "kmeans", "launch_counts", "reset_launch_counts"]
+
+# every ported kernel's module, by kernel name
+KERNELS = {"kmeans_assign": kmeans}
+
+
+def launch_counts() -> dict:
+    """Launches of each ported kernel, by name."""
+    return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in KERNELS.values():
+        mod.launches = 0

@@ -1,0 +1,63 @@
+"""Pairwise distances (counterpart of heat_tpu/spatial/distance.py: ``cdist``).
+
+Euclidean distances by the quadratic expansion |x-y|² = |x|² + |y|² - 2x·y, whose cross
+term is one ``torch.matmul`` in full fp32: TF32 is switched off around it, because the
+expansion cancels for near points (heat_tpu/spatial/distance.py:36-38).
+
+Distribution: a row-split X with Y whole on every rank is local work (the case
+``KMeans.predict`` runs); a row-split Y is all-gathered first. Output split: row-split X
+→ 0; else row-split Y → 1; else None. heat_tpu's ring over Y shards (``_ring_pairwise``)
+is not ported yet (ROADMAP.md Queue 1 item 5).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..core import types
+from ..core.devices import full_fp32_matmul
+from ..core.dndarray import DNDarray
+from ..core.sanitation import sanitize_in
+
+__all__ = ["cdist", "manhattan", "rbf"]
+
+
+def _pairwise(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Euclidean distance matrix of two local tensors."""
+    xx = torch.sum(x * x, dim=1)[:, None]
+    yy = torch.sum(y * y, dim=1)[None, :]
+    with full_fp32_matmul():
+        xy = torch.matmul(x, y.T)
+    return torch.sqrt(torch.clamp_min(xx + yy - 2.0 * xy, 0.0))
+
+
+def cdist(X: DNDarray, Y: Optional[DNDarray] = None, quadratic_expansion: bool = False) -> DNDarray:
+    """Euclidean distance matrix between the rows of X and Y (Y defaults to X). The
+    quadratic expansion is always used, as in heat_tpu."""
+    sanitize_in(X)
+    if X.ndim != 2:
+        raise NotImplementedError(f"X should be 2D, but is {X.ndim}D")
+    if Y is None:
+        Y = X
+    sanitize_in(Y)
+    if Y.ndim != 2:
+        raise NotImplementedError(f"Y should be 2D, but is {Y.ndim}D")
+    promoted = types.promote_types(
+        types.promote_types(X.dtype, types.float32), types.promote_types(Y.dtype, types.float32)
+    )
+    out_split = 0 if X.split == 0 else (1 if Y.split == 0 else None)
+    xv = X.larray if out_split == 0 else X._relayout(None)
+    yv = Y.larray if out_split == 1 else Y._relayout(None)
+    tt = promoted.torch_type()
+    result = _pairwise(xv.to(tt), yv.to(tt))
+    return DNDarray(result, (X.gshape[0], Y.gshape[0]), promoted, out_split, X.device, X.comm, True)
+
+
+def manhattan(X: DNDarray, Y: Optional[DNDarray] = None, expand: bool = False) -> DNDarray:
+    raise NotImplementedError("manhattan is not ported yet (ROADMAP.md Queue 1 item 5)")
+
+
+def rbf(X: DNDarray, Y: Optional[DNDarray] = None, sigma: float = 1.0, quadratic_expansion: bool = False) -> DNDarray:
+    raise NotImplementedError("rbf is not ported yet (ROADMAP.md Queue 1 item 5)")

@@ -1,0 +1,91 @@
+"""One rank of tests/test_torch_distributed.py: runs the port's checks over gloo and
+writes this rank's results for the parent to compare with heat_tpu.
+
+    python _torch_dist_worker.py RANK WORLD INIT_FILE INPUTS.npz OUT_DIR
+
+Imports torch and heat_tpu_torch only, never JAX.
+"""
+
+import os
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import heat_tpu_torch as ht  # noqa: E402
+from heat_tpu_torch.core import communication  # noqa: E402
+
+
+def run(inputs) -> dict:
+    out = {}
+    ht.use_device("cpu")
+    comm = ht.get_comm()
+    out["world"] = np.array([comm.size, comm.rank])
+
+    s = ht.arange(10, split=0).sum()
+    out["arange_sum"] = np.array(s.item())
+    out["arange_sum_dtype"] = np.array(s.dtype.__name__)
+
+    for name in ("a", "small", "ties"):
+        data = inputs[name]
+        for split in (None, 0, 1):
+            x = ht.array(data, split=split)
+            out[f"{name}_s{split}_lshape_map"] = x.lshape_map().numpy()
+            out[f"{name}_s{split}_local"] = np.array(x.lshape)
+            for fn in ("sum", "prod", "mean", "min", "max", "argmin", "argmax"):
+                for axis in (None, 0, 1):
+                    r = getattr(ht, fn)(x, axis=axis)
+                    key = f"{name}_s{split}_{fn}_{axis}"
+                    out[key] = r.numpy()
+                    out[key + "_meta"] = np.array([r.dtype.__name__, str(r.split), str(r.gshape)])
+
+    a0, a1 = ht.array(inputs["a"], split=0), ht.array(inputs["a"], split=1)
+    for op in ("add", "sub", "mul", "div", "pow"):
+        r = getattr(ht, op)(a0, a1)
+        out[f"binary_{op}"] = r.numpy()
+        out[f"binary_{op}_meta"] = np.array([r.dtype.__name__, str(r.split)])
+    r = a1.resplit(0)
+    out["resplit_1_0"] = r.numpy()
+    out["resplit_1_0_local"] = np.array(r.lshape)
+
+    # the fit's one collective per iteration is comm.all_reduce of the packed record
+    calls = []
+    orig = communication.TorchCommunication.all_reduce
+
+    def counting(self, tensor, op="sum"):
+        calls.append(tuple(tensor.shape))
+        return orig(self, tensor, op)
+
+    communication.TorchCommunication.all_reduce = counting
+    try:
+        km = ht.cluster.KMeans(n_clusters=3, init=ht.array(inputs["init"]), max_iter=50)
+        km.fit(ht.array(inputs["blobs"], split=0))
+    finally:
+        communication.TorchCommunication.all_reduce = orig
+    out["km_centers"] = km.cluster_centers_.numpy()
+    out["km_labels"] = km.labels_.numpy()
+    out["km_n_iter"] = np.array(km.n_iter_)
+    out["km_inertia"] = np.array(km.inertia_)
+    out["km_allreduce_shapes"] = np.array(calls)
+    out["km_predict"] = km.predict(ht.array(inputs["blobs"], split=0)).numpy()
+    return out
+
+
+def main():
+    rank, world, init_file, inputs_path, out_dir = sys.argv[1:6]
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{init_file}", rank=int(rank), world_size=int(world)
+    )
+    try:
+        out = run(np.load(inputs_path))
+    finally:
+        dist.destroy_process_group()
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,57 @@
+"""Import contract of the PyTorch port: heat_tpu_torch and chip_smoke.py import neither
+JAX nor anything of heat_tpu, and importing the package loads neither."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "heat_tpu_torch").rglob("*.py"))
+FORBIDDEN = ("jax", "jaxlib", "heat_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    """``jax``, ``jax.numpy``, ``heat_tpu``, ``heat_tpu.core`` — but not ``heat_tpu_torch``."""
+    return module.split(".")[0] in FORBIDDEN
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.lineno, node.module
+
+
+def test_scan_sees_the_package():
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    assert "heat_tpu_torch/__init__.py" in names
+    assert "heat_tpu_torch/core/kernels/kmeans.py" in names
+    assert not _forbidden("heat_tpu_torch") and not _forbidden("heat_tpu_torch.core")
+    assert _forbidden("heat_tpu") and _forbidden("heat_tpu.core.dndarray") and _forbidden("jax.numpy")
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES + [REPO / "chip_smoke.py"], ids=lambda p: p.relative_to(REPO).as_posix()
+)
+def test_no_jax_or_heat_tpu_imports(path):
+    bad = [(line, mod) for line, mod in _imports(path) if _forbidden(mod)]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_import_loads_neither_jax_nor_heat_tpu():
+    code = (
+        "import sys, heat_tpu_torch\n"
+        "mods = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'heat_tpu'))\n"
+        "print(repr(mods))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120, cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
