@@ -1,27 +1,39 @@
 #!/usr/bin/env python3
-"""Drive heat_tpu_torch's main path on one CUDA card and check it end to end.
+"""Drive heat_tpu_torch's main paths on one CUDA card and check them end to end.
 
-    python3 chip_smoke.py [--json-out FILE]   # KMeans.fit on 10,000,000 x 64 f32, k = 8
+    python3 chip_smoke.py [--json-out FILE]
 
-The sizes are fixed (N, D, K, MAX_ITER, SEED below): every run is the main path's.
+Two paths, at fixed sizes (the constants below): ``KMeans.fit`` on 10,000,000 x 64 f32,
+k = 8, and one forward of the Transformer-base model (``heat_tpu_torch.nn.Transformer()``
+at its defaults: d_model 512, 8 heads, 6 + 6 layers, d_ff 2048) on src (8, 4096, 512) and
+tgt (8, 2048, 512) f32 with a causal target, which runs the flash kernel K2 18 times.
 
 Phases, one line each:
   1. the card: nvidia-smi's name and power limit, and torch's device name;
   2. build every ported kernel from the sources in this checkout (one nvcc per source,
      all started together), with the compiler's register/shared-memory summary;
   3. north-star #1: ``arange(10, split=0).sum()`` on the card is 45;
-  4. each kernel against its plain PyTorch version and against float64 on the card, at
-     the main path's shape and data and at ragged shapes, each also on data rounded to
-     integers (where nothing rounds, so the sums must be exact), and bit-identical
-     across two runs;
-  5. the main path, ``KMeans.fit`` at 10M x 64, k = 8, ``max_iter=30``, ``tol=-1``,
+  4. K1 against its plain PyTorch version and against float64 on the card, at the main
+     path's shape and data and at ragged shapes, each also on data rounded to integers
+     (where nothing rounds, so the sums must be exact), and bit-identical across two runs;
+  5. the KMeans path, ``KMeans.fit`` at 10M x 64, k = 8, ``max_iter=30``, ``tol=-1``,
      split=0 (the configuration of bench.py's KMeans benchmark): launch counts are zeroed
      just before it and read just after; the result is checked against the blobs' true
      centers and, on a small input, against the port's CPU path; then the fit is timed
      (best of 2 after the counted run, which is its warm-up);
-  6. one JSON line listing every ported kernel with its launches on the path, its time,
+  6. K2 against its plain PyTorch version on the card, in O and LSE: at the Transformer
+     forward's three attention shapes in f32, at bench.py's attention configuration (b8
+     h16 t4096 d64 bf16, causal, and with its padding mask) and at small ragged shapes
+     with a fully masked row; bit-identical across two runs; a grad-requiring input
+     raises;
+  7. the Transformer path: counts zeroed, one forward under ``torch.inference_mode()``,
+     counts read (K2 exactly 18 times); the output is finite and of the right shape, and
+     a 1 + 1-layer model at T = 512 on the card equals the port's CPU path; then the
+     forward is timed (best of 2 after the counted run), K2 timed at each shape, and one
+     forward traced with torch.profiler for its device time by kind of kernel;
+  8. one JSON line listing every ported kernel with its launches on its path, its time,
      its bound on this card, its plain version's time and a library call's time;
-  7. the last line, ``{"ok": true, "device": {...}}``.
+  9. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script then exits non-zero without the last line. It
 also fails when CUDA is not available or when the heat_tpu_torch package is not beside
@@ -44,11 +56,19 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # the main path: bench.py's KMeans configuration (bench.py:155-160), data from this seed
 N, D, K, MAX_ITER, SEED = 10_000_000, 64, 8, 30, 0
 
-# NVIDIA's data sheet for the H100 SXM (dense float32 outside the tensor cores, HBM3); a
-# kernel's bound is taken against these, so the script refuses any other card
+# the Transformer path: Transformer-base at its defaults, one request of 8 sequences
+BATCH, SRC_T, TGT_T = 8, 4096, 2048
+FLASH_PER_FORWARD = 18  # 6 encoder self-, 6 causal decoder self-, 6 cross-attentions
+# bench.py's attention configuration (bench.py:223-224, 248)
+BENCH_B, BENCH_H, BENCH_T, BENCH_D = 8, 16, 4096, 64
+
+# NVIDIA's data sheet for the H100 SXM (dense float32 outside the tensor cores, dense bf16
+# in them, HBM3); a kernel's bound is taken against these, so the script refuses any
+# other card
 CARD = "H100 80GB HBM3"
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 U32, U64 = 2.0**-24, 2.0**-53  # unit roundoff of float32 and float64
 
@@ -176,6 +196,122 @@ def check_k1(k1, x, c, exact: bool) -> dict:
     }
 
 
+def attention_pairs(tq: int, tk: int, causal: bool) -> int:
+    """(query, key) pairs an attention computes: all of them, or, causal top-left
+    aligned, those with key <= query."""
+    if not causal:
+        return tq * tk
+    m = min(tq, tk)
+    return m * (m + 1) // 2 + max(tq - tk, 0) * tk
+
+
+def k2_bound_ms(bh: int, tq: int, tk: int, d: int, causal: bool, itemsize: int) -> tuple:
+    """(bound ms, "bytes" or "operations") of one K2 call: q, k, v read once and O, LSE
+    written once, against 4·d operations per (query, key) pair, at the fp32 rate (the
+    kernel computes in fp32 FMAs) for f32 inputs and the bf16 tensor-core rate else."""
+    nbytes = itemsize * bh * d * (2 * tq + 2 * tk) + 4 * bh * tq
+    flops = 4 * bh * d * attention_pairs(tq, tk, causal)
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    flops_ms = 1e3 * flops / (PEAK_FP32_FLOPS if itemsize == 4 else PEAK_BF16_FLOPS)
+    return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations")
+
+
+def k2_inputs(bh, tq, tk, d, dtype, seed, device):
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(bh, t, d, generator=gen, device=device).to(dtype) for t in (tq, tk, tk))
+
+
+def check_k2(k2, q, k, v, causal: bool, mask, dead_rows=()) -> dict:
+    """K2 against its plain version on the same card and inputs, in O and LSE.
+
+    f32: both compute in fp32 and differ in summation order only, so O and LSE agree
+    within rtol = atol = 2e-4 (the tolerance of heat_tpu's own flash tests). bf16/f16:
+    both compute in f32 and round O once to the input type, so O may differ by one
+    rounding, 2⁻⁷ relative (the bf16 unit in the last place), plus 2e-4; LSE is f32 in
+    both, 2e-4. Rows in ``dead_rows`` (fully masked) must give O exactly 0 and LSE
+    exactly NEG_INF/2 + log(1e-30). Two runs must be identical. The plain version runs
+    in chunks of batch·heads to bound its memory."""
+    import torch
+
+    with torch.no_grad():
+        o, lse = k2.flash_attention_fwd(q, k, v, causal, None, mask)
+        o2, lse2 = k2.flash_attention_fwd(q, k, v, causal, None, mask)
+        torch.cuda.synchronize()
+        check(torch.equal(o, o2) and torch.equal(lse, lse2), "K2 is not deterministic")
+        bh, tq, _ = q.shape
+        tk = k.shape[1]
+        chunk = max(1, (1 << 28) // (tq * tk))
+        bias = k2._as_bias(mask)
+        rtol = 2e-4 if q.dtype == torch.float32 else 2.0**-7
+        err_o = err_lse = worst = 0.0
+        for s0 in range(0, bh, chunk):
+            sl = slice(s0, s0 + chunk)
+            ro, rl = k2.flash_attention_reference(q[sl], k[sl], v[sl], causal, None, bias)
+            do = (o[sl].float() - ro.float()).abs()
+            dl = (lse[sl] - rl).abs()
+            err_o = max(err_o, float(do.max()))
+            err_lse = max(err_lse, float(dl.max()))
+            worst = max(
+                worst,
+                float((do / (2e-4 + rtol * ro.float().abs())).max()),
+                float((dl / (2e-4 + 2e-4 * rl.abs())).max()),
+            )
+        check(worst <= 1.0, f"K2 disagrees with its plain version: err/tol {worst} (O {err_o}, LSE {err_lse})")
+        for r in dead_rows:
+            dead_lse = torch.tensor(k2._NEG_INF / 2, dtype=torch.float32) + torch.log(torch.tensor(1e-30))
+            check(bool((o[:, r] == 0).all()) and bool((lse[:, r].cpu() == dead_lse).all()), f"K2's fully masked row {r}")
+        check(bool(torch.isfinite(o.float()).all() and torch.isfinite(lse).all()), "K2 gave a value that is not finite")
+    return {"max_abs_err_o": err_o, "max_abs_err_lse": err_lse, "err_over_tol": worst}
+
+
+KERNEL_KINDS = (
+    # (kind, substrings of a CUDA kernel's name), the first match wins
+    ("k2_flash_attention", ("flash_attention_fwd_kernel",)),
+    ("matmul_cublas", ("gemm", "xmma", "cutlass", "cublas")),
+    ("layer_norm", ("layer_norm",)),
+    ("copy_transpose", ("copy", "Copy")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def profile_forward(fn) -> dict:
+    """Device time of one ``fn()`` by kind of kernel, from a ``torch.profiler`` trace:
+    ms per kind, the ten largest kernels, the device-busy ms (the sum of the kernels,
+    which one stream runs one at a time) and the host wall ms of the traced call. With no
+    device events in the trace, says so instead of giving numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    if not by_name:
+        return {"device_trace": "not measured: the profiler recorded no device events", "traced_wall_ms": wall_ms}
+    kinds: dict = {}
+    for kname, (ms, n) in by_name.items():
+        kind = next((k for k, subs in KERNEL_KINDS if any(sub in kname for sub in subs)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+    busy = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {
+        "device_ms_by_kind": kinds,
+        "device_busy_ms": busy,
+        "traced_wall_ms": wall_ms,
+        "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
+        "top_kernels": [[kname[:80], ms, n] for kname, (ms, n) in top],
+    }
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--json-out", default=None, help="also write the kernels line and the fit's numbers here")
@@ -195,6 +331,7 @@ def main() -> int:
         print(f"chip_smoke: the heat_tpu_torch package is not beside this script ({exc})", file=sys.stderr)
         return 2
     k1 = kernels.kmeans
+    k2 = kernels.flash_attention
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     ht.use_device("gpu")
@@ -248,7 +385,7 @@ def main() -> int:
         del xs, cs
     torch.cuda.empty_cache()
 
-    # 5. the main path: KMeans.fit at the benchmark's configuration
+    # 5. the KMeans path: KMeans.fit at the benchmark's configuration
     X = ht.array(x, split=0)
     km = ht.cluster.KMeans(n_clusters=K, init=ht.array(init), max_iter=MAX_ITER, tol=-1.0)
     torch.cuda.synchronize()
@@ -257,9 +394,7 @@ def main() -> int:
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     check(km.n_iter_ == MAX_ITER, f"the fit ran {km.n_iter_} iterations")
-    check(counts["kmeans_assign"] == MAX_ITER + 1, f"launches on the main path: {counts}")
-    for kname, c in counts.items():
-        check(c > 0, f"kernel {kname} was not launched on the main path")
+    check(counts["kmeans_assign"] == MAX_ITER + 1, f"launches on the KMeans path: {counts}")
     centers = km.cluster_centers_.larray
     labels = km.labels_.larray
     check(centers.shape == (K, D) and centers.is_cuda and bool(torch.isfinite(centers).all()), "fitted centers")
@@ -294,13 +429,141 @@ def main() -> int:
     fit_s = min(walls)
     phase("kmeans_fit_time", best_of_2_s=repr(fit_s), per_iteration_ms=repr(1e3 * fit_s / (MAX_ITER + 1)))
 
-    # 6. every ported kernel: launches on the path, time, bound, plain version's time
+    del X, km, x, init, true, xs, cs, on_card, on_cpu, labels, centers
+    torch.cuda.empty_cache()
+
+    # 6. K2 against its plain version on the card
+    f32, bf16 = torch.float32, torch.bfloat16
+    e_heads = BATCH * 8  # batch x heads of Transformer-base
+    k2_cases = {
+        # name: (bh, tq, tk, d, causal, dtype, mask)
+        "encoder_self": (e_heads, SRC_T, SRC_T, 64, False, f32, None),
+        "decoder_self_causal": (e_heads, TGT_T, TGT_T, 64, True, f32, None),
+        "decoder_cross": (e_heads, TGT_T, SRC_T, 64, False, f32, None),
+        "bench_causal_bf16": (BENCH_B * BENCH_H, BENCH_T, BENCH_T, BENCH_D, True, bf16, None),
+        "bench_padding_mask_bf16": (BENCH_B * BENCH_H, BENCH_T, BENCH_T, BENCH_D, False, bf16, "padding"),
+        "ragged_causal_dead_row_f32": (3, 37, 53, 8, True, f32, "random"),
+        "ragged_d128_dead_row_f32": (2, 70, 100, 128, True, f32, "random"),
+        "ragged_dead_row_bf16": (2, 130, 97, 96, False, bf16, "random"),
+        "ragged_causal_f16": (2, 64, 33, 64, True, torch.float16, None),
+    }
+    k2_checks, k2_data = {}, {}
+    for i, (cname, (bh, tq, tk, dh, causal, dtype, mkind)) in enumerate(k2_cases.items()):
+        q, k, v = k2_inputs(bh, tq, tk, dh, dtype, SEED + 10 + i, dev)
+        mask, dead = None, ()
+        if mkind == "padding":  # bench.py:248: the last T/8 keys are padding
+            mask = (torch.arange(tk, device=dev)[None, :] < tk - tk // 8).expand(tq, tk).contiguous()
+        elif mkind == "random":
+            gen = torch.Generator(device=dev).manual_seed(SEED + 100 + i)
+            mask = torch.rand(tq, tk, generator=gen, device=dev) < 0.7
+            dead = (3,)
+            mask[3] = False
+        got = check_k2(k2, q, k, v, causal, mask, dead)
+        k2_checks[cname] = got
+        phase("k2_vs_plain", case=cname, shape=f"{bh}x{tq}x{tk}x{dh}", dtype=str(dtype).split(".")[-1],
+              causal=causal, mask=mkind, **got, deterministic=True)
+        if cname in ("encoder_self", "decoder_self_causal", "decoder_cross", "bench_causal_bf16"):
+            k2_data[cname] = (q, k, v, causal)
+        else:
+            del q, k, v
+    qg = k2_data["encoder_self"][0][:2].clone().requires_grad_()
+    try:
+        k2.flash_attention(qg, qg, qg)
+        check(False, "K2 took a grad-requiring input in grad mode")
+    except NotImplementedError:
+        pass
+    del qg
+    torch.cuda.empty_cache()
+
+    # 7. the Transformer path: Transformer-base, one forward of src (8, 4096, 512), tgt (8, 2048, 512)
+    torch.manual_seed(SEED)
+    model = ht.nn.Transformer()  # on the card: the port's default device
+    check(all(p.is_cuda for p in model.parameters()), "the model's parameters are not on the card")
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    src = torch.randn(BATCH, SRC_T, model.d_model, generator=gen, device=dev)
+    tgt = torch.randn(BATCH, TGT_T, model.d_model, generator=gen, device=dev)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        out = model(src, tgt, tgt_is_causal=True)
+        torch.cuda.synchronize()
+        t_counts = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(t_counts["flash_attention_fwd"] == FLASH_PER_FORWARD, f"launches on the Transformer path: {t_counts}")
+    check(tuple(out.shape) == (BATCH, TGT_T, model.d_model) and out.is_cuda and out.dtype == torch.float32,
+          f"forward output {tuple(out.shape)} {out.dtype}")
+    check(bool(torch.isfinite(out).all()), "the forward gave a value that is not finite")
+    # after the decoder's final LayerNorm (weight 1, bias 0) each row has mean 0, variance 1
+    row_mean = float(out.mean(-1).abs().max())
+    row_var = float((out.var(-1, unbiased=False) - 1).abs().max())
+    check(row_mean < 1e-4 and row_var < 1e-3, f"output rows are not normalised: |mean| {row_mean}, |var-1| {row_var}")
+    # a 1 + 1-layer Transformer-base at T = 512 on the card against the port's CPU path
+    torch.manual_seed(SEED + 3)
+    small = ht.nn.Transformer(num_encoder_layers=1, num_decoder_layers=1)
+    small_cpu = ht.nn.Transformer(num_encoder_layers=1, num_decoder_layers=1, device="cpu")
+    small_cpu.load_state_dict({name: t.cpu() for name, t in small.state_dict().items()})
+    xs = torch.randn(2, 512, 512, generator=gen, device=dev)
+    xt = torch.randn(2, 512, 512, generator=gen, device=dev)
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        a = small(xs, xt, tgt_is_causal=True)
+        torch.cuda.synchronize()
+        small_counts = kernels.launch_counts()
+        b = small_cpu(xs.cpu(), xt.cpu(), tgt_is_causal=True)
+    check(small_counts["flash_attention_fwd"] == 3, f"launches in the small forward: {small_counts}")
+    # fp32 on both sides (K2 and cuBLAS without TF32 against the CPU's plain path),
+    # summed in other orders: the tolerance of the CPU tests for a 2 + 2-layer model
+    small_err = float((a.cpu() - b).abs().max())
+    torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    phase("transformer_forward", params=n_params, src=f"{BATCH}x{SRC_T}x{model.d_model}",
+          tgt=f"{BATCH}x{TGT_T}x{model.d_model}", launches=json.dumps(t_counts), peak_gb=f"{peak_gb:.2f}",
+          small_model_max_abs_err_vs_cpu=small_err)
+    del small, small_cpu, xs, xt, a, b
+    fwd_walls = []
+    with torch.inference_mode():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(src, tgt, tgt_is_causal=True)
+            torch.cuda.synchronize()
+            fwd_walls.append(time.perf_counter() - t0)
+    fwd_s = min(fwd_walls)
+    # K2 at each shape of the forward (median of CUDA-event runs), and its share
+    k2_ms, k2_bounds = {}, {}
+    with torch.no_grad():
+        for cname, (q, k, v, causal) in k2_data.items():
+            k2_ms[cname] = cuda_ms(lambda: k2.flash_attention_fwd(q, k, v, causal), reps=10, warmup=2)
+            bh, tq, dh = q.shape
+            k2_bounds[cname] = k2_bound_ms(bh, tq, k.shape[1], dh, causal, q.element_size())
+    attn_ms = 6 * (k2_ms["encoder_self"] + k2_ms["decoder_self_causal"] + k2_ms["decoder_cross"])
+    phase("transformer_forward_time", best_of_2_s=repr(fwd_s), walls_s=json.dumps(fwd_walls),
+          k2_ms=json.dumps(k2_ms), k2_in_forward_ms=repr(attn_ms), k2_share=repr(attn_ms / (1e3 * fwd_s)),
+          tokens_per_s=repr(BATCH * (SRC_T + TGT_T) / fwd_s))
+
+    # where the forward's device time goes: one forward under torch.profiler, kernels by kind
+    breakdown = profile_forward(lambda: model(src, tgt, tgt_is_causal=True))
+    phase("transformer_forward_profile", **{k: json.dumps(v) for k, v in breakdown.items()})
+    del model, src, tgt, out
+    torch.cuda.empty_cache()
+
+    # 8. every ported kernel: launches on its path, time, bound, plain version's and library's time
+    x, init, _ = blobs(N, D, K, SEED, dev)
     ms = cuda_ms(lambda: k1.fused_assign_update_packed(x, init), reps=20, warmup=3)
     plain_ms = cuda_ms(lambda: k1.fused_assign_update_reference(x, init), reps=5, warmup=1)
+    del x, init
+    torch.cuda.empty_cache()
     nbytes = 4 * (N * D + K * D) + 4 * N + 4 * (K * D + K + 1)  # x, centers in; labels, record out
     flops = 2 * N * K * D + 3 * N * D + 4 * N * K  # dots, |x|² and sums, d² and compare
     bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
     flops_ms = 1e3 * flops / PEAK_FP32_FLOPS
+    q, k, v, _ = k2_data["encoder_self"]
+    with torch.no_grad():
+        k2_plain_ms = cuda_ms(lambda: k2.flash_attention_reference(q, k, v, False), reps=3, warmup=1)
+        q4, k4, v4 = (t.view(BATCH, 8, t.shape[1], t.shape[2]) for t in (q, k, v))
+        k2_library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4), reps=10, warmup=2)
+    enc_bound, enc_bound_by = k2_bounds["encoder_self"]
     line = {
         "kernels": [
             {
@@ -320,7 +583,29 @@ def main() -> int:
                 "err_over_tol": checks[(N, D, K, "float")]["sums_err_over_tol"],
                 "shape": [N, D, K],
                 "achieved_bytes_per_s": nbytes / (ms * 1e-3),
-            }
+            },
+            {
+                "name": "flash_attention_fwd",
+                "route": "cuda",
+                "source": "heat_tpu_torch/core/kernels/csrc/flash_attention_fwd.cu",
+                "replaces": "heat_tpu/core/kernels/flash_attention.py:156",
+                "launches": t_counts["flash_attention_fwd"],
+                "max_abs_err": k2_checks["encoder_self"]["max_abs_err_o"],
+                "ms": k2_ms["encoder_self"],
+                "plain_ms": k2_plain_ms,
+                "bound_ms": enc_bound,
+                "bound_by": enc_bound_by,
+                "library_ms": k2_library_ms,
+                "library_note": "torch.nn.functional.scaled_dot_product_attention on the same f32 inputs, timed only",
+                "max_abs_err_of": "O against the plain version, encoder shape",
+                "err_over_tol": k2_checks["encoder_self"]["err_over_tol"],
+                "shape": [e_heads, SRC_T, SRC_T, 64],
+                "dtype": "float32",
+                "launches_of": "one Transformer-base forward",
+                "ms_by_shape": k2_ms,
+                "bound_ms_by_shape": {c: b[0] for c, b in k2_bounds.items()},
+                "achieved_flops_per_s": 4 * e_heads * 64 * attention_pairs(SRC_T, SRC_T, False) / (k2_ms["encoder_self"] * 1e-3),
+            },
         ]
     }
     print(json.dumps(line), flush=True)
@@ -328,9 +613,12 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)), exist_ok=True)
         with open(args.json_out, "w") as fh:
             json.dump({"nvidia_smi": smi, **line, "fit_best_of_2_s": fit_s, "fit_walls_s": walls,
-                       "inertia": inertia, "checks": {"x".join(map(str, key)): v for key, v in checks.items()}}, fh, indent=1)
+                       "inertia": inertia, "checks": {"x".join(map(str, key)): v for key, v in checks.items()},
+                       "k2_checks": k2_checks, "forward_best_of_2_s": fwd_s, "forward_walls_s": fwd_walls,
+                       "k2_in_forward_ms": attn_ms, "forward_peak_gb": peak_gb,
+                       "forward_profile": breakdown}, fh, indent=1)
 
-    # 7. the last line
+    # 9. the last line
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
 

@@ -17,4 +17,5 @@ from .core import *
 from . import core
 from . import spatial
 from . import cluster
+from . import nn
 from . import interop

@@ -5,13 +5,24 @@ tensors and by the tests, and a ``launches`` counter. Importing a kernel module 
 neither CUDA nor nvcc: a kernel is built at its first launch.
 """
 
-from . import kmeans
+from . import flash_attention, kmeans
+from .flash_attention import flash_attention_fwd, flash_attention_reference
 from .kmeans import fused_assign_update, fused_assign_update_reference
 
-__all__ = ["KERNELS", "fused_assign_update", "fused_assign_update_reference", "kmeans", "launch_counts", "reset_launch_counts"]
+__all__ = [
+    "KERNELS",
+    "flash_attention",
+    "flash_attention_fwd",
+    "flash_attention_reference",
+    "fused_assign_update",
+    "fused_assign_update_reference",
+    "kmeans",
+    "launch_counts",
+    "reset_launch_counts",
+]
 
 # every ported kernel's module, by kernel name
-KERNELS = {"kmeans_assign": kmeans}
+KERNELS = {"kmeans_assign": kmeans, "flash_attention_fwd": flash_attention}
 
 
 def launch_counts() -> dict:

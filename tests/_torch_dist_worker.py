@@ -17,6 +17,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import heat_tpu_torch as ht  # noqa: E402
 from heat_tpu_torch.core import communication  # noqa: E402
+from heat_tpu_torch.interop import load_jax_params  # noqa: E402
 
 
 def run(inputs) -> dict:
@@ -71,6 +72,25 @@ def run(inputs) -> dict:
     out["km_inertia"] = np.array(km.inertia_)
     out["km_allreduce_shapes"] = np.array(calls)
     out["km_predict"] = km.predict(ht.array(inputs["blobs"], split=0)).numpy()
+
+    # multi-head attention on a batch split: each rank attends its own rows
+    params = {k[len("mha_param_") :]: inputs[k] for k in inputs.files if k.startswith("mha_param_")}
+    mha = load_jax_params(ht.nn.MultiheadAttention(inputs["mha_x"].shape[-1], int(inputs["mha_heads"])), params)
+    x = ht.array(inputs["mha_x"], split=0)
+    mem = ht.array(inputs["mha_mem"])  # whole on every rank: each takes its rows
+    with torch.no_grad():
+        for name, o in (
+            ("self", mha(x, key_padding_mask=ht.array(inputs["mha_kpm"], split=0))[0]),
+            ("cross", mha(x, mem, mem, is_causal=True)[0]),
+        ):
+            out[f"mha_{name}"] = o.numpy()
+            out[f"mha_{name}_meta"] = np.array([str(o.split), str(o.gshape)])
+            out[f"mha_{name}_local"] = np.array(o.larray.shape)
+        try:
+            mha(ht.array(inputs["mha_x"], split=1))
+            out["mha_seq_split"] = np.array("ran")
+        except NotImplementedError:
+            out["mha_seq_split"] = np.array("NotImplementedError")
     return out
 
 

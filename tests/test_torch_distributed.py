@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 import jax
+import jax.numpy as jnp
 
 import heat_tpu as ht
 from heat_tpu.core.communication import MeshCommunication
@@ -23,16 +24,34 @@ WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_torch_dist_w
 REDUCTIONS = ("sum", "prod", "mean", "min", "max", "argmin", "argmax")
 
 
+MHA_E, MHA_H = 16, 4
+
+
+def _mha_params():
+    """heat_tpu's MultiheadAttention(16, 4) parameters, as numpy."""
+    params = ht.nn.MultiheadAttention(MHA_E, MHA_H).init(jax.random.key(3))
+    return {k: np.asarray(v) for k, v in params.items()}
+
+
 def _inputs():
     rng = np.random.default_rng(11)
     centers = rng.normal(0, 10, (3, 4))
     y = rng.integers(0, 3, 301)  # ragged over three ranks: 101, 101, 99 rows
+    kpm = np.zeros((7, 5), bool)
+    kpm[:, -1] = True
+    kpm[4, 0] = True
     return {
         "a": rng.standard_normal((7, 3)).astype(np.float32),  # chunks 3, 3, 1 along axis 0
         "small": rng.standard_normal((2, 3)).astype(np.float32),  # rank 2 holds no rows
         "ties": rng.integers(0, 2, (6, 4)),  # equal extremes on several ranks
         "blobs": (centers[y] + rng.normal(0, 0.3, (301, 4))).astype(np.float32),
         "init": (centers + rng.normal(0, 1.0, (3, 4))).astype(np.float32),
+        # attention over a batch of 7 split 3, 3, 1
+        "mha_x": rng.standard_normal((7, 5, MHA_E)).astype(np.float32),
+        "mha_mem": rng.standard_normal((7, 9, MHA_E)).astype(np.float32),
+        "mha_kpm": kpm,
+        "mha_heads": np.array(MHA_H),
+        **{f"mha_param_{k}": v for k, v in _mha_params().items()},
     }
 
 
@@ -148,3 +167,32 @@ def test_kmeans_fit_ragged(ranks, comm3):
         # one all_reduce per Lloyd iteration plus the final assignment, each of the
         # packed k*d + k + 1 record
         assert r["km_allreduce_shapes"].tolist() == [[3 * 4 + 3 + 1]] * (km.n_iter_ + 1)
+
+
+@pytest.mark.parametrize("name", ["self", "cross"])
+def test_mha_batch_split(ranks, comm3, name):
+    """MultiheadAttention on a batch split over three ranks: each rank attends its own
+    rows of the batch (3, 3, 1); the result keeps the split and matches heat_tpu."""
+    inputs, res = ranks
+    mha = ht.nn.MultiheadAttention(MHA_E, MHA_H)
+    params = {k: jnp.asarray(v) for k, v in _mha_params().items()}
+    x = ht.array(inputs["mha_x"], split=0, comm=comm3)
+    if name == "self":
+        want = mha.apply(params, x, key_padding_mask=jnp.asarray(inputs["mha_kpm"]))
+    else:
+        mem = jnp.asarray(inputs["mha_mem"])
+        want = mha.apply(params, (x, mem, mem), is_causal=True)
+    lmap = comm3.lshape_map(want.gshape, 0)
+    for rank, r in enumerate(res):
+        assert list(r[f"mha_{name}_meta"]) == ["0", str(want.gshape)] and want.split == 0
+        np.testing.assert_array_equal(r[f"mha_{name}_local"], lmap[rank])
+        # fp32 on both sides, summed in another order
+        np.testing.assert_allclose(r[f"mha_{name}"], want.numpy(), rtol=2e-5, atol=2e-5)
+
+
+def test_mha_sequence_split_raises(ranks):
+    """A sequence split over several ranks needs ring attention, not ported yet: it
+    raises rather than gathering."""
+    _, res = ranks
+    for r in res:
+        assert str(r["mha_seq_split"]) == "NotImplementedError"

@@ -32,7 +32,15 @@ def _imports(path: Path):
 def test_scan_sees_the_package():
     names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
     assert "heat_tpu_torch/__init__.py" in names
-    assert "heat_tpu_torch/core/kernels/kmeans.py" in names
+    for module in (
+        "core/kernels/kmeans.py",
+        "core/kernels/flash_attention.py",
+        "nn/__init__.py",
+        "nn/modules.py",
+        "nn/attention.py",
+        "interop.py",
+    ):
+        assert f"heat_tpu_torch/{module}" in names, module
     assert not _forbidden("heat_tpu_torch") and not _forbidden("heat_tpu_torch.core")
     assert _forbidden("heat_tpu") and _forbidden("heat_tpu.core.dndarray") and _forbidden("jax.numpy")
 
@@ -55,3 +63,20 @@ def test_import_loads_neither_jax_nor_heat_tpu():
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120, cwd=REPO)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_package_data_ships_the_kernel_sources():
+    """An installed heat_tpu_torch builds its kernels from the CUDA sources, so the
+    packaging must ship every one of them (pyproject.toml's package-data)."""
+    import fnmatch
+    import tomllib
+
+    from heat_tpu_torch.core import kernels
+
+    cfg = tomllib.loads((REPO / "pyproject.toml").read_text())["tool"]["setuptools"]
+    assert any(fnmatch.fnmatch("heat_tpu_torch.core.kernels", pat) for pat in cfg["packages"]["find"]["include"])
+    kdir = REPO / "heat_tpu_torch" / "core" / "kernels"
+    shipped = {p for pattern in cfg["package-data"]["heat_tpu_torch.core.kernels"] for p in kdir.glob(pattern)}
+    sources = set(kdir.rglob("*.cu")) | set(kdir.rglob("*.cuh"))
+    assert sources and sources <= shipped
+    assert {mod.SOURCE for mod in kernels.KERNELS.values()} <= shipped
