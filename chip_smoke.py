@@ -3,10 +3,15 @@
 
     python3 chip_smoke.py [--json-out FILE]
 
-Two paths, at fixed sizes (the constants below): ``KMeans.fit`` on 10,000,000 x 64 f32,
-k = 8, and one forward of the Transformer-base model (``heat_tpu_torch.nn.Transformer()``
-at its defaults: d_model 512, 8 heads, 6 + 6 layers, d_ff 2048) on src (8, 4096, 512) and
-tgt (8, 2048, 512) f32 with a causal target, which runs the flash kernel K2 18 times.
+Three paths, at fixed sizes (the constants below): ``KMeans.fit`` on 10,000,000 x 64 f32,
+k = 8; one forward of the Transformer-base model (``heat_tpu_torch.nn.Transformer()`` at
+its defaults: d_model 512, 8 heads, 6 + 6 layers, d_ff 2048) on src (8, 4096, 512) and
+tgt (8, 2048, 512) f32 with a causal target, which runs the flash kernel K2 18 times; and
+one training step of the Transformer-base seq2seq model of
+examples/nn/seq2seq_transformer_torch.py (37,000-token vocabulary, 12 sequences of 2048
+source and 2048 target tokens, a split=0 batch, ``DataParallel`` and
+``DataParallelOptimizer("adam")`` under the paper's warmup schedule), which runs K2, the D
+pass, K4 and K5 18 times each.
 
 Phases, one line each:
   1. the card: nvidia-smi's name and power limit, and torch's device name;
@@ -24,16 +29,27 @@ Phases, one line each:
   6. K2 against its plain PyTorch version on the card, in O and LSE: at the Transformer
      forward's three attention shapes in f32, at bench.py's attention configuration (b8
      h16 t4096 d64 bf16, causal, and with its padding mask) and at small ragged shapes
-     with a fully masked row; bit-identical across two runs; a grad-requiring input
-     raises;
+     with a fully masked row; bit-identical across two runs;
   7. the Transformer path: counts zeroed, one forward under ``torch.inference_mode()``,
      counts read (K2 exactly 18 times); the output is finite and of the right shape, and
      a 1 + 1-layer model at T = 512 on the card equals the port's CPU path; then the
      forward is timed (best of 2 after the counted run), K2 timed at each shape, and one
      forward traced with torch.profiler for its device time by kind of kernel;
-  8. one JSON line listing every ported kernel with its launches on its path, its time,
+  8. the D pass, K4 and K5 against the plain backward on the card, in dQ, dK and dV: at
+     the training step's three attention shapes in f32, at bench.py's bf16 causal shape
+     and at small ragged shapes (causal with Tk > Tq, Tq > Tk, d of 32, 100 and 128, a
+     bool mask with a fully masked row); bit-identical across two runs; and autograd
+     through the port's ``flash_attention`` equal to autograd through the plain forward;
+  9. the training path: counts zeroed, one step (forward, backward, Adam), counts read
+     (K2, D, K4 and K5 exactly 18 times each); TF32 off inside the forward and the
+     backward; the loss and every gradient finite and the parameters changed; a
+     1 + 1-layer d_model 512 model at T = 512 on the card equal to the port's CPU path in
+     the loss and every gradient of one step and in the loss after three SGD steps; then
+     the step timed (best of 2 after the counted run) with its tokens/s and peak memory,
+     and one step traced with torch.profiler;
+ 10. one JSON line listing every ported kernel with its launches on its path, its time,
      its bound on this card, its plain version's time and a library call's time;
-  9. the last line, ``{"ok": true, "device": {...}}``.
+ 11. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script then exits non-zero without the last line. It
 also fails when CUDA is not available or when the heat_tpu_torch package is not beside
@@ -44,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -61,6 +78,11 @@ BATCH, SRC_T, TGT_T = 8, 4096, 2048
 FLASH_PER_FORWARD = 18  # 6 encoder self-, 6 causal decoder self-, 6 cross-attentions
 # bench.py's attention configuration (bench.py:223-224, 248)
 BENCH_B, BENCH_H, BENCH_T, BENCH_D = 8, 16, 4096, 64
+
+# the training path: Transformer-base ("Attention Is All You Need", Table 3) on its shared
+# 37,000-token vocabulary (§5.1), 12 x 2048 source and 12 x 2048 target tokens per step
+# (the paper's ~25,000 + 25,000), Adam under its warmup schedule (§5.3)
+VOCAB, TRAIN_B, TRAIN_T, WARMUP = 37_000, 12, 2048, 4000
 
 # NVIDIA's data sheet for the H100 SXM (dense float32 outside the tensor cores, dense bf16
 # in them, HBM3); a kernel's bound is taken against these, so the script refuses any
@@ -266,25 +288,106 @@ def check_k2(k2, q, k, v, causal: bool, mask, dead_rows=()) -> dict:
     return {"max_abs_err_o": err_o, "max_abs_err_lse": err_lse, "err_over_tol": worst}
 
 
+def bwd_bounds_ms(bh: int, tq: int, tk: int, d: int, causal: bool, itemsize: int) -> dict:
+    """(bound ms, "bytes" or "operations") of the D pass, K4 and K5 for one backward call.
+    Operations: 6·d per attended (query, key) pair for K4 (q·kᵀ, dO·vᵀ, dS·k) and 8·d for
+    K5 (q·kᵀ, dO·vᵀ, dSᵀ·q, Pᵀ·dO), at the fp32 rate for f32 inputs and the bf16
+    tensor-core rate else; 2·d per row for D. Bytes: each input read once and each output
+    written once (D: O and dO in, D out; K4: q, k, v, dO, LSE and D in, dQ out; K5: the
+    same in, dK and dV out)."""
+    pairs = attention_pairs(tq, tk, causal)
+    peak = PEAK_FP32_FLOPS if itemsize == 4 else PEAK_BF16_FLOPS
+    rows = itemsize * bh * d
+    work = {
+        "flash_attention_bwd_d": (2 * rows * tq + 4 * bh * tq, 2 * bh * tq * d, PEAK_FP32_FLOPS),
+        "flash_attention_bwd_dq": (rows * (3 * tq + 2 * tk) + 8 * bh * tq, 6 * bh * d * pairs, peak),
+        "flash_attention_bwd_dkv": (rows * (2 * tq + 4 * tk) + 8 * bh * tq, 8 * bh * d * pairs, peak),
+    }
+    out = {}
+    for name, (nbytes, flops, rate) in work.items():
+        bytes_ms, flops_ms = 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / rate
+        out[name] = (max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations")
+    return out
+
+
+def check_bwd(k2, q, k, v, causal: bool, mask, seed: int) -> dict:
+    """The D pass, K4 and K5 against the plain backward on the same card and inputs, in dQ,
+    dK and dV, on O and LSE from K2 and a random output gradient.
+
+    f32: both compute in fp32 and differ in summation order only; each gradient must agree
+    within 2e-4 of its largest magnitude (the relative level of heat_tpu's own flash tests).
+    bf16/f16: both compute in f32 from the same inputs and round each gradient once to the
+    input type, so an element may differ by one unit in the last place of that type (2⁻⁷
+    of its magnitude for bf16, 2⁻¹⁰ for f16) on top of that. Key rows that no query attends
+    (causal with Tk > Tq) must be exactly 0 and every value finite. Two runs must be
+    identical. The plain version runs in chunks of batch·heads to bound its memory."""
+    import torch
+
+    gen = torch.Generator(device=q.device).manual_seed(seed)
+    do = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    with torch.no_grad():
+        o, lse = k2.flash_attention_fwd(q, k, v, causal, None, mask)
+        got = k2.flash_attention_bwd(q, k, v, o, do, lse, causal, None, mask)
+        again = k2.flash_attention_bwd(q, k, v, o, do, lse, causal, None, mask)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)), "the flash backward is not deterministic")
+        bh, tq, _ = q.shape
+        tk = k.shape[1]
+        chunk = max(1, (1 << 28) // (tq * tk))
+        bias = k2._as_bias(mask)
+        ulp = {torch.float32: 0.0, torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10}[q.dtype]
+        refs = [[], [], []]
+        for s0 in range(0, bh, chunk):
+            sl = slice(s0, s0 + chunk)
+            for acc, r in zip(refs, k2.flash_attention_bwd_reference(q[sl], k[sl], v[sl], o[sl], do[sl], lse[sl], causal, None, bias)):
+                acc.append(r.float())
+        out = {}
+        for name, g, parts in zip(("dq", "dk", "dv"), got, refs):
+            ref = torch.cat(parts)
+            err = (g.float() - ref).abs()
+            tol = 2e-4 * float(ref.abs().max()) + ulp * ref.abs() + 1e-30
+            out[f"max_abs_err_{name}"] = float(err.max())
+            out[f"err_over_tol_{name}"] = float((err / tol).max())
+            check(bool(torch.isfinite(g.float()).all()), f"the flash backward gave a {name} that is not finite")
+            del ref, err, tol
+        worst = max(out[f"err_over_tol_{n}"] for n in ("dq", "dk", "dv"))
+        check(worst <= 1.0, f"the flash backward disagrees with its plain version: {out}")
+        if causal and tk > tq:
+            check(float(got[1][:, tq:].abs().max()) == 0.0 and float(got[2][:, tq:].abs().max()) == 0.0,
+                  "key rows that no query attends did not get zero dK and dV")
+    return {**out, "err_over_tol": worst}
+
+
 KERNEL_KINDS = (
     # (kind, substrings of a CUDA kernel's name), the first match wins
     ("k2_flash_attention", ("flash_attention_fwd_kernel",)),
+    ("d_pass", ("flash_attention_bwd_d_kernel",)),
+    ("k4_dq", ("flash_attention_bwd_dq_kernel",)),
+    ("k5_dkv", ("flash_attention_bwd_dkv_kernel",)),
     ("matmul_cublas", ("gemm", "xmma", "cutlass", "cublas")),
+    ("cross_entropy", ("softmax", "SoftMax", "nll_loss")),
+    ("adam", ("multi_tensor_apply", "adam", "Adam")),
+    ("embedding_backward", ("embedding", "segment", "grad_weight", "sum_and_scatter", "RadixSort", "radix_sort")),
     ("layer_norm", ("layer_norm",)),
     ("copy_transpose", ("copy", "Copy")),
+    ("reduction", ("reduce_kernel",)),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
 )
 
 
-def profile_forward(fn) -> dict:
+def profile_device(fn, inference: bool = True) -> dict:
     """Device time of one ``fn()`` by kind of kernel, from a ``torch.profiler`` trace:
     ms per kind, the ten largest kernels, the device-busy ms (the sum of the kernels,
     which one stream runs one at a time) and the host wall ms of the traced call. With no
-    device events in the trace, says so instead of giving numbers."""
+    device events in the trace, says so instead of giving numbers. ``inference`` runs
+    ``fn`` under ``torch.inference_mode()``."""
+    import contextlib
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    mode = torch.inference_mode() if inference else contextlib.nullcontext()
+    with mode, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -298,9 +401,12 @@ def profile_forward(fn) -> dict:
     if not by_name:
         return {"device_trace": "not measured: the profiler recorded no device events", "traced_wall_ms": wall_ms}
     kinds: dict = {}
+    other = []
     for kname, (ms, n) in by_name.items():
         kind = next((k for k, subs in KERNEL_KINDS if any(sub in kname for sub in subs)), "other")
         kinds[kind] = kinds.get(kind, 0.0) + ms
+        if kind == "other":
+            other.append([kname[:80], ms, n])
     busy = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     return {
@@ -309,6 +415,7 @@ def profile_forward(fn) -> dict:
         "traced_wall_ms": wall_ms,
         "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
         "top_kernels": [[kname[:80], ms, n] for kname, (ms, n) in top],
+        "top_other_kernels": sorted(other, key=lambda x: -x[1])[:6],
     }
 
 
@@ -327,6 +434,9 @@ def main() -> int:
         import heat_tpu_torch as ht
         from heat_tpu_torch.core import kernels
         from heat_tpu_torch.core.kernels import _nvcc
+
+        sys.path.insert(0, os.path.join(ROOT, "examples", "nn"))
+        import seq2seq_transformer_torch as s2s
     except ImportError as exc:
         print(f"chip_smoke: the heat_tpu_torch package is not beside this script ({exc})", file=sys.stderr)
         return 2
@@ -348,12 +458,14 @@ def main() -> int:
 
     # 2. build every kernel, one nvcc per source, all at once (as later kernels are added)
     t0 = time.perf_counter()
-    sources = {kname: mod.SOURCE for kname, mod in kernels.KERNELS.items()}
+    sources = sorted({mod.SOURCE for mod in kernels.KERNELS.values()})
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
-        builds = dict(zip(sources, pool.map(_nvcc.build, sources.values())))
-    for kname, b in builds.items():
+        builds = dict(zip(sources, pool.map(_nvcc.build, sources)))
+    for source, b in builds.items():
+        names = [kname for kname, mod in kernels.KERNELS.items() if mod.SOURCE == source]
         ptxas = [ln.strip() for ln in b["log"].splitlines() if "registers" in ln or "spill" in ln]
-        phase("build", kernel=kname, built=b["built"], nvcc_s=f"{b['seconds']:.2f}", ptxas=json.dumps(ptxas))
+        phase("build", source=source.name, kernels=",".join(names), built=b["built"], nvcc_s=f"{b['seconds']:.2f}",
+              ptxas=json.dumps(ptxas))
     phase("build", total_s=f"{time.perf_counter() - t0:.2f}")
     lib = k1._lib()
     check(
@@ -466,13 +578,6 @@ def main() -> int:
             k2_data[cname] = (q, k, v, causal)
         else:
             del q, k, v
-    qg = k2_data["encoder_self"][0][:2].clone().requires_grad_()
-    try:
-        k2.flash_attention(qg, qg, qg)
-        check(False, "K2 took a grad-requiring input in grad mode")
-    except NotImplementedError:
-        pass
-    del qg
     torch.cuda.empty_cache()
 
     # 7. the Transformer path: Transformer-base, one forward of src (8, 4096, 512), tgt (8, 2048, 512)
@@ -543,12 +648,183 @@ def main() -> int:
           tokens_per_s=repr(BATCH * (SRC_T + TGT_T) / fwd_s))
 
     # where the forward's device time goes: one forward under torch.profiler, kernels by kind
-    breakdown = profile_forward(lambda: model(src, tgt, tgt_is_causal=True))
+    breakdown = profile_device(lambda: model(src, tgt, tgt_is_causal=True))
     phase("transformer_forward_profile", **{k: json.dumps(v) for k, v in breakdown.items()})
     del model, src, tgt, out
     torch.cuda.empty_cache()
 
-    # 8. every ported kernel: launches on its path, time, bound, plain version's and library's time
+    # 8. the D pass, K4 and K5 against the plain backward on the card
+    t_heads = TRAIN_B * 8  # batch x heads of the training step
+    bwd_cases = {
+        # name: (bh, tq, tk, d, causal, dtype, mask)
+        "encoder_self": (t_heads, TRAIN_T, TRAIN_T, 64, False, f32, None),
+        "decoder_self_causal": (t_heads, TRAIN_T, TRAIN_T, 64, True, f32, None),
+        "decoder_cross": (t_heads, TRAIN_T, TRAIN_T, 64, False, f32, None),
+        "bench_causal_bf16": (BENCH_B * BENCH_H, BENCH_T, BENCH_T, BENCH_D, True, bf16, None),
+        "ragged_causal_tk_gt_tq_f32": (3, 37, 90, 8, True, f32, None),
+        "ragged_tq_gt_tk_f32": (2, 130, 61, 64, True, f32, None),
+        "ragged_d32_f32": (2, 70, 45, 32, False, f32, None),
+        "ragged_d100_dead_row_f32": (2, 70, 100, 100, False, f32, "random"),
+        "ragged_d128_causal_dead_row_f32": (2, 70, 100, 128, True, f32, "random"),
+        "ragged_dead_row_bf16": (2, 130, 97, 96, False, bf16, "random"),
+        "ragged_causal_f16": (2, 64, 33, 64, True, torch.float16, None),
+    }
+    bwd_checks, bwd_data = {}, {}
+    for i, (cname, (bh, tq, tk, dh, causal, dtype, mkind)) in enumerate(bwd_cases.items()):
+        q, k, v = k2_inputs(bh, tq, tk, dh, dtype, SEED + 200 + i, dev)
+        mask = None
+        if mkind == "random":
+            gen = torch.Generator(device=dev).manual_seed(SEED + 300 + i)
+            mask = torch.rand(tq, tk, generator=gen, device=dev) < 0.7
+            mask[3] = False
+        got = check_bwd(k2, q, k, v, causal, mask, SEED + 400 + i)
+        bwd_checks[cname] = got
+        phase("k2_bwd_vs_plain", case=cname, shape=f"{bh}x{tq}x{tk}x{dh}", dtype=str(dtype).split(".")[-1],
+              causal=causal, mask=mkind, **got, deterministic=True)
+        if cname in ("encoder_self", "decoder_self_causal", "bench_causal_bf16"):
+            bwd_data[cname] = (q, k, v, causal)
+        else:
+            del q, k, v
+    # autograd through the port's flash_attention (K2, then D, K4, K5) against autograd
+    # through the plain forward
+    qa, ka, va = (t.view(2, 8, 512, 64).requires_grad_() for t in k2_inputs(16, 512, 512, 64, f32, SEED + 500, dev))
+    ga = torch.randn(qa.shape, generator=torch.Generator(device=dev).manual_seed(SEED + 501), device=dev)
+    got = torch.autograd.grad(k2.flash_attention(qa, ka, va, True), (qa, ka, va), ga)
+    want = torch.autograd.grad(k2.flash_attention_reference(qa, ka, va, True)[0], (qa, ka, va), ga)
+    autograd_ratio = max(float((a - b).abs().max()) / (2e-4 * float(b.abs().max())) for a, b in zip(got, want))
+    check(autograd_ratio <= 1.0, f"autograd through flash_attention disagrees with the plain forward's: err/tol {autograd_ratio}")
+    phase("k2_bwd_autograd", shape="2x8x512x512x64", causal=True, err_over_tol=autograd_ratio)
+    del qa, ka, va, ga, got, want
+    torch.cuda.empty_cache()
+
+    # 9. the training path: one step of the Transformer-base seq2seq model, 12 x 2048 + 12 x 2048 tokens
+    torch.manual_seed(SEED)
+    model = s2s.Seq2Seq(vocab=VOCAB, max_len=TRAIN_T, d_model=512, nhead=8, layers=6, dim_feedforward=2048).train()
+    check(all(p.is_cuda for p in model.parameters()), "the model's parameters are not on the card")
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = ht.optim.DataParallelOptimizer("adam", lr=1.0)
+    ht.nn.DataParallel(model, optimizer=opt)
+    sched = ht.optim.lr_scheduler.LambdaLR(opt, lambda e: 512**-0.5 * min((e + 1) ** -0.5, (e + 1) * WARMUP**-1.5))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    batch = [ht.array(t, split=0) for t in s2s.reverse_batch(TRAIN_B, TRAIN_T, VOCAB, generator=gen, device=dev)]
+    tf32_seen = []
+
+    def probed_loss(m, src_, tgt_in_, tgt_):
+        tf32_seen.append(("forward", torch.backends.cuda.matmul.allow_tf32))
+        logits = m(src_, tgt_in_)
+        logits.register_hook(lambda g: tf32_seen.append(("backward", torch.backends.cuda.matmul.allow_tf32)))
+        return torch.nn.functional.cross_entropy(logits.reshape(-1, VOCAB), tgt_.reshape(-1))
+
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.backends.cuda.matmul.allow_tf32 = True  # the step must hold it off for its forward and backward
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    loss = opt.step(probed_loss, *batch)
+    torch.cuda.synchronize()
+    train_counts = kernels.launch_counts()
+    train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tf32_restored = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sched.step()
+    flash = ("flash_attention_fwd", "flash_attention_bwd_d", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    check(all(train_counts[n] == FLASH_PER_FORWARD for n in flash), f"launches in one training step: {train_counts}")
+    check(tf32_seen == [("forward", False), ("backward", False)] and tf32_restored, f"TF32 in the step: {tf32_seen}")
+    loss0 = float(loss)
+    check(loss.dim() == 0 and loss.is_cuda and math.isfinite(loss0), f"the step's loss {loss0}")
+    # random weights predict about uniformly: the loss starts near log(vocab)
+    check(abs(loss0 - math.log(VOCAB)) < 2.0, f"first loss {loss0}, log(vocab) is {math.log(VOCAB)}")
+    params = dict(model.named_parameters())
+    check(all(p.grad is not None and bool(torch.isfinite(p.grad).all()) for p in params.values()), "a gradient is not finite")
+    moved = [n for n, p in params.items() if not torch.equal(p.detach(), before[n])]
+    still = [n for n in params if n not in moved and bool(params[n].grad.any())]
+    check(not still and len(moved) > 0.9 * len(params), f"parameters with a gradient that did not change: {still}")
+    del before
+    # a 1 + 1-layer d_model 512 model at T = 512 on the card against the port's CPU path
+    torch.manual_seed(SEED + 5)
+    small_cfg = dict(vocab=1000, max_len=512, d_model=512, nhead=8, layers=1, dim_feedforward=2048)
+    small = s2s.Seq2Seq(**small_cfg).train()
+    small_cpu = s2s.Seq2Seq(**small_cfg, device="cpu").train()
+    small_cpu.load_state_dict({n: t.cpu() for n, t in small.state_dict().items()})
+    opt_g, opt_c = (ht.optim.DataParallelOptimizer("sgd", lr=0.1) for _ in range(2))
+    ht.nn.DataParallel(small, optimizer=opt_g)
+    ht.nn.DataParallel(small_cpu, optimizer=opt_c)
+    small_batches = [s2s.reverse_batch(2, 512, 1000, generator=gen, device=dev) for _ in range(3)]
+    grad_ratio, small_losses = 0.0, []
+    for i, b in enumerate(small_batches):
+        kernels.reset_launch_counts()
+        lg = opt_g.step(s2s.seq2seq_loss, *(ht.array(t, split=0) for t in b))
+        torch.cuda.synchronize()
+        small_counts = kernels.launch_counts()
+        lc = opt_c.step(s2s.seq2seq_loss, *(ht.array(t.cpu(), split=0, device="cpu") for t in b))
+        small_losses.append((float(lg), float(lc)))
+        check(all(small_counts[n] == 3 for n in flash), f"launches in the small step: {small_counts}")
+        if i == 0:
+            # fp32 on both sides (the kernels and cuBLAS without TF32 against the CPU's plain
+            # path), summed in other orders: each gradient within 1e-3 of its largest entry
+            for (n, pg), (_, pc) in zip(small.named_parameters(), small_cpu.named_parameters()):
+                err = float((pg.grad.cpu() - pc.grad).abs().max())
+                grad_ratio = max(grad_ratio, err / (1e-3 * float(pc.grad.abs().max()) + 1e-30))
+    with torch.no_grad():
+        after = (float(s2s.seq2seq_loss(small, *small_batches[0])),
+                 float(s2s.seq2seq_loss(small_cpu, *(t.cpu() for t in small_batches[0]))))
+    check(grad_ratio <= 1.0, f"the small model's gradients on the card and the CPU differ: err/tol {grad_ratio}")
+    check(abs(small_losses[0][0] - small_losses[0][1]) <= 1e-5 * abs(small_losses[0][1]), f"small losses {small_losses}")
+    check(abs(after[0] - after[1]) <= 1e-4 * abs(after[1]), f"the small model's loss after three SGD steps: {after}")
+    phase("train_step", params=n_params, tokens=f"{TRAIN_B}x{TRAIN_T}+{TRAIN_B}x{TRAIN_T}", vocab=VOCAB,
+          launches=json.dumps(train_counts), loss=repr(loss0), lr_after=repr(opt.lr), peak_gb=f"{train_peak_gb:.2f}",
+          tf32=json.dumps(tf32_seen), small_grad_err_over_tol=grad_ratio, small_losses=json.dumps(small_losses),
+          small_loss_after_3_sgd=json.dumps(after))
+    del small, small_cpu, opt_g, opt_c, small_batches
+    # the step's time: best of 2 after the counted one
+    step_walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.step(s2s.seq2seq_loss, *batch)
+        sched.step()
+        torch.cuda.synchronize()
+        step_walls.append(time.perf_counter() - t0)
+    step_s = min(step_walls)
+    phase("train_step_time", best_of_2_s=repr(step_s), walls_s=json.dumps(step_walls),
+          tokens_per_s=repr(2 * TRAIN_B * TRAIN_T / step_s), peak_gb=f"{train_peak_gb:.2f}")
+    train_breakdown = profile_device(lambda: opt.step(s2s.seq2seq_loss, *batch), inference=False)
+    phase("train_step_profile", **{k: json.dumps(v) for k, v in train_breakdown.items()})
+    del model, opt, sched, batch, params, loss
+    torch.cuda.empty_cache()
+
+    # the backward's kernels one by one at each shape, its plain version and the library call
+    bwd_ms, bwd_bounds = {}, {}
+    with torch.no_grad():
+        for cname, (q, k, v, causal) in bwd_data.items():
+            o, lse = k2.flash_attention_fwd(q, k, v, causal)
+            do = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(SEED + 600), device=dev).to(q.dtype)
+            dd = k2._d_pass(o, do)
+            sc = 1.0 / math.sqrt(q.shape[-1])
+            bwd_ms[cname] = {
+                "flash_attention_bwd_d": cuda_ms(lambda: k2._d_pass(o, do), reps=10),
+                "flash_attention_bwd_dq": cuda_ms(lambda: k2._k4(q, k, v, do, lse, dd, causal, sc, None), reps=5, warmup=1),
+                "flash_attention_bwd_dkv": cuda_ms(lambda: k2._k5(q, k, v, do, lse, dd, causal, sc, None), reps=5, warmup=1),
+            }
+            if cname != "bench_causal_bf16":
+                bwd_ms[cname]["flash_attention_fwd"] = cuda_ms(lambda: k2.flash_attention_fwd(q, k, v, causal), reps=5, warmup=1)
+            bh, tq, dh = q.shape
+            bwd_bounds[cname] = bwd_bounds_ms(bh, tq, k.shape[1], dh, causal, q.element_size())
+            if cname == "encoder_self":
+                bwd_plain_ms = cuda_ms(lambda: k2.flash_attention_bwd_reference(q, k, v, o, do, lse, False), reps=3, warmup=1)
+                with torch.enable_grad():
+                    q4, k4, v4 = (t.view(TRAIN_B, 8, TRAIN_T, 64).clone().requires_grad_() for t in (q, k, v))
+                    o4 = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4)
+                    g4 = do.view(o4.shape)
+                    bwd_library_ms = cuda_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), g4, retain_graph=True), reps=5)
+                del q4, k4, v4, o4
+            del o, lse, do, dd
+    phase("k2_bwd_time", ms=json.dumps(bwd_ms), plain_ms=repr(bwd_plain_ms), library_ms=repr(bwd_library_ms),
+          bounds_ms=json.dumps({c: {n: b[0] for n, b in v.items()} for c, v in bwd_bounds.items()}))
+    del bwd_data
+    torch.cuda.empty_cache()
+
+    # 10. every ported kernel: launches on its path, time, bound, plain version's and library's time
     x, init, _ = blobs(N, D, K, SEED, dev)
     ms = cuda_ms(lambda: k1.fused_assign_update_packed(x, init), reps=20, warmup=3)
     plain_ms = cuda_ms(lambda: k1.fused_assign_update_reference(x, init), reps=5, warmup=1)
@@ -605,7 +881,42 @@ def main() -> int:
                 "ms_by_shape": k2_ms,
                 "bound_ms_by_shape": {c: b[0] for c, b in k2_bounds.items()},
                 "achieved_flops_per_s": 4 * e_heads * 64 * attention_pairs(SRC_T, SRC_T, False) / (k2_ms["encoder_self"] * 1e-3),
+                "ms_at_training_shapes": {c: bwd_ms[c]["flash_attention_fwd"] for c in ("encoder_self", "decoder_self_causal")},
             },
+            *(
+                {
+                    "name": kname,
+                    "route": "cuda",
+                    "source": "heat_tpu_torch/core/kernels/csrc/flash_attention_bwd.cu",
+                    "replaces": replaces,
+                    "launches": train_counts[kname],
+                    "max_abs_err": bwd_checks["encoder_self"][err_key],
+                    "ms": bwd_ms["encoder_self"][kname],
+                    "plain_ms": bwd_plain_ms,
+                    "bound_ms": bwd_bounds["encoder_self"][kname][0],
+                    "bound_by": bwd_bounds["encoder_self"][kname][1],
+                    "library_ms": bwd_library_ms,
+                    "library_note": "backward of torch.nn.functional.scaled_dot_product_attention on the same f32 "
+                                    "inputs (dQ, dK and dV together), timed only; set against D + K4 + K5",
+                    "plain_note": "flash_attention_bwd_reference, all three gradients together",
+                    "max_abs_err_of": err_of,
+                    "err_over_tol": bwd_checks["encoder_self"]["err_over_tol"],
+                    "shape": [t_heads, TRAIN_T, TRAIN_T, 64],
+                    "dtype": "float32",
+                    "launches_of": "one Transformer-base training step",
+                    "ms_by_shape": {c: v[kname] for c, v in bwd_ms.items()},
+                    "bound_ms_by_shape": {c: v[kname][0] for c, v in bwd_bounds.items()},
+                    "backward_total_ms": sum(bwd_ms["encoder_self"][n] for n in flash[1:]),
+                }
+                for kname, replaces, err_key, err_of in (
+                    ("flash_attention_bwd_d", "heat_tpu/core/kernels/flash_attention.py:592",
+                     "max_abs_err_dq", "dQ against the plain backward (D feeds K4 and K5), encoder shape"),
+                    ("flash_attention_bwd_dq", "heat_tpu/core/kernels/flash_attention.py:422",
+                     "max_abs_err_dq", "dQ against the plain backward, encoder shape"),
+                    ("flash_attention_bwd_dkv", "heat_tpu/core/kernels/flash_attention.py:480",
+                     "max_abs_err_dk", "dK against the plain backward, encoder shape"),
+                )
+            ),
         ]
     }
     print(json.dumps(line), flush=True)
@@ -616,9 +927,14 @@ def main() -> int:
                        "inertia": inertia, "checks": {"x".join(map(str, key)): v for key, v in checks.items()},
                        "k2_checks": k2_checks, "forward_best_of_2_s": fwd_s, "forward_walls_s": fwd_walls,
                        "k2_in_forward_ms": attn_ms, "forward_peak_gb": peak_gb,
-                       "forward_profile": breakdown}, fh, indent=1)
+                       "forward_profile": breakdown, "bwd_checks": bwd_checks, "train_step_loss": loss0,
+                       "train_step_launches": train_counts, "train_step_best_of_2_s": step_s,
+                       "train_step_walls_s": step_walls, "train_step_peak_gb": train_peak_gb,
+                       "train_step_profile": train_breakdown, "small_train_grad_err_over_tol": grad_ratio,
+                       "small_train_losses": small_losses, "bwd_ms": bwd_ms, "bwd_plain_ms": bwd_plain_ms,
+                       "bwd_library_ms": bwd_library_ms}, fh, indent=1)
 
-    # 9. the last line
+    # 11. the last line
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
 

@@ -18,4 +18,5 @@ from . import core
 from . import spatial
 from . import cluster
 from . import nn
+from . import optim
 from . import interop

@@ -12,7 +12,7 @@ agree between the two packages. Trailing ranks may own empty chunks.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -109,6 +109,20 @@ class TorchCommunication:
             return tensor
         dist.all_reduce(tensor, op=red, group=self.group)
         return tensor
+
+    def all_reduce_packed(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """The sums across ranks of ``tensors`` (one dtype and device, any shapes), by one
+        collective over a flat buffer that packs them all; at world 1 the tensors as given.
+        A data-parallel step reduces every gradient and its loss this way, in one call
+        instead of one per parameter."""
+        tensors = list(tensors)
+        if self.size == 1 or not tensors:
+            return tensors
+        if len({(t.dtype, t.device) for t in tensors}) != 1:
+            raise ValueError("all_reduce_packed takes tensors of one dtype and device")
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
+        return [part.view(t.shape) for part, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
 
     def all_gather(self, local: torch.Tensor, gshape: Sequence[int], split: Optional[int]) -> torch.Tensor:
         """The global tensor of shape ``gshape`` from every rank's chunk along

@@ -1,34 +1,43 @@
-"""K2: the flash-attention forward, a CUDA C++ kernel for Hopper.
+"""K2, the flash-attention forward, and its backward (the D pass, K4 and K5): CUDA C++
+kernels for Hopper.
 
-Replaces the Pallas TPU kernel ``heat_tpu/core/kernels/flash_attention.py:156``
-(``_kernel``, launched by ``_flash_pallas``; entry ``flash_attention``, gate
-``use_flash``). O = softmax(scale·QKᵀ [+ bias]) V and its log-sum-exp, with the (Tq, Tk)
-scores never reaching device memory. The source, ``csrc/flash_attention_fwd.cu``, says
-what bounds it on the card and how its design answers.
+Replaces the Pallas TPU kernels of ``heat_tpu/core/kernels/flash_attention.py``: ``_kernel``
+(:156, launched by ``_flash_pallas``) for the forward, and ``_dq_kernel`` (:422) and
+``_dkv_kernel`` (:480, both launched by ``_flash_bwd_pallas``) with the D pre-pass
+(:592-596) for the backward; entry ``flash_attention``, gate ``use_flash``. The forward
+gives O = softmax(scale·QKᵀ [+ bias]) V and its log-sum-exp, the backward dQ, dK and dV
+from O, LSE and dO, with the (Tq, Tk) scores never reaching device memory. The sources,
+``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``, say what bounds each
+kernel on the card and how its design answers.
 
-The wrapper takes the plain PyTorch version, :func:`flash_attention_reference`, only for
-tensors that lie on the CPU. A CUDA tensor launches the kernel or raises: there is no
-fallback. ``launches`` counts the kernel's launches.
-
-There is no backward yet (heat_tpu's K4/K5): on the card the wrapper raises when grad
-mode is on and an input requires grad, since a launch through ctypes is invisible to
-autograd and the gradient would be dropped without a word.
+:class:`_FlashAttention` is the ``torch.autograd.Function`` around them (heat_tpu's
+``custom_vjp``, flash_attention.py:722-775): K2 forward, saving q, k, v, O and LSE; D, K4
+and K5 backward, once differentiable. The wrappers take the plain PyTorch versions,
+:func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`, only for
+tensors that lie on the CPU, through the same ``Function``. A CUDA tensor launches the
+kernels or raises: there is no fallback. ``launches`` counts K2's launches, and
+``bwd_d.launches``, ``bwd_dq.launches`` and ``bwd_dkv.launches`` those of the backward's
+three kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import types
 from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..devices import full_fp32_matmul
 from . import _nvcc
 
 __all__ = [
     "flash_attention",
+    "flash_attention_bwd",
+    "flash_attention_bwd_reference",
     "flash_attention_fwd",
     "flash_attention_reference",
     "kernel_takes",
@@ -36,9 +45,15 @@ __all__ = [
 ]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_fwd.cu"
+BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 
 launches = 0
-"""Launches of the CUDA kernel since import (or since a caller reset it to 0)."""
+"""Launches of K2 since import (or since a caller reset it to 0)."""
+
+# the backward's kernels, each with its source and its count of launches
+bwd_d = types.SimpleNamespace(SOURCE=BWD_SOURCE, launches=0)
+bwd_dq = types.SimpleNamespace(SOURCE=BWD_SOURCE, launches=0)
+bwd_dkv = types.SimpleNamespace(SOURCE=BWD_SOURCE, launches=0)
 
 _NEG_INF = float(torch.finfo(torch.float32).min)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -46,6 +61,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_HEAD_DIM = 128
 
 _LIB = None
+_BWD_LIB = None
 
 
 def _as_bias(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -61,6 +77,20 @@ def _as_bias(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 def _scale(q: torch.Tensor, scale) -> float:
     return (1.0 / math.sqrt(q.shape[-1])) if scale is None else float(scale)
+
+
+def _scores(qf: torch.Tensor, kf: torch.Tensor, s: float, causal: bool, bias) -> torch.Tensor:
+    """The kernels' scores in fp32: (q·kᵀ)·scale, then + ``bias``, then causal entries
+    (key > query, top-left aligned) at the finite NEG_INF."""
+    with full_fp32_matmul():
+        scores = torch.matmul(qf, kf.transpose(-1, -2)) * s
+    if bias is not None:
+        scores = scores + bias.to(torch.float32)
+    if causal:
+        tq, tk = scores.shape[-2], scores.shape[-1]
+        keep = torch.arange(tq, device=qf.device)[:, None] >= torch.arange(tk, device=qf.device)[None, :]
+        scores = scores.masked_fill(~keep, _NEG_INF)
+    return scores
 
 
 def flash_attention_reference(
@@ -80,16 +110,8 @@ def flash_attention_reference(
     row maximum is clamped at NEG_INF/2, so such rows give 0, not NaN), and the LSE of the
     kernel's finalize (flash_attention.py:223). Causal is top-left aligned (row i attends
     columns <= i), for any Tq, Tk."""
-    s = _scale(q, scale)
-    qf, kf, vf = q.float(), k.float(), v.float()
-    with full_fp32_matmul():
-        scores = torch.matmul(qf, kf.transpose(-1, -2)) * s
-    if bias is not None:
-        scores = scores + bias.to(torch.float32)
-    if causal:
-        tq, tk = scores.shape[-2], scores.shape[-1]
-        keep = torch.arange(tq, device=q.device)[:, None] >= torch.arange(tk, device=q.device)[None, :]
-        scores = scores.masked_fill(~keep, _NEG_INF)
+    qf, vf = q.float(), v.float()
+    scores = _scores(qf, k.float(), _scale(q, scale), causal, bias)
     m = torch.clamp_min(torch.amax(scores, dim=-1, keepdim=True), _NEG_INF / 2)
     p = torch.exp(scores - m)
     l = torch.clamp_min(torch.sum(p, dim=-1, keepdim=True), 1e-30)
@@ -97,6 +119,40 @@ def flash_attention_reference(
         out = torch.matmul(p, vf) / l
     lse = (m + torch.log(l)).squeeze(-1)
     return out.to(q.dtype), lse
+
+
+def flash_attention_bwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    do: torch.Tensor,
+    lse: torch.Tensor,
+    causal: bool = False,
+    scale: Optional[float] = None,
+    bias: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the D pass, K4 and K5: (dq, dk, dv) in q's, k's and v's
+    dtypes, in full fp32 whatever the input type, for the forward's ``o`` and ``lse`` and
+    the output gradient ``do``.
+
+    The probabilities are recomputed from the saved LSE exactly as the forward formed the
+    scores (heat_tpu's ``_dq_kernel``/``_dkv_kernel``, flash_attention.py:450-458 and
+    :510-518): s = (q·kᵀ)·scale, then + ``bias``, masked entries at NEG_INF, P = exp(s − LSE);
+    D = rowsum(dO∘O) (:592-596) and dS = P∘(dO·vᵀ − D); dq = scale·dS·k, dk = scale·dSᵀ·q,
+    dv = Pᵀ·dO. Fully masked rows (LSE = NEG_INF/2 + log(1e-30), O = 0) give P = 0 and
+    contribute nothing. Unlike heat_tpu, dS and P stay f32 for the products."""
+    s = _scale(q, scale)
+    qf, kf, vf, of, gf = (t.float() for t in (q, k, v, o, do))
+    scores = _scores(qf, kf, s, causal, bias)
+    p = torch.exp(scores - lse.to(torch.float32).unsqueeze(-1))
+    dd = torch.sum(gf * of, dim=-1, keepdim=True)
+    with full_fp32_matmul():
+        ds = p * (torch.matmul(gf, vf.transpose(-1, -2)) - dd)
+        dq = torch.matmul(ds, kf) * s
+        dk = torch.matmul(ds.transpose(-1, -2), qf) * s
+        dv = torch.matmul(p.transpose(-1, -2), gf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def kernel_takes(q, k, v, mask=None, scale=None) -> bool:
@@ -157,6 +213,162 @@ def _lib() -> ctypes.CDLL:
     return _LIB
 
 
+def _bwd_lib() -> ctypes.CDLL:
+    global _BWD_LIB
+    if _BWD_LIB is None:
+        lib = _nvcc.load(BWD_SOURCE)
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_attention_bwd_d_launch.argtypes = [i, i, p, p, p, ctypes.c_longlong, i, p]
+        lib.flash_attention_bwd_dq_launch.argtypes = [i, i, p, p, p, p, p, p, p, p, i, i, i, i, f, i, p]
+        lib.flash_attention_bwd_dkv_launch.argtypes = [i, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, i, p]
+        for fn in (lib.flash_attention_bwd_d_launch, lib.flash_attention_bwd_dq_launch, lib.flash_attention_bwd_dkv_launch):
+            fn.restype = i
+        lib.flash_attention_bwd_error_string.argtypes = [i]
+        lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+        _BWD_LIB = lib
+    return _BWD_LIB
+
+
+def _on_card(q, k, v, mask) -> bool:
+    """False for CPU tensors (the plain versions run), True for tensors that the kernels
+    take (CUDA tensors of one card); raises on anything else."""
+    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
+        if mask is not None and mask.device.type != "cpu":
+            raise ValueError(f"the mask is on {mask.device}, q on the CPU")
+        return False
+    if not use_flash(q, k, v, mask):
+        raise ValueError(
+            f"flash_attention runs on CUDA or CPU tensors of one device, got q on {q.device}, "
+            f"k on {k.device}, v on {v.device}" + ("" if mask is None else f", mask on {mask.device}")
+        )
+    return True
+
+
+def _launch(fn, error_string, *args) -> None:
+    """Call a kernel's C entry point and raise if the launch failed."""
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__}: launch failed: {error_string(rc).decode()} ({rc})")
+
+
+def _card(t: torch.Tensor) -> Tuple[int, int]:
+    """(device index, current stream) of a CUDA tensor: kernels and outputs share the stream."""
+    dev = t.device.index if t.device.index is not None else torch.cuda.current_device()
+    return dev, torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _k2(q, k, v, causal: bool, scale: float, bias) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 on contiguous (bh, Tq, D), (bh, Tk, D) CUDA tensors."""
+    global launches
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    lib = _lib()
+    dev, stream = _card(q)
+    out = torch.empty((bh, tq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
+    _launch(
+        lib.flash_attention_fwd_launch, lib.flash_attention_error_string, dev, _DTYPES[q.dtype],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), bh, tq, tk, d, scale, int(causal), stream,
+    )
+    launches += 1
+    return out, lse
+
+
+def _d_pass(o, do) -> torch.Tensor:
+    """The D pass on contiguous (bh, Tq, D) CUDA tensors of one dtype: D (bh, Tq) f32."""
+    bh, tq, d = o.shape
+    lib = _bwd_lib()
+    dev, stream = _card(o)
+    dd = torch.empty((bh, tq), dtype=torch.float32, device=o.device)
+    _launch(lib.flash_attention_bwd_d_launch, lib.flash_attention_bwd_error_string, dev, _DTYPES[o.dtype],
+            o.data_ptr(), do.data_ptr(), dd.data_ptr(), bh * tq, d, stream)
+    bwd_d.launches += 1
+    return dd
+
+
+def _k4(q, k, v, do, lse, dd, causal: bool, scale: float, bias) -> torch.Tensor:
+    """K4 on contiguous (bh, T, D) CUDA tensors of one dtype: dQ."""
+    bh, tq, d = q.shape
+    lib = _bwd_lib()
+    dev, stream = _card(q)
+    dq = torch.empty_like(q)
+    _launch(
+        lib.flash_attention_bwd_dq_launch, lib.flash_attention_bwd_error_string, dev, _DTYPES[q.dtype],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), dd.data_ptr(),
+        None if bias is None else bias.data_ptr(), dq.data_ptr(), bh, tq, k.shape[1], d, scale, int(causal), stream,
+    )
+    bwd_dq.launches += 1
+    return dq
+
+
+def _k5(q, k, v, do, lse, dd, causal: bool, scale: float, bias) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5 on contiguous (bh, T, D) CUDA tensors of one dtype: dK and dV."""
+    bh, tq, d = q.shape
+    lib = _bwd_lib()
+    dev, stream = _card(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch(
+        lib.flash_attention_bwd_dkv_launch, lib.flash_attention_bwd_error_string, dev, _DTYPES[q.dtype],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), dd.data_ptr(),
+        None if bias is None else bias.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, tq, k.shape[1], d, scale,
+        int(causal), stream,
+    )
+    bwd_dkv.launches += 1
+    return dk, dv
+
+
+def _backward(q, k, v, o, do, lse, causal: bool, scale: float, bias, on_card: bool):
+    if not on_card:
+        return flash_attention_bwd_reference(q, k, v, o, do, lse, causal, scale, bias)
+    do = do.to(q.dtype).contiguous()
+    dd = _d_pass(o, do)
+    return (_k4(q, k, v, do, lse, dd, causal, scale, bias), *_k5(q, k, v, do, lse, dd, causal, scale, bias))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Exact attention with the flash backward (heat_tpu's ``custom_vjp`` of
+    ``flash_attention``, :722-775) on (bh, Tq, D), (bh, Tk, D) contiguous tensors.
+
+    Forward: K2 (the plain version on CPU tensors) giving (O, LSE); it saves q, k, v, O and
+    LSE, and LSE is not differentiable. Backward: the D pass, K4 and K5 (the plain backward
+    on CPU tensors), once differentiable as heat_tpu's has no double backward; causal, scale
+    and the bool mask get None (heat_tpu returns a zero cotangent for a bool mask, :771)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float, mask):
+        on_card = _on_card(q, k, v, mask)
+        bias = None if mask is None else _as_bias(mask).contiguous()
+        if on_card:
+            out, lse = _k2(q, k, v, causal, scale, bias)
+        else:
+            out, lse = flash_attention_reference(q, k, v, causal, scale, bias)
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, out, lse, bias)
+        ctx.causal, ctx.scale, ctx.on_card = causal, scale, on_card
+        return out, lse
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse, bias = ctx.saved_tensors
+        dq, dk, dv = _backward(q, k, v, out, dout, lse, ctx.causal, ctx.scale, bias, ctx.on_card)
+        return dq, dk, dv, None, None, None
+
+
+def _refuse(q, k, v, mask) -> ValueError:
+    return ValueError(
+        "flash_attention: the kernel takes q (..., Tq, D), k/v (..., Tk, D) of one dtype "
+        f"(float32, bfloat16, float16), 1 <= D <= {MAX_HEAD_DIM}, a static scale and no mask "
+        f"or a (Tq, Tk) bool one; got q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)} {k.dtype}, "
+        f"v {tuple(v.shape)} {v.dtype}, mask {None if mask is None else (tuple(mask.shape), mask.dtype)}"
+    )
+
+
+def _flat(t: torch.Tensor, bh: int) -> torch.Tensor:
+    return t.reshape(bh, t.shape[-2], t.shape[-1]).contiguous()
+
+
 def flash_attention_fwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -166,56 +378,48 @@ def flash_attention_fwd(
     mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out (..., Tq, D) in q's dtype, lse (..., Tq) f32): K2 on CUDA tensors, the plain
-    version on CPU tensors. ``mask`` is a (Tq, Tk) bool (True = attend) shared by every
-    batch·head. Raises on what :func:`kernel_takes` refuses, and on the card when grad
-    mode is on and an input requires grad (K2 has no backward yet)."""
-    global launches
+    version on CPU tensors, both through :class:`_FlashAttention`, so gradients flow to q,
+    k and v (the D pass, K4 and K5 on the card). ``mask`` is a (Tq, Tk) bool (True =
+    attend) shared by every batch·head. Raises on what :func:`kernel_takes` refuses and on
+    tensors that are neither on the CPU nor on one card."""
     if not kernel_takes(q, k, v, mask, scale):
-        raise ValueError(
-            "flash_attention: the kernel takes q (..., Tq, D), k/v (..., Tk, D) of one dtype "
-            f"(float32, bfloat16, float16), 1 <= D <= {MAX_HEAD_DIM}, a static scale and no mask "
-            f"or a (Tq, Tk) bool one; got q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)} {k.dtype}, "
-            f"v {tuple(v.shape)} {v.dtype}, mask {None if mask is None else (tuple(mask.shape), mask.dtype)}"
-        )
-    s = _scale(q, scale)
-    bias = _as_bias(mask)
-    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
-        if bias is not None and bias.device.type != "cpu":
-            raise ValueError(f"the mask is on {bias.device}, q on the CPU")
-        return flash_attention_reference(q, k, v, causal, s, bias)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention: K2 has no backward on the card yet (heat_tpu's K4/K5, ROADMAP.md "
-            "Queue 2); run under torch.no_grad() or torch.inference_mode()"
-        )
-    if not use_flash(q, k, v, mask, scale):
-        raise ValueError(
-            f"flash_attention runs on CUDA or CPU tensors of one device, got q on {q.device}, "
-            f"k on {k.device}, v on {v.device}"
-            + ("" if mask is None else f", mask on {mask.device}")
-        )
+        raise _refuse(q, k, v, mask)
     *batch, tq, d = q.shape
-    tk = k.shape[-2]
     bh = math.prod(batch)
-    qc = q.reshape(bh, tq, d).contiguous()
-    kc = k.reshape(bh, tk, d).contiguous()
-    vc = v.reshape(bh, tk, d).contiguous()
-    bias_c = None if bias is None else bias.contiguous()
-    lib = _lib()
-    dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
-    # allocated on the stream the kernel runs on
-    out = torch.empty((bh, tq, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.flash_attention_fwd_launch(
-        dev, _DTYPES[q.dtype], qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),
-        None if bias_c is None else bias_c.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        bh, tq, tk, d, s, int(bool(causal)), stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"flash_attention_fwd: launch failed: {lib.flash_attention_error_string(rc).decode()} ({rc})")
-    launches += 1
+    out, lse = _FlashAttention.apply(_flat(q, bh), _flat(k, bh), _flat(v, bh), bool(causal), _scale(q, scale), mask)
     return out.reshape(*batch, tq, d), lse.reshape(*batch, tq)
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    do: torch.Tensor,
+    lse: torch.Tensor,
+    causal: bool = False,
+    scale: Optional[float] = None,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of the attention whose forward gave ``o`` and ``lse``, for the output
+    gradient ``do`` (heat_tpu's ``_flash_bwd_pallas``): the D pass, K4 and K5 on CUDA
+    tensors, :func:`flash_attention_bwd_reference` on CPU tensors. Takes what the forward
+    takes; ``o`` and ``do`` are (..., Tq, D) in q's dtype and ``lse`` (..., Tq) f32."""
+    if not kernel_takes(q, k, v, mask, scale):
+        raise _refuse(q, k, v, mask)
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:-1]:
+        raise ValueError(f"o and do must be {tuple(q.shape)} and lse {tuple(q.shape[:-1])}, got "
+                         f"{tuple(o.shape)}, {tuple(do.shape)} and {tuple(lse.shape)}")
+    if any(t.device != q.device for t in (o, do, lse)):
+        raise ValueError(f"o, do and lse must lie on q's device {q.device}")
+    on_card = _on_card(q, k, v, mask)
+    *batch, tq, d = q.shape
+    bh = math.prod(batch)
+    bias = None if mask is None else _as_bias(mask).contiguous()
+    flat = [_flat(t, bh) for t in (q, k, v, o.to(q.dtype), do.to(q.dtype))]
+    lse_c = lse.to(torch.float32).reshape(bh, tq).contiguous()
+    grads = _backward(*flat, lse_c, bool(causal), _scale(q, scale), bias, on_card)
+    return tuple(g.reshape(t.shape) for g, t in zip(grads, (q, k, v)))
 
 
 def flash_attention(
@@ -226,7 +430,7 @@ def flash_attention(
     scale: Optional[float] = None,
     mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Exact attention by the flash forward (heat_tpu's ``flash_attention``): K2 on CUDA
-    tensors, the plain version on CPU tensors. Returns the output only; see
-    :func:`flash_attention_fwd` for the log-sum-exp."""
+    """Exact attention by the flash forward (heat_tpu's ``flash_attention``), differentiable
+    by the flash backward: the kernels on CUDA tensors, the plain versions on CPU tensors.
+    Returns the output only; see :func:`flash_attention_fwd` for the log-sum-exp."""
     return flash_attention_fwd(q, k, v, causal, scale, mask)[0]

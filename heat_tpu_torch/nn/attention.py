@@ -1,4 +1,4 @@
-"""Attention: the serving part of heat_tpu's ``nn/attention.py`` on PyTorch.
+"""Attention: heat_tpu's ``nn/attention.py`` on PyTorch, for serving and training.
 
 Scaled dot-product attention, ``MultiheadAttention`` and the Transformer family as
 ``torch.nn.Module``s with ``forward``, under heat_tpu's names, defaults
@@ -7,16 +7,18 @@ a ``state_dict`` mechanically (``heat_tpu_torch.interop.load_jax_params``).
 
 Every attention goes through :func:`_dense_attention`: inputs that the flash kernel takes
 (``kernels.flash_attention.use_flash``: CUDA tensors of one dtype, head dim <= 128, no
-mask or a (Tq, Tk) bool one) run K2, the CUDA flash forward; everything else takes the
-dense path below, in full fp32. Causal masking is top-left aligned (query i attends keys
-<= i), for any Tq, Tk.
+mask or a (Tq, Tk) bool one) run K2, the CUDA flash forward, and their gradients the
+flash backward (the D pass, K4 and K5); everything else takes the dense path below, in
+full fp32, differentiated by autograd. Causal masking is top-left aligned (query i attends
+keys <= i), for any Tq, Tk.
 
 DNDarray inputs: a DNDarray split along the batch axis over ranks is attended rank by
 rank, each rank on its own rows; any other layout is computed whole on every rank, and
 the result keeps the query's split as heat_tpu's does. Not ported yet (ROADMAP.md Queue 1
 item 13), each raising ``NotImplementedError``: ring, zigzag and Ulysses attention, so a
 DNDarray split along the sequence over several ranks raises rather than being gathered;
-and train-mode dropout (attention modules start in eval mode, as heat_tpu's do).
+and train-mode dropout. The modules start in eval mode, as heat_tpu's do; ``.train()``
+trains them when their dropout is 0.0, and raises at the forward for a dropout p > 0.
 """
 
 from __future__ import annotations
@@ -236,7 +238,7 @@ class MultiheadAttention(Module):
     ``need_weights=True`` raises, the weights are never formed. A bool ``attn_mask``
     follows torch's MHA convention (True = do NOT attend); ``key_padding_mask`` (B, S)
     (bool True = ignore that key, or an additive float) is merged into a (B, 1, 1, S)
-    bias. Starts in eval mode; train-mode dropout raises."""
+    bias. Starts in eval mode; in train mode a dropout p > 0 raises."""
 
     def __init__(
         self,
@@ -372,8 +374,8 @@ def _resolve_activation(activation):
 
 
 class _FeedForwardMixin:
-    """linear1 → activation → linear2, shared by the encoder and decoder layers (dropout
-    is identity in eval mode, the only mode ported)."""
+    """linear1 → activation → linear2, shared by the encoder and decoder layers (no
+    dropout is applied: a layer with p > 0 raises in train mode)."""
 
     def _ff_block(self, x):
         with full_fp32_matmul():
@@ -560,8 +562,8 @@ class Transformer(Module):
 
     ``forward(src, tgt)`` runs ``decoder(tgt, encoder(src))`` with all of torch's mask
     and padding arguments. ``src`` and ``tgt`` may be DNDarrays split along the batch
-    axis; the result is then a DNDarray like ``tgt``. Starts in eval mode; train-mode
-    dropout raises (not ported yet)."""
+    axis; the result is then a DNDarray like ``tgt``. Starts in eval mode; ``.train()``
+    with ``dropout=0.0`` trains it, train-mode dropout p > 0 raises (not ported yet)."""
 
     def __init__(
         self,

@@ -7,29 +7,40 @@ originals instead of a copy: ``GELU`` is the exact erf form by default, as heat_
 (``interop.load_jax_params`` handles both): heat_tpu's ``Linear`` weight is (in, out) and
 torch's (out, in); and torch modules start in training mode where heat_tpu's start in
 eval mode (the attention modules of :mod:`heat_tpu_torch.nn.attention` start in eval
-mode, as heat_tpu's do).
+mode, as heat_tpu's do). The losses are torch's too: heat_tpu's ``CrossEntropyLoss``,
+``MSELoss``, ``L1Loss`` and ``NLLLoss`` (``modules.py:636-694``) have torch's semantics
+and defaults, and a loss over this rank's rows of a split batch is a local mean, which
+:class:`~heat_tpu_torch.optim.DataParallelOptimizer` weights into the global one.
 """
 
 from torch.nn import (
     GELU,
+    CrossEntropyLoss,
     Dropout,
     Embedding,
+    L1Loss,
     LayerNorm,
     Linear,
     Module,
     ModuleList,
+    MSELoss,
+    NLLLoss,
     ReLU,
     Sequential,
 )
 
 __all__ = [
+    "CrossEntropyLoss",
     "Dropout",
     "Embedding",
     "GELU",
+    "L1Loss",
     "LayerNorm",
     "Linear",
+    "MSELoss",
     "Module",
     "ModuleList",
+    "NLLLoss",
     "ReLU",
     "Sequential",
 ]

@@ -6,6 +6,7 @@ writes this rank's results for the parent to compare with heat_tpu.
 Imports torch and heat_tpu_torch only, never JAX.
 """
 
+import collections
 import os
 import sys
 
@@ -91,6 +92,45 @@ def run(inputs) -> dict:
             out["mha_seq_split"] = np.array("ran")
         except NotImplementedError:
             out["mha_seq_split"] = np.array("NotImplementedError")
+
+    # one data-parallel SGD step per batch, from parameters that differ between ranks
+    # until DataParallel broadcasts rank 0's
+    nested = {}
+    for key in inputs.files:
+        if key.startswith("dp_param_"):
+            m, k = key[len("dp_param_") :].split(".")
+            nested.setdefault(m, {})[k] = inputs[key]
+    packed = []
+    orig_packed = communication.TorchCommunication.all_reduce_packed
+
+    def counting_packed(self, tensors):
+        packed.append(len(tensors))  # the step's collectives, each of every gradient and the loss
+        return orig_packed(self, tensors)
+
+    communication.TorchCommunication.all_reduce_packed = counting_packed
+    try:
+        for batch in (7, 2):
+            mlp = load_jax_params(
+                torch.nn.Sequential(collections.OrderedDict(fc1=torch.nn.Linear(4, 8), relu=torch.nn.ReLU(),
+                                                            fc2=torch.nn.Linear(8, 3))),
+                nested,
+            )
+            with torch.no_grad():
+                for p in mlp.parameters():
+                    p += comm.rank
+            opt = ht.optim.DataParallelOptimizer("sgd", lr=float(inputs["dp_lr"]))
+            ht.nn.DataParallel(mlp, optimizer=opt)
+            x = ht.array(inputs[f"dp_x{batch}"], split=0)
+            y = ht.array(inputs[f"dp_y{batch}"], split=0)
+            packed.clear()
+            loss = opt.step(lambda m, xb, yb: torch.nn.functional.cross_entropy(m(xb), yb), x, y)
+            out[f"dp{batch}_loss"] = np.array(float(loss))
+            out[f"dp{batch}_rows"] = np.array(x.lshape[0])
+            out[f"dp{batch}_packed_calls"] = np.array(len(packed))
+            for name, t in mlp.state_dict().items():
+                out[f"dp{batch}_param_{name}"] = t.numpy()
+    finally:
+        communication.TorchCommunication.all_reduce_packed = orig_packed
     return out
 
 

@@ -25,6 +25,30 @@ REDUCTIONS = ("sum", "prod", "mean", "min", "max", "argmin", "argmax")
 
 
 MHA_E, MHA_H = 16, 4
+DP_LR = 0.3
+
+
+class _JaxMLP(ht.nn.Module):
+    """The data-parallel test model: Linear(4, 8), ReLU, Linear(8, 3), as ``fc1``, ``fc2``."""
+
+    def __init__(self):
+        self.fc1 = ht.nn.Linear(4, 8)
+        self.fc2 = ht.nn.Linear(8, 3)
+
+    def init(self, key):
+        k1, k2 = jax.random.split(key)
+        return {"fc1": self.fc1.init(k1), "fc2": self.fc2.init(k2)}
+
+    def apply(self, params, x, *, key=None, train=False):
+        return self.fc2.apply(params["fc2"], jnp.maximum(self.fc1.apply(params["fc1"], x), 0.0))
+
+
+def _nested_mlp_params():
+    return jax.tree_util.tree_map(np.asarray, _JaxMLP().init(jax.random.key(5)))
+
+
+def _mlp_params():
+    return {f"{m}.{k}": v for m, sub in _nested_mlp_params().items() for k, v in sub.items()}
 
 
 def _mha_params():
@@ -52,6 +76,13 @@ def _inputs():
         "mha_kpm": kpm,
         "mha_heads": np.array(MHA_H),
         **{f"mha_param_{k}": v for k, v in _mha_params().items()},
+        # one data-parallel SGD step on a batch of 7 split 3, 3, 1 and of 2 split 1, 1, 0
+        "dp_x7": rng.standard_normal((7, 4)).astype(np.float32),
+        "dp_y7": rng.integers(0, 3, 7),
+        "dp_x2": rng.standard_normal((2, 4)).astype(np.float32),
+        "dp_y2": rng.integers(0, 3, 2),
+        "dp_lr": np.array(DP_LR),
+        **{f"dp_param_{k}": v for k, v in _mlp_params().items()},
     }
 
 
@@ -196,3 +227,33 @@ def test_mha_sequence_split_raises(ranks):
     _, res = ranks
     for r in res:
         assert str(r["mha_seq_split"]) == "NotImplementedError"
+
+
+@pytest.mark.parametrize("batch", [7, 2])
+def test_data_parallel_step_matches_heat_tpu(ranks, comm3, batch):
+    """One DataParallelOptimizer step on a batch split 3, 3, 1 (B = 7) and 1, 1, 0 (B = 2:
+    rank 2 holds no rows and runs no forward): the global loss and the updated parameters
+    equal heat_tpu's step on its three-device mesh on every rank, after one packed
+    all-reduce; the ranks started from unequal parameters, made equal by the broadcast
+    of rank 0's."""
+    inputs, res = ranks
+    model = _JaxMLP()
+    model.params = {m: {k: jnp.asarray(v) for k, v in sub.items()} for m, sub in _nested_mlp_params().items()}
+    opt = ht.optim.DataParallelOptimizer("sgd", lr=DP_LR)
+    ht.nn.DataParallel(model, comm=comm3, optimizer=opt)
+    crit = ht.nn.CrossEntropyLoss()
+    x = ht.array(inputs[f"dp_x{batch}"], split=0, comm=comm3)
+    y = ht.array(inputs[f"dp_y{batch}"], split=0, comm=comm3)
+    loss = opt.step(lambda params, xb, yb: crit(model.apply(params, xb), yb), x, y)
+    lmap = comm3.lshape_map((batch, 4), 0)
+    for rank, r in enumerate(res):
+        assert int(r[f"dp{batch}_rows"]) == lmap[rank, 0]
+        assert int(r[f"dp{batch}_packed_calls"]) == 1  # one collective for the step
+        # fp32 on both sides, summed in another order
+        np.testing.assert_allclose(float(r[f"dp{batch}_loss"]), float(loss), rtol=1e-6, atol=1e-6)
+        for m, sub in model.params.items():
+            for k, v in sub.items():
+                want = np.asarray(v).T if k == "weight" else np.asarray(v)
+                np.testing.assert_allclose(r[f"dp{batch}_param_{m}.{k}"], want, rtol=1e-5, atol=1e-6)
+    assert lmap[2, 0] == (1 if batch == 7 else 0)
+

@@ -228,27 +228,34 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         k2.flash_attention(torch.zeros(2, 8, 200), torch.zeros(2, 8, 200), torch.zeros(2, 8, 200))
 
 
-def test_grad_requiring_input_off_the_cpu_raises():
-    """K2 has no backward yet: off the CPU a grad-requiring input raises in grad mode
-    (here on the meta device, which no kernel serves, so the order of the checks shows);
-    on the CPU the plain version differentiates as usual."""
+def test_grad_requiring_input_goes_through_the_flash_backward():
+    """K2 now has a backward: a grad-requiring input is taken in grad mode as in no-grad
+    mode, so off the CPU and the card (here the meta device, which no kernel serves) both
+    raise the same device error, and on the CPU the gradient flows through the plain
+    backward with no kernel launch."""
     q = torch.zeros(2, 8, 16, device="meta", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="no backward"):
+    with pytest.raises(ValueError, match="CUDA or CPU"):
         k2.flash_attention(q, q, q)
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA or CPU"):
         k2.flash_attention(q, q, q)
+    counts = (k2.launches, k2.bwd_d.launches, k2.bwd_dq.launches, k2.bwd_dkv.launches)
     qc = torch.randn(2, 8, 16, requires_grad=True)
     k2.flash_attention(qc, qc, qc, causal=True).sum().backward()
     assert qc.grad is not None and bool(torch.isfinite(qc.grad).all())
+    ref = qc.detach().clone().requires_grad_()
+    k2.flash_attention_reference(ref, ref, ref, causal=True)[0].sum().backward()
+    torch.testing.assert_close(qc.grad, ref.grad, **F32_TOL)
+    assert (k2.launches, k2.bwd_d.launches, k2.bwd_dq.launches, k2.bwd_dkv.launches) == counts
 
 
 def test_launcher_imports_without_cuda_or_nvcc(tmp_path):
     env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME="", CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO)
     code = (
         "import heat_tpu_torch.core.kernels.flash_attention as k2, torch\n"
-        "assert k2._LIB is None and k2.launches == 0\n"
+        "assert k2._LIB is None and k2._BWD_LIB is None and k2.launches == 0\n"
         "from heat_tpu_torch.core import kernels\n"
         "assert kernels.KERNELS['flash_attention_fwd'] is k2\n"
+        "assert kernels.KERNELS['flash_attention_bwd_dq'] is k2.bwd_dq and k2.bwd_dq.launches == 0\n"
         "print('ok', torch.cuda.is_available())\n"
     )
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120)

@@ -1,5 +1,6 @@
-"""Import contract of the PyTorch port: heat_tpu_torch and chip_smoke.py import neither
-JAX nor anything of heat_tpu, and importing the package loads neither."""
+"""Import contract of the PyTorch port: heat_tpu_torch, chip_smoke.py and the example it
+drives import neither JAX nor anything of heat_tpu, and importing the package loads
+neither."""
 
 import ast
 import os
@@ -38,6 +39,11 @@ def test_scan_sees_the_package():
         "nn/__init__.py",
         "nn/modules.py",
         "nn/attention.py",
+        "nn/data_parallel.py",
+        "optim/__init__.py",
+        "optim/dp_optimizer.py",
+        "optim/lr_scheduler.py",
+        "optim/utils.py",
         "interop.py",
     ):
         assert f"heat_tpu_torch/{module}" in names, module
@@ -46,7 +52,9 @@ def test_scan_sees_the_package():
 
 
 @pytest.mark.parametrize(
-    "path", PORT_FILES + [REPO / "chip_smoke.py"], ids=lambda p: p.relative_to(REPO).as_posix()
+    "path",
+    PORT_FILES + [REPO / "chip_smoke.py", REPO / "examples" / "nn" / "seq2seq_transformer_torch.py"],
+    ids=lambda p: p.relative_to(REPO).as_posix(),
 )
 def test_no_jax_or_heat_tpu_imports(path):
     bad = [(line, mod) for line, mod in _imports(path) if _forbidden(mod)]
