@@ -11,7 +11,9 @@ one training step of the Transformer-base seq2seq model of
 examples/nn/seq2seq_transformer_torch.py (37,000-token vocabulary, 12 sequences of 2048
 source and 2048 target tokens, a split=0 batch, ``DataParallel`` and
 ``DataParallelOptimizer("adam")`` under the paper's warmup schedule), which runs K2, the D
-pass, K4 and K5 18 times each.
+pass, K4 and K5 18 times each. The forward and the step run again with
+``HEAT_TPU_FLASH_PIPELINE=1``, which sends every flash forward to K3, the pipelined kernel,
+in place of K2; and bench.py's attention A/B times causal attention with the knob off and on.
 
 Phases, one line each:
   1. the card: nvidia-smi's name and power limit, and torch's device name;
@@ -30,26 +32,42 @@ Phases, one line each:
      forward's three attention shapes in f32, at bench.py's attention configuration (b8
      h16 t4096 d64 bf16, causal, and with its padding mask) and at small ragged shapes
      with a fully masked row; bit-identical across two runs;
-  7. the Transformer path: counts zeroed, one forward under ``torch.inference_mode()``,
+  7. K3 against its plain PyTorch version and against K2 on the card, in O and LSE: at the
+     forward's three shapes and the step's two (f32), at bench.py's two, at small ragged
+     shapes (d of 32, 33, 100 and 128, f16, causal with Tk > Tq and Tq > Tk, a bool mask
+     with a fully masked row) and with a float bias; bit-identical across two runs; then
+     K2 and K3 timed in turns at each large shape, K3's plain version and the library call
+     at the encoder shape;
+  8. the Transformer path: counts zeroed, one forward under ``torch.inference_mode()``,
      counts read (K2 exactly 18 times); the output is finite and of the right shape, and
      a 1 + 1-layer model at T = 512 on the card equals the port's CPU path; then the
      forward is timed (best of 2 after the counted run), K2 timed at each shape, and one
-     forward traced with torch.profiler for its device time by kind of kernel;
-  8. the D pass, K4 and K5 against the plain backward on the card, in dQ, dK and dV: at
+     forward traced with torch.profiler for its device time by kind of kernel; then the
+     same with ``HEAT_TPU_FLASH_PIPELINE=1``: counts zeroed, one forward, counts read (K3
+     exactly 18 times, K2 none), its output equal to the knob-off one within 1e-4 of its
+     largest magnitude, timed and traced;
+  9. the D pass, K4 and K5 against the plain backward on the card, in dQ, dK and dV: at
      the training step's three attention shapes in f32, at bench.py's bf16 causal shape
      and at small ragged shapes (causal with Tk > Tq, Tq > Tk, d of 32, 100 and 128, a
      bool mask with a fully masked row); bit-identical across two runs; and autograd
      through the port's ``flash_attention`` equal to autograd through the plain forward;
-  9. the training path: counts zeroed, one step (forward, backward, Adam), counts read
+ 10. the training path: counts zeroed, one step (forward, backward, Adam), counts read
      (K2, D, K4 and K5 exactly 18 times each); TF32 off inside the forward and the
      backward; the loss and every gradient finite and the parameters changed; a
      1 + 1-layer d_model 512 model at T = 512 on the card equal to the port's CPU path in
-     the loss and every gradient of one step and in the loss after three SGD steps; then
-     the step timed (best of 2 after the counted run) with its tokens/s and peak memory,
-     and one step traced with torch.profiler;
- 10. one JSON line listing every ported kernel with its launches on its path, its time,
+     the loss and every gradient of one step and in the loss after three SGD steps, and
+     its first step with ``HEAT_TPU_FLASH_PIPELINE=1`` equal to the knob-off one by the
+     same rules; then the step timed (best of 2 after the counted run) with its tokens/s
+     and peak memory, and one step traced with torch.profiler; then one step from the same
+     weights with ``HEAT_TPU_FLASH_PIPELINE=1``: counts zeroed and read (K3, D, K4 and K5
+     exactly 18 times each, K2 none), its loss within 1e-5 of the knob-off step's and each
+     gradient within 1e-2 of its norm (two knob-off steps give the same bits), timed and
+     traced;
+ 11. bench.py's attention A/B (bench.py:252-274): causal scaled_dot_product_attention at
+     b8 h16 t4096 d64 bf16 with the knob off (K2) and on (K3), in turns, in ms and TFLOP/s;
+ 12. one JSON line listing every ported kernel with its launches on its path, its time,
      its bound on this card, its plain version's time and a library call's time;
- 11. the last line, ``{"ok": true, "device": {...}}``.
+ 13. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script then exits non-zero without the last line. It
 also fails when CUDA is not available or when the heat_tpu_torch package is not beside
@@ -59,6 +77,7 @@ it. It imports nothing of JAX or heat_tpu.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -76,6 +95,7 @@ N, D, K, MAX_ITER, SEED = 10_000_000, 64, 8, 30, 0
 # the Transformer path: Transformer-base at its defaults, one request of 8 sequences
 BATCH, SRC_T, TGT_T = 8, 4096, 2048
 FLASH_PER_FORWARD = 18  # 6 encoder self-, 6 causal decoder self-, 6 cross-attentions
+PIPELINE_KNOB = "HEAT_TPU_FLASH_PIPELINE"  # "1": every flash forward runs K3 in place of K2
 # bench.py's attention configuration (bench.py:223-224, 248)
 BENCH_B, BENCH_H, BENCH_T, BENCH_D = 8, 16, 4096, 64
 
@@ -125,6 +145,24 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+@contextlib.contextmanager
+def pipelined(on: bool):
+    """``HEAT_TPU_FLASH_PIPELINE`` set to "1" (K3) or unset (K2) around a block, then put
+    back as it was: the port reads the knob on every call."""
+    prior = os.environ.get(PIPELINE_KNOB)
+    if on:
+        os.environ[PIPELINE_KNOB] = "1"
+    else:
+        os.environ.pop(PIPELINE_KNOB, None)
+    try:
+        yield
+    finally:
+        if prior is None:
+            os.environ.pop(PIPELINE_KNOB, None)
+        else:
+            os.environ[PIPELINE_KNOB] = prior
 
 
 def blobs(n: int, d: int, k: int, seed: int, device):
@@ -245,6 +283,28 @@ def k2_inputs(bh, tq, tk, d, dtype, seed, device):
     return tuple(torch.randn(bh, t, d, generator=gen, device=device).to(dtype) for t in (tq, tk, tk))
 
 
+def fwd_err(o, lse, ro, rl) -> tuple:
+    """(max |ΔO|, max |ΔLSE|, worst err/tol) of a flash forward against another one:
+    f32 O within rtol = atol = 2e-4, bf16/f16 O within one rounding (2⁻⁷ relative) plus
+    2e-4, LSE within 2e-4."""
+    import torch
+
+    rtol = 2e-4 if o.dtype == torch.float32 else 2.0**-7
+    do = (o.float() - ro.float()).abs()
+    dl = (lse - rl).abs()
+    worst = max(float((do / (2e-4 + rtol * ro.float().abs())).max()), float((dl / (2e-4 + 2e-4 * rl.abs())).max()))
+    return float(do.max()), float(dl.max()), worst
+
+
+def check_dead_rows(name, k2, o, lse, dead_rows) -> None:
+    """Fully masked rows give O exactly 0 and LSE exactly NEG_INF/2 + log(1e-30)."""
+    import torch
+
+    dead_lse = torch.tensor(k2._NEG_INF / 2, dtype=torch.float32) + torch.log(torch.tensor(1e-30))
+    for r in dead_rows:
+        check(bool((o[:, r] == 0).all()) and bool((lse[:, r].cpu() == dead_lse).all()), f"{name}'s fully masked row {r}")
+
+
 def check_k2(k2, q, k, v, causal: bool, mask, dead_rows=()) -> dict:
     """K2 against its plain version on the same card and inputs, in O and LSE.
 
@@ -266,26 +326,51 @@ def check_k2(k2, q, k, v, causal: bool, mask, dead_rows=()) -> dict:
         tk = k.shape[1]
         chunk = max(1, (1 << 28) // (tq * tk))
         bias = k2._as_bias(mask)
-        rtol = 2e-4 if q.dtype == torch.float32 else 2.0**-7
         err_o = err_lse = worst = 0.0
         for s0 in range(0, bh, chunk):
             sl = slice(s0, s0 + chunk)
             ro, rl = k2.flash_attention_reference(q[sl], k[sl], v[sl], causal, None, bias)
-            do = (o[sl].float() - ro.float()).abs()
-            dl = (lse[sl] - rl).abs()
-            err_o = max(err_o, float(do.max()))
-            err_lse = max(err_lse, float(dl.max()))
-            worst = max(
-                worst,
-                float((do / (2e-4 + rtol * ro.float().abs())).max()),
-                float((dl / (2e-4 + 2e-4 * rl.abs())).max()),
-            )
+            e = fwd_err(o[sl], lse[sl], ro, rl)
+            err_o, err_lse, worst = max(err_o, e[0]), max(err_lse, e[1]), max(worst, e[2])
         check(worst <= 1.0, f"K2 disagrees with its plain version: err/tol {worst} (O {err_o}, LSE {err_lse})")
-        for r in dead_rows:
-            dead_lse = torch.tensor(k2._NEG_INF / 2, dtype=torch.float32) + torch.log(torch.tensor(1e-30))
-            check(bool((o[:, r] == 0).all()) and bool((lse[:, r].cpu() == dead_lse).all()), f"K2's fully masked row {r}")
+        check_dead_rows("K2", k2, o, lse, dead_rows)
         check(bool(torch.isfinite(o.float()).all() and torch.isfinite(lse).all()), "K2 gave a value that is not finite")
     return {"max_abs_err_o": err_o, "max_abs_err_lse": err_lse, "err_over_tol": worst}
+
+
+def check_k3(k2, q, k, v, causal: bool, mask, dead_rows=()) -> dict:
+    """K3 (``flash_attention_fwd`` with ``HEAT_TPU_FLASH_PIPELINE=1``) against its plain
+    version, ``flash_attention_pipelined_reference``, and against K2 on the same card and
+    inputs, in O and LSE, within :func:`fwd_err`'s tolerances: all three compute in fp32
+    and differ in the order of their sums. Fully masked rows as in K2; every value finite;
+    two runs identical. The plain version runs in chunks of batch·heads."""
+    import torch
+
+    with torch.no_grad():
+        with pipelined(True):
+            o, lse = k2.flash_attention_fwd(q, k, v, causal, None, mask)
+            o2, lse2 = k2.flash_attention_fwd(q, k, v, causal, None, mask)
+        with pipelined(False):
+            ko, kl = k2.flash_attention_fwd(q, k, v, causal, None, mask)
+        torch.cuda.synchronize()
+        check(torch.equal(o, o2) and torch.equal(lse, lse2), "K3 is not deterministic")
+        bh, tq, _ = q.shape
+        tk = k.shape[1]
+        chunk = max(1, (1 << 28) // (tq * tk))
+        bias = k2._as_bias(mask)
+        err_o = err_lse = worst = 0.0
+        for s0 in range(0, bh, chunk):
+            sl = slice(s0, s0 + chunk)
+            ro, rl = k2.flash_attention_pipelined_reference(q[sl], k[sl], v[sl], causal, None, bias)
+            e = fwd_err(o[sl], lse[sl], ro, rl)
+            err_o, err_lse, worst = max(err_o, e[0]), max(err_lse, e[1]), max(worst, e[2])
+        check(worst <= 1.0, f"K3 disagrees with its plain version: err/tol {worst} (O {err_o}, LSE {err_lse})")
+        vs_k2 = fwd_err(o, lse, ko, kl)
+        check(vs_k2[2] <= 1.0, f"K3 disagrees with K2: err/tol {vs_k2[2]} (O {vs_k2[0]}, LSE {vs_k2[1]})")
+        check_dead_rows("K3", k2, o, lse, dead_rows)
+        check(bool(torch.isfinite(o.float()).all() and torch.isfinite(lse).all()), "K3 gave a value that is not finite")
+    return {"max_abs_err_o": err_o, "max_abs_err_lse": err_lse, "err_over_tol": worst,
+            "vs_k2_max_abs_err_o": vs_k2[0], "vs_k2_max_abs_err_lse": vs_k2[1], "vs_k2_err_over_tol": vs_k2[2]}
 
 
 def bwd_bounds_ms(bh: int, tq: int, tk: int, d: int, causal: bool, itemsize: int) -> dict:
@@ -361,6 +446,7 @@ def check_bwd(k2, q, k, v, causal: bool, mask, seed: int) -> dict:
 KERNEL_KINDS = (
     # (kind, substrings of a CUDA kernel's name), the first match wins
     ("k2_flash_attention", ("flash_attention_fwd_kernel",)),
+    ("k3_flash_attention_pipelined", ("flash_attention_fwd_pipelined_kernel",)),
     ("d_pass", ("flash_attention_bwd_d_kernel",)),
     ("k4_dq", ("flash_attention_bwd_dq_kernel",)),
     ("k5_dkv", ("flash_attention_bwd_dkv_kernel",)),
@@ -442,6 +528,7 @@ def main() -> int:
         return 2
     k1 = kernels.kmeans
     k2 = kernels.flash_attention
+    os.environ.pop(PIPELINE_KNOB, None)  # K2 wherever a phase does not ask for K3
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     ht.use_device("gpu")
@@ -461,9 +548,11 @@ def main() -> int:
     sources = sorted({mod.SOURCE for mod in kernels.KERNELS.values()})
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         builds = dict(zip(sources, pool.map(_nvcc.build, sources)))
+    build_info = {}
     for source, b in builds.items():
         names = [kname for kname, mod in kernels.KERNELS.items() if mod.SOURCE == source]
         ptxas = [ln.strip() for ln in b["log"].splitlines() if "registers" in ln or "spill" in ln]
+        build_info[source.name] = {"nvcc_s": b["seconds"], "ptxas": ptxas}
         phase("build", source=source.name, kernels=",".join(names), built=b["built"], nvcc_s=f"{b['seconds']:.2f}",
               ptxas=json.dumps(ptxas))
     phase("build", total_s=f"{time.perf_counter() - t0:.2f}")
@@ -580,7 +669,74 @@ def main() -> int:
             del q, k, v
     torch.cuda.empty_cache()
 
-    # 7. the Transformer path: Transformer-base, one forward of src (8, 4096, 512), tgt (8, 2048, 512)
+    # 7. K3 against its plain version and against K2 on the card
+    f16 = torch.float16
+    t_heads = TRAIN_B * 8  # batch x heads of the training step
+    k3_cases = {
+        # name: (bh, tq, tk, d, causal, dtype, mask)
+        "encoder_self": (e_heads, SRC_T, SRC_T, 64, False, f32, None),
+        "decoder_self_causal": (e_heads, TGT_T, TGT_T, 64, True, f32, None),
+        "decoder_cross": (e_heads, TGT_T, SRC_T, 64, False, f32, None),
+        "bench_causal_bf16": (BENCH_B * BENCH_H, BENCH_T, BENCH_T, BENCH_D, True, bf16, None),
+        "bench_padding_mask_bf16": (BENCH_B * BENCH_H, BENCH_T, BENCH_T, BENCH_D, False, bf16, "padding"),
+        "step_self": (t_heads, TRAIN_T, TRAIN_T, 64, False, f32, None),
+        "step_self_causal": (t_heads, TRAIN_T, TRAIN_T, 64, True, f32, None),
+        "ragged_causal_tk_gt_tq_d32_f16": (3, 37, 90, 32, True, f16, None),
+        "ragged_causal_tq_gt_tk_d100_f32": (2, 130, 61, 100, True, f32, None),
+        "ragged_d128_dead_row_f32": (2, 70, 100, 128, True, f32, "random"),
+        "ragged_d100_dead_row_bf16": (2, 130, 97, 100, False, bf16, "random"),
+        "ragged_d33_causal_f16": (2, 70, 45, 33, True, f16, None),  # rows not 4-byte aligned: plain-load copies
+        "float_bias_dead_row_f32": (4, 300, 260, 64, False, f32, "float"),
+    }
+    k3_timed = ("encoder_self", "decoder_self_causal", "decoder_cross", "bench_causal_bf16", "step_self", "step_self_causal")
+    k3_checks, k3_data = {}, {}
+    for i, (cname, (bh, tq, tk, dh, causal, dtype, mkind)) in enumerate(k3_cases.items()):
+        q, k, v = k2_inputs(bh, tq, tk, dh, dtype, SEED + 700 + i, dev)
+        mask, dead = None, ()
+        gen = torch.Generator(device=dev).manual_seed(SEED + 800 + i)
+        if mkind == "padding":  # bench.py:248: the last T/8 keys are padding
+            mask = (torch.arange(tk, device=dev)[None, :] < tk - tk // 8).expand(tq, tk).contiguous()
+        elif mkind == "random":
+            mask = torch.rand(tq, tk, generator=gen, device=dev) < 0.7
+            dead = (3,)
+            mask[3] = False
+        elif mkind == "float":
+            mask = torch.randn(tq, tk, generator=gen, device=dev)
+            dead = (5,)
+            mask[5] = k2._NEG_INF
+        got = check_k3(k2, q, k, v, causal, mask, dead)
+        k3_checks[cname] = got
+        phase("k3_vs_plain_and_k2", case=cname, shape=f"{bh}x{tq}x{tk}x{dh}", dtype=str(dtype).split(".")[-1],
+              causal=causal, mask=mkind, **got, deterministic=True)
+        if cname in k3_timed:
+            k3_data[cname] = (q, k, v, causal)
+        else:
+            del q, k, v
+    # K2 and K3 in turns (K2, K3, K3, K2) at each large shape, then K3's plain version and
+    # the library call at the encoder shape
+    k3_ms, k3_k2_ms, k3_bounds = {}, {}, {}
+    with torch.no_grad():
+        for cname, (q, k, v, causal) in k3_data.items():
+            runs = []
+            for on in (False, True, True, False):
+                with pipelined(on):
+                    runs.append(cuda_ms(lambda: k2.flash_attention_fwd(q, k, v, causal), reps=5, warmup=1))
+            k3_ms[cname], k3_k2_ms[cname] = (runs[1] + runs[2]) / 2, (runs[0] + runs[3]) / 2
+            bh, tq, dh = q.shape
+            k3_bounds[cname] = k2_bound_ms(bh, tq, k.shape[1], dh, causal, q.element_size())
+        q, k, v, _ = k3_data["encoder_self"]
+        k3_plain_ms = cuda_ms(lambda: k2.flash_attention_pipelined_reference(q, k, v, False), reps=3, warmup=1)
+        q4, k4, v4 = (t.view(BATCH, 8, t.shape[1], t.shape[2]) for t in (q, k, v))
+        k3_library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4), reps=10, warmup=2)
+        del q4, k4, v4
+    phase("k3_time", k3_ms=json.dumps(k3_ms), k2_ms_in_turns=json.dumps(k3_k2_ms),
+          k3_over_k2=json.dumps({c: k3_ms[c] / k3_k2_ms[c] for c in k3_ms}),
+          bound_ms=json.dumps({c: b[0] for c, b in k3_bounds.items()}), plain_ms=repr(k3_plain_ms),
+          library_ms=repr(k3_library_ms))
+    del k3_data
+    torch.cuda.empty_cache()
+
+    # 8. the Transformer path: Transformer-base, one forward of src (8, 4096, 512), tgt (8, 2048, 512)
     torch.manual_seed(SEED)
     model = ht.nn.Transformer()  # on the card: the port's default device
     check(all(p.is_cuda for p in model.parameters()), "the model's parameters are not on the card")
@@ -650,11 +806,39 @@ def main() -> int:
     # where the forward's device time goes: one forward under torch.profiler, kernels by kind
     breakdown = profile_device(lambda: model(src, tgt, tgt_is_causal=True))
     phase("transformer_forward_profile", **{k: json.dumps(v) for k, v in breakdown.items()})
-    del model, src, tgt, out
+
+    # the serving path with HEAT_TPU_FLASH_PIPELINE=1: the same forward, every attention on K3
+    with pipelined(True):
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            out_on = model(src, tgt, tgt_is_causal=True)
+            torch.cuda.synchronize()
+            t_counts_on = kernels.launch_counts()
+        peak_on_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(t_counts_on["flash_attention_fwd_pipelined"] == FLASH_PER_FORWARD and t_counts_on["flash_attention_fwd"] == 0,
+              f"launches on the knob-on Transformer path: {t_counts_on}")
+        on_err = float((out_on - out).abs().max())
+        check(on_err <= 1e-4 * float(out.abs().max()), f"the knob-on forward is {on_err} from the knob-off one")
+        fwd_on_walls = []
+        with torch.inference_mode():
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model(src, tgt, tgt_is_causal=True)
+                torch.cuda.synchronize()
+                fwd_on_walls.append(time.perf_counter() - t0)
+        fwd_on_s = min(fwd_on_walls)
+        breakdown_on = profile_device(lambda: model(src, tgt, tgt_is_causal=True))
+    phase("transformer_forward_pipelined", launches=json.dumps(t_counts_on), max_abs_err_vs_knob_off=on_err,
+          out_max_abs=float(out.abs().max()), peak_gb=f"{peak_on_gb:.2f}", best_of_2_s=repr(fwd_on_s),
+          walls_s=json.dumps(fwd_on_walls), tokens_per_s=repr(BATCH * (SRC_T + TGT_T) / fwd_on_s))
+    phase("transformer_forward_pipelined_profile", **{k: json.dumps(v) for k, v in breakdown_on.items()})
+    del model, src, tgt, out, out_on
     torch.cuda.empty_cache()
 
-    # 8. the D pass, K4 and K5 against the plain backward on the card
-    t_heads = TRAIN_B * 8  # batch x heads of the training step
+    # 9. the D pass, K4 and K5 against the plain backward on the card
     bwd_cases = {
         # name: (bh, tq, tk, d, causal, dtype, mask)
         "encoder_self": (t_heads, TRAIN_T, TRAIN_T, 64, False, f32, None),
@@ -697,7 +881,7 @@ def main() -> int:
     del qa, ka, va, ga, got, want
     torch.cuda.empty_cache()
 
-    # 9. the training path: one step of the Transformer-base seq2seq model, 12 x 2048 + 12 x 2048 tokens
+    # 10. the training path: one step of the Transformer-base seq2seq model, 12 x 2048 + 12 x 2048 tokens
     torch.manual_seed(SEED)
     model = s2s.Seq2Seq(vocab=VOCAB, max_len=TRAIN_T, d_model=512, nhead=8, layers=6, dim_feedforward=2048).train()
     check(all(p.is_cuda for p in model.parameters()), "the model's parameters are not on the card")
@@ -739,13 +923,14 @@ def main() -> int:
     moved = [n for n, p in params.items() if not torch.equal(p.detach(), before[n])]
     still = [n for n in params if n not in moved and bool(params[n].grad.any())]
     check(not still and len(moved) > 0.9 * len(params), f"parameters with a gradient that did not change: {still}")
-    del before
+    grads_off = {n: p.grad.detach().clone() for n, p in params.items()}
     # a 1 + 1-layer d_model 512 model at T = 512 on the card against the port's CPU path
     torch.manual_seed(SEED + 5)
     small_cfg = dict(vocab=1000, max_len=512, d_model=512, nhead=8, layers=1, dim_feedforward=2048)
     small = s2s.Seq2Seq(**small_cfg).train()
     small_cpu = s2s.Seq2Seq(**small_cfg, device="cpu").train()
     small_cpu.load_state_dict({n: t.cpu() for n, t in small.state_dict().items()})
+    small_init = {n: t.clone() for n, t in small.state_dict().items()}
     opt_g, opt_c = (ht.optim.DataParallelOptimizer("sgd", lr=0.1) for _ in range(2))
     ht.nn.DataParallel(small, optimizer=opt_g)
     ht.nn.DataParallel(small_cpu, optimizer=opt_c)
@@ -760,6 +945,7 @@ def main() -> int:
         small_losses.append((float(lg), float(lc)))
         check(all(small_counts[n] == 3 for n in flash), f"launches in the small step: {small_counts}")
         if i == 0:
+            small_grads0 = {n: pg.grad.clone() for n, pg in small.named_parameters()}
             # fp32 on both sides (the kernels and cuBLAS without TF32 against the CPU's plain
             # path), summed in other orders: each gradient within 1e-3 of its largest entry
             for (n, pg), (_, pc) in zip(small.named_parameters(), small_cpu.named_parameters()):
@@ -771,10 +957,28 @@ def main() -> int:
     check(grad_ratio <= 1.0, f"the small model's gradients on the card and the CPU differ: err/tol {grad_ratio}")
     check(abs(small_losses[0][0] - small_losses[0][1]) <= 1e-5 * abs(small_losses[0][1]), f"small losses {small_losses}")
     check(abs(after[0] - after[1]) <= 1e-4 * abs(after[1]), f"the small model's loss after three SGD steps: {after}")
+    # the small model's first step again with the knob on: K3 in place of K2, held to the
+    # knob-off step by the same rules (loss 1e-5, each gradient within 1e-3 of its largest entry)
+    small_on = s2s.Seq2Seq(**small_cfg).train()
+    small_on.load_state_dict(small_init)
+    opt_on = ht.optim.DataParallelOptimizer("sgd", lr=0.1)
+    ht.nn.DataParallel(small_on, optimizer=opt_on)
+    with pipelined(True):
+        kernels.reset_launch_counts()
+        lo = float(opt_on.step(s2s.seq2seq_loss, *(ht.array(t, split=0) for t in small_batches[0])))
+        torch.cuda.synchronize()
+        small_on_counts = kernels.launch_counts()
+    check(small_on_counts["flash_attention_fwd_pipelined"] == 3 and small_on_counts["flash_attention_fwd"] == 0,
+          f"launches in the small knob-on step: {small_on_counts}")
+    small_on_ratio = max(float((p.grad - small_grads0[n]).abs().max()) / (1e-3 * float(small_grads0[n].abs().max()) + 1e-30)
+                         for n, p in small_on.named_parameters())
+    check(abs(lo - small_losses[0][0]) <= 1e-5 * abs(small_losses[0][0]), f"small knob-on loss {lo}, knob-off {small_losses[0][0]}")
+    check(small_on_ratio <= 1.0, f"the small model's knob-on gradients differ from its knob-off ones: err/tol {small_on_ratio}")
+    del small_on, opt_on, small_init, small_grads0
     phase("train_step", params=n_params, tokens=f"{TRAIN_B}x{TRAIN_T}+{TRAIN_B}x{TRAIN_T}", vocab=VOCAB,
           launches=json.dumps(train_counts), loss=repr(loss0), lr_after=repr(opt.lr), peak_gb=f"{train_peak_gb:.2f}",
           tf32=json.dumps(tf32_seen), small_grad_err_over_tol=grad_ratio, small_losses=json.dumps(small_losses),
-          small_loss_after_3_sgd=json.dumps(after))
+          small_loss_after_3_sgd=json.dumps(after), small_knob_on_loss=repr(lo), small_knob_on_grad_err_over_tol=small_on_ratio)
     del small, small_cpu, opt_g, opt_c, small_batches
     # the step's time: best of 2 after the counted one
     step_walls = []
@@ -790,7 +994,103 @@ def main() -> int:
           tokens_per_s=repr(2 * TRAIN_B * TRAIN_T / step_s), peak_gb=f"{train_peak_gb:.2f}")
     train_breakdown = profile_device(lambda: opt.step(s2s.seq2seq_loss, *batch), inference=False)
     phase("train_step_profile", **{k: json.dumps(v) for k, v in train_breakdown.items()})
-    del model, opt, sched, batch, params, loss
+    del model, opt, sched, params, loss
+    torch.cuda.empty_cache()
+
+    # the training path with HEAT_TPU_FLASH_PIPELINE=1: one step of the same model from the
+    # same weights and batch, every forward attention on K3
+    model = s2s.Seq2Seq(vocab=VOCAB, max_len=TRAIN_T, d_model=512, nhead=8, layers=6, dim_feedforward=2048).train()
+
+    def restore():
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(before[n])
+
+    def grad_errors(want: dict) -> dict:
+        """Each gradient's max |difference| from ``want`` over 1e-3 of its largest entry, and
+        its relative L2 difference."""
+        return {n: (float((p.grad - want[n]).abs().max()) / (1e-3 * float(want[n].abs().max()) + 1e-30),
+                    float((p.grad - want[n]).norm()) / (float(want[n].norm()) + 1e-30))
+                for n, p in model.named_parameters()}
+
+    restore()
+    opt = ht.optim.DataParallelOptimizer("adam", lr=1.0)
+    ht.nn.DataParallel(model, optimizer=opt)
+    sched = ht.optim.lr_scheduler.LambdaLR(opt, lambda e: 512**-0.5 * min((e + 1) ** -0.5, (e + 1) * WARMUP**-1.5))
+    with pipelined(True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        loss = opt.step(s2s.seq2seq_loss, *batch)
+        torch.cuda.synchronize()
+        train_counts_on = kernels.launch_counts()
+        train_peak_on_gb = torch.cuda.max_memory_allocated() / 1e9
+        sched.step()
+        loss_on = float(loss)
+        on_errs = grad_errors(grads_off)
+        check(all(bool(torch.isfinite(p.grad).all()) for p in model.parameters()), "a knob-on gradient is not finite")
+    # the same step again with the knob off, from the same weights: two knob-off steps give
+    # the same bits, so what differs in the knob-on step comes from K3 alone
+    restore()
+    opt.step(s2s.seq2seq_loss, *batch)
+    aa_errs = grad_errors(grads_off)
+    del grads_off, before
+    worst = sorted(on_errs, key=lambda n: on_errs[n][0], reverse=True)[:6]
+    worst_l2 = max(on_errs, key=lambda n: on_errs[n][1])
+    phase("train_step_pipelined_grads", loss_on=repr(loss_on), loss_off=repr(loss0),
+          worst_err_over_tol=json.dumps({n: on_errs[n][0] for n in worst}),
+          worst_rel_l2=json.dumps([worst_l2, on_errs[worst_l2][1]]), knob_off_again_max_diff=max(v[0] for v in aa_errs.values()))
+    flash_on = ("flash_attention_fwd_pipelined", *flash[1:])
+    check(all(train_counts_on[n] == FLASH_PER_FORWARD for n in flash_on) and train_counts_on["flash_attention_fwd"] == 0,
+          f"launches in one knob-on training step: {train_counts_on}")
+    check(max(v[0] for v in aa_errs.values()) == 0.0, "two knob-off steps from the same weights gave other gradients")
+    check(abs(loss_on - loss0) <= 1e-5 * abs(loss0), f"knob-on loss {loss_on}, knob-off {loss0}")
+    # At this depth and length the entrywise rule of the small model does not hold for any
+    # two fp32 forwards that sum in another order: a pre-activation of linear1 within
+    # rounding of 0 flips its ReLU, which moves whole entries of linear1's gradients (where
+    # the worst entries lie, PERF.md), and the softmax backward's cancellations amplify the
+    # rest. So the full step is held to 1e-2 of each gradient's norm; the
+    # small model above holds K3 to the entrywise 1e-3.
+    on_rel_l2 = on_errs[worst_l2][1]
+    check(on_rel_l2 <= 1e-2, f"knob-on gradients differ from the knob-off step's: relative L2 {on_rel_l2} in {worst_l2}")
+    with pipelined(True):
+        step_on_walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt.step(s2s.seq2seq_loss, *batch)
+            sched.step()
+            torch.cuda.synchronize()
+            step_on_walls.append(time.perf_counter() - t0)
+        step_on_s = min(step_on_walls)
+        train_breakdown_on = profile_device(lambda: opt.step(s2s.seq2seq_loss, *batch), inference=False)
+    phase("train_step_pipelined", launches=json.dumps(train_counts_on), loss=repr(loss_on),
+          grad_rel_l2_vs_knob_off=on_rel_l2, peak_gb=f"{train_peak_on_gb:.2f}", best_of_2_s=repr(step_on_s),
+          walls_s=json.dumps(step_on_walls), tokens_per_s=repr(2 * TRAIN_B * TRAIN_T / step_on_s))
+    phase("train_step_pipelined_profile", **{k: json.dumps(v) for k, v in train_breakdown_on.items()})
+    del model, opt, sched, batch, loss
+    torch.cuda.empty_cache()
+
+    # 11. bench.py's attention A/B (bench.py:252-274): causal sdpa at b8 h16 t4096 d64 bf16,
+    #     the knob off (K2) and on (K3), in turns; TFLOP/s under bench.py's count
+    gen = torch.Generator(device=dev).manual_seed(SEED + 900)
+    qb, kb, vb = (torch.randn(BENCH_B, BENCH_H, BENCH_T, BENCH_D, generator=gen, device=dev).to(bf16) for _ in range(3))
+    bench_flops = 2 * 2 * BENCH_B * BENCH_H * BENCH_T * BENCH_T * BENCH_D / 2
+    ab_runs, ab_counts = [], []
+    with torch.no_grad():
+        for on in (False, True, True, False):
+            with pipelined(on):
+                kernels.reset_launch_counts()
+                ht.nn.scaled_dot_product_attention(qb, kb, vb, is_causal=True)
+                ab_counts.append(kernels.launch_counts())
+                ab_runs.append(cuda_ms(lambda: ht.nn.scaled_dot_product_attention(qb, kb, vb, is_causal=True), reps=10))
+    check(all(c["flash_attention_fwd"] == (not on) and c["flash_attention_fwd_pipelined"] == on
+              for c, on in zip(ab_counts, (False, True, True, False))), f"the A/B's launches: {ab_counts}")
+    ab_k2_ms, ab_k3_ms = (ab_runs[0] + ab_runs[3]) / 2, (ab_runs[1] + ab_runs[2]) / 2
+    phase("bench_attention_ab", shape=f"{BENCH_B}x{BENCH_H}x{BENCH_T}x{BENCH_D}", dtype="bfloat16", causal=True,
+          runs_ms=json.dumps(ab_runs), k2_ms=repr(ab_k2_ms), k3_ms=repr(ab_k3_ms),
+          k2_tflops=repr(bench_flops / ab_k2_ms / 1e9), k3_tflops=repr(bench_flops / ab_k3_ms / 1e9))
+    del qb, kb, vb
     torch.cuda.empty_cache()
 
     # the backward's kernels one by one at each shape, its plain version and the library call
@@ -824,7 +1124,7 @@ def main() -> int:
     del bwd_data
     torch.cuda.empty_cache()
 
-    # 10. every ported kernel: launches on its path, time, bound, plain version's and library's time
+    # 12. every ported kernel: launches on its path, time, bound, plain version's and library's time
     x, init, _ = blobs(N, D, K, SEED, dev)
     ms = cuda_ms(lambda: k1.fused_assign_update_packed(x, init), reps=20, warmup=3)
     plain_ms = cuda_ms(lambda: k1.fused_assign_update_reference(x, init), reps=5, warmup=1)
@@ -917,13 +1217,37 @@ def main() -> int:
                      "max_abs_err_dk", "dK against the plain backward, encoder shape"),
                 )
             ),
+            {
+                "name": "flash_attention_fwd_pipelined",
+                "route": "cuda",
+                "source": "heat_tpu_torch/core/kernels/csrc/flash_attention_fwd_pipelined.cu",
+                "replaces": "heat_tpu/core/kernels/flash_attention.py:238",
+                "launches": t_counts_on["flash_attention_fwd_pipelined"],
+                "max_abs_err": k3_checks["encoder_self"]["max_abs_err_o"],
+                "ms": k3_ms["encoder_self"],
+                "plain_ms": k3_plain_ms,
+                "bound_ms": k3_bounds["encoder_self"][0],
+                "bound_by": k3_bounds["encoder_self"][1],
+                "library_ms": k3_library_ms,
+                "library_note": "torch.nn.functional.scaled_dot_product_attention on the same f32 inputs, timed only",
+                "max_abs_err_of": "O against flash_attention_pipelined_reference, encoder shape",
+                "err_over_tol": k3_checks["encoder_self"]["err_over_tol"],
+                "shape": [e_heads, SRC_T, SRC_T, 64],
+                "dtype": "float32",
+                "launches_of": "one Transformer-base forward with HEAT_TPU_FLASH_PIPELINE=1",
+                "launches_in_training_step": train_counts_on["flash_attention_fwd_pipelined"],
+                "ms_by_shape": k3_ms,
+                "k2_ms_by_shape": k3_k2_ms,
+                "bound_ms_by_shape": {c: b[0] for c, b in k3_bounds.items()},
+                "achieved_flops_per_s": 4 * e_heads * 64 * attention_pairs(SRC_T, SRC_T, False) / (k3_ms["encoder_self"] * 1e-3),
+            },
         ]
     }
     print(json.dumps(line), flush=True)
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)), exist_ok=True)
         with open(args.json_out, "w") as fh:
-            json.dump({"nvidia_smi": smi, **line, "fit_best_of_2_s": fit_s, "fit_walls_s": walls,
+            json.dump({"nvidia_smi": smi, "builds": build_info, **line, "fit_best_of_2_s": fit_s, "fit_walls_s": walls,
                        "inertia": inertia, "checks": {"x".join(map(str, key)): v for key, v in checks.items()},
                        "k2_checks": k2_checks, "forward_best_of_2_s": fwd_s, "forward_walls_s": fwd_walls,
                        "k2_in_forward_ms": attn_ms, "forward_peak_gb": peak_gb,
@@ -932,9 +1256,16 @@ def main() -> int:
                        "train_step_walls_s": step_walls, "train_step_peak_gb": train_peak_gb,
                        "train_step_profile": train_breakdown, "small_train_grad_err_over_tol": grad_ratio,
                        "small_train_losses": small_losses, "bwd_ms": bwd_ms, "bwd_plain_ms": bwd_plain_ms,
-                       "bwd_library_ms": bwd_library_ms}, fh, indent=1)
+                       "bwd_library_ms": bwd_library_ms, "k3_checks": k3_checks,
+                       "forward_pipelined_launches": t_counts_on, "forward_pipelined_best_of_2_s": fwd_on_s,
+                       "forward_pipelined_walls_s": fwd_on_walls, "forward_pipelined_profile": breakdown_on,
+                       "train_step_pipelined_launches": train_counts_on, "train_step_pipelined_loss": loss_on,
+                       "train_step_pipelined_best_of_2_s": step_on_s, "train_step_pipelined_walls_s": step_on_walls,
+                       "train_step_pipelined_peak_gb": train_peak_on_gb,
+                       "train_step_pipelined_profile": train_breakdown_on, "bench_ab_runs_ms": ab_runs,
+                       "bench_ab_k2_ms": ab_k2_ms, "bench_ab_k3_ms": ab_k3_ms}, fh, indent=1)
 
-    # 11. the last line
+    # 13. the last line
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
 

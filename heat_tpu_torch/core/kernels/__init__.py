@@ -10,6 +10,7 @@ from .flash_attention import (
     flash_attention_bwd,
     flash_attention_bwd_reference,
     flash_attention_fwd,
+    flash_attention_pipelined_reference,
     flash_attention_reference,
 )
 from .kmeans import fused_assign_update, fused_assign_update_reference
@@ -20,6 +21,7 @@ __all__ = [
     "flash_attention_bwd",
     "flash_attention_bwd_reference",
     "flash_attention_fwd",
+    "flash_attention_pipelined_reference",
     "flash_attention_reference",
     "fused_assign_update",
     "fused_assign_update_reference",
@@ -36,6 +38,7 @@ KERNELS = {
     "flash_attention_bwd_d": flash_attention.bwd_d,
     "flash_attention_bwd_dq": flash_attention.bwd_dq,
     "flash_attention_bwd_dkv": flash_attention.bwd_dkv,
+    "flash_attention_fwd_pipelined": flash_attention.fwd_pipelined,
 }
 
 

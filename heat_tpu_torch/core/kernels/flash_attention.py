@@ -1,21 +1,26 @@
-"""K2, the flash-attention forward, and its backward (the D pass, K4 and K5): CUDA C++
-kernels for Hopper.
+"""The flash-attention forwards K2 and K3 and the backward (the D pass, K4 and K5): CUDA
+C++ kernels for Hopper.
 
 Replaces the Pallas TPU kernels of ``heat_tpu/core/kernels/flash_attention.py``: ``_kernel``
-(:156, launched by ``_flash_pallas``) for the forward, and ``_dq_kernel`` (:422) and
-``_dkv_kernel`` (:480, both launched by ``_flash_bwd_pallas``) with the D pre-pass
-(:592-596) for the backward; entry ``flash_attention``, gate ``use_flash``. The forward
-gives O = softmax(scale·QKᵀ [+ bias]) V and its log-sum-exp, the backward dQ, dK and dV
-from O, LSE and dO, with the (Tq, Tk) scores never reaching device memory. The sources,
-``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``, say what bounds each
-kernel on the card and how its design answers.
+(:156) and ``_kernel_pipelined`` (:238, both launched by ``_flash_pallas``) for the forward,
+and ``_dq_kernel`` (:422) and ``_dkv_kernel`` (:480, both launched by ``_flash_bwd_pallas``)
+with the D pre-pass (:592-596) for the backward; entry ``flash_attention``, gate
+``use_flash``. The forward gives O = softmax(scale·QKᵀ [+ bias]) V and its log-sum-exp, the
+backward dQ, dK and dV from O, LSE and dO, with the (Tq, Tk) scores never reaching device
+memory. K3 computes what K2 computes, with heat_tpu's one-step skew: the scores of a key
+tile are formed beside the exp and P·V of the tile before it. ``HEAT_TPU_FLASH_PIPELINE=1``
+selects it for every forward, as it selects ``_kernel_pipelined`` in heat_tpu; the port
+reads the variable on every call. The sources, ``csrc/flash_attention_fwd.cu``,
+``csrc/flash_attention_fwd_pipelined.cu`` and ``csrc/flash_attention_bwd.cu``, say what
+bounds each kernel on the card and how its design answers.
 
 :class:`_FlashAttention` is the ``torch.autograd.Function`` around them (heat_tpu's
-``custom_vjp``, flash_attention.py:722-775): K2 forward, saving q, k, v, O and LSE; D, K4
-and K5 backward, once differentiable. The wrappers take the plain PyTorch versions,
-:func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`, only for
-tensors that lie on the CPU, through the same ``Function``. A CUDA tensor launches the
-kernels or raises: there is no fallback. ``launches`` counts K2's launches, and
+``custom_vjp``, flash_attention.py:722-775): K2 or K3 forward, saving q, k, v, O and LSE;
+D, K4 and K5 backward, once differentiable. The wrappers take the plain PyTorch versions,
+:func:`flash_attention_reference`, :func:`flash_attention_pipelined_reference` and
+:func:`flash_attention_bwd_reference`, only for tensors that lie on the CPU, through the
+same ``Function``. A CUDA tensor launches the kernels or raises: there is no fallback.
+``launches`` counts K2's launches, ``fwd_pipelined.launches`` K3's, and
 ``bwd_d.launches``, ``bwd_dq.launches`` and ``bwd_dkv.launches`` those of the backward's
 three kernels.
 """
@@ -24,10 +29,12 @@ from __future__ import annotations
 
 import ctypes
 import math
+import os
 import types
 from pathlib import Path
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
@@ -39,6 +46,7 @@ __all__ = [
     "flash_attention_bwd",
     "flash_attention_bwd_reference",
     "flash_attention_fwd",
+    "flash_attention_pipelined_reference",
     "flash_attention_reference",
     "kernel_takes",
     "use_flash",
@@ -46,6 +54,7 @@ __all__ = [
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_fwd.cu"
 BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
+PIPELINED_SOURCE = SOURCE.with_name("flash_attention_fwd_pipelined.cu")
 
 launches = 0
 """Launches of K2 since import (or since a caller reset it to 0)."""
@@ -54,6 +63,8 @@ launches = 0
 bwd_d = types.SimpleNamespace(SOURCE=BWD_SOURCE, launches=0)
 bwd_dq = types.SimpleNamespace(SOURCE=BWD_SOURCE, launches=0)
 bwd_dkv = types.SimpleNamespace(SOURCE=BWD_SOURCE, launches=0)
+# K3, the pipelined forward
+fwd_pipelined = types.SimpleNamespace(SOURCE=PIPELINED_SOURCE, launches=0)
 
 _NEG_INF = float(torch.finfo(torch.float32).min)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -62,6 +73,14 @@ MAX_HEAD_DIM = 128
 
 _LIB = None
 _BWD_LIB = None
+_PIPELINED_LIB = None
+
+
+def _pipeline_enabled() -> bool:
+    """True when ``HEAT_TPU_FLASH_PIPELINE`` is "1": every flash forward then runs K3 in
+    place of K2 (heat_tpu's ``_pipeline_enabled``, flash_attention.py:226-235, which reads
+    the same variable). Read on every call: the port has no trace time."""
+    return os.environ.get("HEAT_TPU_FLASH_PIPELINE") == "1"
 
 
 def _as_bias(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -121,6 +140,121 @@ def flash_attention_reference(
     return out.to(q.dtype), lse
 
 
+def _pair_schedule(nq: int, nk: int, bq: int, bk: int, causal: bool):
+    """heat_tpu's ``_pair_schedule`` (flash_attention.py:327-347): the flattened (i, j)
+    visit list of query block i and key block j, with flag bits per step (1 = first of the
+    row's sweep, 2 = last, 4 = straddles the diagonal, so masked). Causal keeps only blocks
+    with some row >= col. int32 arrays (im, jm, flags)."""
+    im, jm, flags = [], [], []
+    for i in range(nq):
+        js = [j for j in range(nk) if not causal or j * bk <= i * bq + bq - 1]
+        for idx, j in enumerate(js):
+            f = (1 if idx == 0 else 0) | (2 if idx == len(js) - 1 else 0)
+            if causal and (j * bk + bk - 1 > i * bq):
+                f |= 4
+            im.append(i)
+            jm.append(j)
+            flags.append(f)
+    return np.asarray(im, np.int32), np.asarray(jm, np.int32), np.asarray(flags, np.int32)
+
+
+def _pair_schedule_pipelined(nq: int, nk: int, bq: int, bk: int, causal: bool):
+    """heat_tpu's ``_pair_schedule_pipelined`` (flash_attention.py:303-324): the pairs of
+    :func:`_pair_schedule` with finalize (bit 2) moved off the real pairs onto one flush
+    step (bits 2|8) appended per query row; the flush repeats the row's last (i, j)."""
+    out_im, out_jm, out_fl = [], [], []
+    for i, j, f in zip(*(a.tolist() for a in _pair_schedule(nq, nk, bq, bk, causal))):
+        out_im.append(i)
+        out_jm.append(j)
+        out_fl.append(f & ~2)
+        if f & 2:
+            out_im.append(i)
+            out_jm.append(j)
+            out_fl.append(2 | 8)
+    return np.asarray(out_im, np.int32), np.asarray(out_jm, np.int32), np.asarray(out_fl, np.int32)
+
+
+def _online_softmax_update(s, vb, acc, m, l, has_bias: bool):
+    """One tile of the online-softmax recurrence (heat_tpu's ``_online_softmax_update``,
+    flash_attention.py:135-153) on scores ``s`` (bh, bq, bk) f32 and values ``vb`` (bh, bk,
+    D) f32: returns the new (acc, m, l). A bias may mask a whole row, so with one the row
+    maximum is clamped at NEG_INF/2 and such a row keeps l = 0. P stays f32 for P·V, where
+    heat_tpu rounds it to v's type."""
+    m_new = torch.maximum(m, torch.amax(s, dim=-1, keepdim=True))
+    m_safe = torch.clamp_min(m_new, _NEG_INF / 2) if has_bias else m_new
+    p = torch.exp(s - m_safe)
+    corr = torch.exp(m - m_safe)
+    l = l * corr + torch.sum(p, dim=-1, keepdim=True)
+    with full_fp32_matmul():
+        acc = acc * corr + torch.matmul(p, vb)
+    return acc, m_new, l
+
+
+def flash_attention_pipelined_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = False,
+    scale: Optional[float] = None,
+    bias: Optional[torch.Tensor] = None,
+    bq: int = 128,
+    bk: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K3: (out in q's dtype, lse f32) for q (..., Tq, D) and k, v
+    (..., Tk, D), in fp32 whatever the input type, by heat_tpu's ``_kernel_pipelined``
+    (flash_attention.py:238-300) walked tile by tile over ``_pair_schedule_pipelined``
+    with (bq, bk) blocks: the first step of a row only forms S₀; each later step forms S_p
+    and runs the online-softmax update on S_{p−1}, masked by the previous pair's flag bit
+    4; the flush step (bit 8) only updates and finalizes. Every batch·head walks at once.
+
+    Any Tq and Tk: the last blocks are padded, padded keys get −inf (weight exactly 0, as
+    K2 and K3 mask a ragged edge) and padded rows are dropped. Causal is top-left aligned.
+    A fully masked row gives O = 0 and LSE = NEG_INF/2 + log(1e-30)."""
+    *batch, tq, d = q.shape
+    tk = k.shape[-2]
+    bh = math.prod(batch)
+    s = _scale(q, scale)
+    nq, nk = -(-tq // bq), -(-tk // bk)
+    pq, pk = nq * bq - tq, nk * bk - tk
+    qf = torch.nn.functional.pad(q.reshape(bh, tq, d).float(), (0, 0, 0, pq))
+    kf = torch.nn.functional.pad(k.reshape(bh, tk, d).float(), (0, 0, 0, pk))
+    vf = torch.nn.functional.pad(v.reshape(bh, tk, d).float(), (0, 0, 0, pk))
+    has_bias = bias is not None
+    if has_bias:
+        bias = torch.nn.functional.pad(bias.to(torch.float32), (0, pk, 0, pq))
+    dead = torch.zeros(nk * bk, dtype=torch.float32, device=q.device)
+    dead[tk:] = -math.inf
+    out = torch.empty(bh, nq * bq, d, dtype=torch.float32, device=q.device)
+    lse = torch.empty(bh, nq * bq, dtype=torch.float32, device=q.device)
+    rows = torch.arange(bq, device=q.device)[:, None]
+    cols = torch.arange(bk, device=q.device)[None, :]
+    im, jm, flags = _pair_schedule_pipelined(nq, nk, bq, bk, causal)
+    s_prev = acc = m = l = None
+    for p, (i, j, f) in enumerate(zip(im.tolist(), jm.tolist(), flags.tolist())):
+        qs, ks = slice(i * bq, (i + 1) * bq), slice(j * bk, (j + 1) * bk)
+        if f & 1:
+            acc = torch.zeros(bh, bq, d, dtype=torch.float32, device=q.device)
+            m = torch.full((bh, bq, 1), _NEG_INF, dtype=torch.float32, device=q.device)
+            l = torch.zeros(bh, bq, 1, dtype=torch.float32, device=q.device)
+        else:
+            pi, pj, pf = int(im[p - 1]), int(jm[p - 1]), int(flags[p - 1])
+            if pf & 4:
+                s_prev = s_prev.masked_fill(pi * bq + rows < pj * bk + cols, _NEG_INF)
+            acc, m, l = _online_softmax_update(s_prev, vf[:, pj * bk:(pj + 1) * bk], acc, m, l, has_bias)
+        if not f & 8:
+            with full_fp32_matmul():
+                s_prev = torch.matmul(qf[:, qs], kf[:, ks].transpose(-1, -2)) * s
+            if has_bias:
+                s_prev = s_prev + bias[qs, ks]
+            s_prev = s_prev + dead[ks]
+        if f & 2:
+            lc = torch.clamp_min(l, 1e-30)
+            out[:, qs] = acc / lc
+            lse[:, qs] = (torch.clamp_min(m, _NEG_INF / 2) + torch.log(lc)).squeeze(-1)
+    out = out[:, :tq].to(q.dtype).reshape(*batch, tq, d)
+    return out, lse[:, :tq].reshape(*batch, tq)
+
+
 def flash_attention_bwd_reference(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -155,18 +289,8 @@ def flash_attention_bwd_reference(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def kernel_takes(q, k, v, mask=None, scale=None) -> bool:
-    """What K2 takes, decided from shapes and types alone (the counterpart of heat_tpu's
-    ``use_flash`` less its backend test):
-
-    - q (..., Tq, D), k and v (..., Tk, D) with equal leading dims, Tq, Tk >= 1;
-    - one dtype for all three, float32, bfloat16 or float16;
-    - 1 <= D <= 128: q and the output accumulator of a row live in registers;
-    - a static scale (a Python number or None);
-    - no mask, or an exact-shape (Tq, Tk) bool mask shared by every batch·head.
-
-    Unlike heat_tpu's gate, any Tq and Tk pass: the kernel masks ragged edges itself,
-    where the TPU kernel needs lengths that its blocks tile (``_fits``)."""
+def _takes(q, k, v, mask, scale, float_bias: bool) -> bool:
+    """:func:`kernel_takes`, and with ``float_bias`` also a floating (Tq, Tk) mask."""
     if not all(isinstance(t, torch.Tensor) for t in (q, k, v)):
         return False
     if q.dim() < 2 or k.dim() != q.dim() or v.dim() != q.dim():
@@ -182,22 +306,44 @@ def kernel_takes(q, k, v, mask=None, scale=None) -> bool:
     if scale is not None and (isinstance(scale, bool) or not isinstance(scale, (int, float))):
         return False
     if mask is not None and (
-        not isinstance(mask, torch.Tensor) or mask.dtype != torch.bool or tuple(mask.shape) != (tq, tk)
+        not isinstance(mask, torch.Tensor)
+        or not (mask.dtype == torch.bool or (float_bias and mask.dtype.is_floating_point))
+        or tuple(mask.shape) != (tq, tk)
     ):
         return False
     return True
 
 
-def use_flash(q, k, v, mask=None, scale=None) -> bool:
-    """True when the attention runs K2: the inputs (and the mask) are CUDA tensors of one
-    card and :func:`kernel_takes` them. Everything else takes the dense path, as
-    heat_tpu sends what its kernel cannot take to XLA."""
-    if not kernel_takes(q, k, v, mask, scale):
-        return False
+def kernel_takes(q, k, v, mask=None, scale=None) -> bool:
+    """What K2 and K3 take from the attention layer, decided from shapes and types alone
+    (the counterpart of heat_tpu's ``use_flash`` less its backend test):
+
+    - q (..., Tq, D), k and v (..., Tk, D) with equal leading dims, Tq, Tk >= 1;
+    - one dtype for all three, float32, bfloat16 or float16;
+    - 1 <= D <= 128: q and the output accumulator of a row live in registers;
+    - a static scale (a Python number or None);
+    - no mask, or an exact-shape (Tq, Tk) bool mask shared by every batch·head.
+
+    Unlike heat_tpu's gate, any Tq and Tk pass: the kernels mask ragged edges themselves,
+    where the TPU kernel needs lengths that its blocks tile (``_fits``). Nor does the gate
+    narrow under ``HEAT_TPU_FLASH_PIPELINE`` as ``_fits`` does (flush steps and the second
+    score tile in its VMEM budget): K3 takes what K2 takes. A float bias reaches the
+    kernels only through :func:`flash_attention` called directly, as in heat_tpu, whose
+    gate also routes only bool masks to its kernel."""
+    return _takes(q, k, v, mask, scale, float_bias=False)
+
+
+def _one_card(q, k, v, mask) -> bool:
     dev = q.device
-    if dev.type != "cuda" or k.device != dev or v.device != dev:
-        return False
-    return mask is None or mask.device == dev
+    return dev.type == "cuda" and k.device == dev and v.device == dev and (mask is None or mask.device == dev)
+
+
+def use_flash(q, k, v, mask=None, scale=None) -> bool:
+    """True when the attention runs the flash kernels (K2, or K3 under
+    ``HEAT_TPU_FLASH_PIPELINE=1``): the inputs (and the mask) are CUDA tensors of one card
+    and :func:`kernel_takes` them. Everything else takes the dense path, as heat_tpu
+    sends what its kernel cannot take to XLA."""
+    return kernel_takes(q, k, v, mask, scale) and _one_card(q, k, v, mask)
 
 
 def _lib() -> ctypes.CDLL:
@@ -211,6 +357,19 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def _pipelined_lib() -> ctypes.CDLL:
+    global _PIPELINED_LIB
+    if _PIPELINED_LIB is None:
+        lib = _nvcc.load(PIPELINED_SOURCE)
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_attention_fwd_pipelined_launch.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i, f, i, p]
+        lib.flash_attention_fwd_pipelined_launch.restype = i
+        lib.flash_attention_fwd_pipelined_error_string.argtypes = [i]
+        lib.flash_attention_fwd_pipelined_error_string.restype = ctypes.c_char_p
+        _PIPELINED_LIB = lib
+    return _PIPELINED_LIB
 
 
 def _bwd_lib() -> ctypes.CDLL:
@@ -230,13 +389,13 @@ def _bwd_lib() -> ctypes.CDLL:
 
 
 def _on_card(q, k, v, mask) -> bool:
-    """False for CPU tensors (the plain versions run), True for tensors that the kernels
-    take (CUDA tensors of one card); raises on anything else."""
+    """False for CPU tensors (the plain versions run), True for CUDA tensors of one card;
+    raises on anything else. The caller has checked what the kernels take."""
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
         if mask is not None and mask.device.type != "cpu":
             raise ValueError(f"the mask is on {mask.device}, q on the CPU")
         return False
-    if not use_flash(q, k, v, mask):
+    if not _one_card(q, k, v, mask):
         raise ValueError(
             f"flash_attention runs on CUDA or CPU tensors of one device, got q on {q.device}, "
             f"k on {k.device}, v on {v.device}" + ("" if mask is None else f", mask on {mask.device}")
@@ -272,6 +431,23 @@ def _k2(q, k, v, causal: bool, scale: float, bias) -> Tuple[torch.Tensor, torch.
         lse.data_ptr(), bh, tq, tk, d, scale, int(causal), stream,
     )
     launches += 1
+    return out, lse
+
+
+def _k3(q, k, v, causal: bool, scale: float, bias) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 on contiguous (bh, Tq, D), (bh, Tk, D) CUDA tensors."""
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    lib = _pipelined_lib()
+    dev, stream = _card(q)
+    out = torch.empty((bh, tq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
+    _launch(
+        lib.flash_attention_fwd_pipelined_launch, lib.flash_attention_fwd_pipelined_error_string, dev,
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), bh, tq, tk, d, scale, int(causal), stream,
+    )
+    fwd_pipelined.launches += 1
     return out, lse
 
 
@@ -330,27 +506,36 @@ class _FlashAttention(torch.autograd.Function):
     """Exact attention with the flash backward (heat_tpu's ``custom_vjp`` of
     ``flash_attention``, :722-775) on (bh, Tq, D), (bh, Tk, D) contiguous tensors.
 
-    Forward: K2 (the plain version on CPU tensors) giving (O, LSE); it saves q, k, v, O and
-    LSE, and LSE is not differentiable. Backward: the D pass, K4 and K5 (the plain backward
-    on CPU tensors), once differentiable as heat_tpu's has no double backward; causal, scale
-    and the bool mask get None (heat_tpu returns a zero cotangent for a bool mask, :771)."""
+    Forward: K2, or K3 under ``HEAT_TPU_FLASH_PIPELINE=1`` (their plain versions on CPU
+    tensors), giving (O, LSE); it saves q, k, v, O and LSE, and LSE is not
+    differentiable. Backward: the D pass, K4 and K5 (the plain backward on CPU tensors),
+    once differentiable as heat_tpu's has no double backward; causal, scale and the bool
+    mask get None (heat_tpu returns a zero cotangent for a bool mask, :771). A float bias
+    has a gradient that this backward does not compute, so it raises, as heat_tpu's does
+    (:756-765)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float, mask):
         on_card = _on_card(q, k, v, mask)
         bias = None if mask is None else _as_bias(mask).contiguous()
-        if on_card:
-            out, lse = _k2(q, k, v, causal, scale, bias)
+        if _pipeline_enabled():
+            out, lse = (_k3 if on_card else flash_attention_pipelined_reference)(q, k, v, causal, scale, bias)
         else:
-            out, lse = flash_attention_reference(q, k, v, causal, scale, bias)
+            out, lse = (_k2 if on_card else flash_attention_reference)(q, k, v, causal, scale, bias)
         ctx.mark_non_differentiable(lse)
         ctx.save_for_backward(q, k, v, out, lse, bias)
         ctx.causal, ctx.scale, ctx.on_card = causal, scale, on_card
+        ctx.float_bias = mask is not None and mask.dtype != torch.bool
         return out, lse
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dout, _dlse):
+        if ctx.float_bias:
+            raise NotImplementedError(
+                "gradient through a float attention bias is not implemented on the flash path; boolean masks "
+                "are gradient-free and fine — use the dense attention path for a learned additive bias"
+            )
         q, k, v, out, lse, bias = ctx.saved_tensors
         dq, dk, dv = _backward(q, k, v, out, dout, lse, ctx.causal, ctx.scale, bias, ctx.on_card)
         return dq, dk, dv, None, None, None
@@ -359,8 +544,8 @@ class _FlashAttention(torch.autograd.Function):
 def _refuse(q, k, v, mask) -> ValueError:
     return ValueError(
         "flash_attention: the kernel takes q (..., Tq, D), k/v (..., Tk, D) of one dtype "
-        f"(float32, bfloat16, float16), 1 <= D <= {MAX_HEAD_DIM}, a static scale and no mask "
-        f"or a (Tq, Tk) bool one; got q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)} {k.dtype}, "
+        f"(float32, bfloat16, float16), 1 <= D <= {MAX_HEAD_DIM}, a static scale and no mask, "
+        f"a (Tq, Tk) bool one or (in the forward) a (Tq, Tk) float bias; got q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)} {k.dtype}, "
         f"v {tuple(v.shape)} {v.dtype}, mask {None if mask is None else (tuple(mask.shape), mask.dtype)}"
     )
 
@@ -377,12 +562,14 @@ def flash_attention_fwd(
     scale: Optional[float] = None,
     mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out (..., Tq, D) in q's dtype, lse (..., Tq) f32): K2 on CUDA tensors, the plain
-    version on CPU tensors, both through :class:`_FlashAttention`, so gradients flow to q,
-    k and v (the D pass, K4 and K5 on the card). ``mask`` is a (Tq, Tk) bool (True =
-    attend) shared by every batch·head. Raises on what :func:`kernel_takes` refuses and on
-    tensors that are neither on the CPU nor on one card."""
-    if not kernel_takes(q, k, v, mask, scale):
+    """(out (..., Tq, D) in q's dtype, lse (..., Tq) f32): K2 (K3 under
+    ``HEAT_TPU_FLASH_PIPELINE=1``) on CUDA tensors, the plain version on CPU tensors, both
+    through :class:`_FlashAttention`, so gradients flow to q, k and v (the D pass, K4 and
+    K5 on the card). ``mask`` is a (Tq, Tk) bool (True = attend) or an additive float bias
+    (heat_tpu's ``flash_attention``, :712-742), shared by every batch·head; the gradient
+    of a call with a float bias raises ``NotImplementedError``. Raises on what the kernels
+    do not take and on tensors that are neither on the CPU nor on one card."""
+    if not _takes(q, k, v, mask, scale, float_bias=True):
         raise _refuse(q, k, v, mask)
     *batch, tq, d = q.shape
     bh = math.prod(batch)

@@ -7,8 +7,9 @@ a ``state_dict`` mechanically (``heat_tpu_torch.interop.load_jax_params``).
 
 Every attention goes through :func:`_dense_attention`: inputs that the flash kernel takes
 (``kernels.flash_attention.use_flash``: CUDA tensors of one dtype, head dim <= 128, no
-mask or a (Tq, Tk) bool one) run K2, the CUDA flash forward, and their gradients the
-flash backward (the D pass, K4 and K5); everything else takes the dense path below, in
+mask or a (Tq, Tk) bool one) run K2, the CUDA flash forward (K3, the pipelined one, under
+``HEAT_TPU_FLASH_PIPELINE=1``), and their gradients the flash backward (the D pass, K4 and
+K5); everything else takes the dense path below, in
 full fp32, differentiated by autograd. Causal masking is top-left aligned (query i attends
 keys <= i), for any Tq, Tk.
 

@@ -221,7 +221,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="kernel takes"):
         k2.flash_attention(q.double(), q.double(), q.double())
     with pytest.raises(ValueError, match="kernel takes"):
-        k2.flash_attention(q, q, q, mask=torch.zeros(8, 8))  # a float mask
+        k2.flash_attention(q, q, q, mask=torch.zeros(8, 9))  # a float bias of the wrong shape
     with pytest.raises(ValueError, match="kernel takes"):
         k2.flash_attention(q, q, q, mask=torch.ones(1, 8, 8, dtype=torch.bool))
     with pytest.raises(ValueError, match="kernel takes"):
@@ -252,10 +252,11 @@ def test_launcher_imports_without_cuda_or_nvcc(tmp_path):
     env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME="", CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO)
     code = (
         "import heat_tpu_torch.core.kernels.flash_attention as k2, torch\n"
-        "assert k2._LIB is None and k2._BWD_LIB is None and k2.launches == 0\n"
+        "assert k2._LIB is None and k2._BWD_LIB is None and k2._PIPELINED_LIB is None and k2.launches == 0\n"
         "from heat_tpu_torch.core import kernels\n"
         "assert kernels.KERNELS['flash_attention_fwd'] is k2\n"
         "assert kernels.KERNELS['flash_attention_bwd_dq'] is k2.bwd_dq and k2.bwd_dq.launches == 0\n"
+        "assert kernels.KERNELS['flash_attention_fwd_pipelined'] is k2.fwd_pipelined and k2.fwd_pipelined.launches == 0\n"
         "print('ok', torch.cuda.is_available())\n"
     )
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120)

@@ -87,4 +87,5 @@ def test_package_data_ships_the_kernel_sources():
     shipped = {p for pattern in cfg["package-data"]["heat_tpu_torch.core.kernels"] for p in kdir.glob(pattern)}
     sources = set(kdir.rglob("*.cu")) | set(kdir.rglob("*.cuh"))
     assert sources and sources <= shipped
+    assert kdir / "csrc" / "flash_attention_fwd_pipelined.cu" in sources
     assert {mod.SOURCE for mod in kernels.KERNELS.values()} <= shipped
