@@ -18,7 +18,8 @@ in place of K2; and bench.py's attention A/B times causal attention with the kno
 Phases, one line each:
   1. the card: nvidia-smi's name and power limit, and torch's device name;
   2. build every ported kernel from the sources in this checkout (one nvcc per source,
-     all started together), with the compiler's register/shared-memory summary;
+     all started together), with each kernel instance's registers and spill bytes (ptxas)
+     and its instructions and tensor-core (HMMA) instructions (cuobjdump -sass);
   3. north-star #1: ``arange(10, split=0).sum()`` on the card is 45;
   4. K1 against its plain PyTorch version and against float64 on the card, at the main
      path's shape and data and at ragged shapes, each also on data rounded to integers
@@ -48,9 +49,10 @@ Phases, one line each:
      largest magnitude, timed and traced;
   9. the D pass, K4 and K5 against the plain backward on the card, in dQ, dK and dV: at
      the training step's three attention shapes in f32, at bench.py's bf16 causal shape
-     and at small ragged shapes (causal with Tk > Tq, Tq > Tk, d of 32, 100 and 128, a
-     bool mask with a fully masked row); bit-identical across two runs; and autograd
-     through the port's ``flash_attention`` equal to autograd through the plain forward;
+     and at small ragged shapes (causal with Tk > Tq, Tq > Tk, d of 32, 33, 72, 100 and
+     128, lengths one off the kernels' tiles, bool masks with a fully masked row in f32,
+     bf16 and f16); bit-identical across two runs; and autograd through the port's
+     ``flash_attention`` equal to autograd through the plain forward;
  10. the training path: counts zeroed, one step (forward, backward, Adam), counts read
      (K2, D, K4 and K5 exactly 18 times each); TF32 off inside the forward and the
      backward; the loss and every gradient finite and the parameters changed; a
@@ -65,8 +67,11 @@ Phases, one line each:
      traced;
  11. bench.py's attention A/B (bench.py:252-274): causal scaled_dot_product_attention at
      b8 h16 t4096 d64 bf16 with the knob off (K2) and on (K3), in turns, in ms and TFLOP/s;
- 12. one JSON line listing every ported kernel with its launches on its path, its time,
-     its bound on this card, its plain version's time and a library call's time;
+ 12. the D pass, K4 and K5 timed at the step's two shapes and bench.py's, in turns with the
+     backward of ``scaled_dot_product_attention`` on the same inputs; then one JSON line
+     listing every ported kernel with its launches on its path, its time, its bound on
+     this card (f32 attention work at the 3xTF32 rate, with the fp32 FMA rate's bound
+     beside it), its plain version's time and a library call's time;
  13. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script then exits non-zero without the last line. It
@@ -81,6 +86,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -104,12 +110,15 @@ BENCH_B, BENCH_H, BENCH_T, BENCH_D = 8, 16, 4096, 64
 # (the paper's ~25,000 + 25,000), Adam under its warmup schedule (§5.3)
 VOCAB, TRAIN_B, TRAIN_T, WARMUP = 37_000, 12, 2048, 4000
 
-# NVIDIA's data sheet for the H100 SXM (dense float32 outside the tensor cores, dense bf16
-# in them, HBM3); a kernel's bound is taken against these, so the script refuses any
-# other card
+# NVIDIA's data sheet for the H100 SXM (dense float32 outside the tensor cores, dense TF32
+# and bf16 in them, HBM3); a kernel's bound is taken against these, so the script refuses
+# any other card. An f32 product keeps fp32's accuracy on the tensor cores in 3xTF32
+# (three TF32 products per product, csrc/mma_tf32x3.cuh): the least time of f32 attention
+# work is taken at that rate, and the fp32 FMA rate's figure is kept beside it
 CARD = "H100 80GB HBM3"
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32X3_FLOPS = 495e12 / 3
 PEAK_BF16_FLOPS = 989e12
 
 U32, U64 = 2.0**-24, 2.0**-53  # unit roundoff of float32 and float64
@@ -128,6 +137,63 @@ def check(ok, message) -> None:
 
 def phase(name: str, **fields) -> None:
     print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
+
+
+def demangle(names: list) -> list:
+    """C++ names of compiled kernels, without their parameter lists, by the toolkit's
+    cu++filt or the system's c++filt; the mangled names where neither runs."""
+    from heat_tpu_torch.core.kernels import _nvcc
+
+    for tool in (os.path.join(os.path.dirname(_nvcc.nvcc_path()), "cu++filt"), "c++filt"):
+        try:
+            out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True, timeout=60)
+        except OSError:
+            continue
+        lines = out.stdout.splitlines()
+        if out.returncode == 0 and len(lines) == len(names):
+            return [ln.replace("(int)", "").split("(")[0].replace("__nv_bfloat16", "bf16").replace("__half", "f16")
+                    for ln in lines]
+    return list(names)
+
+
+def ptxas_summary(log: str) -> list:
+    """[name, registers, spill store bytes, spill load bytes] of each kernel instance, from
+    the ``-Xptxas -v`` log of a build."""
+    rows = []
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            rows.append([m.group(1), None, None, None])
+        elif rows and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
+            rows[-1][2:] = [int(m.group(1)), int(m.group(2))]
+        elif rows and (m := re.search(r"Used (\d+) registers", ln)):
+            rows[-1][1] = int(m.group(1))
+    for row, name in zip(rows, demangle([r[0] for r in rows])):
+        row[0] = name
+    return rows
+
+
+def sass_counts(library) -> dict:
+    """Instructions and tensor-core (HMMA) instructions of each kernel in a built library,
+    from ``cuobjdump -sass``; "not measured" where the toolkit has no cuobjdump."""
+    from heat_tpu_torch.core.kernels import _nvcc
+
+    tool = os.path.join(os.path.dirname(_nvcc.nvcc_path()), "cuobjdump")
+    try:
+        out = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True, timeout=300)
+    except OSError:
+        return {"sass": "not measured: no cuobjdump"}
+    counts, fn = {}, None
+    for ln in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            counts[fn] = [0, 0]
+        elif fn is not None and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", ln):
+            counts[fn][0] += 1
+            counts[fn][1] += "HMMA" in ln
+    names = demangle(list(counts))
+    return {name: {"instructions": c[0], "hmma": c[1]} for name, c in zip(names, counts.values())}
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -265,15 +331,27 @@ def attention_pairs(tq: int, tk: int, causal: bool) -> int:
     return m * (m + 1) // 2 + max(tq - tk, 0) * tk
 
 
-def k2_bound_ms(bh: int, tq: int, tk: int, d: int, causal: bool, itemsize: int) -> tuple:
+def attention_rate(itemsize: int, simt: bool = False) -> float:
+    """The operation rate that bounds attention work on inputs of ``itemsize`` bytes: 3xTF32
+    for f32 (the fp32 FMA rate with ``simt``), the bf16 tensor-core rate for 2-byte types."""
+    if itemsize == 4:
+        return PEAK_FP32_FLOPS if simt else PEAK_TF32X3_FLOPS
+    return PEAK_BF16_FLOPS
+
+
+def roof_ms(nbytes: float, flops: float, rate: float) -> tuple:
+    """(bound ms, "bytes" or "operations"): the larger of bytes over the memory rate and
+    operations over ``rate``."""
+    bytes_ms, flops_ms = 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / rate
+    return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations")
+
+
+def k2_bound_ms(bh: int, tq: int, tk: int, d: int, causal: bool, itemsize: int, simt: bool = False) -> tuple:
     """(bound ms, "bytes" or "operations") of one K2 call: q, k, v read once and O, LSE
-    written once, against 4·d operations per (query, key) pair, at the fp32 rate (the
-    kernel computes in fp32 FMAs) for f32 inputs and the bf16 tensor-core rate else."""
+    written once, against 4·d operations per (query, key) pair at :func:`attention_rate`."""
     nbytes = itemsize * bh * d * (2 * tq + 2 * tk) + 4 * bh * tq
     flops = 4 * bh * d * attention_pairs(tq, tk, causal)
-    bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
-    flops_ms = 1e3 * flops / (PEAK_FP32_FLOPS if itemsize == 4 else PEAK_BF16_FLOPS)
-    return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations")
+    return roof_ms(nbytes, flops, attention_rate(itemsize, simt))
 
 
 def k2_inputs(bh, tq, tk, d, dtype, seed, device):
@@ -373,26 +451,21 @@ def check_k3(k2, q, k, v, causal: bool, mask, dead_rows=()) -> dict:
             "vs_k2_max_abs_err_o": vs_k2[0], "vs_k2_max_abs_err_lse": vs_k2[1], "vs_k2_err_over_tol": vs_k2[2]}
 
 
-def bwd_bounds_ms(bh: int, tq: int, tk: int, d: int, causal: bool, itemsize: int) -> dict:
+def bwd_bounds_ms(bh: int, tq: int, tk: int, d: int, causal: bool, itemsize: int, simt: bool = False) -> dict:
     """(bound ms, "bytes" or "operations") of the D pass, K4 and K5 for one backward call.
     Operations: 6·d per attended (query, key) pair for K4 (q·kᵀ, dO·vᵀ, dS·k) and 8·d for
-    K5 (q·kᵀ, dO·vᵀ, dSᵀ·q, Pᵀ·dO), at the fp32 rate for f32 inputs and the bf16
-    tensor-core rate else; 2·d per row for D. Bytes: each input read once and each output
-    written once (D: O and dO in, D out; K4: q, k, v, dO, LSE and D in, dQ out; K5: the
-    same in, dK and dV out)."""
+    K5 (q·kᵀ, dO·vᵀ, dSᵀ·q, Pᵀ·dO), at :func:`attention_rate`; 2·d per row for D, at the
+    fp32 rate. Bytes: each input read once and each output written once (D: O and dO in,
+    D out; K4: q, k, v, dO, LSE and D in, dQ out; K5: the same in, dK and dV out)."""
     pairs = attention_pairs(tq, tk, causal)
-    peak = PEAK_FP32_FLOPS if itemsize == 4 else PEAK_BF16_FLOPS
+    peak = attention_rate(itemsize, simt)
     rows = itemsize * bh * d
     work = {
         "flash_attention_bwd_d": (2 * rows * tq + 4 * bh * tq, 2 * bh * tq * d, PEAK_FP32_FLOPS),
         "flash_attention_bwd_dq": (rows * (3 * tq + 2 * tk) + 8 * bh * tq, 6 * bh * d * pairs, peak),
         "flash_attention_bwd_dkv": (rows * (2 * tq + 4 * tk) + 8 * bh * tq, 8 * bh * d * pairs, peak),
     }
-    out = {}
-    for name, (nbytes, flops, rate) in work.items():
-        bytes_ms, flops_ms = 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / rate
-        out[name] = (max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations")
-    return out
+    return {name: roof_ms(nbytes, flops, rate) for name, (nbytes, flops, rate) in work.items()}
 
 
 def check_bwd(k2, q, k, v, causal: bool, mask, seed: int) -> dict:
@@ -551,10 +624,11 @@ def main() -> int:
     build_info = {}
     for source, b in builds.items():
         names = [kname for kname, mod in kernels.KERNELS.items() if mod.SOURCE == source]
-        ptxas = [ln.strip() for ln in b["log"].splitlines() if "registers" in ln or "spill" in ln]
-        build_info[source.name] = {"nvcc_s": b["seconds"], "ptxas": ptxas}
+        ptxas = ptxas_summary(b["log"])
+        sass = sass_counts(b["path"])
+        build_info[source.name] = {"nvcc_s": b["seconds"], "ptxas": ptxas, "sass": sass}
         phase("build", source=source.name, kernels=",".join(names), built=b["built"], nvcc_s=f"{b['seconds']:.2f}",
-              ptxas=json.dumps(ptxas))
+              ptxas=json.dumps(ptxas), sass=json.dumps(sass))
     phase("build", total_s=f"{time.perf_counter() - t0:.2f}")
     lib = k1._lib()
     check(
@@ -852,6 +926,17 @@ def main() -> int:
         "ragged_d128_causal_dead_row_f32": (2, 70, 100, 128, True, f32, "random"),
         "ragged_dead_row_bf16": (2, 130, 97, 96, False, bf16, "random"),
         "ragged_causal_f16": (2, 64, 33, 64, True, torch.float16, None),
+        # around the tiles of K4 and K5 (96 rows a block, tiles of 32 keys or queries), a
+        # head dim between 64 and 128, a 2-byte row of odd d (plain loads in place of
+        # cp.async) and a fully masked row in f16
+        "edge_63x65_f32": (2, 63, 65, 64, False, f32, None),
+        "edge_97x95_causal_f32": (2, 97, 95, 64, True, f32, None),
+        "edge_65x63_causal_f32": (2, 65, 63, 64, True, f32, None),
+        "edge_127x129_causal_f32": (2, 127, 129, 64, True, f32, None),
+        "edge_129x127_f32": (2, 129, 127, 64, False, f32, None),
+        "edge_d72_causal_f32": (2, 100, 140, 72, True, f32, None),
+        "ragged_d33_causal_bf16": (2, 90, 77, 33, True, bf16, None),
+        "dead_row_d64_f16": (2, 96, 80, 64, False, torch.float16, "random"),
     }
     bwd_checks, bwd_data = {}, {}
     for i, (cname, (bh, tq, tk, dh, causal, dtype, mkind)) in enumerate(bwd_cases.items()):
@@ -1093,34 +1178,50 @@ def main() -> int:
     del qb, kb, vb
     torch.cuda.empty_cache()
 
-    # the backward's kernels one by one at each shape, its plain version and the library call
-    bwd_ms, bwd_bounds = {}, {}
+    # the backward's kernels one by one at each shape, each beside the backward of
+    # scaled_dot_product_attention on the same inputs, timed in turns (library, kernels,
+    # kernels, library); the plain version at the encoder shape
+    bwd_ms, bwd_bounds, bwd_simt, bwd_library_ms = {}, {}, {}, {}
     with torch.no_grad():
         for cname, (q, k, v, causal) in bwd_data.items():
             o, lse = k2.flash_attention_fwd(q, k, v, causal)
             do = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(SEED + 600), device=dev).to(q.dtype)
             dd = k2._d_pass(o, do)
             sc = 1.0 / math.sqrt(q.shape[-1])
-            bwd_ms[cname] = {
-                "flash_attention_bwd_d": cuda_ms(lambda: k2._d_pass(o, do), reps=10),
-                "flash_attention_bwd_dq": cuda_ms(lambda: k2._k4(q, k, v, do, lse, dd, causal, sc, None), reps=5, warmup=1),
-                "flash_attention_bwd_dkv": cuda_ms(lambda: k2._k5(q, k, v, do, lse, dd, causal, sc, None), reps=5, warmup=1),
-            }
+            bh, tq, dh = q.shape
+
+            def kernels_ms():
+                return {
+                    "flash_attention_bwd_d": cuda_ms(lambda: k2._d_pass(o, do), reps=10),
+                    "flash_attention_bwd_dq": cuda_ms(lambda: k2._k4(q, k, v, do, lse, dd, causal, sc, None), reps=5, warmup=1),
+                    "flash_attention_bwd_dkv": cuda_ms(lambda: k2._k5(q, k, v, do, lse, dd, causal, sc, None), reps=5, warmup=1),
+                }
+
+            with torch.enable_grad():
+                q4, k4, v4 = (t.view(bh // 8, 8, tq, dh).clone().requires_grad_() for t in (q, k, v))
+                o4 = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+                g4 = do.view(o4.shape)
+
+                def library_ms():
+                    return cuda_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), g4, retain_graph=True), reps=5)
+
+                turns = [library_ms(), kernels_ms(), kernels_ms(), library_ms()]
+            del q4, k4, v4, o4, g4
+            bwd_library_ms[cname] = (turns[0] + turns[3]) / 2
+            bwd_ms[cname] = {n: (turns[1][n] + turns[2][n]) / 2 for n in turns[1]}
             if cname != "bench_causal_bf16":
                 bwd_ms[cname]["flash_attention_fwd"] = cuda_ms(lambda: k2.flash_attention_fwd(q, k, v, causal), reps=5, warmup=1)
-            bh, tq, dh = q.shape
             bwd_bounds[cname] = bwd_bounds_ms(bh, tq, k.shape[1], dh, causal, q.element_size())
+            bwd_simt[cname] = bwd_bounds_ms(bh, tq, k.shape[1], dh, causal, q.element_size(), simt=True)
             if cname == "encoder_self":
                 bwd_plain_ms = cuda_ms(lambda: k2.flash_attention_bwd_reference(q, k, v, o, do, lse, False), reps=3, warmup=1)
-                with torch.enable_grad():
-                    q4, k4, v4 = (t.view(TRAIN_B, 8, TRAIN_T, 64).clone().requires_grad_() for t in (q, k, v))
-                    o4 = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4)
-                    g4 = do.view(o4.shape)
-                    bwd_library_ms = cuda_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), g4, retain_graph=True), reps=5)
-                del q4, k4, v4, o4
             del o, lse, do, dd
-    phase("k2_bwd_time", ms=json.dumps(bwd_ms), plain_ms=repr(bwd_plain_ms), library_ms=repr(bwd_library_ms),
-          bounds_ms=json.dumps({c: {n: b[0] for n, b in v.items()} for c, v in bwd_bounds.items()}))
+    bwd_total = {c: sum(v[n] for n in flash[1:]) for c, v in bwd_ms.items()}
+    phase("k2_bwd_time", ms=json.dumps(bwd_ms), d_k4_k5_ms=json.dumps(bwd_total), plain_ms=repr(bwd_plain_ms),
+          library_ms_in_turns=json.dumps(bwd_library_ms),
+          over_library=json.dumps({c: bwd_total[c] / bwd_library_ms[c] for c in bwd_total}),
+          bounds_ms=json.dumps({c: {n: b[0] for n, b in v.items()} for c, v in bwd_bounds.items()}),
+          bounds_simt_ms=json.dumps({c: {n: b[0] for n, b in v.items()} for c, v in bwd_simt.items()}))
     del bwd_data
     torch.cuda.empty_cache()
 
@@ -1171,6 +1272,7 @@ def main() -> int:
                 "plain_ms": k2_plain_ms,
                 "bound_ms": enc_bound,
                 "bound_by": enc_bound_by,
+                "bound_simt_ms": k2_bound_ms(e_heads, SRC_T, SRC_T, 64, False, 4, simt=True)[0],
                 "library_ms": k2_library_ms,
                 "library_note": "torch.nn.functional.scaled_dot_product_attention on the same f32 inputs, timed only",
                 "max_abs_err_of": "O against the plain version, encoder shape",
@@ -1195,9 +1297,12 @@ def main() -> int:
                     "plain_ms": bwd_plain_ms,
                     "bound_ms": bwd_bounds["encoder_self"][kname][0],
                     "bound_by": bwd_bounds["encoder_self"][kname][1],
-                    "library_ms": bwd_library_ms,
-                    "library_note": "backward of torch.nn.functional.scaled_dot_product_attention on the same f32 "
-                                    "inputs (dQ, dK and dV together), timed only; set against D + K4 + K5",
+                    "bound_simt_ms": bwd_simt["encoder_self"][kname][0],
+                    "library_ms": bwd_library_ms["encoder_self"],
+                    "library_note": "backward of torch.nn.functional.scaled_dot_product_attention on the same "
+                                    "inputs (dQ, dK and dV together), timed only, in turns with the kernels; set "
+                                    "against D + K4 + K5",
+                    "library_ms_by_shape": bwd_library_ms,
                     "plain_note": "flash_attention_bwd_reference, all three gradients together",
                     "max_abs_err_of": err_of,
                     "err_over_tol": bwd_checks["encoder_self"]["err_over_tol"],
@@ -1206,7 +1311,9 @@ def main() -> int:
                     "launches_of": "one Transformer-base training step",
                     "ms_by_shape": {c: v[kname] for c, v in bwd_ms.items()},
                     "bound_ms_by_shape": {c: v[kname][0] for c, v in bwd_bounds.items()},
-                    "backward_total_ms": sum(bwd_ms["encoder_self"][n] for n in flash[1:]),
+                    "bound_simt_ms_by_shape": {c: v[kname][0] for c, v in bwd_simt.items()},
+                    "backward_total_ms": bwd_total["encoder_self"],
+                    "backward_total_ms_by_shape": bwd_total,
                 }
                 for kname, replaces, err_key, err_of in (
                     ("flash_attention_bwd_d", "heat_tpu/core/kernels/flash_attention.py:592",
@@ -1228,6 +1335,7 @@ def main() -> int:
                 "plain_ms": k3_plain_ms,
                 "bound_ms": k3_bounds["encoder_self"][0],
                 "bound_by": k3_bounds["encoder_self"][1],
+                "bound_simt_ms": k2_bound_ms(e_heads, SRC_T, SRC_T, 64, False, 4, simt=True)[0],
                 "library_ms": k3_library_ms,
                 "library_note": "torch.nn.functional.scaled_dot_product_attention on the same f32 inputs, timed only",
                 "max_abs_err_of": "O against flash_attention_pipelined_reference, encoder shape",
@@ -1255,7 +1363,7 @@ def main() -> int:
                        "train_step_launches": train_counts, "train_step_best_of_2_s": step_s,
                        "train_step_walls_s": step_walls, "train_step_peak_gb": train_peak_gb,
                        "train_step_profile": train_breakdown, "small_train_grad_err_over_tol": grad_ratio,
-                       "small_train_losses": small_losses, "bwd_ms": bwd_ms, "bwd_plain_ms": bwd_plain_ms,
+                       "small_train_losses": small_losses, "bwd_ms": bwd_ms, "bwd_plain_ms": bwd_plain_ms, "bwd_total_ms": bwd_total,
                        "bwd_library_ms": bwd_library_ms, "k3_checks": k3_checks,
                        "forward_pipelined_launches": t_counts_on, "forward_pipelined_best_of_2_s": fwd_on_s,
                        "forward_pipelined_walls_s": fwd_on_walls, "forward_pipelined_profile": breakdown_on,

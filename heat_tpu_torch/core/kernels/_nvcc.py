@@ -2,8 +2,9 @@
 with a plain C interface, loaded with ``ctypes``.
 
 A library is built at first use into ``_build/`` beside this file (listed in .gitignore),
-keyed by a hash of its source and flags, so a fresh checkout builds it once and later
-processes reuse it. A failed build raises with the compiler's output.
+keyed by a hash of its source, every header (``*.cuh``) beside it and the flags, so a
+fresh checkout builds it once, later processes reuse it, and an edited header rebuilds
+it. A failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -47,8 +48,13 @@ def nvcc_path() -> str:
 
 
 def _library_path(source: Path) -> Path:
-    key = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}-{key}.so"
+    """Where the library of ``source`` is built: its name carries a hash of the source,
+    of every ``*.cuh`` header in the source's directory (name and bytes) and of the flags."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(source: Path) -> dict:

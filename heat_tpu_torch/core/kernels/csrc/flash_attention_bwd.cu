@@ -14,32 +14,58 @@
 // fully masked row has LSE = NEG_INF/2 + log(1e-30) and O = 0, so its P is 0, its D is 0,
 // its dQ is 0 and it adds nothing to dK and dV: inf − inf never occurs.
 //
+// Products in 3xTF32 on the tensor cores (mma_tf32x3.cuh): each f32 operand splits into a
+// TF32 big part and a TF32 residual, and a·b is taken as small·big + big·small + big·big
+// with f32 accumulation. The dropped small·small term is below 2⁻²² of |a·b|, so the
+// products keep fp32's level of accuracy, P and dS included: they stay f32 and split like
+// any operand (the TPU kernels round them to the input type first). bf16 and f16 inputs are
+// exact in TF32, so their instances skip the products with a zero small part: one product
+// for q·kᵀ and dO·vᵀ, two for those with P or dS.
+//
 // What bounds them on an H100: K4 does 6·d operations per attended (query, key) pair
 // (q·kᵀ, dO·vᵀ, dS·k) and K5 8·d (q·kᵀ, dO·vᵀ, dSᵀ·q, Pᵀ·dO) against a few hundred MB of
-// inputs and outputs at the Transformer's shapes: both are bound by arithmetic, at the fp32
-// rate of 67 TFLOP/s, since they compute in full fp32 (plain FMAs, accurate expf, no tensor
-// cores). The D pass reads O and dO once and writes one float per row: it is bound by bytes.
-// The design keeps the (tq, tk) scores out of device memory and every sum inside one block:
-//   * K4 owns ROWS query rows of one batch·head and loops over the tiles of kTile keys that
-//     those rows attend (`_pair_schedule`'s bound); K5 owns ROWS key rows and loops over the
-//     tiles of kTile queries that attend them (`_pair_schedule_kv`'s bound). A tile of the
-//     other side (k and v for K4; q, dO, LSE and D for K5) is staged once in shared memory
-//     as f32 and read by every row of the block, all threads of a warp reading the same
-//     tile row at once. Nothing is reduced across blocks and there are no atomics, so two
-//     runs give identical bits; K5 writes its zeros itself for key rows that no query
-//     attends (causal with tk > tq, flag bit 8 of `_pair_schedule_kv`).
-//   * Registers are the scarce resource: a row's own vectors (q, dO and dQ in K4; k, v, dK
-//     and dV in K5) live in them for the whole loop. A row is therefore owned by TPR
-//     neighbouring threads, each holding 16 of its columns (head dim padded with zeros to
-//     DP = 64 or 128, TPR = 4 or 8), and the two dot products of each (row, tile row) pair
-//     are finished by butterfly shuffles among those TPR lanes. A tile is walked kSub rows
-//     at a time: with all 32 at once the unrolled loads spilled kilobytes per thread, with
-//     8 K5 still spilled hundreds of bytes; 2 keeps the spills to a few bytes (ptxas, as
-//     chip_smoke.py's build phase prints it).
-//   * Causal tiles wholly on the masked side are skipped by the loop bounds; only tiles
-//     that straddle the diagonal pay the mask (flag bit 4). Ragged tq and tk are masked here.
-// dS and P stay in f32 for the products (the TPU kernels round dS to k's type and P to dO's
-// type first). Shared memory stays under the 48 KB a launch gets without an opt-in.
+// inputs and outputs at the Transformer's shapes: both are bound by arithmetic, at the
+// 3xTF32 rate of 495/3 = 165 TFLOP/s for f32 (the fp32 FMA pipe's 67 TFLOP/s is the bound
+// of a kernel without tensor cores) and, for 2-byte inputs, at the bf16 rate of 989 (their
+// products run here at the TF32 rate of 495, one or two per product). What holds mma.sync
+// below that rate is the work that feeds it (loading fragments, splitting every f32 value,
+// the softmax in between, two barriers a tile) and the warps there are to hide its
+// latency: in trials on the card, the time fell as the warps an SM rose from four to
+// eight to twelve, the last step gained at the non-causal shapes and lost some at the
+// causal one (PERF.md, PR 5). The D pass reads O and dO once
+// and writes one float per row: it is bound by bytes. The design:
+//   * K4 owns 96 query rows of one batch·head (6 warps of 16: one m16 row block each) and
+//     loops over the tiles of 32 keys they attend (`_pair_schedule`'s bound); K5 owns 96
+//     key rows and loops over the tiles of 32 queries that attend them
+//     (`_pair_schedule_kv`'s). S and dP of a tile and the accumulators (dQ; dK and dV) stay
+//     in registers. Nothing is reduced across blocks and there are no atomics: every sum
+//     has a fixed order and two runs give identical bits. K5 writes its zeros itself for key
+//     rows that no query attends (causal with tk > tq, flag bit 8 of `_pair_schedule_kv`).
+//     K4 launches its longest causal blocks first.
+//   * Shared memory is what limits the warps on an SM, so the block's own rows (q and dO in
+//     K4, k and v in K5) are kept once as f32 and split as each warp reads its fragments,
+//     while each tile of the other side (k and v; q and dO), read by every warp, is split
+//     once as it lands: f32 in place (big parts over the values, small parts beside),
+//     2-byte values only widened (they are exact in TF32). 96 KB a block (f32, d <= 64)
+//     lets two blocks, twelve warps, share an SM.
+//   * The tiles come through a cp.async ring of two stages in the input type (LSE and D
+//     beside them in K5): the next tile's copies are issued after the barrier that opens a
+//     step and land while the step splits and computes, two barriers a step. Copies are 16,
+//     8 or 4 bytes as the addresses and the row width allow, rows past the end are
+//     zero-filled through src-size, and 2-byte rows of odd d (not 4-byte aligned) are
+//     copied with plain loads. The head dim is padded to DP = 64 or 128 with zeros.
+//   * Fragments: a row's 16-byte chunks are XOR-swizzled by row % 8, so ldmatrix reads an A
+//     fragment, or the B fragments of two n-tiles, in one instruction without bank
+//     conflicts. S and dP (Sᵀ and dPᵀ in K5) become P and dS in the accumulator registers
+//     and feed straight back as the A operand of dS·k (Pᵀ·dO and dSᵀ·q): read with the k
+//     index permuted within each 8-wide chunk, an accumulator fragment is an A fragment
+//     (tf32x3::from_acc). The B operand of those products is then read down the columns;
+//     with two n-tiles' columns interleaved, each lane reads two adjacent words a row, and
+//     a thread's four output columns per 16 are adjacent.
+//   * Causal tiles wholly on the masked side are skipped by the loop bounds; only tiles that
+//     straddle the diagonal pay the mask (flag bit 4). Ragged tq and tk are masked here.
+// Shared memory above 48 KB (96 KB f32 and 80 KB 2-byte at d <= 64, 192 KB and 160 KB at
+// d <= 128) is opted into once per instance and device (cudaFuncSetAttribute).
 //
 // Built with nvcc for sm_90a into a shared library with a plain C interface (loaded with
 // ctypes by heat_tpu_torch/core/kernels/flash_attention.py). Entry points return a
@@ -49,17 +75,22 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cfloat>
 #include <cmath>
+#include <cstdint>
+
+#include "mma_tf32x3.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;        // threads per block of K4 and K5
-constexpr int kTile = 32;            // keys per tile in K4, queries per tile in K5
-constexpr int kSub = 2;              // tile rows per step of the loop over a tile
-constexpr int kCols = 16;            // head-dim columns each thread holds
-constexpr int kDWarps = 8;           // rows (one warp each) per block of the D pass
-constexpr float kNegInf = -FLT_MAX;  // finfo(float32).min, heat_tpu's _NEG_INF
+constexpr int kWarps = 6;              // warps per block of K4 and K5: two blocks fill an SM
+constexpr int kThreads = 32 * kWarps;  // threads per block of K4 and K5
+constexpr int kRows = 16 * kWarps;     // query rows of a K4 block, key rows of a K5 block
+constexpr int kTile = 32;              // keys per tile in K4, queries per tile in K5
+constexpr int kStages = 2;             // stages of the ring
+constexpr int kDWarps = 8;             // rows (one warp each) per block of the D pass
+constexpr float kNegInf = -FLT_MAX;    // finfo(float32).min, heat_tpu's _NEG_INF
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -71,110 +102,254 @@ template <> __device__ __forceinline__ float from_f32<float>(float x) { return x
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
 template <> __device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half(x); }
 
-// DP: head dim padded to 64 or 128; TPR = DP / kCols threads per row
-__host__ __device__ constexpr int tpr_of(int dp) { return dp / kCols; }
-__host__ __device__ constexpr int rows_of(int dp) { return kThreads / tpr_of(dp); }
-
-__host__ __device__ constexpr size_t dq_smem_bytes(int dp, bool has_bias) {
-    return sizeof(float) * (2 * kTile * dp                                 // k and v tiles
-                            + (has_bias ? rows_of(dp) * (kTile + 1) : 0));  // bias tile
-}
-__host__ __device__ constexpr size_t dkv_smem_bytes(int dp, bool has_bias) {
-    return sizeof(float) * (2 * kTile * dp + 2 * kTile                      // q, dO tiles, LSE, D
-                            + (has_bias ? kTile * (rows_of(dp) + 1) : 0));  // bias tile
-}
-// 34,944 bytes at most (d <= 128 with a bias): no cudaFuncSetAttribute call is needed
-static_assert(dq_smem_bytes(128, true) <= 48 * 1024 && dkv_smem_bytes(128, true) <= 48 * 1024 &&
-                  dq_smem_bytes(64, true) <= 48 * 1024 && dkv_smem_bytes(64, true) <= 48 * 1024,
-              "the backward's shared memory needs cudaFuncSetAttribute");
-
-// this thread's kCols columns of a row (chunk i holds columns 4*(sub + TPR*i) .. +3),
-// zero beyond d or for a row that does not exist
-template <typename T, int TPR>
-__device__ __forceinline__ void load_row(const T* row, bool live, int sub, int d, float (&out)[kCols]) {
-#pragma unroll
-    for (int i = 0; i < kCols / 4; ++i) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            const int c = 4 * (sub + TPR * i) + e;
-            out[4 * i + e] = (live && c < d) ? to_f32(row[c]) : 0.f;
-        }
-    }
-}
-
-template <typename T, int TPR>
-__device__ __forceinline__ void store_row(T* row, int sub, int d, const float (&v)[kCols], float mul) {
-#pragma unroll
-    for (int i = 0; i < kCols / 4; ++i) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            const int c = 4 * (sub + TPR * i) + e;
-            if (c < d) row[c] = from_f32<T>(v[4 * i + e] * mul);
-        }
-    }
-}
-
-// stage rows [r0, r0 + kTile) of a (n, d) matrix into smem (kTile, DP) as f32, zero-padded
+// Shared memory of K4 (K5 in brackets), for the head dim padded to DP:
+//   own   : q and dO (k and v) of the block's kRows rows as f32, (kRows, DP) words each
+//   ring  : kStages stages of the k and v (q and dO) tiles as copied, in the input type,
+//           (kTile, DP) each; for f32 a tile's big parts replace it in place
+//   work  : (kTile, DP) words each for the current tile's k and v (q and dO): their small
+//           parts (f32) or their values widened to f32 (2-byte types)
+//   [K5]  : kStages stages of LSE and D, kTile floats each
+// 96 KB for f32 and d <= 64 (K5: 96.5 KB), so two blocks (12 warps) share an SM.
+__host__ __device__ constexpr int kOwnWords(int dp) { return 2 * kRows * dp; }
 template <typename T, int DP>
-__device__ __forceinline__ void stage_tile(const T* __restrict__ src, int r0, int n, int d, float* dst) {
-    for (int idx = threadIdx.x; idx < kTile * DP; idx += kThreads) {
-        const int j = idx / DP;
-        const int c = idx % DP;
-        dst[idx] = (r0 + j < n && c < d) ? to_f32(src[(long long)(r0 + j) * d + c]) : 0.f;
+__host__ __device__ constexpr size_t smem_bytes(bool dkv) {
+    return 4 * kOwnWords(DP) + sizeof(T) * 2 * kStages * kTile * DP + 4 * 2 * kTile * DP +
+           (dkv ? 4 * 2 * kStages * kTile : 0);
+}
+static_assert(smem_bytes<float, 128>(true) <= 232448, "the backward's shared memory exceeds an H100 block's");
+
+// element (r, c) of a (rows, DP) tile of T: the 16-byte chunks of row r XOR-swizzled by r % 8
+template <typename T, int DP>
+__device__ __forceinline__ int swz(int r, int c) {
+    constexpr int E = 16 / sizeof(T);
+    static_assert(DP / E >= 8, "the swizzle needs 8 chunks a row");
+    return r * DP + (((c / E) ^ (r & 7)) * E) + (c % E);
+}
+template <int DP>
+__device__ __forceinline__ int swz4(int r, int c) {
+    return swz<float, DP>(r, c);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// W bytes from global to shared memory, asynchronously; with valid false nothing is read
+// and the W bytes are zero-filled (src-size 0)
+template <int W>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
+    const int n = valid ? W : 0;
+    if constexpr (W == 16) {
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(n)
+                     : "memory");
+    } else {
+        asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_addr(dst)), "l"(src), "n"(W),
+                     "r"(n)
+                     : "memory");
+    }
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+// rows r0 .. r0+kTile-1 of a (n, d) matrix into a swizzled (kTile, DP) tile, W bytes a copy
+// (W divides d·sizeof(T) and the source's alignment); rows past n are zero-filled. Columns
+// d .. DP-1 are never written here (zeroed once).
+template <typename T, int DP, int W>
+__device__ __forceinline__ void copy_tile(T* dst, const T* src, int r0, int n, int d) {
+    constexpr int E = W / sizeof(T);
+    const int per_row = d / E;
+    for (int idx = threadIdx.x; idx < kTile * per_row; idx += kThreads) {
+        const int j = idx / per_row;
+        const int c = (idx - j * per_row) * E;
+        const bool in = r0 + j < n;
+        cp_async<W>(dst + swz<T, DP>(j, c), in ? src + (long long)(r0 + j) * d + c : src, in);
     }
 }
 
-// a (own row) · b (tile row j) and c (own row) · e (tile row j) for the kSub rows j of a
-// step, summed over this thread's columns and then over the row's TPR lanes
-template <int DP, int TPR>
-__device__ __forceinline__ void tile_dots(const float (&a)[kCols], const float* __restrict__ bs,
-                                          const float (&c)[kCols], const float* __restrict__ es, int sub,
-                                          float (&ab)[kSub], float (&ce)[kSub]) {
+// the same with plain loads, for rows that are not 4-byte aligned (2-byte types, odd d)
+template <typename T, int DP>
+__device__ __forceinline__ void copy_tile_sync(T* dst, const T* src, int r0, int n, int d) {
+    for (int idx = threadIdx.x; idx < kTile * d; idx += kThreads) {
+        const int j = idx / d;
+        const int c = idx - j * d;
+        dst[swz<T, DP>(j, c)] = (r0 + j < n) ? src[(long long)(r0 + j) * d + c] : from_f32<T>(0.f);
+    }
+}
+
+template <typename T, int DP>
+__device__ __forceinline__ void copy_rows(T* dst, const T* src, int r0, int n, int d, int w) {
+    if (w == 16) {
+        copy_tile<T, DP, 16>(dst, src, r0, n, d);
+    } else if (w == 8) {
+        copy_tile<T, DP, 8>(dst, src, r0, n, d);
+    } else if (w == 4) {
+        copy_tile<T, DP, 4>(dst, src, r0, n, d);
+    } else {
+        copy_tile_sync<T, DP>(dst, src, r0, n, d);
+    }
+}
+
+// entries i0 .. i0+kTile-1 of a per-row f32 vector, 0 past n
+__device__ __forceinline__ void copy_vec(float* dst, const float* src, int i0, int n) {
+    for (int i = threadIdx.x; i < kTile; i += kThreads) {
+        const bool in = i0 + i < n;
+        cp_async<4>(dst + i, in ? src + i0 + i : src, in);
+    }
+}
+
+// columns d .. DP-1 of `rows` consecutive swizzled rows of T set to zero
+template <typename T, int DP>
+__device__ __forceinline__ void zero_pad(T* dst, int rows, int d) {
+    const int pad = DP - d;
+    for (int idx = threadIdx.x; idx < rows * pad; idx += kThreads) {
+        const int r = idx / pad;
+        dst[swz<T, DP>(r, d + idx - r * pad)] = from_f32<T>(0.f);
+    }
+}
+
+// The TF32 parts of a tile in shared memory: (rows, DP) words each, swizzled as f32
+struct Parts {
+    const uint32_t* big;
+    const uint32_t* small;  // unused for 2-byte types
+};
+
+// rows r0 .. r0+kRows-1 of a (n, d) matrix as f32 (zero past n and d), swizzled: the
+// block's own rows, loaded once and split as their fragments are read
+template <typename T, int DP>
+__device__ __forceinline__ void load_own(uint32_t* dst, const T* src, int r0, int n, int d) {
+    for (int idx = threadIdx.x; idx < kRows * DP / 4; idx += kThreads) {
+        const int r = idx / (DP / 4);
+        const int c = (idx - r * (DP / 4)) * 4;
+        uint4 b;
+        uint32_t* bp = &b.x;
 #pragma unroll
-    for (int j = 0; j < kSub; ++j) ab[j] = ce[j] = 0.f;
-#pragma unroll
-    for (int i = 0; i < kCols / 4; ++i) {
-        const int col = 4 * (sub + TPR * i);
-#pragma unroll
-        for (int j = 0; j < kSub; ++j) {
-            const float4 b = *reinterpret_cast<const float4*>(bs + j * DP + col);
-            const float4 e = *reinterpret_cast<const float4*>(es + j * DP + col);
-            ab[j] = fmaf(a[4 * i + 0], b.x, ab[j]);
-            ab[j] = fmaf(a[4 * i + 1], b.y, ab[j]);
-            ab[j] = fmaf(a[4 * i + 2], b.z, ab[j]);
-            ab[j] = fmaf(a[4 * i + 3], b.w, ab[j]);
-            ce[j] = fmaf(c[4 * i + 0], e.x, ce[j]);
-            ce[j] = fmaf(c[4 * i + 1], e.y, ce[j]);
-            ce[j] = fmaf(c[4 * i + 2], e.z, ce[j]);
-            ce[j] = fmaf(c[4 * i + 3], e.w, ce[j]);
+        for (int e = 0; e < 4; ++e) {
+            const float x = (r0 + r < n && c + e < d) ? to_f32(src[(long long)(r0 + r) * d + c + e]) : 0.f;
+            bp[e] = __float_as_uint(x);
+        }
+        *reinterpret_cast<uint4*>(dst + swz4<DP>(r, c)) = b;
+    }
+}
+
+// a (kTile, DP) ring tile split into TF32 parts: f32 in place (big parts over the values,
+// small parts into `work`), 2-byte values widened into `work`. Returns where its parts lie.
+template <typename T, int DP>
+__device__ __forceinline__ Parts split_tile(T* tile, uint32_t* work) {
+    for (int idx = threadIdx.x; idx < kTile * DP / 4; idx += kThreads) {
+        const int r = idx / (DP / 4);
+        const int c = (idx - r * (DP / 4)) * 4;
+        const int at = swz4<DP>(r, c);
+        if constexpr (sizeof(T) == 4) {
+            float4* p = reinterpret_cast<float4*>(tile + at);
+            const float4 x = *p;
+            uint4 b, s;
+            tf32x3::split<false>(x.x, b.x, s.x);
+            tf32x3::split<false>(x.y, b.y, s.y);
+            tf32x3::split<false>(x.z, b.z, s.z);
+            tf32x3::split<false>(x.w, b.w, s.w);
+            *reinterpret_cast<uint4*>(p) = b;
+            *reinterpret_cast<uint4*>(work + at) = s;
+        } else {
+            const T* h = tile + swz<T, DP>(r, c);  // 4 values within one 16-byte chunk
+            *reinterpret_cast<uint4*>(work + at) = make_uint4(__float_as_uint(to_f32(h[0])), __float_as_uint(to_f32(h[1])),
+                                                              __float_as_uint(to_f32(h[2])), __float_as_uint(to_f32(h[3])));
         }
     }
+    if constexpr (sizeof(T) == 4) return {reinterpret_cast<const uint32_t*>(tile), work};
+    else return {work, work};
+}
+
+// Fragments from swizzled f32 tiles, lane = 4·g + t (mma_tf32x3.cuh):
+// the A operand over rows m0 .. m0+15 and columns k0 .. k0+7
+template <int DP>
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const uint32_t* s, int m0, int k0, int lane) {
+    const int i = lane & 7;
+    const int j = lane >> 3;
+    tf32x3::ldmatrix_x4(a, s + swz4<DP>(m0 + i + 8 * (j & 1), k0 + 4 * (j >> 1)));
+}
+// the B operands of two n-tiles of a tile stored (n, k): rows n0 .. n0+7 and n0+8 .. n0+15
+// are their columns, columns k0 .. k0+7 their k; b = {b0, b1} of the first, then the second
+template <int DP>
+__device__ __forceinline__ void frag_b_nk(uint32_t (&b)[4], const uint32_t* s, int n0, int k0, int lane) {
+    const int i = lane & 7;
+    const int j = lane >> 3;
+    tf32x3::ldmatrix_x4(b, s + swz4<DP>(n0 + i + 8 * (j >> 1), k0 + 4 * (j & 1)));
+}
+// the B operands of n-tiles 2p and 2p+1 of a tile stored (k, n), k permuted as
+// tf32x3::from_acc's A (rows k0 + 2t and k0 + 2t + 1 are its k t and t + 4) and the two
+// n-tiles interleaved (column n of n-tile 2p + h is column 16p + 2n + h), so that each
+// lane reads two adjacent words a row
+template <int DP>
+__device__ __forceinline__ void frag_b_kn(uint32_t (&b)[4], const uint32_t* s, int k0, int p, int g, int t) {
+    const uint2 lo = *reinterpret_cast<const uint2*>(s + swz4<DP>(k0 + 2 * t, 16 * p + 2 * g));
+    const uint2 hi = *reinterpret_cast<const uint2*>(s + swz4<DP>(k0 + 2 * t + 1, 16 * p + 2 * g));
+    b[0] = lo.x;
+    b[1] = hi.x;
+    b[2] = lo.y;
+    b[3] = hi.y;
+}
+
+// X (16 × kTile) = A·Bᵀ and Y = C·Eᵀ over the padded head dim, for A and C rows m0.. of the
+// block's own (kRows, DP) f32 tiles, split as they are read, and B and E (kTile, DP) tiles
+// in parts: S and dP in K4, Sᵀ and dPᵀ in K5
+template <bool kExact, int DP>
+__device__ __forceinline__ void two_products(const uint32_t* a, Parts b, const uint32_t* c, Parts e, int m0,
+                                             int lane, float (&x)[kTile / 8][4], float (&y)[kTile / 8][4]) {
 #pragma unroll
-    for (int j = 0; j < kSub; ++j) {
+    for (int n = 0; n < kTile / 8; ++n) {
 #pragma unroll
-        for (int off = 1; off < TPR; off <<= 1) {
-            ab[j] += __shfl_xor_sync(kFull, ab[j], off);
-            ce[j] += __shfl_xor_sync(kFull, ce[j], off);
+        for (int i = 0; i < 4; ++i) x[n][i] = y[n][i] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk) {
+        uint32_t ab[4], as[4] = {}, cb[4], cs[4] = {};
+        frag_a<DP>(ab, a, m0, 8 * kk, lane);
+        frag_a<DP>(cb, c, m0, 8 * kk, lane);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            tf32x3::split<kExact>(__uint_as_float(ab[i]), ab[i], as[i]);
+            tf32x3::split<kExact>(__uint_as_float(cb[i]), cb[i], cs[i]);
+        }
+#pragma unroll
+        for (int np = 0; np < kTile / 16; ++np) {
+            uint32_t bb[4], bs[4] = {};
+            frag_b_nk<DP>(bb, b.big, 16 * np, 8 * kk, lane);
+            if constexpr (!kExact) frag_b_nk<DP>(bs, b.small, 16 * np, 8 * kk, lane);
+            tf32x3::mma3<kExact, kExact>(x[2 * np], ab, as, {bb[0], bb[1]}, {bs[0], bs[1]});
+            tf32x3::mma3<kExact, kExact>(x[2 * np + 1], ab, as, {bb[2], bb[3]}, {bs[2], bs[3]});
+            frag_b_nk<DP>(bb, e.big, 16 * np, 8 * kk, lane);
+            if constexpr (!kExact) frag_b_nk<DP>(bs, e.small, 16 * np, 8 * kk, lane);
+            tf32x3::mma3<kExact, kExact>(y[2 * np], cb, cs, {bb[0], bb[1]}, {bs[0], bs[1]});
+            tf32x3::mma3<kExact, kExact>(y[2 * np + 1], cb, cs, {bb[2], bb[3]}, {bs[2], bs[3]});
         }
     }
 }
 
-// acc += Σ_j w[j] · tile row j over the kSub rows of a step, on this thread's columns
-template <int DP, int TPR>
-__device__ __forceinline__ void tile_axpy(const float (&w)[kSub], const float* __restrict__ ts, int sub,
-                                          float (&acc)[kCols]) {
+// acc (16 × DP, columns interleaved as frag_b_kn's) += W·B for W (16 × kTile) in
+// accumulator fragments (f32: P or dS) and B a (kTile, DP) tile
+template <bool kExact, int DP>
+__device__ __forceinline__ void accumulate(const float (&w)[kTile / 8][4], Parts b, int g, int t,
+                                           float (&acc)[DP / 8][4]) {
 #pragma unroll
-    for (int j = 0; j < kSub; ++j) {
+    for (int n = 0; n < kTile / 8; ++n) {
+        float f[4];
+        tf32x3::from_acc(w[n], f);
+        uint32_t wb[4], ws[4];
 #pragma unroll
-        for (int i = 0; i < kCols / 4; ++i) {
-            const float4 t = *reinterpret_cast<const float4*>(ts + j * DP + 4 * (sub + TPR * i));
-            acc[4 * i + 0] = fmaf(w[j], t.x, acc[4 * i + 0]);
-            acc[4 * i + 1] = fmaf(w[j], t.y, acc[4 * i + 1]);
-            acc[4 * i + 2] = fmaf(w[j], t.z, acc[4 * i + 2]);
-            acc[4 * i + 3] = fmaf(w[j], t.w, acc[4 * i + 3]);
+        for (int i = 0; i < 4; ++i) tf32x3::split<false>(f[i], wb[i], ws[i]);
+#pragma unroll
+        for (int p = 0; p < DP / 16; ++p) {
+            uint32_t bb[4], bs[4] = {};
+            frag_b_kn<DP>(bb, b.big, 8 * n, p, g, t);
+            if constexpr (!kExact) frag_b_kn<DP>(bs, b.small, 8 * n, p, g, t);
+            tf32x3::mma3<false, kExact>(acc[2 * p], wb, ws, {bb[0], bb[1]}, {bs[0], bs[1]});
+            tf32x3::mma3<false, kExact>(acc[2 * p + 1], wb, ws, {bb[2], bb[3]}, {bs[2], bs[3]});
         }
     }
 }
+
+// the column of element i of accumulator n-tile c (frag_b_kn's interleaving)
+__device__ __forceinline__ int acc_col(int c, int i, int t) { return 16 * (c / 2) + 4 * t + 2 * (i & 1) + (c & 1); }
 
 }  // namespace
 
@@ -194,197 +369,274 @@ __global__ void __launch_bounds__(kDWarps * 32) flash_attention_bwd_d_kernel(
     if (lane == 0) dd[row] = acc;
 }
 
-// K4: dQ for ROWS query rows of one batch·head
+
+// K4: dQ for kRows query rows of one batch·head
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads) flash_attention_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ dd, const float* __restrict__ bias,
-    T* __restrict__ dq, int tq, int tk, int d, float scale, int causal, int q_tiles) {
-    constexpr int TPR = tpr_of(DP);
-    constexpr int ROWS = rows_of(DP);
-    constexpr int BS = kTile + 1;  // bias tile row stride (no bank conflicts)
+    T* __restrict__ dq, int tq, int tk, int d, float scale, int causal, int q_tiles, int copy_bytes) {
+    constexpr bool kExact = sizeof(T) == 2;
+    constexpr int NT = kTile / 8;
+    constexpr int DT = DP / 8;
+    constexpr int kOwn = kRows * DP;
     extern __shared__ float4 smem4[];
-    float* ks = reinterpret_cast<float*>(smem4);  // (kTile, DP)
-    float* vs = ks + kTile * DP;                 // (kTile, DP)
-    float* bs = vs + kTile * DP;                 // (ROWS, BS) when bias
+    uint32_t* own = reinterpret_cast<uint32_t*>(smem4);  // q, dO as f32
+    T* ring = reinterpret_cast<T*>(own + kOwnWords(DP));  // kStages x (k, v) tiles
+    uint32_t* work = reinterpret_cast<uint32_t*>(ring + 2 * kStages * kTile * DP);  // k, v parts
 
-    const int tid = threadIdx.x;
-    const int r = tid / TPR;
-    const int sub = tid % TPR;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int m0 = (threadIdx.x / 32) * 16;  // the warp's rows in the block
     const long long bh = blockIdx.x / q_tiles;
-    const int row0 = (blockIdx.x % q_tiles) * ROWS;
-    const int row = row0 + r;
-    const bool live = row < tq;
-    const long long qoff = (bh * tq + (live ? row : 0)) * d;
+    const int row0 = (q_tiles - 1 - (int)(blockIdx.x % q_tiles)) * kRows;  // the longest causal blocks first
+    const int r_lo = row0 + m0 + g;                                         // this thread's rows: r_lo, r_lo + 8
     const T* kb = k + bh * tk * d;
     const T* vb = v + bh * tk * d;
 
-    float qr[kCols], gr[kCols], acc[kCols];
-    load_row<T, TPR>(q + qoff, live, sub, d, qr);
-    load_row<T, TPR>(dout + qoff, live, sub, d, gr);
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[c] = 0.f;
-    const float lse_r = live ? lse[bh * tq + row] : 0.f;
-    const float d_r = live ? dd[bh * tq + row] : 0.f;
-
     // causal: the last key any row of this block attends is its last row
     int tiles = (tk + kTile - 1) / kTile;
-    if (causal) {
-        const int last_row = min(row0 + ROWS, tq) - 1;
-        tiles = min(tiles, last_row / kTile + 1);
+    if (causal) tiles = min(tiles, (min(row0 + kRows, tq) - 1) / kTile + 1);
+
+    zero_pad<T, DP>(ring, 2 * kStages * kTile, d);
+    copy_rows<T, DP>(ring, kb, 0, tk, d, copy_bytes);
+    copy_rows<T, DP>(ring + kTile * DP, vb, 0, tk, d, copy_bytes);
+    cp_async_commit();
+    load_own<T, DP>(own, q + bh * tq * d, row0, tq, d);
+    load_own<T, DP>(own + kOwn, dout + bh * tq * d, row0, tq, d);
+
+    float lse_r[2], d_r[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int row = r_lo + 8 * h;
+        lse_r[h] = row < tq ? lse[bh * tq + row] : 0.f;
+        d_r[h] = row < tq ? dd[bh * tq + row] : 0.f;
+    }
+    float acc[DT][4];
+#pragma unroll
+    for (int c = 0; c < DT; ++c) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[c][i] = 0.f;
     }
 
-    for (int t = 0; t < tiles; ++t) {
-        const int j0 = t * kTile;
-        __syncthreads();  // every thread is done with the previous tile
-        stage_tile<T, DP>(kb, j0, tk, d, ks);
-        stage_tile<T, DP>(vb, j0, tk, d, vs);
-        if (bias != nullptr) {
-            for (int idx = tid; idx < ROWS * kTile; idx += kThreads) {
-                const int rr = idx / kTile;
-                const int j = idx % kTile;
-                const bool in = row0 + rr < tq && j0 + j < tk;
-                bs[rr * BS + j] = in ? bias[(long long)(row0 + rr) * tk + j0 + j] : 0.f;
-            }
+    for (int it = 0; it < tiles; ++it) {
+        cp_async_wait_all();
+        __syncthreads();  // tile `it` has landed, and every warp is done with tile it-1
+        if (it + 1 < tiles) {  // the next tile into the stage that tile it-1 released
+            T* next = ring + ((it + 1) % kStages) * 2 * kTile * DP;
+            copy_rows<T, DP>(next, kb, (it + 1) * kTile, tk, d, copy_bytes);
+            copy_rows<T, DP>(next + kTile * DP, vb, (it + 1) * kTile, tk, d, copy_bytes);
         }
-        __syncthreads();
+        cp_async_commit();
+        T* cur = ring + (it % kStages) * 2 * kTile * DP;
+        const Parts kp = split_tile<T, DP>(cur, work);
+        const Parts vp = split_tile<T, DP>(cur + kTile * DP, work + kTile * DP);
+        __syncthreads();  // the tile's parts are in place
+        const int j0 = it * kTile;
+
+        float s[NT][4], dp[NT][4];
+        two_products<kExact, DP>(own, kp, own + kOwn, vp, m0, lane, s, dp);
 
         const bool straddles = causal && j0 + kTile - 1 > row0;  // flag bit 4 of _pair_schedule
         const bool ragged = j0 + kTile > tk;
-        // kSub keys a step, so that the scores, products and loads in flight fit the registers
-#pragma unroll 1
-        for (int js = 0; js < kTile; js += kSub) {
-            float s[kSub], dp[kSub];
-            tile_dots<DP, TPR>(qr, ks + js * DP, gr, vs + js * DP, sub, s, dp);
 #pragma unroll
-            for (int jj = 0; jj < kSub; ++jj) {
-                const int j = j0 + js + jj;
-                float x = s[jj] * scale;
-                if (bias != nullptr) x += bs[r * BS + js + jj];
-                if (straddles && j > row) x = kNegInf;
-                float p = expf(x - lse_r);
-                if (ragged && j >= tk) p = 0.f;  // no such key
-                s[jj] = p * (dp[jj] - d_r);      // dS
+        for (int n = 0; n < NT; ++n) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const int row = r_lo + 8 * (i / 2);
+                const int key = j0 + 8 * n + 2 * t + (i & 1);
+                float x = s[n][i] * scale;
+                if (bias != nullptr) x += (row < tq && key < tk) ? bias[(long long)row * tk + key] : 0.f;
+                if (straddles && key > row) x = kNegInf;
+                float p = expf(x - lse_r[i / 2]);
+                if (ragged && key >= tk) p = 0.f;       // no such key
+                s[n][i] = p * (dp[n][i] - d_r[i / 2]);  // dS
             }
-            tile_axpy<DP, TPR>(s, ks + js * DP, sub, acc);
         }
+        accumulate<kExact, DP>(s, kp, g, t, acc);  // dQ += dS·k
     }
 
-    if (live) store_row<T, TPR>(dq + qoff, sub, d, acc, scale);
+#pragma unroll
+    for (int c = 0; c < DT; ++c) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int row = r_lo + 8 * (i / 2);
+            const int col = acc_col(c, i, t);
+            if (row < tq && col < d) dq[(bh * tq + row) * d + col] = from_f32<T>(acc[c][i] * scale);
+        }
+    }
 }
 
-// K5: dK and dV for ROWS key rows of one batch·head
+// K5: dK and dV for kRows key rows of one batch·head
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads) flash_attention_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ dd, const float* __restrict__ bias,
-    T* __restrict__ dk, T* __restrict__ dv, int tq, int tk, int d, float scale, int causal, int k_tiles) {
-    constexpr int TPR = tpr_of(DP);
-    constexpr int ROWS = rows_of(DP);
-    constexpr int BS = ROWS + 1;  // bias tile row stride
+    T* __restrict__ dk, T* __restrict__ dv, int tq, int tk, int d, float scale, int causal, int k_tiles,
+    int copy_bytes) {
+    constexpr bool kExact = sizeof(T) == 2;
+    constexpr int NT = kTile / 8;
+    constexpr int DT = DP / 8;
+    constexpr int kOwn = kRows * DP;
     extern __shared__ float4 smem4[];
-    float* qs = reinterpret_cast<float*>(smem4);  // (kTile, DP)
-    float* gs = qs + kTile * DP;                 // (kTile, DP): dO
-    float* ls = gs + kTile * DP;                 // (kTile): LSE
-    float* ds = ls + kTile;                      // (kTile): D
-    float* bs = ds + kTile;                      // (kTile, BS) when bias: bias[query][key]
+    uint32_t* own = reinterpret_cast<uint32_t*>(smem4);  // k, v as f32
+    T* ring = reinterpret_cast<T*>(own + kOwnWords(DP));  // kStages x (q, dO) tiles
+    uint32_t* work = reinterpret_cast<uint32_t*>(ring + 2 * kStages * kTile * DP);  // q, dO parts
+    float* vecs = reinterpret_cast<float*>(work + 2 * kTile * DP);  // kStages x (LSE, D)
 
-    const int tid = threadIdx.x;
-    const int r = tid / TPR;
-    const int sub = tid % TPR;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int m0 = (threadIdx.x / 32) * 16;
     const long long bh = blockIdx.x / k_tiles;
-    const int row0 = (blockIdx.x % k_tiles) * ROWS;
-    const int key = row0 + r;
-    const bool live = key < tk;
-    const long long koff = (bh * tk + (live ? key : 0)) * d;
+    const int key0 = (int)(blockIdx.x % k_tiles) * kRows;
+    const int k_lo = key0 + m0 + g;  // this thread's keys: k_lo, k_lo + 8
     const T* qb = q + bh * tq * d;
     const T* gb = dout + bh * tq * d;
+    const float* lb = lse + bh * tq;
+    const float* db = dd + bh * tq;
 
-    float kr[kCols], vr[kCols], dka[kCols], dva[kCols];
-    load_row<T, TPR>(k + koff, live, sub, d, kr);
-    load_row<T, TPR>(v + koff, live, sub, d, vr);
+    float dka[DT][4], dva[DT][4];
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) dka[c] = dva[c] = 0.f;
+    for (int c = 0; c < DT; ++c) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dka[c][i] = dva[c][i] = 0.f;
+    }
 
     // causal: query i attends key j iff i >= j, so the first query tile to visit holds
-    // query row0; when row0 >= tq no query attends the block and the loop is empty
+    // query key0; when key0 >= tq no query attends the block and the loop is empty
     const int tiles = (tq + kTile - 1) / kTile;
-    const int t0 = causal ? row0 / kTile : 0;
+    const int t0 = causal ? key0 / kTile : 0;
+    if (t0 < tiles) {
+        zero_pad<T, DP>(ring, 2 * kStages * kTile, d);
+        copy_rows<T, DP>(ring, qb, t0 * kTile, tq, d, copy_bytes);
+        copy_rows<T, DP>(ring + kTile * DP, gb, t0 * kTile, tq, d, copy_bytes);
+        copy_vec(vecs, lb, t0 * kTile, tq);
+        copy_vec(vecs + kTile, db, t0 * kTile, tq);
+        cp_async_commit();
+        load_own<T, DP>(own, k + bh * tk * d, key0, tk, d);
+        load_own<T, DP>(own + kOwn, v + bh * tk * d, key0, tk, d);
+    }
 
-    for (int t = t0; t < tiles; ++t) {
-        const int i0 = t * kTile;
-        __syncthreads();  // every thread is done with the previous tile
-        stage_tile<T, DP>(qb, i0, tq, d, qs);
-        stage_tile<T, DP>(gb, i0, tq, d, gs);
-        if (tid < kTile) {
-            const bool in = i0 + tid < tq;
-            ls[tid] = in ? lse[bh * tq + i0 + tid] : 0.f;
-            ds[tid] = in ? dd[bh * tq + i0 + tid] : 0.f;
+    for (int it = t0; it < tiles; ++it) {
+        cp_async_wait_all();
+        __syncthreads();  // tile `it` has landed, and every warp is done with tile it-1
+        if (it + 1 < tiles) {
+            const int st = (it + 1 - t0) % kStages;
+            T* next = ring + st * 2 * kTile * DP;
+            copy_rows<T, DP>(next, qb, (it + 1) * kTile, tq, d, copy_bytes);
+            copy_rows<T, DP>(next + kTile * DP, gb, (it + 1) * kTile, tq, d, copy_bytes);
+            copy_vec(vecs + st * 2 * kTile, lb, (it + 1) * kTile, tq);
+            copy_vec(vecs + st * 2 * kTile + kTile, db, (it + 1) * kTile, tq);
         }
-        if (bias != nullptr) {
-            for (int idx = tid; idx < kTile * ROWS; idx += kThreads) {
-                const int i = idx / ROWS;
-                const int rr = idx % ROWS;
-                const bool in = i0 + i < tq && row0 + rr < tk;
-                bs[i * BS + rr] = in ? bias[(long long)(i0 + i) * tk + row0 + rr] : 0.f;
-            }
-        }
-        __syncthreads();
+        cp_async_commit();
+        const int st = (it - t0) % kStages;
+        T* cur = ring + st * 2 * kTile * DP;
+        const Parts qp = split_tile<T, DP>(cur, work);
+        const Parts gp = split_tile<T, DP>(cur + kTile * DP, work + kTile * DP);
+        const float* ls = vecs + st * 2 * kTile;
+        const float* ds = ls + kTile;
+        __syncthreads();  // the tile's parts are in place
+        const int i0 = it * kTile;
 
-        const bool straddles = causal && row0 + ROWS - 1 > i0;  // flag bit 4 of _pair_schedule_kv
+        float s[NT][4], dp[NT][4];  // Sᵀ and dPᵀ: keys × queries
+        two_products<kExact, DP>(own, qp, own + kOwn, gp, m0, lane, s, dp);
+
+        const bool straddles = causal && key0 + kRows - 1 > i0;  // flag bit 4 of _pair_schedule_kv
         const bool ragged = i0 + kTile > tq;
-#pragma unroll 1
-        for (int is = 0; is < kTile; is += kSub) {
-            float s[kSub], dp[kSub];
-            tile_dots<DP, TPR>(kr, qs + is * DP, vr, gs + is * DP, sub, s, dp);
 #pragma unroll
-            for (int ii = 0; ii < kSub; ++ii) {
-                const int i = i0 + is + ii;
-                float x = s[ii] * scale;
-                if (bias != nullptr) x += bs[(is + ii) * BS + r];
-                if (straddles && key > i) x = kNegInf;
-                float p = expf(x - ls[is + ii]);
-                if (ragged && i >= tq) p = 0.f;         // no such query
-                s[ii] = p;                               // P
-                dp[ii] = p * (dp[ii] - ds[is + ii]);     // dS
+        for (int n = 0; n < NT; ++n) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const int key = k_lo + 8 * (i / 2);
+                const int c = 8 * n + 2 * t + (i & 1);
+                const int query = i0 + c;
+                float x = s[n][i] * scale;
+                if (bias != nullptr) x += (query < tq && key < tk) ? bias[(long long)query * tk + key] : 0.f;
+                if (straddles && key > query) x = kNegInf;
+                float p = expf(x - ls[c]);
+                if (ragged && query >= tq) p = 0.f;  // no such query
+                s[n][i] = p;                          // Pᵀ
+                dp[n][i] = p * (dp[n][i] - ds[c]);    // dSᵀ
             }
-            tile_axpy<DP, TPR>(dp, qs + is * DP, sub, dka);
-            tile_axpy<DP, TPR>(s, gs + is * DP, sub, dva);
         }
+        accumulate<kExact, DP>(s, gp, g, t, dva);   // dV += Pᵀ·dO
+        accumulate<kExact, DP>(dp, qp, g, t, dka);  // dK += dSᵀ·q
     }
 
     // written for every key row of the block, zeros where no query attends it
-    if (live) {
-        store_row<T, TPR>(dk + koff, sub, d, dka, scale);
-        store_row<T, TPR>(dv + koff, sub, d, dva, 1.f);
+#pragma unroll
+    for (int c = 0; c < DT; ++c) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int key = k_lo + 8 * (i / 2);
+            const int col = acc_col(c, i, t);
+            if (key < tk && col < d) {
+                const long long off = (bh * tk + key) * d + col;
+                dk[off] = from_f32<T>(dka[c][i] * scale);
+                dv[off] = from_f32<T>(dva[c][i]);
+            }
+        }
     }
 }
 
 namespace {
 
+// the dynamic shared memory above 48 KB that `kernel` needs, opted into once per device
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, size_t bytes, int device, std::atomic<unsigned long long>& done) {
+    const unsigned long long bit = 1ull << (device & 63);
+    if (bytes <= 48 * 1024 || (done.load(std::memory_order_acquire) & bit)) return cudaSuccess;
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_acq_rel);
+    return err;
+}
+
+// the widest copy (16, 8 or 4 bytes; 2 for plain loads) that every tensor's address and
+// the row width allow
+template <typename T>
+int copy_width(const void* a, const void* b, const void* c, const void* e, int d) {
+    const uintptr_t bits = reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+                           reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(e) |
+                           static_cast<uintptr_t>(d * sizeof(T));
+    int w = 16;
+    while (w > 2 && bits % w != 0) w /= 2;
+    return w;
+}
+
 template <typename T, int DP>
-cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+cudaError_t launch_dq(int device, const void* q, const void* k, const void* v, const void* dout, const float* lse,
                       const float* dd, const float* bias, void* dq, int bh, int tq, int tk, int d, float scale,
                       int causal, cudaStream_t stream) {
-    const int q_tiles = (tq + rows_of(DP) - 1) / rows_of(DP);
+    static std::atomic<unsigned long long> done{0};
+    constexpr size_t smem = smem_bytes<T, DP>(false);
+    const int q_tiles = (tq + kRows - 1) / kRows;
     const long long blocks = (long long)bh * q_tiles;
     if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-    flash_attention_bwd_dq_kernel<T, DP><<<(unsigned)blocks, kThreads, dq_smem_bytes(DP, bias != nullptr), stream>>>(
+    const cudaError_t err = opt_in(flash_attention_bwd_dq_kernel<T, DP>, smem, device, done);
+    if (err != cudaSuccess) return err;
+    flash_attention_bwd_dq_kernel<T, DP><<<(unsigned)blocks, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout),
-        lse, dd, bias, static_cast<T*>(dq), tq, tk, d, scale, causal, q_tiles);
+        lse, dd, bias, static_cast<T*>(dq), tq, tk, d, scale, causal, q_tiles, copy_width<T>(q, k, v, dout, d));
     return cudaGetLastError();
 }
 
 template <typename T, int DP>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+cudaError_t launch_dkv(int device, const void* q, const void* k, const void* v, const void* dout, const float* lse,
                        const float* dd, const float* bias, void* dk, void* dv, int bh, int tq, int tk, int d,
                        float scale, int causal, cudaStream_t stream) {
-    const int k_tiles = (tk + rows_of(DP) - 1) / rows_of(DP);
+    static std::atomic<unsigned long long> done{0};
+    constexpr size_t smem = smem_bytes<T, DP>(true);
+    const int k_tiles = (tk + kRows - 1) / kRows;
     const long long blocks = (long long)bh * k_tiles;
     if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-    flash_attention_bwd_dkv_kernel<T, DP><<<(unsigned)blocks, kThreads, dkv_smem_bytes(DP, bias != nullptr), stream>>>(
+    const cudaError_t err = opt_in(flash_attention_bwd_dkv_kernel<T, DP>, smem, device, done);
+    if (err != cudaSuccess) return err;
+    flash_attention_bwd_dkv_kernel<T, DP><<<(unsigned)blocks, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout),
-        lse, dd, bias, static_cast<T*>(dk), static_cast<T*>(dv), tq, tk, d, scale, causal, k_tiles);
+        lse, dd, bias, static_cast<T*>(dk), static_cast<T*>(dv), tq, tk, d, scale, causal, k_tiles,
+        copy_width<T>(q, k, v, dout, d));
     return cudaGetLastError();
 }
 
@@ -432,8 +684,8 @@ int flash_attention_bwd_dq_launch(int device, int dtype, const void* q, const vo
     if (err != cudaSuccess) return err;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const bool wide = d > 64;
-#define HT_DQ(T) (wide ? launch_dq<T, 128>(q, k, v, dout, lse, dd, bias, dq, bh, tq, tk, d, scale, causal, s) \
-                       : launch_dq<T, 64>(q, k, v, dout, lse, dd, bias, dq, bh, tq, tk, d, scale, causal, s))
+#define HT_DQ(T) (wide ? launch_dq<T, 128>(device, q, k, v, dout, lse, dd, bias, dq, bh, tq, tk, d, scale, causal, s) \
+                       : launch_dq<T, 64>(device, q, k, v, dout, lse, dd, bias, dq, bh, tq, tk, d, scale, causal, s))
     switch (dtype) {
         case 0: return HT_DQ(float);
         case 1: return HT_DQ(__nv_bfloat16);
@@ -453,8 +705,8 @@ int flash_attention_bwd_dkv_launch(int device, int dtype, const void* q, const v
     if (err != cudaSuccess) return err;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const bool wide = d > 64;
-#define HT_DKV(T) (wide ? launch_dkv<T, 128>(q, k, v, dout, lse, dd, bias, dk, dv, bh, tq, tk, d, scale, causal, s) \
-                        : launch_dkv<T, 64>(q, k, v, dout, lse, dd, bias, dk, dv, bh, tq, tk, d, scale, causal, s))
+#define HT_DKV(T) (wide ? launch_dkv<T, 128>(device, q, k, v, dout, lse, dd, bias, dk, dv, bh, tq, tk, d, scale, causal, s) \
+                        : launch_dkv<T, 64>(device, q, k, v, dout, lse, dd, bias, dk, dv, bh, tq, tk, d, scale, causal, s))
     switch (dtype) {
         case 0: return HT_DKV(float);
         case 1: return HT_DKV(__nv_bfloat16);

@@ -88,4 +88,24 @@ def test_package_data_ships_the_kernel_sources():
     sources = set(kdir.rglob("*.cu")) | set(kdir.rglob("*.cuh"))
     assert sources and sources <= shipped
     assert kdir / "csrc" / "flash_attention_fwd_pipelined.cu" in sources
+    assert kdir / "csrc" / "mma_tf32x3.cuh" in sources  # included by flash_attention_bwd.cu
     assert {mod.SOURCE for mod in kernels.KERNELS.values()} <= shipped
+
+
+def test_editing_a_header_changes_the_library_path(tmp_path):
+    """A built library is keyed by its source and every header beside it, so an edited
+    header builds anew instead of loading a stale library (no nvcc is needed for the key)."""
+    from heat_tpu_torch.core.kernels import _nvcc
+
+    csrc = REPO / "heat_tpu_torch" / "core" / "kernels" / "csrc"
+    source = tmp_path / "flash_attention_bwd.cu"
+    header = tmp_path / "mma_tf32x3.cuh"
+    source.write_bytes((csrc / source.name).read_bytes())
+    header.write_bytes((csrc / header.name).read_bytes())
+    first = _nvcc._library_path(source)
+    assert first == _nvcc._library_path(source) and first.parent == _nvcc.BUILD_DIR
+    header.write_text(header.read_text() + "\n// edited\n")
+    second = _nvcc._library_path(source)
+    assert second != first and second.name.startswith("libflash_attention_bwd-")
+    (tmp_path / "another.cuh").write_text("#pragma once\n")
+    assert _nvcc._library_path(source) not in (first, second)
