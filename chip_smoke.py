@@ -19,7 +19,8 @@ Phases, one line each:
   1. the card: nvidia-smi's name and power limit, and torch's device name;
   2. build every ported kernel from the sources in this checkout (one nvcc per source,
      all started together), with each kernel instance's registers and spill bytes (ptxas)
-     and its instructions and tensor-core (HMMA) instructions (cuobjdump -sass);
+     and its instructions and tensor-core (HMMA) instructions (cuobjdump -sass); every
+     instance of K2, K3, K4 and K5 must hold HMMA;
   3. north-star #1: ``arange(10, split=0).sum()`` on the card is 45;
   4. K1 against its plain PyTorch version and against float64 on the card, at the main
      path's shape and data and at ragged shapes, each also on data rounded to integers
@@ -31,14 +32,16 @@ Phases, one line each:
      (best of 2 after the counted run, which is its warm-up);
   6. K2 against its plain PyTorch version on the card, in O and LSE: at the Transformer
      forward's three attention shapes in f32, at bench.py's attention configuration (b8
-     h16 t4096 d64 bf16, causal, and with its padding mask) and at small ragged shapes
-     with a fully masked row; bit-identical across two runs;
+     h16 t4096 d64 bf16, causal, and with its padding mask), at small ragged shapes
+     with a fully masked row, and around the forwards' tiles and blocks (lengths one off
+     them, d of 8, 72 and 96); bit-identical across two runs;
   7. K3 against its plain PyTorch version and against K2 on the card, in O and LSE: at the
      forward's three shapes and the step's two (f32), at bench.py's two, at small ragged
      shapes (d of 32, 33, 100 and 128, f16, causal with Tk > Tq and Tq > Tk, a bool mask
-     with a fully masked row) and with a float bias; bit-identical across two runs; then
-     K2 and K3 timed in turns at each large shape, K3's plain version and the library call
-     at the encoder shape;
+     with a fully masked row), with a float bias and at K2's tile edges; bit-identical
+     across two runs; then ``scaled_dot_product_attention``, K2 and K3 timed in turns at
+     each large shape (the forward's three, the step's two and bench.py's), and K3's plain
+     version at the encoder shape;
   8. the Transformer path: counts zeroed, one forward under ``torch.inference_mode()``,
      counts read (K2 exactly 18 times); the output is finite and of the right shape, and
      a 1 + 1-layer model at T = 512 on the card equals the port's CPU path; then the
@@ -86,14 +89,17 @@ import contextlib
 import json
 import math
 import os
-import re
-import statistics
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+try:
+    from heat_tpu_torch.core.kernels._measure import cuda_ms, fwd_err, k2_inputs, ptxas_summary, sass, sass_counts
+except ImportError as exc:
+    sys.exit(f"chip_smoke: the heat_tpu_torch package is not beside this script ({exc})")
 
 # the main path: bench.py's KMeans configuration (bench.py:155-160), data from this seed
 N, D, K, MAX_ITER, SEED = 10_000_000, 64, 8, 30, 0
@@ -123,6 +129,14 @@ PEAK_BF16_FLOPS = 989e12
 
 U32, U64 = 2.0**-24, 2.0**-53  # unit roundoff of float32 and float64
 
+# the kernels, by source, whose every instance takes its products as mma.sync (HMMA in
+# its SASS)
+TENSOR_CORE_KERNELS = {
+    "flash_attention_fwd.cu": ("flash_attention_fwd_kernel",),
+    "flash_attention_fwd_pipelined.cu": ("flash_attention_fwd_pipelined_kernel",),
+    "flash_attention_bwd.cu": ("flash_attention_bwd_dq_kernel", "flash_attention_bwd_dkv_kernel"),
+}
+
 
 def gamma(h: int, u: float = U32) -> float:
     """Higham's bound h·u / (1 − h·u) on the relative error of h roundings in a row."""
@@ -137,80 +151,6 @@ def check(ok, message) -> None:
 
 def phase(name: str, **fields) -> None:
     print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
-
-
-def demangle(names: list) -> list:
-    """C++ names of compiled kernels, without their parameter lists, by the toolkit's
-    cu++filt or the system's c++filt; the mangled names where neither runs."""
-    from heat_tpu_torch.core.kernels import _nvcc
-
-    for tool in (os.path.join(os.path.dirname(_nvcc.nvcc_path()), "cu++filt"), "c++filt"):
-        try:
-            out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True, timeout=60)
-        except OSError:
-            continue
-        lines = out.stdout.splitlines()
-        if out.returncode == 0 and len(lines) == len(names):
-            return [ln.replace("(int)", "").split("(")[0].replace("__nv_bfloat16", "bf16").replace("__half", "f16")
-                    for ln in lines]
-    return list(names)
-
-
-def ptxas_summary(log: str) -> list:
-    """[name, registers, spill store bytes, spill load bytes] of each kernel instance, from
-    the ``-Xptxas -v`` log of a build."""
-    rows = []
-    for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", ln)
-        if m:
-            rows.append([m.group(1), None, None, None])
-        elif rows and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
-            rows[-1][2:] = [int(m.group(1)), int(m.group(2))]
-        elif rows and (m := re.search(r"Used (\d+) registers", ln)):
-            rows[-1][1] = int(m.group(1))
-    for row, name in zip(rows, demangle([r[0] for r in rows])):
-        row[0] = name
-    return rows
-
-
-def sass_counts(library) -> dict:
-    """Instructions and tensor-core (HMMA) instructions of each kernel in a built library,
-    from ``cuobjdump -sass``; "not measured" where the toolkit has no cuobjdump."""
-    from heat_tpu_torch.core.kernels import _nvcc
-
-    tool = os.path.join(os.path.dirname(_nvcc.nvcc_path()), "cuobjdump")
-    try:
-        out = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True, timeout=300)
-    except OSError:
-        return {"sass": "not measured: no cuobjdump"}
-    counts, fn = {}, None
-    for ln in out.stdout.splitlines():
-        m = re.search(r"Function : (\S+)", ln)
-        if m:
-            fn = m.group(1)
-            counts[fn] = [0, 0]
-        elif fn is not None and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", ln):
-            counts[fn][0] += 1
-            counts[fn][1] += "HMMA" in ln
-    names = demangle(list(counts))
-    return {name: {"instructions": c[0], "hmma": c[1]} for name, c in zip(names, counts.values())}
-
-
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median device time of ``fn()`` in ms, each run between two CUDA events."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 @contextlib.contextmanager
@@ -352,26 +292,6 @@ def k2_bound_ms(bh: int, tq: int, tk: int, d: int, causal: bool, itemsize: int, 
     nbytes = itemsize * bh * d * (2 * tq + 2 * tk) + 4 * bh * tq
     flops = 4 * bh * d * attention_pairs(tq, tk, causal)
     return roof_ms(nbytes, flops, attention_rate(itemsize, simt))
-
-
-def k2_inputs(bh, tq, tk, d, dtype, seed, device):
-    import torch
-
-    gen = torch.Generator(device=device).manual_seed(seed)
-    return tuple(torch.randn(bh, t, d, generator=gen, device=device).to(dtype) for t in (tq, tk, tk))
-
-
-def fwd_err(o, lse, ro, rl) -> tuple:
-    """(max |ΔO|, max |ΔLSE|, worst err/tol) of a flash forward against another one:
-    f32 O within rtol = atol = 2e-4, bf16/f16 O within one rounding (2⁻⁷ relative) plus
-    2e-4, LSE within 2e-4."""
-    import torch
-
-    rtol = 2e-4 if o.dtype == torch.float32 else 2.0**-7
-    do = (o.float() - ro.float()).abs()
-    dl = (lse - rl).abs()
-    worst = max(float((do / (2e-4 + rtol * ro.float().abs())).max()), float((dl / (2e-4 + 2e-4 * rl.abs())).max()))
-    return float(do.max()), float(dl.max()), worst
 
 
 def check_dead_rows(name, k2, o, lse, dead_rows) -> None:
@@ -588,7 +508,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
     try:
         import heat_tpu_torch as ht
         from heat_tpu_torch.core import kernels
@@ -625,10 +544,16 @@ def main() -> int:
     for source, b in builds.items():
         names = [kname for kname, mod in kernels.KERNELS.items() if mod.SOURCE == source]
         ptxas = ptxas_summary(b["log"])
-        sass = sass_counts(b["path"])
-        build_info[source.name] = {"nvcc_s": b["seconds"], "ptxas": ptxas, "sass": sass}
+        mix = {n: sass_counts(lines) for n, lines in sass(b["path"]).items()}
+        summary = {n: {"instructions": c["instructions"], "hmma": c["hmma"]} for n, c in mix.items()}
+        build_info[source.name] = {"nvcc_s": b["seconds"], "ptxas": ptxas, "sass": summary}
         phase("build", source=source.name, kernels=",".join(names), built=b["built"], nvcc_s=f"{b['seconds']:.2f}",
-              ptxas=json.dumps(ptxas), sass=json.dumps(sass))
+              ptxas=json.dumps(ptxas), sass=json.dumps(summary))
+        # every instance of K2, K3, K4 and K5 takes its products on the tensor cores
+        for kname in TENSOR_CORE_KERNELS.get(source.name, ()):
+            mma = [n for n in mix if kname in n]
+            check(bool(mma) and all(mix[n]["hmma"] > 0 for n in mma), f"{kname} in {source.name}: no instance, or one "
+                  f"without HMMA: {summary}")
     phase("build", total_s=f"{time.perf_counter() - t0:.2f}")
     lib = k1._lib()
     check(
@@ -708,7 +633,21 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 6. K2 against its plain version on the card
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    # around the forwards' tiles (64 query rows a block; keys in tiles of 64 for K2 and 32
+    # for K3 at d <= 64, of 16 for both at d <= 128) and at head dims of 8, 72 and 96
+    fwd_edges = {
+        "edge_63x65_f32": (2, 63, 65, 64, False, f32, None),
+        "edge_65x63_causal_f32": (2, 65, 63, 64, True, f32, None),
+        "edge_127x129_causal_f32": (2, 127, 129, 64, True, f32, None),
+        "edge_129x127_causal_bf16": (2, 129, 127, 64, True, bf16, None),
+        "edge_33x31_f32": (2, 33, 31, 64, False, f32, None),
+        "edge_31x97_causal_f32": (2, 31, 97, 64, True, f32, None),
+        "edge_d8_causal_f32": (2, 65, 129, 8, True, f32, None),
+        "edge_d72_17x15_causal_f32": (2, 17, 15, 72, True, f32, None),
+        "edge_d72_dead_row_f16": (2, 100, 140, 72, False, f16, "random"),
+        "edge_d96_causal_f32": (2, 130, 33, 96, True, f32, None),
+    }
     e_heads = BATCH * 8  # batch x heads of Transformer-base
     k2_cases = {
         # name: (bh, tq, tk, d, causal, dtype, mask)
@@ -721,6 +660,7 @@ def main() -> int:
         "ragged_d128_dead_row_f32": (2, 70, 100, 128, True, f32, "random"),
         "ragged_dead_row_bf16": (2, 130, 97, 96, False, bf16, "random"),
         "ragged_causal_f16": (2, 64, 33, 64, True, torch.float16, None),
+        **fwd_edges,
     }
     k2_checks, k2_data = {}, {}
     for i, (cname, (bh, tq, tk, dh, causal, dtype, mkind)) in enumerate(k2_cases.items()):
@@ -744,7 +684,6 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 7. K3 against its plain version and against K2 on the card
-    f16 = torch.float16
     t_heads = TRAIN_B * 8  # batch x heads of the training step
     k3_cases = {
         # name: (bh, tq, tk, d, causal, dtype, mask)
@@ -761,6 +700,7 @@ def main() -> int:
         "ragged_d100_dead_row_bf16": (2, 130, 97, 100, False, bf16, "random"),
         "ragged_d33_causal_f16": (2, 70, 45, 33, True, f16, None),  # rows not 4-byte aligned: plain-load copies
         "float_bias_dead_row_f32": (4, 300, 260, 64, False, f32, "float"),
+        **fwd_edges,
     }
     k3_timed = ("encoder_self", "decoder_self_causal", "decoder_cross", "bench_causal_bf16", "step_self", "step_self_causal")
     k3_checks, k3_data = {}, {}
@@ -786,27 +726,34 @@ def main() -> int:
             k3_data[cname] = (q, k, v, causal)
         else:
             del q, k, v
-    # K2 and K3 in turns (K2, K3, K3, K2) at each large shape, then K3's plain version and
-    # the library call at the encoder shape
-    k3_ms, k3_k2_ms, k3_bounds = {}, {}, {}
+    # the library call, K2 and K3 in turns (library, K2, K3, K3, K2, library) at each large
+    # shape, then K3's plain version at the encoder shape
+    k3_ms, k3_k2_ms, k3_bounds, fwd_library_ms = {}, {}, {}, {}
     with torch.no_grad():
         for cname, (q, k, v, causal) in k3_data.items():
-            runs = []
+            q4, k4, v4 = (t.view(t.shape[0] // 8, 8, t.shape[1], t.shape[2]) for t in (q, k, v))
+            runs = [cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, is_causal=causal),
+                            reps=5, warmup=1)]
             for on in (False, True, True, False):
                 with pipelined(on):
                     runs.append(cuda_ms(lambda: k2.flash_attention_fwd(q, k, v, causal), reps=5, warmup=1))
-            k3_ms[cname], k3_k2_ms[cname] = (runs[1] + runs[2]) / 2, (runs[0] + runs[3]) / 2
+            runs.append(cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, is_causal=causal),
+                                reps=5, warmup=1))
+            del q4, k4, v4
+            fwd_library_ms[cname] = (runs[0] + runs[5]) / 2
+            k3_ms[cname], k3_k2_ms[cname] = (runs[2] + runs[3]) / 2, (runs[1] + runs[4]) / 2
             bh, tq, dh = q.shape
             k3_bounds[cname] = k2_bound_ms(bh, tq, k.shape[1], dh, causal, q.element_size())
         q, k, v, _ = k3_data["encoder_self"]
         k3_plain_ms = cuda_ms(lambda: k2.flash_attention_pipelined_reference(q, k, v, False), reps=3, warmup=1)
-        q4, k4, v4 = (t.view(BATCH, 8, t.shape[1], t.shape[2]) for t in (q, k, v))
-        k3_library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4), reps=10, warmup=2)
-        del q4, k4, v4
     phase("k3_time", k3_ms=json.dumps(k3_ms), k2_ms_in_turns=json.dumps(k3_k2_ms),
+          library_ms_in_turns=json.dumps(fwd_library_ms),
           k3_over_k2=json.dumps({c: k3_ms[c] / k3_k2_ms[c] for c in k3_ms}),
-          bound_ms=json.dumps({c: b[0] for c, b in k3_bounds.items()}), plain_ms=repr(k3_plain_ms),
-          library_ms=repr(k3_library_ms))
+          k2_over_library=json.dumps({c: k3_k2_ms[c] / fwd_library_ms[c] for c in k3_ms}),
+          k3_over_library=json.dumps({c: k3_ms[c] / fwd_library_ms[c] for c in k3_ms}),
+          bound_ms=json.dumps({c: b[0] for c, b in k3_bounds.items()}),
+          k3_share_of_bound=json.dumps({c: k3_bounds[c][0] / k3_ms[c] for c in k3_ms}),
+          k2_share_of_bound=json.dumps({c: k3_bounds[c][0] / k3_k2_ms[c] for c in k3_ms}), plain_ms=repr(k3_plain_ms))
     del k3_data
     torch.cuda.empty_cache()
 
@@ -1284,6 +1231,9 @@ def main() -> int:
                 "bound_ms_by_shape": {c: b[0] for c, b in k2_bounds.items()},
                 "achieved_flops_per_s": 4 * e_heads * 64 * attention_pairs(SRC_T, SRC_T, False) / (k2_ms["encoder_self"] * 1e-3),
                 "ms_at_training_shapes": {c: bwd_ms[c]["flash_attention_fwd"] for c in ("encoder_self", "decoder_self_causal")},
+                "ms_by_shape_in_turns": k3_k2_ms,
+                "library_ms_by_shape": fwd_library_ms,
+                "bound_ms_by_shape_in_turns": {c: b[0] for c, b in k3_bounds.items()},
             },
             *(
                 {
@@ -1336,8 +1286,9 @@ def main() -> int:
                 "bound_ms": k3_bounds["encoder_self"][0],
                 "bound_by": k3_bounds["encoder_self"][1],
                 "bound_simt_ms": k2_bound_ms(e_heads, SRC_T, SRC_T, 64, False, 4, simt=True)[0],
-                "library_ms": k3_library_ms,
-                "library_note": "torch.nn.functional.scaled_dot_product_attention on the same f32 inputs, timed only",
+                "library_ms": fwd_library_ms["encoder_self"],
+                "library_note": "torch.nn.functional.scaled_dot_product_attention on the same inputs, timed only, in "
+                                "turns with K2 and K3",
                 "max_abs_err_of": "O against flash_attention_pipelined_reference, encoder shape",
                 "err_over_tol": k3_checks["encoder_self"]["err_over_tol"],
                 "shape": [e_heads, SRC_T, SRC_T, 64],
@@ -1346,6 +1297,7 @@ def main() -> int:
                 "launches_in_training_step": train_counts_on["flash_attention_fwd_pipelined"],
                 "ms_by_shape": k3_ms,
                 "k2_ms_by_shape": k3_k2_ms,
+                "library_ms_by_shape": fwd_library_ms,
                 "bound_ms_by_shape": {c: b[0] for c, b in k3_bounds.items()},
                 "achieved_flops_per_s": 4 * e_heads * 64 * attention_pairs(SRC_T, SRC_T, False) / (k3_ms["encoder_self"] * 1e-3),
             },

@@ -257,7 +257,9 @@ def reduce_op(
     """Reduce ``x`` (``kind``: sum, prod, mean, min, max) over ``axis``.
 
     Over the split axis this is a local reduction followed by one ``all_reduce``; an
-    empty local chunk contributes the reduction's identity element."""
+    empty local chunk contributes the reduction's identity element. A floating min or
+    max takes a second ``all_reduce`` of its NaN flags, so a NaN on any rank gives NaN
+    where it lies, as numpy does."""
     sanitation.sanitize_in(x)
     neutral_kind, merge = _REDUCTIONS[kind]
     axis = sanitize_axis(x.gshape, axis)
@@ -275,7 +277,12 @@ def reduce_op(
     else:
         result = _local_reduce(kind, value, axes, keepdims)
     if crosses:
+        # neither gloo nor NCCL promises that MIN/MAX propagate NaN: a rank's NaN is
+        # carried across by a flag of its own and written back after the merge
+        nan = torch.isnan(result) if kind in ("min", "max") and result.is_floating_point() else None
         x.comm.all_reduce(result, merge)
+        if nan is not None:
+            result.masked_fill_(x.comm.all_reduce(nan, "max"), float("nan"))
     if kind == "mean":
         result = result / int(np.prod([x.gshape[a] for a in axes]))
     if keepdims:

@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict
@@ -68,7 +69,7 @@ def build(source: Path) -> dict:
         log = log_path.read_text() if log_path.exists() else ""
         return {"path": lib, "built": False, "seconds": 0.0, "log": log}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -78,7 +79,7 @@ def build(source: Path) -> dict:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({proc.returncode}) for {source.name}:\n{' '.join(cmd)}\n{log}")
     log_path.write_text(log)
-    os.replace(tmp, lib)  # atomic: concurrent builds of one source agree on the result
+    os.replace(tmp, lib)  # atomic: concurrent builds of one source, by processes or threads, agree
     return {"path": lib, "built": True, "seconds": seconds, "log": log}
 
 

@@ -9,12 +9,14 @@
 //   D pass : D_i  = Σ_c dO_ic·O_ic                                 (bh, tq) f32
 //   K4     : dQ_i = scale·Σ_j dS_ij k_j,    dS = P∘(dO·vᵀ − D)      (bh, tq, d) in q's type
 //   K5     : dK_j = scale·Σ_i dS_ij q_i,    dV_j = Σ_i P_ij dO_i    (bh, tk, d) in k's type
-// P is recomputed exactly as the forward formed s (K2, flash_attention_fwd.cu): the product
-// times scale, then the bias, masked scores at the finite NEG_INF (-FLT_MAX), never -inf. A
-// fully masked row has LSE = NEG_INF/2 + log(1e-30) and O = 0, so its P is 0, its D is 0,
-// its dQ is 0 and it adds nothing to dK and dV: inf − inf never occurs.
+// P is recomputed from the scores as the forward forms them (K2, flash_attention_fwd.cu), in
+// natural units: the product times scale, then the bias, masked scores at the finite
+// NEG_INF (-FLT_MAX), never -inf. A fully masked row has LSE = NEG_INF/2 + log(1e-30) and
+// O = 0, so its P is 0, its D is 0, its dQ is 0 and it adds nothing to dK and dV: inf − inf
+// never occurs.
 //
-// Products in 3xTF32 on the tensor cores (mma_tf32x3.cuh): each f32 operand splits into a
+// Products in 3xTF32 on the tensor cores (mma_tf32x3.cuh), on tiles, fragments and
+// products shared with the forwards (flash_tiles.cuh): each f32 operand splits into a
 // TF32 big part and a TF32 residual, and a·b is taken as small·big + big·small + big·big
 // with f32 accumulation. The dropped small·small term is below 2⁻²² of |a·b|, so the
 // products keep fp32's level of accuracy, P and dS included: they stay f32 and split like
@@ -80,7 +82,9 @@
 #include <cmath>
 #include <cstdint>
 
-#include "mma_tf32x3.cuh"
+#include "flash_tiles.cuh"
+
+using namespace flash;
 
 namespace {
 
@@ -90,17 +94,6 @@ constexpr int kRows = 16 * kWarps;     // query rows of a K4 block, key rows of 
 constexpr int kTile = 32;              // keys per tile in K4, queries per tile in K5
 constexpr int kStages = 2;             // stages of the ring
 constexpr int kDWarps = 8;             // rows (one warp each) per block of the D pass
-constexpr float kNegInf = -FLT_MAX;    // finfo(float32).min, heat_tpu's _NEG_INF
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
-template <> __device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half(x); }
 
 // Shared memory of K4 (K5 in brackets), for the head dim padded to DP:
 //   own   : q and dO (k and v) of the block's kRows rows as f32, (kRows, DP) words each
@@ -118,175 +111,12 @@ __host__ __device__ constexpr size_t smem_bytes(bool dkv) {
 }
 static_assert(smem_bytes<float, 128>(true) <= 232448, "the backward's shared memory exceeds an H100 block's");
 
-// element (r, c) of a (rows, DP) tile of T: the 16-byte chunks of row r XOR-swizzled by r % 8
-template <typename T, int DP>
-__device__ __forceinline__ int swz(int r, int c) {
-    constexpr int E = 16 / sizeof(T);
-    static_assert(DP / E >= 8, "the swizzle needs 8 chunks a row");
-    return r * DP + (((c / E) ^ (r & 7)) * E) + (c % E);
-}
-template <int DP>
-__device__ __forceinline__ int swz4(int r, int c) {
-    return swz<float, DP>(r, c);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-    return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// W bytes from global to shared memory, asynchronously; with valid false nothing is read
-// and the W bytes are zero-filled (src-size 0)
-template <int W>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
-    const int n = valid ? W : 0;
-    if constexpr (W == 16) {
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(n)
-                     : "memory");
-    } else {
-        asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_addr(dst)), "l"(src), "n"(W),
-                     "r"(n)
-                     : "memory");
-    }
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
-
-// rows r0 .. r0+kTile-1 of a (n, d) matrix into a swizzled (kTile, DP) tile, W bytes a copy
-// (W divides d·sizeof(T) and the source's alignment); rows past n are zero-filled. Columns
-// d .. DP-1 are never written here (zeroed once).
-template <typename T, int DP, int W>
-__device__ __forceinline__ void copy_tile(T* dst, const T* src, int r0, int n, int d) {
-    constexpr int E = W / sizeof(T);
-    const int per_row = d / E;
-    for (int idx = threadIdx.x; idx < kTile * per_row; idx += kThreads) {
-        const int j = idx / per_row;
-        const int c = (idx - j * per_row) * E;
-        const bool in = r0 + j < n;
-        cp_async<W>(dst + swz<T, DP>(j, c), in ? src + (long long)(r0 + j) * d + c : src, in);
-    }
-}
-
-// the same with plain loads, for rows that are not 4-byte aligned (2-byte types, odd d)
-template <typename T, int DP>
-__device__ __forceinline__ void copy_tile_sync(T* dst, const T* src, int r0, int n, int d) {
-    for (int idx = threadIdx.x; idx < kTile * d; idx += kThreads) {
-        const int j = idx / d;
-        const int c = idx - j * d;
-        dst[swz<T, DP>(j, c)] = (r0 + j < n) ? src[(long long)(r0 + j) * d + c] : from_f32<T>(0.f);
-    }
-}
-
-template <typename T, int DP>
-__device__ __forceinline__ void copy_rows(T* dst, const T* src, int r0, int n, int d, int w) {
-    if (w == 16) {
-        copy_tile<T, DP, 16>(dst, src, r0, n, d);
-    } else if (w == 8) {
-        copy_tile<T, DP, 8>(dst, src, r0, n, d);
-    } else if (w == 4) {
-        copy_tile<T, DP, 4>(dst, src, r0, n, d);
-    } else {
-        copy_tile_sync<T, DP>(dst, src, r0, n, d);
-    }
-}
-
 // entries i0 .. i0+kTile-1 of a per-row f32 vector, 0 past n
 __device__ __forceinline__ void copy_vec(float* dst, const float* src, int i0, int n) {
     for (int i = threadIdx.x; i < kTile; i += kThreads) {
         const bool in = i0 + i < n;
         cp_async<4>(dst + i, in ? src + i0 + i : src, in);
     }
-}
-
-// columns d .. DP-1 of `rows` consecutive swizzled rows of T set to zero
-template <typename T, int DP>
-__device__ __forceinline__ void zero_pad(T* dst, int rows, int d) {
-    const int pad = DP - d;
-    for (int idx = threadIdx.x; idx < rows * pad; idx += kThreads) {
-        const int r = idx / pad;
-        dst[swz<T, DP>(r, d + idx - r * pad)] = from_f32<T>(0.f);
-    }
-}
-
-// The TF32 parts of a tile in shared memory: (rows, DP) words each, swizzled as f32
-struct Parts {
-    const uint32_t* big;
-    const uint32_t* small;  // unused for 2-byte types
-};
-
-// rows r0 .. r0+kRows-1 of a (n, d) matrix as f32 (zero past n and d), swizzled: the
-// block's own rows, loaded once and split as their fragments are read
-template <typename T, int DP>
-__device__ __forceinline__ void load_own(uint32_t* dst, const T* src, int r0, int n, int d) {
-    for (int idx = threadIdx.x; idx < kRows * DP / 4; idx += kThreads) {
-        const int r = idx / (DP / 4);
-        const int c = (idx - r * (DP / 4)) * 4;
-        uint4 b;
-        uint32_t* bp = &b.x;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            const float x = (r0 + r < n && c + e < d) ? to_f32(src[(long long)(r0 + r) * d + c + e]) : 0.f;
-            bp[e] = __float_as_uint(x);
-        }
-        *reinterpret_cast<uint4*>(dst + swz4<DP>(r, c)) = b;
-    }
-}
-
-// a (kTile, DP) ring tile split into TF32 parts: f32 in place (big parts over the values,
-// small parts into `work`), 2-byte values widened into `work`. Returns where its parts lie.
-template <typename T, int DP>
-__device__ __forceinline__ Parts split_tile(T* tile, uint32_t* work) {
-    for (int idx = threadIdx.x; idx < kTile * DP / 4; idx += kThreads) {
-        const int r = idx / (DP / 4);
-        const int c = (idx - r * (DP / 4)) * 4;
-        const int at = swz4<DP>(r, c);
-        if constexpr (sizeof(T) == 4) {
-            float4* p = reinterpret_cast<float4*>(tile + at);
-            const float4 x = *p;
-            uint4 b, s;
-            tf32x3::split<false>(x.x, b.x, s.x);
-            tf32x3::split<false>(x.y, b.y, s.y);
-            tf32x3::split<false>(x.z, b.z, s.z);
-            tf32x3::split<false>(x.w, b.w, s.w);
-            *reinterpret_cast<uint4*>(p) = b;
-            *reinterpret_cast<uint4*>(work + at) = s;
-        } else {
-            const T* h = tile + swz<T, DP>(r, c);  // 4 values within one 16-byte chunk
-            *reinterpret_cast<uint4*>(work + at) = make_uint4(__float_as_uint(to_f32(h[0])), __float_as_uint(to_f32(h[1])),
-                                                              __float_as_uint(to_f32(h[2])), __float_as_uint(to_f32(h[3])));
-        }
-    }
-    if constexpr (sizeof(T) == 4) return {reinterpret_cast<const uint32_t*>(tile), work};
-    else return {work, work};
-}
-
-// Fragments from swizzled f32 tiles, lane = 4·g + t (mma_tf32x3.cuh):
-// the A operand over rows m0 .. m0+15 and columns k0 .. k0+7
-template <int DP>
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const uint32_t* s, int m0, int k0, int lane) {
-    const int i = lane & 7;
-    const int j = lane >> 3;
-    tf32x3::ldmatrix_x4(a, s + swz4<DP>(m0 + i + 8 * (j & 1), k0 + 4 * (j >> 1)));
-}
-// the B operands of two n-tiles of a tile stored (n, k): rows n0 .. n0+7 and n0+8 .. n0+15
-// are their columns, columns k0 .. k0+7 their k; b = {b0, b1} of the first, then the second
-template <int DP>
-__device__ __forceinline__ void frag_b_nk(uint32_t (&b)[4], const uint32_t* s, int n0, int k0, int lane) {
-    const int i = lane & 7;
-    const int j = lane >> 3;
-    tf32x3::ldmatrix_x4(b, s + swz4<DP>(n0 + i + 8 * (j >> 1), k0 + 4 * (j & 1)));
-}
-// the B operands of n-tiles 2p and 2p+1 of a tile stored (k, n), k permuted as
-// tf32x3::from_acc's A (rows k0 + 2t and k0 + 2t + 1 are its k t and t + 4) and the two
-// n-tiles interleaved (column n of n-tile 2p + h is column 16p + 2n + h), so that each
-// lane reads two adjacent words a row
-template <int DP>
-__device__ __forceinline__ void frag_b_kn(uint32_t (&b)[4], const uint32_t* s, int k0, int p, int g, int t) {
-    const uint2 lo = *reinterpret_cast<const uint2*>(s + swz4<DP>(k0 + 2 * t, 16 * p + 2 * g));
-    const uint2 hi = *reinterpret_cast<const uint2*>(s + swz4<DP>(k0 + 2 * t + 1, 16 * p + 2 * g));
-    b[0] = lo.x;
-    b[1] = hi.x;
-    b[2] = lo.y;
-    b[3] = hi.y;
 }
 
 // X (16 × kTile) = A·Bᵀ and Y = C·Eᵀ over the padded head dim, for A and C rows m0.. of the
@@ -324,32 +154,6 @@ __device__ __forceinline__ void two_products(const uint32_t* a, Parts b, const u
         }
     }
 }
-
-// acc (16 × DP, columns interleaved as frag_b_kn's) += W·B for W (16 × kTile) in
-// accumulator fragments (f32: P or dS) and B a (kTile, DP) tile
-template <bool kExact, int DP>
-__device__ __forceinline__ void accumulate(const float (&w)[kTile / 8][4], Parts b, int g, int t,
-                                           float (&acc)[DP / 8][4]) {
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) {
-        float f[4];
-        tf32x3::from_acc(w[n], f);
-        uint32_t wb[4], ws[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) tf32x3::split<false>(f[i], wb[i], ws[i]);
-#pragma unroll
-        for (int p = 0; p < DP / 16; ++p) {
-            uint32_t bb[4], bs[4] = {};
-            frag_b_kn<DP>(bb, b.big, 8 * n, p, g, t);
-            if constexpr (!kExact) frag_b_kn<DP>(bs, b.small, 8 * n, p, g, t);
-            tf32x3::mma3<false, kExact>(acc[2 * p], wb, ws, {bb[0], bb[1]}, {bs[0], bs[1]});
-            tf32x3::mma3<false, kExact>(acc[2 * p + 1], wb, ws, {bb[2], bb[3]}, {bs[2], bs[3]});
-        }
-    }
-}
-
-// the column of element i of accumulator n-tile c (frag_b_kn's interleaving)
-__device__ __forceinline__ int acc_col(int c, int i, int t) { return 16 * (c / 2) + 4 * t + 2 * (i & 1) + (c & 1); }
 
 }  // namespace
 
@@ -399,12 +203,12 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bwd_dq_kernel(
     int tiles = (tk + kTile - 1) / kTile;
     if (causal) tiles = min(tiles, (min(row0 + kRows, tq) - 1) / kTile + 1);
 
-    zero_pad<T, DP>(ring, 2 * kStages * kTile, d);
-    copy_rows<T, DP>(ring, kb, 0, tk, d, copy_bytes);
-    copy_rows<T, DP>(ring + kTile * DP, vb, 0, tk, d, copy_bytes);
+    zero_pad<T, DP, kThreads>(ring, 2 * kStages * kTile, d);
+    copy_rows<T, DP, kTile, kThreads>(ring, kb, 0, tk, d, copy_bytes);
+    copy_rows<T, DP, kTile, kThreads>(ring + kTile * DP, vb, 0, tk, d, copy_bytes);
     cp_async_commit();
-    load_own<T, DP>(own, q + bh * tq * d, row0, tq, d);
-    load_own<T, DP>(own + kOwn, dout + bh * tq * d, row0, tq, d);
+    load_own<T, DP, kRows, kThreads>(own, q + bh * tq * d, row0, tq, d);
+    load_own<T, DP, kRows, kThreads>(own + kOwn, dout + bh * tq * d, row0, tq, d);
 
     float lse_r[2], d_r[2];
 #pragma unroll
@@ -425,13 +229,13 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bwd_dq_kernel(
         __syncthreads();  // tile `it` has landed, and every warp is done with tile it-1
         if (it + 1 < tiles) {  // the next tile into the stage that tile it-1 released
             T* next = ring + ((it + 1) % kStages) * 2 * kTile * DP;
-            copy_rows<T, DP>(next, kb, (it + 1) * kTile, tk, d, copy_bytes);
-            copy_rows<T, DP>(next + kTile * DP, vb, (it + 1) * kTile, tk, d, copy_bytes);
+            copy_rows<T, DP, kTile, kThreads>(next, kb, (it + 1) * kTile, tk, d, copy_bytes);
+            copy_rows<T, DP, kTile, kThreads>(next + kTile * DP, vb, (it + 1) * kTile, tk, d, copy_bytes);
         }
         cp_async_commit();
         T* cur = ring + (it % kStages) * 2 * kTile * DP;
-        const Parts kp = split_tile<T, DP>(cur, work);
-        const Parts vp = split_tile<T, DP>(cur + kTile * DP, work + kTile * DP);
+        const Parts kp = split_tile<T, DP, kTile, kThreads>(cur, work);
+        const Parts vp = split_tile<T, DP, kTile, kThreads>(cur + kTile * DP, work + kTile * DP);
         __syncthreads();  // the tile's parts are in place
         const int j0 = it * kTile;
 
@@ -509,14 +313,14 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bwd_dkv_kernel(
     const int tiles = (tq + kTile - 1) / kTile;
     const int t0 = causal ? key0 / kTile : 0;
     if (t0 < tiles) {
-        zero_pad<T, DP>(ring, 2 * kStages * kTile, d);
-        copy_rows<T, DP>(ring, qb, t0 * kTile, tq, d, copy_bytes);
-        copy_rows<T, DP>(ring + kTile * DP, gb, t0 * kTile, tq, d, copy_bytes);
+        zero_pad<T, DP, kThreads>(ring, 2 * kStages * kTile, d);
+        copy_rows<T, DP, kTile, kThreads>(ring, qb, t0 * kTile, tq, d, copy_bytes);
+        copy_rows<T, DP, kTile, kThreads>(ring + kTile * DP, gb, t0 * kTile, tq, d, copy_bytes);
         copy_vec(vecs, lb, t0 * kTile, tq);
         copy_vec(vecs + kTile, db, t0 * kTile, tq);
         cp_async_commit();
-        load_own<T, DP>(own, k + bh * tk * d, key0, tk, d);
-        load_own<T, DP>(own + kOwn, v + bh * tk * d, key0, tk, d);
+        load_own<T, DP, kRows, kThreads>(own, k + bh * tk * d, key0, tk, d);
+        load_own<T, DP, kRows, kThreads>(own + kOwn, v + bh * tk * d, key0, tk, d);
     }
 
     for (int it = t0; it < tiles; ++it) {
@@ -525,16 +329,16 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bwd_dkv_kernel(
         if (it + 1 < tiles) {
             const int st = (it + 1 - t0) % kStages;
             T* next = ring + st * 2 * kTile * DP;
-            copy_rows<T, DP>(next, qb, (it + 1) * kTile, tq, d, copy_bytes);
-            copy_rows<T, DP>(next + kTile * DP, gb, (it + 1) * kTile, tq, d, copy_bytes);
+            copy_rows<T, DP, kTile, kThreads>(next, qb, (it + 1) * kTile, tq, d, copy_bytes);
+            copy_rows<T, DP, kTile, kThreads>(next + kTile * DP, gb, (it + 1) * kTile, tq, d, copy_bytes);
             copy_vec(vecs + st * 2 * kTile, lb, (it + 1) * kTile, tq);
             copy_vec(vecs + st * 2 * kTile + kTile, db, (it + 1) * kTile, tq);
         }
         cp_async_commit();
         const int st = (it - t0) % kStages;
         T* cur = ring + st * 2 * kTile * DP;
-        const Parts qp = split_tile<T, DP>(cur, work);
-        const Parts gp = split_tile<T, DP>(cur + kTile * DP, work + kTile * DP);
+        const Parts qp = split_tile<T, DP, kTile, kThreads>(cur, work);
+        const Parts gp = split_tile<T, DP, kTile, kThreads>(cur + kTile * DP, work + kTile * DP);
         const float* ls = vecs + st * 2 * kTile;
         const float* ds = ls + kTile;
         __syncthreads();  // the tile's parts are in place
@@ -583,28 +387,6 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bwd_dkv_kernel(
 
 namespace {
 
-// the dynamic shared memory above 48 KB that `kernel` needs, opted into once per device
-template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, size_t bytes, int device, std::atomic<unsigned long long>& done) {
-    const unsigned long long bit = 1ull << (device & 63);
-    if (bytes <= 48 * 1024 || (done.load(std::memory_order_acquire) & bit)) return cudaSuccess;
-    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_acq_rel);
-    return err;
-}
-
-// the widest copy (16, 8 or 4 bytes; 2 for plain loads) that every tensor's address and
-// the row width allow
-template <typename T>
-int copy_width(const void* a, const void* b, const void* c, const void* e, int d) {
-    const uintptr_t bits = reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
-                           reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(e) |
-                           static_cast<uintptr_t>(d * sizeof(T));
-    int w = 16;
-    while (w > 2 && bits % w != 0) w /= 2;
-    return w;
-}
-
 template <typename T, int DP>
 cudaError_t launch_dq(int device, const void* q, const void* k, const void* v, const void* dout, const float* lse,
                       const float* dd, const float* bias, void* dq, int bh, int tq, int tk, int d, float scale,
@@ -618,7 +400,7 @@ cudaError_t launch_dq(int device, const void* q, const void* k, const void* v, c
     if (err != cudaSuccess) return err;
     flash_attention_bwd_dq_kernel<T, DP><<<(unsigned)blocks, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout),
-        lse, dd, bias, static_cast<T*>(dq), tq, tk, d, scale, causal, q_tiles, copy_width<T>(q, k, v, dout, d));
+        lse, dd, bias, static_cast<T*>(dq), tq, tk, d, scale, causal, q_tiles, copy_width<T>(d, q, k, v, dout));
     return cudaGetLastError();
 }
 
@@ -636,7 +418,7 @@ cudaError_t launch_dkv(int device, const void* q, const void* k, const void* v, 
     flash_attention_bwd_dkv_kernel<T, DP><<<(unsigned)blocks, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout),
         lse, dd, bias, static_cast<T*>(dk), static_cast<T*>(dv), tq, tk, d, scale, causal, k_tiles,
-        copy_width<T>(q, k, v, dout, d));
+        copy_width<T>(d, q, k, v, dout));
     return cudaGetLastError();
 }
 

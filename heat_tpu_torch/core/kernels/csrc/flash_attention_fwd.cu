@@ -1,4 +1,4 @@
-// K2 for Hopper: the flash-attention forward.
+// K2 for Hopper: the flash-attention forward, on the tensor cores in 3xTF32.
 //
 // Replaces the Pallas TPU kernel heat_tpu/core/kernels/flash_attention.py:156 (`_kernel`,
 // launched by `_flash_pallas`). For q (bh, tq, d) and k, v (bh, tk, d) in f32, bf16 or f16,
@@ -8,29 +8,53 @@
 // by the online-softmax recurrence of `_online_softmax_update` (flash_attention.py:135).
 // Causal attention is top-left aligned: row i attends columns j <= i, for any tq, tk.
 //
-// What bounds it on an H100: an attention of bh·tq·tk·d reads q, k, v and writes o once
-// (a few hundred MB at the shapes of the Transformer-base forward) against 4·bh·tq·tk·d
-// operations, some 1e3 operations per byte: it is bound by arithmetic. This port computes
-// in full fp32 (plain FMAs, no tensor cores), so 67 TFLOP/s is its roof; bf16 and f16 inputs
-// are read as such and converted to f32. The design keeps the (tq, tk) scores out of
-// device memory, as the TPU kernel does, and keeps the FMA pipes fed:
-//   * One block owns ROWS query rows of one batch·head and loops over tiles of BK keys;
-//     each tile of k and v is staged once in shared memory (as f32) and read by every row
-//     of the block. m, l and the output accumulator live in f32 registers; o and lse are
-//     written once. A row is owned by TPR neighbouring threads (1 for d <= 64, 2 for
-//     d <= 128), each holding 64 columns of q and of the accumulator in registers (the
-//     head dim padded with zeros to DP = 64 or 128): six instances, 3 types x 2 widths.
-//   * The scores of one tile are BK independent dot products per thread and the update
-//     of the accumulator DP/TPR independent FMAs per key, so each thread has enough
-//     independent work to hide the FMA latency at the low occupancy its registers allow.
-//     All threads of a warp read the same key row of shared memory at once (a broadcast).
-//   * Causal tiles wholly above the diagonal are skipped by the loop bound, not masked;
-//     only the tiles that straddle the block's diagonal pay the mask (`_pair_schedule`'s
-//     flag bit 4). The ragged edges of tq and tk are masked here, so any length runs.
-//   * Deterministic: no reduction crosses blocks, and each row sums its keys in a fixed
-//     order. Two runs give identical bits.
-// Probabilities stay in f32 for p·v (the TPU kernel rounds them to v's type first), and
-// exp is the accurate expf, not __expf.
+// What bounds it on an H100: 4·d operations per attended (query, key) pair (q·kᵀ and P·V)
+// against q, k, v read and O written once, some 1e3 operations per byte: arithmetic. Every
+// product runs on the tensor cores as m16n8k8 TF32 mma.sync in 3xTF32 (mma_tf32x3.cuh):
+// an f32 operand splits into a TF32 big part and a TF32 residual, a·b is small·big +
+// big·small + big·big with f32 accumulation, and the dropped small·small term keeps the
+// result at fp32's level of accuracy. So the bound is the 3xTF32 rate, 495/3 = 165 TFLOP/s:
+// 1.666 ms at the Transformer forward's encoder shape, 64 × 4096² × 64 f32 (the fp32 FMA
+// pipe's 67 TFLOP/s, this kernel's roof until it moved to the tensor cores, would put it at
+// 4.103 ms). bf16 and f16 values are exact in TF32: their instances skip the products with
+// a zero small part, one product for q·kᵀ and two for P·V. The design, as the backward's
+// K4 (flash_attention_bwd.cu), on the tiles and fragments of flash_tiles.cuh:
+//   * A block owns 128 query rows of one batch·head, eight warps of 16 (the m16 of
+//     m16n8k8), and loops over the tiles of 32 keys they attend (16 for d <= 128). S of a
+//     tile, the online-softmax state (m, l) and the output accumulator stay in registers,
+//     in the accumulator's layout: lane 4g + t holds rows g and g + 8, so the row maximum
+//     takes two __shfl_xor_sync within the quad, and the row sum is kept in four parts a
+//     row until the end. o and lse are written once.
+//   * q, the A operand of S, is loaded once as f32 and split once in place into its TF32
+//     parts, which each warp reads with two ldmatrix a k chunk (flash_tiles.cuh's
+//     `load_q`). k, the B operand, is key-major, the "col" layout m16n8k8 wants, and is
+//     read with ldmatrix. P, the S accumulator, feeds straight back as
+//     the A operand of P·V with k permuted within each 8-wide chunk (tf32x3::from_acc),
+//     split into its TF32 parts (P stays f32, where heat_tpu rounds it to v's type: a
+//     recorded deviation); v is read down its columns to match.
+//   * k and v tiles come through a cp.async ring of two stages in the input type: the next
+//     tile's copies are issued after the barrier that opens a step and land while the step
+//     computes (full 16-byte rows of d = 64 or 128 take copies whose indices are known at
+//     compile time). Each tile is split once per block as it lands: f32 in place (big parts
+//     over the values, small parts beside), 2-byte values only widened.
+//   * Occupancy: at d <= 64, 112 KB of shared memory (f32; 64 KB for 2-byte types) and 128
+//     registers a thread let two blocks, sixteen warps, share an SM; at d <= 128 one block
+//     of 176 KB. Above 48 KB the shared memory is opted into once per instance and device
+//     (cudaFuncSetAttribute), and a refusal goes back to the caller. Trials on the card
+//     (tools/ab_flash.py, PERF.md) chose this shape over blocks of four or six warps, tiles
+//     of 64 keys and q split into registers: those gave fewer warps an SM.
+//   * The softmax runs in log2 units: x = s·scale·log2(e) (+ bias·log2(e)) and P = 2^(x − m)
+//     by MUFU.EX2 (ex2.approx.ftz, relative error about 2⁻²², results below 2⁻¹²⁶ flushed
+//     to 0: one instruction where the accurate expf takes about eight), m and LSE turned
+//     back into natural units at the end.
+//   * Causal tiles wholly above the diagonal are skipped by the loop bound; only tiles that
+//     straddle the block's diagonal pay the mask (`_pair_schedule`'s flag bit 4), and the
+//     longest causal blocks launch first. Key rows past tk are zero-filled by the copies
+//     and get weight 0; rows past tq are never written; d is zero-padded to 64 or 128 once.
+//     Rows of 2-byte values with an odd d are not 4-byte aligned and are copied with plain
+//     loads into the same ring.
+//   * Deterministic: no atomics and no reduction across blocks; each row sums its keys in a
+//     fixed order, so two runs give identical bits.
 //
 // Built with nvcc for sm_90a into a shared library with a plain C interface (loaded with
 // ctypes by heat_tpu_torch/core/kernels/flash_attention.py). Entry points return a
@@ -40,206 +64,93 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
-#include <cfloat>
-#include <cmath>
+#include <atomic>
+#include <cstdint>
 
-namespace {
+#include "flash_tiles.cuh"
 
-constexpr int kThreads = 128;                    // threads per block
-constexpr int kBK = 32;                          // keys per tile
-constexpr float kNegInf = -FLT_MAX;              // finfo(float32).min, heat_tpu's _NEG_INF
-constexpr unsigned kFull = 0xffffffffu;
+using namespace flash;
+using namespace flash::fwd;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
-template <> __device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half(x); }
-
-// DP: head dim padded to 64 or 128; TPR: threads per query row
-__host__ __device__ constexpr int rows_per_block(int tpr) { return kThreads / tpr; }
-
-__host__ __device__ constexpr size_t smem_bytes(int dp, int tpr, bool has_bias) {
-    return sizeof(float) * (2 * kBK * dp                                        // k and v tiles
-                            + (has_bias ? rows_per_block(tpr) * (kBK + 1) : 0));  // bias tile
-}
-// 41,216 bytes at most (d <= 128 with a bias): within the 48 KB a launch gets without
-// opting in to more, so there is no cudaFuncSetAttribute call
-static_assert(smem_bytes(64, 1, true) <= 48 * 1024 && smem_bytes(128, 2, true) <= 48 * 1024,
-              "K2's shared memory needs cudaFuncSetAttribute");
-
-}  // namespace
-
-template <typename T, int DP, int TPR>
-__global__ void __launch_bounds__(kThreads) flash_attention_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const float* __restrict__ bias, T* __restrict__ o, float* __restrict__ lse,
-    int tq, int tk, int d, float scale, int causal, int q_tiles) {
-    constexpr int ROWS = rows_per_block(TPR);
-    constexpr int DPT = DP / TPR;   // columns of one thread
-    constexpr int C4 = DPT / 4;     // its float4 chunks: chunk i holds columns 4*(sub + TPR*i) ..+3
-    constexpr int BS = kBK + 1;     // bias tile row stride (no bank conflicts)
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, Shape<DP>::kBlocks) flash_attention_fwd_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, const float* __restrict__ bias,
+    T* __restrict__ o, float* __restrict__ lse, int tq, int tk, int d, float scale, int causal, int q_tiles,
+    int copy_bytes) {
+    constexpr bool kExact = sizeof(T) == 2;
+    constexpr int TILE = Shape<DP>::kTile;
     extern __shared__ float4 smem4[];
-    float* ks = reinterpret_cast<float*>(smem4);  // (kBK, DP)
-    float* vs = ks + kBK * DP;                   // (kBK, DP)
-    float* bs = vs + kBK * DP;                   // (ROWS, BS) when bias
+    uint32_t* qs = reinterpret_cast<uint32_t*>(smem4);                             // q's parts
+    T* ring = reinterpret_cast<T*>(qs + q_words<T, DP>());                         // kStages x (k, v) tiles
+    uint32_t* work = reinterpret_cast<uint32_t*>(ring + 2 * kStages * TILE * DP);  // k, v parts
 
-    const int tid = threadIdx.x;
-    const int r = tid / TPR;
-    const int sub = tid % TPR;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int m0 = (threadIdx.x / 32) * 16;  // the warp's rows in the block
     const long long bh = blockIdx.x / q_tiles;
-    const int row0 = (blockIdx.x % q_tiles) * ROWS;
-    const int row = row0 + r;
-    const bool live = row < tq;
+    const int row0 = (q_tiles - 1 - (int)(blockIdx.x % q_tiles)) * kRows;  // the longest causal blocks first
     const T* kb = k + bh * tk * d;
     const T* vb = v + bh * tk * d;
 
-    float qr[DPT];
-    float acc[DPT];
-    {
-        const T* qrow = q + (bh * tq + (live ? row : 0)) * d;
-#pragma unroll
-        for (int i = 0; i < C4; ++i) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int c = 4 * (sub + TPR * i) + e;
-                qr[4 * i + e] = (live && c < d) ? to_f32(qrow[c]) : 0.f;
-                acc[4 * i + e] = 0.f;
-            }
-        }
-    }
-    float m = kNegInf;
-    float l = 0.f;
-
     // causal: the last key any row of this block attends is its last row
-    int tiles = (tk + kBK - 1) / kBK;
-    if (causal) {
-        const int last_row = min(row0 + ROWS, tq) - 1;
-        tiles = min(tiles, last_row / kBK + 1);
-    }
+    int tiles = (tk + TILE - 1) / TILE;
+    if (causal) tiles = min(tiles, (min(row0 + kRows, tq) - 1) / TILE + 1);
 
-    for (int t = 0; t < tiles; ++t) {
-        const int j0 = t * kBK;
-        __syncthreads();  // every thread is done with the previous tile
-        for (int idx = tid; idx < kBK * DP; idx += kThreads) {
-            const int j = idx / DP;
-            const int c = idx % DP;
-            const bool in = j0 + j < tk && c < d;
-            const long long off = (long long)(j0 + j) * d + c;
-            ks[idx] = in ? to_f32(kb[off]) : 0.f;
-            vs[idx] = in ? to_f32(vb[off]) : 0.f;
-        }
-        if (bias != nullptr) {
-            for (int idx = tid; idx < ROWS * kBK; idx += kThreads) {
-                const int rr = idx / kBK;
-                const int j = idx % kBK;
-                const bool in = row0 + rr < tq && j0 + j < tk;
-                bs[rr * BS + j] = in ? bias[(long long)(row0 + rr) * tk + j0 + j] : 0.f;
-            }
-        }
-        __syncthreads();
+    zero_pad<T, DP, kThreads>(ring, 2 * kStages * TILE, d);
+    copy_rows<T, DP, TILE, kThreads>(ring, kb, 0, tk, d, copy_bytes);
+    copy_rows<T, DP, TILE, kThreads>(ring + TILE * DP, vb, 0, tk, d, copy_bytes);
+    cp_async_commit();
+    load_q<T, DP>(qs, q + bh * tq * d, row0, tq, d);
+    const QRows<kExact, DP> qr{qs, m0, lane};
+    Rows<DP> st;
+    TileAt at{bias, 0, row0, row0 + m0 + g, tq, tk, g, t, scale * kLog2e, causal != 0};
 
-        // scores of this tile: BK independent dot products over this thread's columns
-        float s[kBK];
-#pragma unroll
-        for (int j = 0; j < kBK; ++j) s[j] = 0.f;
-#pragma unroll
-        for (int i = 0; i < C4; ++i) {
-            const int c = 4 * (sub + TPR * i);
-#pragma unroll
-            for (int j = 0; j < kBK; ++j) {
-                const float4 kv = *reinterpret_cast<const float4*>(ks + j * DP + c);
-                s[j] = fmaf(qr[4 * i + 0], kv.x, s[j]);
-                s[j] = fmaf(qr[4 * i + 1], kv.y, s[j]);
-                s[j] = fmaf(qr[4 * i + 2], kv.z, s[j]);
-                s[j] = fmaf(qr[4 * i + 3], kv.w, s[j]);
-            }
+    for (int it = 0; it < tiles; ++it) {
+        cp_async_wait_all();
+        __syncthreads();  // tile `it` has landed, and every warp is done with tile it-1
+        if (it + 1 < tiles) {  // the next tile into the stage that tile it-1 released
+            T* next = ring + ((it + 1) % kStages) * 2 * TILE * DP;
+            copy_rows<T, DP, TILE, kThreads>(next, kb, (it + 1) * TILE, tk, d, copy_bytes);
+            copy_rows<T, DP, TILE, kThreads>(next + TILE * DP, vb, (it + 1) * TILE, tk, d, copy_bytes);
         }
-        if (TPR > 1) {
-#pragma unroll
-            for (int j = 0; j < kBK; ++j) {
-#pragma unroll
-                for (int off = 1; off < TPR; off <<= 1) s[j] += __shfl_xor_sync(kFull, s[j], off);
-            }
-        }
-        const bool straddles = causal && j0 + kBK - 1 > row0;  // flag bit 4 of _pair_schedule
-        const bool ragged = j0 + kBK > tk;
-        float m_blk = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < kBK; ++j) {
-            float x = s[j] * scale;
-            if (bias != nullptr) x += bs[r * BS + j];
-            if (straddles && j0 + j > row) x = kNegInf;
-            if (ragged && j0 + j >= tk) x = -INFINITY;  // no such key: weight exactly 0
-            s[j] = x;
-            m_blk = fmaxf(m_blk, x);
-        }
-        const float m_new = fmaxf(m, m_blk);
-        // rows masked so far keep finite exps: their l stays 0 and their output 0
-        const float m_safe = fmaxf(m_new, kNegInf / 2);
-        const float corr = expf(m - m_safe);
-        float l_blk = 0.f;
-#pragma unroll
-        for (int j = 0; j < kBK; ++j) {
-            s[j] = expf(s[j] - m_safe);
-            l_blk += s[j];
-        }
-        l = l * corr + l_blk;
-#pragma unroll
-        for (int c = 0; c < DPT; ++c) acc[c] *= corr;
-#pragma unroll
-        for (int j = 0; j < kBK; ++j) {
-#pragma unroll
-            for (int i = 0; i < C4; ++i) {
-                const float4 vv = *reinterpret_cast<const float4*>(vs + j * DP + 4 * (sub + TPR * i));
-                acc[4 * i + 0] = fmaf(s[j], vv.x, acc[4 * i + 0]);
-                acc[4 * i + 1] = fmaf(s[j], vv.y, acc[4 * i + 1]);
-                acc[4 * i + 2] = fmaf(s[j], vv.z, acc[4 * i + 2]);
-                acc[4 * i + 3] = fmaf(s[j], vv.w, acc[4 * i + 3]);
-            }
-        }
-        m = m_new;
-    }
+        cp_async_commit();
+        T* cur = ring + (it % kStages) * 2 * TILE * DP;
+        const Parts kp = split_tile<T, DP, TILE, kThreads>(cur, work);
+        const Parts vp = split_tile<T, DP, TILE, kThreads>(cur + TILE * DP, work + TILE * DP);
+        __syncthreads();  // the tile's parts are in place
 
-    if (live) {
-        const float lc = fmaxf(l, 1e-30f);
-        T* orow = o + (bh * tq + row) * d;
-#pragma unroll
-        for (int i = 0; i < C4; ++i) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int c = 4 * (sub + TPR * i) + e;
-                if (c < d) orow[c] = from_f32<T>(acc[4 * i + e] / lc);
-            }
-        }
-        if (sub == 0) lse[bh * tq + row] = fmaxf(m, kNegInf / 2) + logf(lc);
+        float s[TILE / 8][4];
+        qk<kExact, DP>(s, qr, kp, lane);
+        at.j0 = it * TILE;
+        softmax_pv<kExact, DP>(s, vp, st, at);
     }
+    finalize<T, DP>(st, o, lse, bh, at.r_lo, tq, d, t);
 }
 
 namespace {
 
-template <typename T, int DP, int TPR>
-cudaError_t launch(const void* q, const void* k, const void* v, const float* bias, void* o, float* lse,
+template <typename T, int DP>
+cudaError_t launch(int device, const void* q, const void* k, const void* v, const float* bias, void* o, float* lse,
                    int bh, int tq, int tk, int d, float scale, int causal, cudaStream_t stream) {
-    constexpr int ROWS = rows_per_block(TPR);
-    const size_t smem = smem_bytes(DP, TPR, bias != nullptr);
-    const int q_tiles = (tq + ROWS - 1) / ROWS;
+    static std::atomic<unsigned long long> done{0};
+    constexpr size_t smem = smem_bytes<T, DP>();
+    const int q_tiles = (tq + kRows - 1) / kRows;
     const long long blocks = (long long)bh * q_tiles;
     if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-    flash_attention_fwd_kernel<T, DP, TPR><<<(unsigned)blocks, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
-        static_cast<T*>(o), lse, tq, tk, d, scale, causal, q_tiles);
+    const cudaError_t err = opt_in(flash_attention_fwd_kernel<T, DP>, smem, device, done);
+    if (err != cudaSuccess) return err;
+    flash_attention_fwd_kernel<T, DP><<<(unsigned)blocks, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias, static_cast<T*>(o), lse,
+        tq, tk, d, scale, causal, q_tiles, copy_width<T>(d, k, v));
     return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_d(const void* q, const void* k, const void* v, const float* bias, void* o, float* lse,
+cudaError_t launch_d(int device, const void* q, const void* k, const void* v, const float* bias, void* o, float* lse,
                      int bh, int tq, int tk, int d, float scale, int causal, cudaStream_t stream) {
-    if (d <= 64) return launch<T, 64, 1>(q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, stream);
-    return launch<T, 128, 2>(q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, stream);
+    if (d <= 64) return launch<T, 64>(device, q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, stream);
+    return launch<T, 128>(device, q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, stream);
 }
 
 }  // namespace
@@ -258,9 +169,9 @@ int flash_attention_fwd_launch(int device, int dtype, const void* q, const void*
     if (err != cudaSuccess) return err;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (dtype) {
-        case 0: return launch_d<float>(q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, s);
-        case 1: return launch_d<__nv_bfloat16>(q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, s);
-        case 2: return launch_d<__half>(q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, s);
+        case 0: return launch_d<float>(device, q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, s);
+        case 1: return launch_d<__nv_bfloat16>(device, q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, s);
+        case 2: return launch_d<__half>(device, q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, s);
         default: return cudaErrorInvalidValue;
     }
 }

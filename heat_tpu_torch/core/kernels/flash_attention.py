@@ -42,6 +42,7 @@ from ..devices import full_fp32_matmul
 from . import _nvcc
 
 __all__ = [
+    "bind",
     "flash_attention",
     "flash_attention_bwd",
     "flash_attention_bwd_reference",
@@ -68,7 +69,7 @@ fwd_pipelined = types.SimpleNamespace(SOURCE=PIPELINED_SOURCE, launches=0)
 
 _NEG_INF = float(torch.finfo(torch.float32).min)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# must agree with the source: head dims up to 128 (q and the accumulator in registers)
+# must agree with the sources: head dims up to 128 (a row's output accumulator in registers)
 MAX_HEAD_DIM = 128
 
 _LIB = None
@@ -320,7 +321,7 @@ def kernel_takes(q, k, v, mask=None, scale=None) -> bool:
 
     - q (..., Tq, D), k and v (..., Tk, D) with equal leading dims, Tq, Tk >= 1;
     - one dtype for all three, float32, bfloat16 or float16;
-    - 1 <= D <= 128: q and the output accumulator of a row live in registers;
+    - 1 <= D <= 128: the output accumulator of a row lives in registers;
     - a static scale (a Python number or None);
     - no mask, or an exact-shape (Tq, Tk) bool mask shared by every batch·head.
 
@@ -346,45 +347,55 @@ def use_flash(q, k, v, mask=None, scale=None) -> bool:
     return kernel_takes(q, k, v, mask, scale) and _one_card(q, k, v, mask)
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FWD_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P]
+# the C entry points of the flash sources, each returning an error code
+_ENTRY_POINTS = {
+    "flash_attention_fwd_launch": _FWD_ARGS,
+    "flash_attention_fwd_pipelined_launch": _FWD_ARGS,
+    "flash_attention_bwd_d_launch": [_I, _I, _P, _P, _P, ctypes.c_longlong, _I, _P],
+    "flash_attention_bwd_dq_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "flash_attention_bwd_dkv_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+}
+_ERROR_STRINGS = (
+    "flash_attention_error_string",
+    "flash_attention_fwd_pipelined_error_string",
+    "flash_attention_bwd_error_string",
+)
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``, a build of any of the flash sources, with the argument and result types of
+    the C entry points it exports."""
+    for name, args in _ENTRY_POINTS.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, _I
+    for name in _ERROR_STRINGS:
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = [_I], ctypes.c_char_p
+    return lib
+
+
 def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
-        lib = _nvcc.load(SOURCE)
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attention_fwd_launch.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i, f, i, p]
-        lib.flash_attention_fwd_launch.restype = i
-        lib.flash_attention_error_string.argtypes = [i]
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
-        _LIB = lib
+        _LIB = bind(_nvcc.load(SOURCE))
     return _LIB
 
 
 def _pipelined_lib() -> ctypes.CDLL:
     global _PIPELINED_LIB
     if _PIPELINED_LIB is None:
-        lib = _nvcc.load(PIPELINED_SOURCE)
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attention_fwd_pipelined_launch.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i, f, i, p]
-        lib.flash_attention_fwd_pipelined_launch.restype = i
-        lib.flash_attention_fwd_pipelined_error_string.argtypes = [i]
-        lib.flash_attention_fwd_pipelined_error_string.restype = ctypes.c_char_p
-        _PIPELINED_LIB = lib
+        _PIPELINED_LIB = bind(_nvcc.load(PIPELINED_SOURCE))
     return _PIPELINED_LIB
 
 
 def _bwd_lib() -> ctypes.CDLL:
     global _BWD_LIB
     if _BWD_LIB is None:
-        lib = _nvcc.load(BWD_SOURCE)
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attention_bwd_d_launch.argtypes = [i, i, p, p, p, ctypes.c_longlong, i, p]
-        lib.flash_attention_bwd_dq_launch.argtypes = [i, i, p, p, p, p, p, p, p, p, i, i, i, i, f, i, p]
-        lib.flash_attention_bwd_dkv_launch.argtypes = [i, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, i, p]
-        for fn in (lib.flash_attention_bwd_d_launch, lib.flash_attention_bwd_dq_launch, lib.flash_attention_bwd_dkv_launch):
-            fn.restype = i
-        lib.flash_attention_bwd_error_string.argtypes = [i]
-        lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
-        _BWD_LIB = lib
+        _BWD_LIB = bind(_nvcc.load(BWD_SOURCE))
     return _BWD_LIB
 
 

@@ -44,6 +44,13 @@ def run(inputs) -> dict:
                     out[key] = r.numpy()
                     out[key + "_meta"] = np.array([r.dtype.__name__, str(r.split), str(r.gshape)])
 
+    # min and max over the split axis with a NaN on one rank or in some columns only
+    for name in ("nan_r0", "nan_r1", "nan_r2", "nan_cols"):
+        x = ht.array(inputs[name], split=0)
+        for fn in ("min", "max"):
+            for axis in (None, 0):
+                out[f"{name}_{fn}_{axis}"] = getattr(ht, fn)(x, axis=axis).numpy()
+
     a0, a1 = ht.array(inputs["a"], split=0), ht.array(inputs["a"], split=1)
     for op in ("add", "sub", "mul", "div", "pow"):
         r = getattr(ht, op)(a0, a1)

@@ -57,6 +57,23 @@ def _mha_params():
     return {k: np.asarray(v) for k, v in params.items()}
 
 
+def _with_nan(rows, cols=None):
+    """``np.arange(7)`` as float32 (or a (7, cols) ramp) with NaN at the given
+    (row[, column]) positions: 7 rows split 3, 3, 1 over the three ranks."""
+    a = np.arange(7 * (cols or 1), dtype=np.float32).reshape((7, cols) if cols else (7,))
+    for at in rows:
+        a[at] = np.nan
+    return a
+
+
+NAN_CASES = {  # a NaN in rank 0's chunk, rank 1's, rank 2's, and in columns 1 and 2 only
+    "nan_r0": _with_nan([1]),
+    "nan_r1": _with_nan([4]),
+    "nan_r2": _with_nan([6]),
+    "nan_cols": _with_nan([(1, 1), (6, 2)], cols=3),
+}
+
+
 def _inputs():
     rng = np.random.default_rng(11)
     centers = rng.normal(0, 10, (3, 4))
@@ -83,6 +100,7 @@ def _inputs():
         "dp_y2": rng.integers(0, 3, 2),
         "dp_lr": np.array(DP_LR),
         **{f"dp_param_{k}": v for k, v in _mlp_params().items()},
+        **NAN_CASES,
     }
 
 
@@ -164,6 +182,39 @@ def test_reductions_match_heat_tpu(ranks, comm3, name, split, fn, axis):
     for r in res:
         assert list(r[key + "_meta"]) == _meta(want)
         np.testing.assert_allclose(r[key], want.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def _without_nan_shards(data, fn, axis):
+    """heat_tpu's split=0 min/max of ``data`` on three devices: the shards (3, 3, 1 rows)
+    holding a NaN drop out, per column for ``axis=0`` (ROADMAP Queue 3, the reference's
+    recorded difference from numpy)."""
+    shards = np.split(data, [3, 6])
+    if axis is None:
+        return getattr(np, fn)(np.concatenate([s.ravel() for s in shards if not np.isnan(s).any()]))
+    cols = data.reshape(7, -1)
+    keep = [np.concatenate([s[:, c] for s in np.split(cols, [3, 6]) if not np.isnan(s[:, c]).any()])
+            for c in range(cols.shape[1])]
+    return np.array([getattr(np, fn)(k) for k in keep], dtype=data.dtype).reshape(data.shape[1:])
+
+
+@pytest.mark.parametrize("axis", [None, 0])
+@pytest.mark.parametrize("fn", ["min", "max"])
+@pytest.mark.parametrize("name", list(NAN_CASES))
+def test_split_min_max_propagate_nan(ranks, comm3, name, fn, axis):
+    """min and max over the split axis give numpy's result, NaN where a NaN lies on any
+    rank, as heat_tpu does at split=None; heat_tpu's split=0 result, which drops the
+    shard holding a NaN, is pinned as the reference's own difference."""
+    inputs, res = ranks
+    data = inputs[name]
+    want = getattr(np, fn)(data, axis=axis)
+    assert np.isnan(want).any()
+    unsplit = getattr(ht, fn)(ht.array(data, split=None, comm=comm3), axis=axis).numpy()
+    np.testing.assert_array_equal(unsplit, want)
+    for r in res:
+        np.testing.assert_array_equal(r[f"{name}_{fn}_{axis}"], want)
+    split = getattr(ht, fn)(ht.array(data, split=0, comm=comm3), axis=axis).numpy()
+    np.testing.assert_array_equal(split, _without_nan_shards(data, fn, axis))
+    assert not np.isnan(split).any()
 
 
 @pytest.mark.parametrize("op", ["add", "sub", "mul", "div", "pow"])

@@ -5,7 +5,8 @@ The kernels take every product in 3xTF32 (``csrc/mma_tf32x3.cuh``): an f32 opera
 into a TF32 big part (rounded to nearest, ties away from zero, as ``cvt.rna.tf32.f32``)
 and a TF32 small part (the residual, rounded the same way), and a·b is accumulated in f32
 as small·big, then big·small, then big·big, one m16n8k8 product (k = 8) at a time. Here
-that is done with the same split, by bit arithmetic on the f32 pattern, and the same order
+that is done with the same split, by bit arithmetic on the f32 pattern (tests/_tf32x3.py,
+shared with the forwards' test), and the same order
 of partial products, tile by tile in the kernels' order: K4 walks tiles of 32 keys and K5
 tiles of 32 queries, each forming S and dP over the head dim 8 columns at a time, then P
 and dS in f32, then accumulating dS·K (K4) or Pᵀ·dO and dSᵀ·Q (K5) 8 keys or queries at a
@@ -29,41 +30,14 @@ from heat_tpu.core.kernels.flash_attention import _flash_bwd_pallas, _flash_pall
 import heat_tpu_torch
 from heat_tpu_torch.core.kernels import flash_attention as k2
 
+from _tf32x3 import chunked, round_tf32, split
+
 REL_TOL = 2e-4  # of each gradient's largest magnitude, as chip_smoke.py's check_bwd (f32)
 
 
 @pytest.fixture(autouse=True)
 def _on_cpu():
     heat_tpu_torch.use_device("cpu")
-
-
-def round_tf32(x: torch.Tensor) -> torch.Tensor:
-    """f32 ``x`` rounded to TF32 (10 explicit mantissa bits), to nearest with ties away
-    from zero: half of the 13 dropped bits' range added to the magnitude, then those bits
-    cleared (what ``cvt.rna.tf32.f32`` gives, masked as the kernels mask it)."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def split(x: torch.Tensor):
-    big = round_tf32(x)
-    return big, round_tf32(x - big)
-
-
-def mma3(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """c + a·b over one k chunk in 3xTF32: small·big, big·small, big·big, f32 sums."""
-    a_big, a_small = split(a)
-    b_big, b_small = split(b)
-    c = c + a_small @ b_big
-    c = c + a_big @ b_small
-    return c + a_big @ b_big
-
-
-def chunked(c, a, b):
-    """c + a·b with the k dimension walked 8 at a time, each chunk one mma3."""
-    for k0 in range(0, a.shape[-1], 8):
-        c = mma3(c, a[..., k0:k0 + 8], b[..., k0:k0 + 8, :])
-    return c
 
 
 TILE = 32  # keys per tile in K4, queries per tile in K5

@@ -1,6 +1,6 @@
-"""Import contract of the PyTorch port: heat_tpu_torch, chip_smoke.py and the example it
-drives import neither JAX nor anything of heat_tpu, and importing the package loads
-neither."""
+"""Import contract of the PyTorch port: heat_tpu_torch, chip_smoke.py, the example it
+drives and the scripts in tools/ import neither JAX nor anything of heat_tpu, and
+importing the package loads neither."""
 
 import ast
 import os
@@ -53,7 +53,9 @@ def test_scan_sees_the_package():
 
 @pytest.mark.parametrize(
     "path",
-    PORT_FILES + [REPO / "chip_smoke.py", REPO / "examples" / "nn" / "seq2seq_transformer_torch.py"],
+    PORT_FILES
+    + [REPO / "chip_smoke.py", REPO / "examples" / "nn" / "seq2seq_transformer_torch.py"]
+    + sorted((REPO / "tools").glob("*.py")),
     ids=lambda p: p.relative_to(REPO).as_posix(),
 )
 def test_no_jax_or_heat_tpu_imports(path):
@@ -88,7 +90,8 @@ def test_package_data_ships_the_kernel_sources():
     sources = set(kdir.rglob("*.cu")) | set(kdir.rglob("*.cuh"))
     assert sources and sources <= shipped
     assert kdir / "csrc" / "flash_attention_fwd_pipelined.cu" in sources
-    assert kdir / "csrc" / "mma_tf32x3.cuh" in sources  # included by flash_attention_bwd.cu
+    assert kdir / "csrc" / "mma_tf32x3.cuh" in sources  # included by flash_tiles.cuh
+    assert kdir / "csrc" / "flash_tiles.cuh" in sources  # included by the forwards and the backward
     assert {mod.SOURCE for mod in kernels.KERNELS.values()} <= shipped
 
 

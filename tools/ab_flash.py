@@ -1,0 +1,200 @@
+#!/usr/bin/env python3
+"""The flash kernels of this checkout against those of another one, on one CUDA card.
+
+    python3 tools/ab_flash.py --parent DIR [--parent DIR ...] [--fwd-only] [--json-out FILE]
+
+Each DIR holds another checkout of the repository, or only its
+``heat_tpu_torch/core/kernels/csrc`` (for example the parent commit, unpacked by ``git
+archive`` into a directory that .gitignore lists, or a variant of this checkout's
+sources); it is named by its directory's name. Every version of
+``csrc/flash_attention_fwd.cu`` (K2), ``csrc/flash_attention_fwd_pipelined.cu`` (K3) and,
+without ``--fwd-only``, ``csrc/flash_attention_bwd.cu`` (the D pass, K4, K5) is built with
+the package's nvcc flags, all at once, and called through its C entry points on the same
+inputs:
+
+- at each shape, each other version's O and LSE (K2, K3) and dQ, dK, dV (D, K4, K5) are
+  compared bit for bit with this checkout's, and every version's forward is held to the
+  plain version (``_measure.fwd_err``'s tolerances, chip_smoke.py's);
+- each kernel is timed in turns with this checkout's, other, this, this, other (median
+  of CUDA-event-timed launches), beside ``scaled_dot_product_attention`` on the same
+  inputs.
+
+A first JSON line gives each build's nvcc seconds and its f32 instances' ptxas registers
+and spill bytes; then one JSON line per shape, then the card's name and power limit.
+Fails without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import torch  # noqa: E402
+
+from heat_tpu_torch.core.kernels import _nvcc  # noqa: E402
+from heat_tpu_torch.core.kernels import flash_attention as fa  # noqa: E402
+from heat_tpu_torch.core.kernels._measure import cuda_ms, fwd_err, k2_inputs, ptxas_summary  # noqa: E402
+
+CSRC = Path("heat_tpu_torch/core/kernels/csrc")
+FWD = ("flash_attention_fwd.cu", "flash_attention_fwd_launch")
+PIPELINED = ("flash_attention_fwd_pipelined.cu", "flash_attention_fwd_pipelined_launch")
+BWD = "flash_attention_bwd.cu"
+
+# (name, bh, tq, tk, d, causal, dtype): the Transformer forward's three attention shapes,
+# the training step's two and bench.py's causal bf16 one
+SHAPES = (
+    ("encoder_self", 64, 4096, 4096, 64, False, torch.float32),
+    ("decoder_cross", 64, 2048, 4096, 64, False, torch.float32),
+    ("decoder_self_causal", 64, 2048, 2048, 64, True, torch.float32),
+    ("step_self", 96, 2048, 2048, 64, False, torch.float32),
+    ("step_self_causal", 96, 2048, 2048, 64, True, torch.float32),
+    ("bench_causal_bf16", 128, 4096, 4096, 64, True, torch.bfloat16),
+)
+
+
+class Version:
+    """One checkout's flash libraries, bound by the package's own ``flash_attention.bind``."""
+
+    def __init__(self, root: Path, builds: dict):
+        self.fwd = {}
+        for source, fn in (FWD, PIPELINED):
+            self.fwd[source] = getattr(fa.bind(ctypes.CDLL(str(builds[root / CSRC / source]["path"]))), fn)
+        if root / CSRC / BWD in builds:
+            self.bwd = fa.bind(ctypes.CDLL(str(builds[root / CSRC / BWD]["path"])))
+
+    def forward(self, source, q, k, v, causal, scale):
+        bh, tq, d = q.shape
+        o = torch.empty_like(q)
+        lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
+        rc = self.fwd[source](0, fa._DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), None, o.data_ptr(),
+                              lse.data_ptr(), bh, tq, k.shape[1], d, scale, int(causal),
+                              torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, f"{source}: launch failed ({rc})"
+        return o, lse
+
+    def d_pass(self, o, do):
+        bh, tq, d = o.shape
+        dd = torch.empty((bh, tq), dtype=torch.float32, device=o.device)
+        rc = self.bwd.flash_attention_bwd_d_launch(0, fa._DTYPES[o.dtype], o.data_ptr(), do.data_ptr(), dd.data_ptr(),
+                                                   bh * tq, d, torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, f"D pass: launch failed ({rc})"
+        return dd
+
+    def dq(self, q, k, v, do, lse, dd, causal, scale):
+        bh, tq, d = q.shape
+        dq = torch.empty_like(q)
+        rc = self.bwd.flash_attention_bwd_dq_launch(
+            0, fa._DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            dd.data_ptr(), None, dq.data_ptr(), bh, tq, k.shape[1], d, scale, int(causal),
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, f"K4: launch failed ({rc})"
+        return dq
+
+    def dkv(self, q, k, v, do, lse, dd, causal, scale):
+        bh, tq, d = q.shape
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        rc = self.bwd.flash_attention_bwd_dkv_launch(
+            0, fa._DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            dd.data_ptr(), None, dk.data_ptr(), dv.data_ptr(), bh, tq, k.shape[1], d, scale, int(causal),
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, f"K5: launch failed ({rc})"
+        return dk, dv
+
+
+def plain_err(q, k, v, causal, o, lse) -> float:
+    """Worst err/tol of (o, lse) against the plain version, in chunks of batch·heads."""
+    chunk = max(1, (1 << 28) // (q.shape[1] * k.shape[1]))
+    worst = 0.0
+    for s0 in range(0, q.shape[0], chunk):
+        sl = slice(s0, s0 + chunk)
+        ro, rl = fa.flash_attention_reference(q[sl], k[sl], v[sl], causal)
+        worst = max(worst, fwd_err(o[sl], lse[sl], ro, rl)[2])
+    return worst
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--parent", type=Path, action="append", required=True,
+                        help="another checkout of the repository (repeatable)")
+    parser.add_argument("--fwd-only", action="store_true", help="K2 and K3 only")
+    parser.add_argument("--json-out", default=None)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("ab_flash: CUDA is not available", file=sys.stderr)
+        return 2
+    roots = {"change": ROOT, **{d.resolve().name: d.resolve() for d in args.parent}}
+    others = [n for n in roots if n != "change"]
+    names = (FWD[0], PIPELINED[0]) if args.fwd_only else (FWD[0], PIPELINED[0], BWD)
+    sources = [r / CSRC / s for r in roots.values() for s in names]
+    distinct = list({_nvcc._library_path(s.resolve()): s for s in sources}.values())  # one build per content
+    with ThreadPoolExecutor(max_workers=len(distinct)) as pool:
+        built = dict(zip(distinct, pool.map(_nvcc.build, distinct)))
+    builds = {s: _nvcc.build(s) if s not in built else built[s] for s in sources}
+    ver = {name: Version(root, builds) for name, root in roots.items()}
+    print(json.dumps({"nvcc_s": {f"{n}:{s}": builds[r / CSRC / s]["seconds"] for n, r in roots.items() for s in names},
+                      "ptxas_f32": {f"{n}:{s}": [row for row in ptxas_summary(builds[r / CSRC / s]["log"]) if "float" in row[0]]
+                                    for n, r in roots.items() for s in names}}), flush=True)
+
+    def turns(fn) -> dict:
+        """Each other version timed in turns with this checkout's: other, this, this, other."""
+        out = {}
+        for o in others:
+            t = [cuda_ms(lambda: fn(n), reps=5, warmup=1) for n in (o, "change", "change", o)]
+            out[o], out[f"change_vs_{o}"] = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        return out
+
+    dev = torch.device("cuda", 0)
+    results = []
+    with torch.no_grad():
+        for i, (name, bh, tq, tk, d, causal, dtype) in enumerate(SHAPES):
+            q, k, v = k2_inputs(bh, tq, tk, d, dtype, 10 + i, dev)
+            scale = d**-0.5
+            row = {"shape": name, "dims": [bh, tq, tk, d], "causal": causal, "dtype": str(dtype).split(".")[-1]}
+            for source, label in ((FWD[0], "k2"), (PIPELINED[0], "k3")):
+                outs = {n: v_.forward(source, q, k, v, causal, scale) for n, v_ in ver.items()}
+                row[f"{label}_bits_equal"] = {o: all(torch.equal(a, b) for a, b in zip(outs[o], outs["change"]))
+                                              for o in others}
+                row[f"{label}_err_over_tol"] = {n: plain_err(q, k, v, causal, *o) for n, o in outs.items()}
+                del outs
+                row[f"{label}_ms"] = turns(lambda n: ver[n].forward(source, q, k, v, causal, scale))
+            q4, k4, v4 = (t.view(bh // 8, 8, t.shape[1], d) for t in (q, k, v))
+            row["library_ms"] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, is_causal=causal),
+                                        reps=5, warmup=1)
+            if not args.fwd_only and (name.startswith("step") or name.startswith("bench")):
+                o, lse = ver["change"].forward(FWD[0], q, k, v, causal, scale)
+                do = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(600), device=dev).to(dtype)
+                grads = {}
+                for n, v_ in ver.items():
+                    dd = v_.d_pass(o, do)
+                    grads[n] = (dd, v_.dq(q, k, v, do, lse, dd, causal, scale), *v_.dkv(q, k, v, do, lse, dd, causal, scale))
+                row["bwd_bits_equal"] = {o_: all(torch.equal(a, b) for a, b in zip(grads[o_], grads["change"]))
+                                         for o_ in others}
+                dd = grads["change"][0]
+                row["k4_ms"] = turns(lambda n: ver[n].dq(q, k, v, do, lse, dd, causal, scale))
+                row["k5_ms"] = turns(lambda n: ver[n].dkv(q, k, v, do, lse, dd, causal, scale))
+                del o, lse, do, grads
+            print(json.dumps(row), flush=True)
+            results.append(row)
+            del q, k, v, q4, k4, v4
+            torch.cuda.empty_cache()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    if args.json_out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.json_out)), exist_ok=True)
+        with open(args.json_out, "w") as fh:
+            json.dump({"nvidia_smi": smi, "results": results}, fh, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
