@@ -22,14 +22,20 @@ Phases, one line each:
      and its instructions and tensor-core (HMMA) instructions (cuobjdump -sass); every
      instance of K2, K3, K4 and K5 must hold HMMA;
   3. north-star #1: ``arange(10, split=0).sum()`` on the card is 45;
-  4. K1 against its plain PyTorch version and against float64 on the card, at the main
-     path's shape and data and at ragged shapes, each also on data rounded to integers
-     (where nothing rounds, so the sums must be exact), and bit-identical across two runs;
+  4. K1 against its plain PyTorch version and against float64 on the card, within the
+     rounding bound of its own summation order (``kmeans.rounding_depths``), at the main
+     path's shape and data and at edge shapes (n below one tile and one row past it, d of
+     7, 10, 48, 100 and 256, k of 1 and 12, x 4 bytes past a 16-byte boundary), each also
+     on data rounded to integers (where nothing rounds, so the sums must be exact); below
+     200,000 rows the sums equal their order replayed on the host bit for bit; every case
+     bit-identical across two runs;
   5. the KMeans path, ``KMeans.fit`` at 10M x 64, k = 8, ``max_iter=30``, ``tol=-1``,
      split=0 (the configuration of bench.py's KMeans benchmark): launch counts are zeroed
      just before it and read just after; the result is checked against the blobs' true
      centers and, on a small input, against the port's CPU path; then the fit is timed
-     (best of 2 after the counted run, which is its warm-up);
+     (best of 2 after the counted run, which is its warm-up), and one fit is traced with
+     torch.profiler for its device time by kind of kernel, the card's idle share and the
+     host's time an iteration beyond the device's;
   6. K2 against its plain PyTorch version on the card, in O and LSE: at the Transformer
      forward's three attention shapes in f32, at bench.py's attention configuration (b8
      h16 t4096 d64 bf16, causal, and with its padding mask), at small ragged shapes
@@ -93,6 +99,8 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -185,6 +193,15 @@ def blobs(n: int, d: int, k: int, seed: int, device):
     return x, init, true
 
 
+def placed(t, offset: int):
+    """A contiguous copy of ``t`` that starts ``offset`` floats into a fresh buffer (1: 4
+    bytes past the 16-byte boundary that the allocator gives)."""
+    import torch
+
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    return buf[offset:].view(t.shape).copy_(t)
+
+
 def check_k1(k1, x, c, exact: bool) -> dict:
     """K1 against its plain version and against float64 on the same card and inputs.
 
@@ -194,9 +211,11 @@ def check_k1(k1, x, c, exact: bool) -> dict:
 
     Against float64 sums of the same rows grouped by the kernel's labels (a reference
     with no order of its own to speak of): each row's contribution passes through at
-    most h fp32 roundings in the kernel (its warp's sequential sum, the fold of the
-    block's warps, the sum over blocks), so the sums may be off by γ_h·Σ|x| and no more;
-    sse adds each row's error of the quadratic expansion.
+    most h fp32 roundings in the kernel's order (``kmeans.rounding_depths``: its tile's
+    partial of its cluster, the block's tiles, the blocks), so the sums may be off by
+    γ_h·Σ|x| and no more; sse adds each row's error of the quadratic expansion, γ_h_row
+    (|x| + max|c|)² a row. Below 200,000 rows the sums must also equal ``kmeans.ordered_sums``,
+    the kernel's order replayed on the host from its labels, bit for bit.
 
     ``exact`` data are small integers: then no product or partial sum rounds, labels and
     counts must equal the plain version's and the sums the float64 ones bit for bit, so
@@ -230,25 +249,25 @@ def check_k1(k1, x, c, exact: bool) -> dict:
     check(sse_rel <= 1e-5, f"K1 sse disagrees with the plain version: rel err {sse_rel}")
 
     # sums and sse against float64, within the kernel's own rounding
-    blocks, warps = k1.grid_blocks(n, d, k, x.device)
-    slots = blocks * warps  # row r is summed by warp r % slots, sequentially
-    fold = warps + blocks
-    h_sums = int(torch.bincount(torch.arange(n, device=x.device) % slots * k + labels, minlength=slots * k).max()) + fold
-    h_sse = -(-n // slots) + fold
+    blocks, _ = k1.grid_blocks(n, d, k, x.device)
+    h = k1.rounding_depths(n, d, k, labels, blocks)
     lab = labels.long()
     x64, c64 = x.double(), c.double()
     sums64 = torch.zeros(k, d, dtype=torch.float64, device=x.device).index_add_(0, lab, x64)
     abs64 = torch.zeros_like(sums64).index_add_(0, lab, x64.abs())
     err = (sums.double() - sums64).abs()
-    tol = (gamma(h_sums) + gamma(n, U64)) * abs64 + 1e-30
+    tol = (gamma(h["h_sums"]) + gamma(n, U64)) * abs64 + 1e-30
     if exact:
         check(float(abs64.max()) < 2**24, "exact data: a partial sum could round")
         check(torch.equal(sums.double(), sums64), f"K1 sums are not exact on exact data: max err {float(err.max())}")
     check(bool((err <= tol).all()), f"K1 sums off float64 by {float(err.max())}, worst err/tol {float((err / tol).max())}")
+    replayed = n < 200_000
+    if replayed:
+        again = k1.ordered_sums(x.cpu().numpy(), labels.cpu().numpy(), k, blocks)
+        check(np.array_equal(sums.cpu().numpy(), again), "K1 sums differ from their order replayed on the host")
     sse64 = float(torch.stack([((x64 - c64[j]) ** 2).sum(1) for j in range(k)], 1).amin(1).sum())
-    # a row's d² = max(|x|²+|c|²−2x·c, 0): per lane ceil(d/32) FMAs, 5 butterfly adds, 2 more
-    row_err = gamma(-(-d // 32) + 7) * float(((x64.norm(dim=1) + c64.norm(dim=1).max()) ** 2).sum())
-    sse_tol = row_err + (gamma(h_sse) + gamma(n, U64)) * (sse64 + row_err)
+    row_err = gamma(h["h_row"]) * float(((x64.norm(dim=1) + c64.norm(dim=1).max()) ** 2).sum())
+    sse_tol = row_err + (gamma(h["h_sse"]) + gamma(n, U64)) * (sse64 + row_err)
     sse_err = abs(float(sse) - sse64)
     check(sse_err <= sse_tol, f"K1 sse off float64 by {sse_err}, tolerance {sse_tol}")
     return {
@@ -257,8 +276,9 @@ def check_k1(k1, x, c, exact: bool) -> dict:
         "sse_err_over_tol": sse_err / sse_tol,
         "sse_rel_err_vs_plain": sse_rel,
         "near_tie_rows": int(rows.numel()),
-        "h_sums": h_sums,
-        "h_sse": h_sse,
+        "blocks": blocks,
+        **h,
+        "sums_equal_host_replay": replayed,
     }
 
 
@@ -438,6 +458,7 @@ def check_bwd(k2, q, k, v, causal: bool, mask, seed: int) -> dict:
 
 KERNEL_KINDS = (
     # (kind, substrings of a CUDA kernel's name), the first match wins
+    ("k1_kmeans_assign", ("kmeans_assign",)),
     ("k2_flash_attention", ("flash_attention_fwd_kernel",)),
     ("k3_flash_attention_pipelined", ("flash_attention_fwd_pipelined_kernel",)),
     ("d_pass", ("flash_attention_bwd_d_kernel",)),
@@ -556,10 +577,12 @@ def main() -> int:
                   f"without HMMA: {summary}")
     phase("build", total_s=f"{time.perf_counter() - t0:.2f}")
     lib = k1._lib()
-    check(
-        lib.kmeans_assign_smem_bytes(D, K) == k1.smem_bytes(D, K),
-        "the wrapper's shared-memory size disagrees with the kernel source",
-    )
+    for d_, k_ in ((D, K), (7, 5), (48, 12), (100, 4), (256, 25), (1, 3000)):
+        p_ = k1.plan(d_, k_)
+        check(
+            lib.kmeans_assign_smem_bytes(d_, k_, p_.threads, p_.stages) == p_.smem_bytes,
+            f"the wrapper's shared-memory size for d={d_}, k={k_} disagrees with the kernel source",
+        )
 
     # 3. north-star #1 on the card
     s = ht.arange(10, split=0).sum()
@@ -567,21 +590,29 @@ def main() -> int:
     phase("north_star_1", value=s.item(), dtype=s.dtype.__name__, device=str(s.larray.device))
 
     # 4. K1 against its plain version and float64 on the card, on the main path's data and
-    #    on exact (rounded to integers) data, at the main path's shape and ragged ones
+    #    on exact (rounded to integers) data, at the main path's shape and edge ones: n below
+    #    one tile and one row past it, d of 7, 10, 48, 100 and 256, k of 1 and 12 (the
+    #    centers in shared memory), ragged n, and x 4 bytes past a 16-byte boundary
     x, init, true = blobs(N, D, K, SEED, dev)
+    tile = k1.plan(D, K).rows_per_tile
     checks = {}
-    for n, d, k in [(N, D, K), (130, 10, 3), (1500, 7, 5)]:
+    for n, d, k, offset in [(N, D, K, 0), (tile - 56, D, K, 0), (tile + 1, D, K, 0), (130, 10, 3, 0), (1500, 7, 5, 0),
+                            (5000, D, 1, 0), (3000, 48, 12, 0), (2000, 100, 6, 0), (3001, 256, 8, 0),
+                            (4099, D, K, 1)]:
         if n == N:
             xs, cs = x, init
         else:
             gen = torch.Generator(device=dev).manual_seed(SEED + n)
-            xs = torch.randn(n, d, generator=gen, device=dev)
+            xs = placed(torch.randn(n, d, generator=gen, device=dev), offset)
             cs = torch.randn(k, d, generator=gen, device=dev)
         for exact in (False, True):
             data = "exact" if exact else "float"
-            got = check_k1(k1, torch.round(xs), torch.round(cs), exact) if exact else check_k1(k1, xs, cs, exact)
-            checks[(n, d, k, data)] = got
-            phase("k1_vs_plain_and_f64", shape=f"{n}x{d}x{k}", data=data, **got, deterministic=True)
+            xe = placed(torch.round(xs), offset) if exact else xs
+            got = check_k1(k1, xe, torch.round(cs) if exact else cs, exact)
+            tag = (n, d, k, data + ("_misaligned" if offset else ""))
+            checks[tag] = got
+            phase("k1_vs_plain_and_f64", shape=f"{n}x{d}x{k}", data=tag[3], **got, deterministic=True)
+            del xe
         del xs, cs
     torch.cuda.empty_cache()
 
@@ -628,6 +659,15 @@ def main() -> int:
         walls.append(time.perf_counter() - t0)
     fit_s = min(walls)
     phase("kmeans_fit_time", best_of_2_s=repr(fit_s), per_iteration_ms=repr(1e3 * fit_s / (MAX_ITER + 1)))
+    # one fit traced: the device's time by kind of kernel, its idle share, and the host's time
+    # a Lloyd iteration beyond the device's (the per-iteration shift readback included)
+    fit_profile = profile_device(lambda: km.fit(X), inference=False)
+    if "device_busy_ms" in fit_profile:
+        idle_ms = fit_profile["traced_wall_ms"] - fit_profile["device_busy_ms"]
+        fit_profile["device_idle_ms_per_iteration"] = idle_ms / (MAX_ITER + 1)
+        k1_calls = [n_ for name_, _, n_ in fit_profile["top_kernels"] if "kmeans_assign" in name_]
+        check(k1_calls == [MAX_ITER + 1], f"the traced fit ran K1 {k1_calls} times")
+    phase("kmeans_fit_profile", **{key: json.dumps(v) for key, v in fit_profile.items()})
 
     del X, km, x, init, true, xs, cs, on_card, on_cpu, labels, centers
     torch.cuda.empty_cache()
@@ -1207,6 +1247,8 @@ def main() -> int:
                 "err_over_tol": checks[(N, D, K, "float")]["sums_err_over_tol"],
                 "shape": [N, D, K],
                 "achieved_bytes_per_s": nbytes / (ms * 1e-3),
+                "bound_share": max(bytes_ms, flops_ms) / ms,
+                "launch": dict(k1.plan(D, K)._asdict(), blocks=k1.grid_blocks(N, D, K, dev)[0]),
             },
             {
                 "name": "flash_attention_fwd",
@@ -1308,6 +1350,7 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)), exist_ok=True)
         with open(args.json_out, "w") as fh:
             json.dump({"nvidia_smi": smi, "builds": build_info, **line, "fit_best_of_2_s": fit_s, "fit_walls_s": walls,
+                       "fit_profile": fit_profile,
                        "inertia": inertia, "checks": {"x".join(map(str, key)): v for key, v in checks.items()},
                        "k2_checks": k2_checks, "forward_best_of_2_s": fwd_s, "forward_walls_s": fwd_walls,
                        "k2_in_forward_ms": attn_ms, "forward_peak_gb": peak_gb,

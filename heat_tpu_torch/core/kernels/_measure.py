@@ -14,7 +14,7 @@ import subprocess
 
 from . import _nvcc
 
-__all__ = ["cuda_ms", "demangle", "fwd_err", "k2_inputs", "ptxas_summary", "sass", "sass_counts"]
+__all__ = ["cuda_ms", "demangle", "fwd_err", "k2_inputs", "ptxas_summary", "queued_ms", "sass", "sass_counts"]
 
 # one SASS instruction: its address, its opcode (predicate dropped, up to the first dot)
 # and its operands
@@ -116,6 +116,28 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         fn()
     times = []
     for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def queued_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Median device time of ``fn()`` in ms with the host's enqueue time taken out: each
+    run's events and kernels are queued behind a sleep kernel of about 1 ms, so the card
+    runs them back to back. For calls whose kernels take less time than the host takes to
+    queue them."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(2_000_000)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()

@@ -97,9 +97,13 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 def test_shared_memory_gate():
     assert k1.fits_smem(64, 8)
     assert k1.fits_smem(256, 2)
-    assert not k1.fits_smem(257, 2)  # a row no longer fits one warp's registers
-    assert not k1.fits_smem(64, 1000)  # the per-warp records exceed shared memory
-    assert k1.smem_bytes(64, 8) == 4 * (8 * 64 + 8 + 8 * (8 * 64 + 8 + 1))
+    assert not k1.fits_smem(257, 2)  # beyond the kernel's largest bound on d
+    assert not k1.fits_smem(64, 1000)  # the centers alone exceed shared memory
+    # the layout at the main shape: a ring of 3 tiles of 256 rows at a stride of 17 chunks
+    # of 16 bytes, the centers in 16 chunks each; a list of tile rows for each of the 8
+    # warps, |c|², the record, the counts, two sets of a mask per cluster and warp, a sum per
+    # tile row and the last-block flag in 4-byte words
+    assert k1.smem_bytes(64, 8) == 16 * (3 * 256 * 17 + 8 * 16) + 4 * (8 * 256 + 8 + 8 * 64 + 8 + 2 * 8 * 8 + 256 + 1)
 
 
 def test_launcher_imports_without_cuda_or_nvcc(tmp_path):
