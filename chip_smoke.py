@@ -14,6 +14,9 @@ source and 2048 target tokens, a split=0 batch, ``DataParallel`` and
 pass, K4 and K5 18 times each. The forward and the step run again with
 ``HEAT_TPU_FLASH_PIPELINE=1``, which sends every flash forward to K3, the pipelined kernel,
 in place of K2; and bench.py's attention A/B times causal attention with the knob off and on.
+Then the linear algebra of north-star configs #2 (``matmul`` of a split-0 and a split-1
+4096² f32 array) and #4 (``hsvd_rank`` of a rank-10 2048 × 32768 f32 array, split=1), and
+the rest of ``heat_tpu_torch.linalg`` at small sizes.
 
 Phases, one line each:
   1. the card: nvidia-smi's name and power limit, and torch's device name;
@@ -77,11 +80,35 @@ Phases, one line each:
  11. bench.py's attention A/B (bench.py:252-274): causal scaled_dot_product_attention at
      b8 h16 t4096 d64 bf16 with the knob off (K2) and on (K3), in turns, in ms and TFLOP/s;
  12. the D pass, K4 and K5 timed at the step's two shapes and bench.py's, in turns with the
-     backward of ``scaled_dot_product_attention`` on the same inputs; then one JSON line
-     listing every ported kernel with its launches on its path, its time, its bound on
-     this card (f32 attention work at the 3xTF32 rate, with the fp32 FMA rate's bound
-     beside it), its plain version's time and a library call's time;
- 13. the last line, ``{"ok": true, "device": {...}}``.
+     backward of ``scaled_dot_product_attention`` on the same inputs;
+ 13. (13-15 run in a child process of this script, which traces nothing: see
+     ``linalg_phases``) config #2 (``[linalg_matmul]``): ``ht.linalg.matmul`` of a (4096, 4096) split=0 and a
+     (4096, 4096) split=1 f32 array from a seeded generator, with TF32 allowed for the
+     process and seen off inside every ``torch.matmul`` of the call; the product split 0,
+     entrywise within γ_4096·(|A||B|) of the float64 product, bit-identical twice; the
+     planner's counts empty (one card is one rank: it plans nothing, as heat_tpu's does at
+     ``comm.size`` 1); best of 3 in ms, TFLOP/s, the device time against cuBLAS's own
+     ``torch.matmul`` and the fp32 FMA bound (2·4096³ at 67 TFLOP/s, 2.05 ms); then a 3-D
+     batch product (8 × 1024², batch split 0) within γ_1024·(|A||B|) of float64 and the f64
+     4096² product within 2γ_4096·(|A||B|) of another order of the same f64 sums
+     (``[linalg_matmul_more]``);
+ 14. config #4 (``[linalg_hsvd]``): ``ht.linalg.hsvd_rank(A, 10)`` of A = U·V, U 2048 × 10
+     and V 10 × 32768 f32 from the generator, A split=1: U 2048 × 10 with ‖UᵀU − I‖ ≤ 1e-4,
+     ‖A − UUᵀA‖/‖A‖ ≤ 1e-4 and the error estimate ≤ 1e-4; at 256 × 1024 the card's U spans
+     the CPU path's subspace (‖UUᵀ − U_cpu U_cpuᵀ‖ ≤ 1e-4); best of 2 in s, the library SVD
+     of A alone (the default driver and ``gesvd``, which the port asks for) and the
+     residual ‖A − UUᵀA‖/‖A‖ of the default driver's leading 10 columns, hsvd's device
+     time between CUDA events, and the seconds each step of the phase took;
+ 15. the rest, on the card against the port's CPU path (``[linalg_small]``): ``qr`` of
+     4096 × 64 split=0 (R up to row signs, |QR − A|), ``svd`` and ``pinv`` of 96 × 64,
+     ``cg`` (64, f64) and ``lanczos`` (48, m = 20, f64, ``v0`` given) within 1e-10,
+     ``resplit_`` 0 → 1 → 0 of 40 × 30 × 20, and ``cdist`` of two row-split arrays (squared
+     distances within 1e-5 of |x|² + |y|²);
+ 16. one JSON line listing every ported kernel with its launches on its path, its time,
+     its bound on this card (f32 attention work at the 3xTF32 rate, with the fp32 FMA
+     rate's bound beside it), its plain version's time and a library call's time (the
+     linear algebra runs no hand kernel: its products are cuBLAS and cuSOLVER);
+ 17. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script then exits non-zero without the last line. It
 also fails when CUDA is not available or when the heat_tpu_torch package is not beside
@@ -136,6 +163,12 @@ PEAK_TF32X3_FLOPS = 495e12 / 3
 PEAK_BF16_FLOPS = 989e12
 
 U32, U64 = 2.0**-24, 2.0**-53  # unit roundoff of float32 and float64
+
+# north-star config #2 (BASELINE.md:24): split-0 x split-1 f32 at 4096²; config #4
+# (BASELINE.md:26) at bench.py's chip size (bench.py:170-185): hsvd_rank of a rank-10
+# 2048 x 32768 f32 matrix, split=1
+MM_N = 4096
+HSVD_M, HSVD_N, HSVD_RANK = 2048, 8 * 4096, 10
 
 # the kernels, by source, whose every instance takes its products as mma.sync (HMMA in
 # its SASS)
@@ -464,6 +497,10 @@ KERNEL_KINDS = (
     ("d_pass", ("flash_attention_bwd_d_kernel",)),
     ("k4_dq", ("flash_attention_bwd_dq_kernel",)),
     ("k5_dkv", ("flash_attention_bwd_dkv_kernel",)),
+    # cuSOLVER's gesvd: Householder bidiagonalisation (labrd, larfg, geqrf, orgqr, its gemv)
+    # and the rotations of its host-steered QR iteration (lasr); gesvdj's Jacobi sweeps
+    ("svd_cusolver", ("gesvd", "gebrd", "labrd", "bdsqr", "lasr", "orgbr", "ormbr", "geqrf", "geqr2", "orgqr",
+                      "ormqr", "larf", "cuds_gemv", "jacobi", "syevj", "svd", "offA", "ormtr", "cusolver")),
     ("matmul_cublas", ("gemm", "xmma", "cutlass", "cublas")),
     ("cross_entropy", ("softmax", "SoftMax", "nll_loss")),
     ("adam", ("multi_tensor_apply", "adam", "Adam")),
@@ -519,9 +556,264 @@ def profile_device(fn, inference: bool = True) -> dict:
     }
 
 
+@contextlib.contextmanager
+def tf32_seen(seen: list):
+    """TF32 allowed for the whole process around the block (the port must turn it off
+    itself), and every ``torch.matmul`` inside records whether cuBLAS may use TF32 then."""
+    import torch
+
+    prior, mm = torch.backends.cuda.matmul.allow_tf32, torch.matmul
+
+    def spy(*args, **kwargs):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return mm(*args, **kwargs)
+
+    torch.backends.cuda.matmul.allow_tf32, torch.matmul = True, spy
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.matmul = prior, mm
+
+
+def best_s(fn, reps: int) -> tuple:
+    """Best and every wall time, in s, of ``fn()`` ending in a device synchronisation."""
+    import torch
+
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return min(walls), walls
+
+
+def linalg_phases(ht, dev) -> dict:
+    """North-star configs #2 and #4 (BASELINE.md:24, :26) and the rest of the linear
+    algebra on the card. One card is one rank: the planner plans nothing (``comm.size`` is
+    1) and every product is local cuBLAS with TF32 off; ring, reduce-scatter and all-to-all
+    moves across ranks are held at three gloo ranks by tests/test_torch_distributed.py.
+
+    Runs in a process of its own (:func:`linalg_child`): after a torch.profiler session,
+    these phases took 550 s and more than 800 s on the H100 machine where a fresh process
+    took 7 s, so they trace nothing and follow none (``tools/hsvd_trace.py`` traces hsvd
+    alone)."""
+    import torch
+
+    from heat_tpu_torch.core.devices import full_fp32_matmul
+    from heat_tpu_torch.core.linalg import comm_plan
+
+    res = {}
+    n = MM_N
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1000)
+    a_t = torch.randn(n, n, generator=gen, device=dev)
+    b_t = torch.randn(n, n, generator=gen, device=dev)
+    a, b = ht.array(a_t, split=0), ht.array(b_t, split=1)
+
+    # 13. config #2: split-0 x split-1 f32 at 4096², TF32 off inside the call
+    t_phase = time.perf_counter()
+    comm_plan.reset_counters()
+    seen = []
+    with tf32_seen(seen):
+        c = ht.linalg.matmul(a, b)
+        c2 = ht.matmul(a, b)
+        torch.cuda.synchronize()
+    check(seen and not any(seen), f"TF32 was allowed inside the product ({seen})")
+    check(comm_plan.COUNTERS == {}, f"one rank planned {comm_plan.COUNTERS}")
+    check(c.gshape == (n, n) and c.split == 0 and c.dtype is ht.float32, f"config #2 result {c.gshape} split {c.split}")
+    check(torch.equal(c.larray, c2.larray), "config #2 differs between two runs")
+    a64, b64 = a_t.double(), b_t.double()
+    exact = a64 @ b64
+    bound = gamma(n) * (a64.abs() @ b64.abs())
+    ratio = float(((c.larray.double() - exact).abs() / bound).max())
+    check(ratio <= 1.0, f"config #2 off float64 by {ratio} of gamma_n |A||B|")
+    mm_best, mm_walls = best_s(lambda: ht.linalg.matmul(a, b), 3)
+    with full_fp32_matmul():
+        library_ms = cuda_ms(lambda: torch.matmul(a_t, b_t), reps=10)
+    port_ms = cuda_ms(lambda: ht.linalg.matmul(a, b), reps=10)
+    flops = 2 * n**3
+    bound_ms = max(1e3 * flops / PEAK_FP32_FLOPS, 1e3 * 3 * n * n * 4 / PEAK_BYTES_PER_S)
+    phase("linalg_matmul", config="#2", shape=f"{n}x{n}@{n}x{n}", splits="0x1", out_split=c.split,
+          tf32_in_call=any(seen), plan_counts=json.dumps(comm_plan.COUNTERS), max_err_over_gamma_bound=ratio,
+          deterministic=True, best_of_3_ms=repr(1e3 * mm_best), walls_ms=json.dumps([1e3 * w for w in mm_walls]),
+          tflops=repr(flops / mm_best / 1e12), device_ms=repr(port_ms), library_ms=repr(library_ms),
+          bound_ms=repr(bound_ms), bound_by="operations (fp32 FMA, 67 TFLOP/s)", phase_s=repr(time.perf_counter() - t_phase))
+    res["matmul"] = {"best_of_3_ms": 1e3 * mm_best, "walls_ms": [1e3 * w for w in mm_walls], "device_ms": port_ms,
+                     "library_ms": library_ms, "bound_ms": bound_ms, "err_over_bound": ratio}
+    del c, c2, exact, bound
+
+    # a 3-D batch product (batch split 0) and the f64 product, each against float64
+    xb = torch.randn(8, 1024, 1024, generator=gen, device=dev)
+    yb = torch.randn(8, 1024, 1024, generator=gen, device=dev)
+    cb = ht.matmul(ht.array(xb, split=0), ht.array(yb, split=0))
+    exact = xb.double() @ yb.double()
+    ratio_b = float(((cb.larray.double() - exact).abs() / (gamma(1024) * (xb.double().abs() @ yb.double().abs()))).max())
+    check(cb.split == 0 and cb.gshape == (8, 1024, 1024) and ratio_b <= 1.0, f"batch product: split {cb.split}, {ratio_b}")
+    c64 = ht.matmul(ht.array(a64, split=0), ht.array(b64, split=1))
+    # another order of the same float64 sums: four k-panels
+    panels = sum(a64[:, i : i + n // 4] @ b64[i : i + n // 4] for i in range(0, n, n // 4))
+    ratio_64 = float(((c64.larray - panels).abs() / (2 * gamma(n, U64) * (a64.abs() @ b64.abs()))).max())
+    check(c64.dtype is ht.float64 and ratio_64 <= 1.0, f"f64 product off by {ratio_64} of 2 gamma_n |A||B|")
+    f64_best, _ = best_s(lambda: ht.matmul(ht.array(a64, split=0), ht.array(b64, split=1)), 3)
+    phase("linalg_matmul_more", batch="8x1024x1024@8x1024x1024", batch_split=cb.split, batch_err_over_bound=ratio_b,
+          f64=f"{n}x{n}", f64_err_over_bound=ratio_64, f64_best_of_3_ms=repr(1e3 * f64_best))
+    res["matmul_f64_best_of_3_ms"] = 1e3 * f64_best
+    del a, b, a_t, b_t, a64, b64, c64, panels, xb, yb, cb, exact
+    torch.cuda.empty_cache()
+
+    # 14. config #4: hsvd_rank of a rank-10 2048 x 32768 f32 matrix, split=1 (bench.py:170-185)
+    t_phase = time.perf_counter()
+    m, cols, rank = HSVD_M, HSVD_N, HSVD_RANK
+    u_t = torch.randn(m, rank, generator=gen, device=dev)
+    v_t = torch.randn(rank, cols, generator=gen, device=dev)
+    A = ht.array(u_t @ v_t, split=1)
+    steps = {}
+
+    def lap(name):
+        torch.cuda.synchronize()
+        steps[name] = time.perf_counter() - t_phase - sum(steps.values())
+
+    lap("data")
+    U, err = ht.linalg.hsvd_rank(A, rank)
+    lap("first_call")
+    Ul = U.larray.double()
+    orth = float(torch.linalg.matrix_norm(Ul.T @ Ul - torch.eye(rank, device=dev, dtype=torch.float64)))
+    A64 = A.larray.double()
+    resid = float(torch.linalg.matrix_norm(A64 - Ul @ (Ul.T @ A64)) / torch.linalg.matrix_norm(A64))
+    check(U.gshape == (m, rank) and U.split is None, f"hsvd U {U.gshape} split {U.split}")
+    check(orth <= 1e-4 and resid <= 1e-4 and float(err.item()) <= 1e-4,
+          f"hsvd: |U'U - I| {orth}, residual {resid}, estimate {float(err.item())}")
+    del A64, Ul
+    lap("checks")
+    small = (u_t[:256] @ v_t[:, :1024]).contiguous()
+    Us, _ = ht.linalg.hsvd_rank(ht.array(small, split=1), rank)
+    Uc, _ = ht.linalg.hsvd_rank(ht.array(small.cpu(), split=1, device="cpu"), rank)
+    Us64, Uc64 = Us.larray.double().cpu(), Uc.larray.double()
+    span = float(torch.linalg.matrix_norm(Us64 @ Us64.T - Uc64 @ Uc64.T))
+    check(span <= 1e-4, f"hsvd: the card's U spans another subspace than the CPU's ({span})")
+    lap("small_vs_cpu")
+    h_best, h_walls = best_s(lambda: ht.linalg.hsvd_rank(A, rank), 2)
+    lap("best_of_2")
+    # the library's SVD of A alone: the default driver (gesvdj) and gesvd, which hsvd asks
+    # for; and how far the default driver's leading subspace is off
+    Ud = torch.linalg.svd(A.larray, full_matrices=False).U[:, :rank].double()
+    A64 = A.larray.double()
+    default_resid = float(torch.linalg.matrix_norm(A64 - Ud @ (Ud.T @ A64)) / torch.linalg.matrix_norm(A64))
+    del Ud, A64
+    svd_ms = cuda_ms(lambda: torch.linalg.svd(A.larray, full_matrices=False), reps=2, warmup=1)
+    lap("library_gesvdj")
+    gesvd_ms = cuda_ms(lambda: torch.linalg.svd(A.larray, full_matrices=False, driver="gesvd"), reps=2, warmup=1)
+    lap("library_gesvd")
+    h_ms = cuda_ms(lambda: ht.linalg.hsvd_rank(A, rank), reps=2, warmup=0)
+    lap("device_events")
+    phase("linalg_hsvd", config="#4", shape=f"{m}x{cols}", rank=rank, split=1, U=f"{U.gshape}", orthonormality=orth,
+          relative_residual=resid, error_estimate=float(err.item()), subspace_vs_cpu_256x1024=span,
+          best_of_2_s=repr(h_best), walls_s=json.dumps(h_walls), device_event_ms=repr(h_ms),
+          svd_library_ms=repr(svd_ms), svd_gesvd_ms=repr(gesvd_ms), default_driver_residual=default_resid,
+          steps_s=json.dumps(steps))
+    res["hsvd"] = {"best_of_2_s": h_best, "walls_s": h_walls, "device_event_ms": h_ms, "svd_library_ms": svd_ms,
+                   "svd_gesvd_ms": gesvd_ms, "default_driver_residual": default_resid,
+                   "orthonormality": orth,
+                   "residual": resid, "estimate": float(err.item()), "subspace_vs_cpu": span, "steps_s": steps}
+    del A, U, u_t, v_t
+    torch.cuda.empty_cache()
+
+    # 15. the rest at small sizes, on the card against the port's CPU path
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 1100)
+
+    def both(x, split=None):
+        return ht.array(x, split=split), ht.array(x, split=split, device="cpu")
+
+    def close(got, want, rtol, atol, what):
+        g, w = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        err = float(np.abs(g - w).max())
+        check(np.allclose(g, w, rtol=rtol, atol=atol), f"{what}: off the CPU path by {err}")
+        return err
+
+    def signs(x, ref, axis):
+        s = np.sign(np.sum(x * ref, axis=1 - axis, keepdims=True))
+        s[s == 0] = 1
+        return x * (s if axis == 0 else s.reshape(1, -1))
+
+    errs = {}
+    tall = rng.standard_normal((4096, 64)).astype(np.float32)
+    g, c_ = both(tall, 0)
+    (qg, rg), (qc, rc) = ht.linalg.qr(g), ht.linalg.qr(c_)
+    errs["qr_R"] = close(signs(rg.numpy(), rc.numpy(), 0), rc.numpy(), 0, 1e-5 * np.abs(tall).max() * 10, "qr R")
+    errs["qr_QR_minus_A"] = float(np.abs(qg.numpy() @ rg.numpy() - tall).max())
+    check(errs["qr_QR_minus_A"] <= 1e-4 * np.abs(tall).max(), f"qr: |QR - A| {errs['qr_QR_minus_A']}")
+    sq = rng.standard_normal((96, 64)).astype(np.float32)
+    g, c_ = both(sq)
+    sg, sc = ht.linalg.svd(g), ht.linalg.svd(c_)
+    errs["svd_S"] = close(sg.S.numpy(), sc.S.numpy(), 1e-5 * 10, 0, "svd S")
+    errs["pinv"] = close(ht.linalg.pinv(g).numpy(), ht.linalg.pinv(c_).numpy(), 0,
+                         1e-3 * np.abs(np.linalg.pinv(sq)).max(), "pinv")
+    spd = rng.standard_normal((64, 64))
+    spd = spd @ spd.T + 64 * np.eye(64)
+    rhs = rng.standard_normal(64)
+    (Ag, Ac), (bg, bc), (x0g, x0c) = both(spd), both(rhs), both(np.zeros(64))
+    errs["cg"] = close(ht.linalg.cg(Ag, bg, x0g).numpy(), ht.linalg.cg(Ac, bc, x0c).numpy(), 0, 1e-10, "cg")
+    sym = rng.standard_normal((48, 48))
+    sym = sym + sym.T
+    v0 = rng.standard_normal(48)
+    (Sg, Sc), (vg, vc) = both(sym), both(v0)
+    (Vg, Tg), (Vc, Tc) = ht.linalg.lanczos(Sg, 20, v0=vg), ht.linalg.lanczos(Sc, 20, v0=vc)
+    errs["lanczos_T"] = close(Tg.numpy(), Tc.numpy(), 0, 1e-10, "lanczos T")
+    errs["lanczos_V"] = close(Vg.numpy(), Vc.numpy(), 0, 1e-10, "lanczos V")
+    cube = rng.standard_normal((40, 30, 20)).astype(np.float32)
+    x = ht.array(cube, split=0)
+    x.resplit_(1)
+    check(x.split == 1 and np.array_equal(x.numpy(), cube), "resplit_ 0 -> 1")
+    x.resplit_(0)
+    check(x.split == 0 and np.array_equal(x.numpy(), cube), "resplit_ 1 -> 0")
+    pts, other = rng.standard_normal((500, 16)).astype(np.float32), rng.standard_normal((300, 16)).astype(np.float32)
+    (Xg, Xc), (Yg, Yc) = both(pts, 0), both(other, 0)
+    dg, dc = ht.spatial.cdist(Xg, Yg).numpy(), ht.spatial.cdist(Xc, Yc).numpy()
+    scale = 1e-5 * ((pts * pts).sum(1)[:, None] + (other * other).sum(1)[None, :])
+    errs["cdist_squared_over_bound"] = float((np.abs(dg.astype(np.float64) ** 2 - dc.astype(np.float64) ** 2) / scale).max())
+    check(errs["cdist_squared_over_bound"] <= 1.0, f"cdist off the CPU path: {errs['cdist_squared_over_bound']}")
+    sizes = {"qr": "4096x64 split 0", "svd": "96x64", "pinv": "96x64", "cg": "64 f64", "lanczos": "48 m=20 f64 v0",
+             "resplit": "40x30x20 0->1->0", "cdist": "500x16 vs 300x16 split 0"}
+    phase("linalg_small", sizes=json.dumps(sizes), errs=json.dumps(errs), phase_s=repr(time.perf_counter() - t_phase))
+    res["small"] = errs
+    return res
+
+
+def linalg_child(out_path: str) -> int:
+    """The child process of phases 13-15: the card, the package, :func:`linalg_phases`;
+    its results go to ``out_path`` as JSON."""
+    import torch
+
+    import heat_tpu_torch as ht
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    ht.use_device("gpu")
+    with open(out_path, "w") as fh:
+        json.dump(linalg_phases(ht, dev), fh)
+    return 0
+
+
+def run_linalg_child() -> dict:
+    """Phases 13-15 in a fresh process of this script (its phase lines go to this
+    stdout); fails unless it ends with code 0."""
+    import tempfile
+
+    sys.stdout.flush()
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "linalg.json")
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--linalg-child", out_path]).returncode
+        check(rc == 0, f"the linear algebra phases failed (exit code {rc})")
+        with open(out_path) as fh:
+            return json.load(fh)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--json-out", default=None, help="also write the kernels line and the fit's numbers here")
+    parser.add_argument("--linalg-child", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
 
     import torch
@@ -539,6 +831,8 @@ def main() -> int:
     except ImportError as exc:
         print(f"chip_smoke: the heat_tpu_torch package is not beside this script ({exc})", file=sys.stderr)
         return 2
+    if args.linalg_child:
+        return linalg_child(args.linalg_child)
     k1 = kernels.kmeans
     k2 = kernels.flash_attention
     os.environ.pop(PIPELINE_KNOB, None)  # K2 wherever a phase does not ask for K3
@@ -1212,7 +1506,11 @@ def main() -> int:
     del bwd_data
     torch.cuda.empty_cache()
 
-    # 12. every ported kernel: launches on its path, time, bound, plain version's and library's time
+    # 13-15. distributed linear algebra: config #2's product, config #4's hsvd_rank, the rest
+    #        small, in a child process (linalg_phases)
+    linalg_out = run_linalg_child()
+
+    # 16. every ported kernel: launches on its path, time, bound, plain version's and library's time
     x, init, _ = blobs(N, D, K, SEED, dev)
     ms = cuda_ms(lambda: k1.fused_assign_update_packed(x, init), reps=20, warmup=3)
     plain_ms = cuda_ms(lambda: k1.fused_assign_update_reference(x, init), reps=5, warmup=1)
@@ -1366,9 +1664,9 @@ def main() -> int:
                        "train_step_pipelined_best_of_2_s": step_on_s, "train_step_pipelined_walls_s": step_on_walls,
                        "train_step_pipelined_peak_gb": train_peak_on_gb,
                        "train_step_pipelined_profile": train_breakdown_on, "bench_ab_runs_ms": ab_runs,
-                       "bench_ab_k2_ms": ab_k2_ms, "bench_ab_k3_ms": ab_k3_ms}, fh, indent=1)
+                       "bench_ab_k2_ms": ab_k2_ms, "bench_ab_k3_ms": ab_k3_ms, "linalg": linalg_out}, fh, indent=1)
 
-    # 13. the last line
+    # 17. the last line
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
 

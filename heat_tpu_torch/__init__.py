@@ -20,3 +20,4 @@ from . import cluster
 from . import nn
 from . import optim
 from . import interop
+from . import testing

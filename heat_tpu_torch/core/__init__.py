@@ -1,4 +1,5 @@
-"""Core of heat_tpu_torch: types, devices, communication, the DNDarray and its operations."""
+"""Core of heat_tpu_torch: types, devices, communication, the DNDarray, its operations and
+linear algebra."""
 
 from .constants import *
 from .types import *
@@ -10,6 +11,8 @@ from .arithmetics import *
 from .relational import *
 from .statistics import *
 from .base import *
+from . import linalg
+from .linalg import *  # in the flat namespace too, as heat_tpu does
 from . import (
     arithmetics,
     base,
@@ -23,5 +26,6 @@ from . import (
     sanitation,
     statistics,
     stride_tricks,
+    tiling,
     types,
 )

@@ -161,6 +161,143 @@ class TorchCommunication:
             dist.broadcast(tensor, src=root, group=self.group)
         return tensor
 
+    def ring_shift(
+        self, tensor: torch.Tensor, shift: int = 1, recv_shape: Optional[Sequence[int]] = None, async_op: bool = False
+    ):
+        """Rotate one tensor a rank around the ring (heat_tpu/core/communication.py:570): send
+        ``tensor`` to rank ``(rank + shift) % size`` and receive from ``(rank - shift) %
+        size`` a tensor of ``recv_shape`` (default: this tensor's shape; chunks may be
+        ragged, so a caller whose peers hold other extents says what arrives). An empty
+        message is neither sent nor received: both ends know its size. With ``async_op``
+        the exchange is only started, and the returned handle's ``wait()`` gives the
+        received tensor, so work on ``tensor`` can overlap its transfer."""
+        recv_shape = tuple(tensor.shape) if recv_shape is None else tuple(int(s) for s in recv_shape)
+        size = self.size
+        if size == 1 or shift % size == 0:
+            if recv_shape != tuple(tensor.shape):
+                raise ValueError(f"ring_shift onto itself: recv_shape {recv_shape} is not {tuple(tensor.shape)}")
+            return _Pending([], tensor, tensor.dtype) if async_op else tensor
+        rank = self.rank
+        dtype = tensor.dtype
+        send = tensor.to(torch.uint8) if dtype == torch.bool else tensor.contiguous()
+        recv = torch.empty(recv_shape, dtype=send.dtype, device=send.device)
+        ops = []
+        if send.numel():
+            ops.append(dist.P2POp(dist.isend, send, self._global_rank((rank + shift) % size), self.group))
+        if recv.numel():
+            ops.append(dist.P2POp(dist.irecv, recv, self._global_rank((rank - shift) % size), self.group))
+        works = dist.batch_isend_irecv(ops) if ops else []
+        handle = _Pending(works, recv, dtype, keep=send)
+        return handle if async_op else handle.wait()
+
+    def ring_blocks(self, block: torch.Tensor, shape_of):
+        """The ring schedule of heat_tpu's ring algorithms (``_ring_body``,
+        ``_ring_pairwise``): yield ``(src, blk)`` ``size`` times, ``blk`` being the block of
+        rank ``src = (rank - i) % size`` at step ``i``, starting from this rank's
+        ``block``. Each block's hop to the next rank starts before it is yielded, so the
+        caller's work on it overlaps the transfer, and the last one makes no hop.
+        ``shape_of(r)`` is the shape of rank ``r``'s block (blocks may be ragged)."""
+        size, rank = self.size, self.rank
+        blk = block.contiguous()
+        for i in range(size):
+            src = (rank - i) % size
+            pending = self.ring_shift(blk, 1, shape_of((src - 1) % size), async_op=True) if i < size - 1 else None
+            yield src, blk
+            if pending is not None:
+                blk = pending.wait()
+
+    def all_to_all(
+        self, tensor: torch.Tensor, split_axis: int, concat_axis: int, concat_extent: Optional[int] = None
+    ) -> torch.Tensor:
+        """All-to-all (heat_tpu/core/communication.py:549): cut ``tensor`` along
+        ``split_axis`` into every rank's chunk (the ceil-division rule over its extent
+        here, the global one) and send chunk ``r`` to rank ``r``; the chunks received are
+        joined along ``concat_axis`` in rank order. ``concat_extent`` is the global
+        extent along ``concat_axis``, whose chunks by the same rule are what each rank
+        sends (None: every rank holds this rank's extent there). Chunks may be ragged or
+        empty: every count comes from :meth:`counts_displs_shape`, none from the local
+        tensor alone. One ``all_to_all_single`` over flat buffers."""
+        nd = tensor.ndim
+        split_axis, concat_axis = split_axis % nd, concat_axis % nd
+        if split_axis == concat_axis:
+            raise ValueError(f"all_to_all: split and concat axis are both {split_axis}")
+        if self.size == 1:
+            return tensor
+        local = list(tensor.shape)
+        if concat_extent is None:
+            concat_extent = local[concat_axis] * self.size
+        send_counts, _, _ = self.counts_displs_shape(local, split_axis)
+        recv_counts, _, _ = self.counts_displs_shape(local[:concat_axis] + [concat_extent] + local[concat_axis + 1 :], concat_axis)
+        if recv_counts[self.rank] != local[concat_axis]:
+            raise ValueError(
+                f"all_to_all: this rank holds {local[concat_axis]} along axis {concat_axis}, the chunk rule "
+                f"over {concat_extent} gives it {recv_counts[self.rank]}"
+            )
+        dtype = tensor.dtype
+        moved = tensor.to(torch.uint8) if dtype == torch.bool else tensor
+        moved = moved.movedim(split_axis, 0).contiguous()
+        rest = list(moved.shape[1:])
+        c = concat_axis - 1 if concat_axis > split_axis else concat_axis  # concat_axis in ``rest``
+        mine = send_counts[self.rank]
+        others = int(np.prod(rest[:c] + rest[c + 1 :]))  # the elements beside both axes
+        in_sizes = [n * int(np.prod(rest)) for n in send_counts]
+        out_sizes = [mine * others * n for n in recv_counts]
+        out = moved.new_empty(sum(out_sizes))
+        dist.all_to_all_single(out, moved.reshape(-1), out_sizes, in_sizes, group=self.group)
+        blocks = [
+            part.view([mine] + rest[:c] + [n] + rest[c + 1 :]) for part, n in zip(out.split(out_sizes), recv_counts)
+        ]
+        joined = torch.cat(blocks, dim=c + 1).movedim(0, split_axis)
+        if dtype == torch.bool:
+            joined = joined.bool()
+        return joined.contiguous()
+
+    def reduce_scatter(self, tensor: torch.Tensor, scatter_axis: int = 0) -> torch.Tensor:
+        """Sum ``tensor`` over the ranks and keep this rank's chunk of the sum along
+        ``scatter_axis`` by the ceil-division rule (heat_tpu's ``psum_scatter``,
+        heat_tpu/core/communication.py:531): the (P−1)/P half of an all-reduce, for a
+        result that stays split. Even chunks take one ``reduce_scatter_tensor``; ragged
+        or empty ones an all-to-all of the chunks and a sum in rank order."""
+        if self.size == 1:
+            return tensor
+        scatter_axis = scatter_axis % tensor.ndim
+        shape = list(tensor.shape)
+        counts, _, _ = self.counts_displs_shape(shape, scatter_axis)
+        moved = tensor.movedim(scatter_axis, 0).contiguous()
+        if tensor.dtype != torch.bool and len(set(counts)) == 1:
+            out = moved.new_empty((counts[0],) + tuple(moved.shape[1:]))
+            _reduce_scatter(out, moved, group=self.group)
+            return out.movedim(0, scatter_axis).contiguous()
+        # ragged: every rank's copy of this rank's chunk, stacked on a new leading axis
+        stacked = self.all_to_all(moved.unsqueeze(0), split_axis=1, concat_axis=0, concat_extent=self.size)
+        summed = stacked.sum(dim=0) if tensor.dtype != torch.bool else stacked.any(dim=0)
+        return summed.to(tensor.dtype).movedim(0, scatter_axis).contiguous()
+
+    def _global_rank(self, group_rank: int) -> int:
+        """The default group's rank of ``group_rank`` in this communicator's group (the
+        point-to-point calls take global ranks)."""
+        if self.group is None:
+            return group_rank
+        return dist.get_global_rank(self.group, group_rank)
+
+
+class _Pending:
+    """An exchange in flight: ``wait()`` finishes it and gives the received tensor. The
+    send buffer is kept until then, as the transfer reads it."""
+
+    def __init__(self, works, recv: torch.Tensor, dtype: torch.dtype, keep: Optional[torch.Tensor] = None):
+        self._works, self._recv, self._dtype, self._keep = works, recv, dtype, keep
+
+    def wait(self) -> torch.Tensor:
+        for w in self._works:
+            w.wait()
+        self._works, self._keep = [], None
+        return self._recv.bool() if self._dtype == torch.bool else self._recv
+
+
+# reduce_scatter_single is reduce_scatter_tensor's newer name in torch.distributed
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+
 
 # the default communicator: the default process group, or a single rank
 COMM_WORLD = TorchCommunication()

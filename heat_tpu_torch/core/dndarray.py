@@ -154,10 +154,20 @@ class DNDarray:
         return self.__comm.all_gather(self.__array, self.__gshape, self.__split)
 
     def _relayout(self, axis: Optional[int]) -> torch.Tensor:
-        """This rank's local tensor for the array laid out along ``axis``."""
+        """This rank's local tensor for the array laid out along ``axis``. split→split
+        goes through the planner's all-to-all (``linalg/comm_plan.py``: each rank sends
+        each peer only the tile it needs, (P−1)/P of the array on the wire), except under
+        ``HEAT_TPU_LINALG_PLAN=xla``, which gathers the whole array as heat_tpu's XLA path
+        does; split→None gathers; None→split keeps this rank's chunk."""
         if axis == self.__split:
             return self.__array
-        full = self._global()
+        if axis is not None and self.__split is not None:
+            from .linalg import comm_plan
+
+            moved = comm_plan.try_resplit(self, axis)
+            if moved is not NotImplemented:
+                return moved
+        full = self.__array if self.__split is None else self._global()
         if axis is None:
             return full
         _, _, slices = self.__comm.chunk(self.__gshape, axis)
@@ -165,7 +175,7 @@ class DNDarray:
 
     def resplit_(self, axis: Optional[int] = None) -> "DNDarray":
         """Redistribute in place along ``axis``: split→None gathers, None→split keeps
-        this rank's chunk, split→split does both."""
+        this rank's chunk, split→split is one all-to-all (:meth:`_relayout`)."""
         axis = sanitize_axis(self.__gshape, axis)
         self.__array = self._relayout(axis)
         self.__split = axis
@@ -177,6 +187,21 @@ class DNDarray:
         return DNDarray(
             self._relayout(axis), self.__gshape, self.__dtype, axis, self.__device, self.__comm, True
         )
+
+    def _rebind(self, other: "DNDarray") -> None:
+        """Take ``other``'s local tensor, shape, dtype and split in place (``qr``'s
+        ``overwrite_a``)."""
+        self.__array = other.larray
+        self.__gshape = other.gshape
+        self.__dtype = other.dtype
+        self.__split = other.split
+
+    @property
+    def T(self) -> "DNDarray":
+        """The transpose (every axis reversed); a local permute with the split remapped."""
+        from .linalg import basics
+
+        return basics.transpose(self)
 
     # ------------------------------------------------------------------ conversion
     def astype(self, dtype, copy: bool = True) -> "DNDarray":

@@ -5,9 +5,13 @@ term is one ``torch.matmul`` in full fp32: TF32 is switched off around it, becau
 expansion cancels for near points (heat_tpu/spatial/distance.py:36-38).
 
 Distribution: a row-split X with Y whole on every rank is local work (the case
-``KMeans.predict`` runs); a row-split Y is all-gathered first. Output split: row-split X
-→ 0; else row-split Y → 1; else None. heat_tpu's ring over Y shards (``_ring_pairwise``)
-is not ported yet (ROADMAP.md Queue 1 item 5).
+``KMeans.predict`` runs). When both are row-split, Y's chunks travel the ring
+(heat_tpu's ``_ring_pairwise``, heat_tpu/spatial/distance.py:45): each rank keeps its X
+rows and, at each of ``P`` steps, fills the columns of the Y chunk in hand while the next
+one travels (:meth:`TorchCommunication.ring_blocks`), so no rank holds more than two Y
+chunks; chunks may be ragged or empty (heat_tpu rings only over even chunks). Other
+layouts gather what is split. Output split: row-split X → 0; else row-split Y → 1; else
+None.
 """
 
 from __future__ import annotations
@@ -48,11 +52,26 @@ def cdist(X: DNDarray, Y: Optional[DNDarray] = None, quadratic_expansion: bool =
         types.promote_types(X.dtype, types.float32), types.promote_types(Y.dtype, types.float32)
     )
     out_split = 0 if X.split == 0 else (1 if Y.split == 0 else None)
-    xv = X.larray if out_split == 0 else X._relayout(None)
-    yv = Y.larray if out_split == 1 else Y._relayout(None)
     tt = promoted.torch_type()
-    result = _pairwise(xv.to(tt), yv.to(tt))
+    if X.split == 0 and Y.split == 0 and X.is_distributed():
+        result = _ring_pairwise(X.comm, X.larray.to(tt), Y.larray.to(tt), Y.gshape[0])
+    else:
+        xv = X.larray if out_split == 0 else X._relayout(None)
+        yv = Y.larray if out_split == 1 else Y._relayout(None)
+        result = _pairwise(xv.to(tt), yv.to(tt))
     return DNDarray(result, (X.gshape[0], Y.gshape[0]), promoted, out_split, X.device, X.comm, True)
+
+
+def _ring_pairwise(comm, x: torch.Tensor, y: torch.Tensor, ny: int) -> torch.Tensor:
+    """This rank's rows of the distance matrix, with the row-split Y's chunks rotating
+    around the ring: at step ``i`` this rank holds the chunk of rank ``(rank − i) % P``
+    and sends it on while it fills that chunk's columns; the last chunk is consumed
+    without a hop."""
+    counts, displs, _ = comm.counts_displs_shape((ny,), 0)
+    out = x.new_empty((x.shape[0], ny))
+    for src, blk in comm.ring_blocks(y, lambda r: (counts[r], y.shape[1])):
+        out[:, displs[src] : displs[src] + counts[src]] = _pairwise(x, blk)
+    return out
 
 
 def manhattan(X: DNDarray, Y: Optional[DNDarray] = None, expand: bool = False) -> DNDarray:

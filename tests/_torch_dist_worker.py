@@ -18,7 +18,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import heat_tpu_torch as ht  # noqa: E402
 from heat_tpu_torch.core import communication  # noqa: E402
+from heat_tpu_torch.core.linalg import comm_plan  # noqa: E402
 from heat_tpu_torch.interop import load_jax_params  # noqa: E402
+from heat_tpu_torch.testing import port_record  # noqa: E402
 
 
 def run(inputs) -> dict:
@@ -138,6 +140,117 @@ def run(inputs) -> dict:
                 out[f"dp{batch}_param_{name}"] = t.numpy()
     finally:
         communication.TorchCommunication.all_reduce_packed = orig_packed
+    out.update(run_linalg(inputs, comm))
+    return out
+
+
+def _record(out: dict, key: str, x) -> None:
+    for name, value in port_record(x).items():
+        out[f"{key}__{name}"] = value
+
+
+def run_linalg(inputs, comm) -> dict:
+    """The distributed linear algebra: every plan of the planner, resplit between every
+    pair of splits, the collectives with an empty rank, config #2 and hsvd_rank at small
+    size, TSQR and the ring cdist."""
+    out = {}
+    knob = comm_plan.PLAN_KNOB
+    a, b = inputs["la_a"], inputs["la_b"]
+    for value in ("auto", "xla", "ring", "rs"):
+        os.environ[knob] = value
+        for sa in (None, 0, 1):
+            for sb in (None, 0, 1):
+                x, y = ht.array(a, split=sa), ht.array(b, split=sb)
+                plan = comm_plan.plan_matmul(x, y)
+                out[f"plan_{value}_{sa}_{sb}"] = np.array("None" if plan is None else repr(tuple(plan)))
+                comm_plan.reset_counters()
+                _record(out, f"mm_{value}_{sa}_{sb}", ht.matmul(x, y))
+                out[f"mm_{value}_{sa}_{sb}_counted"] = np.array(repr(sorted(comm_plan.COUNTERS.items())))
+    os.environ.pop(knob)
+
+    # a ring plan whose collective fails raises on every rank, and nothing else runs
+    def failing(self, *args, **kwargs):
+        raise RuntimeError("ring_shift failed")
+
+    orig_shift = communication.TorchCommunication.ring_shift
+    communication.TorchCommunication.ring_shift = failing
+    try:
+        ht.matmul(ht.array(a, split=0), ht.array(b, split=1))
+        out["ring_failure"] = np.array("returned")
+    except RuntimeError as exc:
+        out["ring_failure"] = np.array(str(exc))
+    finally:
+        communication.TorchCommunication.ring_shift = orig_shift
+
+    # resplit between every pair of splits of a (4, 7, 5) array: 2, 2, 0 rows on the ranks
+    gathers = []
+    orig_gather = communication.TorchCommunication.all_gather
+
+    def counting_gather(self, *args, **kwargs):
+        gathers.append(1)
+        return orig_gather(self, *args, **kwargs)
+
+    communication.TorchCommunication.all_gather = counting_gather
+    try:
+        for value in ("auto", "xla"):
+            os.environ[knob] = value
+            for src in (None, 0, 1, 2):
+                for dst in (None, 0, 1, 2):
+                    for data in ("rs_x", "rs_bool"):
+                        x = ht.array(inputs[data], split=src)
+                        gathers.clear()
+                        x.resplit_(dst)
+                        out[f"resplit_{value}_{data}_{src}_{dst}_gathers"] = np.array(len(gathers))
+                        _record(out, f"resplit_{value}_{data}_{src}_{dst}", x)
+    finally:
+        communication.TorchCommunication.all_gather = orig_gather
+        os.environ.pop(knob)
+
+    # the collectives on their own, with rank 2 holding nothing of 4 rows
+    x = ht.array(inputs["rs_x"], split=0)
+    counts = comm.counts_displs_shape(x.gshape, 0)[0]
+    src = (comm.rank - 1) % comm.size
+    out["ring_shift_empty"] = comm.ring_shift(x.larray, 1, (counts[src],) + x.gshape[1:]).numpy()
+    out["ring_shift_back"] = comm.ring_shift(x.larray, -1, (counts[(comm.rank + 1) % comm.size],) + x.gshape[1:]).numpy()
+    out["a2a_empty"] = comm.all_to_all(x.larray, split_axis=2, concat_axis=0, concat_extent=4).numpy()
+    for n in (4, 6):
+        partial = torch.arange(n * 3, dtype=torch.float32).reshape(n, 3) * (comm.rank + 1)
+        out[f"reduce_scatter_{n}"] = comm.reduce_scatter(partial, 0).numpy()
+
+    # config #2 at small size, ragged over three ranks (10 rows: 4, 4, 2; 11 columns: 4, 4, 3)
+    comm_plan.reset_counters()
+    _record(out, "config2", ht.matmul(ht.array(inputs["c2_a"], split=0), ht.array(inputs["c2_b"], split=1)))
+    out["config2_counted"] = np.array(repr(sorted(comm_plan.COUNTERS.items())))
+    _record(out, "matmul_batch", ht.matmul(ht.array(inputs["bt_a"], split=0), ht.array(inputs["bt_b"])))
+    _record(out, "matmul_batch_contract", ht.matmul(ht.array(inputs["bt_a"], split=2), ht.array(inputs["bt_b"], split=0)))
+    _record(out, "dot_split", ht.dot(ht.array(inputs["v"], split=0), ht.array(inputs["v"], split=0)))
+
+    # hsvd_rank on ragged column blocks (31 columns: 11, 11, 9), and on the transpose split 0
+    for name, split in (("hsvd_a", 1), ("hsvd_at", 0)):
+        U, err = ht.linalg.hsvd_rank(ht.array(inputs[name], split=split), 3)
+        _record(out, f"{name}_U", U)
+        _record(out, f"{name}_err", err)
+        U, sigma, V, _ = ht.linalg.hsvd_rank(ht.array(inputs[name], split=split), 3, compute_sv=True)
+        _record(out, f"{name}_sv_U", U)
+        _record(out, f"{name}_sv_sigma", sigma)
+        _record(out, f"{name}_sv_V", V)
+    U, err = ht.linalg.hsvd_rtol(ht.array(inputs["hsvd_noisy"], split=1), 1e-2)
+    _record(out, "hsvd_rtol_U", U)
+    _record(out, "hsvd_rtol_err", err)
+
+    # TSQR and the SVD on it, tall-skinny split 0 (60 rows: 20 a rank, 2 panels each)
+    q, r = ht.linalg.qr(ht.array(inputs["tall"], split=0))
+    _record(out, "tsqr_Q", q)
+    _record(out, "tsqr_R", r)
+    u, s, vh = ht.linalg.svd(ht.array(inputs["tall"], split=0))
+    _record(out, "tsvd_U", u)
+    _record(out, "tsvd_S", s)
+
+    # the ring cdist: Y's chunks travel the ring (8 rows: 3, 3, 2; 2 rows: 1, 1, 0)
+    X = ht.array(inputs["cd_x"], split=0)
+    for name in ("cd_y", "cd_y2"):
+        _record(out, f"cdist_{name}", ht.spatial.cdist(X, ht.array(inputs[name], split=0)))
+    _record(out, "cdist_self", ht.spatial.cdist(X))
     return out
 
 

@@ -17,7 +17,11 @@ import jax
 import jax.numpy as jnp
 
 import heat_tpu as ht
+from heat_tpu.core import _executor
 from heat_tpu.core.communication import MeshCommunication
+from heat_tpu.core.linalg import comm_plan as jplan
+
+from heat_tpu_torch.testing import assert_record_equal
 
 WORLD = 3
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_torch_dist_worker.py")
@@ -101,6 +105,30 @@ def _inputs():
         "dp_lr": np.array(DP_LR),
         **{f"dp_param_{k}": v for k, v in _mlp_params().items()},
         **NAN_CASES,
+        **_linalg_inputs(rng),
+    }
+
+
+def _linalg_inputs(rng):
+    low = rng.standard_normal((16, 3)) @ rng.standard_normal((3, 31))
+    noisy = rng.standard_normal((16, 5)) @ rng.standard_normal((5, 31)) + 1e-3 * rng.standard_normal((16, 31))
+    return {
+        "la_a": rng.standard_normal((7, 5)).astype(np.float32),  # every plan: 3, 3, 1 and 2, 2, 1
+        "la_b": rng.standard_normal((5, 4)).astype(np.float32),
+        "rs_x": rng.standard_normal((4, 7, 5)).astype(np.float32),  # 4 rows: 2, 2, 0
+        "rs_bool": rng.standard_normal((4, 7, 5)) > 0,
+        "c2_a": rng.standard_normal((10, 8)).astype(np.float32),  # config #2, ragged
+        "c2_b": rng.standard_normal((8, 11)).astype(np.float32),
+        "bt_a": rng.standard_normal((3, 6, 4)).astype(np.float32),
+        "bt_b": rng.standard_normal((4, 5)).astype(np.float32),
+        "v": rng.standard_normal(8).astype(np.float32),
+        "hsvd_a": low.astype(np.float32),  # 31 columns: 11, 11, 9
+        "hsvd_at": np.ascontiguousarray(low.T).astype(np.float32),
+        "hsvd_noisy": noisy,
+        "tall": rng.standard_normal((60, 4)).astype(np.float32),
+        "cd_x": rng.standard_normal((7, 4)).astype(np.float32),
+        "cd_y": rng.standard_normal((8, 4)).astype(np.float32),
+        "cd_y2": rng.standard_normal((2, 4)).astype(np.float32),
     }
 
 
@@ -308,3 +336,205 @@ def test_data_parallel_step_matches_heat_tpu(ranks, comm3, batch):
                 np.testing.assert_allclose(r[f"dp{batch}_param_{m}.{k}"], want, rtol=1e-5, atol=1e-6)
     assert lmap[2, 0] == (1 if batch == 7 else 0)
 
+
+
+# ---------------------------------------------------------------- linear algebra
+KNOBS = ("auto", "xla", "ring", "rs")
+PAIRS = [(sa, sb) for sa in (None, 0, 1) for sb in (None, 0, 1)]
+
+
+@pytest.fixture
+def jknob(monkeypatch):
+    """``HEAT_TPU_LINALG_PLAN`` for heat_tpu, which memoises it; its executor compiles at
+    the first sighting, so a ring or rs plan runs as planned (the suite's threshold of 2
+    would send a first sighting to the XLA plan)."""
+
+    def set_(value):
+        monkeypatch.setenv("HEAT_TPU_LINALG_PLAN", value)
+        monkeypatch.setenv("HEAT_TPU_JIT_THRESHOLD", "1")
+        _executor.reload_env_knobs()
+
+    yield set_
+    monkeypatch.undo()
+    _executor.reload_env_knobs()
+
+
+def _rec(r, key):
+    prefix = key + "__"
+    return {k[len(prefix):]: v for k, v in r.items() if k.startswith(prefix)}
+
+
+def _f32_atol(want):
+    return 1e-5 * max(np.abs(np.asarray(want.numpy(), np.float64)).max(), 1.0)
+
+
+@pytest.mark.parametrize("pair", PAIRS, ids=str)
+@pytest.mark.parametrize("knob", KNOBS)
+def test_matmul_plans_match_heat_tpu(ranks, comm3, jknob, knob, pair):
+    """Every split pair under every knob value: the port's Plan equals heat_tpu's, and the
+    product (ring rA/rB/rC, rs s10/sN0/s1N, or the general path) equals heat_tpu's in
+    values, dtype, split and lshape map; the executed plan is counted."""
+    inputs, res = ranks
+    jknob(knob)
+    sa, sb = pair
+    a = ht.array(inputs["la_a"], split=sa, comm=comm3)
+    b = ht.array(inputs["la_b"], split=sb, comm=comm3)
+    plan = jplan.plan_matmul(a, b)
+    want = ht.matmul(a, b)
+    for r in res:
+        assert str(r[f"plan_{knob}_{sa}_{sb}"]) == ("None" if plan is None else repr(tuple(plan)))
+        assert_record_equal(_rec(r, f"mm_{knob}_{sa}_{sb}"), want, rtol=0, atol=_f32_atol(want))
+        counted = str(r[f"mm_{knob}_{sa}_{sb}_counted"])
+        assert (plan is None) == (counted == "[]")
+        if plan is not None:
+            assert f"('linalg.plan.{plan.kind}', 1)" in counted
+            assert f"('linalg.bytes.{plan.kind}', {plan.nbytes})" in counted
+    if knob == "rs" and pair in ((1, 0), (None, 0), (1, None)):
+        assert plan.kind == "rs" and want.split == 0
+    if knob in ("auto", "ring") and pair in ((0, 0), (1, 1), (0, 1)):
+        assert plan.kind == "ring"
+
+
+def test_failing_ring_plan_raises(ranks):
+    """A ring plan whose ring_shift fails raises on every rank; nothing falls back."""
+    _, res = ranks
+    for r in res:
+        assert str(r["ring_failure"]) == "ring_shift failed"
+
+
+@pytest.mark.parametrize("dst", [None, 0, 1, 2])
+@pytest.mark.parametrize("src", [None, 0, 1, 2])
+@pytest.mark.parametrize("data", ["rs_x", "rs_bool"])
+@pytest.mark.parametrize("knob", ["auto", "xla"])
+def test_resplit_every_pair(ranks, comm3, knob, data, src, dst):
+    """resplit_ between every pair of splits of a (4, 7, 5) array (rank 2 holds no rows
+    along axis 0) equals heat_tpu's; split→split moves by one all-to-all and gathers
+    nothing, except under ``HEAT_TPU_LINALG_PLAN=xla``."""
+    inputs, res = ranks
+    want = ht.array(inputs[data], split=src, comm=comm3).resplit_(dst)
+    for r in res:
+        assert_record_equal(_rec(r, f"resplit_{knob}_{data}_{src}_{dst}"), want, rtol=0)
+        gathers = int(r[f"resplit_{knob}_{data}_{src}_{dst}_gathers"])
+        if src is not None and dst is not None and src != dst:
+            assert gathers == (0 if knob == "auto" else 1)
+        elif dst is not None:
+            assert gathers == 0  # None→split keeps the rank's chunk
+    if data == "rs_x" and dst == 0:
+        assert comm3.lshape_map((4, 7, 5), 0)[2, 0] == 0
+
+
+def test_collectives_with_an_empty_rank(ranks):
+    """ring_shift both ways, all_to_all and reduce_scatter (even and ragged) where rank 2
+    holds no rows."""
+    inputs, res = ranks
+    x = inputs["rs_x"]
+    chunks = np.split(x, [2, 4])  # 2, 2, 0 rows
+    for rank, r in enumerate(res):
+        np.testing.assert_array_equal(r["ring_shift_empty"], chunks[(rank - 1) % WORLD])
+        np.testing.assert_array_equal(r["ring_shift_back"], chunks[(rank + 1) % WORLD])
+        np.testing.assert_array_equal(r["a2a_empty"], np.split(x, [2, 4], axis=2)[rank])
+        for n in (4, 6):
+            total = np.arange(n * 3, dtype=np.float32).reshape(n, 3) * 6
+            c = -(-n // WORLD)
+            np.testing.assert_array_equal(r[f"reduce_scatter_{n}"], total[rank * c : (rank + 1) * c])
+
+
+def test_config2_matmul_ragged(ranks, comm3):
+    """North-star config #2 at small size: split-0 × split-1 f32 on ragged chunks, by the
+    ring (rC), against heat_tpu's three-device product."""
+    inputs, res = ranks
+    want = ht.matmul(ht.array(inputs["c2_a"], split=0, comm=comm3), ht.array(inputs["c2_b"], split=1, comm=comm3))
+    for r in res:
+        assert_record_equal(_rec(r, "config2"), want, rtol=0, atol=_f32_atol(want))
+        assert "('linalg.plan.ring', 1)" in str(r["config2_counted"])
+
+
+@pytest.mark.parametrize("key", ["matmul_batch", "matmul_batch_contract", "dot_split"])
+def test_general_products(ranks, comm3, key):
+    """The general path: a batch split, a contraction-dim split all-reduced, a split dot."""
+    inputs, res = ranks
+    a, b, v = (inputs[k] for k in ("bt_a", "bt_b", "v"))
+    want = {
+        "matmul_batch": lambda: ht.matmul(ht.array(a, split=0, comm=comm3), ht.array(b, comm=comm3)),
+        "matmul_batch_contract": lambda: ht.matmul(ht.array(a, split=2, comm=comm3), ht.array(b, split=0, comm=comm3)),
+        "dot_split": lambda: ht.dot(ht.array(v, split=0, comm=comm3), ht.array(v, split=0, comm=comm3)),
+    }[key]()
+    for r in res:
+        assert_record_equal(_rec(r, key), want, rtol=0, atol=_f32_atol(want))
+
+
+def _subspace(u):
+    u = np.asarray(u, np.float64)
+    return u @ u.T
+
+
+@pytest.mark.parametrize("name,split", [("hsvd_a", 1), ("hsvd_at", 0)])
+def test_hsvd_rank_ragged(ranks, comm3, name, split):
+    """hsvd_rank of a rank-3 matrix on column blocks of 11, 11 and 9 (and of its transpose
+    split 0): U's subspace, σ and V against heat_tpu's three-device tree; every rank holds
+    the same bits."""
+    inputs, res = ranks
+    A = ht.array(inputs[name], split=split, comm=comm3)
+    jU, jerr = ht.linalg.hsvd_rank(A, 3)
+    _, js, jV, _ = ht.linalg.hsvd_rank(A, 3, compute_sv=True)
+    for r in res:
+        U = _rec(r, f"{name}_U")
+        assert U["gshape"].tolist() == list(jU.gshape) and int(U["split"]) == (-1 if jU.split is None else jU.split)
+        np.testing.assert_allclose(_subspace(U["value"]), _subspace(jU.numpy()), atol=1e-5)
+        err = float(_rec(r, f"{name}_err")["value"])
+        assert err < 1e-5 and float(jerr.item()) < 1e-5
+        np.testing.assert_allclose(_rec(r, f"{name}_sv_sigma")["value"], js.numpy(), rtol=1e-5)
+        np.testing.assert_allclose(_subspace(_rec(r, f"{name}_sv_V")["value"]), _subspace(jV.numpy()), atol=1e-5)
+        assert_record_equal(_rec(r, f"{name}_sv_sigma"), js, rtol=1e-5)
+        np.testing.assert_array_equal(U["value"], _rec(res[0], f"{name}_U")["value"])
+
+
+def test_hsvd_rtol_ragged(ranks, comm3):
+    """hsvd_rtol of a noisy rank-5 matrix in f64: the rank, subspace and error estimate of
+    heat_tpu's three-device tree."""
+    inputs, res = ranks
+    jU, jerr = ht.linalg.hsvd_rtol(ht.array(inputs["hsvd_noisy"], split=1, comm=comm3), 1e-2)
+    for r in res:
+        U = _rec(r, "hsvd_rtol_U")
+        assert U["gshape"].tolist() == list(jU.gshape)
+        np.testing.assert_allclose(_subspace(U["value"]), _subspace(jU.numpy()), atol=1e-10)
+        np.testing.assert_allclose(float(_rec(r, "hsvd_rtol_err")["value"]), float(jerr.item()), rtol=1e-10)
+
+
+def _signs_like(x, ref, axis):
+    s = np.sign(np.sum(x * ref, axis=1 - axis, keepdims=True))
+    s[s == 0] = 1
+    return x * (s if axis == 0 else s.reshape(1, -1))
+
+
+def test_tsqr_and_svd(ranks, comm3):
+    """TSQR of a 60 × 4 split-0 matrix (two panels a rank) and the SVD on it: R's rows and
+    Q's and U's columns up to signs, σ, splits and lshape maps as heat_tpu's."""
+    inputs, res = ranks
+    a = ht.array(inputs["tall"], split=0, comm=comm3)
+    q, r_ = ht.linalg.qr(a)
+    u, s, _ = ht.linalg.svd(a)
+    for r in res:
+        for key, want, axis in (("tsqr_Q", q, 1), ("tsqr_R", r_, 0), ("tsvd_U", u, 1)):
+            got = _rec(r, key)
+            got["value"] = _signs_like(got["value"], want.numpy(), axis)
+            assert_record_equal(got, want, rtol=0, atol=1e-5 * max(1.0, np.abs(want.numpy()).max()))
+        assert_record_equal(_rec(r, "tsvd_S"), s, rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["cd_y", "cd_y2", "self"])
+def test_ring_cdist(ranks, comm3, name):
+    """cdist of two row-split arrays by the ring over ``ring_shift`` (Y of 8 rows: 3, 3,
+    2; of 2 rows: 1, 1, 0; and Y = X) against heat_tpu's, in split and lshape map, and in
+    squared distances within 1e-5 of |x|² + |y|² (the quadratic expansion's rounding,
+    which the square root magnifies near zero)."""
+    inputs, res = ranks
+    x = inputs["cd_x"]
+    y = x if name == "self" else inputs[f"{name}"]
+    X = ht.array(x, split=0, comm=comm3)
+    want = ht.spatial.cdist(X) if name == "self" else ht.spatial.cdist(X, ht.array(y, split=0, comm=comm3))
+    scale = 1e-5 * ((x * x).sum(1)[:, None] + (y * y).sum(1)[None, :])
+    for r in res:
+        got = _rec(r, f"cdist_{name}")
+        assert_record_equal(got, want, rtol=0, atol=np.inf)
+        assert np.all(np.abs(got["value"] ** 2 - want.numpy() ** 2) <= scale)
