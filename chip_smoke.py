@@ -81,7 +81,7 @@ Phases, one line each:
      b8 h16 t4096 d64 bf16 with the knob off (K2) and on (K3), in turns, in ms and TFLOP/s;
  12. the D pass, K4 and K5 timed at the step's two shapes and bench.py's, in turns with the
      backward of ``scaled_dot_product_attention`` on the same inputs;
- 13. (13-15 run in a child process of this script, which traces nothing: see
+ 13. (13-16 run in a child process of this script, which traces nothing: see
      ``linalg_phases``) config #2 (``[linalg_matmul]``): ``ht.linalg.matmul`` of a (4096, 4096) split=0 and a
      (4096, 4096) split=1 f32 array from a seeded generator, with TF32 allowed for the
      process and seen off inside every ``torch.matmul`` of the call; the product split 0,
@@ -104,11 +104,32 @@ Phases, one line each:
      ``cg`` (64, f64) and ``lanczos`` (48, m = 20, f64, ``v0`` given) within 1e-10,
      ``resplit_`` 0 → 1 → 0 of 40 × 30 × 20, and ``cdist`` of two row-split arrays (squared
      distances within 1e-5 of |x|² + |y|²);
- 16. one JSON line listing every ported kernel with its launches on its path, its time,
+ 16. (in the same child process) the array API: heat_tpu's manipulation benchmark
+     (benchmarks/cb/manipulations.py) through the port at N = 40,000,000 f32 (Heat's
+     1000 x 40,000), the data drawn by ``ht.random.random`` on the card and equal bit for
+     bit to the same draw on the CPU (``[manip]`` lines): ``reshape`` to (250, 160,000)
+     with ``new_split=1``, ``concatenate`` of three arrays split 1, None and 1 along axis 1,
+     ``resplit`` 0 -> 1, ``sort`` of (N,) split 0 (values == x[indices]), ``topk`` 64,
+     ``percentile`` [25, 50, 99], ``median`` along axis 0 of (N/128, 128), ``unique`` of
+     floor(512 u), ``x[3::7]``, ``x[x > 0.5]`` and ``x[::5] = 0``: each equal to the port's
+     CPU path on a CPU copy of its input (percentile and median within 1e-6 relative), its
+     result on the card, at most 64 KiB read back to the host from Python (counts and
+     splitters, never the array), and timed (best of 3 wall, the device time between CUDA
+     events, the bytes it must move at 3.35 TB/s, and the one torch call that computes the
+     same at one rank: torch.sort, torch.topk, torch.unique, torch.quantile, torch.cat,
+     Tensor.reshape().contiguous()); then the random streams on the card against the
+     CPU's (uniform floats, integers and permutations bit for bit, normal within 4 ulp in
+     float32 and 32 in float64; ``[random_streams]``), and ``KMeans(init="random",
+     random_state=s)`` at 10M x 64, whose initial centers equal the CPU path's
+     (``[kmeans_random_init]``). One card is one rank: every ``redistribute`` and the sort
+     network are bypassed there (tests/test_torch_distributed.py holds them at 3 and 4
+     gloo ranks);
+ 17. one JSON line listing every ported kernel with its launches on its path, its time,
      its bound on this card (f32 attention work at the 3xTF32 rate, with the fp32 FMA
      rate's bound beside it), its plain version's time and a library call's time (the
-     linear algebra runs no hand kernel: its products are cuBLAS and cuSOLVER);
- 17. the last line, ``{"ok": true, "device": {...}}``.
+     linear algebra runs no hand kernel: its products are cuBLAS and cuSOLVER; the array
+     API none: its torch ops stand in for XLA's);
+ 18. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script then exits non-zero without the last line. It
 also fails when CUDA is not available or when the heat_tpu_torch package is not beside
@@ -781,9 +802,286 @@ def linalg_phases(ht, dev) -> dict:
     return res
 
 
+@contextlib.contextmanager
+def d2h_bytes(moved: list):
+    """Every device-to-host copy the block makes from Python: ``item``, ``tolist``,
+    ``cpu``, ``numpy``, ``to`` a host device and the scalar conversions of a CUDA tensor
+    append the bytes they move to ``moved``. (The counts torch itself reads back inside a
+    boolean mask or ``nonzero`` are not seen; they are counts.)"""
+    import torch
+
+    T = torch.Tensor
+    names = ("item", "tolist", "cpu", "numpy", "__bool__", "__int__", "__float__", "__index__")
+    saved = {n: getattr(T, n) for n in names + ("to",)}
+
+    def counted(n):
+        orig = saved[n]
+
+        def f(self, *args, **kwargs):
+            if self.is_cuda:
+                moved.append(self.numel() * self.element_size())
+            return orig(self, *args, **kwargs)
+
+        return f
+
+    def to(self, *args, **kwargs):
+        res = saved["to"](self, *args, **kwargs)
+        if self.is_cuda and isinstance(res, torch.Tensor) and not res.is_cuda:
+            moved.append(res.numel() * res.element_size())
+        return res
+
+    for n in names:
+        setattr(T, n, counted(n))
+    T.to = to
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(T, n, f)
+
+
+# the manipulation benchmark (heat_tpu's benchmarks/cb/manipulations.py; Heat's
+# benchmarks/cb/manipulations.py:18-32) at the reference's largest size, N = 40,000,000 f32:
+# Heat's 1000 x 40,000
+MANIP_ROWS, MANIP_COLS = 1000, 40_000
+MANIP_N = MANIP_ROWS * MANIP_COLS
+D2H_LIMIT = 1 << 16  # bytes an op may read back: counts and splitters, never the array
+
+
+def array_phases(ht, dev) -> dict:
+    """The array API on the card (phase 16): heat_tpu's manipulation benchmark through
+    the port at N = 40,000,000 f32, data from the port's ``ht.random`` on the card, each
+    op checked against the port's CPU path on a CPU copy of its input (values and indices
+    exact; percentile and median within 1e-6 relative), its result on the card, its
+    device-to-host bytes counted (:func:`d2h_bytes`), and timed: best of 3 wall, the
+    device time between CUDA events, its bytes bound at 3.35 TB/s and the one torch call
+    that computes the same at one rank, where there is one. Then the random streams on
+    the card against the CPU's, and ``KMeans(init="random", random_state=s)`` at bench.py's
+    10M x 64."""
+    import torch
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)  # the card beside this phase's figures
+    res = {"ops": {}, "nvidia_smi": smi}
+    t_phase = time.perf_counter()
+
+    def record(op, fn, check_fn, nbytes, library=None, library_note=None):
+        """Run ``fn()`` once with its device-to-host bytes counted, check it, time it."""
+        moved = []
+        torch.cuda.synchronize()
+        with d2h_bytes(moved):
+            out = fn()
+            torch.cuda.synchronize()
+        outs = out if isinstance(out, tuple) else (out,)
+        for o in outs:
+            check(not hasattr(o, "larray") or o.larray.is_cuda, f"{op}: a result is not on the card")
+        check(sum(moved) <= D2H_LIMIT, f"{op}: {sum(moved)} bytes came back to the host ({moved[:8]})")
+        detail = check_fn(out) or {}
+        best, walls = best_s(fn, 3)
+        dev_ms = cuda_ms(fn, reps=3, warmup=1)
+        lib_ms = None
+        if library is not None:
+            try:
+                lib_ms = cuda_ms(library, reps=3, warmup=1)
+            except RuntimeError as exc:  # a torch call that refuses this size
+                library_note = f"{library_note}: {str(exc).splitlines()[0][:120]}"
+        entry = {"best_of_3_ms": 1e3 * best, "walls_ms": [1e3 * w for w in walls], "device_ms": dev_ms,
+                 "bytes": nbytes, "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S, "library_ms": lib_ms,
+                 "library": library_note, "d2h_bytes": sum(moved), **detail}
+        res["ops"][op] = entry
+        phase("manip", op=op, **{k: (json.dumps(v) if isinstance(v, (list, dict)) else v) for k, v in entry.items()})
+        return out
+
+    def same(got, want, what, rtol=0.0):
+        g, w = got.larray.cpu(), want.larray
+        check(got.gshape == want.gshape and got.split == want.split and got.dtype is want.dtype,
+              f"{what}: {got.gshape} split {got.split} {got.dtype} against the CPU path's {want.gshape} "
+              f"split {want.split} {want.dtype}")
+        if rtol:
+            err = float(((g.double() - w.double()).abs() / w.double().abs().clamp_min(1e-30)).max())
+            check(err <= rtol, f"{what}: {err} relative off the CPU path")
+            return {"max_rel_err": err}
+        check(torch.equal(g, w), f"{what}: differs from the CPU path")
+        return {"equal_to_cpu": True}
+
+    # the data: the port's random stream on the card, the same draw on the CPU bit for bit
+    ht.random.seed(SEED + 2000)
+    t0 = time.perf_counter()
+    x2 = ht.random.random((MANIP_ROWS, MANIP_COLS), split=0)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    ht.random.seed(SEED + 2000)
+    x2_cpu = ht.random.random((MANIP_ROWS, MANIP_COLS), split=0, device="cpu")
+    check(x2.larray.is_cuda and torch.equal(x2.larray.cpu(), x2_cpu.larray), "the uniform draw differs from the CPU's")
+    check(ht.random.get_state()[2] == MANIP_N, "the counter did not advance by the draw's elements")
+    res["draw_s"] = draw_s
+    x1 = ht.reshape(x2, (MANIP_N,), new_split=0)
+    x1_cpu = ht.reshape(x2_cpu, (MANIP_N,), new_split=0)
+    # the benchmark's arrays: (1000, 40000) split 0, and three with splits 1, None, 1
+    parts = [ht.resplit(x2, 1), ht.array(x2.larray, split=None), ht.resplit(x2, 1)]
+    parts_cpu = [ht.resplit(x2_cpu, 1), ht.array(x2_cpu.larray, split=None, device="cpu"), ht.resplit(x2_cpu, 1)]
+    B = 4 * MANIP_N  # the payload's bytes
+
+    record("reshape_new_split1", lambda: ht.reshape(x2, (250, 160_000), new_split=1),
+           lambda o: same(o, ht.reshape(x2_cpu, (250, 160_000), new_split=1), "reshape") | {
+               "note": "a view at one rank: every redistribute is the identity"},
+           0, library=lambda: x2.larray.reshape(250, 160_000).contiguous(),
+           library_note="Tensor.reshape().contiguous() (a view: no copy)")
+    record("concatenate_1_none_1", lambda: ht.concatenate(parts, axis=1),
+           lambda o: same(o, ht.concatenate(parts_cpu, axis=1), "concatenate"),
+           3 * B + 3 * B, library=lambda: torch.cat([p.larray for p in parts], dim=1), library_note="torch.cat")
+    record("resplit_0_1", lambda: ht.resplit(x2, 1), lambda o: same(o, ht.resplit(x2_cpu, 1), "resplit"), 2 * B,
+           library=None, library_note="none: at one rank a resplit is a copy")
+    sorted_cpu = ht.sort(x1_cpu)
+
+    def sort_checked(o):
+        check(torch.equal(o[0].larray, x1.larray[o[1].larray]), "sort: values != x[indices]")
+        return same(o[0], sorted_cpu[0], "sort values") | same(o[1], sorted_cpu[1], "sort indices")
+
+    record("sort", lambda: ht.sort(x1), sort_checked, B + B + 2 * B,
+           library=lambda: torch.sort(x1.larray, stable=True), library_note="torch.sort(stable=True)")
+    del sorted_cpu
+    top_cpu = ht.topk(x1_cpu, 64)
+    record("topk_64", lambda: ht.topk(x1, 64),
+           lambda o: same(o[0], top_cpu[0], "topk values") | same(o[1], top_cpu[1], "topk indices"),
+           B, library=lambda: torch.topk(x1.larray, 64), library_note="torch.topk")
+    record("percentile_25_50_99", lambda: ht.percentile(x1, [25, 50, 99]),
+           lambda o: same(o, ht.percentile(x1_cpu, [25, 50, 99]), "percentile", rtol=1e-6),
+           B, library=lambda: torch.quantile(x1.larray, torch.tensor([0.25, 0.5, 0.99], device=dev)),
+           library_note="torch.quantile")
+    xm = ht.reshape(x1, (MANIP_N // 128, 128), new_split=0)
+    xm_cpu = ht.reshape(x1_cpu, (MANIP_N // 128, 128), new_split=0)
+    record("median_axis0", lambda: ht.median(xm, axis=0),
+           lambda o: same(o, ht.median(xm_cpu, axis=0), "median", rtol=1e-6),
+           B, library=lambda: torch.quantile(xm.larray, 0.5, dim=0), library_note="torch.quantile(q=0.5, dim=0)")
+    xu, xu_cpu = ht.floor(x1 * 512), ht.floor(x1_cpu * 512)
+    record("unique_floor_512u", lambda: ht.unique(xu),
+           lambda o: same(o, ht.unique(xu_cpu), "unique") | {"n_unique": o.gshape[0]},
+           B, library=lambda: torch.unique(xu.larray, sorted=True), library_note="torch.unique(sorted=True)")
+    sel = len(range(3, MANIP_N, 7))
+    record("slice_3_7", lambda: x1[3::7], lambda o: same(o, x1_cpu[3::7], "x[3::7]"), 2 * 4 * sel,
+           library=lambda: x1.larray[3::7].contiguous(), library_note="Tensor[3::7].contiguous()")
+    mask, mask_cpu = x1 > 0.5, x1_cpu > 0.5
+    record("mask_gt_half", lambda: x1[mask], lambda o: same(o, x1_cpu[mask_cpu], "x[x > 0.5]"),
+           B + MANIP_N + 4 * int(mask.larray.sum()), library=lambda: torch.masked_select(x1.larray, mask.larray),
+           library_note="torch.masked_select")
+
+    def assign():
+        y = ht.copy(x1)
+        y[::5] = 0.0
+        return y
+
+    def assign_cpu():
+        y = ht.copy(x1_cpu)
+        y[::5] = 0.0
+        return y
+
+    def assign_library():
+        y = x1.larray.clone()
+        y[::5] = 0.0
+        return y
+
+    record("setitem_step5", assign, lambda o: same(o, assign_cpu(), "x[::5] = 0"), 2 * B,
+           library=assign_library, library_note="Tensor.clone() and [::5] = 0 (the copy included, as in the op)")
+    # a Python scalar beside an array on the card is filled there as a 0-d tensor (no copy
+    # from the host, no wait for the stream): its device time against torch's, and every
+    # binary function of the port with the scalar second and first, equal to the CPU path
+    # (within 1e-6 relative for the transcendental ones, whose libraries differ by an ulp)
+    record("scalar_mul_512", lambda: x1 * 512, lambda o: same(o, x1_cpu * 512, "x * 512"), 2 * B,
+           library=lambda: x1.larray * 512, library_note="Tensor * 512")
+    srng = np.random.default_rng(SEED + 2500)
+    fl, it = srng.uniform(0.5, 4.0, 1000).astype(np.float32), srng.integers(1, 20, 1000).astype(np.int32)
+    inexact = {"pow", "hypot", "atan2", "logaddexp", "logaddexp2"}
+    scalar_ops = 0
+    for names, data, scalar in (("add sub mul div floordiv mod fmod pow maximum minimum hypot atan2 copysign "
+                                 "logaddexp logaddexp2 eq ne lt le gt ge isclose logical_and logical_or logical_xor",
+                                 fl, 1.5),
+                                ("add mul mod fmod floordiv gcd lcm bitwise_and bitwise_or bitwise_xor "
+                                 "left_shift right_shift", it, 3)):
+        g, c = ht.array(data, split=0), ht.array(data, split=0, device="cpu")
+        for name in names.split():
+            fn = getattr(ht, name)
+            for first in (False, True):
+                args_g, args_c = ((scalar, g), (scalar, c)) if first else ((g, scalar), (c, scalar))
+                got = fn(*args_g)
+                check(got.larray.is_cuda, f"{name} with a scalar: the result is not on the card")
+                same(got, fn(*args_c), f"{name} with a scalar {'first' if first else 'second'}",
+                     rtol=1e-6 if name in inexact else 0.0)
+                scalar_ops += 1
+    phase("scalar_operands", calls_equal_to_cpu=scalar_ops)
+    res["scalar_operands"] = scalar_ops
+    del parts, parts_cpu, xm, xm_cpu, xu, xu_cpu, mask, mask_cpu, x2, x2_cpu, x1, x1_cpu
+    torch.cuda.empty_cache()
+
+    # the random streams on the card against the CPU's: uniform, integers and permutations
+    # bit for bit, normal within 4 ulp (float32) and 32 (float64)
+    streams = {}
+    for name, draw in (("rand_f32", lambda d: ht.random.rand(2000, 1000, split=0, device=d)),
+                       ("rand_f64", lambda d: ht.random.rand(1000, 1000, dtype=ht.float64, split=1, device=d)),
+                       ("randint", lambda d: ht.random.randint(-5, 10**6, (2000, 1000), split=0, device=d)),
+                       ("randint_i64", lambda d: ht.random.randint(0, 2**30, (10**6,), dtype=ht.int64, device=d)),
+                       ("randperm", lambda d: ht.random.randperm(10**6, device=d)),
+                       ("randn_f32", lambda d: ht.random.randn(2000, 1000, split=0, device=d)),
+                       ("randn_f64", lambda d: ht.random.randn(1000, 1000, dtype=ht.float64, device=d))):
+        ht.random.seed(SEED + 3000)
+        t0 = time.perf_counter()
+        g = draw("gpu")
+        torch.cuda.synchronize()
+        t_draw = time.perf_counter() - t0
+        ht.random.seed(SEED + 3000)
+        c = draw("cpu")
+        gv, cv = g.larray.cpu(), c.larray
+        if name.startswith("randn"):
+            ulps = 4 if name.endswith("f32") else 32
+            err = float(((gv.double() - cv.double()).abs() / torch.from_numpy(np.spacing(np.abs(cv.numpy())))
+                         .double()).max())
+            check(err <= ulps, f"{name}: {err} ulp off the CPU's draw")
+            streams[name] = {"max_ulp": err, "first_call_s": t_draw}
+        else:
+            check(torch.equal(gv, cv), f"{name}: the card's draw differs from the CPU's")
+            streams[name] = {"equal": True, "first_call_s": t_draw}
+    ht.random.seed(SEED + 3000)
+    rand_ms = cuda_ms(lambda: ht.random.rand(MANIP_ROWS, MANIP_COLS, split=0), reps=3, warmup=1)
+    streams["rand_40m_device_ms"] = rand_ms
+    streams["rand_40m_bound_ms"] = 1e3 * B / PEAK_BYTES_PER_S
+    phase("random_streams", **{k: json.dumps(v) if isinstance(v, dict) else v for k, v in streams.items()})
+    res["random"] = streams
+
+    # KMeans(init="random", random_state=s) at bench.py's 10M x 64: the card's initial
+    # centers are heat_tpu's stream's rows and equal the CPU path's
+    x, _, true = blobs(N, D, K, SEED, dev)
+    X = ht.array(x, split=0)
+    km = ht.cluster.KMeans(n_clusters=K, init="random", random_state=SEED + 4000, max_iter=MAX_ITER, tol=-1.0)
+    km._initialize_cluster_centers(X)
+    init_card = km._cluster_centers.larray.cpu()
+    cpu_km = ht.cluster.KMeans(n_clusters=K, init="random", random_state=SEED + 4000)
+    cpu_km._initialize_cluster_centers(ht.array(x.cpu(), split=0, device="cpu"))
+    check(torch.equal(init_card, cpu_km._cluster_centers.larray), "KMeans random init differs from the CPU path's")
+    from heat_tpu_torch.core import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    km.fit(X)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    check(launches["kmeans_assign"] == MAX_ITER + 1, f"KMeans random init: K1 launches {launches}")
+    check(km.cluster_centers_.larray.is_cuda and bool(torch.isfinite(km.cluster_centers_.larray).all()),
+          "KMeans random init: fitted centers")
+    phase("kmeans_random_init", n=N, d=D, k=K, init_equal_to_cpu=True, k1_launches=launches["kmeans_assign"],
+          first_fit_s=repr(fit_s), inertia=repr(km.inertia_))
+    res["kmeans_random_init"] = {"first_fit_s": fit_s, "inertia": km.inertia_, "k1_launches": launches["kmeans_assign"]}
+    del x, X, true, km
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
 def linalg_child(out_path: str) -> int:
-    """The child process of phases 13-15: the card, the package, :func:`linalg_phases`;
-    its results go to ``out_path`` as JSON."""
+    """The child process of phases 13-16: the card, the package, :func:`linalg_phases`
+    and :func:`array_phases`; their results go to ``out_path`` as JSON."""
     import torch
 
     import heat_tpu_torch as ht
@@ -791,13 +1089,15 @@ def linalg_child(out_path: str) -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     ht.use_device("gpu")
+    out = {"linalg": linalg_phases(ht, dev)}
+    out["array"] = array_phases(ht, dev)
     with open(out_path, "w") as fh:
-        json.dump(linalg_phases(ht, dev), fh)
+        json.dump(out, fh)
     return 0
 
 
 def run_linalg_child() -> dict:
-    """Phases 13-15 in a fresh process of this script (its phase lines go to this
+    """Phases 13-16 in a fresh process of this script (its phase lines go to this
     stdout); fails unless it ends with code 0."""
     import tempfile
 
@@ -805,7 +1105,7 @@ def run_linalg_child() -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         out_path = os.path.join(tmp, "linalg.json")
         rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--linalg-child", out_path]).returncode
-        check(rc == 0, f"the linear algebra phases failed (exit code {rc})")
+        check(rc == 0, f"the linear algebra or array phases failed (exit code {rc})")
         with open(out_path) as fh:
             return json.load(fh)
 
@@ -1506,11 +1806,13 @@ def main() -> int:
     del bwd_data
     torch.cuda.empty_cache()
 
-    # 13-15. distributed linear algebra: config #2's product, config #4's hsvd_rank, the rest
-    #        small, in a child process (linalg_phases)
-    linalg_out = run_linalg_child()
+    # 13-16. distributed linear algebra: config #2's product, config #4's hsvd_rank, the rest
+    #        small; then the array API: the manipulation benchmark at N = 40M, the random
+    #        streams and KMeans' random init; in a child process (linalg_phases, array_phases)
+    child_out = run_linalg_child()
+    linalg_out, array_out = child_out["linalg"], child_out["array"]
 
-    # 16. every ported kernel: launches on its path, time, bound, plain version's and library's time
+    # 17. every ported kernel: launches on its path, time, bound, plain version's and library's time
     x, init, _ = blobs(N, D, K, SEED, dev)
     ms = cuda_ms(lambda: k1.fused_assign_update_packed(x, init), reps=20, warmup=3)
     plain_ms = cuda_ms(lambda: k1.fused_assign_update_reference(x, init), reps=5, warmup=1)
@@ -1664,9 +1966,10 @@ def main() -> int:
                        "train_step_pipelined_best_of_2_s": step_on_s, "train_step_pipelined_walls_s": step_on_walls,
                        "train_step_pipelined_peak_gb": train_peak_on_gb,
                        "train_step_pipelined_profile": train_breakdown_on, "bench_ab_runs_ms": ab_runs,
-                       "bench_ab_k2_ms": ab_k2_ms, "bench_ab_k3_ms": ab_k3_ms, "linalg": linalg_out}, fh, indent=1)
+                       "bench_ab_k2_ms": ab_k2_ms, "bench_ab_k3_ms": ab_k3_ms, "linalg": linalg_out,
+                       "array": array_out}, fh, indent=1)
 
-    # 17. the last line
+    # 18. the last line
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
 

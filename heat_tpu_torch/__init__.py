@@ -15,6 +15,7 @@ first launch, so importing the package needs neither CUDA nor nvcc.
 
 from .core import *
 from . import core
+from .core import random
 from . import spatial
 from . import cluster
 from . import nn

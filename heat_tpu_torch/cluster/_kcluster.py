@@ -68,8 +68,12 @@ class _KCluster(ClusteringMixin, BaseEstimator):
 
     def _initialize_cluster_centers(self, x: DNDarray) -> None:
         """Pick the initial centroids: an explicit DNDarray, or ``"random"`` rows of x
-        drawn by a ``torch.Generator`` seeded from ``random_state`` (a different stream
-        than heat_tpu's threefry, so the rows drawn differ)."""
+        drawn from heat_tpu's stream (:meth:`_random_rows`); ``random_state`` seeds that
+        stream first, as heat_tpu's does."""
+        from ..core import random
+
+        if self.random_state is not None:
+            random.seed(self.random_state)
         k = self.n_clusters
         if isinstance(self.init, DNDarray):
             if self.init.gshape != (k, x.gshape[1]):
@@ -91,23 +95,12 @@ class _KCluster(ClusteringMixin, BaseEstimator):
         raise ValueError(f"unsupported initialization method {self.init!r}")
 
     def _random_rows(self, x: DNDarray, k: int) -> DNDarray:
-        """``k`` distinct rows of x, the same on every rank."""
-        seed = self.random_state
-        if seed is None:
-            drawn = torch.randint(0, 2**31 - 1, (1,), dtype=torch.int64).to(x.larray.device)
-            seed = int(x.comm.bcast(drawn, root=0).item())
-        gen = torch.Generator().manual_seed(int(seed))
-        idx = torch.randperm(x.gshape[0], generator=gen)[:k]
-        if x.is_distributed() and x.split == 0:
-            offset, lshape, _ = x.comm.chunk(x.gshape, 0)
-            mine = (idx >= offset) & (idx < offset + lshape[0])
-            rows = x.larray.new_zeros((k, x.gshape[1]))
-            pos = torch.nonzero(mine).flatten()
-            rows[pos.to(rows.device)] = x.larray[(idx[pos] - offset).to(rows.device)]
-            x.comm.all_reduce(rows, "sum")
-        else:
-            rows = x._relayout(None)[idx.to(x.larray.device)]
-        return DNDarray(rows, (k, x.gshape[1]), x.dtype, None, x.device, x.comm, True)
+        """``k`` distinct rows of x, the same on every rank: the first ``k`` of heat_tpu's
+        ``random.randperm(n)`` (heat_tpu/cluster/_kcluster.py:84-88), fetched from the
+        ranks that hold them."""
+        from ..core import random
+
+        return x[random.randperm(x.gshape[0], device=x.device, comm=x.comm)[:k]]
 
     def _fused_step(self, x: DNDarray, dtype) -> Optional[Callable]:
         """The fused assignment+accumulation step ``fn(xv, centers) -> (labels, packed)``

@@ -1,5 +1,6 @@
-"""Core of heat_tpu_torch: types, devices, communication, the DNDarray, its operations and
-linear algebra."""
+"""Core of heat_tpu_torch: types, devices, communication, the DNDarray, its operations,
+the array API (indexing, manipulations, the distributed sort, random streams) and linear
+algebra."""
 
 from .constants import *
 from .types import *
@@ -8,7 +9,18 @@ from .communication import *
 from .dndarray import *
 from .factories import *
 from .arithmetics import *
+from .complex_math import *
+from .exponential import *
+from .indexing import *
+from .logical import *
+from .manipulations import *
+from .memory import *
+from .printing import *
 from .relational import *
+from .rounding import *
+from .sanitation import *
+from .signal import *
+from .trigonometrics import *
 from .statistics import *
 from .base import *
 from . import linalg
@@ -17,15 +29,27 @@ from . import (
     arithmetics,
     base,
     communication,
+    complex_math,
     constants,
     devices,
+    dist_sort,
     dndarray,
+    exponential,
     factories,
+    indexing,
     kernels,
+    logical,
+    manipulations,
+    memory,
+    printing,
+    random,
     relational,
+    rounding,
     sanitation,
+    signal,
     statistics,
     stride_tricks,
     tiling,
+    trigonometrics,
     types,
 )

@@ -22,10 +22,20 @@ from . import sanitation, types
 from .dndarray import DNDarray
 from .stride_tricks import broadcast_shapes, sanitize_axis
 
-__all__ = ["wrap_result", "binary_op", "local_op", "reduce_op"]
+__all__ = ["wrap_result", "wrap_global", "rebalance", "binary_op", "local_op", "reduce_op", "cum_op"]
 
 _PY_SCALARS = (builtins.bool, builtins.int, builtins.float, builtins.complex)
-_COMPARISONS = (torch.eq, torch.ne, torch.lt, torch.le, torch.gt, torch.ge)
+# operations whose result is bool whatever they compute in
+_COMPARISONS = (
+    torch.eq, torch.ne, torch.lt, torch.le, torch.gt, torch.ge,
+    torch.logical_and, torch.logical_or, torch.logical_xor, torch.isclose,
+)
+
+
+# operations that turn exact operands into floats (as true division does), and those
+# that turn bool operands into int32
+_FLOAT_RESULTS = (torch.true_divide, torch.hypot, torch.copysign, torch.logaddexp, torch.logaddexp2, torch.atan2)
+_INT_FROM_BOOL = (torch.floor_divide, torch.remainder, torch.fmod, torch.bitwise_left_shift, torch.bitwise_right_shift)
 
 
 def _is_weak(x) -> bool:
@@ -68,8 +78,10 @@ def _binary_types(t1, t2, operation) -> Tuple[type, type]:
         compute = _weak_promote(_strong_type(t1), t2)
     else:
         compute = types.promote_types(_strong_type(t1), _strong_type(t2))
-    if operation is torch.true_divide:
+    if operation in _FLOAT_RESULTS:
         compute = _inexact(compute)
+    if operation in _INT_FROM_BOOL and compute is types.bool:
+        compute = types.int32  # jnp divides, takes remainders of and shifts bools in int32
     if operation is torch.pow and not _is_weak(t1) and _strong_type(t1) is types.bool:
         # jnp.power raises a bool base to a bool or Python-int exponent in int32
         if compute in (types.bool, types.int64) and (_is_weak(t2) or _strong_type(t2) is types.bool):
@@ -94,6 +106,31 @@ def wrap_result(
     return DNDarray(
         value, tuple(gshape), types.canonical_heat_type(value.dtype), split, proto.device, proto.comm, True
     )
+
+
+def wrap_global(value: torch.Tensor, proto: DNDarray, split: Optional[int]) -> DNDarray:
+    """A DNDarray of the global ``value``, whole on every rank, keeping this rank's chunk
+    along ``split`` (an out-of-range split becomes None)."""
+    if split is not None and (value.ndim == 0 or split >= value.ndim or split < 0):
+        split = None
+    gshape = tuple(value.shape)
+    if split is not None:
+        _, _, slices = proto.comm.chunk(gshape, split)
+        value = value[slices].contiguous()
+    return DNDarray(value, gshape, types.canonical_heat_type(value.dtype), split, proto.device, proto.comm, True)
+
+
+def rebalance(local: torch.Tensor, axis: int, proto: DNDarray, src_displs=None) -> DNDarray:
+    """Pieces the ranks hold along ``axis`` (in rank order, or from ``src_displs``) as a
+    split array with the canonical chunks: one all-gather of the counts and one
+    ``TorchCommunication.redistribute``."""
+    comm = proto.comm
+    counts = comm.all_gather_counts(local.shape[axis], local.device)
+    gshape = list(local.shape)
+    gshape[axis] = sum(counts)
+    dst = comm.counts_displs_shape(gshape, axis)[0]
+    moved = comm.redistribute(local, gshape, axis, counts, dst, src_displs=src_displs)
+    return DNDarray(moved, tuple(gshape), types.canonical_heat_type(moved.dtype), axis, proto.device, comm, True)
 
 
 def handle_out(res: DNDarray, out: Optional[DNDarray]) -> DNDarray:
@@ -145,8 +182,6 @@ def binary_op(
     """Apply a binary torch operation with Heat's split/type semantics."""
     from . import factories
 
-    if where is not None:
-        raise NotImplementedError("where= is not ported yet (ROADMAP.md Queue 1 item 4)")
     fn_kwargs = fn_kwargs or {}
     if np.isscalar(t1) and np.isscalar(t2):
         # two Python scalars compute at numpy's (x64) types: int → int64, float → float64
@@ -166,19 +201,38 @@ def binary_op(
     def _operand(t):
         if isinstance(t, DNDarray):
             return _local_operand(t, out_shape, out_split).to(ct)
-        return t.item() if isinstance(t, np.generic) else t
+        # a scalar as a 0-d tensor of the compute type on the array's device, filled there
+        # (no copy from the host, so no wait for the stream): some torch functions take
+        # no Python number or CPU scalar (maximum, logaddexp), and CUDA divides by a
+        # CPU scalar as a product with its reciprocal, which rounds otherwise
+        return torch.full((), t.item() if isinstance(t, np.generic) else t, dtype=ct, device=proto.larray.device)
 
     value = operation(_operand(t1), _operand(t2), **fn_kwargs).to(result.torch_type())
     if out_split is not None and out_split >= len(out_shape):
         out_split = None
+    if where is not None:
+        # numpy's rule: where ``where`` is False the result keeps ``out``'s value, or 0
+        w = where if isinstance(where, DNDarray) else factories.array(where, device=proto.device, comm=proto.comm)
+        w = _local_operand(w, out_shape, out_split).to(torch.bool)
+        if out is not None:
+            sanitation.sanitize_out(out, out_shape, out_split)
+            base = out.larray.to(value.dtype)
+        else:
+            base = torch.zeros((), dtype=value.dtype, device=value.device)
+        value = torch.where(w, value, base)
     res = DNDarray(value, out_shape, result, out_split, proto.device, proto.comm, True)
     return handle_out(res, out)
 
 
-def local_op(operation: Callable, x: DNDarray, out: Optional[DNDarray] = None, **fn_kwargs) -> DNDarray:
-    """Elementwise operation on the local tensor, no communication."""
+def local_op(
+    operation: Callable, x: DNDarray, out: Optional[DNDarray] = None, no_cast: bool = True, **fn_kwargs
+) -> DNDarray:
+    """Elementwise operation on the local tensor, no communication. With ``no_cast``
+    False an exact input is first cast to the float type heat_tpu's function returns
+    for it (float32; float64 from int64), as jnp's transcendental functions do."""
     sanitation.sanitize_in(x)
-    value = operation(x.larray, **fn_kwargs)
+    value = x.larray if no_cast else x.larray.to(_inexact(x.dtype).torch_type())
+    value = operation(value, **fn_kwargs)
     res = DNDarray(
         value, x.gshape, types.canonical_heat_type(value.dtype), x.split, x.device, x.comm, x.balanced
     )
@@ -206,9 +260,13 @@ def _out_split_reduce(
 _REDUCTIONS = {
     "sum": ("zero", "sum"),
     "prod": ("one", "prod"),
+    "nansum": ("zero", "sum"),
+    "nanprod": ("one", "prod"),
     "mean": ("zero", "sum"),
     "min": ("highest", "min"),
     "max": ("lowest", "max"),
+    "all": ("highest", "min"),
+    "any": ("lowest", "max"),
 }
 
 
@@ -228,7 +286,9 @@ def _neutral(kind: str, dtype: torch.dtype):
 def _reduce_type(kind: str, t) -> type:
     """heat_tpu's result type: sum/prod accumulate small exact types in int64, mean
     turns exact types into floats, min/max keep the type."""
-    if kind in ("sum", "prod") and types.heat_type_is_exact(t):
+    if kind in ("all", "any"):
+        return types.bool
+    if kind in ("sum", "prod", "nansum", "nanprod") and types.heat_type_is_exact(t):
         return types.int64
     if kind == "mean":
         return _inexact(t)
@@ -236,6 +296,14 @@ def _reduce_type(kind: str, t) -> type:
 
 
 def _local_reduce(kind: str, value: torch.Tensor, axes: Tuple[int, ...], keepdims: bool) -> torch.Tensor:
+    if kind.startswith("nan"):
+        if value.is_floating_point() or value.is_complex():
+            value = torch.where(torch.isnan(value), _neutral(_REDUCTIONS[kind][0], value.dtype), value)
+        kind = kind[3:]
+    if kind == "all":
+        return torch.all(value, dim=axes, keepdim=keepdims)
+    if kind == "any":
+        return torch.any(value, dim=axes, keepdim=keepdims)
     if kind in ("sum", "mean"):
         return torch.sum(value, dim=axes, keepdim=keepdims)
     if kind == "min":
@@ -254,7 +322,8 @@ def reduce_op(
     out: Optional[DNDarray] = None,
     keepdims: bool = False,
 ) -> DNDarray:
-    """Reduce ``x`` (``kind``: sum, prod, mean, min, max) over ``axis``.
+    """Reduce ``x`` (``kind``: sum, prod, nansum, nanprod, mean, min, max, all, any) over
+    ``axis``.
 
     Over the split axis this is a local reduction followed by one ``all_reduce``; an
     empty local chunk contributes the reduction's identity element. A floating min or
@@ -292,4 +361,35 @@ def reduce_op(
     if out_split is not None and out_split >= len(gshape):
         out_split = None
     res = DNDarray(result, gshape, rtype, out_split, x.device, x.comm, True)
+    return handle_out(res, out)
+
+
+def cum_op(kind: str, x: DNDarray, axis: int, out: Optional[DNDarray] = None, dtype=None) -> DNDarray:
+    """Cumulative sum or product (``kind``) along ``axis`` (heat_tpu/core/_operations.py:1200).
+    Along the split axis it is the local scan followed by an exclusive scan of the
+    ranks' totals: one all-gather of P values, each rank combining the totals of the
+    ranks before it into its chunk. ``dtype`` is the accumulator and result type
+    (default: the input's, bool accumulating in int64)."""
+    sanitation.sanitize_in(x)
+    axis = sanitize_axis(x.gshape, axis)
+    if axis is None:
+        raise NotImplementedError("cumulative operations require an explicit axis")
+    if dtype is not None:
+        target = types.canonical_heat_type(dtype)
+    else:
+        target = types.int64 if x.dtype is types.bool else x.dtype
+    ct = target.torch_type()
+    value = x.larray.to(ct)
+    scan = torch.cumsum if kind == "sum" else torch.cumprod
+    result = scan(value, dim=axis, dtype=ct) if value.ndim else value.clone()
+    if x.is_distributed() and axis == x.split:
+        shape = list(result.shape)
+        shape[axis] = 1
+        neutral = 0 if kind == "sum" else 1
+        total = result.narrow(axis, result.shape[axis] - 1, 1) if result.shape[axis] else result.new_full(shape, neutral)
+        totals = x.comm.all_gather_stacked(total)[: x.comm.rank]
+        if totals.shape[0]:
+            carry = totals.sum(0, dtype=ct) if kind == "sum" else totals.prod(0, dtype=ct)
+            result = result + carry if kind == "sum" else result * carry
+    res = DNDarray(result.to(ct), x.gshape, target, x.split, x.device, x.comm, True)
     return handle_out(res, out)

@@ -151,9 +151,161 @@ class TorchCommunication:
         return full.movedim(0, split).contiguous()
 
     def all_gather_stacked(self, tensor: torch.Tensor) -> torch.Tensor:
-        """Every rank's equally shaped ``tensor``, stacked along a new leading axis."""
-        stacked = tensor.unsqueeze(0)
-        return self.all_gather(stacked, (self.size,) + tuple(tensor.shape), 0)
+        """Every rank's equally shaped ``tensor``, stacked along a new leading axis: a few
+        values a rank (counts, candidates, halos, totals) or, under :meth:`all_gather_v`,
+        what the ranks selected; a split array's chunks go through :meth:`all_gather`."""
+        if self.size == 1:
+            return tensor.unsqueeze(0)
+        dtype = tensor.dtype
+        send = (tensor.to(torch.uint8) if dtype == torch.bool else tensor).reshape(-1).contiguous()
+        out = send.new_empty(self.size * send.numel())
+        dist.all_gather_into_tensor(out, send, group=self.group)
+        out = out.view((self.size,) + tuple(tensor.shape))
+        return out.bool() if dtype == torch.bool else out
+
+    def all_gather_counts(self, n: int, device=None) -> List[int]:
+        """Every rank's integer ``n``, in rank order (one small all-gather)."""
+        if self.size == 1:
+            return [int(n)]
+        return self.all_gather_stacked(torch.tensor(int(n), dtype=torch.int64, device=device)).tolist()
+
+    def all_gather_v(self, tensor: torch.Tensor, counts: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """Every rank's ``tensor``, whose leading extents may differ (``counts``, when
+        known), joined along axis 0 in rank order: each is padded to the largest for one
+        all-gather and trimmed after. For pieces a rank selected (partial uniques, masked
+        elements, nonzero indices along an axis other than 0), whose bytes are the
+        selection's, not a split array's chunks (:meth:`all_gather`)."""
+        if self.size == 1:
+            return tensor
+        if counts is None:
+            counts = self.all_gather_counts(tensor.shape[0], tensor.device)
+        top = max(counts)
+        if top == 0:
+            return tensor[:0]
+        if tensor.shape[0] < top:
+            pad = tensor.new_zeros((top - tensor.shape[0],) + tuple(tensor.shape[1:]))
+            tensor = torch.cat([tensor, pad])
+        parts = self.all_gather_stacked(tensor)
+        return torch.cat([parts[r, : counts[r]] for r in range(self.size)])
+
+    def redistribute(
+        self,
+        local: torch.Tensor,
+        gshape: Sequence[int],
+        axis: int,
+        src_counts: Sequence[int],
+        dst_counts: Sequence[int],
+        src_displs: Optional[Sequence[int]] = None,
+        dst_displs: Optional[Sequence[int]] = None,
+    ) -> torch.Tensor:
+        """Move a distribution along ``axis`` with arbitrary per-rank extents to another
+        one: rank ``r`` holds ``src_counts[r]`` slices of the global ``gshape`` (from
+        ``src_displs[r]``, by default the running sum of the counts, so rank order) and
+        receives ``dst_counts[r]`` slices (from ``dst_displs[r]``, by default the running
+        sum; given, the ranges may overlap, as halos do). One
+        ``all_to_all_single`` with per-peer split sizes; an empty message is neither sent
+        nor received, and nothing beyond the overlaps moves."""
+        gshape = tuple(int(s) for s in gshape)
+        src_counts = [int(c) for c in src_counts]
+        dst_counts = [int(c) for c in dst_counts]
+        if sum(src_counts) != gshape[axis] or (dst_displs is None and sum(dst_counts) != gshape[axis]):
+            raise ValueError(f"redistribute: counts {src_counts} -> {dst_counts} do not cover extent {gshape[axis]}")
+        rank = self.rank
+        if local.shape[axis] != src_counts[rank]:
+            raise ValueError(f"redistribute: this rank holds {local.shape[axis]} along {axis}, not {src_counts[rank]}")
+        if src_displs is None:
+            src_displs = _displs(src_counts)
+        if dst_displs is None:
+            dst_displs = _displs(dst_counts)
+        if self.size == 1:
+            return local.narrow(axis, dst_displs[0] - src_displs[0], dst_counts[0])
+
+        def overlap(s0, n0, s1, n1):
+            return max(0, min(s0 + n0, s1 + n1) - max(s0, s1)), max(s0, s1)
+
+        dtype = local.dtype
+        moved = (local.to(torch.uint8) if dtype == torch.bool else local).movedim(axis, 0)
+        row = int(np.prod(moved.shape[1:]))
+        send_parts, in_sizes, out_sizes = [], [], []
+        for peer in range(self.size):
+            n, start = overlap(src_displs[rank], src_counts[rank], dst_displs[peer], dst_counts[peer])
+            lo = start - src_displs[rank]
+            send_parts.append(moved[lo : lo + n])
+            in_sizes.append(n * row)
+            n_in, _ = overlap(src_displs[peer], src_counts[peer], dst_displs[rank], dst_counts[rank])
+            out_sizes.append(n_in * row)
+        send = torch.cat([p.reshape(-1) for p in send_parts]) if sum(in_sizes) else moved.new_empty(0)
+        out = moved.new_empty(sum(out_sizes))
+        dist.all_to_all_single(out, send.contiguous(), out_sizes, in_sizes, group=self.group)
+        # the pieces arrive in peer order; each peer's source range starts where the
+        # previous one's ends only in rank order, so order them by where they start
+        starts = [max(src_displs[p], dst_displs[rank]) for p in range(self.size)]
+        pieces = [piece for _, piece in sorted(zip(starts, out.split(out_sizes)), key=lambda t: t[0])]
+        joined = torch.cat(pieces).view((dst_counts[rank],) + tuple(moved.shape[1:]))
+        joined = joined.movedim(0, axis).contiguous()
+        return joined.bool() if dtype == torch.bool else joined
+
+    def take(
+        self, local: torch.Tensor, axis: int, counts: Sequence[int], index: torch.Tensor, replicate: bool = False
+    ) -> torch.Tensor:
+        """The slices along ``axis`` at the global positions ``index`` (int64, the same on
+        every rank) of an array whose rank ``r`` holds ``counts[r]`` consecutive slices:
+        this rank's canonical chunk of the result, or with ``replicate`` all of it, in
+        ``index`` order. One ``all_to_all_single``; each rank sends only the slices asked
+        of it, never its whole chunk."""
+        counts = [int(c) for c in counts]
+        index = index.to(torch.int64).reshape(-1)
+        if self.size == 1:
+            return local.index_select(axis, index.to(local.device))
+        index = index.to(local.device)
+        m, rank = index.numel(), self.rank
+        ends = torch.tensor(np.cumsum(counts), dtype=torch.int64, device=local.device)
+        owner = torch.searchsorted(ends, index, right=True)
+        start = int(sum(counts[:rank]))
+        if replicate:
+            ranges = [(0, m)] * self.size
+        else:
+            c = -(-m // self.size) if m else 0
+            ranges = [(min(r * c, m), min((r + 1) * c, m)) for r in range(self.size)]
+        dtype = local.dtype
+        moved = (local.to(torch.uint8) if dtype == torch.bool else local).movedim(axis, 0)
+        row = int(np.prod(moved.shape[1:]))
+        # what this rank sends each peer, and the positions each peer's reply fills here
+        send_parts, in_sizes = [], []
+        for lo, hi in ranges:
+            sel = index[lo:hi][owner[lo:hi] == rank] - start
+            send_parts.append(moved.index_select(0, sel))
+            in_sizes.append(sel.numel() * row)
+        lo, hi = ranges[rank]
+        mine = owner[lo:hi]
+        positions = [torch.nonzero(mine == r).reshape(-1) for r in range(self.size)]
+        out_sizes = [int(p.numel()) * row for p in positions]
+        send = torch.cat([p.reshape(-1) for p in send_parts])
+        out = moved.new_empty(sum(out_sizes))
+        dist.all_to_all_single(out, send.contiguous(), out_sizes, in_sizes, group=self.group)
+        result = moved.new_empty((hi - lo,) + tuple(moved.shape[1:]))
+        result[torch.cat(positions)] = out.view((-1,) + tuple(moved.shape[1:]))
+        result = result.movedim(0, axis).contiguous()
+        return result.bool() if dtype == torch.bool else result
+
+    def exchange(self, tensor: torch.Tensor, peer: int, recv_shape: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """Send ``tensor`` to ``peer`` and receive what ``peer`` sends this rank (of
+        ``recv_shape``, by default this tensor's): one send/recv pair, the block
+        compare-exchange of the distributed sort."""
+        recv_shape = tuple(tensor.shape) if recv_shape is None else tuple(int(s) for s in recv_shape)
+        if peer == self.rank:
+            return tensor
+        dtype = tensor.dtype
+        send = tensor.to(torch.uint8) if dtype == torch.bool else tensor.contiguous()
+        recv = torch.empty(recv_shape, dtype=send.dtype, device=send.device)
+        ops = []
+        if send.numel():
+            ops.append(dist.P2POp(dist.isend, send, self._global_rank(peer), self.group))
+        if recv.numel():
+            ops.append(dist.P2POp(dist.irecv, recv, self._global_rank(peer), self.group))
+        for w in dist.batch_isend_irecv(ops) if ops else []:
+            w.wait()
+        return recv.bool() if dtype == torch.bool else recv
 
     def bcast(self, tensor: torch.Tensor, root: int = 0) -> torch.Tensor:
         """Broadcast ``tensor`` from ``root`` in place and return it."""
@@ -293,6 +445,11 @@ class _Pending:
             w.wait()
         self._works, self._keep = [], None
         return self._recv.bool() if self._dtype == torch.bool else self._recv
+
+
+def _displs(counts: Sequence[int]) -> List[int]:
+    """Displacements of consecutive ``counts``: their exclusive running sum."""
+    return np.concatenate([[0], np.cumsum(counts, dtype=np.int64)[:-1]]).astype(np.int64).tolist() if len(counts) else []
 
 
 # reduce_scatter_single is reduce_scatter_tensor's newer name in torch.distributed

@@ -66,6 +66,8 @@ class DNDarray:
         self.__device = device
         self.__comm = comm
         self.__balanced = balanced
+        self.__halo_prev = None
+        self.__halo_next = None
 
     # ------------------------------------------------------------------ properties
     @property
@@ -145,9 +147,80 @@ class DNDarray:
         counts, displs, _ = self.__comm.counts_displs_shape(self.__gshape, self.__split)
         return counts, displs
 
+    def create_lshape_map(self, force_check: bool = False) -> "DNDarray":
+        return self.lshape_map(force_check)
+
     def is_distributed(self) -> bool:
         """True if the data is split over more than one rank."""
         return self.__split is not None and self.__comm.size > 1
+
+    def is_balanced(self, force_check: bool = False) -> bool:
+        """Chunks always follow the canonical rule here: every operation that leaves a
+        rank with another extent rebalances (``TorchCommunication.redistribute``)."""
+        return True
+
+    def balance_(self) -> "DNDarray":
+        """Rebalance in place (heat_tpu/core/dndarray.py:411): the chunks are canonical
+        already, so this only sets the flag."""
+        self.__balanced = True
+        return self
+
+    def redistribute_(self, lshape_map=None, target_map=None) -> "DNDarray":
+        """Redistribute to ``target_map`` (heat_tpu/core/dndarray.py:417). A DNDarray's
+        chunks are the canonical ones, so the canonical map is the only target it can
+        hold; any other raises, as heat_tpu's does."""
+        if target_map is not None:
+            tmap = np.asarray(target_map.numpy() if isinstance(target_map, DNDarray) else target_map)
+            if not np.array_equal(tmap, self.__comm.lshape_map(self.__gshape, self.__split)):
+                raise NotImplementedError(
+                    "a DNDarray holds the canonical chunks; arbitrary target lshape maps are not representable"
+                )
+        self.__balanced = True
+        return self
+
+    def collect_(self, target_rank: int = 0) -> "DNDarray":
+        """Gather the whole array on every rank: split becomes None."""
+        return self.resplit_(None)
+
+    # ------------------------------------------------------------------ halos
+    def get_halo(self, halo_size: int, prev: bool = True, next: bool = True) -> None:  # noqa: A002
+        """Fetch the ``halo_size`` slices along the split axis before and after this
+        rank's chunk (heat_tpu/core/dndarray.py:495): global positions ``[start - h,
+        start)`` and ``[end, end + h)``, clipped to the array, from whichever ranks hold
+        them. One all-gather of the wanted ranges and one ``redistribute`` each way."""
+        if not isinstance(halo_size, int) or halo_size < 0:
+            raise (TypeError if not isinstance(halo_size, int) else ValueError)(
+                f"halo_size needs to be a non-negative Python int, got {halo_size}"
+            )
+        self.__halo_prev = self.__halo_next = None
+        if self.__split is None or not self.is_distributed():
+            return
+        comm, ax, n = self.__comm, self.__split, self.__gshape[self.__split]
+        counts, displs, _ = comm.counts_displs_shape(self.__gshape, ax)
+        start, end = displs[comm.rank], displs[comm.rank] + counts[comm.rank]
+        halos = []
+        for lo, hi, want in ((max(start - halo_size, 0), start, prev and start > 0),
+                             (end, min(end + halo_size, n), next and end < n)):
+            lo, hi = (lo, hi) if want else (0, 0)
+            ranges = comm.all_gather_stacked(torch.tensor([lo, hi - lo], device=self.__array.device)).tolist()
+            got = comm.redistribute(self.__array, self.__gshape, ax, counts, [r[1] for r in ranges],
+                                    src_displs=displs, dst_displs=[r[0] for r in ranges])
+            halos.append(got if want else None)
+        self.__halo_prev, self.__halo_next = halos
+
+    @property
+    def halo_prev(self) -> Optional[torch.Tensor]:
+        return self.__halo_prev
+
+    @property
+    def halo_next(self) -> Optional[torch.Tensor]:
+        return self.__halo_next
+
+    @property
+    def array_with_halos(self) -> torch.Tensor:
+        """This rank's chunk with the fetched halos attached along the split axis."""
+        parts = [p for p in (self.halo_prev, self.__array, self.halo_next) if p is not None]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=self.__split or 0)
 
     def _global(self) -> torch.Tensor:
         """The whole array on every rank (an all-gather when distributed)."""
@@ -214,6 +287,12 @@ class DNDarray:
         self.__dtype = dtype
         return self
 
+    def cpu(self) -> "DNDarray":
+        """This array with its chunks on the host."""
+        from .devices import cpu
+
+        return DNDarray(self.__array.cpu(), self.__gshape, self.__dtype, self.__split, cpu, self.__comm, self.__balanced)
+
     def numpy(self) -> np.ndarray:
         """The global array as numpy, on every rank (an all-gather when distributed)."""
         return self._global().detach().cpu().numpy()
@@ -245,13 +324,102 @@ class DNDarray:
     def __float__(self) -> float:
         return float(self.item())
 
+    def __complex__(self) -> complex:
+        return complex(self.item())
+
+    def __index__(self) -> int:
+        return int(self.item())
+
     def __repr__(self) -> str:
-        return (
-            f"DNDarray({self.numpy()!r}, dtype=heat_tpu_torch.{self.__dtype.__name__}, "
-            f"device={self.__device}, split={self.__split})"
-        )
+        from . import printing
+
+        return printing.__str__(self)
 
     __str__ = __repr__
+
+    # ------------------------------------------------------------------ fills and indexing
+    def fill_diagonal(self, value) -> "DNDarray":
+        """Fill the main diagonal in place (heat_tpu/core/dndarray.py:621): each rank
+        writes the diagonal entries of its own chunk."""
+        if self.ndim != 2:
+            raise ValueError("fill_diagonal requires a 2-D DNDarray")
+        offset, lshape, _ = self.__comm.chunk(self.__gshape, self.__split)
+        ax = 0 if self.__split is None else self.__split
+        n = min(self.__gshape)
+        lo, hi = max(offset, 0), min(offset + lshape[ax], n)
+        if hi > lo:
+            g = torch.arange(lo, hi, device=self.__array.device)
+            rows, cols = (g - offset, g) if ax == 0 else (g, g - offset)
+            self.__array[rows, cols] = torch.as_tensor(value, dtype=self.__array.dtype, device=self.__array.device)
+        return self
+
+    def _index_split(self, key) -> Optional[int]:
+        """Split bookkeeping for indexing (heat_tpu/core/dndarray.py:632, copied as it
+        is): the output axis the split axis survives as, or None."""
+        if self.__split is None:
+            return None
+        if not isinstance(key, tuple):
+            key = (key,)
+        if any(k is Ellipsis for k in key):
+            n_explicit = sum(1 for k in key if k is not Ellipsis and k is not None)
+            expanded = []
+            for k in key:
+                if k is Ellipsis:
+                    expanded.extend([slice(None)] * (self.ndim - n_explicit))
+                else:
+                    expanded.append(k)
+            key = tuple(expanded)
+        dim = 0  # input dim cursor
+        out_dim = 0  # output dim cursor
+        adv_seen = False
+        for k in key:
+            if k is None:
+                out_dim += 1
+                continue
+            if dim == self.__split:
+                if isinstance(k, slice):
+                    return out_dim
+                return None  # integer/advanced index consumed the split dim
+            if isinstance(k, (int, np.integer)):
+                dim += 1
+            elif isinstance(k, slice):
+                dim += 1
+                out_dim += 1
+            else:  # advanced index (array-like / bool mask)
+                if isinstance(k, DNDarray):
+                    adv, is_bool = k.ndim, k.dtype is types.bool
+                elif isinstance(k, torch.Tensor):
+                    adv, is_bool = k.ndim, k.dtype == torch.bool
+                else:
+                    arr = np.asarray(k)
+                    adv, is_bool = arr.ndim, arr.dtype == np.bool_
+                dim += adv if is_bool else 1
+                if not adv_seen:
+                    out_dim += 1
+                    adv_seen = True
+        if dim <= self.__split:
+            return out_dim + (self.__split - dim)
+        return None
+
+    def __getitem__(self, key) -> "DNDarray":
+        """Indexing with numpy's rules (heat_tpu/core/dndarray.py:680). Basic slices of
+        the split axis cut each chunk locally and rebalance; a boolean mask selects
+        locally; an integer on the split axis is answered by the rank that holds it
+        (:mod:`.indexing`)."""
+        from . import indexing
+
+        return indexing._getitem(self, key)
+
+    def __setitem__(self, key, value) -> None:
+        """Assignment with numpy's rules (heat_tpu/core/dndarray.py:697): each rank writes
+        the elements of its chunk that ``key`` hits, with ``value`` cut to them."""
+        from . import indexing
+
+        indexing._setitem(self, key, value)
+
+    def __iter__(self):
+        for i in range(self.__gshape[0] if self.ndim else 0):
+            yield self[i]
 
     # ------------------------------------------------------------------ reductions
     def sum(self, axis=None, out=None, keepdims=False) -> "DNDarray":
@@ -345,6 +513,143 @@ class DNDarray:
 
         return arithmetics.neg(self)
 
+    def __floordiv__(self, other):
+        from . import arithmetics
+
+        return arithmetics.floordiv(self, other)
+
+    def __rfloordiv__(self, other):
+        from . import arithmetics
+
+        return arithmetics.floordiv(other, self)
+
+    def __mod__(self, other):
+        from . import arithmetics
+
+        return arithmetics.mod(self, other)
+
+    def __rmod__(self, other):
+        from . import arithmetics
+
+        return arithmetics.mod(other, self)
+
+    def __lshift__(self, other):
+        from . import arithmetics
+
+        return arithmetics.left_shift(self, other)
+
+    def __rlshift__(self, other):
+        from . import arithmetics
+
+        return arithmetics.left_shift(other, self)
+
+    def __rshift__(self, other):
+        from . import arithmetics
+
+        return arithmetics.right_shift(self, other)
+
+    def __rrshift__(self, other):
+        from . import arithmetics
+
+        return arithmetics.right_shift(other, self)
+
+    def __and__(self, other):
+        from . import arithmetics
+
+        return arithmetics.bitwise_and(self, other)
+
+    def __rand__(self, other):
+        from . import arithmetics
+
+        return arithmetics.bitwise_and(other, self)
+
+    def __or__(self, other):
+        from . import arithmetics
+
+        return arithmetics.bitwise_or(self, other)
+
+    def __ror__(self, other):
+        from . import arithmetics
+
+        return arithmetics.bitwise_or(other, self)
+
+    def __xor__(self, other):
+        from . import arithmetics
+
+        return arithmetics.bitwise_xor(self, other)
+
+    def __rxor__(self, other):
+        from . import arithmetics
+
+        return arithmetics.bitwise_xor(other, self)
+
+    def __divmod__(self, other):
+        from . import arithmetics
+
+        return arithmetics.divmod(self, other)
+
+    def __matmul__(self, other):
+        from .linalg import matmul
+
+        return matmul(self, other)
+
+    def __pos__(self):
+        from . import arithmetics
+
+        return arithmetics.pos(self)
+
+    def __abs__(self):
+        from . import rounding
+
+        return rounding.abs(self)
+
+    def __invert__(self):
+        from . import arithmetics
+
+        return arithmetics.invert(self)
+
+    def __iadd__(self, other):
+        from . import arithmetics
+
+        self._rebind(arithmetics.add(self, other))
+        return self
+
+    def __isub__(self, other):
+        from . import arithmetics
+
+        self._rebind(arithmetics.sub(self, other))
+        return self
+
+    def __imul__(self, other):
+        from . import arithmetics
+
+        self._rebind(arithmetics.mul(self, other))
+        return self
+
+    def __itruediv__(self, other):
+        from . import arithmetics
+
+        self._rebind(arithmetics.div(self, other))
+        return self
+
+    def __ifloordiv__(self, other):
+        from . import arithmetics
+
+        self._rebind(arithmetics.floordiv(self, other))
+        return self
+
+    def __imod__(self, other):
+        from . import arithmetics
+
+        self._rebind(arithmetics.mod(self, other))
+        return self
+
+    def __ipow__(self, other):
+        from . import arithmetics
+
+        self._rebind(arithmetics.pow(self, other))
+        return self
+
     # ------------------------------------------------------------------ comparisons
     def __eq__(self, other):
         from . import relational
@@ -375,5 +680,178 @@ class DNDarray:
         from . import relational
 
         return relational.ge(self, other)
+
+    # ------------------------------------------------------------------ method aliases
+    def abs(self, out=None, dtype=None):
+        from . import rounding
+
+        return rounding.abs(self, out, dtype)
+
+    def all(self, axis=None, out=None, keepdims=False):
+        from . import logical
+
+        return logical.all(self, axis, out, keepdims)
+
+    def any(self, axis=None, out=None, keepdims=False):
+        from . import logical
+
+        return logical.any(self, axis, out, keepdims)
+
+    def median(self, axis=None, keepdims=False):
+        from . import statistics
+
+        return statistics.median(self, axis, keepdims=keepdims)
+
+    def std(self, axis=None, ddof=0, **kwargs):
+        from . import statistics
+
+        return statistics.std(self, axis, ddof=ddof, **kwargs)
+
+    def var(self, axis=None, ddof=0, **kwargs):
+        from . import statistics
+
+        return statistics.var(self, axis, ddof=ddof, **kwargs)
+
+    def cumsum(self, axis, out=None):
+        from . import arithmetics
+
+        return arithmetics.cumsum(self, axis, out=out)
+
+    def cumprod(self, axis, out=None):
+        from . import arithmetics
+
+        return arithmetics.cumprod(self, axis, out=out)
+
+    def reshape(self, *shape, new_split=None, **kwargs):
+        from . import manipulations
+
+        if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
+            shape = tuple(shape[0])
+        return manipulations.reshape(self, shape, new_split=new_split, **kwargs)
+
+    def flatten(self):
+        from . import manipulations
+
+        return manipulations.flatten(self)
+
+    def ravel(self):
+        from . import manipulations
+
+        return manipulations.ravel(self)
+
+    def squeeze(self, axis=None):
+        from . import manipulations
+
+        return manipulations.squeeze(self, axis)
+
+    def expand_dims(self, axis):
+        from . import manipulations
+
+        return manipulations.expand_dims(self, axis)
+
+    def transpose(self, axes=None):
+        from .linalg import transpose
+
+        return transpose(self, axes)
+
+    def tril(self, k=0):
+        from .linalg import tril
+
+        return tril(self, k)
+
+    def triu(self, k=0):
+        from .linalg import triu
+
+        return triu(self, k)
+
+    def flip(self, axis=None):
+        from . import manipulations
+
+        return manipulations.flip(self, axis)
+
+    def roll(self, shift, axis=None):
+        from . import manipulations
+
+        return manipulations.roll(self, shift, axis)
+
+    def nonzero(self):
+        from . import indexing
+
+        return indexing.nonzero(self)
+
+    def unique(self, sorted=False, return_inverse=False, axis=None):  # noqa: A002
+        from . import manipulations
+
+        return manipulations.unique(self, sorted, return_inverse, axis)
+
+    def round(self, decimals=0, out=None, dtype=None):
+        from . import rounding
+
+        return rounding.round(self, decimals, out, dtype)
+
+    def floor(self, out=None):
+        from . import rounding
+
+        return rounding.floor(self, out)
+
+    def ceil(self, out=None):
+        from . import rounding
+
+        return rounding.ceil(self, out)
+
+    def trunc(self, out=None):
+        from . import rounding
+
+        return rounding.trunc(self, out)
+
+    def clip(self, min=None, max=None, out=None):  # noqa: A002
+        from . import rounding
+
+        return rounding.clip(self, min, max, out)
+
+    def copy(self):
+        from . import memory
+
+        return memory.copy(self)
+
+    def exp(self, out=None):
+        from . import exponential
+
+        return exponential.exp(self, out)
+
+    def log(self, out=None):
+        from . import exponential
+
+        return exponential.log(self, out)
+
+    def sqrt(self, out=None):
+        from . import exponential
+
+        return exponential.sqrt(self, out)
+
+    def sin(self, out=None):
+        from . import trigonometrics
+
+        return trigonometrics.sin(self, out)
+
+    def cos(self, out=None):
+        from . import trigonometrics
+
+        return trigonometrics.cos(self, out)
+
+    def tanh(self, out=None):
+        from . import trigonometrics
+
+        return trigonometrics.tanh(self, out)
+
+    def isclose(self, other, rtol=1e-05, atol=1e-08, equal_nan=False):
+        from . import logical
+
+        return logical.isclose(self, other, rtol, atol, equal_nan)
+
+    def tile(self, reps):
+        from . import manipulations
+
+        return manipulations.tile(self, reps)
 
     __hash__ = None  # mutable container, like heat_tpu's

@@ -23,10 +23,15 @@ from .stride_tricks import sanitize_axis, sanitize_shape
 __all__ = [
     "arange",
     "array",
+    "asarray",
     "empty",
     "empty_like",
+    "eye",
     "full",
     "full_like",
+    "linspace",
+    "logspace",
+    "meshgrid",
     "ones",
     "ones_like",
     "zeros",
@@ -124,13 +129,80 @@ def array(
             raise ValueError(f"is_split chunks disagree on non-split dim {d}: {extents[:, d].tolist()}")
     gshape = list(local.shape)
     gshape[is_split] = int(extents[:, is_split].sum())
-    canonical = comm.lshape_map(gshape, is_split)[:, is_split]
-    if not np.array_equal(extents[:, is_split].numpy(), canonical):
-        raise NotImplementedError(
-            f"is_split chunks {extents[:, is_split].tolist()} differ from the canonical chunking "
-            f"{canonical.tolist()}; redistribution is not ported yet (ROADMAP.md Queue 1 item 3)"
-        )
+    counts = extents[:, is_split].tolist()
+    canonical = comm.lshape_map(gshape, is_split)[:, is_split].tolist()
+    if counts != canonical:  # other chunks than the canonical ones: rebalance
+        local = comm.redistribute(local, gshape, is_split, counts, canonical)
     return DNDarray(local, tuple(gshape), dtype, is_split, device, comm, True)
+
+
+def asarray(obj, dtype=None, copy=None, order="C", is_split=None, device=None) -> DNDarray:
+    """``obj`` as a DNDarray, the object itself when it is one already of that type and
+    device."""
+    if (
+        is_split is None
+        and copy is not True
+        and isinstance(obj, DNDarray)
+        and (dtype is None or obj.dtype is types.canonical_heat_type(dtype))
+        and (device is None or obj.device == sanitize_device(device))
+    ):
+        return obj
+    return array(obj, dtype=dtype, copy=copy, order=order, is_split=is_split, device=device)
+
+
+def eye(shape, dtype=types.float32, split=None, device=None, comm=None, order="C") -> DNDarray:
+    """A 2-D array with ones on the diagonal; each rank fills its own chunk."""
+    if isinstance(shape, (int, np.integer)):
+        n = m = int(shape)
+    else:
+        shape = tuple(shape)
+        n, m = (int(shape[0]),) * 2 if len(shape) == 1 else (int(shape[0]), int(shape[1]))
+    out = zeros((n, m), dtype=dtype, split=split, device=device, comm=comm)
+    return out.fill_diagonal(1)
+
+
+def _linspace(start: float, stop: float, num: int, endpoint: bool, dtype: torch.dtype) -> torch.Tensor:
+    """jnp.linspace's values: ``start·(1 − t) + stop·t`` for ``t = i/div`` in ``dtype``, and
+    ``stop`` itself last when ``endpoint``."""
+    div = (num - 1) if endpoint else num
+    if num <= 1:
+        return torch.full((num,), start, dtype=dtype)
+    step = torch.arange(div, dtype=dtype) / div
+    out = torch.tensor(start, dtype=dtype) * (1 - step) + torch.tensor(stop, dtype=dtype) * step
+    return torch.cat([out, torch.tensor([stop], dtype=dtype)]) if endpoint else out
+
+
+def linspace(start, stop, num: int = 50, endpoint: bool = True, retstep: bool = False, dtype=None,
+             split=None, device=None, comm=None):
+    """Evenly spaced samples, heat_tpu's: computed in float64 and, without ``dtype``,
+    given as float32."""
+    num = int(num)
+    if num < 0:
+        raise ValueError(f"number of samples 'num' must be non-negative, got {num}")
+    step = (stop - start) / max(1, num - (1 if endpoint else 0))
+    value = _linspace(float(start), float(stop), num, endpoint, torch.float64)
+    out = _from_global(value, types.float32 if dtype is None else dtype, split, device, comm)
+    return (out, step) if retstep else out
+
+
+def logspace(start, stop, num=50, endpoint=True, base=10.0, dtype=None, split=None, device=None, comm=None) -> DNDarray:
+    """Log-spaced samples ``base ** linspace(start, stop)``, computed in float64."""
+    value = torch.pow(float(base), _linspace(float(start), float(stop), int(num), endpoint, torch.float64))
+    return _from_global(value, types.float32 if dtype is None else dtype, split, device, comm)
+
+
+def meshgrid(*arrays, indexing: str = "xy"):
+    """Coordinate matrices from coordinate vectors; the output is split along the axis
+    that carried a split input ('xy' swaps the first two)."""
+    if indexing not in ("xy", "ij"):
+        raise ValueError(f"indexing must be 'xy' or 'ij', got {indexing}")
+    arrs = [asarray(a) for a in arrays]
+    split_in = next((i for i, a in enumerate(arrs) if a.split is not None), None)
+    out_split = None
+    if split_in is not None and len(arrs) > 1:
+        out_split = {0: 1, 1: 0}.get(split_in, split_in) if indexing == "xy" else split_in
+    values = torch.meshgrid(*[a._relayout(None) for a in arrs], indexing=indexing)
+    return [_from_global(v, v.dtype, out_split, arrs[0].device, arrs[0].comm) for v in values]
 
 
 def __factory(shape, dtype, split, fill, device, comm) -> DNDarray:

@@ -1,0 +1,339 @@
+"""Indexing (counterpart of heat_tpu/core/indexing.py and of heat_tpu's
+``DNDarray.__getitem__``/``__setitem__``, heat_tpu/core/dndarray.py:680-706).
+
+A split array is indexed where its chunks lie:
+
+- a key of ints and slices (with ``None`` and ``Ellipsis``) cuts each rank's chunk
+  locally; when it slices the split axis, the pieces are rebalanced to the canonical
+  chunks by ``TorchCommunication.redistribute`` (a negative step reverses each piece and
+  the order of the ranks);
+- an integer on the split axis is answered by the rank that holds it, which broadcasts
+  the result;
+- a boolean mask of the array's shape selects on each rank; heat_tpu's result of a mask
+  is not split, so the selected elements are gathered in order (a variable-length
+  all-gather of the selection, not of the array);
+- integer arrays along the split axis gather the array first, as heat_tpu's one global
+  program does (later work, ROADMAP).
+
+``__setitem__`` writes only the local elements the key hits, with the value cut to them.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from . import _operations, sanitation, types
+from .dndarray import DNDarray
+
+__all__ = ["nonzero", "where"]
+
+
+def nonzero(x: DNDarray) -> DNDarray:
+    """Indices of the non-zero elements as an (n, ndim) int64 array (torch.nonzero
+    layout). A split array's indices are found locally, offset by the rank's
+    displacement and rebalanced along axis 0 (heat_tpu's result split is 0)."""
+    sanitation.sanitize_in(x)
+    idx = torch.nonzero(x.larray)
+    if x.split is None:
+        return DNDarray(idx, tuple(idx.shape), types.int64, None, x.device, x.comm, True)
+    offset, _, _ = x.comm.chunk(x.gshape, x.split)
+    idx[:, x.split] += offset
+    if x.split != 0 and x.is_distributed():
+        # row-major order interleaves the ranks: order the indices by flat index (the
+        # whole index list on every rank), then keep this rank's chunk
+        flat = x.comm.all_gather_v((idx * _strides(x.gshape, idx.device)).sum(1))
+        full = x.comm.all_gather_v(idx)[torch.argsort(flat)]
+        _, _, slices = x.comm.chunk(tuple(full.shape), 0)
+        return DNDarray(full[slices].contiguous(), tuple(full.shape), types.int64, 0, x.device, x.comm, True)
+    return _operations.rebalance(idx, 0, x)
+
+
+def where(cond: DNDarray, x=None, y=None) -> DNDarray:
+    """Elements of ``x`` where ``cond`` holds, else of ``y``; with neither, :func:`nonzero`.
+    The result takes x's and y's type and the dominant split of the three."""
+    from . import factories
+    from .stride_tricks import broadcast_shapes
+
+    if x is None and y is None:
+        return nonzero(cond)
+    if x is None or y is None:
+        raise TypeError("either both or neither of x and y should be given")
+    if not isinstance(cond, DNDarray):
+        cond = factories.array(cond)
+    if not isinstance(x, DNDarray) and not isinstance(y, DNDarray):
+        x = factories.array(x, device=cond.device, comm=cond.comm)
+    dtype = _operations._binary_types(x, y, torch.add)[0]
+    out_shape = broadcast_shapes(*[t.gshape for t in (cond, x, y) if isinstance(t, DNDarray)])
+    split = _operations._out_split_binary(out_shape, cond, x, y)
+    ct = dtype.torch_type()
+
+    def operand(t):
+        if isinstance(t, DNDarray):
+            return _operations._local_operand(t, out_shape, split).to(ct)
+        return torch.as_tensor(t, dtype=ct, device=cond.larray.device)
+
+    c = _operations._local_operand(cond, out_shape, split).to(torch.bool)
+    _, lshape, _ = cond.comm.chunk(out_shape, split)
+    value = torch.where(c, operand(x), operand(y)).expand(lshape).contiguous()
+    return DNDarray(value, out_shape, dtype, split, cond.device, cond.comm, True)
+
+
+def _strides(gshape, device) -> torch.Tensor:
+    """Row-major element strides of ``gshape``."""
+    return torch.tensor(np.cumprod((tuple(gshape[1:]) + (1,))[::-1])[::-1].copy(), dtype=torch.int64, device=device)
+
+
+# --------------------------------------------------------------------------- keys
+def _expand_key(x: DNDarray, key) -> List:
+    """``key`` as a list with one entry per axis it consumes or adds: Ellipsis expanded,
+    missing trailing axes filled with full slices; lists and numpy arrays as tensors."""
+    if not isinstance(key, tuple):
+        key = (key,)
+    out = []
+    for k in key:
+        if isinstance(k, (list, np.ndarray)):
+            k = torch.as_tensor(np.asarray(k))
+        out.append(k)
+    consumed = sum(_width(k) for k in out if k is not Ellipsis and k is not None)
+    if any(k is Ellipsis for k in out):
+        i = next(i for i, k in enumerate(out) if k is Ellipsis)
+        out = out[:i] + [slice(None)] * (x.ndim - consumed) + [k for k in out[i + 1 :] if k is not Ellipsis]
+    else:
+        out += [slice(None)] * (x.ndim - consumed)
+    return out
+
+
+def _width(k) -> int:
+    """How many axes of the array a key entry consumes (a bool mask its ndim)."""
+    if isinstance(k, DNDarray):
+        return k.ndim if k.dtype is types.bool else 1
+    if isinstance(k, torch.Tensor):
+        return k.ndim if k.dtype == torch.bool else 1
+    return 1
+
+
+def _index(t: torch.Tensor, keys) -> torch.Tensor:
+    """``t[keys]`` with numpy's negative slice steps, which torch lacks: the axis is
+    reversed and the slice taken forward over the same elements."""
+    keys, dim, flips = list(keys), 0, []
+    for i, k in enumerate(keys):
+        if k is None:
+            continue
+        if isinstance(k, slice) and k.step is not None and k.step < 0:
+            n = t.shape[dim]
+            r = range(*k.indices(n))
+            flips.append(dim)
+            keys[i] = slice(n - 1 - r[0], n - r[-1], -k.step) if len(r) else slice(0, 0)
+        dim += _width(k)
+    return (torch.flip(t, flips) if flips else t)[tuple(keys)]
+
+
+def _assign(t: torch.Tensor, keys, value: torch.Tensor) -> None:
+    """``t[keys] = value`` with numpy's negative slice steps: the slice is taken forward
+    over the same elements and the value reversed along its output axis."""
+    keys, dim, flips = list(keys), 0, []
+    for i, k in enumerate(keys):
+        if k is None:
+            continue
+        if isinstance(k, slice) and k.step is not None and k.step < 0:
+            if not all(_is_basic(e) for e in keys):
+                raise NotImplementedError("negative slice steps beside array indices are not ported for assignment")
+            r = range(*k.indices(t.shape[dim]))
+            flips.append(_out_dim(keys, i))
+            keys[i] = slice(r[-1], r[0] + 1, -k.step) if len(r) else slice(0, 0)
+        dim += _width(k)
+    if flips:
+        target = t[tuple(keys)]
+        value = torch.flip(value.expand(target.shape) if value.ndim <= target.ndim else value.reshape(target.shape), flips)
+    t[tuple(keys)] = value
+
+
+def _is_basic(k) -> bool:
+    return k is None or isinstance(k, (slice, int, np.integer)) or (
+        isinstance(k, (torch.Tensor, DNDarray)) and k.ndim == 0 and k.dtype not in (torch.bool, types.bool)
+    )
+
+
+def _scalar(k) -> int:
+    return int(k.item()) if isinstance(k, (torch.Tensor, DNDarray)) else int(k)
+
+
+def _global_key(x: DNDarray, key: list) -> tuple:
+    """The key with DNDarray entries made whole tensors on x's device."""
+    dev = x.larray.device
+    return tuple(k._relayout(None).to(dev) if isinstance(k, DNDarray) else
+                 (k.to(dev) if isinstance(k, torch.Tensor) else k) for k in key)
+
+
+def _split_entry(x: DNDarray, key: list) -> int:
+    """The position in ``key`` of the entry that indexes the split axis."""
+    dim = 0
+    for i, k in enumerate(key):
+        if k is None:
+            continue
+        if dim <= x.split < dim + _width(k):
+            return i
+        dim += _width(k)
+    raise IndexError("key does not reach the split axis")
+
+
+def _out_dim(key: list, pos: int) -> int:
+    """The output axis of the (slice) entry at ``pos`` in a basic key."""
+    return sum(1 for k in key[:pos] if k is None or isinstance(k, slice))
+
+
+def _local_slice(sl: slice, n: int, offset: int, count: int):
+    """The part of the global slice ``sl`` (over extent ``n``) that falls in the chunk
+    ``[offset, offset + count)``: the local slice, how many it selects and where the
+    first of them stands in the result."""
+    start, stop, step = sl.indices(n)
+    sel = range(start, stop, step)
+    if step > 0:
+        first = max(0, -(-(offset - start) // step))
+        last = min(len(sel), -(-(offset + count - start) // step))
+    else:
+        first = max(0, -(-(start - (offset + count - 1)) // -step))
+        last = min(len(sel), (start - offset) // -step + 1) if start >= offset else 0
+    k = max(0, last - first)
+    if k == 0:
+        return slice(0, 0), 0, 0, len(sel)
+    lo = sel[first] - offset
+    hi = sel[first + k - 1] - offset
+    local = slice(lo, hi + 1, step) if step > 0 else slice(lo, (hi - 1) if hi > 0 else None, step)
+    return local, k, first, len(sel)
+
+
+def _getitem(x: DNDarray, key) -> DNDarray:
+    new_split = x._index_split(key)
+    keys = _expand_key(x, key)
+    if x.split is None or not x.is_distributed():
+        local = x._relayout(None) if x.split is not None else x.larray
+        result = _index(local, _global_key(x, keys))
+        return _operations.wrap_global(result, x, new_split)
+    pos = _split_entry(x, keys)
+    entry = keys[pos]
+    offset, lshape, _ = x.comm.chunk(x.gshape, x.split)
+    basic = all(_is_basic(k) for k in keys)
+    if basic and isinstance(entry, slice):
+        local_sl, k, first, total = _local_slice(entry, x.gshape[x.split], offset, lshape[x.split])
+        lkeys = list(keys)
+        lkeys[pos] = local_sl
+        piece = _index(x.larray, lkeys)
+        ax = _out_dim(keys, pos)
+        counts = x.comm.all_gather_counts(k, piece.device)
+        firsts = x.comm.all_gather_counts(first, piece.device)
+        gshape = list(piece.shape)
+        gshape[ax] = total
+        dst = x.comm.counts_displs_shape(gshape, ax)[0]
+        moved = x.comm.redistribute(piece, gshape, ax, counts, dst, src_displs=firsts)
+        return DNDarray(moved, tuple(gshape), x.dtype, ax, x.device, x.comm, True)
+    if basic and entry is not None:
+        # an integer on the split axis: the rank holding it answers and broadcasts
+        i = _scalar(entry)
+        n = x.gshape[x.split]
+        i = i + n if i < 0 else i
+        if not 0 <= i < n:
+            raise IndexError(f"index {_scalar(entry)} is out of bounds for axis {x.split} with size {n}")
+        owner = i // -(-n // x.comm.size)  # the ceil-division chunk rule
+        lkeys = list(keys)
+        lkeys[pos] = i - offset if x.comm.rank == owner else 0
+        probe = _index(torch.empty(x.gshape, device="meta"), lkeys[:pos] + [0] + lkeys[pos + 1 :])
+        if x.comm.rank == owner:
+            result = _index(x.larray, lkeys).contiguous()
+        else:
+            result = torch.empty(probe.shape, dtype=x.larray.dtype, device=x.larray.device)
+        result = x.comm.bcast(result, root=owner)
+        return _operations.wrap_global(result, x, new_split)
+    mask = keys[pos]
+    if (isinstance(mask, DNDarray) and mask.dtype is types.bool and mask.gshape == x.gshape
+            and len([k for k in keys if k is not None]) == 1):
+        # a mask of the array's shape: select on each rank, gather the selections in order
+        m = mask._relayout(x.split).to(torch.bool)
+        picked = x.larray[m]
+        if x.split == 0:
+            result = x.comm.all_gather_v(picked)
+        else:  # row-major order interleaves the ranks: order the hits by flat index
+            hits = torch.nonzero(m)
+            hits[:, x.split] += offset
+            flat = x.comm.all_gather_v((hits * _strides(x.gshape, hits.device)).sum(1))
+            result = x.comm.all_gather_v(picked)[torch.argsort(flat)]
+        return _operations.wrap_global(result, x, new_split)
+    if isinstance(mask, (torch.Tensor, DNDarray)) and mask.ndim == 1 and mask.dtype not in (torch.bool, types.bool) \
+            and all(isinstance(k, slice) and k == slice(None) for i, k in enumerate(keys) if i != pos):
+        # one integer array on the split axis: the rows asked for come from their ranks
+        # (a selection, not the array); the result is unsplit, as heat_tpu's
+        idx = mask._relayout(None) if isinstance(mask, DNDarray) else mask
+        idx = torch.where(idx < 0, idx + x.gshape[x.split], idx)
+        counts = x.comm.counts_displs_shape(x.gshape, x.split)[0]
+        return _operations.wrap_global(x.comm.take(x.larray, x.split, counts, idx, replicate=True), x, new_split)
+    # other integer arrays (or a mask of another shape) on the split axis: gather, as
+    # heat_tpu's global program does
+    result = _index(x._relayout(None), _global_key(x, keys))
+    return _operations.wrap_global(result, x, new_split)
+
+
+def _take_rows(x: DNDarray, rows: torch.Tensor) -> DNDarray:
+    """``x[rows]`` for a whole int64 tensor of as many row indices as x has rows, split
+    as x: split 0 fetches each rank's chunk of the result from the ranks holding the rows
+    (``TorchCommunication.take``); another split takes rows locally."""
+    if x.split == 0:
+        counts = x.comm.counts_displs_shape(x.gshape, 0)[0]
+        value = x.comm.take(x.larray, 0, counts, rows)
+    else:
+        value = x.larray.index_select(0, rows.to(x.larray.device))
+    return DNDarray(value, x.gshape, x.dtype, x.split, x.device, x.comm, True)
+
+
+def _setitem(x: DNDarray, key, value) -> None:
+    """Write ``value`` where ``key`` hits x: each rank its own elements."""
+    keys = _expand_key(x, key)
+    dev, dt = x.larray.device, x.larray.dtype
+    if isinstance(value, DNDarray):
+        value = value._relayout(None)
+    value = torch.as_tensor(value, device=dev).to(dt) if not isinstance(value, torch.Tensor) else value.to(dev, dt)
+    if x.split is None or not x.is_distributed():
+        _assign(x.larray, _global_key(x, keys), value)
+        return
+    pos = _split_entry(x, keys)
+    entry = keys[pos]
+    offset, lshape, _ = x.comm.chunk(x.gshape, x.split)
+    n = x.gshape[x.split]
+    if all(_is_basic(k) for k in keys) and isinstance(entry, slice):
+        local_sl, k, first, _ = _local_slice(entry, n, offset, lshape[x.split])
+        target = _index(torch.empty(x.gshape, device="meta"), _global_key(x, keys))
+        v = value.expand(target.shape) if value.ndim <= target.ndim else value.reshape(target.shape)
+        ax = _out_dim(keys, pos)
+        lkeys = list(keys)
+        lkeys[pos] = local_sl
+        if k:
+            _assign(x.larray, lkeys, v.narrow(ax, first, k))
+        return
+    if all(_is_basic(k) for k in keys) and entry is not None:
+        i = _scalar(entry)
+        i = i + n if i < 0 else i
+        if offset <= i < offset + lshape[x.split]:
+            lkeys = list(keys)
+            lkeys[pos] = i - offset
+            _assign(x.larray, lkeys, value)
+        return
+    mask = keys[pos]
+    if (isinstance(mask, DNDarray) and mask.dtype is types.bool and mask.gshape == x.gshape
+            and len([k for k in keys if k is not None]) == 1):
+        m = mask._relayout(x.split).to(torch.bool)
+        if value.numel() <= 1:
+            x.larray[m] = value.reshape(())
+            return
+        if x.split != 0:
+            raise NotImplementedError("a mask assignment of an array value is ported for split 0 and None only")
+        counts = x.comm.all_gather_counts(int(m.sum()), dev)
+        start = sum(counts[: x.comm.rank])
+        x.larray[m] = value.reshape(-1)[start : start + counts[x.comm.rank]]
+        return
+    # integer arrays on the split axis: write the gathered array, keep this rank's chunk
+    full = x._relayout(None).clone()
+    _assign(full, _global_key(x, keys), value)
+    _, _, slices = x.comm.chunk(x.gshape, x.split)
+    x.larray[...] = full[slices]

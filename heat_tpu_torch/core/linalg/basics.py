@@ -26,6 +26,7 @@ from ..dndarray import DNDarray
 from ..stride_tricks import broadcast_shapes, sanitize_axis
 from . import comm_plan
 
+
 __all__ = [
     "PARITY_PRECISION",
     "cross",
@@ -49,18 +50,6 @@ __all__ = [
 PARITY_PRECISION = "highest"
 """heat_tpu's precision marker for parity-critical products. A no-op here: every f32
 product already runs in full fp32 (TF32 off)."""
-
-
-def _wrap_global(value: torch.Tensor, proto: DNDarray, split: Optional[int]) -> DNDarray:
-    """A DNDarray of the global ``value``, whole on every rank, keeping this rank's chunk
-    along ``split`` (an out-of-range split becomes None)."""
-    if split is not None and (value.ndim == 0 or split >= value.ndim or split < 0):
-        split = None
-    gshape = tuple(value.shape)
-    if split is not None:
-        _, _, slices = proto.comm.chunk(gshape, split)
-        value = value[slices].contiguous()
-    return DNDarray(value, gshape, types.canonical_heat_type(value.dtype), split, proto.device, proto.comm, True)
 
 
 def _wrap_local(value: torch.Tensor, proto: DNDarray, split: Optional[int], gshape) -> DNDarray:
@@ -139,7 +128,7 @@ def matmul(a: DNDarray, b: DNDarray, allow_resplit: bool = False, precision=None
         return _wrap_local(value, a, None, gshape)
     # any other layout (batch-dim splits among them): both whole, keep this rank's chunk
     value = comm_plan._mm(a._relayout(None).to(ct), b._relayout(None).to(ct))
-    return _wrap_global(value, a, split)
+    return _operations.wrap_global(value, a, split)
 
 
 def _k_chunk(x: DNDarray, axis: int):
@@ -163,7 +152,7 @@ def dot(a, b, out: Optional[DNDarray] = None, precision=None) -> Union[DNDarray,
             value = a.comm.all_reduce(torch.dot(a.larray.to(ct), b.larray.to(ct)), "sum")
         else:
             value = torch.dot(a._relayout(None).to(ct), b._relayout(None).to(ct))
-        return _operations.handle_out(_wrap_global(value, a, None), out)
+        return _operations.handle_out(_operations.wrap_global(value, a, None), out)
     return _operations.handle_out(matmul(a, b), out)
 
 
@@ -181,7 +170,7 @@ def vdot(x1: DNDarray, x2: DNDarray) -> DNDarray:
     """Dot of the flattened operands, the first conjugated."""
     ct = types.promote_types(x1.dtype, x2.dtype).torch_type()
     value = torch.vdot(x1._relayout(None).reshape(-1).to(ct), x2._relayout(None).reshape(-1).to(ct))
-    return _wrap_global(value, x1, None)
+    return _operations.wrap_global(value, x1, None)
 
 
 def outer(a: DNDarray, b: DNDarray, out: Optional[DNDarray] = None, split: Optional[int] = None) -> DNDarray:
@@ -217,12 +206,12 @@ def cross(a: DNDarray, b: DNDarray, axisa: int = -1, axisb: int = -1, axisc: int
         av, bv = torch.broadcast_tensors(av, bv)
         value = torch.linalg.cross(av, bv, dim=-1)
         if both2:
-            return _wrap_global(value[..., 2].contiguous(), a, a.split)
+            return _operations.wrap_global(value[..., 2].contiguous(), a, a.split)
     else:
         av, bv = torch.broadcast_tensors(av, bv)
         value = torch.linalg.cross(av, bv, dim=-1)
     value = value.movedim(-1, axisc)
-    return _wrap_global(value.contiguous(), a, a.split)
+    return _operations.wrap_global(value.contiguous(), a, a.split)
 
 
 def _square(a: DNDarray) -> None:
@@ -234,13 +223,13 @@ def _square(a: DNDarray) -> None:
 def det(a: DNDarray) -> DNDarray:
     """Determinant (LU on the gathered matrix); whole on every rank."""
     _square(a)
-    return _wrap_global(torch.linalg.det(a._relayout(None)), a, None)
+    return _operations.wrap_global(torch.linalg.det(a._relayout(None)), a, None)
 
 
 def inv(a: DNDarray) -> DNDarray:
     """Matrix inverse (LU on the gathered matrix), split as ``a``."""
     _square(a)
-    return _wrap_global(torch.linalg.inv(a._relayout(None)), a, a.split)
+    return _operations.wrap_global(torch.linalg.inv(a._relayout(None)), a, a.split)
 
 
 def trace(a: DNDarray, offset: int = 0, axis1: int = 0, axis2: int = 1, dtype=None, out=None) -> Union[DNDarray, float]:
@@ -251,7 +240,7 @@ def trace(a: DNDarray, offset: int = 0, axis1: int = 0, axis2: int = 1, dtype=No
         value = value.to(types.canonical_heat_type(dtype).torch_type())
     elif not types.heat_type_is_inexact(a.dtype) and a.dtype is not types.uint8:
         value = value.to(a.dtype.torch_type())  # jnp.trace keeps signed integer types
-    res = _wrap_global(value, a, None)
+    res = _operations.wrap_global(value, a, None)
     if out is not None:
         out.larray = res.larray.to(out.dtype.torch_type())
         return out
@@ -281,8 +270,8 @@ def _tri_op(a: DNDarray, k: int, op) -> DNDarray:
     if a.ndim == 1:
         n = a.gshape[0]
         value = op(a._relayout(None).expand(n, n), diagonal=k)
-        return _wrap_global(value.contiguous(), a, 0 if a.split is not None else None)
-    return _wrap_global(op(a._relayout(None), diagonal=k), a, a.split)
+        return _operations.wrap_global(value.contiguous(), a, 0 if a.split is not None else None)
+    return _operations.wrap_global(op(a._relayout(None), diagonal=k), a, a.split)
 
 
 def tril(m: DNDarray, k: int = 0) -> DNDarray:
@@ -316,7 +305,7 @@ def vector_norm(x: DNDarray, axis=None, keepdims: bool = False, ord=None) -> DND
             x.comm.all_reduce(sq, "sum")
         return _wrap_local(torch.sqrt(sq), x, split, gshape)
     value = torch.linalg.vector_norm(x._relayout(None).to(rt), ord=ord, dim=axes, keepdim=keepdims)
-    return _wrap_global(value, x, split)
+    return _operations.wrap_global(value, x, split)
 
 
 def matrix_norm(x: DNDarray, axis=None, keepdims: bool = False, ord=None) -> DNDarray:
@@ -328,7 +317,7 @@ def matrix_norm(x: DNDarray, axis=None, keepdims: bool = False, ord=None) -> DND
         axis = (x.ndim - 2, x.ndim - 1)
     rt = _operations._inexact(x.dtype).torch_type()
     value = torch.linalg.matrix_norm(x._relayout(None).to(rt), ord=ord if ord is not None else "fro", dim=tuple(axis), keepdim=keepdims)
-    return _wrap_global(value, x, None)
+    return _operations.wrap_global(value, x, None)
 
 
 def norm(x: DNDarray, axis=None, keepdims: bool = False, ord=None) -> DNDarray:

@@ -13,10 +13,10 @@ from typing import Optional
 
 import torch
 
-from .. import types
+from .. import _operations, types
 from ..dndarray import DNDarray
 from . import comm_plan
-from .basics import _wrap_global, _wrap_local
+from .basics import _wrap_local
 from .svdtools import guarded_svd
 
 __all__ = ["svd", "pinv", "matrix_rank", "cond"]
@@ -52,17 +52,17 @@ def svd(A: DNDarray, full_matrices: bool = False, compute_uv: bool = True):
     if A.split == 0 and A.is_distributed() and m >= n * A.comm.size:
         if not compute_uv:
             _, r = _qr(A, calc_q=False)
-            return _wrap_global(guarded_svd(r.larray, compute_uv=False), A, None)
+            return _operations.wrap_global(guarded_svd(r.larray, compute_uv=False), A, None)
         q, r = _qr(A, calc_q=True)
         u_r, s_val, vh_val = guarded_svd(r.larray)
         u = _wrap_local(comm_plan._mm(q.larray, u_r), A, 0, (m, u_r.shape[1]))
     else:
         full = A._relayout(None)
         if not compute_uv:
-            return _wrap_global(guarded_svd(full, compute_uv=False), A, None)
+            return _operations.wrap_global(guarded_svd(full, compute_uv=False), A, None)
         u_val, s_val, vh_val = guarded_svd(full)
-        u = _wrap_global(u_val, A, 0 if A.split == 0 else None)
-    return SVD_t(u, _wrap_global(s_val, A, None), _wrap_global(vh_val, A, None))
+        u = _operations.wrap_global(u_val, A, 0 if A.split == 0 else None)
+    return SVD_t(u, _operations.wrap_global(s_val, A, None), _operations.wrap_global(vh_val, A, None))
 
 
 def pinv(A: DNDarray, rtol: float = 1e-15) -> DNDarray:
@@ -75,17 +75,17 @@ def pinv(A: DNDarray, rtol: float = 1e-15) -> DNDarray:
     inv_s = torch.where(sv > cutoff, 1.0 / torch.where(sv > cutoff, sv, torch.ones_like(sv)), torch.zeros_like(sv))
     value = comm_plan._mm(vh.larray.conj().T * inv_s, u._relayout(None).conj().T)
     split = 1 if (A.split == 0 and A.gshape[0] >= A.gshape[1]) else (0 if A.split == 1 else None)
-    return _wrap_global(value, A, split)
+    return _operations.wrap_global(value, A, split)
 
 
 def matrix_rank(A: DNDarray, tol: Optional[float] = None) -> DNDarray:
     """Rank from the singular values (numpy's rule: tol = max(s)·max(m, n)·eps)."""
     sv = svd(A, compute_uv=False).larray
     tol_val = torch.max(sv) * max(A.gshape) * torch.finfo(sv.dtype).eps if tol is None else tol
-    return _wrap_global(torch.sum(sv > tol_val).to(torch.int64), A, None)
+    return _operations.wrap_global(torch.sum(sv > tol_val).to(torch.int64), A, None)
 
 
 def cond(A: DNDarray) -> DNDarray:
     """2-norm condition number σ_max / σ_min."""
     sv = svd(A, compute_uv=False).larray
-    return _wrap_global(torch.max(sv) / torch.min(sv), A, None)
+    return _operations.wrap_global(torch.max(sv) / torch.min(sv), A, None)

@@ -133,9 +133,9 @@ def hsvd(
         V = matmul(work.T, U)
         sigma = vector_norm(V, axis=0)
         if float(vector_norm(sigma).item()) > 0:
-            # V * (1/σ), broadcast over the columns: the values of heat_tpu's
-            # V @ diag(1/σ), without the port's missing manipulations.diag
-            V = V * (1.0 / sigma)
+            from ..manipulations import diag
+
+            V = matmul(V, diag(1.0 / sigma))
         if transposeflag:
             if compute_sv:
                 return V, sigma, U, rel_error_estimate

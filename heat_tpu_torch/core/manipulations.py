@@ -1,0 +1,719 @@
+"""Array manipulations (counterpart of heat_tpu/core/manipulations.py).
+
+heat_tpu's manipulations are one jnp call on the global array, XLA emitting the relayout.
+Here each rank holds its chunk, so each manipulation moves what it must:
+
+1. it computes its rank-local piece;
+2. it learns the global extents from one small all-gather of counts;
+3. it rebalances to the canonical ceil-division chunks with
+   ``TorchCommunication.redistribute``, so lshape maps equal heat_tpu's.
+
+On ``reshape(new_split=...)``, ``concatenate``, ``resplit``, ``sort`` and ``topk`` along the
+split axis, ``unique`` and ``flip`` no rank gathers the array: each moves and holds O(n/P)
+(``unique`` and ``topk`` gather only their per-rank candidates). Where a function's result
+reorders the split axis in a way not yet ported (``roll`` and ``tile`` along it, ``pad``
+in another mode than constant, splitting along it, ``diag``), it gathers the array as
+heat_tpu's global program does; ROADMAP lists these as later work.
+"""
+
+from __future__ import annotations
+
+import builtins
+from typing import List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from . import _operations, sanitation, stride_tricks, types
+from .dndarray import DNDarray
+from .stride_tricks import sanitize_axis
+
+__all__ = [
+    "balance",
+    "broadcast_arrays",
+    "broadcast_to",
+    "collect",
+    "column_stack",
+    "concatenate",
+    "diag",
+    "diagonal",
+    "dsplit",
+    "expand_dims",
+    "flatten",
+    "flip",
+    "fliplr",
+    "flipud",
+    "hsplit",
+    "hstack",
+    "moveaxis",
+    "pad",
+    "ravel",
+    "redistribute",
+    "repeat",
+    "reshape",
+    "resplit",
+    "roll",
+    "rot90",
+    "row_stack",
+    "shape",
+    "sort",
+    "split",
+    "squeeze",
+    "stack",
+    "swapaxes",
+    "tile",
+    "topk",
+    "unique",
+    "vsplit",
+    "vstack",
+]
+
+
+def _ensure(x) -> DNDarray:
+    from . import factories
+
+    return x if isinstance(x, DNDarray) else factories.array(x)
+
+
+def _wrap(local: torch.Tensor, gshape, proto: DNDarray, split: Optional[int]) -> DNDarray:
+    return _operations.wrap_result(local, proto, split, tuple(gshape))
+
+
+def _range_overlaps(start: int, n: int, counts: Sequence[int]) -> List[int]:
+    """How much of ``[start, start + n)`` falls in each rank's range of consecutive
+    ``counts``."""
+    out, lo = [], 0
+    for c in counts:
+        out.append(builtins.max(0, builtins.min(lo + c, start + n) - builtins.max(lo, start)))
+        lo += c
+    return out
+
+
+# --------------------------------------------------------------------------- distribution
+def balance(array: DNDarray, copy: bool = False) -> DNDarray:
+    """Out-of-place balance: the chunks are canonical already."""
+    sanitation.sanitize_in(array)
+    if copy:
+        from . import memory
+
+        return memory.copy(array)
+    return array.balance_()
+
+
+def collect(arr: DNDarray, target_rank: int = 0) -> DNDarray:
+    """The array whole on every rank (split None)."""
+    sanitation.sanitize_in(arr)
+    return arr.resplit(None)
+
+
+def redistribute(arr: DNDarray, lshape_map=None, target_map=None) -> DNDarray:
+    """Out-of-place :meth:`DNDarray.redistribute_`."""
+    from . import memory
+
+    out = memory.copy(arr)
+    out.redistribute_(lshape_map, target_map)
+    return out
+
+
+def resplit(arr: DNDarray, axis: Optional[int] = None) -> DNDarray:
+    """Out-of-place resplit: split→split is one all-to-all, split→None gathers."""
+    sanitation.sanitize_in(arr)
+    return arr.resplit(axis)
+
+
+def shape(a: DNDarray) -> Tuple[int, ...]:
+    """The global shape."""
+    return a.gshape
+
+
+# --------------------------------------------------------------------------- shapes
+def reshape(a: DNDarray, *shape, **kwargs) -> DNDarray:
+    """Reshape, the result split along ``new_split`` (heat_tpu's default: the old split if
+    the new shape has that axis, else its last axis). A split array is first laid out
+    along axis 0 (one all-to-all), where each rank holds a consecutive range of the
+    row-major elements; those ranges move to the new shape's split-0 chunks by one
+    ``redistribute`` of the flat elements, and a last all-to-all lays them along
+    ``new_split``. Nothing is gathered."""
+    sanitation.sanitize_in(a)
+    new_split = kwargs.pop("new_split", None)
+    if kwargs:
+        raise TypeError(f"unexpected kwargs {tuple(kwargs)}")
+    if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
+        shape = tuple(shape[0])
+    shape = tuple(int(s) for s in shape)
+    if any(s == -1 for s in shape):
+        known = int(np.prod([s for s in shape if s != -1]))
+        missing = a.size // known if known else 0
+        shape = tuple(missing if s == -1 else s for s in shape)
+    if int(np.prod(shape)) != a.size:
+        raise ValueError(f"cannot reshape array of size {a.size} into shape {shape}")
+    if new_split is None:
+        new_split = None if a.split is None else (a.split if a.split < len(shape) else len(shape) - 1)
+    else:
+        new_split = sanitize_axis(shape, new_split)
+    if len(shape) == 0:
+        new_split = None
+    if a.split is None:
+        return _operations.wrap_global(a.larray.reshape(shape), a, new_split)
+    if not a.is_distributed():
+        return _wrap(a.larray.reshape(shape), shape, a, new_split)
+    if new_split is None:  # a 0-d result of a one-element array
+        return _operations.wrap_global(a._relayout(None).reshape(shape), a, None)
+    comm = a.comm
+    flat = a._relayout(0).reshape(-1)
+    row_old = int(np.prod(a.gshape[1:])) if a.ndim > 1 else 1
+    src = [c * row_old for c in comm.counts_displs_shape(a.gshape, 0)[0]]
+    row_new = int(np.prod(shape[1:])) if len(shape) > 1 else 1
+    dst = [c * row_new for c in comm.counts_displs_shape(shape, 0)[0]]
+    moved = comm.redistribute(flat, (a.size,), 0, src, dst)
+    _, lshape0, _ = comm.chunk(shape, 0)
+    res = _wrap(moved.reshape(lshape0), shape, a, 0)
+    return res if new_split == 0 else res.resplit_(new_split)
+
+
+def flatten(a: DNDarray) -> DNDarray:
+    """The array as 1-D, split 0 if it was split."""
+    sanitation.sanitize_in(a)
+    return reshape(a, (a.size,), new_split=None if a.split is None else 0)
+
+
+def ravel(a: DNDarray) -> DNDarray:
+    """Alias of :func:`flatten`."""
+    return flatten(a)
+
+
+def expand_dims(a: DNDarray, axis: int) -> DNDarray:
+    """Insert a new axis: local, the split shifted past it."""
+    sanitation.sanitize_in(a)
+    axis = sanitize_axis(a.gshape + (1,), axis)
+    split = a.split if a.split is None or a.split < axis else a.split + 1
+    gshape = a.gshape[:axis] + (1,) + a.gshape[axis:]
+    return _wrap(a.larray.unsqueeze(axis), gshape, a, split)
+
+
+def squeeze(x: DNDarray, axis: Optional[Union[int, Tuple[int, ...]]] = None) -> DNDarray:
+    """Remove axes of length one; a removed split axis leaves the array unsplit."""
+    sanitation.sanitize_in(x)
+    if axis is None:
+        removed = tuple(i for i, s in enumerate(x.gshape) if s == 1)
+    else:
+        axes = tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
+        removed = tuple(sanitize_axis(x.gshape, ax) for ax in axes)
+        for ax in removed:
+            if x.gshape[ax] != 1:
+                raise ValueError(f"cannot squeeze axis {ax} with size {x.gshape[ax]}")
+    split = x.split
+    local = x.larray
+    if split is not None and split in removed:
+        local, split = x._relayout(None), None
+    elif split is not None:
+        split -= builtins.sum(1 for ax in removed if ax < split)
+    gshape = tuple(s for i, s in enumerate(x.gshape) if i not in removed)
+    value = local.reshape([s for i, s in enumerate(local.shape) if i not in removed])
+    return _wrap(value, gshape, x, split)
+
+
+def broadcast_to(x: DNDarray, shape: Sequence[int]) -> DNDarray:
+    """Broadcast to ``shape``; the split moves with the leading axes added."""
+    sanitation.sanitize_in(x)
+    shape = tuple(int(s) for s in shape)
+    split = None if x.split is None else x.split + (len(shape) - x.ndim)
+    if split is None:
+        return _wrap(x.larray.expand(shape).contiguous(), shape, x, None)
+    if x.gshape[x.split] != shape[split]:  # the split axis itself broadcasts
+        return _operations.wrap_global(x._relayout(None).expand(shape), x, split)
+    _, lshape, _ = x.comm.chunk(shape, split)
+    return _wrap(x.larray.expand(lshape).contiguous(), shape, x, split)
+
+
+def broadcast_arrays(*arrays: DNDarray) -> List[DNDarray]:
+    """Broadcast arrays against each other."""
+    arrays = [_ensure(a) for a in arrays]
+    shapes = [a.gshape for a in arrays]
+    out_shape = stride_tricks.broadcast_shapes(*shapes) if len(shapes) > 1 else shapes[0]
+    return [broadcast_to(a, out_shape) for a in arrays]
+
+
+def moveaxis(x: DNDarray, source, destination) -> DNDarray:
+    """Move axes to new positions (a local permute)."""
+    sanitation.sanitize_in(x)
+    source = (source,) if isinstance(source, int) else source
+    destination = (destination,) if isinstance(destination, int) else destination
+    source = tuple(sanitize_axis(x.gshape, s) for s in source)
+    destination = tuple(sanitize_axis(x.gshape, d) for d in destination)
+    if len(source) != len(destination):
+        raise ValueError("source and destination must have the same number of elements")
+    order = [n for n in range(x.ndim) if n not in source]
+    for dest, src in sorted(zip(destination, source)):
+        order.insert(dest, src)
+    from .linalg import transpose
+
+    return transpose(x, order)
+
+
+def swapaxes(x: DNDarray, axis1: int, axis2: int) -> DNDarray:
+    """Interchange two axes (a local permute)."""
+    sanitation.sanitize_in(x)
+    axis1, axis2 = sanitize_axis(x.gshape, axis1), sanitize_axis(x.gshape, axis2)
+    axes = list(range(x.ndim))
+    axes[axis1], axes[axis2] = axes[axis2], axes[axis1]
+    from .linalg import transpose
+
+    return transpose(x, axes)
+
+
+# --------------------------------------------------------------------------- joining
+def concatenate(arrays: Sequence[DNDarray], axis: int = 0) -> DNDarray:
+    """Join arrays along an existing axis. The first operand's split that is not None
+    wins, and every operand is laid out along it (None→split keeps each rank's chunk,
+    split→split is an all-to-all). Along another axis the chunks join locally; along the
+    split axis each operand moves to the part of the result's canonical chunks it
+    covers, by one ``redistribute`` each."""
+    if not isinstance(arrays, (tuple, list)):
+        raise TypeError("concatenate requires a sequence of DNDarrays")
+    if len(arrays) == 0:
+        raise ValueError("need at least one array to concatenate")
+    arrays = [_ensure(a) for a in arrays]
+    proto = arrays[0]
+    axis = sanitize_axis(proto.gshape, axis)
+    dt = types.result_type(*arrays).torch_type()
+    split = next((a.split for a in arrays if a.split is not None), None)
+    gshape = list(proto.gshape)
+    gshape[axis] = builtins.sum(a.gshape[axis] for a in arrays)
+    for a in arrays:
+        if a.ndim != proto.ndim or any(a.gshape[d] != gshape[d] for d in range(a.ndim) if d != axis):
+            raise ValueError(f"all the input array dimensions except for axis {axis} must match")
+    locs = [a._relayout(split).to(dt) for a in arrays]
+    if split is None or axis != split or not proto.comm.is_distributed():
+        return _wrap(torch.cat(locs, dim=axis), gshape, proto, split)
+    comm = proto.comm
+    dst = comm.counts_displs_shape(gshape, axis)[0]
+    pieces, start = [], 0
+    for a, loc in zip(arrays, locs):
+        n = a.gshape[axis]
+        src = comm.counts_displs_shape(a.gshape, axis)[0]
+        pieces.append(comm.redistribute(loc, a.gshape, axis, src, _range_overlaps(start, n, dst)))
+        start += n
+    return _wrap(torch.cat(pieces, dim=axis), gshape, proto, split)
+
+
+def hstack(arrays: Sequence[DNDarray]) -> DNDarray:
+    """Stack horizontally."""
+    arrays = [_ensure(a) for a in arrays]
+    return concatenate(arrays, axis=0 if all(a.ndim == 1 for a in arrays) else 1)
+
+
+def _stacked(arrays, axis: int) -> DNDarray:
+    """Concatenate along ``axis`` with 1-D operands made 2-D across it (their elements
+    along the other axis), the result split by heat_tpu's rule: the first operand split
+    that is not None, as given."""
+    arrays = [_ensure(a) for a in arrays]
+    split = next((a.split for a in arrays if a.split is not None), None)
+    other = 1 - axis
+    parts = [a if a.ndim > 1 else reshape(a, (a.gshape[0], 1) if axis else (1, a.gshape[0]),
+                                          new_split=None if a.split is None else other)
+             for a in arrays]
+    res = concatenate(parts, axis=axis)
+    return res if res.split == split else res.resplit_(split)
+
+
+def column_stack(arrays: Sequence[DNDarray]) -> DNDarray:
+    """Stack 1-D and 2-D arrays as the columns of a 2-D array."""
+    return _stacked(arrays, 1)
+
+
+def row_stack(arrays: Sequence[DNDarray]) -> DNDarray:
+    """Stack arrays row-wise."""
+    return _stacked(arrays, 0)
+
+
+vstack = row_stack
+
+
+def stack(arrays: Sequence[DNDarray], axis: int = 0, out=None) -> DNDarray:
+    """Join equally shaped arrays along a new axis; each is laid out along the first
+    split given and the chunks stack locally."""
+    arrays = [_ensure(a) for a in arrays]
+    proto = arrays[0]
+    for a in arrays[1:]:
+        if a.gshape != proto.gshape:
+            raise ValueError("all input arrays must have the same shape")
+    axis = sanitize_axis(proto.gshape + (1,), axis)
+    base = next((a.split for a in arrays if a.split is not None), None)
+    dt = types.result_type(*arrays).torch_type()
+    value = torch.stack([a._relayout(base).to(dt) for a in arrays], dim=axis)
+    split = None if base is None else (base if base < axis else base + 1)
+    gshape = proto.gshape[:axis] + (len(arrays),) + proto.gshape[axis:]
+    return _operations.handle_out(_wrap(value, gshape, proto, split), out)
+
+
+# --------------------------------------------------------------------------- splitting
+def _sections(n: int, indices_or_sections) -> List[int]:
+    if isinstance(indices_or_sections, (int, np.integer)):
+        k = int(indices_or_sections)
+        if k <= 0 or n % k:
+            raise ValueError("array split does not result in an equal division")
+        return [i * (n // k) for i in range(1, k)]
+    return [int(i) for i in indices_or_sections]
+
+
+def split(x: DNDarray, indices_or_sections, axis: int = 0) -> List[DNDarray]:
+    """Split into sub-arrays along ``axis``; along another axis than the split each rank
+    cuts its chunk, along the split axis the parts are unsplit (heat_tpu's rule)."""
+    sanitation.sanitize_in(x)
+    axis = sanitize_axis(x.gshape, axis)
+    if isinstance(indices_or_sections, DNDarray):
+        indices_or_sections = indices_or_sections.numpy().tolist()
+    elif isinstance(indices_or_sections, np.ndarray):
+        indices_or_sections = indices_or_sections.tolist()
+    cuts = _sections(x.gshape[axis], indices_or_sections)
+    if x.split == axis:
+        return [_operations.wrap_global(p, x, None) for p in torch.tensor_split(x._relayout(None), cuts, dim=axis)]
+    out = []
+    for p in torch.tensor_split(x.larray, cuts, dim=axis):
+        gshape = list(x.gshape)
+        gshape[axis] = p.shape[axis]
+        out.append(_wrap(p.contiguous(), gshape, x, x.split))
+    return out
+
+
+def dsplit(x: DNDarray, indices_or_sections) -> List[DNDarray]:
+    """Split along the third axis."""
+    return split(x, indices_or_sections, axis=2)
+
+
+def hsplit(x: DNDarray, indices_or_sections) -> List[DNDarray]:
+    """Split along the second axis (1-D: the first)."""
+    return split(x, indices_or_sections, axis=0 if x.ndim < 2 else 1)
+
+
+def vsplit(x: DNDarray, indices_or_sections) -> List[DNDarray]:
+    """Split along the first axis."""
+    return split(x, indices_or_sections, axis=0)
+
+
+# --------------------------------------------------------------------------- reordering
+def flip(a: DNDarray, axis: Optional[Union[int, Tuple[int, ...]]] = None) -> DNDarray:
+    """Reverse the order along ``axis`` (None: every axis). Along the split axis each
+    rank reverses its chunk, which then covers the mirrored range of the result, and one
+    ``redistribute`` restores the canonical chunks."""
+    sanitation.sanitize_in(a)
+    axes = tuple(range(a.ndim)) if axis is None else sanitize_axis(a.gshape, axis)
+    axes = axes if isinstance(axes, tuple) else (axes,)
+    local = torch.flip(a.larray, axes) if axes else a.larray.clone()
+    if a.split is None or a.split not in axes or not a.is_distributed():
+        return _wrap(local, a.gshape, a, a.split)
+    comm, n = a.comm, a.gshape[a.split]
+    counts, displs, _ = comm.counts_displs_shape(a.gshape, a.split)
+    mirrored = [n - d - c for d, c in zip(displs, counts)]
+    moved = comm.redistribute(local, a.gshape, a.split, counts, counts, src_displs=mirrored)
+    return _wrap(moved, a.gshape, a, a.split)
+
+
+def fliplr(a: DNDarray) -> DNDarray:
+    """Flip along axis 1."""
+    if a.ndim < 2:
+        raise IndexError("fliplr requires at least 2 dimensions")
+    return flip(a, 1)
+
+
+def flipud(a: DNDarray) -> DNDarray:
+    """Flip along axis 0."""
+    return flip(a, 0)
+
+
+def roll(x: DNDarray, shift, axis=None) -> DNDarray:
+    """Roll elements along ``axis``: local when the split axis does not move; along the
+    split axis (or flat) the array is gathered (later work)."""
+    sanitation.sanitize_in(x)
+    if axis is not None:
+        axis = (tuple(sanitize_axis(x.gshape, ax) for ax in axis) if isinstance(axis, (tuple, list))
+                else sanitize_axis(x.gshape, axis))
+    axes = axis if isinstance(axis, tuple) else (axis,)
+    if axis is not None and (x.split is None or x.split not in axes):
+        shifts = tuple(shift) if isinstance(shift, (tuple, list)) else shift
+        return _wrap(torch.roll(x.larray, shifts, axis), x.gshape, x, x.split)
+    full = x._relayout(None)
+    if axis is None:
+        value = torch.roll(full.reshape(-1), shift if isinstance(shift, int) else int(np.sum(shift))).reshape(full.shape)
+    else:
+        value = torch.roll(full, tuple(shift) if isinstance(shift, (tuple, list)) else shift, axis)
+    return _operations.wrap_global(value, x, x.split)
+
+
+def rot90(m: DNDarray, k: int = 1, axes: Sequence[int] = (0, 1)) -> DNDarray:
+    """Rotate by 90° ``k`` times in the plane of ``axes``: flips and a transpose."""
+    sanitation.sanitize_in(m)
+    axes = tuple(sanitize_axis(m.gshape, ax) for ax in axes)
+    if len(axes) != 2 or axes[0] == axes[1]:
+        raise ValueError("len(axes) must be 2 with distinct entries")
+    k %= 4
+    if k == 0:
+        return _wrap(m.larray.clone(), m.gshape, m, m.split)
+    if k == 2:
+        return flip(flip(m, axes[0]), axes[1])
+    order = list(range(m.ndim))
+    order[axes[0]], order[axes[1]] = order[axes[1]], order[axes[0]]
+    from .linalg import transpose
+
+    if k == 1:
+        return transpose(flip(m, axes[1]), order)
+    return flip(transpose(m, order), axes[1])
+
+
+def _pad_widths(pad_width, ndim: int) -> List[Tuple[int, int]]:
+    """numpy's pad widths as one (before, after) pair an axis."""
+    w = np.asarray(pad_width, dtype=np.int64)
+    if w.ndim == 0:
+        return [(int(w), int(w))] * ndim
+    if w.ndim == 1:
+        return [(int(w[0]), int(w[-1]))] * ndim
+    return [(int(p[0]), int(p[-1])) for p in np.broadcast_to(w, (ndim, w.shape[-1]))]
+
+
+def _pad_index(n: int, before: int, after: int, mode: str, device) -> torch.Tensor:
+    """The source positions of an axis of ``n`` padded by ``before`` and ``after`` in a
+    mode that copies elements (numpy's rule, also for pads wider than the axis)."""
+    if n == 0 and before + after:
+        raise ValueError(f"can't extend an empty axis with mode {mode!r}")
+    i = torch.arange(-before, n + after, device=device)
+    if mode == "edge":
+        return i.clamp(0, builtins.max(n - 1, 0))
+    if mode == "wrap":
+        return i % n
+    if mode == "symmetric":
+        j = i % (2 * n)
+        return torch.where(j < n, j, 2 * n - 1 - j)
+    if n == 1:  # reflect
+        return torch.zeros_like(i)
+    j = i % (2 * (n - 1))
+    return torch.where(j < n, j, 2 * (n - 1) - j)
+
+
+def pad(array: DNDarray, pad_width, mode: str = "constant", constant_values=0) -> DNDarray:
+    """Pad an array (numpy's widths). Constant padding is local, the first rank taking
+    the leading pad of the split axis and the last the trailing one, then rebalanced.
+    The modes that copy elements (edge, wrap, reflect, symmetric) gather the array and
+    index it on its device (later work: a halo); numpy's other modes run only on a CPU
+    tensor and raise on another device."""
+    sanitation.sanitize_in(array)
+    widths = _pad_widths(pad_width, array.ndim)
+    if mode in ("edge", "wrap", "reflect", "symmetric"):
+        value = array._relayout(None)
+        for axis, (b, e) in enumerate(widths):
+            value = value.index_select(axis, _pad_index(value.shape[axis], b, e, mode, value.device))
+        return _operations.wrap_global(value, array, array.split)
+    if mode != "constant":
+        if array.larray.device.type != "cpu":
+            raise NotImplementedError(f"pad mode {mode!r} has no device implementation")
+        value = torch.from_numpy(np.pad(array._relayout(None).numpy(), widths, mode=mode))
+        return _operations.wrap_global(value, array, array.split)
+    comm = array.comm
+    local_widths = list(widths)
+    if array.split is not None and array.is_distributed():
+        b, e = widths[array.split]
+        local_widths[array.split] = (b if comm.rank == 0 else 0, e if comm.rank == comm.size - 1 else 0)
+    lshape = [s + b + e for s, (b, e) in zip(array.larray.shape, local_widths)]
+    value = torch.full(lshape, constant_values, dtype=array.larray.dtype, device=array.larray.device)
+    value[tuple(slice(b, b + s) for s, (b, _) in zip(array.larray.shape, local_widths))] = array.larray
+    if array.split is None or not array.is_distributed():
+        return _wrap(value, value.shape if array.split is None else
+                     [s + b + e for s, (b, e) in zip(array.gshape, widths)], array, array.split)
+    return _operations.rebalance(value, array.split, array)
+
+
+def repeat(a: DNDarray, repeats, axis: Optional[int] = None) -> DNDarray:
+    """Repeat elements. Along the split axis (or flat, which is split 0) each rank
+    repeats its own elements and the result is rebalanced."""
+    a = _ensure(a)
+    if axis is None:
+        a = flatten(a)
+        axis = 0
+    axis = sanitize_axis(a.gshape, axis)
+    if isinstance(repeats, DNDarray):
+        repeats = repeats._relayout(None)
+    elif not isinstance(repeats, int):
+        repeats = torch.as_tensor(np.asarray(repeats))
+    if isinstance(repeats, torch.Tensor):
+        repeats = repeats.to(a.larray.device)
+        if repeats.numel() == 1:
+            repeats = int(repeats.reshape(()).item())
+    if a.split != axis or not a.is_distributed():
+        value = torch.repeat_interleave(a.larray, repeats, dim=axis)
+        gshape = list(a.gshape)
+        gshape[axis] = value.shape[axis]
+        return _wrap(value, gshape, a, a.split)
+    if isinstance(repeats, torch.Tensor):
+        offset, lshape, _ = a.comm.chunk(a.gshape, axis)
+        repeats = repeats[offset : offset + lshape[axis]]
+    return _operations.rebalance(torch.repeat_interleave(a.larray, repeats, dim=axis), axis, a)
+
+
+def tile(x: DNDarray, reps: Sequence[int]) -> DNDarray:
+    """Repeat the whole array ``reps`` times along each axis. Local unless the split axis
+    repeats, which gathers (later work)."""
+    sanitation.sanitize_in(x)
+    reps = (reps,) if isinstance(reps, int) else tuple(int(r) for r in reps)
+    nd = builtins.max(x.ndim, len(reps))
+    full_reps = (1,) * (nd - len(reps)) + reps
+    split = None if x.split is None else x.split + (nd - x.ndim)
+    gshape = tuple(s * r for s, r in zip((1,) * (nd - x.ndim) + x.gshape, full_reps))
+    if split is None or full_reps[split] == 1:
+        return _wrap(torch.tile(x.larray, reps), gshape, x, split)
+    return _operations.wrap_global(torch.tile(x._relayout(None), reps), x, split)
+
+
+def diagonal(a: DNDarray, offset: int = 0, dim1: int = 0, dim2: int = 1) -> DNDarray:
+    """The diagonals of the planes ``(dim1, dim2)``, appended as the last axis; local when
+    the split is another axis."""
+    sanitation.sanitize_in(a)
+    if a.ndim < 2:
+        raise ValueError("diagonal requires at least 2 dimensions")
+    dim1, dim2 = sanitize_axis(a.gshape, dim1), sanitize_axis(a.gshape, dim2)
+    if dim1 == dim2:
+        raise ValueError("dim1 and dim2 must be different")
+    if a.split is None or a.split in (dim1, dim2):
+        return _operations.wrap_global(torch.diagonal(a._relayout(None), offset, dim1, dim2).contiguous(), a, None)
+    split = a.split - builtins.sum(1 for d in (dim1, dim2) if d < a.split)
+    value = torch.diagonal(a.larray, offset, dim1, dim2).contiguous()
+    probe = torch.diagonal(torch.empty(a.gshape, device="meta"), offset, dim1, dim2)
+    return _wrap(value, probe.shape, a, split)
+
+
+def diag(a: DNDarray, offset: int = 0) -> DNDarray:
+    """A vector's diagonal matrix (split as the vector's), or a matrix's diagonal."""
+    sanitation.sanitize_in(a)
+    if a.ndim == 1:
+        return _operations.wrap_global(torch.diag(a._relayout(None), offset), a, a.split)
+    return diagonal(a, offset=offset)
+
+
+# --------------------------------------------------------------------------- sorting
+def sort(a: DNDarray, axis: int = -1, descending: bool = False, out=None):
+    """Sort along ``axis``; returns ``(values, int64 indices)``, the order of a stable
+    sort. Along the split axis this is the distributed merge-split network
+    (:mod:`.dist_sort`), O(n/P) a rank; along another axis a local sort."""
+    from . import dist_sort
+
+    sanitation.sanitize_in(a)
+    axis = sanitize_axis(a.gshape, axis)
+    if a.ndim == 0:
+        values, indices = a.larray.clone(), torch.zeros((), dtype=torch.int64, device=a.larray.device)
+    elif axis == a.split:
+        values, indices = dist_sort.distributed_sort(a.comm, a.larray, a.gshape[axis], axis, descending)
+    else:
+        values, indices = torch.sort(a.larray, dim=axis, descending=descending, stable=True)
+    v = _wrap(values, a.gshape, a, a.split)
+    i = _wrap(indices.to(torch.int64), a.gshape, a, a.split)
+    return _operations.handle_out(v, out), i
+
+
+def _ordered_topk(x: torch.Tensor, k: int, largest: bool):
+    """The ``k`` largest (or smallest) along the last axis, in order, ties by lowest
+    index and NaN counted largest: the head of a stable sort. ``torch.topk`` finds the
+    ``k``-th value v and a set that holds every element beating v; its entries equal to
+    v are swapped for the lowest-indexed elements equal to v (``nonzero`` of the ties,
+    which are few unless the data repeats much), and a stable sort orders the ``k``.
+    One count is read back (``nonzero``'s)."""
+    if k == 0 or x.shape[-1] == 0:
+        return x[..., :0], torch.zeros(x.shape[:-1] + (0,), dtype=torch.int64, device=x.device)
+    dtype, n = x.dtype, x.shape[-1]
+    x = x.to(torch.uint8) if x.dtype == torch.bool else x
+    top = torch.topk(x, k, dim=-1, largest=largest)
+    v, top_index = top.values[..., k - 1 :], top.indices.reshape(-1, k)
+    rows = top_index.shape[0]
+    ties = (x == v).reshape(rows, n)
+    found = torch.nonzero(ties)  # (row, index) of every tie, row by row, by index
+    # v is an element of its row, so a row without ties has NaN for v
+    if x.is_floating_point() and (found.shape[0] == 0 if rows == 1 else bool(torch.isnan(v).any())):
+        ties = torch.where(torch.isnan(v), torch.isnan(x), x == v).reshape(rows, n)
+        found = torch.nonzero(ties)
+    slots = ties.gather(-1, top_index)  # top's entries equal to v, first in ``pos``
+    pos = torch.argsort((~slots).to(torch.uint8), dim=-1, stable=True)
+    counts = ties.sum(-1, keepdim=True)
+    start = 0 if rows == 1 else torch.cumsum(counts, 0) - counts
+    j = torch.arange(k, device=x.device).expand(rows, k)
+    first_ties = found[:, 1][(start + j).clamp(max=found.shape[0] - 1)]
+    fill = torch.where(j < slots.sum(-1, keepdim=True), first_ties, top_index.gather(-1, pos))
+    index = torch.sort(top_index.scatter(-1, pos, fill).view(top.indices.shape), dim=-1).values
+    order = torch.sort(x.gather(-1, index), dim=-1, descending=largest, stable=True)
+    return order.values.to(dtype), index.gather(-1, order.indices)
+
+
+def topk(a: DNDarray, k: int, dim: int = -1, largest: bool = True, sorted: bool = True, out=None):  # noqa: A002
+    """The ``k`` largest (smallest) entries along ``dim`` and their int64 indices, ties
+    by lowest index. Along the split axis each rank picks its own ``k`` candidates and
+    one all-gather of the P·k candidates decides (heat_tpu's ``_topk_split``); the result
+    is then unsplit, as heat_tpu's."""
+    sanitation.sanitize_in(a)
+    dim = sanitize_axis(a.gshape, dim)
+    if k > a.gshape[dim]:
+        raise ValueError(f"selected index k={k} out of range for dimension of size {a.gshape[dim]}")
+    x = a.larray.movedim(dim, -1)
+    offset = 0
+    if a.split == dim and a.is_distributed():
+        offset, _, _ = a.comm.chunk(a.gshape, dim)
+        kk = builtins.min(k, x.shape[-1])
+        vals, idx = _ordered_topk(x, kk, largest)
+        if kk < k:  # too few local elements: pad with sentinels that lose every tie
+            pad = x.shape[:-1] + (k - kk,)
+            if x.is_floating_point():
+                fill = float("-inf") if largest else float("inf")
+            elif x.dtype == torch.bool:
+                fill = not largest
+            else:
+                info = torch.iinfo(x.dtype)
+                fill = info.min if largest else info.max
+            vals = torch.cat([vals, torch.full(pad, fill, dtype=x.dtype, device=x.device)], -1)
+            idx = torch.cat([idx, torch.full(pad, a.gshape[dim], dtype=torch.int64, device=x.device)], -1)
+        cand_v = a.comm.all_gather_stacked(vals).movedim(0, -2).flatten(-2)
+        cand_i = a.comm.all_gather_stacked(idx + offset).movedim(0, -2).flatten(-2)
+        order = torch.sort(cand_i, dim=-1, stable=True).indices  # candidates by index
+        cand_v, cand_i = cand_v.gather(-1, order), cand_i.gather(-1, order)
+        sel = torch.sort(cand_v, dim=-1, descending=largest, stable=True).indices[..., :k]
+        values, indices = cand_v.gather(-1, sel), cand_i.gather(-1, sel)
+        split = None
+    else:
+        values, indices = _ordered_topk(x, k, largest)
+        split = a.split if a.split != dim else None
+    values, indices = values.movedim(-1, dim).contiguous(), indices.movedim(-1, dim).contiguous()
+    gshape = list(a.gshape)
+    gshape[dim] = k
+    v, i = _wrap(values, gshape, a, split), _wrap(indices, gshape, a, split)
+    if out is not None:
+        return _operations.handle_out(v, out[0]), _operations.handle_out(i, out[1])
+    return v, i
+
+
+def unique(a: DNDarray, sorted: bool = False, return_inverse: bool = False, axis: Optional[int] = None):  # noqa: A002
+    """The sorted unique elements. A split array's per-rank partial uniques are merged on
+    the device by one variable-length all-gather of the partials (heat_tpu merges them on
+    the host); the result is unsplit, and the inverse keeps the input's split. NaNs count
+    as one value, as jnp.unique's do. ``axis`` uniques are computed on the gathered
+    array."""
+    sanitation.sanitize_in(a)
+    if axis is not None:
+        axis = sanitize_axis(a.gshape, axis)
+        full = a._relayout(None)
+        if return_inverse:
+            res, inv = torch.unique(full, sorted=True, return_inverse=True, dim=axis)
+            return _operations.wrap_global(res, a, None), _operations.wrap_global(inv.to(torch.int64), a, None)
+        return _operations.wrap_global(torch.unique(full, sorted=True, dim=axis), a, None)
+    local = a.larray.reshape(-1)
+    nan = torch.isnan(local) if local.is_floating_point() else None
+    part = torch.unique(local[~nan] if nan is not None else local, sorted=True)
+    if a.split is not None and a.is_distributed():
+        part = torch.unique(a.comm.all_gather_v(part), sorted=True)
+    if nan is not None:
+        any_nan = nan.any().reshape(1)
+        if a.split is not None:
+            a.comm.all_reduce(any_nan, "max")
+        if bool(any_nan.item()):
+            part = torch.cat([part, part.new_full((1,), float("nan"))])
+    res = _operations.wrap_global(part, a, None)
+    if not return_inverse:
+        return res
+    inv = torch.searchsorted(part, a.larray.contiguous())
+    if a.split is None:
+        return res, _operations.wrap_global(inv, a, None)
+    return res, _wrap(inv.to(torch.int64), a.gshape, a, a.split)

@@ -1,14 +1,17 @@
-"""Statistical reductions (counterpart of heat_tpu/core/statistics.py: ``argmin``,
-``argmax``, ``min``, ``max`` and ``mean``).
+"""Statistics (counterpart of heat_tpu/core/statistics.py).
 
 An arg-reduction over the split axis takes each rank's local extreme and its global
 index, gathers those few candidates on every rank and keeps numpy's rule: the extreme
 value wins, and among equal values the lowest global index (a NaN counts as the extreme,
-as in numpy). Indices are int64.
+as in numpy). Indices are int64. Moments (``var``, ``std``, ``skew``, ``kurtosis``) are built from
+the distributed mean and sums; ``percentile`` and ``median`` along the split axis read
+their order statistics off the distributed sort (:mod:`.dist_sort`), fetching only the
+bracketing planes.
 """
 
 from __future__ import annotations
 
+from builtins import max as builtins_max
 from typing import Optional
 
 import numpy as np
@@ -18,7 +21,28 @@ from . import _operations, sanitation, types
 from .dndarray import DNDarray
 from .stride_tricks import sanitize_axis
 
-__all__ = ["argmax", "argmin", "max", "mean", "min"]
+__all__ = [
+    "argmax",
+    "argmin",
+    "average",
+    "bincount",
+    "bucketize",
+    "cov",
+    "digitize",
+    "histc",
+    "histogram",
+    "kurtosis",
+    "max",
+    "maximum",
+    "mean",
+    "median",
+    "min",
+    "minimum",
+    "percentile",
+    "skew",
+    "std",
+    "var",
+]
 
 
 def _pick(values: torch.Tensor, indices: torch.Tensor, kind: str) -> torch.Tensor:
@@ -110,3 +134,338 @@ def mean(x: DNDarray, axis=None, keepdims: bool = False) -> DNDarray:
     """Arithmetic mean: a sum (local, then one all_reduce over the split axis) over
     the global count."""
     return _operations.reduce_op("mean", x, axis, None, keepdims)
+
+
+def maximum(x1, x2, out=None) -> DNDarray:
+    """Elementwise maximum (NaN propagates)."""
+    return _operations.binary_op(torch.maximum, x1, x2, out)
+
+
+def minimum(x1, x2, out=None) -> DNDarray:
+    """Elementwise minimum (NaN propagates)."""
+    return _operations.binary_op(torch.minimum, x1, x2, out)
+
+
+def _inexact(x: DNDarray) -> DNDarray:
+    return x.astype(_operations._inexact(x.dtype))
+
+
+def _central(x: DNDarray, axis):
+    """``x`` in its float type minus its mean over ``axis`` (kept as a size-1 axis)."""
+    from . import arithmetics
+
+    v = _inexact(x)
+    return arithmetics.sub(v, mean(v, axis, keepdims=True))
+
+
+def var(x: DNDarray, axis=None, ddof: int = 0, **kwargs) -> DNDarray:
+    """Variance: the summed squared deviations from the distributed mean over
+    ``N - ddof``."""
+    from . import arithmetics
+
+    sanitation.sanitize_in(x)
+    keepdims = kwargs.get("keepdims", False)
+    axis = sanitize_axis(x.gshape, axis)
+    d = _central(x, axis)
+    n = x.size if axis is None else int(np.prod([x.gshape[a] for a in (axis if isinstance(axis, tuple) else (axis,))]))
+    return arithmetics.div(arithmetics.sum(arithmetics.mul(d, d), axis, keepdims=keepdims), builtins_max(n - ddof, 0))
+
+
+def std(x: DNDarray, axis=None, ddof: int = 0, **kwargs) -> DNDarray:
+    """Standard deviation: the square root of :func:`var`."""
+    from . import exponential
+
+    return exponential.sqrt(var(x, axis, ddof, **kwargs))
+
+
+def _moment_ratio(x: DNDarray, axis, power: int):
+    """(m_power / m2^(power/2), n) over ``axis`` (None: every element)."""
+    from . import arithmetics
+
+    if axis is not None and not isinstance(axis, (int, np.integer)):
+        raise TypeError(f"axis must be None or an int, got {type(axis)}")
+    if axis is None:
+        from . import manipulations
+
+        x, axis = manipulations.flatten(x), 0
+    axis = sanitize_axis(x.gshape, axis)
+    d = _central(x, axis)
+    n = x.gshape[axis]
+    m2 = mean(arithmetics.pow(d, 2), axis)
+    mp = mean(arithmetics.pow(d, power), axis)
+    return arithmetics.div(mp, arithmetics.pow(m2, power / 2)), n
+
+
+def skew(x: DNDarray, axis: Optional[int] = None, unbiased: bool = True) -> DNDarray:
+    """Skewness (the third standardised moment)."""
+    from . import arithmetics
+
+    sanitation.sanitize_in(x)
+    g1, n = _moment_ratio(x, axis, 3)
+    return arithmetics.mul(g1, ((n * (n - 1)) ** 0.5) / (n - 2)) if unbiased else g1
+
+
+def kurtosis(x: DNDarray, axis: Optional[int] = None, unbiased: bool = True, Fischer: bool = True) -> DNDarray:
+    """Kurtosis (the fourth standardised moment), Fisher's (minus 3) by default."""
+    from . import arithmetics
+
+    sanitation.sanitize_in(x)
+    k, n = _moment_ratio(x, axis, 4)
+    if unbiased:
+        k = arithmetics.add(arithmetics.mul(arithmetics.sub(arithmetics.mul(k, n + 1), 3 * (n - 1)),
+                                            (n - 1) / ((n - 2) * (n - 3))), 3)
+    return arithmetics.sub(k, 3) if Fischer else k
+
+
+def average(x: DNDarray, axis=None, weights=None, returned: bool = False):
+    """Weighted average over ``axis``: distributed sums of ``x·w`` and of ``w``."""
+    from . import arithmetics, factories, manipulations
+
+    sanitation.sanitize_in(x)
+    if weights is None:
+        result = mean(x, axis)
+        if returned:
+            axes = None if axis is None else (axis if isinstance(axis, tuple) else (axis,))
+            n = x.size if axes is None else int(np.prod([x.gshape[a] for a in axes]))
+            return result, factories.full(result.gshape, float(n), dtype=result.dtype, split=result.split,
+                                          device=x.device, comm=x.comm)
+        return result
+    w = weights if isinstance(weights, DNDarray) else factories.array(weights, device=x.device, comm=x.comm)
+    axis_s = sanitize_axis(x.gshape, axis) if axis is not None else None
+    if w.gshape != x.gshape:
+        if axis_s is None:
+            raise TypeError("Axis must be specified when shapes of x and weights differ.")
+        if isinstance(axis_s, tuple):
+            raise TypeError("1D weights expect an integer axis.")
+        if w.ndim != 1:
+            raise TypeError("1D weights expected when shapes of x and weights differ.")
+        if w.gshape[0] != x.gshape[axis_s]:
+            raise ValueError("Length of weights not compatible with specified axis.")
+        shape = [1] * x.ndim
+        shape[axis_s] = w.gshape[0]
+        w = manipulations.reshape(w, shape, new_split=None if w.split is None else axis_s)
+    num = arithmetics.sum(arithmetics.mul(x, w), axis_s)
+    den = arithmetics.sum(manipulations.broadcast_to(w, x.gshape) if w.gshape != x.gshape else w, axis_s)
+    if bool((den == 0).any().item()):
+        raise ZeroDivisionError("Weights sum to zero, can't be normalized")
+    result = arithmetics.div(num, den)
+    if returned:
+        return result, manipulations.broadcast_to(den, result.gshape).astype(result.dtype)
+    return result
+
+
+def bincount(x: DNDarray, weights: Optional[DNDarray] = None, minlength: int = 0) -> DNDarray:
+    """Occurrences of each value of a non-negative integer array: local counts to the
+    global length, summed across ranks (unsplit, as heat_tpu's)."""
+    sanitation.sanitize_in(x)
+    local = x.larray.reshape(-1)
+    if x.size and bool((min(x) < 0).item()):
+        raise ValueError("bincount: input array must have no negative elements")
+    length = int(max(x).item()) + 1 if x.size else 0
+    length = builtins_max(length, int(minlength))
+    w = None
+    if weights is not None:
+        w = weights._relayout(x.split).reshape(-1) if isinstance(weights, DNDarray) else torch.as_tensor(weights)
+    counts = torch.bincount(local, weights=w, minlength=length)
+    if x.is_distributed():
+        x.comm.all_reduce(counts, "sum")
+    return DNDarray(counts, tuple(counts.shape), types.canonical_heat_type(counts.dtype), None, x.device, x.comm, True)
+
+
+def bucketize(input: DNDarray, boundaries, out_int32: bool = False, right: bool = False, out=None) -> DNDarray:  # noqa: A002
+    """The bucket of each element among sorted ``boundaries`` (torch.bucketize's sides):
+    local, the split kept."""
+    sanitation.sanitize_in(input)
+    b = boundaries._relayout(None) if isinstance(boundaries, DNDarray) else torch.as_tensor(np.asarray(boundaries))
+    b = b.to(input.larray.device)
+    res = torch.searchsorted(b, input.larray.contiguous(), right=right).to(torch.int32 if out_int32 else torch.int64)
+    return _operations.handle_out(DNDarray(res, input.gshape, types.canonical_heat_type(res.dtype), input.split,
+                                           input.device, input.comm, True), out)
+
+
+def digitize(x: DNDarray, bins, right: bool = False) -> DNDarray:
+    """numpy's digitize of each element over monotonically increasing ``bins``: local."""
+    sanitation.sanitize_in(x)
+    b = bins._relayout(None) if isinstance(bins, DNDarray) else torch.as_tensor(np.asarray(bins))
+    b = b.to(x.larray.device)
+    res = torch.searchsorted(b, x.larray.contiguous(), right=not right, out_int32=True)
+    return DNDarray(res, x.gshape, types.canonical_heat_type(res.dtype), x.split, x.device, x.comm, True)
+
+
+def _histogram_counts(x: DNDarray, edges: torch.Tensor, weights) -> torch.Tensor:
+    """jnp.histogram's counts over ``edges``: searchsorted right, the last edge in the
+    last bin, out-of-range elements dropped; local, then summed across ranks."""
+    data = x.larray.reshape(-1)
+    idx = torch.searchsorted(edges, data.contiguous(), right=True)
+    idx = torch.where(data == edges[-1], edges.numel() - 1, idx)
+    keep = (idx > 0) & (idx < edges.numel())
+    w = torch.ones_like(data) if weights is None else weights
+    counts = torch.zeros(edges.numel(), dtype=w.dtype, device=data.device).index_add_(0, idx[keep], w[keep])[1:]
+    if x.is_distributed():
+        x.comm.all_reduce(counts, "sum")
+    return counts
+
+
+def _range(x: DNDarray, range_):
+    if range_ is None:
+        if x.size == 0:
+            return 0.0, 1.0
+        lo, hi = float(min(x).item()), float(max(x).item())
+    else:
+        lo, hi = float(range_[0]), float(range_[1])
+    if lo == hi:
+        lo, hi = lo - 0.5, hi + 0.5
+    return lo, hi
+
+
+def histogram(a: DNDarray, bins: int = 10, range=None, normed=None, weights=None, density=None):  # noqa: A002
+    """numpy's histogram of ``a`` (equal bins over ``range``): local counts summed across
+    ranks; (hist, edges), unsplit."""
+    from . import factories
+
+    sanitation.sanitize_in(a)
+    if normed is not None:
+        raise NotImplementedError("'normed' is deprecated; use density instead")
+    dt = _operations._inexact(a.dtype).torch_type()
+    lo, hi = _range(a, range)
+    edges = factories._linspace(lo, hi, int(bins) + 1, True, dt).to(a.larray.device)
+    w = weights._relayout(a.split).reshape(-1) if isinstance(weights, DNDarray) else (
+        None if weights is None else torch.as_tensor(np.asarray(weights)).reshape(-1).to(a.larray.device))
+    hist = _histogram_counts(a, edges, None if w is None else w)
+    if density:
+        hist = hist / (hist.sum() * torch.diff(edges))
+    return (DNDarray(hist, tuple(hist.shape), types.canonical_heat_type(hist.dtype), None, a.device, a.comm, True),
+            DNDarray(edges, tuple(edges.shape), types.canonical_heat_type(edges.dtype), None, a.device, a.comm, True))
+
+
+def histc(input: DNDarray, bins: int = 100, min: float = 0.0, max: float = 0.0, out=None) -> DNDarray:  # noqa: A002
+    """torch.histc's histogram (min == max: the data's range), in the input's type."""
+    sanitation.sanitize_in(input)
+    rng = None if float(min) == float(max) else (min, max)
+    hist, _ = histogram(input, bins=bins, range=rng)
+    return _operations.handle_out(hist.astype(input.dtype), out)
+
+
+def cov(m: DNDarray, y: Optional[DNDarray] = None, rowvar: bool = True, bias: bool = False, ddof: Optional[int] = None) -> DNDarray:
+    """The covariance matrix of the variables (rows, or columns with ``rowvar`` False),
+    computed on the gathered observations in full fp32 products (later work: a
+    distributed product over the observations)."""
+    from .devices import full_fp32_matmul
+
+    sanitation.sanitize_in(m)
+    if m.ndim > 2:
+        raise ValueError("m has more than 2 dimensions")
+    x = m._relayout(None)
+    x = x.reshape(1, -1) if x.ndim == 1 else x
+    if not rowvar and x.shape[0] != 1:
+        x = x.T
+    if y is not None:
+        yv = y._relayout(None) if isinstance(y, DNDarray) else torch.as_tensor(np.asarray(y))
+        if yv.ndim > 2:
+            raise ValueError("y has more than 2 dimensions")
+        yv = yv.reshape(1, -1) if yv.ndim == 1 else yv
+        if not rowvar and yv.shape[0] != 1:
+            yv = yv.T
+        x = torch.cat([x, yv.to(x.device)], 0)
+    if ddof is None:
+        ddof = 0 if bias else 1
+    if not (x.is_floating_point() or x.is_complex()):
+        x = x.to(_operations._inexact(types.canonical_heat_type(x.dtype)).torch_type())
+    xm = x - x.mean(1, keepdim=True)
+    with full_fp32_matmul():
+        res = (xm @ xm.conj().T) / builtins_max(x.shape[1] - ddof, 0)
+    if res.shape == (1, 1):
+        res = res.reshape(())
+    return DNDarray(res, tuple(res.shape), types.canonical_heat_type(res.dtype), None, m.device, m.comm, True)
+
+
+_METHODS = ("linear", "lower", "higher", "nearest", "midpoint")
+
+
+def _planes(sv: torch.Tensor, idx: torch.Tensor, axis: int, x: DNDarray, distributed: bool) -> torch.Tensor:
+    """The sorted planes at global positions ``idx`` along ``axis``, stacked first. A
+    split axis: each rank fills the planes it holds into zeros and one sum across ranks
+    gives them all (a few planes, not the array)."""
+    if not distributed:
+        return sv.index_select(axis, idx).movedim(axis, 0)
+    offset, lshape, _ = x.comm.chunk(x.gshape, axis)
+    mine = (idx >= offset) & (idx < offset + lshape[axis])
+    shape = (idx.numel(),) + tuple(s for d, s in enumerate(sv.shape) if d != axis)
+    out = torch.zeros(shape, dtype=sv.dtype, device=sv.device)
+    pos = torch.nonzero(mine).reshape(-1)
+    out[pos] = sv.index_select(axis, idx[pos] - offset).movedim(axis, 0)
+    return x.comm.all_reduce(out, "sum")
+
+
+def percentile(x: DNDarray, q, axis: Optional[int] = None, out: Optional[DNDarray] = None,
+               interpolation: str = "linear", keepdims: bool = False) -> DNDarray:
+    """The q-th percentiles along ``axis`` (None: of every element). The values are
+    sorted along the axis (along the split axis by the distributed sort, each rank
+    keeping its chunk), and only the bracketing planes are fetched. Along the split axis
+    the interpolation is heat_tpu's there (``a + (b - a)·frac`` in the float type);
+    along another axis jnp.percentile's (in float64, rounded). A NaN in a reduced slice
+    gives NaN."""
+    from . import dist_sort, manipulations
+
+    sanitation.sanitize_in(x)
+    if interpolation not in _METHODS:
+        raise ValueError(f"interpolation can only be one of {_METHODS}")
+    axis_s = sanitize_axis(x.gshape, axis) if axis is not None else None
+    promoted = types.promote_types(x.dtype, types.float32)
+    work = x.astype(promoted) if x.dtype is not promoted else x
+    eff = axis_s
+    if axis_s is None:
+        work, eff = (manipulations.flatten(work) if x.ndim != 1 else work), 0
+    n = work.gshape[eff]
+    distributed = work.split == eff and work.is_distributed()
+    nan = torch.isnan(work.larray).any(eff)
+    if distributed:
+        work.comm.all_reduce(nan, "max")
+    any_nan = nan.any()
+    if work.split is not None and work.split != eff:
+        work.comm.all_reduce(any_nan.reshape(1), "max")
+    heat_rule = work.split == eff and not bool(any_nan.item())
+    if distributed:
+        sv, _ = dist_sort.distributed_sort(work.comm, work.larray, n, eff)
+    else:
+        sv = torch.sort(work.larray, dim=eff).values
+    q_arr = torch.as_tensor(np.asarray(q, dtype=np.float64))
+    pos = (q_arr.reshape(-1) / 100.0 * (n - 1)).to(sv.device)
+    floor, ceil = torch.floor(pos), torch.ceil(pos)
+    lo = floor.clamp(0, n - 1).to(torch.int64)
+    hi = ceil.clamp(0, n - 1).to(torch.int64)
+    planes = _planes(sv, torch.cat([lo, hi]), eff, work, distributed)
+    a, b = planes[: lo.numel()], planes[lo.numel():]
+    view = (-1,) + (1,) * (a.ndim - 1)
+    if interpolation == "lower":
+        r = a
+    elif interpolation == "higher":
+        r = b
+    elif interpolation == "nearest":
+        near = (pos - lo <= 0.5) if heat_rule else (pos - floor <= 0.5)
+        r = torch.where(near.view(view), a, b)
+    elif interpolation == "midpoint":
+        r = (a + b) / 2 if heat_rule else (a + b) * 0.5
+    elif heat_rule:
+        r = a + (b - a) * (pos - lo).to(a.dtype).view(view)
+    else:
+        hw = (pos - floor).view(view)
+        r = (a.double() * (1 - hw) + b.double() * hw).to(a.dtype)
+    r = torch.where(nan.unsqueeze(0), torch.full_like(r, float("nan")), r)
+    rest = tuple(r.shape[1:])
+    gshape_rest = tuple(s for d, s in enumerate(work.gshape) if d != eff)
+    if keepdims:
+        rest = (1,) * x.ndim if axis_s is None else rest[:eff] + (1,) + rest[eff:]
+        gshape_rest = (1,) * x.ndim if axis_s is None else gshape_rest[:eff] + (1,) + gshape_rest[eff:]
+    qshape = tuple(np.shape(q))
+    r = r.reshape(qshape + rest)
+    out_split = _operations._out_split_reduce(x, axis_s, keepdims) if axis_s is not None else None
+    if out_split is not None and np.ndim(q):
+        out_split += np.ndim(q)
+    res = DNDarray(r.contiguous(), qshape + gshape_rest, promoted, out_split, x.device, x.comm, True)
+    return _operations.handle_out(res, out)
+
+
+def median(x: DNDarray, axis: Optional[int] = None, keepdims: bool = False) -> DNDarray:
+    """The median: the 50th :func:`percentile`."""
+    return percentile(x, 50.0, axis=axis, keepdims=keepdims)

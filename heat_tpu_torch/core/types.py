@@ -15,6 +15,8 @@ import numpy as np
 import torch
 
 __all__ = [
+    "iscomplex",
+    "isreal",
     "datatype",
     "number",
     "integer",
@@ -53,8 +55,13 @@ __all__ = [
     "heat_type_is_exact",
     "heat_type_is_inexact",
     "heat_type_is_complexfloating",
+    "issubdtype",
+    "iscomplexobj",
     "promote_types",
     "result_type",
+    "can_cast",
+    "finfo",
+    "iinfo",
 ]
 
 
@@ -354,3 +361,117 @@ def result_type(*arrays_and_types: Any) -> Type[datatype]:
     if weak == "c" and not issubclass(strong, complexfloating):
         return complex128 if strong is float64 else complex64
     return strong
+
+
+def issubdtype(arg1: Any, arg2: Any) -> builtins.bool:
+    """numpy-style dtype comparison on the heat hierarchy (abstract types included)."""
+    t1 = arg1 if (isinstance(arg1, type) and issubclass(arg1, datatype)) else canonical_heat_type(arg1)
+    if isinstance(arg2, type) and issubclass(arg2, datatype):
+        return issubclass(t1, arg2)
+    return issubclass(t1, canonical_heat_type(arg2))
+
+
+def iscomplexobj(x: Any) -> builtins.bool:
+    return heat_type_is_complexfloating(heat_type_of(x))
+
+
+def _np(t) -> np.dtype:
+    """numpy's dtype of a heat type, bfloat16 standing in as float16 (numpy has none)."""
+    return np.dtype(np.float16) if t is bfloat16 else np.dtype(str(t.torch_type()).replace("torch.", ""))
+
+
+def can_cast(from_: Any, to: Any, casting: str = "intuitive") -> builtins.bool:
+    """Whether a cast is allowed under ``casting``: numpy's "no", "safe", "same_kind" and
+    "unsafe", and heat's default "intuitive" (safe, and any integer to any float)."""
+    from .dndarray import DNDarray
+
+    to_t = canonical_heat_type(to)
+    if isinstance(from_, DNDarray):
+        from_t = from_.dtype
+    elif isinstance(from_, (builtins.int, builtins.float, builtins.complex, builtins.bool)):
+        return builtins.bool(np.can_cast(np.min_scalar_type(from_), _np(to_t)))
+    else:
+        from_t = canonical_heat_type(from_)
+    if casting == "no":
+        return from_t is to_t
+    if casting == "unsafe":
+        return True
+    f_np, t_np = _np(from_t), _np(to_t)
+    if casting == "same_kind":
+        order = {"b": 0, "u": 1, "i": 1, "f": 2, "c": 3}
+        return order[f_np.kind] <= order[t_np.kind]
+    if casting in ("safe", "intuitive"):
+        if from_t is to_t:
+            return True
+        safe = builtins.bool(np.can_cast(f_np, t_np))
+        if casting == "intuitive" and not safe and f_np.kind in "biu" and t_np.kind in "fc":
+            return True
+        return safe
+    raise ValueError(f"invalid casting rule {casting!r}")
+
+
+class finfo:
+    """Machine limits of a float type: bits, eps, max, min, tiny."""
+
+    def __new__(cls, dtype):
+        t = canonical_heat_type(dtype)
+        if not issubclass(t, (floating, complexfloating)):
+            raise TypeError(f"data type {t!r} not inexact")
+        return super().__new__(cls)
+
+    def __init__(self, dtype):
+        t = canonical_heat_type(dtype)
+        info = torch.finfo(t.torch_type())
+        self.bits = info.bits
+        self.eps = builtins.float(info.eps)
+        self.max = builtins.float(info.max)
+        self.min = builtins.float(info.min)
+        self.tiny = builtins.float(info.tiny)
+        self.dtype = t
+
+    def __repr__(self):
+        return f"finfo(dtype={self.dtype}, eps={self.eps}, max={self.max}, min={self.min})"
+
+
+class iinfo:
+    """Machine limits of an integer type (bool: 8 bits, 0 and 1)."""
+
+    def __new__(cls, dtype):
+        t = canonical_heat_type(dtype)
+        if not (issubclass(t, integer) or t is bool):
+            raise TypeError(f"data type {t!r} not exact")
+        return super().__new__(cls)
+
+    def __init__(self, dtype):
+        t = canonical_heat_type(dtype)
+        if t is bool:
+            self.bits, self.max, self.min = 8, 1, 0
+        else:
+            info = torch.iinfo(t.torch_type())
+            self.bits, self.max, self.min = info.bits, builtins.int(info.max), builtins.int(info.min)
+        self.dtype = t
+
+    def __repr__(self):
+        return f"iinfo(dtype={self.dtype}, max={self.max}, min={self.min})"
+
+
+def _iscomplex(v: torch.Tensor) -> torch.Tensor:
+    return v.imag != 0 if v.is_complex() else torch.zeros(v.shape, dtype=torch.bool, device=v.device)
+
+
+def _isreal(v: torch.Tensor) -> torch.Tensor:
+    return v.imag == 0 if v.is_complex() else torch.ones(v.shape, dtype=torch.bool, device=v.device)
+
+
+def iscomplex(x):
+    """Element-wise: whether the value has a non-zero imaginary part."""
+    from . import _operations
+
+    return _operations.local_op(_iscomplex, x)
+
+
+def isreal(x):
+    """Element-wise: whether the value's imaginary part is zero."""
+    from . import _operations
+
+    return _operations.local_op(_isreal, x)

@@ -1,0 +1,209 @@
+"""The array API's parity cases, shared by the single-rank tests and the three-rank spawn.
+
+Each case is ``fn(m, arr, split)``: ``m`` is the package (heat_tpu or heat_tpu_torch),
+``arr(name, split)`` makes that package's DNDarray of the named input below on the
+communicator under test, and ``arr.kw`` holds the keywords that put a factory on it
+(``comm=`` for heat_tpu's three-device mesh). The inputs are fixed numpy arrays made from a seed. A case
+returns a DNDarray or a tuple of them. The cases in ``FLOAT`` compare within ``RTOL`` (a
+float result summed or interpolated in another order); every other case is exact.
+
+Imports numpy only: the worker processes of the spawn import it beside the port alone.
+"""
+
+import numpy as np
+
+_rng = np.random.default_rng(2024)
+
+
+def _with_nan_and_ties(n):
+    a = _rng.integers(0, 6, n).astype(np.float32)
+    a[[2, 9]] = np.nan
+    a[5] = -0.0
+    return a
+
+
+INPUTS = {
+    "a": _rng.standard_normal((7, 5)).astype(np.float32),  # 3, 3, 1 rows on three ranks
+    "small": _rng.standard_normal((2, 3)).astype(np.float32),  # the third rank holds nothing
+    "cube": _rng.standard_normal((4, 7, 3)).astype(np.float32),
+    "ints": _rng.integers(-4, 9, (7, 5)).astype(np.int32),
+    "ties": _with_nan_and_ties(17),  # ties, two NaNs and a -0.0
+    "ties2d": _rng.integers(0, 3, (9, 4)).astype(np.float64),
+    "long": _rng.standard_normal(40).astype(np.float32),  # 14, 14, 12
+    "vec": _rng.standard_normal(7).astype(np.float32),
+    "bools": _rng.standard_normal((7, 5)) > 0.3,
+    "pos": _rng.integers(0, 9, 13).astype(np.int64),
+}
+_centers = _rng.normal(0, 8, (3, 2))
+INPUTS["blobs"] = (_centers[_rng.integers(0, 3, 30)] + _rng.normal(0, 0.5, (30, 2))).astype(np.float32)
+# a mask that selects nothing in the first three rows (the first rank's chunk)
+INPUTS["mask_a"] = INPUTS["a"] > 0.4
+INPUTS["mask_a"][:3] = False
+
+
+
+def _set(x, key, value):
+    x[key] = value
+    return x
+
+
+def _drawn(m, seed, draw):
+    m.random.seed(seed)
+    return draw()
+
+
+def _kmeans(m, x):
+    km = m.cluster.KMeans(n_clusters=3, init="random", random_state=4, max_iter=6, tol=-1.0).fit(x)
+    return km.cluster_centers_, km.labels_
+
+
+class Arrays:
+    """``arr(name, split)``: the named input as a DNDarray of ``m`` made with ``kw``."""
+
+    def __init__(self, m, **kw):
+        self.m, self.kw = m, kw
+
+    def __call__(self, name, split):
+        return self.m.array(INPUTS[name], split=split, **self.kw)
+
+
+CASES = {
+    # manipulations
+    "reshape": lambda m, arr, s: m.reshape(arr("a", s), (5, 7)),
+    "reshape_new_split0": lambda m, arr, s: m.reshape(arr("a", s), (35,), new_split=0),
+    "reshape_new_split1": lambda m, arr, s: m.reshape(arr("a", s), (5, 7), new_split=1),
+    "reshape_3d": lambda m, arr, s: m.reshape(arr("cube", s), (7, 12), new_split=0),
+    "reshape_small": lambda m, arr, s: m.reshape(arr("small", s), (3, 2), new_split=0),
+    "flatten": lambda m, arr, s: m.flatten(arr("cube", s)),
+    "concatenate0": lambda m, arr, s: m.concatenate([arr("a", s), arr("a", None), arr("a", s)], axis=0),
+    "concatenate1": lambda m, arr, s: m.concatenate([arr("a", s), arr("a", None), arr("a", s)], axis=1),
+    "concatenate_mixed": lambda m, arr, s: m.concatenate([arr("a", None), arr("ints", s)], axis=0),
+    "hstack": lambda m, arr, s: m.hstack([arr("a", s), arr("a", s)]),
+    "vstack": lambda m, arr, s: m.vstack([arr("a", s), arr("a", s)]),
+    "column_stack": lambda m, arr, s: m.column_stack([arr("a", s), arr("a", s)]),
+    "stack": lambda m, arr, s: m.stack([arr("a", s), arr("a", None)], axis=1),
+    "resplit": lambda m, arr, s: m.resplit(arr("cube", s), 2),
+    "squeeze": lambda m, arr, s: m.squeeze(m.expand_dims(arr("a", s), 1), 1),
+    "expand_dims": lambda m, arr, s: m.expand_dims(arr("a", s), 0),
+    "swapaxes": lambda m, arr, s: m.swapaxes(arr("cube", s), 0, 2),
+    "moveaxis": lambda m, arr, s: m.moveaxis(arr("cube", s), 0, -1),
+    "flip0": lambda m, arr, s: m.flip(arr("a", s), 0),
+    "flip_all": lambda m, arr, s: m.flip(arr("cube", s)),
+    "fliplr": lambda m, arr, s: m.fliplr(arr("a", s)),
+    "rot90": lambda m, arr, s: m.rot90(arr("a", s)),
+    "rot90_3": lambda m, arr, s: m.rot90(arr("a", s), 3),
+    "roll": lambda m, arr, s: m.roll(arr("a", s), 2, 0),
+    "roll1": lambda m, arr, s: m.roll(arr("a", s), -1, 1),
+    "pad": lambda m, arr, s: m.pad(arr("a", s), ((1, 2), (0, 1))),
+    "pad_small": lambda m, arr, s: m.pad(arr("small", s), 1, constant_values=3.0),
+    "pad_edge": lambda m, arr, s: m.pad(arr("a", s), ((1, 2), (3, 1)), mode="edge"),
+    "pad_copies_wide": lambda m, arr, s: tuple(m.pad(arr("small", s), ((4, 5), (7, 2)), mode=mode)
+                                               for mode in ("reflect", "symmetric", "wrap")),
+    "repeat": lambda m, arr, s: m.repeat(arr("a", s), 2, 0),
+    "repeat_flat": lambda m, arr, s: m.repeat(arr("a", s), 3),
+    "repeat1": lambda m, arr, s: m.repeat(arr("a", s), 2, 1),
+    "tile": lambda m, arr, s: m.tile(arr("a", s), (1, 2)),
+    "tile0": lambda m, arr, s: m.tile(arr("a", s), (2, 1)),
+    "diagonal": lambda m, arr, s: m.diagonal(arr("cube", s), 0, 1, 2),
+    "diag": lambda m, arr, s: m.diag(arr("vec", s)),
+    "diag_of_matrix": lambda m, arr, s: m.diag(arr("a", s), 1),
+    "split": lambda m, arr, s: tuple(m.split(arr("a", s), [2, 5], 0)),
+    "hsplit": lambda m, arr, s: tuple(m.hsplit(arr("cube", s), [1, 4])),
+    "broadcast_to": lambda m, arr, s: m.broadcast_to(arr("a", s), (2, 7, 5)),
+    "sort0": lambda m, arr, s: m.sort(arr("a", s), axis=0),
+    "sort1": lambda m, arr, s: m.sort(arr("a", s), axis=1, descending=True),
+    "sort_ties": lambda m, arr, s: m.sort(arr("ties", s)),
+    "sort_ties_desc": lambda m, arr, s: m.sort(arr("ties", s), descending=True),
+    "sort_ties2d": lambda m, arr, s: m.sort(arr("ties2d", s), axis=0, descending=True),
+    "sort_ints": lambda m, arr, s: m.sort(arr("ints", s), axis=0),
+    "sort_small": lambda m, arr, s: m.sort(arr("small", s), axis=0),
+    "topk": lambda m, arr, s: m.topk(arr("long", s), 5),
+    "topk_small": lambda m, arr, s: m.topk(arr("long", s), 4, largest=False),
+    "topk_ties": lambda m, arr, s: m.topk(arr("ties2d", s), 3, dim=0),
+    "topk_2d": lambda m, arr, s: m.topk(arr("a", s), 2, dim=1),
+    "unique": lambda m, arr, s: m.unique(m.floor(arr("a", s))),
+    "unique_inverse": lambda m, arr, s: m.unique(arr("ints", s), return_inverse=True),
+    "unique_ties": lambda m, arr, s: m.unique(arr("ties", s)),
+    # statistics on the sort
+    "percentile": lambda m, arr, s: m.percentile(arr("long", s), [25, 50, 99]),
+    "percentile_axis0": lambda m, arr, s: m.percentile(arr("a", s), [10, 50], axis=0),
+    "percentile_axis1": lambda m, arr, s: m.percentile(arr("a", s), 30, axis=1, keepdims=True),
+    "percentile_nan": lambda m, arr, s: m.percentile(arr("ties", s), 50),
+    "percentile_lower": lambda m, arr, s: m.percentile(arr("a", s), 40, axis=0, interpolation="lower"),
+    "percentile_nearest": lambda m, arr, s: m.percentile(arr("a", s), 40, axis=0, interpolation="nearest"),
+    "median": lambda m, arr, s: m.median(arr("a", s), axis=0),
+    "median_all": lambda m, arr, s: m.median(arr("a", s)),
+    "median_ints": lambda m, arr, s: m.median(arr("ints", s), axis=0, keepdims=True),
+    # indexing
+    "get_slice": lambda m, arr, s: arr("a", s)[3::2],
+    "get_neg_step": lambda m, arr, s: arr("a", s)[::-2],
+    "get_neg_step_col": lambda m, arr, s: arr("a", s)[5:0:-3, 1],
+    "get_cols": lambda m, arr, s: arr("a", s)[:, 1:4],
+    "get_cols_neg": lambda m, arr, s: arr("a", s)[:, ::-2],
+    "get_ellipsis_none": lambda m, arr, s: arr("cube", s)[..., None, 1:],
+    "get_none_front": lambda m, arr, s: arr("a", s)[None, 2:6],
+    "get_int": lambda m, arr, s: arr("a", s)[4],
+    "get_int_neg": lambda m, arr, s: arr("a", s)[-1, 2:],
+    "get_int_col": lambda m, arr, s: arr("a", s)[:, 3],
+    "get_scalar": lambda m, arr, s: arr("a", s)[6, 4],
+    "get_mask": lambda m, arr, s: arr("a", s)[arr("mask_a", s)],
+    "get_mask_cmp": lambda m, arr, s: arr("a", s)[arr("a", s) > 0.5],
+    "get_int_array": lambda m, arr, s: arr("a", s)[[0, 6, 2, 2]],
+    "get_int_array_col": lambda m, arr, s: arr("a", s)[:, [4, 0]],
+    "get_small_empty_rank": lambda m, arr, s: arr("small", s)[1:],
+    "nonzero": lambda m, arr, s: m.nonzero(arr("mask_a", s)),
+    "where": lambda m, arr, s: m.where(arr("a", s) > 0, arr("a", s), 0.0),
+    "where_nonzero": lambda m, arr, s: m.where(arr("bools", s)),
+    # arithmetic on the split axis
+    "cumsum0": lambda m, arr, s: m.cumsum(arr("ints", s), 0),
+    "cumsum1": lambda m, arr, s: m.cumsum(arr("ints", s), 1),
+    "cumprod0": lambda m, arr, s: m.cumprod(arr("ints", s), 0),
+    "diff0": lambda m, arr, s: m.diff(arr("ints", s), axis=0),
+    "diff2": lambda m, arr, s: m.diff(arr("ints", s), n=2, axis=0),
+    "diff1": lambda m, arr, s: m.diff(arr("ints", s), axis=1),
+    "diff_small": lambda m, arr, s: m.diff(arr("small", s), axis=0),
+    "bincount": lambda m, arr, s: m.bincount(arr("pos", s)),
+    "digitize": lambda m, arr, s: m.digitize(arr("a", s), m.array([-1.0, 0.0, 0.5], **arr.kw)),
+    "bucketize": lambda m, arr, s: m.bucketize(arr("a", s), m.array([-1.0, 0.0, 0.5], **arr.kw)),
+    "maximum": lambda m, arr, s: m.maximum(arr("a", s), arr("ints", s)),
+    "all0": lambda m, arr, s: m.all(arr("bools", s), axis=0),
+    "any": lambda m, arr, s: m.any(arr("bools", s)),
+    "nansum": lambda m, arr, s: m.nansum(arr("ties", s)),
+    "where_kw": lambda m, arr, s: m.add(arr("ints", s), 1, where=arr("bools", s)),
+    # the halo convolution (a 40-sample signal: 14, 14, 12 on three ranks)
+    "convolve_full": lambda m, arr, s: m.convolve(arr("long", s), m.array([0.5, -1.0, 2.0, 0.25], **arr.kw)),
+    "convolve_same": lambda m, arr, s: m.convolve(arr("long", s), m.array([1.0, 2.0, 1.0], **arr.kw), mode="same"),
+    "convolve_valid": lambda m, arr, s: m.convolve(arr("pos", s), m.array([1, -1, 3], **arr.kw), mode="valid"),
+    # assignment
+    "set_slice": lambda m, arr, s: _set(arr("a", s), slice(1, 6, 2), 7.0),
+    "set_neg_step": lambda m, arr, s: _set(arr("a", s), (slice(None, None, -3), 1), -1.0),
+    "set_mask": lambda m, arr, s: _set(arr("a", s), arr("mask_a", s), 0.0),
+    "set_int": lambda m, arr, s: _set(arr("a", s), 4, m.arange(5, dtype=m.float32, **arr.kw)),
+    "set_int_neg": lambda m, arr, s: _set(arr("ints", s), -2, 3),
+    "set_block": lambda m, arr, s: _set(arr("a", s), (slice(2, 7), slice(1, 3)), arr("a", None)[0:5, 3:5]),
+    "set_int_array": lambda m, arr, s: _set(arr("a", s), [0, 5], 9.0),
+    "set_scalar": lambda m, arr, s: _set(arr("ints", s), (6, 4), 42),
+    # random streams
+    "rand": lambda m, arr, s: _drawn(m, 3, lambda: m.random.rand(5, 7, split=s, **arr.kw)),
+    "rand64": lambda m, arr, s: _drawn(m, 4, lambda: m.random.rand(9, 4, dtype=m.float64, split=s, **arr.kw)),
+    "randint": lambda m, arr, s: _drawn(m, 5, lambda: m.random.randint(-3, 1000, (7, 5), split=s, **arr.kw)),
+    "randint64": lambda m, arr, s: _drawn(m, 6, lambda: m.random.randint(0, 10**6, (7, 5), dtype=m.int64,
+                                                                         split=s, **arr.kw)),
+    "randperm": lambda m, arr, s: _drawn(m, 7, lambda: m.random.randperm(23, split=s, **arr.kw)),
+    "permutation": lambda m, arr, s: _drawn(m, 8, lambda: m.random.permutation(arr("a", s))),
+    "second_draw": lambda m, arr, s: _drawn(m, 9, lambda: (m.random.rand(3, **arr.kw), m.random.random((4, 6), split=s,
+                                                                                                    **arr.kw))[1]),
+    "kmeans_random": lambda m, arr, s: _kmeans(m, arr("blobs", s)),
+}
+
+FLOAT = {"convolve_full", "convolve_same", "kmeans_random", "cumsum1", "percentile", "percentile_axis0", "percentile_axis1", "median", "median_all", "median_ints",
+         "percentile_nan"}
+RTOL = 1e-6
+
+
+def splits_of(name):
+    """The splits a case runs at (some inputs are 1-D)."""
+    return (None, 0) if name in ("diag", "sort_ties", "sort_ties_desc", "topk", "topk_small", "unique_ties",
+                                 "percentile", "percentile_nan", "bincount", "nansum", "randperm",
+                                 "convolve_full", "convolve_same", "convolve_valid",
+                                 "kmeans_random") else (None, 0, 1)

@@ -3,6 +3,9 @@ writes this rank's results for the parent to compare with heat_tpu.
 
     python _torch_dist_worker.py RANK WORLD INIT_FILE INPUTS.npz OUT_DIR
 
+At WORLD 3 it runs every check; at WORLD 4 the sorting and selection cases alone, where
+the distributed sort takes the bitonic network.
+
 Imports torch and heat_tpu_torch only, never JAX.
 """
 
@@ -15,6 +18,7 @@ import torch
 import torch.distributed as dist
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import heat_tpu_torch as ht  # noqa: E402
 from heat_tpu_torch.core import communication  # noqa: E402
@@ -141,6 +145,7 @@ def run(inputs) -> dict:
     finally:
         communication.TorchCommunication.all_reduce_packed = orig_packed
     out.update(run_linalg(inputs, comm))
+    out.update(run_array_api(comm))
     return out
 
 
@@ -254,6 +259,144 @@ def run_linalg(inputs, comm) -> dict:
     return out
 
 
+def run_array_api(comm) -> dict:
+    """The array API: every case of tests/_torch_array_cases.py, redistribute between
+    arbitrary chunkings, halos, is_split with other chunks than the canonical ones,
+    normal draws, and the functions that must not gather the array run with the
+    whole-array all_gather made to raise."""
+    from _torch_array_cases import CASES, INPUTS, Arrays, splits_of
+
+    out = {}
+    arr = Arrays(ht)
+    for name, fn in CASES.items():
+        for split in splits_of(name):
+            try:
+                res = fn(ht, arr, split)
+            except Exception as exc:  # recorded: the parent reports it beside heat_tpu's result
+                out[f"case_{name}_{split}_error"] = np.array(f"{type(exc).__name__}: {exc}")
+                continue
+            for i, r in enumerate(res if isinstance(res, tuple) else (res,)):
+                _record(out, f"case_{name}_{split}_{i}", r)
+
+    # redistribute between arbitrary count pairs, along axis 0 of (7, 3) and axis 1 of (4, 7)
+    rank = comm.rank
+    for k, (src, dst) in enumerate(REDISTRIBUTE_PAIRS):
+        for axis, data in ((0, np.arange(21.0).reshape(7, 3)), (1, np.arange(28).reshape(4, 7))):
+            lo = sum(src[:rank])
+            local = torch.from_numpy(np.take(data, range(lo, lo + src[rank]), axis=axis).copy())
+            out[f"redistribute_{k}_{axis}"] = comm.redistribute(local, data.shape, axis, src, dst).numpy()
+
+    # halos of a split array with an empty rank (4 rows: 2, 2, 0) and of one of 7 rows
+    for name, h in (("small", 1), ("a", 2)):
+        x = ht.array(INPUTS[name], split=0)
+        x.get_halo(h)
+        out[f"halo_{name}_prev"] = np.array([]) if x.halo_prev is None else x.halo_prev.numpy()
+        out[f"halo_{name}_next"] = np.array([]) if x.halo_next is None else x.halo_next.numpy()
+
+    # is_split with chunks of 1, 5 and 1 rows: rebalanced to the canonical 3, 3, 1
+    rows = [(0, 1), (1, 6), (6, 7)][rank]
+    _record(out, "is_split", ht.array(INPUTS["a"][rows[0]:rows[1]], is_split=0))
+
+    # normal draws (held to heat_tpu's within a few ulp by the parent) and the state
+    for dtype in ("float32", "float64"):
+        ht.random.seed(11)
+        _record(out, f"randn_{dtype}", ht.random.randn(7, 5, dtype=getattr(ht, dtype), split=0))
+        out[f"randn_{dtype}_state"] = np.array(ht.random.get_state()[1:3])
+
+    # printing: a large split array from its edge items, a small one whole
+    for split in (None, 0, 1):
+        out[f"print_{split}"] = np.array(str(ht.array(PRINTED, split=split)))
+        out[f"print_small_{split}"] = np.array(str(ht.array(INPUTS["a"], split=split)))
+
+    # the paths that must not gather the array, with the whole-array gather made to raise
+    # and the bytes this rank receives from the small gathers (all_gather_stacked, under
+    # all_gather_counts and all_gather_v) counted: one value a rank (counts) apart from
+    # the rest (candidates, halos, totals, selections)
+    def refuse(self, *args, **kwargs):
+        raise RuntimeError("whole-array all_gather")
+
+    gathered = [0, 0]
+    stacked = communication.TorchCommunication.all_gather_stacked
+
+    def counted(self, tensor):
+        res = stacked(self, tensor)
+        gathered[tensor.numel() > 1] += res.numel() * res.element_size()
+        return res
+
+    orig = communication.TorchCommunication.all_gather
+    communication.TorchCommunication.all_gather = refuse
+    communication.TorchCommunication.all_gather_stacked = counted
+    try:
+        for name, fn in NO_GATHER.items():
+            gathered[:] = [0, 0]
+            try:
+                res = fn(ht, arr)
+                out[f"no_gather_{name}"] = np.array("ok")
+            except Exception as exc:
+                out[f"no_gather_{name}"] = np.array(f"{type(exc).__name__}: {exc}")
+                continue
+            res = res[0] if isinstance(res, tuple) else res
+            nbytes = res.size * res.larray.element_size() if isinstance(res, ht.DNDarray) else 0
+            out[f"no_gather_{name}_bytes"] = np.array(gathered + [nbytes])
+    finally:
+        communication.TorchCommunication.all_gather = orig
+        communication.TorchCommunication.all_gather_stacked = stacked
+    return out
+
+
+def run_sort_cases() -> dict:
+    """At four ranks (a power of two: the bitonic network) the array API cases that sort,
+    select or redistribute, and the random streams."""
+    from _torch_array_cases import CASES, Arrays, splits_of
+
+    ht.use_device("cpu")
+    out = {"world": np.array([ht.get_comm().size, ht.get_comm().rank])}
+    for name in SORT_CASES:
+        for split in splits_of(name):
+            res = CASES[name](ht, Arrays(ht), split)
+            for i, r in enumerate(res if isinstance(res, tuple) else (res,)):
+                _record(out, f"case_{name}_{split}_{i}", r)
+    return out
+
+
+SORT_CASES = ["sort0", "sort1", "sort_ties", "sort_ties_desc", "sort_ties2d", "sort_ints", "sort_small", "topk",
+              "topk_small", "topk_ties", "unique", "unique_inverse", "unique_ties", "percentile", "percentile_axis0",
+              "percentile_nan", "median", "median_all", "reshape_new_split1", "concatenate1", "get_neg_step",
+              "get_mask", "rand", "randint", "randperm", "permutation", "kmeans_random"]
+
+# (source counts, destination counts) over three ranks, 7 slices each
+REDISTRIBUTE_PAIRS = [([3, 3, 1], [0, 7, 0]), ([0, 7, 0], [2, 2, 3]), ([1, 0, 6], [5, 2, 0]), ([7, 0, 0], [0, 0, 7])]
+
+# the functions of the benchmark's paths, on split arrays: none may gather the array
+NO_GATHER = {
+    "reshape_new_split": lambda m, arr: m.reshape(arr("a", 0), (5, 7), new_split=1),
+    "reshape_flat": lambda m, arr: m.reshape(arr("cube", 1), (84,), new_split=0),
+    "concatenate_1_none_1": lambda m, arr: m.concatenate([arr("a", 1), arr("a", None), arr("a", 1)], axis=1),
+    "resplit": lambda m, arr: m.resplit(arr("a", 0), 1),
+    "sort": lambda m, arr: m.sort(arr("long", 0)),
+    "sort_desc": lambda m, arr: m.sort(arr("a", 0), axis=0, descending=True),
+    "topk": lambda m, arr: m.topk(arr("long", 0), 5),
+    "unique": lambda m, arr: m.unique(m.floor(arr("a", 0))),
+    "percentile": lambda m, arr: m.percentile(arr("long", 0), [25, 50, 99]),
+    "median": lambda m, arr: m.median(arr("a", 0), axis=0),
+    "slice": lambda m, arr: arr("long", 0)[3::7],
+    "slice_neg": lambda m, arr: arr("a", 0)[::-2],
+    "mask": lambda m, arr: arr("long", 0)[arr("long", 0) > 0.5],
+    "setitem": lambda m, arr: arr("long", 0).__setitem__(slice(2, None, 3), 0.0),
+    "flip": lambda m, arr: m.flip(arr("a", 0), 0),
+    "cumsum": lambda m, arr: m.cumsum(arr("a", 0), 0),
+    "diff": lambda m, arr: m.diff(arr("a", 0), axis=0),
+    "nonzero": lambda m, arr: m.nonzero(arr("mask_a", 0)),
+    "nonzero_split1": lambda m, arr: m.nonzero(arr("mask_a", 1)),
+    "row_take": lambda m, arr: arr("a", 0)[[6, 0, 3]],
+    "permutation": lambda m, arr: m.random.permutation(arr("a", 0)),
+    "convolve": lambda m, arr: m.convolve(arr("long", 0), m.array([1.0, 2.0, 1.0]), mode="same"),
+    "print": lambda m, arr: str(m.array(PRINTED, split=0)),
+}
+
+PRINTED = np.arange(40 * 50, dtype=np.float32).reshape(40, 50) / 7
+
+
 def main():
     rank, world, init_file, inputs_path, out_dir = sys.argv[1:6]
     torch.set_num_threads(1)
@@ -261,7 +404,7 @@ def main():
         "gloo", init_method=f"file://{init_file}", rank=int(rank), world_size=int(world)
     )
     try:
-        out = run(np.load(inputs_path))
+        out = run(np.load(inputs_path)) if int(world) == 3 else run_sort_cases()
     finally:
         dist.destroy_process_group()
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)

@@ -1,0 +1,26 @@
+"""Single-rank parity of the array API cases: the port as one rank against heat_tpu on
+the test mesh's devices (tests/_torch_array_cases.py)."""
+
+from _torch_array_cases import CASES, FLOAT, RTOL, Arrays, splits_of
+
+import heat_tpu as ht
+
+import heat_tpu_torch as htt
+from heat_tpu_torch.testing import assert_record_equal, port_record
+
+
+def cases(prefixes):
+    """(name, split) of the cases whose names start with one of ``prefixes``."""
+    return [(n, s) for n in CASES if n.startswith(tuple(prefixes)) for s in splits_of(n)]
+
+
+def check(name, split):
+    """The case's port result equals heat_tpu's: values (exact, or within RTOL for the
+    cases in FLOAT), dtype, gshape and split."""
+    htt.use_device("cpu")
+    want = CASES[name](ht, Arrays(ht), split)
+    got = CASES[name](htt, Arrays(htt), split)
+    want, got = (want if isinstance(want, tuple) else (want,)), (got if isinstance(got, tuple) else (got,))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert_record_equal(port_record(g), w, rtol=RTOL if name in FLOAT else 0, what=name)

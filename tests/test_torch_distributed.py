@@ -24,6 +24,7 @@ from heat_tpu.core.linalg import comm_plan as jplan
 from heat_tpu_torch.testing import assert_record_equal
 
 WORLD = 3
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_torch_dist_worker.py")
 REDUCTIONS = ("sum", "prod", "mean", "min", "max", "argmin", "argmax")
 
@@ -135,19 +136,28 @@ def _linalg_inputs(rng):
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """Every rank's results, from one spawn of three gloo ranks."""
-    tmp = tmp_path_factory.mktemp("torch_dist")
     inputs = _inputs()
+    return inputs, _spawn(tmp_path_factory.mktemp("torch_dist"), WORLD, inputs)
+
+
+@pytest.fixture(scope="module")
+def ranks4(tmp_path_factory):
+    """The sorting and selection cases' results, from one spawn of four gloo ranks."""
+    return _spawn(tmp_path_factory.mktemp("torch_dist4"), 4, {})
+
+
+def _spawn(tmp, world, inputs):
     np.savez(tmp / "inputs.npz", **inputs)
     env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
     procs = [
         subprocess.Popen(
-            [sys.executable, WORKER, str(r), str(WORLD), str(tmp / "rendezvous"), str(tmp / "inputs.npz"), str(tmp)],
+            [sys.executable, WORKER, str(r), str(world), str(tmp / "rendezvous"), str(tmp / "inputs.npz"), str(tmp)],
             env=env,
             stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT,
             text=True,
         )
-        for r in range(WORLD)
+        for r in range(world)
     ]
     logs = []
     try:
@@ -160,7 +170,7 @@ def ranks(tmp_path_factory):
                 p.wait()
     for r, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, f"rank {r} failed:\n{log}"
-    return inputs, [dict(np.load(tmp / f"rank{r}.npz")) for r in range(WORLD)]
+    return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(world)]
 
 
 @pytest.fixture(scope="module")
@@ -538,3 +548,165 @@ def test_ring_cdist(ranks, comm3, name):
         got = _rec(r, f"cdist_{name}")
         assert_record_equal(got, want, rtol=0, atol=np.inf)
         assert np.all(np.abs(got["value"] ** 2 - want.numpy() ** 2) <= scale)
+
+
+# ---------------------------------------------------------------- the array API
+from _torch_array_cases import CASES, FLOAT, INPUTS, RTOL, Arrays, splits_of  # noqa: E402
+
+from heat_tpu_torch.testing import tpu_record  # noqa: E402
+
+ARRAY_CASES = [(name, split) for name in CASES for split in splits_of(name)]
+
+
+@pytest.mark.parametrize("name,split", ARRAY_CASES, ids=[f"{n}-{s}" for n, s in ARRAY_CASES])
+def test_array_api_matches_heat_tpu(ranks, comm3, name, split):
+    """Every array-API case (tests/_torch_array_cases.py) on three gloo ranks against
+    heat_tpu's three-device mesh: values, dtype, gshape, split and lshape map, exact but
+    for the cases in FLOAT (within RTOL)."""
+    _, res = ranks
+    previous = ht.get_comm()
+    ht.use_comm(comm3)  # heat_tpu's KMeans draws its init on the default communicator
+    try:
+        want = CASES[name](ht, Arrays(ht, comm=comm3), split)
+    finally:
+        ht.use_comm(previous)
+    want = want if isinstance(want, tuple) else (want,)
+    for r in res:
+        assert f"case_{name}_{split}_error" not in r, str(r.get(f"case_{name}_{split}_error"))
+        for i, w in enumerate(want):
+            assert_record_equal(_rec(r, f"case_{name}_{split}_{i}"), w, rtol=RTOL if name in FLOAT else 0, what=name)
+
+
+REDISTRIBUTE_PAIRS = [([3, 3, 1], [0, 7, 0]), ([0, 7, 0], [2, 2, 3]), ([1, 0, 6], [5, 2, 0]), ([7, 0, 0], [0, 0, 7])]
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("pair", range(len(REDISTRIBUTE_PAIRS)))
+def test_redistribute_arbitrary_counts(ranks, pair, axis):
+    """TorchCommunication.redistribute between arbitrary chunkings (empty ranks included):
+    each rank receives exactly the slices of its destination range."""
+    _, res = ranks
+    src, dst = REDISTRIBUTE_PAIRS[pair]
+    data = np.arange(21.0).reshape(7, 3) if axis == 0 else np.arange(28).reshape(4, 7)
+    for rank, r in enumerate(res):
+        lo = sum(dst[:rank])
+        np.testing.assert_array_equal(r[f"redistribute_{pair}_{axis}"], np.take(data, range(lo, lo + dst[rank]), axis=axis))
+
+
+@pytest.mark.parametrize("name,h", [("small", 1), ("a", 2)])
+def test_halos(ranks, name, h):
+    """get_halo: the h rows before and after each rank's chunk, from whichever ranks hold
+    them, as heat_tpu's global slices (an empty last rank gets the rows before its
+    offset and none after)."""
+    _, res = ranks
+    data = INPUTS[name]
+    n = data.shape[0]
+    c = -(-n // WORLD)
+    for rank, r in enumerate(res):
+        start, end = min(rank * c, n), min((rank + 1) * c, n)
+        prev = data[max(start - h, 0):start] if start > 0 else None
+        nxt = data[end:min(end + h, n)] if end < n else None
+        for side, want in (("prev", prev), ("next", nxt)):
+            got = r[f"halo_{name}_{side}"]
+            if want is None:
+                assert got.size == 0
+            else:
+                np.testing.assert_array_equal(got, want)
+
+
+def test_is_split_non_canonical(ranks, comm3):
+    """is_split with chunks of 1, 5 and 1 rows is rebalanced to the canonical 3, 3, 1."""
+    _, res = ranks
+    want = ht.array(INPUTS["a"], split=0, comm=comm3)
+    for r in res:
+        assert_record_equal(_rec(r, "is_split"), want, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,ulps", [("float32", 4), ("float64", 32)])
+def test_normal_stream(ranks, comm3, dtype, ulps):
+    """randn on three ranks against heat_tpu's on three devices: within 4 ulp in float32
+    and 32 in float64 (the inverse error function's logarithm is torch's); the state
+    advances as heat_tpu's."""
+    _, res = ranks
+    ht.random.seed(11)
+    want = ht.random.randn(7, 5, dtype=getattr(ht, dtype), split=0, comm=comm3)
+    w = want.numpy()
+    for r in res:
+        got = _rec(r, f"randn_{dtype}")
+        assert_record_equal(got, want, rtol=0, atol=np.inf)
+        assert np.all(np.abs(got["value"] - w) <= ulps * np.spacing(np.abs(w)))
+        assert r[f"randn_{dtype}_state"].tolist() == list(ht.random.get_state()[1:3])
+
+
+NO_GATHER = ["reshape_new_split", "reshape_flat", "concatenate_1_none_1", "resplit", "sort", "sort_desc", "topk",
+             "unique", "percentile", "median", "slice", "slice_neg", "mask", "setitem", "flip", "cumsum", "diff",
+             "nonzero", "nonzero_split1", "row_take", "permutation", "convolve", "print"]
+
+# what the small gathers may bring a rank beside the counts, by design, from P ranks and
+# the result's bytes R: topk's P·k candidates (a float32 value and an int64 index each,
+# k = 5), cumsum's exscan of one plane of totals a rank (5 float32), convolve's two
+# halos of m - 1 = 2 float64 a rank, and the selection of the mask, unique and nonzero
+# along axis 1 (each rank's piece padded to the largest: at most P·R; nonzero sends the
+# flat and the 2-D indices, 1.5·P·R); every other function gathers counts alone
+SMALL_GATHERS = {"topk": lambda P, R: P * 5 * (4 + 8), "cumsum": lambda P, R: P * 5 * 4,
+                 "convolve": lambda P, R: 2 * P * 2 * 8, "mask": lambda P, R: P * R, "unique": lambda P, R: P * R,
+                 "nonzero_split1": lambda P, R: 3 * P * R // 2}
+
+
+@pytest.mark.parametrize("name", NO_GATHER)
+def test_no_whole_array_gather(ranks, name):
+    """The benchmark's paths run on split arrays with TorchCommunication.all_gather (the
+    whole-array gather) made to raise, and what the small gathers bring a rank is counted:
+    at most four gathers of one count a rank, and beside them only candidates, halos,
+    totals or the result's own selection (SMALL_GATHERS), never the array."""
+    _, res = ranks
+    P = len(res)
+    for r in res:
+        assert str(r[f"no_gather_{name}"]) == "ok"
+        counts, rest, result = r[f"no_gather_{name}_bytes"].tolist()
+        assert counts <= 4 * P * 8
+        assert rest <= SMALL_GATHERS.get(name, lambda P, R: 0)(P, result)
+
+
+SORT_CASES = [(n, s) for n in ("sort0", "sort1", "sort_ties", "sort_ties_desc", "sort_ties2d", "sort_ints",
+                               "sort_small", "topk", "topk_small", "topk_ties", "unique", "unique_inverse",
+                               "unique_ties", "percentile", "percentile_axis0", "percentile_nan", "median",
+                               "median_all", "reshape_new_split1", "concatenate1", "get_neg_step", "get_mask", "rand",
+                               "randint", "randperm", "permutation", "kmeans_random") for s in splits_of(n)]
+
+
+@pytest.fixture(scope="module")
+def comm4():
+    """heat_tpu's communicator over four devices of the test mesh."""
+    return MeshCommunication(jax.devices()[:4])
+
+
+@pytest.mark.parametrize("name,split", SORT_CASES, ids=[f"{n}-{s}" for n, s in SORT_CASES])
+def test_sorting_at_four_ranks(ranks4, comm4, name, split):
+    """At four ranks the distributed sort takes Batcher's bitonic network: the sorting,
+    selection and random cases against heat_tpu's four-device mesh."""
+    assert [tuple(r["world"]) for r in ranks4] == [(4, i) for i in range(4)]
+    previous = ht.get_comm()
+    ht.use_comm(comm4)
+    try:
+        want = CASES[name](ht, Arrays(ht, comm=comm4), split)
+    finally:
+        ht.use_comm(previous)
+    want = want if isinstance(want, tuple) else (want,)
+    for r in ranks4:
+        for i, w in enumerate(want):
+            assert_record_equal(_rec(r, f"case_{name}_{split}_{i}"), w, rtol=RTOL if name in FLOAT else 0, what=name)
+
+
+@pytest.mark.parametrize("split", [None, 0, 1])
+def test_printing_at_three_ranks(ranks, comm3, split):
+    """A large split array prints from its edge items as heat_tpu's does on three
+    devices, a small one whole."""
+    _, res = ranks
+    big = np.arange(40 * 50, dtype=np.float32).reshape(40, 50) / 7
+    for key, data in ((f"print_{split}", big), (f"print_small_{split}", INPUTS["a"])):
+        want = str(ht.array(data, split=split, comm=comm3))
+        want = want[: want.rindex(", dtype=")]
+        for r in res:
+            got = str(r[key])
+            assert got[: got.rindex(", dtype=")] == want
