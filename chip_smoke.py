@@ -28,7 +28,8 @@ Phases, one line each:
   4. K1 against its plain PyTorch version and against float64 on the card, within the
      rounding bound of its own summation order (``kmeans.rounding_depths``), at the main
      path's shape and data and at edge shapes (n below one tile and one row past it, d of
-     7, 10, 48, 100 and 256, k of 1 and 12, x 4 bytes past a 16-byte boundary), each also
+     7, 10, 48, 100 and 256, k of 1 and 12, x 4 bytes past a 16-byte boundary, and d = k = 4,
+     Spectral's embedding in float32, at 16,384 rows), each also
      on data rounded to integers (where nothing rounds, so the sums must be exact); below
      200,000 rows the sums equal their order replayed on the host bit for bit; every case
      bit-identical across two runs;
@@ -38,7 +39,13 @@ Phases, one line each:
      centers and, on a small input, against the port's CPU path; then the fit is timed
      (best of 2 after the counted run, which is its warm-up), and one fit is traced with
      torch.profiler for its device time by kind of kernel, the card's idle share and the
-     host's time an iteration beyond the device's;
+     host's time an iteration beyond the device's; then the same fit with
+     ``init="kmeans++"`` (``[kmeans_pp_fit]``): the greedy ++ seeding's picks against the
+     CPU path's on a CPU copy (equal, or each difference within the rounding bound of its
+     step), launch counts zeroed and read (31 K1), the fit against the blobs' centers
+     (where every blob holds a seed; else its inertia at most its seeds'), the Lloyd loop
+     from the seeds reading back nothing but n_iter and the inertia, the seeding and the
+     fit timed and one fit traced;
   6. K2 against its plain PyTorch version on the card, in O and LSE: at the Transformer
      forward's three attention shapes in f32, at bench.py's attention configuration (b8
      h16 t4096 d64 bf16, causal, and with its padding mask), at small ragged shapes
@@ -81,7 +88,7 @@ Phases, one line each:
      b8 h16 t4096 d64 bf16 with the knob off (K2) and on (K3), in turns, in ms and TFLOP/s;
  12. the D pass, K4 and K5 timed at the step's two shapes and bench.py's, in turns with the
      backward of ``scaled_dot_product_attention`` on the same inputs;
- 13. (13-16 run in a child process of this script, which traces nothing: see
+ 13. (13-17 run in a child process of this script, which traces nothing: see
      ``linalg_phases``) config #2 (``[linalg_matmul]``): ``ht.linalg.matmul`` of a (4096, 4096) split=0 and a
      (4096, 4096) split=1 f32 array from a seeded generator, with TF32 allowed for the
      process and seen off inside every ``torch.matmul`` of the call; the product split 0,
@@ -124,12 +131,25 @@ Phases, one line each:
      (``[kmeans_random_init]``). One card is one rank: every ``redistribute`` and the sort
      network are bypassed there (tests/test_torch_distributed.py holds them at 3 and 4
      gloo ranks);
- 17. one JSON line listing every ported kernel with its launches on its path, its time,
-     its bound on this card (f32 attention work at the 3xTF32 rate, with the fp32 FMA
-     rate's bound beside it), its plain version's time and a library call's time (the
-     linear algebra runs no hand kernel: its products are cuBLAS and cuSOLVER; the array
-     API none: its torch ops stand in for XLA's);
- 18. the last line, ``{"ok": true, "device": {...}}``.
+ 17. (in the same child process) the clustering slice (``cluster_phases``): heat_tpu's
+     cluster benchmark (benchmarks/cb/cluster.py: KMeans, KMedians, KMedoids and
+     BatchParallelKMeans, k = 4, on ``create_spherical_dataset`` of 5,000 points a ball),
+     each equal to the CPU path on a CPU copy and timed best of 3, data included
+     (``[cluster_bench]``); KMedians, KMedoids and BatchParallelKMeans at 10M x 64, k = 8,
+     ``max_iter=30``: at 200,000 rows the ++ seeding's picks against the CPU path's and
+     the fit from the CPU's seeds equal to the CPU's, then the full size timed
+     (``[kmedians_fit]``, ``[kmedoids_fit]``, ``[batchparallel_fit]``); Spectral at its
+     defaults (rbf, gamma 1, n_lanczos 300) on 4 x 4096 points, its labels equal to the
+     CPU path's at 4 x 512 and recovering the balls (at least 99% of each ball under one
+     label, four labels) at full size (``[spectral_fit]``). Spectral's similarity is
+     float64, as heat_tpu's (a NumPy float64 sigma), so its KMeans runs no K1;
+ 18. one JSON line listing every ported kernel with its launches on its path (K1's on
+     every clustering path too), its time, its bound on this card (f32 attention work at
+     the 3xTF32 rate, with the fp32 FMA rate's bound beside it), its plain version's time
+     and a library call's time (the linear algebra runs no hand kernel: its products are
+     cuBLAS and cuSOLVER; the array API and the clustering none: their torch ops stand in
+     for XLA's);
+ 19. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script then exits non-zero without the last line. It
 also fails when CUDA is not available or when the heat_tpu_torch package is not beside
@@ -1079,9 +1099,323 @@ def array_phases(ht, dev) -> dict:
     return res
 
 
+# the clustering slice: heat_tpu's cluster benchmark (benchmarks/cb/cluster.py: k = 4 on
+# create_spherical_dataset of 5,000 points a ball, max_iter 30, random_state 1) and the
+# estimators at bench.py's 10M x 64, k = 8
+CLUSTER_BENCH_N = 5000
+CHECK_ROWS = 200_000  # the 10M paths are held to the CPU path at this many rows
+SPECTRAL_N, SPECTRAL_CHECK_N = 4096, 512  # points a ball: 16,384 and 2,048 in all
+
+
+def pp_seed(ht, X, random_state: int, p: int = 2):
+    """The greedy ++ seeding of ``KMeans(init="kmeans++", random_state=...)`` (or, at
+    ``p`` = 1, of KMedians) on X: (centers, global row indices, the key's seed)."""
+    from heat_tpu_torch.cluster import _kcluster
+    from heat_tpu_torch.cluster.batchparallelclustering import _plus_plus
+    from heat_tpu_torch.core import random
+
+    random.seed(random_state)
+    seed = int(random.randint(0, 2**31 - 1, (1,), device=X.device, comm=X.comm).larray.item())
+    centers, picks = _plus_plus(X.larray.float(), K, p, random._key(seed), _kcluster._rows_of(X))
+    return centers, picks, seed
+
+
+def explain_picks(xg, xc, picks_g, picks_c, seed: int, p: int) -> dict:
+    """Where the card's and the CPU's ++ picks part: the first step that differs, redone
+    on both from the same earlier rows. Its probabilities differ only by the distances'
+    rounding, and its cumulative sums are the same scan (``random._xla_cumsum``) on each.
+    A candidate that differs is explained when its target lies within
+    γ_n·Σp + Σ|p_card − p_cpu| of both cumulative sums (float64 on the card's p) at the
+    boundary between the two rows; with equal candidates, a winner that differs is
+    explained when the two winners' potentials lie within γ_n of each other."""
+    import torch
+
+    from heat_tpu_torch.cluster.batchparallelclustering import _cdist_p
+    from heat_tpu_torch.core import random
+
+    step = int(torch.nonzero(picks_g.cpu() != picks_c.cpu())[0])
+    keys = random._split(random._key(seed), K)
+    m = 2 + int(np.log(K))
+    probs, cands, pots = [], [], []
+    for x in (xg, xc):
+        d = _cdist_p(x, x[picks_c[:step].to(x.device)], p).amin(1) ** 2
+        pr = d / torch.clamp_min(torch.sum(d), 1e-30)
+        cand = random._key_choice(keys[step], m, pr)
+        cd = _cdist_p(x, x[cand], p) ** 2
+        probs.append(pr)
+        cands.append(cand.cpu())
+        pots.append(torch.sum(torch.minimum(d[:, None], cd), 0).double().cpu())
+    n = xg.shape[0]
+    pg = probs[0].double()
+    cum = torch.cumsum(pg, 0).cpu()
+    bound = gamma(n) * float(pg.sum()) + float((pg - probs[1].to(pg.device).double()).abs().sum())
+    targets = random._choice_draws(keys[step], m, random._xla_cumsum(probs[0])[-1]).double().cpu()
+    out = {"step": step, "bound": bound, "candidates_card": cands[0].tolist(), "candidates_cpu": cands[1].tolist()}
+    gaps = []
+    for j in range(m):
+        a, b = sorted((int(cands[0][j]), int(cands[1][j])))
+        if a != b:
+            r = float(targets[j])
+            gaps.append(max(abs(r - float(cum[a])), abs(r - float(cum[b - 1]))))
+    if gaps:
+        out["gaps"] = gaps
+        out["explained"] = max(gaps) <= bound
+    else:
+        wg, wc = int(torch.argmin(pots[0])), int(torch.argmin(pots[1]))
+        rel = abs(float(pots[0][wg] - pots[0][wc])) / max(float(pots[0][wg]), 1e-300)
+        out.update(winners=[wg, wc], potential_rel_gap=rel, explained=wg != wc and rel <= gamma(n))
+    return out
+
+
+def against_blobs(centers, true, seeds=None) -> dict:
+    """The fit against the blobs' true centers: each true center's nearest fitted one by
+    the largest coordinate difference (``center_err``, the worst of them; the fitted
+    centers so matched, ``distinct``), and how many blobs hold a seed (a seed row's
+    nearest true center)."""
+    import torch
+
+    err = (true.double()[:, None, :] - centers.double()[None]).abs().amax(-1)
+    near = err.min(1)
+    out = {"center_err": float(near.values.max()), "distinct": len(set(near.indices.tolist()))}
+    if seeds is not None:
+        out["seeded"] = len(set(torch.cdist(seeds.double(), true.double()).argmin(1).tolist()))
+    return out
+
+
+def kmeans_pp_phase(ht, kernels, dev) -> dict:
+    """[kmeans_pp_fit]: ``KMeans(n_clusters=8, init="kmeans++", random_state=s,
+    max_iter=30, tol=-1)`` at 10M x 64: the seeding's picks against the CPU path's on a
+    CPU copy (equal, or each difference explained by :func:`explain_picks`), the fit's
+    K1 launches counted (31), its centers against the blobs', its host reads from a
+    seeded start (the loop reads nothing before its end), the seeding and the fit timed,
+    and one fit traced."""
+    import torch
+
+    x, _, true = blobs(N, D, K, SEED, dev)
+    X = ht.array(x, split=0)
+    rs = SEED + 5000
+    t0 = time.perf_counter()
+    centers_g, picks_g, seed = pp_seed(ht, X, rs)
+    torch.cuda.synchronize()
+    seed_first_s = time.perf_counter() - t0
+    seed_s, seed_walls = best_s(lambda: pp_seed(ht, X, rs), 2)
+    xc = x.cpu()
+    _, picks_c, _ = pp_seed(ht, ht.array(xc, split=0, device="cpu"), rs)
+    picks_equal = torch.equal(picks_g.cpu(), picks_c)
+    picks = {"equal": picks_equal, "card": picks_g.tolist(), "cpu": picks_c.tolist()}
+    if not picks_equal:
+        picks.update(explain_picks(x, xc, picks_g, picks_c, seed, 2))
+        check(picks["explained"], f"k-means++ picks differ from the CPU path's beyond rounding: {picks}")
+    km = ht.cluster.KMeans(n_clusters=K, init="kmeans++", random_state=rs, max_iter=MAX_ITER, tol=-1.0)
+    km._initialize_cluster_centers(X)
+    check(torch.equal(km._cluster_centers.larray, centers_g), "the fit's seeding differs from pp_seed's")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    km.fit(X)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    check(km.n_iter_ == MAX_ITER and counts["kmeans_assign"] == MAX_ITER + 1,
+          f"k-means++ fit: {km.n_iter_} iterations, launches {counts}")
+    blobs_fit = against_blobs(km.cluster_centers_.larray, true, x[picks_g])
+    if blobs_fit["seeded"] == K:
+        # a cluster mean of ~n/k unit-noise rows: 6 standard errors
+        check(blobs_fit["distinct"] == K and blobs_fit["center_err"] < 6.0 / (N / K) ** 0.5,
+              f"k-means++ fit: a seed in every blob, but {blobs_fit}")
+    else:
+        # a blob without a seed: Lloyd's finds another optimum; it never raises the objective
+        start = ht.cluster.KMeans(n_clusters=K, init=ht.array(centers_g), max_iter=0, tol=-1.0).fit(X)
+        check(km.inertia_ <= start.inertia_, f"k-means++ fit: inertia {km.inertia_} above its seeds' {start.inertia_}")
+    # from a seeded start the loop reads back only n_iter and the inertia, at its end
+    moved: list = []
+    seeded = ht.cluster.KMeans(n_clusters=K, init=ht.array(centers_g), max_iter=MAX_ITER, tol=-1.0)
+    with d2h_bytes(moved):
+        seeded.fit(X)
+    check(len(moved) == 2, f"the Lloyd loop read back {moved} bytes")
+    fit_s, fit_walls = best_s(lambda: km.fit(X), 2)
+    lloyd_s, lloyd_walls = best_s(lambda: seeded.fit(X), 2)
+    prof = profile_device(lambda: km.fit(X), inference=False)
+    if "device_busy_ms" in prof:
+        prof["host_ms_per_iteration"] = (prof["traced_wall_ms"] - prof["device_busy_ms"]) / (MAX_ITER + 1)
+    res = {"picks": picks, "seeding_first_s": seed_first_s, "seeding_best_of_2_s": seed_s, "seeding_walls_s": seed_walls,
+           "fit_first_s": first_s, "fit_best_of_2_s": fit_s, "fit_walls_s": fit_walls,
+           "lloyd_from_seeds_best_of_2_s": lloyd_s, "lloyd_walls_s": lloyd_walls, "k1_launches": counts["kmeans_assign"],
+           "blobs": blobs_fit, "inertia": km.inertia_, "loop_reads": moved, "profile": prof}
+    phase("kmeans_pp_fit", n=N, d=D, k=K, n_iter=km.n_iter_, k1_launches=counts["kmeans_assign"],
+          picks_equal_cpu=picks_equal, picks=json.dumps(picks), seeding_s=repr(seed_s), fit_s=repr(fit_s),
+          lloyd_from_seeds_s=repr(lloyd_s), blobs=json.dumps(blobs_fit), loop_host_reads=json.dumps(moved),
+          profile=json.dumps(prof))
+    return res
+
+
+def fits_equal(a, b, what: str) -> None:
+    """Two fits of one estimator, on the card and on a CPU copy: n_iter and labels equal,
+    centers within 1e-5 of their largest magnitude."""
+    import torch
+
+    check(a.n_iter_ == b.n_iter_, f"{what}: {a.n_iter_} iterations on the card, {b.n_iter_} on the CPU")
+    check(torch.equal(a.labels_.larray.cpu(), b.labels_.larray), f"{what}: labels differ between card and CPU")
+    ca, cb = a.cluster_centers_.larray.cpu().double(), b.cluster_centers_.larray.double()
+    err = float((ca - cb).abs().max())
+    check(err <= 1e-5 * max(1.0, float(cb.abs().max())), f"{what}: centers differ by {err}")
+
+
+def cluster_phases(ht, dev) -> dict:
+    """The clustering slice on the card (phase 17): heat_tpu's cluster benchmark, the
+    10M x 64 KMedians, KMedoids and BatchParallelKMeans fits, and Spectral; each against
+    the port's CPU path on a CPU copy of its data, with K1's launches counted."""
+    import torch
+
+    from heat_tpu_torch.core import kernels
+    from heat_tpu_torch.utils.data.spherical import create_spherical_dataset
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    res = {"nvidia_smi": smi}
+    t_phase = time.perf_counter()
+
+    # heat_tpu's cluster benchmark: its four functions, data included, best of 3
+    bench = {
+        "kmeans": lambda m, x: m.cluster.KMeans(n_clusters=4, init="kmeans++", max_iter=30, random_state=1).fit(x),
+        "kmedians": lambda m, x: m.cluster.KMedians(n_clusters=4, init="kmedians++", max_iter=30,
+                                                    random_state=1).fit(x),
+        "kmedoids": lambda m, x: m.cluster.KMedoids(n_clusters=4, init="kmedoids++", random_state=1).fit(x),
+        "batchparallel_kmeans": lambda m, x: m.cluster.BatchParallelKMeans(n_clusters=4, init="k-means++", max_iter=30,
+                                                                           random_state=1).fit(x),
+    }
+    res["cluster_bench"] = {}
+    for name, fn in bench.items():
+        x = create_spherical_dataset(CLUSTER_BENCH_N)
+        kernels.reset_launch_counts()
+        on_card = fn(ht, x)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()["kmeans_assign"]
+        check(x.larray.is_cuda and on_card.cluster_centers_.larray.is_cuda, f"{name}: not on the card")
+        fits_equal(on_card, fn(ht, ht.array(x.larray.cpu(), split=0, device="cpu")), f"cluster_bench {name}")
+        best, walls = best_s(lambda: fn(ht, create_spherical_dataset(CLUSTER_BENCH_N)), 3)
+        fit_best, _ = best_s(lambda: fn(ht, x), 3)
+        res["cluster_bench"][name] = {"best_of_3_s": best, "walls_s": walls, "fit_alone_best_of_3_s": fit_best,
+                                      "n_iter": on_card.n_iter_, "k1_launches": launches}
+        phase("cluster_bench", fn=name, n=4 * CLUSTER_BENCH_N, n_iter=on_card.n_iter_, k1_launches=launches,
+              equal_to_cpu=True, best_of_3_s=repr(best), fit_alone_best_of_3_s=repr(fit_best))
+        del x, on_card
+    torch.cuda.empty_cache()
+
+    # the estimators at 10M x 64, k = 8, each held to the CPU path at 200,000 rows; the ++
+    # seedings compared on their own, the fits from the CPU's seeds
+    fits = {
+        "kmedians_fit": (lambda init, rs: ht.cluster.KMedians(n_clusters=K, init=init, max_iter=MAX_ITER,
+                                                              random_state=rs), "kmedians++", 1),
+        "kmedoids_fit": (lambda init, rs: ht.cluster.KMedoids(n_clusters=K, init=init, max_iter=MAX_ITER,
+                                                              random_state=rs), "kmedoids++", 2),
+    }
+    xs, _, _ = blobs(CHECK_ROWS, D, K, SEED + 6000, dev)
+    Xs, Xc = ht.array(xs, split=0), ht.array(xs.cpu(), split=0, device="cpu")
+    for name, (make, init, p) in fits.items():
+        rs = SEED + 6100
+        _, picks_g, seed = pp_seed(ht, Xs, rs, p)
+        _, picks_c, _ = pp_seed(ht, Xc, rs, p)
+        picks = {"equal": torch.equal(picks_g.cpu(), picks_c)}
+        if not picks["equal"]:
+            picks.update(explain_picks(xs, xs.cpu(), picks_g, picks_c, seed, p))
+            check(picks["explained"], f"{name}: ++ picks differ beyond rounding: {picks}")
+        cpu_init = make(init, rs)
+        cpu_init._initialize_cluster_centers(Xc)
+        seeds = cpu_init._cluster_centers
+        a = make(ht.array(seeds.larray.to(dev)), None).fit(Xs)
+        b = make(seeds, None).fit(Xc)
+        fits_equal(a, b, f"{name} at {CHECK_ROWS} rows")
+        res[name] = {"check_rows": CHECK_ROWS, "picks": picks, "check_n_iter": a.n_iter_}
+    del xs, Xs, Xc
+    torch.cuda.empty_cache()
+    # BatchParallelKMeans: one block at one rank, its ++ seeding inside
+    xs, _, _ = blobs(CHECK_ROWS, D, K, SEED + 6000, dev)
+    bp = lambda: ht.cluster.BatchParallelKMeans(n_clusters=K, max_iter=MAX_ITER, random_state=SEED + 6200)  # noqa: E731
+    fits_equal(bp().fit(ht.array(xs, split=0)), bp().fit(ht.array(xs.cpu(), split=0, device="cpu")),
+               f"batchparallel_fit at {CHECK_ROWS} rows")
+    res["batchparallel_fit"] = {"check_rows": CHECK_ROWS}
+    del xs
+    torch.cuda.empty_cache()
+
+    x, _, true = blobs(N, D, K, SEED, dev)
+    X = ht.array(x, split=0)
+    full = {
+        "kmedians_fit": lambda: ht.cluster.KMedians(n_clusters=K, init="kmedians++", max_iter=MAX_ITER,
+                                                    random_state=SEED + 6300),
+        "kmedoids_fit": lambda: ht.cluster.KMedoids(n_clusters=K, init="kmedoids++", max_iter=MAX_ITER,
+                                                    random_state=SEED + 6300),
+        "batchparallel_fit": lambda: ht.cluster.BatchParallelKMeans(n_clusters=K, max_iter=MAX_ITER,
+                                                                    random_state=SEED + 6300),
+    }
+    for name, make in full.items():
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        est = make().fit(X)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()["kmeans_assign"]
+        centers = est.cluster_centers_.larray
+        check(centers.is_cuda and bool(torch.isfinite(centers).all()) and est.labels_.larray.is_cuda,
+              f"{name}: centers or labels not finite on the card")
+        blobs_fit = against_blobs(centers, true)
+        best, walls = best_s(lambda: make().fit(X), 2)
+        res[name].update(n=N, n_iter=est.n_iter_, k1_launches=launches, first_s=first_s, best_of_2_s=best,
+                         walls_s=walls, blobs=blobs_fit)
+        phase(name, n=N, d=D, k=K, n_iter=est.n_iter_, k1_launches=launches, equal_to_cpu_at=CHECK_ROWS,
+              picks=json.dumps(res[name].get("picks")), first_s=repr(first_s), best_of_2_s=repr(best),
+              blobs=json.dumps(blobs_fit))
+        del est
+        torch.cuda.empty_cache()
+    del x, X, true
+    torch.cuda.empty_cache()
+
+    # Spectral at its defaults (rbf, gamma 1, n_lanczos 300) on create_spherical_dataset
+    def balls_recovered(labels, per):
+        """The share of each ball's points that carry its majority label, and whether the
+        four majorities differ."""
+        lab = labels.reshape(4, per)
+        major = [int(torch.mode(row).values) for row in lab]
+        share = min(float((row == m).float().mean()) for row, m in zip(lab, major))
+        return share, len(set(major)) == 4
+
+    xs = create_spherical_dataset(SPECTRAL_CHECK_N)
+    ht.random.seed(SEED + 6400)
+    a = ht.cluster.Spectral(n_clusters=4).fit(xs)
+    ht.random.seed(SEED + 6400)
+    b = ht.cluster.Spectral(n_clusters=4).fit(ht.array(xs.larray.cpu(), split=0, device="cpu"))
+    check(torch.equal(a.labels_.larray.cpu(), b.labels_.larray), "spectral: labels differ between card and CPU")
+    del xs, a, b
+    x = create_spherical_dataset(SPECTRAL_N)
+    ht.random.seed(SEED + 6401)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    sp = ht.cluster.Spectral(n_clusters=4).fit(x)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()["kmeans_assign"]
+    share, distinct = balls_recovered(sp.labels_.larray, SPECTRAL_N)
+    check(distinct and share >= 0.99, f"spectral: the balls are not recovered (share {share}, distinct {distinct})")
+    best, walls = best_s(lambda: ht.cluster.Spectral(n_clusters=4).fit(x), 2)
+    res["spectral_fit"] = {"n": 4 * SPECTRAL_N, "first_s": first_s, "best_of_2_s": best, "walls_s": walls,
+                           "k1_launches": launches, "ball_share": share, "kmeans_n_iter": sp._cluster.n_iter_,
+                           "dtype": sp._cluster.cluster_centers_.dtype.__name__}
+    phase("spectral_fit", n=4 * SPECTRAL_N, check_n=4 * SPECTRAL_CHECK_N, equal_to_cpu=True, ball_share=share,
+          k1_launches=launches, embedding_dtype=res["spectral_fit"]["dtype"], first_s=repr(first_s),
+          best_of_2_s=repr(best))
+    del x, sp
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
 def linalg_child(out_path: str) -> int:
-    """The child process of phases 13-16: the card, the package, :func:`linalg_phases`
-    and :func:`array_phases`; their results go to ``out_path`` as JSON."""
+    """The child process of phases 13-17: the card, the package, :func:`linalg_phases`,
+    :func:`array_phases` and :func:`cluster_phases`; their results go to ``out_path`` as
+    JSON."""
     import torch
 
     import heat_tpu_torch as ht
@@ -1091,13 +1425,14 @@ def linalg_child(out_path: str) -> int:
     ht.use_device("gpu")
     out = {"linalg": linalg_phases(ht, dev)}
     out["array"] = array_phases(ht, dev)
+    out["cluster"] = cluster_phases(ht, dev)
     with open(out_path, "w") as fh:
         json.dump(out, fh)
     return 0
 
 
 def run_linalg_child() -> dict:
-    """Phases 13-16 in a fresh process of this script (its phase lines go to this
+    """Phases 13-17 in a fresh process of this script (its phase lines go to this
     stdout); fails unless it ends with code 0."""
     import tempfile
 
@@ -1105,7 +1440,7 @@ def run_linalg_child() -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         out_path = os.path.join(tmp, "linalg.json")
         rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--linalg-child", out_path]).returncode
-        check(rc == 0, f"the linear algebra or array phases failed (exit code {rc})")
+        check(rc == 0, f"the linear algebra, array or clustering phases failed (exit code {rc})")
         with open(out_path) as fh:
             return json.load(fh)
 
@@ -1192,7 +1527,7 @@ def main() -> int:
     checks = {}
     for n, d, k, offset in [(N, D, K, 0), (tile - 56, D, K, 0), (tile + 1, D, K, 0), (130, 10, 3, 0), (1500, 7, 5, 0),
                             (5000, D, 1, 0), (3000, 48, 12, 0), (2000, 100, 6, 0), (3001, 256, 8, 0),
-                            (4099, D, K, 1)]:
+                            (4099, D, K, 1), (4 * SPECTRAL_N, 4, 4, 0)]:
         if n == N:
             xs, cs = x, init
         else:
@@ -1264,6 +1599,10 @@ def main() -> int:
     phase("kmeans_fit_profile", **{key: json.dumps(v) for key, v in fit_profile.items()})
 
     del X, km, x, init, true, xs, cs, on_card, on_cpu, labels, centers
+    torch.cuda.empty_cache()
+
+    # 5b. the k-means++ path: KMeans(init="kmeans++") at the same configuration
+    pp = kmeans_pp_phase(ht, kernels, dev)
     torch.cuda.empty_cache()
 
     # 6. K2 against its plain version on the card
@@ -1806,13 +2145,14 @@ def main() -> int:
     del bwd_data
     torch.cuda.empty_cache()
 
-    # 13-16. distributed linear algebra: config #2's product, config #4's hsvd_rank, the rest
+    # 13-17. distributed linear algebra: config #2's product, config #4's hsvd_rank, the rest
     #        small; then the array API: the manipulation benchmark at N = 40M, the random
-    #        streams and KMeans' random init; in a child process (linalg_phases, array_phases)
+    #        streams and KMeans' random init; then the clustering slice; in a child process
+    #        (linalg_phases, array_phases, cluster_phases)
     child_out = run_linalg_child()
-    linalg_out, array_out = child_out["linalg"], child_out["array"]
+    linalg_out, array_out, cluster_out = child_out["linalg"], child_out["array"], child_out["cluster"]
 
-    # 17. every ported kernel: launches on its path, time, bound, plain version's and library's time
+    # 18. every ported kernel: launches on its path, time, bound, plain version's and library's time
     x, init, _ = blobs(N, D, K, SEED, dev)
     ms = cuda_ms(lambda: k1.fused_assign_update_packed(x, init), reps=20, warmup=3)
     plain_ms = cuda_ms(lambda: k1.fused_assign_update_reference(x, init), reps=5, warmup=1)
@@ -1836,6 +2176,18 @@ def main() -> int:
                 "source": "heat_tpu_torch/core/kernels/csrc/kmeans_assign.cu",
                 "replaces": "heat_tpu/core/kernels/kmeans.py:44",
                 "launches": counts["kmeans_assign"],
+                "launches_by_path": {
+                    "kmeans_fit": counts["kmeans_assign"],
+                    "kmeans_pp_fit": pp["k1_launches"],
+                    "kmeans_random_init": array_out["kmeans_random_init"]["k1_launches"],
+                    **{f"cluster_bench_{n_}": v["k1_launches"] for n_, v in cluster_out["cluster_bench"].items()},
+                    **{n_: cluster_out[n_]["k1_launches"] for n_ in ("kmedians_fit", "kmedoids_fit", "batchparallel_fit",
+                                                                     "spectral_fit")},
+                },
+                "launches_note": "KMedians, KMedoids and the batch-parallel solves assign by heat_tpu's generic step, "
+                                 "as heat_tpu does; Spectral's embedding is float64 (heat_tpu's rbf of a NumPy "
+                                 "float64 sigma), so its KMeans takes the float64 generic step",
+                "max_abs_err_at_spectral_shape": checks[(4 * SPECTRAL_N, 4, 4, "float")]["max_abs_err"],
                 "max_abs_err": checks[(N, D, K, "float")]["max_abs_err"],
                 "ms": ms,
                 "plain_ms": plain_ms,
@@ -1967,9 +2319,9 @@ def main() -> int:
                        "train_step_pipelined_peak_gb": train_peak_on_gb,
                        "train_step_pipelined_profile": train_breakdown_on, "bench_ab_runs_ms": ab_runs,
                        "bench_ab_k2_ms": ab_k2_ms, "bench_ab_k3_ms": ab_k3_ms, "linalg": linalg_out,
-                       "array": array_out}, fh, indent=1)
+                       "array": array_out, "kmeans_pp": pp, "cluster": cluster_out}, fh, indent=1)
 
-    # 18. the last line
+    # 19. the last line
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
 

@@ -17,8 +17,10 @@ from .core import *
 from . import core
 from .core import random
 from . import spatial
+from . import graph
 from . import cluster
 from . import nn
 from . import optim
 from . import interop
+from . import utils
 from . import testing

@@ -1,4 +1,8 @@
-"""Clustering algorithms (counterpart of heat_tpu/cluster/: KMeans so far)."""
+"""Clustering algorithms (counterpart of heat_tpu/cluster/)."""
 
+from .batchparallelclustering import *
 from .kmeans import *
-from . import kmeans
+from .kmedians import *
+from .kmedoids import *
+from .spectral import *
+from . import batchparallelclustering, kmeans, kmedians, kmedoids, spectral

@@ -88,10 +88,23 @@ def lanczos(
     m = int(m)
     out_dtype = A.dtype if A.dtype is types.float64 else types.float32
     tt = out_dtype.torch_type()
-    a = A._relayout(None).to(tt)
-    v = torch.ones(n, dtype=tt, device=a.device) if v0 is None else v0._relayout(None).to(tt)
+    if A.split == 0 and A.is_distributed():
+        # each rank multiplies its rows; the product vector (n values) is gathered
+        rows, counts = A.larray.to(tt), A.counts_displs()[0]
+
+        def matvec(v):
+            return A.comm.all_gather_v(rows @ v, counts)
+
+    else:
+        a = A._relayout(None).to(tt)
+
+        def matvec(v):
+            return a @ v
+
+    device = A.larray.device
+    v = torch.ones(n, dtype=tt, device=device) if v0 is None else v0._relayout(None).to(tt)
     gen = generator if generator is not None else torch.Generator().manual_seed(17)
-    V_rows, T_val = _lanczos(a, v, m, gen)
+    V_rows, T_val = _lanczos(matvec, v, m, gen)
     T = factories.array(T_val, dtype=out_dtype, split=None, device=A.device, comm=A.comm)
     V = factories.array(V_rows.T, dtype=out_dtype, split=None, device=A.device, comm=A.comm)
     if V_out is not None:
@@ -101,16 +114,16 @@ def lanczos(
     return V, T
 
 
-def _lanczos(a: torch.Tensor, v0: torch.Tensor, m: int, gen: torch.Generator):
-    """heat_tpu's ``_lanczos_run_impl`` (solver.py:83): returns ``(V_rows, T)``, row i of
-    ``V_rows`` the i-th Lanczos vector."""
-    n = a.shape[0]
+def _lanczos(matvec, v0: torch.Tensor, m: int, gen: torch.Generator):
+    """heat_tpu's ``_lanczos_run_impl`` (solver.py:83) with ``matvec(v) = A·v``: returns
+    ``(V_rows, T)``, row i of ``V_rows`` the i-th Lanczos vector."""
+    n = v0.shape[0]
     eps = 1e-10
-    V = a.new_zeros((m, n))
-    T = a.new_zeros((m, m))
+    V = v0.new_zeros((m, n))
+    T = v0.new_zeros((m, m))
     with full_fp32_matmul():
         v = v0 / torch.linalg.vector_norm(v0)
-        w = a @ v
+        w = matvec(v)
         alpha = torch.dot(w, v)
         V[0], T[0, 0] = v, alpha
         w = w - alpha * v
@@ -120,14 +133,14 @@ def _lanczos(a: torch.Tensor, v0: torch.Tensor, m: int, gen: torch.Generator):
             if good:
                 vr = w / beta
             else:
-                vr = torch.randn(n, generator=gen, dtype=a.dtype).to(a.device)
+                vr = torch.randn(n, generator=gen, dtype=v0.dtype).to(v0.device)
             # project out the rows < i
             coef = V[:i] @ vr
             vr = vr - coef @ V[:i]
             nrm = torch.linalg.vector_norm(vr)
             if bool(nrm > 0):
                 vr = vr / nrm
-            wn = a @ vr
+            wn = matvec(vr)
             alpha = torch.dot(wn, vr)
             beta_eff = beta if good else torch.zeros_like(beta)
             w = wn - alpha * vr - beta_eff * V[i - 1]

@@ -90,12 +90,10 @@ def _fold_in(key: Tuple[int, int], data: int) -> Tuple[int, int]:
     return threefry2x32(key, 0, int(data) & M32)
 
 
-def _split(key: Tuple[int, int]) -> Tuple[Tuple[int, int], Tuple[int, int]]:
-    """``jax.random.split(key)`` with partitionable Threefry: the hashes of the counter
-    pairs (0, 0) and (0, 1)."""
-    a1, a2 = threefry2x32(key, 0, 0)
-    b1, b2 = threefry2x32(key, 0, 1)
-    return (a1, a2), (b1, b2)
+def _split(key: Tuple[int, int], num: int = 2) -> Tuple[Tuple[int, int], ...]:
+    """``jax.random.split(key, num)`` with partitionable Threefry: key ``i`` is the hash
+    of the counter pair (hi(i), lo(i))."""
+    return tuple(threefry2x32(key, i >> 32, i & M32) for i in range(int(num)))
 
 
 def _next_key(nelem: int) -> Tuple[int, int]:
@@ -296,31 +294,10 @@ def randint(low: int, high: Optional[int] = None, size=None, dtype=types.int32, 
     dtype = types.canonical_heat_type(dtype)
     if dtype not in (types.int32, types.int64):
         raise ValueError(f"Unsupported dtype {dtype} for randint")
-    info = torch.iinfo(dtype.torch_type())
-    lo, hi = max(int(low), info.min), min(int(high), info.max)
-    nbits = info.bits
-    span = (hi - lo) % 2**nbits
-    if int(high) > info.max:
-        span = (span + 1) % 2**nbits
     comm, device, split = _setup(size, split, device, comm)
     key = _next_key(int(np.prod(size)) if size else 1)
-    k1, k2 = _split(key)
-    dev = device.torch_device
-    if nbits == 32:
-        higher, lower = (_bits32(k, size, split, comm, dev) for k in (k1, k2))
-        mult = (2**16 % span) ** 2 % 2**32 % span
-        offset = (((higher % span) * mult) & M32) + (lower % span)
-        offset = (offset & M32) % span
-    else:
-        if span >= 2**31:
-            raise NotImplementedError("randint: int64 spans of 2**31 or more are not ported")
-        h, l = (_bits(k, size, split, comm, dev) for k in (k1, k2))  # noqa: E741
-        mult = (2**32 % span) ** 2 % span
-        r32 = 2**32 % span
-        h_mod = ((h[0] % span) * r32 + h[1] % span) % span
-        l_mod = ((l[0] % span) * r32 + l[1] % span) % span
-        offset = (h_mod * mult + l_mod) % span
-    return DNDarray((offset + lo).to(dtype.torch_type()), size, dtype, split, device, comm, True)
+    value = _randint_values(key, size, low, high, dtype, split, comm, device.torch_device)
+    return DNDarray(value, size, dtype, split, device, comm, True)
 
 
 def random_integer(low: int, high: Optional[int] = None, size=None, dtype=types.int32, split=None, device=None, comm=None) -> DNDarray:
@@ -359,6 +336,87 @@ def normal(mean=0.0, std=1.0, shape=None, dtype=types.float32, split=None, devic
     from . import arithmetics
 
     return arithmetics.add(arithmetics.mul(s, std), mean)
+
+
+# --------------------------------------------------------------------------- key-level draws
+# heat_tpu's clustering calls jax.random with explicit keys (jax.random.key(seed), split,
+# randint, uniform, choice); these give the same bits for a key held as its two uint32
+# words, computed whole on the caller's device.
+def _randint_values(key, size, low: int, high: int, dtype, split=None, comm=None, dev=None) -> torch.Tensor:
+    """jax ``_randint`` under ``key``: two words an element from the halves of
+    ``split(key)``, reduced modulo the span with its unsigned wrap-around replayed."""
+    comm = sanitize_comm(comm)
+    info = torch.iinfo(dtype.torch_type())
+    lo, hi = max(int(low), info.min), min(int(high), info.max)
+    nbits = info.bits
+    span = (hi - lo) % 2**nbits
+    if int(high) > info.max:
+        span = (span + 1) % 2**nbits
+    k1, k2 = _split(key)
+    if nbits == 32:
+        higher, lower = (_bits32(k, size, split, comm, dev) for k in (k1, k2))
+        mult = (2**16 % span) ** 2 % 2**32 % span
+        offset = (((higher % span) * mult) & M32) + (lower % span)
+        offset = (offset & M32) % span
+    else:
+        if span >= 2**31:
+            raise NotImplementedError("randint: int64 spans of 2**31 or more are not ported")
+        h, l = (_bits(k, size, split, comm, dev) for k in (k1, k2))  # noqa: E741
+        mult = (2**32 % span) ** 2 % span
+        r32 = 2**32 % span
+        h_mod = ((h[0] % span) * r32 + h[1] % span) % span
+        l_mod = ((l[0] % span) * r32 + l[1] % span) % span
+        offset = (h_mod * mult + l_mod) % span
+    return (offset + lo).to(dtype.torch_type())
+
+
+def _key_randint(key, shape, low: int, high: int, device=None) -> torch.Tensor:
+    """``jax.random.randint(key, shape, low, high)`` at heat_tpu's default int64."""
+    return _randint_values(key, tuple(shape), low, high, types.int64, dev=device)
+
+
+def _key_uniform(key, shape, dtype=types.float32, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, dtype)`` on [0, 1)."""
+    return _uniform01(key, tuple(shape), dtype, None, sanitize_comm(None), device)
+
+
+def _xla_cumsum(p: torch.Tensor) -> torch.Tensor:
+    """The inclusive scan of a 1-D tensor in XLA's CPU order for ``jnp.cumsum`` (its
+    reduce-window rewrite with base 16): rows of 16 scanned in order, the rows' totals
+    scanned the same way, and each row's exclusive carry added to it; 16 elements or
+    fewer in order. Only additions in the tensor's own type, so the CPU and the card give
+    the same bits."""
+    n = p.shape[0]
+    if n <= 16:
+        out = p.clone()
+        for j in range(1, n):
+            out[j] = out[j - 1] + p[j]
+        return out
+    m = -(-n // 16)
+    rows = torch.zeros(m * 16, dtype=p.dtype, device=p.device)
+    rows[:n] = p
+    rows = rows.view(m, 16)
+    scan = rows.clone()
+    for j in range(1, 16):
+        scan[:, j] = scan[:, j - 1] + rows[:, j]
+    carry = torch.zeros(m, dtype=p.dtype, device=p.device)
+    carry[1:] = _xla_cumsum(scan[:, 15].contiguous())[:-1]
+    return (scan + carry[:, None]).view(-1)[:n]
+
+
+def _choice_draws(key, m: int, total: torch.Tensor) -> torch.Tensor:
+    """The ``m`` targets of ``jax.random.choice(key, n, (m,), p=p)`` (with replacement):
+    ``total · (1 − uniform)``, ``total`` the last element of ``p``'s cumulative sum; the
+    pick is the first index whose cumulative sum reaches its target."""
+    dtype = types.canonical_heat_type(total.dtype)
+    return total * (1 - _key_uniform(key, (m,), dtype, total.device))
+
+
+def _key_choice(key, m: int, p: torch.Tensor) -> torch.Tensor:
+    """``jax.random.choice(key, len(p), (m,), p=p)`` (int64), its cumulative sum in XLA's
+    CPU order (:func:`_xla_cumsum`)."""
+    cuml = _xla_cumsum(p)
+    return torch.searchsorted(cuml, _choice_draws(key, m, cuml[-1]))
 
 
 def _shuffled(key, n: int, comm, device) -> torch.Tensor:

@@ -146,6 +146,98 @@ def run(inputs) -> dict:
         communication.TorchCommunication.all_reduce_packed = orig_packed
     out.update(run_linalg(inputs, comm))
     out.update(run_array_api(comm))
+    out.update(run_cluster(inputs))
+    return out
+
+
+# the clustering fits at three ranks: (estimator, its arguments); the data is heat_tpu's
+# spherical dataset of 4 x 100 points (134, 134, 132 rows a rank)
+CLUSTER_FITS = {
+    "kmeans_pp": ("KMeans", dict(n_clusters=4, init="kmeans++", max_iter=30, random_state=1)),
+    "kmedians_pp": ("KMedians", dict(n_clusters=4, init="kmedians++", max_iter=30, random_state=1)),
+    "kmedoids_pp": ("KMedoids", dict(n_clusters=4, init="kmedoids++", random_state=1)),
+    "kmeans_bp_init": ("KMeans", dict(n_clusters=4, init="batchparallel", max_iter=10, random_state=3)),
+    "bp_kmeans": ("BatchParallelKMeans", dict(n_clusters=4, random_state=4)),
+    "bp_kmedians": ("BatchParallelKMedians", dict(n_clusters=4, random_state=4)),
+}
+SPECTRAL = dict(n_clusters=4, n_lanczos=60)
+SPECTRAL_SEED = 9
+
+
+def _fit_record(out: dict, key: str, est, x) -> None:
+    out[f"{key}_centers"] = est.cluster_centers_.numpy()
+    out[f"{key}_labels"] = est.labels_.numpy()
+    out[f"{key}_n_iter"] = np.array(est.n_iter_)
+    if hasattr(est, "inertia_"):
+        out[f"{key}_inertia"] = np.array(est.inertia_)
+    out[f"{key}_predict"] = est.predict(x).numpy()
+
+
+def run_cluster(inputs) -> dict:
+    """manhattan and rbf at every split pair, the spherical dataset, every clustering
+    estimator and the Laplacian, and the fits again with the whole-array gather made to
+    raise and the small gathers' bytes counted."""
+    out = {}
+    X, Y = inputs["cd_x"], inputs["cd_y"]
+    for xs in (None, 0, 1):
+        for ys in (None, 0):
+            _record(out, f"manhattan_{xs}_{ys}", ht.spatial.manhattan(ht.array(X, split=xs), ht.array(Y, split=ys)))
+            _record(out, f"rbf_{xs}_{ys}", ht.spatial.rbf(ht.array(X, split=xs), ht.array(Y, split=ys), sigma=1.5))
+        _record(out, f"manhattan_self_{xs}", ht.spatial.manhattan(ht.array(X, split=xs)))
+    from heat_tpu_torch.utils.data.spherical import create_spherical_dataset
+
+    _record(out, "spherical", create_spherical_dataset(100))
+    x = ht.array(inputs["sph"], split=0)
+    for name, (cls, kw) in CLUSTER_FITS.items():
+        _fit_record(out, name, getattr(ht.cluster, cls)(**kw).fit(x), x)
+    # KMedians from explicit centers on even-sized clusters with a NaN (the distributed sort)
+    med = ht.array(inputs["med_x"], split=0)
+    _fit_record(out, "kmedians_nan", ht.cluster.KMedians(n_clusters=2, init=ht.array(inputs["med_init"]),
+                                                         max_iter=10).fit(med), med)
+    med64 = ht.array(inputs["med_x"].astype(np.float64), split=0)
+    _fit_record(out, "kmedians_nan_f64", ht.cluster.KMedians(
+        n_clusters=2, init=ht.array(inputs["med_init"].astype(np.float64)), max_iter=10).fit(med64), med64)
+    for definition in ("simple", "norm_sym"):
+        lap = ht.graph.Laplacian(lambda a: ht.spatial.rbf(a, sigma=1.5), definition=definition, mode="eNeighbour",
+                                 threshold_key="lower", threshold_value=0.2)
+        _record(out, f"laplacian_{definition}", lap.construct(ht.array(inputs["cd_x"], split=0)))
+    small = ht.array(inputs["sph_small"], split=0)
+    ht.random.seed(SPECTRAL_SEED)
+    sp = ht.cluster.Spectral(**SPECTRAL).fit(small)
+    out["spectral_labels"] = sp.labels_.numpy()
+    out["spectral_eigenvalues"] = sp._spectral_embedding(small)[0].numpy()
+
+    # the fits with the whole-array gather made to raise; the small gathers' bytes counted
+    def refuse(self, *args, **kwargs):
+        raise RuntimeError("whole-array all_gather")
+
+    gathered = [0, 0]
+    stacked = communication.TorchCommunication.all_gather_stacked
+
+    def counted(self, tensor):
+        res = stacked(self, tensor)
+        gathered[tensor.numel() > 1] += res.numel() * res.element_size()
+        return res
+
+    orig = communication.TorchCommunication.all_gather
+    communication.TorchCommunication.all_gather = refuse
+    communication.TorchCommunication.all_gather_stacked = counted
+    try:
+        fits = {name: (lambda cls=cls, kw=kw: getattr(ht.cluster, cls)(**kw).fit(x))
+                for name, (cls, kw) in CLUSTER_FITS.items()}
+        fits["spectral"] = lambda: ht.cluster.Spectral(**SPECTRAL).fit(small)
+        for name, fn in fits.items():
+            gathered[:] = [0, 0]
+            try:
+                fn()
+                out[f"no_gather_fit_{name}"] = np.array("ok")
+            except Exception as exc:
+                out[f"no_gather_fit_{name}"] = np.array(f"{type(exc).__name__}: {exc}")
+                continue
+            out[f"no_gather_fit_{name}_bytes"] = np.array(gathered)
+    finally:
+        communication.TorchCommunication.all_gather = orig
+        communication.TorchCommunication.all_gather_stacked = stacked
     return out
 
 

@@ -21,6 +21,7 @@ from heat_tpu.core import _executor
 from heat_tpu.core.communication import MeshCommunication
 from heat_tpu.core.linalg import comm_plan as jplan
 
+from heat_tpu_torch.cluster._kcluster import CHECK_EVERY
 from heat_tpu_torch.testing import assert_record_equal
 
 WORLD = 3
@@ -107,7 +108,21 @@ def _inputs():
         **{f"dp_param_{k}": v for k, v in _mlp_params().items()},
         **NAN_CASES,
         **_linalg_inputs(rng),
+        **_cluster_inputs(rng),
     }
+
+
+def _cluster_inputs(rng):
+    """heat_tpu's spherical datasets (its stream left as it was), and even-sized clusters
+    with a NaN for KMedians."""
+    from heat_tpu.utils.data.spherical import create_spherical_dataset
+
+    state = ht.random.get_state()
+    sph, small = create_spherical_dataset(100).numpy(), create_spherical_dataset(40).numpy()
+    ht.random.set_state(state)
+    med = np.concatenate([rng.normal(-5, 1, (40, 3)), rng.normal(5, 1, (36, 3))]).astype(np.float32)
+    med[3, 1] = np.nan
+    return {"sph": sph, "sph_small": small, "med_x": med, "med_init": np.array([[-4] * 3, [4] * 3], np.float32)}
 
 
 def _linalg_inputs(rng):
@@ -284,9 +299,11 @@ def test_kmeans_fit_ragged(ranks, comm3):
         np.testing.assert_array_equal(r["km_labels"], km.labels_.numpy())
         np.testing.assert_allclose(float(r["km_inertia"]), km.inertia_, rtol=1e-4)
         np.testing.assert_array_equal(r["km_predict"], km.labels_.numpy())
-        # one all_reduce per Lloyd iteration plus the final assignment, each of the
-        # packed k*d + k + 1 record
-        assert r["km_allreduce_shapes"].tolist() == [[3 * 4 + 3 + 1]] * (km.n_iter_ + 1)
+        # one all_reduce per Lloyd pass plus the final assignment, each of the packed
+        # k*d + k + 1 record; the host reads the loop's flag every CHECK_EVERY passes, so
+        # the loop runs on to the next multiple of it after converging
+        passes = min(50, -(-km.n_iter_ // CHECK_EVERY) * CHECK_EVERY)
+        assert r["km_allreduce_shapes"].tolist() == [[3 * 4 + 3 + 1]] * (passes + 1)
 
 
 @pytest.mark.parametrize("name", ["self", "cross"])
@@ -710,3 +727,125 @@ def test_printing_at_three_ranks(ranks, comm3, split):
         for r in res:
             got = str(r[key])
             assert got[: got.rindex(", dtype=")] == want
+
+
+# ---------------------------------------------------------------- clustering
+from _torch_dist_worker import CLUSTER_FITS, SPECTRAL, SPECTRAL_SEED  # noqa: E402
+
+SPLIT_PAIRS = [(xs, ys) for xs in (None, 0, 1) for ys in (None, 0)]
+
+
+@pytest.mark.parametrize("xs,ys", SPLIT_PAIRS)
+def test_manhattan_and_rbf_at_three_ranks(ranks, comm3, xs, ys):
+    """manhattan within 1e-5 and rbf within 1e-4 (1e-6 absolute) of heat_tpu's, with its
+    split and lshape map, at every split pair (both row-split: the ring)."""
+    inputs, res = ranks
+    X, Y = ht.array(inputs["cd_x"], split=xs, comm=comm3), ht.array(inputs["cd_y"], split=ys, comm=comm3)
+    for r in res:
+        assert_record_equal(_rec(r, f"manhattan_{xs}_{ys}"), ht.spatial.manhattan(X, Y), rtol=1e-5)
+        assert_record_equal(_rec(r, f"rbf_{xs}_{ys}"), ht.spatial.rbf(X, Y, sigma=1.5), rtol=1e-4, atol=1e-6)
+        if ys is None:
+            assert_record_equal(_rec(r, f"manhattan_self_{xs}"), ht.spatial.manhattan(X), rtol=1e-5)
+
+
+def test_spherical_dataset_at_three_ranks(ranks, comm3):
+    """Drawn on three ranks: heat_tpu's balls within 1e-5 (normal draws within 4 ulp)."""
+    inputs, res = ranks
+    for r in res:
+        got = _rec(r, "spherical")
+        np.testing.assert_allclose(got["value"], inputs["sph"], rtol=0, atol=1e-5)
+        assert got["gshape"].tolist() == [400, 3] and int(got["split"]) == 0
+        assert got["lshape_map"].tolist() == comm3.lshape_map((400, 3), 0).tolist()
+
+
+def _check_fit(r, key, theirs, x):
+    assert int(r[f"{key}_n_iter"]) == theirs.n_iter_
+    np.testing.assert_array_equal(r[f"{key}_labels"], theirs.labels_.numpy())
+    want = theirs.cluster_centers_.numpy()
+    np.testing.assert_allclose(r[f"{key}_centers"], want, rtol=1e-5, atol=1e-5 * max(1.0, np.nanmax(np.abs(want))))
+    if hasattr(theirs, "inertia_"):
+        np.testing.assert_allclose(float(r[f"{key}_inertia"]), theirs.inertia_, rtol=1e-5, equal_nan=True)
+    np.testing.assert_array_equal(r[f"{key}_predict"], theirs.predict(x).numpy())
+
+
+@pytest.mark.parametrize("name", list(CLUSTER_FITS))
+def test_cluster_fits_at_three_ranks(ranks, comm3, name):
+    """Every estimator on heat_tpu's spherical dataset, row-split 134, 134, 132 (the ++
+    seeding's scan and draws across ranks, the distributed medians and medoids, a
+    batch-parallel block a rank and the merge tree) against heat_tpu's fit on its
+    three-device mesh: labels, n_iter and predict equal, centers within 1e-5, inertia
+    within 1e-5 relative."""
+    inputs, res = ranks
+    cls, kw = CLUSTER_FITS[name]
+    x = ht.array(inputs["sph"], split=0, comm=comm3)
+    theirs = getattr(ht.cluster, cls)(**kw).fit(x)
+    for r in res:
+        _check_fit(r, name, theirs, x)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_kmedians_nan_at_three_ranks(ranks, comm3, dtype):
+    """Even-sized clusters (midpoint, not the lower middle) and a NaN: float32 by the
+    distributed sort of the (cluster, value) keys, float64 by one sort a cluster."""
+    inputs, res = ranks
+    key = "kmedians_nan" if dtype == "float32" else "kmedians_nan_f64"
+    x = ht.array(inputs["med_x"].astype(dtype), split=0, comm=comm3)
+    init = ht.array(inputs["med_init"].astype(dtype), comm=comm3)
+    theirs = ht.cluster.KMedians(n_clusters=2, init=init, max_iter=10).fit(x)
+    for r in res:
+        _check_fit(r, key, theirs, x)
+        np.testing.assert_array_equal(r[f"{key}_centers"], theirs.cluster_centers_.numpy())
+        assert r[f"{key}_centers"].dtype == np.dtype(dtype)
+
+
+@pytest.mark.parametrize("definition", ["simple", "norm_sym"])
+def test_laplacian_at_three_ranks(ranks, comm3, definition):
+    inputs, res = ranks
+    lap = ht.graph.Laplacian(lambda a: ht.spatial.rbf(a, sigma=1.5), definition=definition, mode="eNeighbour",
+                             threshold_key="lower", threshold_value=0.2)
+    want = lap.construct(ht.array(inputs["cd_x"], split=0, comm=comm3))
+    for r in res:
+        assert_record_equal(_rec(r, f"laplacian_{definition}"), want, rtol=1e-5, atol=1e-6)
+
+
+def test_spectral_at_three_ranks(ranks, comm3):
+    """Spectral on a row-split similarity (Lanczos by rows, one gather of the product
+    vector a step): labels equal, eigenvalues within 1e-4."""
+    inputs, res = ranks
+    x = ht.array(inputs["sph_small"], split=0, comm=comm3)
+    previous = ht.get_comm()
+    ht.use_comm(comm3)
+    try:
+        ht.random.seed(SPECTRAL_SEED)
+        theirs = ht.cluster.Spectral(**SPECTRAL).fit(x)
+        evals = theirs._spectral_embedding(x)[0].numpy()
+    finally:
+        ht.use_comm(previous)
+    for r in res:
+        np.testing.assert_array_equal(r["spectral_labels"], theirs.labels_.numpy())
+        np.testing.assert_allclose(r["spectral_eigenvalues"], evals, atol=1e-4)
+
+
+# what the fits' small gathers may bring a rank beside one count a gather: the merge's
+# P·k·d float32 centers, or Lanczos' product vector each step (P·ceil(n/P) float64, m of
+# them) and the degree vector
+FIT_GATHERS = {
+    "kmeans_bp_init": lambda P: P * 4 * 3 * 4,
+    "bp_kmeans": lambda P: P * 4 * 3 * 4,
+    "bp_kmedians": lambda P: P * 4 * 3 * 4,
+    "spectral": lambda P: (SPECTRAL["n_lanczos"] + 1) * P * -(-160 // P) * 8,
+}
+
+
+@pytest.mark.parametrize("name", list(CLUSTER_FITS) + ["spectral"])
+def test_no_whole_array_gather_in_fits(ranks, name):
+    """Each fit on three ranks with TorchCommunication.all_gather made to raise: the ++
+    seeding gathers one total a rank a step, the merge the ranks' centers, Lanczos its
+    product vector, never the array."""
+    _, res = ranks
+    P = len(res)
+    for r in res:
+        assert str(r[f"no_gather_fit_{name}"]) == "ok"
+        counts, rest = r[f"no_gather_fit_{name}_bytes"].tolist()
+        assert counts <= 4 * P * 8
+        assert rest <= FIT_GATHERS.get(name, lambda P: 0)(P)

@@ -120,13 +120,6 @@ def test_random_init_is_seeded():
     np.testing.assert_array_equal(a.cluster_centers_.numpy(), b.cluster_centers_.numpy())
 
 
-def test_unported_inits_raise():
-    x, _ = _blobs()
-    for init in ("kmeans++", "batchparallel"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            htt.cluster.KMeans(n_clusters=3, init=init).fit(htt.array(x))
-
-
 def test_default_device_without_gpu_raises():
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU, so the default device resolves")
