@@ -16,7 +16,9 @@ pass, K4 and K5 18 times each. The forward and the step run again with
 in place of K2; and bench.py's attention A/B times causal attention with the knob off and on.
 Then the linear algebra of north-star configs #2 (``matmul`` of a split-0 and a split-1
 4096² f32 array) and #4 (``hsvd_rank`` of a rank-10 2048 × 32768 f32 array, split=1), and
-the rest of ``heat_tpu_torch.linalg`` at small sizes.
+the rest of ``heat_tpu_torch.linalg`` at small sizes; the array API, the clustering
+estimators, and the FFTs, scalers, GaussianNB, Lasso, KNN and the DCSR matrix at the sizes
+their users run.
 
 Phases, one line each:
   1. the card: nvidia-smi's name and power limit, and torch's device name;
@@ -143,13 +145,27 @@ Phases, one line each:
      CPU path's at 4 x 512 and recovering the balls (at least 99% of each ball under one
      label, four labels) at full size (``[spectral_fit]``). Spectral's similarity is
      float64, as heat_tpu's (a NumPy float64 sigma), so its KMeans runs no K1;
- 18. one JSON line listing every ported kernel with its launches on its path (K1's on
+ 18. (in the same child process) the domain estimators (``domain_phases``, ``[domain_*]``
+     lines): ``fft`` along axis 1 and along the split axis, ``rfft2`` and ``ifft(fft(x))``
+     of 1000 x 40,000 f32 split 0; the five scalers' fit + transform and GaussianNB's fit +
+     predict on the KMeans data, 10M x 64 f32 and its 8 labels; Lasso on the sugar table
+     and on 1,000,000 x 64 f64 with 8 non-zero coefficients; KNN with 40,000 training rows
+     x 18 features, 40,000 queries, k = 5; DCSR add and mul of two 1,000,000² matrices of
+     10M random entries and todense of a 20,000² one: each against the port's CPU path on
+     a CPU copy (FFTs and scalers within 1e-5 of the largest magnitude, GaussianNB's
+     moments and Lasso's coefficients within 1e-10, labels and CSR parts exact; at
+     200,000 rows, 20,000 for Lasso and 4,000 queries for KNN where the CPU would take
+     minutes), at most 64 KiB read back to the host, timed best of 3 (Lasso and
+     GaussianNB best of 2) beside its bytes at 3.35 TB/s; then integer division and
+     remainders by zero on the card against the CPU path;
+ 19. one JSON line listing every ported kernel with its launches on its path (K1's on
      every clustering path too), its time, its bound on this card (f32 attention work at
      the 3xTF32 rate, with the fp32 FMA rate's bound beside it), its plain version's time
      and a library call's time (the linear algebra runs no hand kernel: its products are
      cuBLAS and cuSOLVER; the array API and the clustering none: their torch ops stand in
-     for XLA's);
- 19. the last line, ``{"ok": true, "device": {...}}``.
+     for XLA's; the domain steps none either: heat_tpu's fft, sparse and estimators reach
+     no pl.pallas_call);
+ 20. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script then exits non-zero without the last line. It
 also fails when CUDA is not available or when the heat_tpu_torch package is not beside
@@ -1412,10 +1428,270 @@ def cluster_phases(ht, dev) -> dict:
     return res
 
 
+# the domain estimators' sizes (phase 18), the ones their users run: Heat's manipulation
+# benchmark size for the FFTs (BASELINE.md:18, N = 40M as 1000 x 40,000), the north-star
+# data for the scalers and GaussianNB (BASELINE.md:23-25, config #3), Heat's Lasso demo
+# table (sugar.h5) and a synthetic table of the north-star width, and Heat's 2020
+# distance-matrix strong-scaling size for KNN (BASELINE.md:11: SUSY, 40k rows, 18 features)
+DOMAIN = {
+    "fft_rows": 1000, "fft_cols": 40_000,
+    "scaler_rows": N, "check_rows": 200_000,
+    "lasso_rows": 1_000_000, "lasso_cols": 64, "lasso_check_rows": 20_000, "lasso_nonzero": 8,
+    "knn_train": 40_000, "knn_test": 40_000, "knn_check": 4_000, "knn_features": 18, "knn_k": 5,
+    "sparse_n": 1_000_000, "sparse_nnz": 10_000_000, "dense_n": 20_000, "dense_nnz": 1_000_000,
+}
+
+
+def blob_labels(n: int, k: int, seed: int, device):
+    """The labels :func:`blobs` draws for its points (the same generator steps)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    torch.randn(k, D, generator=gen, device=device)
+    return torch.randint(0, k, (n,), generator=gen, device=device)
+
+
+def domain_phases(ht, dev) -> dict:
+    """The L7 estimators, the FFTs and the DCSR matrix on the card (phase 18,
+    ``[domain_*]`` lines): each step held to the port's CPU path on a CPU copy of its input
+    (at the full size, or at ``check_rows`` rows where a CPU run of the full size would take
+    minutes), its result on the card, at most ``D2H_LIMIT`` bytes read back to the host
+    (counts and convergence scalars, never an array), timed best of 3 (Lasso and
+    GaussianNB best of 2), and printed beside the bytes its work must move at 3.35 TB/s.
+    Then integer division by zero on the card against the CPU path. No hand kernel runs
+    here: heat_tpu's fft, sparse and estimators reach no pl.pallas_call."""
+    import torch
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    res = {"nvidia_smi": smi, "steps": {}}
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+
+    def on_cpu(x):
+        """A CPU copy of a DNDarray (same split) or tensor."""
+        if isinstance(x, torch.Tensor):
+            return x.cpu()
+        return ht.array(x.larray.cpu(), is_split=x.split, device="cpu") if x.split is not None else \
+            ht.array(x.larray.cpu(), device="cpu")
+
+    def close(got, want, what, tol):
+        """A card result against the CPU path's: dtype, shape and split equal, values within
+        ``tol`` of the CPU result's largest magnitude (0: equal)."""
+        g = got.larray if hasattr(got, "larray") else got
+        w = want.larray if hasattr(want, "larray") else want
+        if hasattr(got, "larray"):
+            check(got.gshape == want.gshape and got.split == want.split and got.dtype is want.dtype,
+                  f"{what}: {got.gshape} split {got.split} {got.dtype} against the CPU's {want.gshape} "
+                  f"split {want.split} {want.dtype}")
+        check(g.is_cuda, f"{what}: the result is not on the card")
+        g = g.cpu()
+        if tol == 0:
+            check(torch.equal(g, w), f"{what}: differs from the CPU path")
+            return 0.0
+        scale = float(w.abs().max()) if w.numel() else 0.0
+        err = float((g - w).abs().max()) if w.numel() else 0.0
+        check(err <= tol * max(scale, 1e-30), f"{what}: {err} off the CPU path (largest magnitude {scale})")
+        return err / max(scale, 1e-30)
+
+    def step(name, fn, nbytes, reps=3, flops=0.0, rate=PEAK_FP32_FLOPS, **detail):
+        """Run ``fn()`` once with its host readback counted, then time it best of
+        ``reps``; print it beside its bytes (and operations) bound."""
+        moved = []
+        torch.cuda.synchronize()
+        with d2h_bytes(moved):
+            out = fn()
+            torch.cuda.synchronize()
+        check(sum(moved) <= D2H_LIMIT, f"{name}: {sum(moved)} bytes came back to the host ({moved[:8]})")
+        best, walls = best_s(fn, reps)
+        bound = max(1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / rate)
+        entry = {"best_ms": 1e3 * best, "walls_ms": [1e3 * w for w in walls], "reps": reps, "bytes": nbytes,
+                 "bound_ms": bound, "bound_by": "bytes" if 1e3 * nbytes / PEAK_BYTES_PER_S >= 1e3 * flops / rate
+                 else "operations", "d2h_bytes": sum(moved), **detail}
+        res["steps"][name] = entry
+        phase(f"domain_{name}", **{k: (json.dumps(v) if isinstance(v, (list, dict)) else v) for k, v in entry.items()})
+        return out
+
+    # fft: 1000 x 40,000 f32 split 0, along axis 1, along axis 0 (the split axis: the pencil,
+    # at one rank a local transform), rfft2 and the round trip ifft(fft(x))
+    rows, cols = DOMAIN["fft_rows"], DOMAIN["fft_cols"]
+    ht.random.seed(SEED + 8000)
+    x = ht.random.random((rows, cols), split=0)
+    xc = on_cpu(x)
+    B = 4 * rows * cols
+    ffts = {
+        "fft_axis1": (lambda a: ht.fft.fft(a, axis=1), B + 2 * B),
+        "fft_axis0_split": (lambda a: ht.fft.fft(a, axis=0), B + 2 * B),
+        "rfft2": (lambda a: ht.fft.rfft2(a), B + 8 * rows * (cols // 2 + 1)),
+        "ifft_fft_round_trip": (lambda a: ht.fft.ifft(ht.fft.fft(a, axis=1), axis=1), B + 2 * B + 2 * B + 2 * B),
+    }
+    for name, (fn, nbytes) in ffts.items():
+        err = close(fn(x), fn(xc), name, 1e-5)
+        step(name, lambda: fn(x), nbytes, shape=[rows, cols], max_err_over_scale=err, tolerance="1e-5 of max|ref|")
+    back = ht.fft.ifft(ht.fft.fft(x, axis=1), axis=1)
+    trip = float((back.larray.real - x.larray).abs().max())
+    check(trip <= 1e-5, f"ifft(fft(x)) is {trip} off x")
+    res["fft_round_trip_err"] = trip
+    del x, xc, back
+    torch.cuda.empty_cache()
+
+    # the scalers: fit + transform of the north-star data, 10M x 64 f32 split 0
+    n, check_rows = DOMAIN["scaler_rows"], DOMAIN["check_rows"]
+    xs, _, _ = blobs(n, D, 8, SEED, dev)
+    X, Xc = ht.array(xs, split=0), ht.array(xs[:check_rows].cpu(), split=0, device="cpu")
+    Xs = ht.array(xs[:check_rows], split=0)
+    B = 4 * n * D
+    for name in ("StandardScaler", "MinMaxScaler", "Normalizer", "MaxAbsScaler", "RobustScaler"):
+        make = getattr(ht.preprocessing, name)
+        close(make().fit_transform(Xs), make().fit_transform(Xc), f"{name} at {check_rows} rows", 1e-5)
+        out = step(name, lambda: make().fit_transform(X), 3 * B, shape=[n, D], equal_to_cpu_at=check_rows)
+        check(out.gshape == (n, D) and bool(torch.isfinite(out.larray).all()), f"{name}: result not finite")
+        del out
+        torch.cuda.empty_cache()
+    del X, Xc, Xs
+
+    # GaussianNB: fit + predict of the north-star blobs and their 8 labels (float64 inside)
+    y = blob_labels(n, 8, SEED, dev)
+    X, Y = ht.array(xs, split=0), ht.array(y, split=0)
+    small = (ht.array(xs[:check_rows], split=0), ht.array(y[:check_rows], split=0))
+    a = ht.naive_bayes.GaussianNB().fit(*small)
+    b = ht.naive_bayes.GaussianNB().fit(*(on_cpu(t) for t in small))
+    for attr in ("theta_", "var_", "class_prior_"):
+        close(getattr(a, attr), getattr(b, attr), f"GaussianNB {attr} at {check_rows} rows", 1e-10)
+    close(a.predict(small[0]), b.predict(on_cpu(small[0])), f"GaussianNB predict at {check_rows} rows", 0)
+    fit_predict = lambda: ht.naive_bayes.GaussianNB().fit(X, Y).predict(X)  # noqa: E731
+    labels = step("GaussianNB", fit_predict, 2 * B + 8 * n + 8 * n, reps=2, shape=[n, D], classes=8,
+                  equal_to_cpu_at=check_rows)
+    accuracy = float((labels.larray == y).double().mean())
+    check(accuracy > 0.9, f"GaussianNB: {accuracy} of the blobs' labels recovered")
+    res["gaussian_nb_accuracy"] = accuracy
+    del X, Y, labels, xs, y, small, a, b
+    torch.cuda.empty_cache()
+
+    # Lasso: the sugar table (with an intercept column) against the CPU path within 1e-10,
+    # then 1,000,000 x 64 f64 with 8 non-zero true coefficients, lam 0.1, max_iter 100
+    import heat_tpu_torch.datasets as datasets
+
+    try:
+        import h5py
+
+        with h5py.File(datasets.path("sugar.h5"), "r") as fh:
+            sx, sy = fh["x"][...], fh["y"][...]
+        source = "sugar.h5"
+    except ImportError:
+        t = datasets.tables()  # the file's tables from their seed (tests/test_torch_datasets.py)
+        sx, sy = t["sugar_x"], t["sugar_y"]
+        source = "datasets.tables() (no h5py)"
+    sx = np.hstack([np.ones((sx.shape[0], 1), np.float32), sx])
+    fits = []
+    for device in (None, "cpu"):  # the card (the default device), then the CPU path
+        est = ht.regression.Lasso(lam=0.1)
+        est.fit(ht.array(sx, split=0, device=device), ht.array(sy, split=0, device=device))
+        fits.append(est)
+    check(fits[0].n_iter == fits[1].n_iter, f"Lasso on sugar: {fits[0].n_iter} sweeps on the card, {fits[1].n_iter} on the CPU")
+    sugar_err = close(fits[0].theta, fits[1].theta, "Lasso theta on sugar", 1e-10)
+    m, d, nz = DOMAIN["lasso_rows"], DOMAIN["lasso_cols"], DOMAIN["lasso_nonzero"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8100)
+    lx = torch.randn(m, d, generator=gen, device=dev, dtype=torch.float64)
+    lx[:, 0] = 1.0
+    truth = torch.zeros(d, dtype=torch.float64, device=dev)
+    truth[: nz] = torch.linspace(3.0, -2.0, nz, dtype=torch.float64, device=dev)
+    ly = lx @ truth + 0.1 * torch.randn(m, generator=gen, device=dev, dtype=torch.float64)
+    c_rows = DOMAIN["lasso_check_rows"]
+    small = [ht.regression.Lasso(lam=0.1), ht.regression.Lasso(lam=0.1)]
+    small[0].fit(ht.array(lx[:c_rows], split=0), ht.array(ly[:c_rows], split=0))
+    small[1].fit(ht.array(lx[:c_rows].cpu(), split=0, device="cpu"), ht.array(ly[:c_rows].cpu(), split=0, device="cpu"))
+    check(small[0].n_iter == small[1].n_iter, f"Lasso at {c_rows} rows: sweeps {small[0].n_iter} and {small[1].n_iter}")
+    close(small[0].theta, small[1].theta, f"Lasso theta at {c_rows} rows", 1e-10)
+    LX, LY = ht.array(lx, split=0), ht.array(ly, split=0)
+    est = ht.regression.Lasso(lam=0.1, max_iter=100, tol=1e-6)
+    est.fit(LX, LY)
+    sweeps = est.n_iter
+    theta = est.theta.larray.reshape(-1)
+    support = int((theta[1:].abs() > 1e-3).sum())
+    check(support == nz - 1 and float((theta[:nz] - truth[:nz]).abs().max()) < 0.2,
+          f"Lasso at {m} rows: support {support}, theta {theta[:nz].tolist()}")
+    step("Lasso", lambda: ht.regression.Lasso(lam=0.1, max_iter=100, tol=1e-6).fit(LX, LY),
+         sweeps * d * (8 * m * d + 3 * 8 * m), reps=2, shape=[m, d], sweeps=sweeps, sugar_source=source,
+         sugar_sweeps=fits[0].n_iter, sugar_theta_err_over_scale=sugar_err, equal_to_cpu_at=c_rows)
+    del lx, ly, LX, LY, est, fits, small
+    torch.cuda.empty_cache()
+
+    # KNN: 40,000 training rows x 18 features, 2 classes, 40,000 queries, k = 5
+    nt, nq, f, k = DOMAIN["knn_train"], DOMAIN["knn_test"], DOMAIN["knn_features"], DOMAIN["knn_k"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8200)
+    centers = torch.randn(2, f, generator=gen, device=dev)
+    ty = torch.randint(0, 2, (nt,), generator=gen, device=dev)
+    tx = centers[ty] + 1.5 * torch.randn(nt, f, generator=gen, device=dev)
+    qy = torch.randint(0, 2, (nq,), generator=gen, device=dev)
+    qx = centers[qy] + 1.5 * torch.randn(nq, f, generator=gen, device=dev)
+    knn = ht.classification.KNeighborsClassifier(k).fit(ht.array(tx, split=0), ht.array(ty, split=0))
+    knn_cpu = ht.classification.KNeighborsClassifier(k).fit(ht.array(tx.cpu(), split=0, device="cpu"),
+                                                            ht.array(ty.cpu(), split=0, device="cpu"))
+    q_check = DOMAIN["knn_check"]
+    close(knn.predict(ht.array(qx[:q_check], split=0)), knn_cpu.predict(ht.array(qx[:q_check].cpu(), split=0, device="cpu")),
+          f"KNN predict of {q_check} queries", 0)
+    Q = ht.array(qx, split=0)
+    pred = step("KNN", lambda: knn.predict(Q), 2 * 4 * nq * nt, flops=2.0 * nq * nt * f, train=nt, queries=nq,
+                features=f, k=k, equal_to_cpu_at=q_check, bytes_of="the distance matrix written and read by topk")
+    res["knn_accuracy"] = float((pred.larray == qy).double().mean())
+    del knn, knn_cpu, Q, pred, tx, ty, qx, qy
+    torch.cuda.empty_cache()
+
+    # sparse: add and mul of two 1,000,000² CSR f32 matrices of 10M random entries each,
+    # row-split; todense of a 20,000² one
+    def random_csr(n_, nnz, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        r = torch.randint(0, n_, (nnz,), generator=gen, device=dev)
+        c = torch.randint(0, n_, (nnz,), generator=gen, device=dev)
+        v = torch.randn(nnz, generator=gen, device=dev)
+        return ht.sparse.sparse_csr_matrix(torch.sparse_coo_tensor(torch.stack([r, c]), v, (n_, n_)), split=0)
+
+    sn, snz = DOMAIN["sparse_n"], DOMAIN["sparse_nnz"]
+    A, Bm = random_csr(sn, snz, SEED + 8300), random_csr(sn, snz, SEED + 8301)
+    Ac, Bc = (ht.sparse.sparse_csr_matrix(m_.larray.cpu(), split=0, device="cpu") for m_ in (A, Bm))
+    csr_bytes = lambda m_: 8 * (m_.shape[0] + 1) + 12 * m_.nnz  # noqa: E731
+    for name, op in (("sparse_add", ht.sparse.add), ("sparse_mul", ht.sparse.mul)):
+        got, want = op(A, Bm), op(Ac, Bc)
+        check(got.nnz == want.nnz and got.larray.values().is_cuda, f"{name}: {got.nnz} stored on the card, {want.nnz} on the CPU")
+        for part in ("crow_indices", "col_indices", "values"):
+            check(torch.equal(getattr(got.larray, part)().cpu(), getattr(want.larray, part)()), f"{name}: {part} differ")
+        step(name, lambda: op(A, Bm), csr_bytes(A) + csr_bytes(Bm) + csr_bytes(got), n=sn, nnz=[A.nnz, Bm.nnz],
+             result_nnz=got.nnz, equal_to_cpu=True)
+        del got, want
+    del A, Bm, Ac, Bc
+    dn = DOMAIN["dense_n"]
+    S = random_csr(dn, DOMAIN["dense_nnz"], SEED + 8302)
+    close(S.todense(), ht.sparse.sparse_csr_matrix(S.larray.cpu(), split=0, device="cpu").todense(), "todense", 0)
+    step("sparse_todense", lambda: S.todense(), csr_bytes(S) + 4 * dn * dn, n=dn, nnz=S.nnz, equal_to_cpu=True)
+    del S
+    torch.cuda.empty_cache()
+
+    # integer division and remainders by zero on the card: XLA's values, as on the CPU path
+    xs_ = np.array([3, -4, 5, 0, 7, -9, 2, -128])
+    ys_ = np.array([0, 0, 0, 0, 2, -3, 0, 5])
+    div_checked = 0
+    for dtype in ("int8", "uint8", "int32", "int64", "bool"):
+        xa, ya = xs_.astype(dtype) if dtype != "uint8" else np.abs(xs_).astype(dtype), ys_.astype(dtype) \
+            if dtype != "uint8" else np.abs(ys_).astype(dtype)
+        for fn in ("floor_divide", "mod", "fmod", "remainder"):
+            for yv in (ya, 0):
+                got = getattr(ht, fn)(ht.array(xa), yv if np.isscalar(yv) else ht.array(ya))
+                want = getattr(ht, fn)(ht.array(xa, device="cpu"), yv if np.isscalar(yv) else ht.array(ya, device="cpu"))
+                close(got, want, f"{fn} of {dtype} by zero", 0)
+                div_checked += 1
+    phase("domain_int_division_by_zero", calls_equal_to_cpu=div_checked)
+    res["int_division_by_zero_calls"] = div_checked
+    res["phase_s"] = time.perf_counter() - t_phase
+    phase("domain", phase_s=repr(res["phase_s"]), steps=len(res["steps"]), nvidia_smi=json.dumps(smi))
+    return res
+
+
 def linalg_child(out_path: str) -> int:
-    """The child process of phases 13-17: the card, the package, :func:`linalg_phases`,
-    :func:`array_phases` and :func:`cluster_phases`; their results go to ``out_path`` as
-    JSON."""
+    """The child process of phases 13-18: the card, the package, :func:`linalg_phases`,
+    :func:`array_phases`, :func:`cluster_phases` and :func:`domain_phases`; their results
+    go to ``out_path`` as JSON."""
     import torch
 
     import heat_tpu_torch as ht
@@ -1426,13 +1702,14 @@ def linalg_child(out_path: str) -> int:
     out = {"linalg": linalg_phases(ht, dev)}
     out["array"] = array_phases(ht, dev)
     out["cluster"] = cluster_phases(ht, dev)
+    out["domain"] = domain_phases(ht, dev)
     with open(out_path, "w") as fh:
         json.dump(out, fh)
     return 0
 
 
 def run_linalg_child() -> dict:
-    """Phases 13-17 in a fresh process of this script (its phase lines go to this
+    """Phases 13-18 in a fresh process of this script (its phase lines go to this
     stdout); fails unless it ends with code 0."""
     import tempfile
 
@@ -1440,7 +1717,7 @@ def run_linalg_child() -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         out_path = os.path.join(tmp, "linalg.json")
         rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--linalg-child", out_path]).returncode
-        check(rc == 0, f"the linear algebra, array or clustering phases failed (exit code {rc})")
+        check(rc == 0, f"the linear algebra, array, clustering or domain phases failed (exit code {rc})")
         with open(out_path) as fh:
             return json.load(fh)
 
@@ -2145,14 +2422,15 @@ def main() -> int:
     del bwd_data
     torch.cuda.empty_cache()
 
-    # 13-17. distributed linear algebra: config #2's product, config #4's hsvd_rank, the rest
+    # 13-18. distributed linear algebra: config #2's product, config #4's hsvd_rank, the rest
     #        small; then the array API: the manipulation benchmark at N = 40M, the random
-    #        streams and KMeans' random init; then the clustering slice; in a child process
-    #        (linalg_phases, array_phases, cluster_phases)
+    #        streams and KMeans' random init; then the clustering slice; then the domain
+    #        estimators; in a child process (linalg_phases, array_phases, cluster_phases,
+    #        domain_phases)
     child_out = run_linalg_child()
     linalg_out, array_out, cluster_out = child_out["linalg"], child_out["array"], child_out["cluster"]
 
-    # 18. every ported kernel: launches on its path, time, bound, plain version's and library's time
+    # 19. every ported kernel: launches on its path, time, bound, plain version's and library's time
     x, init, _ = blobs(N, D, K, SEED, dev)
     ms = cuda_ms(lambda: k1.fused_assign_update_packed(x, init), reps=20, warmup=3)
     plain_ms = cuda_ms(lambda: k1.fused_assign_update_reference(x, init), reps=5, warmup=1)
@@ -2319,9 +2597,10 @@ def main() -> int:
                        "train_step_pipelined_peak_gb": train_peak_on_gb,
                        "train_step_pipelined_profile": train_breakdown_on, "bench_ab_runs_ms": ab_runs,
                        "bench_ab_k2_ms": ab_k2_ms, "bench_ab_k3_ms": ab_k3_ms, "linalg": linalg_out,
-                       "array": array_out, "kmeans_pp": pp, "cluster": cluster_out}, fh, indent=1)
+                       "array": array_out, "kmeans_pp": pp, "cluster": cluster_out,
+                       "domain": child_out["domain"]}, fh, indent=1)
 
-    # 19. the last line
+    # 20. the last line
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
 

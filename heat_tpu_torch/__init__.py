@@ -17,6 +17,13 @@ from .core import *
 from . import core
 from .core import random
 from . import spatial
+from . import fft
+from . import sparse
+from . import preprocessing
+from . import naive_bayes
+from . import regression
+from . import classification
+from . import datasets
 from . import graph
 from . import cluster
 from . import nn

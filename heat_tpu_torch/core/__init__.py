@@ -20,6 +20,8 @@ from .relational import *
 from .rounding import *
 from .sanitation import *
 from .signal import *
+from .stride_tricks import *
+from .tiling import *
 from .trigonometrics import *
 from .statistics import *
 from .base import *

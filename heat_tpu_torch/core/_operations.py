@@ -36,6 +36,27 @@ _COMPARISONS = (
 # that turn bool operands into int32
 _FLOAT_RESULTS = (torch.true_divide, torch.hypot, torch.copysign, torch.logaddexp, torch.logaddexp2, torch.atan2)
 _INT_FROM_BOOL = (torch.floor_divide, torch.remainder, torch.fmod, torch.bitwise_left_shift, torch.bitwise_right_shift)
+_INT_DIVISIONS = (torch.floor_divide, torch.remainder, torch.fmod)
+
+
+def _by_zero_as_xla(operation: Callable, a: torch.Tensor, b: torch.Tensor, bools: bool, **kw) -> torch.Tensor:
+    """An integer division or remainder with XLA's results where the divisor is 0, on
+    the CPU and the card alike (torch raises on the CPU and the card's hardware answers
+    otherwise): a remainder by 0 is 0, except ``fmod`` of two bool operands, which is
+    XLA's rem(x, 0) = x; x // 0 is XLA's x / 0, all bits set, stepped down by one where
+    a signed x is not 0 (jnp's floor correction): -1 for 0, -2 otherwise, and the
+    largest value for an unsigned type."""
+    zero = b == 0
+    value = operation(a, torch.where(zero, torch.ones_like(b), b), **kw)
+    if operation is torch.fmod and bools:
+        special = a
+    elif operation is not torch.floor_divide:
+        special = torch.zeros((), dtype=value.dtype, device=value.device)
+    elif value.dtype == torch.uint8:
+        special = torch.full((), 255, dtype=value.dtype, device=value.device)
+    else:
+        special = torch.where(a == 0, -1, -2).to(value.dtype)
+    return torch.where(zero, special, value)
 
 
 def _is_weak(x) -> bool:
@@ -207,7 +228,11 @@ def binary_op(
         # CPU scalar as a product with its reciprocal, which rounds otherwise
         return torch.full((), t.item() if isinstance(t, np.generic) else t, dtype=ct, device=proto.larray.device)
 
-    value = operation(_operand(t1), _operand(t2), **fn_kwargs).to(result.torch_type())
+    if operation in _INT_DIVISIONS and types.heat_type_is_exact(compute):
+        bools = all(isinstance(t, builtins.bool) or (not _is_weak(t) and _strong_type(t) is types.bool) for t in (t1, t2))
+        value = _by_zero_as_xla(operation, _operand(t1), _operand(t2), bools, **fn_kwargs).to(result.torch_type())
+    else:
+        value = operation(_operand(t1), _operand(t2), **fn_kwargs).to(result.torch_type())
     if out_split is not None and out_split >= len(out_shape):
         out_split = None
     if where is not None:

@@ -1,5 +1,6 @@
-"""Estimator base classes (counterpart of heat_tpu/core/base.py: ``BaseEstimator`` and
-``ClusteringMixin``): the sklearn-style get_params/set_params protocol."""
+"""Estimator base classes (counterpart of heat_tpu/core/base.py): ``BaseEstimator`` with
+the sklearn-style get_params/set_params protocol, the classifier, transformer, clusterer
+and regressor mixins, and the ``is_*`` checks."""
 
 from __future__ import annotations
 
@@ -8,7 +9,18 @@ from typing import Dict, List
 
 from .dndarray import DNDarray
 
-__all__ = ["BaseEstimator", "ClusteringMixin"]
+__all__ = [
+    "BaseEstimator",
+    "ClassificationMixin",
+    "TransformMixin",
+    "ClusteringMixin",
+    "RegressionMixin",
+    "is_classifier",
+    "is_transformer",
+    "is_estimator",
+    "is_clusterer",
+    "is_regressor",
+]
 
 
 class BaseEstimator:
@@ -61,6 +73,34 @@ class BaseEstimator:
         return f"{self.__class__.__name__}({params})"
 
 
+class ClassificationMixin:
+    """Mixin for classifiers."""
+
+    def fit(self, x: DNDarray, y: DNDarray):
+        raise NotImplementedError()
+
+    def fit_predict(self, x: DNDarray, y: DNDarray) -> DNDarray:
+        self.fit(x, y)
+        return self.predict(x)
+
+    def predict(self, x: DNDarray) -> DNDarray:
+        raise NotImplementedError()
+
+
+class TransformMixin:
+    """Mixin for transformers."""
+
+    def fit(self, x: DNDarray):
+        raise NotImplementedError()
+
+    def fit_transform(self, x: DNDarray) -> DNDarray:
+        self.fit(x)
+        return self.transform(x)
+
+    def transform(self, x: DNDarray) -> DNDarray:
+        raise NotImplementedError()
+
+
 class ClusteringMixin:
     """Mixin for clusterers."""
 
@@ -70,3 +110,42 @@ class ClusteringMixin:
     def fit_predict(self, x: DNDarray) -> DNDarray:
         self.fit(x)
         return self.labels_
+
+
+class RegressionMixin:
+    """Mixin for regressors."""
+
+    def fit(self, x: DNDarray, y: DNDarray):
+        raise NotImplementedError()
+
+    def fit_predict(self, x: DNDarray, y: DNDarray) -> DNDarray:
+        self.fit(x, y)
+        return self.predict(x)
+
+    def predict(self, x: DNDarray) -> DNDarray:
+        raise NotImplementedError()
+
+
+def is_classifier(estimator: object) -> bool:
+    """True for classifiers."""
+    return isinstance(estimator, ClassificationMixin)
+
+
+def is_transformer(estimator: object) -> bool:
+    """True for transformers."""
+    return isinstance(estimator, TransformMixin)
+
+
+def is_estimator(estimator: object) -> bool:
+    """True for estimators."""
+    return isinstance(estimator, BaseEstimator)
+
+
+def is_clusterer(estimator: object) -> bool:
+    """True for clusterers."""
+    return isinstance(estimator, ClusteringMixin)
+
+
+def is_regressor(estimator: object) -> bool:
+    """True for regressors."""
+    return isinstance(estimator, RegressionMixin)

@@ -18,7 +18,16 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["TorchCommunication", "COMM_WORLD", "get_comm", "use_comm", "sanitize_comm"]
+__all__ = [
+    "Communication",
+    "TorchCommunication",
+    "COMM_WORLD",
+    "COMM_SELF",
+    "get_comm",
+    "use_comm",
+    "sanitize_comm",
+    "initialize",
+]
 
 _REDUCE_OPS = {"sum": "SUM", "prod": "PRODUCT", "min": "MIN", "max": "MAX"}
 
@@ -457,7 +466,27 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_sc
 
 
 # the default communicator: the default process group, or a single rank
+Communication = TorchCommunication  # heat_tpu's name of the communicator class
+
+
+class _SelfCommunication(TorchCommunication):
+    """This rank alone: size 1 and rank 0 whatever the process group, so every
+    collective returns before it reaches ``torch.distributed``."""
+
+    @property
+    def size(self) -> int:
+        return 1
+
+    @property
+    def rank(self) -> int:
+        return 0
+
+    def __repr__(self) -> str:
+        return "TorchCommunication(self)"
+
+
 COMM_WORLD = TorchCommunication()
+COMM_SELF = _SelfCommunication()
 __default_comm = COMM_WORLD
 
 
@@ -479,3 +508,24 @@ def sanitize_comm(comm: Optional[TorchCommunication]) -> TorchCommunication:
     if isinstance(comm, TorchCommunication):
         return comm
     raise TypeError(f"Unknown communication, must be a TorchCommunication, got {type(comm)}")
+
+
+def initialize(init_method: str = "env://") -> None:
+    """Join the process group of a multi-process launch (``torchrun``): rank and world
+    size from ``RANK`` and ``WORLD_SIZE``, the rendezvous from ``MASTER_ADDR`` and
+    ``MASTER_PORT`` (``init_method="env://"``; another method, such as a file, may be
+    given). The backend follows the default device: NCCL with one card a process, the
+    card of ``LOCAL_RANK``, when the device is the card, and gloo when the CPU was asked
+    for (``use_device("cpu")``). Without CUDA on the card's path it raises; it never
+    falls back to gloo."""
+    import os
+
+    from .devices import get_device
+
+    on_card = get_device().device_type != "cpu"
+    if on_card:
+        if not torch.cuda.is_available():
+            raise RuntimeError("initialize: the device is the card, but CUDA is not available")
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group("nccl" if on_card else "gloo", init_method=init_method, rank=int(os.environ["RANK"]),
+                            world_size=int(os.environ["WORLD_SIZE"]))

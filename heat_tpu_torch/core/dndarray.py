@@ -23,9 +23,40 @@ from .communication import TorchCommunication
 from .devices import Device
 from .stride_tricks import sanitize_axis
 
-__all__ = ["DNDarray"]
+__all__ = ["DNDarray", "LocalIndex"]
 
 Scalar = Union[int, float, bool, complex]
+
+
+class LocalIndex:
+    """Indexing of this rank's local tensor alone (``x.lloc[key]``, ``x.lloc[key] =
+    value``), with torch's rules and no communication."""
+
+    def __init__(self, obj: torch.Tensor):
+        self.obj = obj
+
+    def __getitem__(self, key):
+        return self.obj[key]
+
+    def __setitem__(self, key, value) -> None:
+        self.obj[key] = value
+
+
+class _CallableTuple(tuple):
+    """A tuple that may also be called: ``x.stride`` (numpy's spelling) and
+    ``x.stride()`` / ``x.stride(dim)`` (torch's) both work."""
+
+    def __call__(self, dim: Optional[int] = None):
+        return self if dim is None else self[dim]
+
+
+def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    """numpy's dtype of a torch dtype (``ml_dtypes.bfloat16`` for bfloat16)."""
+    if dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return np.dtype(ml_dtypes.bfloat16)
+    return torch.empty(0, dtype=dtype).numpy().dtype
 
 
 class DNDarray:
@@ -131,6 +162,89 @@ class DNDarray:
     @property
     def split(self) -> Optional[int]:
         return self.__split
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the global array (its elements times their size; no padding)."""
+        return self.size * self.__array.element_size()
+
+    gnbytes = nbytes
+
+    @property
+    def lnbytes(self) -> int:
+        """Bytes of this rank's chunk."""
+        return self.lnumel * self.__array.element_size()
+
+    @property
+    def stride(self) -> Tuple[int, ...]:
+        """Row-major strides of the global array in elements (a callable tuple:
+        ``x.stride`` and ``x.stride()`` both work)."""
+        strides, acc = [], 1
+        for s in reversed(self.__gshape):
+            strides.append(acc)
+            acc *= max(s, 1)
+        return _CallableTuple(reversed(strides))
+
+    @property
+    def strides(self) -> Tuple[int, ...]:
+        """Row-major strides of the global array in bytes."""
+        return tuple(s * self.__array.element_size() for s in self.stride)
+
+    @property
+    def real(self) -> "DNDarray":
+        from .complex_math import real
+
+        return real(self)
+
+    @property
+    def imag(self) -> "DNDarray":
+        from .complex_math import imag
+
+        return imag(self)
+
+    @property
+    def lloc(self) -> LocalIndex:
+        """Get and set items of this rank's local tensor."""
+        return LocalIndex(self.__array)
+
+    @property
+    def __partitioned__(self) -> dict:
+        """The partition interface (:meth:`create_partition_interface`)."""
+        return self.create_partition_interface()
+
+    def create_partition_interface(self, no_data: bool = False) -> dict:
+        """The ``__partitioned__`` dict: every rank's chunk by its position in the
+        partition grid, with its start, shape, location and dtype; ``data`` is this rank's
+        local tensor for its own chunk (None for the others', and with ``no_data``)."""
+        comm, split, ndim = self.__comm, self.__split, self.ndim
+
+        def position(rank: int) -> Tuple[int, ...]:
+            return tuple(rank if i == split else 0 for i in range(ndim))
+
+        dtype = _numpy_dtype(self.__array.dtype)
+        partitions = {}
+        for r in range(comm.size):  # unsplit: one position, the last rank's entry kept, as heat_tpu's
+            _, lshape, slices = comm.chunk(self.__gshape, split, rank=r)
+            partitions[position(r)] = {
+                "start": tuple(sl.start for sl in slices),
+                "shape": tuple(lshape),
+                "data": None,
+                "location": [r],
+                "dtype": dtype,
+            }
+        own = position(comm.rank if split is not None else 0)
+        if not no_data:
+            partitions[own]["data"] = self.__array
+        grid = [1] * ndim
+        if split is not None:
+            grid[split] = comm.size
+        return {
+            "shape": self.__gshape,
+            "partition_tiling": tuple(grid),
+            "partitions": partitions,
+            "locals": [own],
+            "get": lambda x: x,
+        }
 
     # ------------------------------------------------------------------ distribution
     def lshape_map(self, force_check: bool = False) -> "DNDarray":
@@ -294,8 +408,14 @@ class DNDarray:
         return DNDarray(self.__array.cpu(), self.__gshape, self.__dtype, self.__split, cpu, self.__comm, self.__balanced)
 
     def numpy(self) -> np.ndarray:
-        """The global array as numpy, on every rank (an all-gather when distributed)."""
-        return self._global().detach().cpu().numpy()
+        """The global array as numpy, on every rank (an all-gather when distributed).
+        bfloat16, which numpy lacks, comes back as ``ml_dtypes.bfloat16``, as heat_tpu's."""
+        value = self._global().detach().cpu()
+        if value.dtype == torch.bfloat16:
+            import ml_dtypes
+
+            return value.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        return value.numpy()
 
     def item(self) -> Scalar:
         """The single element as a Python scalar."""

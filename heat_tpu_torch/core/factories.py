@@ -27,6 +27,8 @@ __all__ = [
     "empty",
     "empty_like",
     "eye",
+    "from_partitioned",
+    "from_partition_dict",
     "full",
     "full_like",
     "linspace",
@@ -280,3 +282,42 @@ def full_like(a, fill_value, dtype=None, split=None, device=None, comm=None, ord
         device = device or a.device
         comm = comm or a.comm
     return full(tuple(shape), fill_value, dtype=dtype, split=split, device=device, comm=comm)
+
+
+def from_partitioned(x, comm=None, device=None) -> DNDarray:
+    """A DNDarray from an object with ``__partitioned__`` (or that dict itself)."""
+    parted = x if isinstance(x, dict) else x.__partitioned__
+    return from_partition_dict(parted, comm=comm, device=device)
+
+
+def from_partition_dict(parted: dict, comm=None, device=None) -> DNDarray:
+    """A DNDarray from a ``__partitioned__`` dict: split along the one axis the
+    partition grid divides (none: every rank holds the whole). Each rank takes the
+    partitions located on it that carry data, joined in the order of their starts, and
+    the chunks are rebalanced to the canonical ones (:func:`array`'s ``is_split``)."""
+    comm = sanitize_comm(comm)
+    shape = tuple(parted["shape"])
+    get = parted.get("get", lambda v: v)
+    tiling = tuple(parted.get("partition_tiling", (1,) * len(shape)))
+    split_dims = [i for i, t in enumerate(tiling) if t > 1]
+    if len(split_dims) > 1:
+        raise ValueError(f"Only one split-dimension allowed, got {len(split_dims)}")
+    split = split_dims[0] if split_dims else None
+    parts = sorted(parted["partitions"].values(), key=lambda p: tuple(p["start"]))
+
+    def tensor(v) -> torch.Tensor:
+        return v if isinstance(v, torch.Tensor) else _torch_from_numpy(np.asarray(v))
+
+    if split is None:
+        res = array(tensor(get(next(p["data"] for p in parts if p["data"] is not None))), device=device, comm=comm)
+    else:
+        mine = [tensor(get(p["data"])) for p in parts if p["data"] is not None and comm.rank in p["location"]]
+        if mine:
+            local = torch.cat(mine, dim=split)
+        else:
+            empty = tuple(0 if i == split else n for i, n in enumerate(shape))
+            local = _torch_from_numpy(np.empty(empty, dtype=parts[0]["dtype"]))
+        res = array(local, is_split=split, device=device, comm=comm)
+    if res.gshape != shape:
+        raise ValueError(f"partitioned data of shape {res.gshape} does not match declared {shape}")
+    return res

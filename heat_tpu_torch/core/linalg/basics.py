@@ -169,15 +169,21 @@ def vecdot(x1: DNDarray, x2: DNDarray, axis: Optional[int] = None, keepdims: boo
 def vdot(x1: DNDarray, x2: DNDarray) -> DNDarray:
     """Dot of the flattened operands, the first conjugated."""
     ct = types.promote_types(x1.dtype, x2.dtype).torch_type()
-    value = torch.vdot(x1._relayout(None).reshape(-1).to(ct), x2._relayout(None).reshape(-1).to(ct))
+    a, b = x1._relayout(None).reshape(-1).to(ct), x2._relayout(None).reshape(-1).to(ct)
+    # torch.vdot takes no bool; jnp's dot of bools is their "any" of products
+    value = (a & b).any() if ct == torch.bool else torch.vdot(a, b)
     return _operations.wrap_global(value, x1, None)
 
 
 def outer(a: DNDarray, b: DNDarray, out: Optional[DNDarray] = None, split: Optional[int] = None) -> DNDarray:
-    """Outer product of two vectors; split 0 if ``a`` is split, else 1 if ``b`` is, unless
-    ``split`` says otherwise."""
+    """Outer product of two vectors (operands of more dimensions are flattened first, as
+    numpy's are); split 0 if ``a`` is split, else 1 if ``b`` is, unless ``split`` says
+    otherwise."""
+    from ..manipulations import flatten
+
     sanitation.sanitize_in(a)
     sanitation.sanitize_in(b)
+    a, b = (flatten(v) if v.ndim != 1 else v for v in (a, b))
     if split is None:
         split = 0 if a.split is not None else (1 if b.split is not None else None)
     ct = types.promote_types(a.dtype, b.dtype).torch_type()
@@ -238,8 +244,8 @@ def trace(a: DNDarray, offset: int = 0, axis1: int = 0, axis2: int = 1, dtype=No
     value = torch.diagonal(a._relayout(None), offset=offset, dim1=axis1, dim2=axis2).sum(-1)
     if dtype is not None:
         value = value.to(types.canonical_heat_type(dtype).torch_type())
-    elif not types.heat_type_is_inexact(a.dtype) and a.dtype is not types.uint8:
-        value = value.to(a.dtype.torch_type())  # jnp.trace keeps signed integer types
+    elif types.heat_type_is_exact(a.dtype) and a.dtype not in (types.uint8, types.bool):
+        value = value.to(a.dtype.torch_type())  # jnp.trace keeps signed integer types; bools sum as int64
     res = _operations.wrap_global(value, a, None)
     if out is not None:
         out.larray = res.larray.to(out.dtype.torch_type())
@@ -285,8 +291,15 @@ def triu(m: DNDarray, k: int = 0) -> DNDarray:
 
 
 def vector_norm(x: DNDarray, axis=None, keepdims: bool = False, ord=None) -> DNDarray:
-    """Vector norm over ``axis`` (every axis by default). The 2-norm over the split axis is
-    a local sum of squares and one all-reduce; other orders work on the gathered value."""
+    """Vector norm over ``axis`` (every axis by default); float64 for integer and bool
+    input, as jnp.linalg.vector_norm's under x64. The 2-norm over the split axis is a
+    local sum of squares and one all-reduce; other orders work on the gathered value."""
+    rt = x.dtype if types.heat_type_is_inexact(x.dtype) else types.float64
+    return _vector_norm(x, axis, keepdims, ord, rt.torch_type())
+
+
+def _vector_norm(x: DNDarray, axis, keepdims: bool, ord, rt: torch.dtype) -> DNDarray:
+    """:func:`vector_norm` computed in ``rt``."""
     sanitation.sanitize_in(x)
     axis = sanitize_axis(x.gshape, axis)
     axes = tuple(range(x.ndim)) if axis is None else (axis if isinstance(axis, tuple) else (axis,))
@@ -297,7 +310,6 @@ def vector_norm(x: DNDarray, axis=None, keepdims: bool = False, ord=None) -> DND
         gshape = tuple(s for d, s in enumerate(x.gshape) if d not in axes)
     if split is not None and split >= len(gshape):
         split = None
-    rt = _operations._inexact(x.dtype).torch_type()
     if ord in (None, 2) and not x.larray.is_complex():
         v = x.larray.to(rt)
         sq = torch.sum(v * v, dim=axes, keepdim=keepdims) if x.ndim else v * v
@@ -324,8 +336,9 @@ def norm(x: DNDarray, axis=None, keepdims: bool = False, ord=None) -> DNDarray:
     """numpy's ``norm``: the 2-norm of the flattened array by default, a matrix norm over
     two axes, a vector norm over one."""
     sanitation.sanitize_in(x)
+    rt = _operations._inexact(x.dtype).torch_type()  # jnp.linalg.norm: float32 for int32
     if axis is None and ord is None:
-        return vector_norm(x)
+        return _vector_norm(x, None, False, None, rt)
     axis = sanitize_axis(x.gshape, axis)
     if axis is None:
         axis = tuple(range(x.ndim))
@@ -333,7 +346,7 @@ def norm(x: DNDarray, axis=None, keepdims: bool = False, ord=None) -> DNDarray:
         return matrix_norm(x, axis=axis, keepdims=keepdims, ord=ord)
     if isinstance(axis, tuple):
         axis = axis[0]
-    return vector_norm(x, axis=axis, keepdims=keepdims, ord=ord)
+    return _vector_norm(x, axis, keepdims, ord, rt)
 
 
 def projection(a: DNDarray, b: DNDarray) -> DNDarray:

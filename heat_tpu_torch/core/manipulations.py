@@ -685,6 +685,27 @@ def topk(a: DNDarray, k: int, dim: int = -1, largest: bool = True, sorted: bool 
     return v, i
 
 
+def _unique_slices(full: torch.Tensor, axis: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The distinct slices of ``full`` along ``axis`` in numpy's lexicographic order, NaN
+    after every number, slices whose NaNs sit at the same places counting as one (as
+    jnp.unique's); and the inverse. A stable sort a column, last column first."""
+    rows = full.movedim(axis, 0).reshape(full.shape[axis], -1)
+    keys = rows.to(torch.uint8) if rows.dtype == torch.bool else rows
+    order = torch.arange(rows.shape[0], device=rows.device)
+    for col in range(keys.shape[1] - 1, -1, -1):  # torch.sort puts NaN last
+        order = order[torch.sort(keys[order, col], stable=True).indices]
+    ranked = keys[order]
+    new = ranked[1:] != ranked[:-1]
+    if ranked.is_floating_point():
+        new &= ~(torch.isnan(ranked[1:]) & torch.isnan(ranked[:-1]))
+    first = torch.cat([torch.ones(min(1, rows.shape[0]), dtype=torch.bool, device=rows.device), new.any(1)])
+    group = torch.cumsum(first, 0) - 1
+    inverse = torch.empty_like(group).scatter_(0, order, group)
+    distinct = rows[order[first]]
+    out = distinct.reshape((distinct.shape[0],) + tuple(s for d, s in enumerate(full.shape) if d != axis))
+    return out.movedim(0, axis).contiguous(), inverse.to(torch.int64)
+
+
 def unique(a: DNDarray, sorted: bool = False, return_inverse: bool = False, axis: Optional[int] = None):  # noqa: A002
     """The sorted unique elements. A split array's per-rank partial uniques are merged on
     the device by one variable-length all-gather of the partials (heat_tpu merges them on
@@ -694,11 +715,10 @@ def unique(a: DNDarray, sorted: bool = False, return_inverse: bool = False, axis
     sanitation.sanitize_in(a)
     if axis is not None:
         axis = sanitize_axis(a.gshape, axis)
-        full = a._relayout(None)
+        res, inv = _unique_slices(a._relayout(None), axis)
         if return_inverse:
-            res, inv = torch.unique(full, sorted=True, return_inverse=True, dim=axis)
-            return _operations.wrap_global(res, a, None), _operations.wrap_global(inv.to(torch.int64), a, None)
-        return _operations.wrap_global(torch.unique(full, sorted=True, dim=axis), a, None)
+            return _operations.wrap_global(res, a, None), _operations.wrap_global(inv, a, None)
+        return _operations.wrap_global(res, a, None)
     local = a.larray.reshape(-1)
     nan = torch.isnan(local) if local.is_floating_point() else None
     part = torch.unique(local[~nan] if nan is not None else local, sorted=True)

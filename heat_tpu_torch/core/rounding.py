@@ -96,7 +96,11 @@ def round(x: DNDarray, decimals: int = 0, out=None, dtype=None) -> DNDarray:  # 
 def _sign(v: torch.Tensor) -> torch.Tensor:
     if v.dtype == torch.bool:
         raise TypeError("sign is not defined for bool arrays")
-    return torch.sgn(v) if v.is_complex() else torch.sign(v)
+    if v.is_complex():
+        return torch.sgn(v)
+    if v.is_floating_point():
+        return torch.where(torch.isnan(v), v, torch.sign(v))  # torch.sign maps NaN to 0
+    return torch.sign(v)
 
 
 def sgn(x, out=None) -> DNDarray:
@@ -105,7 +109,7 @@ def sgn(x, out=None) -> DNDarray:
 
 
 def _sign_real(v: torch.Tensor) -> torch.Tensor:
-    return torch.sign(v.real).to(v.dtype)
+    return _sign(v.real).to(v.dtype)
 
 
 def sign(x, out=None) -> DNDarray:

@@ -62,8 +62,10 @@ def _pick(values: torch.Tensor, indices: torch.Tensor, kind: str) -> torch.Tenso
 def _arg_reduce(kind: str, x: DNDarray, axis, out, keepdims: bool) -> DNDarray:
     sanitation.sanitize_in(x)
     argf = torch.argmin if kind == "min" else torch.argmax
-    neutral = _operations._neutral("highest" if kind == "min" else "lowest", x.larray.dtype)
     local, comm, split = x.larray, x.comm, x.split
+    if local.dtype == torch.bool:
+        local = local.to(torch.uint8)  # torch.argmax/argmin take no bool
+    neutral = _operations._neutral("highest" if kind == "min" else "lowest", local.dtype)
     if axis is None:
         if not x.is_distributed():
             result = argf(local.reshape(-1))
@@ -259,6 +261,8 @@ def bincount(x: DNDarray, weights: Optional[DNDarray] = None, minlength: int = 0
     global length, summed across ranks (unsplit, as heat_tpu's)."""
     sanitation.sanitize_in(x)
     local = x.larray.reshape(-1)
+    if local.dtype == torch.bool:
+        local = local.to(torch.int64)  # torch.bincount takes no bool; jnp counts False and True
     if x.size and bool((min(x) < 0).item()):
         raise ValueError("bincount: input array must have no negative elements")
     length = int(max(x).item()) + 1 if x.size else 0
@@ -299,7 +303,8 @@ def _histogram_counts(x: DNDarray, edges: torch.Tensor, weights) -> torch.Tensor
     idx = torch.searchsorted(edges, data.contiguous(), right=True)
     idx = torch.where(data == edges[-1], edges.numel() - 1, idx)
     keep = (idx > 0) & (idx < edges.numel())
-    w = torch.ones_like(data) if weights is None else weights
+    # the counts take the edges' float type, as jnp.histogram's do (bool and int inputs too)
+    w = torch.ones_like(data, dtype=edges.dtype) if weights is None else weights
     counts = torch.zeros(edges.numel(), dtype=w.dtype, device=data.device).index_add_(0, idx[keep], w[keep])[1:]
     if x.is_distributed():
         x.comm.all_reduce(counts, "sum")

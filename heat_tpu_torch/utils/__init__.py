@@ -1,3 +1,3 @@
-"""Utilities (counterpart of heat_tpu/utils/: the data fixtures so far)."""
+"""Utilities (counterpart of heat_tpu/utils/: the data fixtures and test matrices)."""
 
 from . import data

@@ -1,3 +1,4 @@
-"""Data utilities (counterpart of heat_tpu/utils/data/: ``spherical`` so far)."""
+"""Data utilities (counterpart of heat_tpu/utils/data/: ``spherical`` and
+``matrixgallery``)."""
 
-from . import spherical
+from . import matrixgallery, spherical

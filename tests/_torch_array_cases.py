@@ -35,6 +35,12 @@ INPUTS = {
     "pos": _rng.integers(0, 9, 13).astype(np.int64),
 }
 _centers = _rng.normal(0, 8, (3, 2))
+# rows with NaN at the same places (one slice), a row of NaN, and their duplicates
+INPUTS["nanrows"] = np.array([[1, np.nan], [0, 1], [1, np.nan], [0, 1], [np.nan, 0], [np.nan, np.nan], [1, 0]])
+INPUTS["nan7"] = np.array([1, np.nan, -2, 0, np.nan, 5, -0.0], np.float32)
+INPUTS["bools7"] = np.array([True, False, True, True, False, True, False])
+INPUTS["div_x"] = np.array([3, -4, 5, 0, 7, -9, 2, -128])
+INPUTS["div_y"] = np.array([0, 0, 0, 0, 2, -3, 0, 5])
 INPUTS["blobs"] = (_centers[_rng.integers(0, 3, 30)] + _rng.normal(0, 0.5, (30, 2))).astype(np.float32)
 # a mask that selects nothing in the first three rows (the first rank's chunk)
 INPUTS["mask_a"] = INPUTS["a"] > 0.4
@@ -194,10 +200,27 @@ CASES = {
     "second_draw": lambda m, arr, s: _drawn(m, 9, lambda: (m.random.rand(3, **arr.kw), m.random.random((4, 6), split=s,
                                                                                                     **arr.kw))[1]),
     "kmeans_random": lambda m, arr, s: _kmeans(m, arr("blobs", s)),
+    # edge cases where torch's own function answers otherwise than jnp's
+    "edge_sign_nan": lambda m, arr, s: (m.sign(arr("nan7", s)), m.sgn(arr("nan7", s))),
+    "edge_histogram_bool": lambda m, arr, s: m.histogram(arr("bools7", s), 3)[0],
+    "edge_histogram_int": lambda m, arr, s: m.histogram(arr("ints", s), 4)[0],
+    "edge_unique_axis_nan": lambda m, arr, s: (*m.unique(arr("nanrows", s), axis=0, return_inverse=True),
+                                               m.unique(m.transpose(arr("nanrows", s)), axis=1)),
+    "edge_vector_norm_int": lambda m, arr, s: (m.vector_norm(arr("ints", s), axis=0), m.vector_norm(arr("bools", s)),
+                                               m.norm(arr("ints", s))),
+    "edge_trace_bool": lambda m, arr, s: m.array(m.trace(arr("bools", s)), **arr.kw),
+    "edge_outer_2d": lambda m, arr, s: m.outer(arr("small", s), arr("vec", None)),
+    "edge_arg_bool": lambda m, arr, s: (m.argmax(arr("bools", s), axis=0), m.argmin(arr("bools", s)),
+                                        m.argmax(arr("bools", s), axis=1)),
+    "edge_bincount_bool": lambda m, arr, s: m.bincount(arr("bools7", s)),
+    "edge_vdot_bool": lambda m, arr, s: m.vdot(arr("bools", s), arr("bools", s)),
+    "edge_int_div_zero": lambda m, arr, s: tuple(fn(arr("div_x", s), y) for fn in (m.floor_divide, m.mod, m.fmod,
+                                                                                    m.remainder)
+                                                 for y in (arr("div_y", s), 0)),
 }
 
 FLOAT = {"convolve_full", "convolve_same", "kmeans_random", "cumsum1", "percentile", "percentile_axis0", "percentile_axis1", "median", "median_all", "median_ints",
-         "percentile_nan"}
+         "percentile_nan", "edge_vector_norm_int"}
 RTOL = 1e-6
 
 
@@ -206,4 +229,5 @@ def splits_of(name):
     return (None, 0) if name in ("diag", "sort_ties", "sort_ties_desc", "topk", "topk_small", "unique_ties",
                                  "percentile", "percentile_nan", "bincount", "nansum", "randperm",
                                  "convolve_full", "convolve_same", "convolve_valid",
-                                 "kmeans_random") else (None, 0, 1)
+                                 "kmeans_random", "edge_sign_nan", "edge_histogram_bool", "edge_bincount_bool",
+                                 "edge_int_div_zero") else (None, 0, 1)

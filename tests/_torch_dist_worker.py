@@ -147,6 +147,103 @@ def run(inputs) -> dict:
     out.update(run_linalg(inputs, comm))
     out.update(run_array_api(comm))
     out.update(run_cluster(inputs))
+    out.update(run_domain(inputs))
+    return out
+
+
+# the FFTs at three ranks: (function, keywords, input, split); "fx" is 7 x 6 (3, 3, 1 rows),
+# "fcube" 5 x 4 x 6 (2, 2, 1 along axis 0; 2, 2, 0 along axis 1)
+FFT_CASES = {
+    "fft_split_axis": ("fft", dict(axis=0), "fx", 0),
+    "fft_other_axis": ("fft", dict(axis=1), "fx", 0),
+    "ifft_split_axis_n": ("ifft", dict(axis=1, n=9), "fx", 1),
+    "rfft_split_axis": ("rfft", dict(axis=0), "fx", 0),
+    "irfft_split_axis": ("irfft", dict(axis=1), "fx", 1),
+    "fft2_all_axes": ("fft2", dict(), "fx", 0),
+    "rfftn_all_axes": ("rfftn", dict(), "fcube", 1),
+    "fftn_pencil": ("fftn", dict(axes=(0, 2)), "fcube", 0),
+    "ihfftn_pencil": ("ihfftn", dict(axes=(1, 2)), "fcube", 1),
+    "hfft2_pencil": ("hfft2", dict(axes=(0, 1)), "fcube", 0),
+    "fftshift_split_axis": ("fftshift", dict(axes=0), "fx", 0),
+    "ifftshift_all": ("ifftshift", dict(), "fcube", 1),
+}
+# the scalers at three ranks on the flowers table cut to 148 rows (50, 50, 48)
+SCALER_FITS = {
+    "standard": ("StandardScaler", {}, ("mean_", "var_")),
+    "minmax": ("MinMaxScaler", {"feature_range": (-1.0, 2.0)}, ("data_min_", "data_max_", "scale_", "min_")),
+    "normalizer": ("Normalizer", {"norm": "l1"}, ()),
+    "maxabs": ("MaxAbsScaler", {}, ("max_abs_", "scale_")),
+    "robust": ("RobustScaler", {"quantile_range": (10.0, 60.0)}, ("center_", "iqr_")),
+}
+
+
+def run_domain(inputs) -> dict:
+    """The FFT pencils, the DCSR matrix with a rank that holds no rows, the scalers,
+    GaussianNB, Lasso and KNN on ragged splits, the partition interface, and the byte
+    counts of each rank's chunk."""
+    out = {}
+    comm = ht.get_comm()
+    for key, (fn, kw, name, split) in FFT_CASES.items():
+        _record(out, f"fft_{key}", getattr(ht.fft, fn)(ht.array(inputs[name], split=split), **kw))
+
+    # DCSR: 7 x 5 (3, 3, 1 rows) and 2 x 5 (1, 1, 0), from dense data, a split DNDarray,
+    # a rank's own rows (chunks of 1, 5, 1 rows) and another matrix; the union merges
+    rank = comm.rank
+    for name in ("sp_a", "sp_small"):
+        a = inputs[name]
+        mats = {"dense": ht.sparse.sparse_csr_matrix(a, split=0),
+                "dndarray": ht.sparse.to_sparse(ht.array(a, split=0)),
+                "whole": ht.sparse.sparse_csr_matrix(a)}
+        if name == "sp_a":
+            rows = [(0, 1), (1, 6), (6, 7)][rank]
+            mats["is_split"] = ht.sparse.sparse_csr_matrix(a[rows[0]:rows[1]], is_split=0)
+        mats["resplit"] = ht.sparse.sparse_csr_matrix(mats["whole"], split=0)
+        mats["gathered"] = ht.sparse.sparse_csr_matrix(mats["dense"])
+        other = ht.sparse.sparse_csr_matrix(inputs[f"{name}_b"], split=0)
+        mats["add"], mats["mul"] = mats["dense"] + other, mats["dense"] * other
+        mats["add_whole"] = ht.sparse.add(mats["dense"], ht.sparse.sparse_csr_matrix(inputs[f"{name}_b"]))
+        mats["scalar"] = mats["dense"] * 3.0
+        for key, m in mats.items():
+            k = f"dcsr_{name}_{key}"
+            out[f"{k}_meta"] = np.array([m.nnz, m.lnnz, m.split if m.split is not None else -1] + list(m.lshape))
+            for view in ("indptr", "lindptr", "indices", "lindices", "data", "ldata"):
+                out[f"{k}_{view}"] = getattr(m, view).numpy()
+            if m.split is not None:
+                out[f"{k}_counts_displs"] = np.array(m.counts_displs_nnz())
+            _record(out, f"{k}_dense", m.todense())
+
+    # the estimators on ragged splits
+    x, y = inputs["flowers"], inputs["flowers_y"]
+    X = ht.array(x, split=0)
+    for key, (cls, kw, attrs) in SCALER_FITS.items():
+        est = getattr(ht.preprocessing, cls)(**kw).fit(X)
+        for attr in attrs:
+            _record(out, f"scaler_{key}_{attr}", getattr(est, attr))
+        _record(out, f"scaler_{key}_transform", est.transform(X))
+    nb = ht.naive_bayes.GaussianNB().fit(X, ht.array(y, split=0), sample_weight=ht.array(inputs["flowers_w"], split=0))
+    for attr in ("theta_", "var_", "class_count_", "class_prior_"):
+        out[f"nb_{attr}"] = getattr(nb, attr).numpy()
+    _record(out, "nb_classes", nb.classes_)
+    out["nb_epsilon"] = np.array(nb.epsilon_)
+    _record(out, "nb_predict", nb.predict(X))
+    _record(out, "nb_proba", nb.predict_proba(X))
+    lasso = ht.regression.Lasso(lam=0.1)
+    lasso.fit(ht.array(inputs["sugar_x"], split=0), ht.array(inputs["sugar_y"], split=0))
+    _record(out, "lasso_theta", lasso.theta)
+    out["lasso_n_iter"] = np.array(lasso.n_iter)
+    for st, sq in ((0, 0), (0, None), (None, 0)):
+        knn = ht.classification.KNeighborsClassifier(5).fit(ht.array(x, split=st), ht.array(y, split=st))
+        _record(out, f"knn_{st}_{sq}", knn.predict(ht.array(inputs["flowers_q"], split=sq)))
+
+    # the partition interface and its round trip; the byte counts of this rank's chunk
+    for split in (None, 0, 1):
+        a = ht.array(inputs["fx"], split=split)
+        parts = a.__partitioned__
+        out[f"partitioned_{split}_meta"] = np.array(str(sorted(
+            (pos, p["start"], p["shape"], p["location"], str(p["dtype"])) for pos, p in parts["partitions"].items())))
+        out[f"partitioned_{split}_locals"] = np.array(str(parts["locals"]))
+        _record(out, f"partitioned_{split}_round_trip", ht.from_partitioned(a))
+        out[f"partitioned_{split}_bytes"] = np.array([a.nbytes, a.gnbytes, a.lnbytes])
     return out
 
 
@@ -492,9 +589,10 @@ PRINTED = np.arange(40 * 50, dtype=np.float32).reshape(40, 50) / 7
 def main():
     rank, world, init_file, inputs_path, out_dir = sys.argv[1:6]
     torch.set_num_threads(1)
-    dist.init_process_group(
-        "gloo", init_method=f"file://{init_file}", rank=int(rank), world_size=int(world)
-    )
+    # torchrun's environment, read by ht.initialize (gloo: the CPU was asked for)
+    os.environ.update(RANK=rank, WORLD_SIZE=world, LOCAL_RANK=rank)
+    ht.use_device("cpu")
+    ht.initialize(init_method=f"file://{init_file}")
     try:
         out = run(np.load(inputs_path)) if int(world) == 3 else run_sort_cases()
     finally:

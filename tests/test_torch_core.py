@@ -248,3 +248,124 @@ def test_resplit_roundtrip():
         a.resplit_(target)
         assert a.split == target
         np.testing.assert_array_equal(a.numpy(), data)
+
+
+def _one_device():
+    """heat_tpu's communicator over one device: the port's world of one rank."""
+    import jax
+    from heat_tpu.core.communication import MeshCommunication
+
+    return MeshCommunication(jax.devices()[:1])
+
+
+SURFACE_ARRAYS = {
+    "f32": np.arange(35, dtype=np.float32).reshape(7, 5) / 3,
+    "c64": (np.arange(12) + 1j * np.arange(12)[::-1]).astype(np.complex64).reshape(3, 4),
+    "i16": np.arange(24, dtype=np.int16).reshape(2, 3, 4),
+    "bools": np.arange(6).reshape(3, 2) % 2 == 0,
+    "empty_rows": np.ones((0, 3), np.float64),
+}
+
+
+@pytest.mark.parametrize("split", [None, 0, 1])
+@pytest.mark.parametrize("name", list(SURFACE_ARRAYS))
+def test_dndarray_surface(name, split):
+    """nbytes, gnbytes, lnbytes, stride, strides, real and imag equal heat_tpu's, layout by
+    layout (both count the logical chunk; the port has no padded layout)."""
+    data = SURFACE_ARRAYS[name]
+    got, want = htt.array(data, split=split), ht.array(data, split=split, comm=_one_device())
+    for attr in ("nbytes", "gnbytes", "lnbytes", "strides", "lnumel"):
+        assert getattr(got, attr) == getattr(want, attr), attr
+    assert tuple(got.stride) == tuple(want.stride) == got.stride() and got.stride(0) == want.stride(0)
+    _same(got.real, want.real)
+    _same(got.imag, want.imag)
+
+
+@pytest.mark.parametrize("split", [None, 0, 1])
+def test_partition_interface_round_trip(split):
+    """``__partitioned__`` holds heat_tpu's grid, positions, starts, shapes, locations and
+    dtype, this rank's chunk as its data; ``from_partitioned`` of it (and of heat_tpu's
+    dict, whose data are numpy arrays) gives the array back."""
+    data = SURFACE_ARRAYS["f32"]
+    got, want = htt.array(data, split=split), ht.array(data, split=split, comm=_one_device())
+    pg, pw = got.__partitioned__, want.__partitioned__
+    assert pg["shape"] == pw["shape"] and pg["partition_tiling"] == pw["partition_tiling"]
+    assert pg["locals"] == pw["locals"] and set(pg["partitions"]) == set(pw["partitions"])
+    for pos, part in pw["partitions"].items():
+        mine = pg["partitions"][pos]
+        assert (mine["start"], mine["shape"], mine["location"], mine["dtype"]) == (
+            part["start"], part["shape"], part["location"], part["dtype"])
+        np.testing.assert_array_equal(pg["get"](mine["data"]).numpy(), np.asarray(pw["get"](part["data"])))
+    assert got.create_partition_interface(no_data=True)["partitions"][pg["locals"][0]]["data"] is None
+    for source in (got, pg, pw):
+        _same(htt.from_partitioned(source), ht.from_partitioned(want, comm=want.comm))
+    with pytest.raises(ValueError):
+        htt.from_partition_dict(dict(pg, shape=(8, 5)))
+
+
+def test_lloc_reads_and_writes_the_local_tensor():
+    """``lloc`` indexes this rank's tensor (at one rank, the whole array): heat_tpu's
+    marker carries the same array and key."""
+    data = SURFACE_ARRAYS["f32"]
+    got, want = htt.array(data, split=0), ht.array(data, split=0)
+    marker = want.lloc[2:4, 1]
+    array, key = marker.obj
+    np.testing.assert_array_equal(got.lloc[2:4, 1].numpy(), np.asarray(array)[key])
+    got.lloc[0, 0] = 7.0
+    assert got.numpy()[0, 0] == 7.0 and isinstance(got.lloc, htt.LocalIndex)
+
+
+def test_estimator_mixins_and_checks():
+    """The mixins and ``is_*`` checks answer as heat_tpu's for each kind of estimator."""
+    kinds = {
+        "classifier": ("ClassificationMixin", "is_classifier"),
+        "transformer": ("TransformMixin", "is_transformer"),
+        "clusterer": ("ClusteringMixin", "is_clusterer"),
+        "regressor": ("RegressionMixin", "is_regressor"),
+    }
+    for mixin, _ in kinds.values():
+        for m in (ht, htt):
+            est = type("Est", (getattr(m.core.base, mixin), m.BaseEstimator), {})()
+            assert [getattr(m, check)(est) for _, check in kinds.values()] == [
+                k == mixin for k, _ in kinds.values()]
+            assert m.is_estimator(est) and not m.is_estimator(object())
+            with pytest.raises(NotImplementedError):
+                est.fit(None) if mixin in ("TransformMixin", "ClusteringMixin") else est.fit(None, None)
+
+
+def test_top_level_names():
+    """The names heat_tpu exports from its core are exported by the port too."""
+    names = ["broadcast_shape", "broadcast_shapes", "sanitize_axis", "sanitize_shape", "sanitize_slice", "SplitTiles",
+             "SquareDiagTiles", "LocalIndex", "COMM_SELF", "COMM_WORLD", "Communication", "initialize",
+             "from_partitioned", "from_partition_dict", "ClassificationMixin", "TransformMixin", "RegressionMixin",
+             "is_classifier", "is_transformer", "is_estimator", "is_clusterer", "is_regressor"]
+    assert [n for n in names if not hasattr(ht, n)] == []
+    assert [n for n in names if not hasattr(htt, n)] == []
+    assert htt.broadcast_shape((3, 1), (1, 4)) == ht.broadcast_shape((3, 1), (1, 4))
+    assert htt.sanitize_axis((2, 3), -1) == ht.sanitize_axis((2, 3), -1)
+    assert htt.COMM_SELF.size == 1 and htt.COMM_SELF.rank == 0
+    assert isinstance(htt.COMM_WORLD, htt.Communication)
+    x = htt.arange(6, split=0, comm=htt.COMM_SELF)
+    assert x.sum().item() == 15 and x.lshape == (6,)
+
+
+def test_initialize_reads_torchrun_env(monkeypatch):
+    """``initialize`` takes rank and world size from torchrun's environment and picks gloo
+    when the CPU was asked for; on the card's path without CUDA it raises and never
+    falls back to gloo."""
+    seen = {}
+    monkeypatch.setattr(htt.core.communication.dist, "init_process_group",
+                        lambda backend, **kw: seen.update(backend=backend, **kw))
+    monkeypatch.setenv("RANK", "2")
+    monkeypatch.setenv("WORLD_SIZE", "3")
+    htt.initialize()
+    assert seen == {"backend": "gloo", "init_method": "env://", "rank": 2, "world_size": 3}
+    seen.clear()
+    htt.use_device("gpu")
+    try:
+        if not htt.core.communication.torch.cuda.is_available():
+            with pytest.raises(RuntimeError):
+                htt.initialize()
+            assert seen == {}
+    finally:
+        htt.use_device("cpu")

@@ -109,6 +109,31 @@ def _inputs():
         **NAN_CASES,
         **_linalg_inputs(rng),
         **_cluster_inputs(rng),
+        **_domain_inputs(rng),
+    }
+
+
+def _domain_inputs(rng):
+    """The FFT inputs (7 rows: 3, 3, 1), sparse matrices of 7 and 2 rows (2: the third rank
+    holds none), the flowers table cut to 148 rows (50, 50, 48) with weights and 31
+    queries, and the sugar table with an intercept column (148, 148, 146)."""
+    import heat_tpu_torch.datasets as data
+
+    t = data.tables()
+    sparse = lambda shape, density: (rng.standard_normal(shape) * (rng.random(shape) < density)).astype(np.float32)  # noqa: E731
+    return {
+        "fx": rng.standard_normal((7, 6)).astype(np.float32),
+        "fcube": rng.standard_normal((5, 4, 6)).astype(np.float32),
+        "sp_a": sparse((7, 5), 0.4),
+        "sp_a_b": sparse((7, 5), 0.4),
+        "sp_small": sparse((2, 5), 0.5),
+        "sp_small_b": sparse((2, 5), 0.5),
+        "flowers": t["flowers"][1:149],
+        "flowers_y": t["flowers_labels"][1:149],
+        "flowers_w": rng.uniform(0.1, 2.0, 148),
+        "flowers_q": (t["flowers"][::5] + rng.normal(0, 0.2, (30, 4))).astype(np.float32)[:31],
+        "sugar_x": np.hstack([np.ones((442, 1), np.float32), t["sugar_x"]]),
+        "sugar_y": t["sugar_y"],
     }
 
 
@@ -849,3 +874,179 @@ def test_no_whole_array_gather_in_fits(ranks, name):
         counts, rest = r[f"no_gather_fit_{name}_bytes"].tolist()
         assert counts <= 4 * P * 8
         assert rest <= FIT_GATHERS.get(name, lambda P: 0)(P)
+
+
+# ---------------------------------------------------------------- the L7 estimators, fft, sparse
+
+FFT_CASES = {
+    "fft_split_axis": ("fft", dict(axis=0), "fx", 0),
+    "fft_other_axis": ("fft", dict(axis=1), "fx", 0),
+    "ifft_split_axis_n": ("ifft", dict(axis=1, n=9), "fx", 1),
+    "rfft_split_axis": ("rfft", dict(axis=0), "fx", 0),
+    "irfft_split_axis": ("irfft", dict(axis=1), "fx", 1),
+    "fft2_all_axes": ("fft2", dict(), "fx", 0),
+    "rfftn_all_axes": ("rfftn", dict(), "fcube", 1),
+    "fftn_pencil": ("fftn", dict(axes=(0, 2)), "fcube", 0),
+    "ihfftn_pencil": ("ihfftn", dict(axes=(1, 2)), "fcube", 1),
+    "hfft2_pencil": ("hfft2", dict(axes=(0, 1)), "fcube", 0),
+    "fftshift_split_axis": ("fftshift", dict(axes=0), "fx", 0),
+    "ifftshift_all": ("ifftshift", dict(), "fcube", 1),
+}
+
+
+def _scaled(want) -> float:
+    w = np.asarray(want.numpy() if hasattr(want, "numpy") else want)
+    return float(np.abs(w).max()) if w.size else 0.0
+
+
+@pytest.mark.parametrize("key", list(FFT_CASES))
+def test_fft_at_three_ranks(ranks, comm3, key):
+    """The pencil transforms along the split axis (7 rows: 3, 3, 1; a rank without any
+    along axis 1 of the cube), those along other axes, and the shifts of the split axis
+    against heat_tpu's three-device mesh: values within 1e-5 of the largest magnitude,
+    dtype, gshape, split and lshape map."""
+    inputs, res = ranks
+    fn, kw, name, split = FFT_CASES[key]
+    want = getattr(ht.fft, fn)(ht.array(inputs[name], split=split, comm=comm3), **kw)
+    for r in res:
+        assert_record_equal(_rec(r, f"fft_{key}"), want, rtol=0, atol=1e-5 * max(1.0, _scaled(want)), what=key)
+
+
+def _heat_dcsr(inputs, comm3, name, key):
+    """heat_tpu's DCSR_matrix for the worker's case ``key`` on the three-device mesh."""
+    a, mk = inputs[name], ht.sparse.sparse_csr_matrix
+    dense = mk(a, split=0, comm=comm3)
+    whole = mk(a, comm=comm3)
+    other = lambda split: mk(inputs[f"{name}_b"], split=split, comm=comm3)  # noqa: E731
+    return {
+        "dense": lambda: dense,
+        "dndarray": lambda: mk(ht.array(a, split=0, comm=comm3), split=0, comm=comm3),
+        "whole": lambda: whole,
+        "is_split": lambda: mk(a, is_split=0, comm=comm3),
+        "resplit": lambda: mk(whole, split=0, comm=comm3),
+        "gathered": lambda: mk(dense, comm=comm3),
+        "add": lambda: dense + other(0),
+        "mul": lambda: dense * other(0),
+        "add_whole": lambda: ht.sparse.add(dense, other(None)),
+        "scalar": lambda: dense * 3.0,
+    }[key]()
+
+
+DCSR_CASES = [(name, key) for name in ("sp_a", "sp_small")
+              for key in ("dense", "dndarray", "whole", "is_split", "resplit", "gathered", "add", "mul", "add_whole",
+                          "scalar")
+              if not (key == "is_split" and name == "sp_small")]
+
+
+@pytest.mark.parametrize("name,key", DCSR_CASES, ids=[f"{n}-{k}" for n, k in DCSR_CASES])
+def test_dcsr_at_three_ranks(ranks, comm3, name, key):
+    """The DCSR matrix on three ranks (2 rows: the third rank holds none; is_split from
+    chunks of 1, 5 and 1 rows) against heat_tpu's on its mesh: the stored-value counts,
+    each rank's chunk, row pointer, column indices and values, the global views, the
+    counts and offsets, and the dense matrix; the union patterns of add and mul."""
+    inputs, res = ranks
+    want = _heat_dcsr(inputs, comm3, name, key)
+    indptr, indices, data = (np.asarray(getattr(want, v)) for v in ("indptr", "indices", "data"))
+    counts = want.counts_displs_nnz()[0] if want.split is not None else None
+    for rank, r in enumerate(res):
+        k = f"dcsr_{name}_{key}"
+        _, lshape, slices = comm3.chunk(want.gshape, want.split, rank=rank)
+        lo, hi = slices[0].start or 0, slices[0].stop
+        lnnz = counts[rank] if counts is not None else want.nnz
+        assert r[f"{k}_meta"].tolist() == [want.nnz, lnnz, -1 if want.split is None else want.split, *lshape]
+        np.testing.assert_array_equal(r[f"{k}_indptr"], indptr)
+        np.testing.assert_array_equal(r[f"{k}_indices"], indices)
+        np.testing.assert_array_equal(r[f"{k}_data"], data)
+        np.testing.assert_array_equal(r[f"{k}_lindptr"], indptr[lo:hi + 1] - indptr[lo])
+        np.testing.assert_array_equal(r[f"{k}_lindices"], indices[indptr[lo]:indptr[hi]])
+        np.testing.assert_array_equal(r[f"{k}_ldata"], data[indptr[lo]:indptr[hi]])
+        if counts is not None:
+            np.testing.assert_array_equal(r[f"{k}_counts_displs"], np.array(want.counts_displs_nnz()))
+        assert_record_equal(_rec(r, f"{k}_dense"), want.todense(), rtol=0)
+
+
+SCALER_FITS = {
+    "standard": ("StandardScaler", {}, ("mean_", "var_")),
+    "minmax": ("MinMaxScaler", {"feature_range": (-1.0, 2.0)}, ("data_min_", "data_max_", "scale_", "min_")),
+    "normalizer": ("Normalizer", {"norm": "l1"}, ()),
+    "maxabs": ("MaxAbsScaler", {}, ("max_abs_", "scale_")),
+    "robust": ("RobustScaler", {"quantile_range": (10.0, 60.0)}, ("center_", "iqr_")),
+}
+
+
+@pytest.mark.parametrize("key", list(SCALER_FITS))
+def test_scalers_at_three_ranks(ranks, comm3, key):
+    """Each scaler fitted on 148 rows split 50, 50, 48 (RobustScaler on the distributed
+    sort): its statistics and transform within 1e-5 of heat_tpu's (of the largest
+    magnitude), with dtype, gshape, split and lshape map."""
+    inputs, res = ranks
+    cls, kw, attrs = SCALER_FITS[key]
+    X = ht.array(inputs["flowers"], split=0, comm=comm3)
+    est = getattr(ht.preprocessing, cls)(**kw).fit(X)
+    for r in res:
+        for attr in attrs:
+            want = getattr(est, attr)
+            assert_record_equal(_rec(r, f"scaler_{key}_{attr}"), want, rtol=1e-5, atol=1e-5 * _scaled(want))
+        want = est.transform(X)
+        assert_record_equal(_rec(r, f"scaler_{key}_transform"), want, rtol=1e-5, atol=1e-5 * _scaled(want))
+
+
+def test_gaussian_nb_at_three_ranks(ranks, comm3):
+    """GaussianNB with sample weights on 148 rows split 50, 50, 48: the float64 moments
+    within 1e-10 (relative, and of the largest magnitude), the classes and predictions
+    equal, the probabilities within 1e-10."""
+    inputs, res = ranks
+    X = ht.array(inputs["flowers"], split=0, comm=comm3)
+    nb = ht.naive_bayes.GaussianNB().fit(X, ht.array(inputs["flowers_y"], split=0, comm=comm3),
+                                         sample_weight=ht.array(inputs["flowers_w"], split=0, comm=comm3))
+    for r in res:
+        for attr in ("theta_", "var_", "class_count_", "class_prior_"):
+            want = np.asarray(getattr(nb, attr))
+            np.testing.assert_allclose(r[f"nb_{attr}"], want, rtol=1e-10, atol=1e-10 * _scaled(want), err_msg=attr)
+        assert float(r["nb_epsilon"]) == pytest.approx(nb.epsilon_, rel=1e-12)
+        assert_record_equal(_rec(r, "nb_classes"), nb.classes_, rtol=0)
+        assert_record_equal(_rec(r, "nb_predict"), nb.predict(X), rtol=0)
+        assert_record_equal(_rec(r, "nb_proba"), nb.predict_proba(X), rtol=1e-10, atol=1e-12)
+
+
+def test_lasso_at_three_ranks(ranks, comm3):
+    """Lasso on the sugar table split 148, 148, 146 (one all-reduce a coordinate): the
+    sweeps and θ within 1e-10 of the largest coefficient."""
+    inputs, res = ranks
+    lasso = ht.regression.Lasso(lam=0.1)
+    lasso.fit(ht.array(inputs["sugar_x"], split=0, comm=comm3), ht.array(inputs["sugar_y"], split=0, comm=comm3))
+    for r in res:
+        assert int(r["lasso_n_iter"]) == lasso.n_iter
+        assert_record_equal(_rec(r, "lasso_theta"), lasso.theta, rtol=0, atol=1e-10 * _scaled(lasso.theta))
+
+
+@pytest.mark.parametrize("st,sq", [(0, 0), (0, None), (None, 0)])
+def test_knn_at_three_ranks(ranks, comm3, st, sq):
+    """KNN with the training set split 50, 50, 48 (its nearest rows taken from other
+    ranks) or whole, queries split 11, 11, 9 or whole: heat_tpu's labels and layout."""
+    inputs, res = ranks
+    knn = ht.classification.KNeighborsClassifier(5).fit(ht.array(inputs["flowers"], split=st, comm=comm3),
+                                                        ht.array(inputs["flowers_y"], split=st, comm=comm3))
+    want = knn.predict(ht.array(inputs["flowers_q"], split=sq, comm=comm3))
+    for r in res:
+        assert_record_equal(_rec(r, f"knn_{st}_{sq}"), want, rtol=0)
+
+
+@pytest.mark.parametrize("split", [None, 0, 1])
+def test_partition_interface_at_three_ranks(ranks, comm3, split):
+    """``__partitioned__`` on three ranks: heat_tpu's positions, starts, shapes,
+    locations and dtype; each rank's ``locals`` its own position; ``from_partitioned``
+    gives the array back; nbytes, gnbytes and each rank's lnbytes as heat_tpu counts them
+    on its mesh."""
+    inputs, res = ranks
+    a = ht.array(inputs["fx"], split=split, comm=comm3)
+    parts = a.__partitioned__
+    meta = str(sorted((pos, p["start"], p["shape"], p["location"], str(p["dtype"]))
+                      for pos, p in parts["partitions"].items()))
+    for rank, r in enumerate(res):
+        assert str(r[f"partitioned_{split}_meta"]) == meta
+        own = tuple(rank if i == split else 0 for i in range(a.ndim))
+        assert str(r[f"partitioned_{split}_locals"]) == str([own])
+        assert_record_equal(_rec(r, f"partitioned_{split}_round_trip"), a, rtol=0)
+        lnumel = int(np.prod(comm3.chunk(a.gshape, split, rank=rank)[1]))
+        assert r[f"partitioned_{split}_bytes"].tolist() == [a.nbytes, a.gnbytes, lnumel * 4]

@@ -11,6 +11,7 @@ import pytest
 import heat_tpu as ht
 
 import heat_tpu_torch as htt
+from _torch_parity import cases, check
 
 DTYPES = ["bool", "uint8", "int8", "int16", "int32", "int64", "float16", "float32", "float64"]
 UNARY = ["exp", "expm1", "exp2", "log", "log2", "log10", "log1p", "sqrt", "square", "sin", "cos", "tan", "arcsin",
@@ -157,3 +158,23 @@ def test_var_ddof_and_histograms(split):
     np.testing.assert_array_equal(htt.histc(got, 5).numpy(), ht.histc(want, 5).numpy())
     np.testing.assert_allclose(htt.average(got).numpy(), ht.average(want).numpy(), rtol=1e-6)
     np.testing.assert_allclose(htt.cov(got).numpy(), ht.cov(want).numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("name,split", cases(["edge_"]))
+def test_edge_cases(name, split):
+    """Where torch's function answers otherwise than jnp's, the port answers as heat_tpu:
+    sign and sgn of NaN, histogram counts of bool and int input in float, unique slices
+    with NaN in numpy's order, vector_norm of int and bool in float64, trace of bool
+    as an int, outer of 2-D operands, argmax/argmin, bincount and vdot of bool, and
+    integer division and remainders by zero (tests/_torch_array_cases.py)."""
+    check(name, split)
+
+
+@pytest.mark.parametrize("split", [None, 0])
+def test_bfloat16_numpy(split):
+    """``numpy()`` of a bfloat16 array is an ``ml_dtypes.bfloat16`` array, as heat_tpu's."""
+    data = np.array([1.5, -2.25, 3.0e5, 0.0], np.float32)
+    got = htt.array(data, split=split).astype(htt.bfloat16).numpy()
+    want = ht.array(data, split=split).astype(ht.bfloat16).numpy()
+    assert got.dtype == want.dtype and got.dtype.name == "bfloat16"
+    np.testing.assert_array_equal(got.astype(np.float32), np.asarray(want).astype(np.float32))
