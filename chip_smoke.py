@@ -90,6 +90,27 @@ Phases, one line each:
      b8 h16 t4096 d64 bf16 with the knob off (K2) and on (K3), in turns, in ms and TFLOP/s;
  12. the D pass, K4 and K5 timed at the step's two shapes and bench.py's, in turns with the
      backward of ``scaled_dot_product_attention`` on the same inputs;
+ 12b. the rest of heat_tpu.nn (``nn_phases``): ``[ring_attention]``, ring attention (causal
+     and full) and zigzag attention at bench.py's (8, 16, 4096, 64) in f32 and bf16 over
+     P = 4 virtual ranks and at (1, 8, 32768, 64) f32 causal over P = 8, the ring's
+     rank-local body fed each rank's chunks in its ring order on one card: K2 launched
+     exactly P(P+1)/2 (causal), P² (full) or P(2P+1) (zigzag) times, the merged O and LSE
+     within 2e-4 of one K2 call on the whole sequence (O in f32 from both; the cast O within
+     one rounding in bf16), best of 3 ms beside the whole-sequence K2 and its bound, the
+     merge's share of the device time from a trace, and one case under
+     ``HEAT_TPU_FLASH_PIPELINE=1`` (K3); ``[ring_attention_bwd]``, every case's backward:
+     D launched P times and K4 and K5 once a forward block (writing f32, as the whole
+     call's reference does, whose outputs rounded to the input type equal the default
+     entry's bit for bit), dQ, dK and dV within 2e-4 of each gradient's largest entry of
+     D/K4/K5 on the whole sequence (at 32,768 tokens plus that call's own distance from
+     float64, and the ring within 2e-4 of float64 on 512 keys), timed against it;
+     ``[ulysses]``, Ulysses at world 1 equal to sdpa, and MultiheadAttention forward and
+     backward on a sequence-split DNDarray at world 1 equal to the CPU path; ``[nn_zoo]``,
+     heat_tpu's MNIST Net (forward and one SGD step, Dropout2d keyed, batch 256), an LSTM
+     (512, 512, 2 layers) on (64, 256, 512) and a TransformerEncoderLayer(512, 8) in training
+     mode with dropout 0.1 and a key, each equal to the CPU path within 1e-5 of the largest
+     magnitude, with TF32 allowed for the process and seen off in every product,
+     convolution and recurrence; each line carries the card's nvidia-smi name and limit;
  13. (13-17 run in a child process of this script, which traces nothing: see
      ``linalg_phases``) config #2 (``[linalg_matmul]``): ``ht.linalg.matmul`` of a (4096, 4096) split=0 and a
      (4096, 4096) split=1 f32 array from a seeded generator, with TF32 allowed for the
@@ -1688,6 +1709,397 @@ def domain_phases(ht, dev) -> dict:
     return res
 
 
+# the long-context paths (bench.py:216-233: causal self-attention at (8, 16, 4096, 64) bf16;
+# "on a mesh the identical math runs as ring attention") at P = 4 virtual ranks, and
+# Transformer-base heads (h 8, d 64) at 32,768 tokens over P = 8
+RING_CASES = {
+    # name: (B, H, T, D, dtype, causal, P, schedule)
+    "bench_causal_f32": (BENCH_B, BENCH_H, BENCH_T, BENCH_D, "float32", True, 4, "ring"),
+    "bench_full_f32": (BENCH_B, BENCH_H, BENCH_T, BENCH_D, "float32", False, 4, "ring"),
+    "bench_zigzag_f32": (BENCH_B, BENCH_H, BENCH_T, BENCH_D, "float32", True, 4, "zigzag"),
+    "bench_causal_bf16": (BENCH_B, BENCH_H, BENCH_T, BENCH_D, "bfloat16", True, 4, "ring"),
+    "bench_full_bf16": (BENCH_B, BENCH_H, BENCH_T, BENCH_D, "bfloat16", False, 4, "ring"),
+    "bench_zigzag_bf16": (BENCH_B, BENCH_H, BENCH_T, BENCH_D, "bfloat16", True, 4, "zigzag"),
+    "long_causal_f32": (1, 8, 32768, 64, "float32", True, 8, "ring"),
+    "long_zigzag_f32": (1, 8, 32768, 64, "float32", True, 8, "zigzag"),
+}
+
+
+def ring_blocks(p: int, causal: bool, schedule: str) -> int:
+    """K2 launches of one ring forward over p ranks: P(P+1)/2 causal, P² full, P(2P+1) zigzag."""
+    if schedule == "zigzag":
+        return p * (2 * p + 1)
+    return p * (p + 1) // 2 if causal else p * p
+
+
+class VirtualRing:
+    """P ranks of a ring on one card: the rank-local bodies of heat_tpu_torch's ring
+    attention (``_ring_forward``, ``_ring_backward``) fed each rank's chunks in its ring
+    order (src = rank − i at step i), as ``TorchCommunication.ring_blocks`` delivers them.
+    Zigzag inputs are permuted by ``zigzag_order`` first and the results back."""
+
+    def __init__(self, att, q, k, v, p: int, causal: bool, schedule: str):
+        import torch
+
+        self.att, self.p, self.causal, self.schedule = att, p, causal, schedule
+        t = q.shape[1]
+        self.order = None
+        if schedule == "zigzag":
+            self.order = torch.as_tensor(att.zigzag_order(t, p).astype(np.int64), device=q.device)
+            self.inverse = torch.as_tensor(att.zigzag_inverse(t, p).astype(np.int64), device=q.device)
+            q, k, v = (x[:, self.order] for x in (q, k, v))
+        c = t // p
+        self.c = c
+        self.q, self.k, self.v = ([x[:, r * c:(r + 1) * c].contiguous() for r in range(p)] for x in (q, k, v))
+        self.scale = 1.0 / math.sqrt(q.shape[-1])
+
+    def blocks(self, my: int):
+        if self.schedule == "zigzag":
+            return self.att._zigzag_schedule(my, self.c // 2)
+        return self.att._ring_schedule(my, self.causal)
+
+    def srcs(self, my: int):
+        return [(my - i) % self.p for i in range(self.p)]
+
+    def run(self) -> list:
+        """Every rank's ring forward, (O f32, LSE) of its chunk: what is timed."""
+        return [self.att._ring_forward(self.q[my], [(self.k[s], self.v[s], s) for s in self.srcs(my)],
+                                       self.blocks(my), self.scale) for my in range(self.p)]
+
+    def whole(self, parts):
+        """Per-rank chunks along the sequence joined into the whole, in its own order."""
+        import torch
+
+        x = torch.cat(parts, 1)
+        return x[:, self.inverse] if self.order is not None else x
+
+    def chunks(self, x) -> list:
+        """The whole sequence's ``x`` cut into the ranks' chunks (in the ring's layout)."""
+        if self.order is not None:
+            x = x[:, self.order]
+        return [x[:, r * self.c:(r + 1) * self.c].contiguous() for r in range(self.p)]
+
+    def forward(self):
+        """(O f32, LSE) of the whole sequence, in its own order."""
+        outs = self.run()
+        return self.whole([o for o, _ in outs]), self.whole([lse for _, lse in outs])
+
+    def run_backward(self, o, do, lse):
+        """Every rank's ring backward from per-rank chunks of O, dO and LSE: dQ chunks and
+        the dK/dV accumulators each chunk collected, (2, bh, c, D) f32 a rank."""
+        import torch
+
+        accs = [torch.zeros((2,) + self.k[0].shape, dtype=torch.float32, device=o[0].device) for _ in range(self.p)]
+        dq = [self.att._ring_backward(self.q[my], o[my], do[my], lse[my],
+                                      [(self.k[s], self.v[s], s, accs[s]) for s in self.srcs(my)], self.blocks(my),
+                                      self.scale) for my in range(self.p)]
+        return dq, accs
+
+    def backward(self, o, do, lse):
+        """(dQ, dK, dV) f32 of the whole sequence from the whole O (in q's dtype), dO, LSE."""
+        dq, accs = self.run_backward(self.chunks(o), self.chunks(do), self.chunks(lse))
+        return self.whole(dq), self.whole([a[0] for a in accs]), self.whole([a[1] for a in accs])
+
+
+def bwd_f64(q, k, v, do, causal: bool, keys: int = 512, rows: int = 2048) -> tuple:
+    """dK and dV in float64 of the first batch·head's first ``keys`` keys, every query
+    attending (their sums are the longest), for q, k, v, dO (bh, T, D): each query's LSE,
+    O and D = rowsum(dO∘O) from its whole row in float64, ``rows`` queries at a time."""
+    import torch
+
+    q0, k0, v0, g0 = (x[0].double() for x in (q, k, v, do))
+    t, s = q0.shape[0], 1.0 / math.sqrt(q0.shape[1])
+    dk = torch.zeros(keys, q0.shape[1], dtype=torch.float64, device=q.device)
+    dv = torch.zeros_like(dk)
+    for r0 in range(0, t, rows):
+        sc = (q0[r0:r0 + rows] @ k0.T) * s
+        if causal:
+            sc = sc.masked_fill(torch.arange(r0, r0 + sc.shape[0], device=q.device)[:, None]
+                                < torch.arange(t, device=q.device)[None, :], -math.inf)
+        p = torch.softmax(sc, dim=-1)
+        dd = ((p @ v0) * g0[r0:r0 + rows]).sum(-1, keepdim=True)
+        pk = p[:, :keys]
+        dv += pk.T @ g0[r0:r0 + rows]
+        dk += ((pk * (g0[r0:r0 + rows] @ v0[:keys].T - dd)).T @ q0[r0:r0 + rows]) * s
+    return dk, dv
+
+
+def rel_err(got, want) -> float:
+    """max |got − want| over the largest |want|."""
+    got, want = got.detach().float(), want.detach().float()
+    return float((got - want).abs().max()) / (float(want.abs().max()) + 1e-30)
+
+
+def nn_phases(ht, kernels, smi: str, dev) -> dict:
+    """The slice of heat_tpu.nn beyond the Transformer: ring, zigzag and Ulysses attention,
+    keyed dropout, the module zoo and the recurrent layers, on the card.
+
+    ``[ring_attention]``: each RING_CASES shape through P virtual ranks of the ring's
+    rank-local body (:class:`VirtualRing`), its K2 launches counted exactly (P(P+1)/2
+    causal, P² full, P(2P+1) zigzag), the merged O and LSE held to one K2 call on the
+    whole sequence (O in f32 from both) within 2e-4 of the largest magnitude, and the O
+    cast to the input type within one rounding of it (2⁻⁸ relative in bf16); best of 3 ms
+    beside the whole-sequence K2's ms and their 3xTF32 (bf16: tensor-core) bound, one run
+    traced for the merge's share of the device time. One case again under
+    ``HEAT_TPU_FLASH_PIPELINE=1`` (K3). ``[ring_attention_bwd]``: every case's backward,
+    D = P launches and K4 = K5 = the forward's blocks, dQ, dK and dV (f32 from the ring's
+    blocks and from the whole call alike) within 2e-4 of each gradient's largest entry of
+    D/K4/K5 on the whole sequence, from the same O and LSE; best of 3 ms beside the whole
+    backward's. ``[ulysses]``: Ulysses at world 1 (the all-to-all the identity) equal
+    to sdpa, and one MultiheadAttention forward and backward on a sequence-split DNDarray
+    (world 1: the local path) equal to the CPU path. ``[nn_zoo]``: heat_tpu's MNIST Net
+    (forward and one SGD step, Dropout2d keyed, batch 256), an LSTM(512, 512, 2) on (64,
+    256, 512) and a TransformerEncoderLayer(512, 8) in training mode with dropout 0.1 and a
+    key, each equal to the CPU path within 1e-5 of the largest magnitude with TF32 allowed
+    for the process and seen off inside every product, convolution and recurrence."""
+    import torch
+
+    from heat_tpu_torch.nn import attention as att
+
+    k2 = kernels.flash_attention
+    flash = ("flash_attention_fwd", "flash_attention_bwd_d", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+             "flash_attention_fwd_pipelined")
+    out = {"ring": {}, "ring_bwd": {}}
+    for i, (cname, (b, h, t, d, dtype_name, causal, p, schedule)) in enumerate(RING_CASES.items()):
+        dtype = getattr(torch, dtype_name)
+        q, k, v = k2_inputs(b * h, t, t, d, dtype, SEED + 1000 + i, dev)
+        ring = VirtualRing(att, q, k, v, p, causal, schedule)
+        blocks = ring_blocks(p, causal, schedule)
+        sc = 1.0 / math.sqrt(d)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            o, lse = ring.forward()
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            check(counts["flash_attention_fwd"] == blocks and all(counts[n] == 0 for n in flash[1:]),
+                  f"{cname}: ring launches {counts}, expected {blocks} of K2")
+            wo, wl = k2.block_fwd(q, k, v, causal, sc)  # one K2 call, O in f32
+            err_o, err_lse = rel_err(o, wo), float((lse - wl).abs().max())
+            cast_err = rel_err(o.to(dtype), wo.to(dtype))
+            cast_tol = 2e-4 + (2.0**-8 if dtype != torch.float32 else 0.0)
+            check(err_o <= 2e-4 and err_lse <= 2e-4 * max(1.0, float(wl.abs().max())) and cast_err <= cast_tol,
+                  f"{cname}: the ring's O/LSE are {err_o}/{err_lse} (cast {cast_err}) from one K2 call")
+            if i == 0 or dtype != torch.float32:
+                # the f32-output entry against the plain version on a few heads, and rounded
+                # to the input type, bit for bit the default entry's output
+                ro, rl = k2.flash_attention_reference(q[:8].float(), k[:8].float(), v[:8].float(), causal, sc)
+                check(rel_err(wo[:8], ro) <= 2e-4, f"{cname}: K2's f32 output disagrees with its plain version")
+                od, ld = k2._k2(q, k, v, causal, sc, None)
+                check(torch.equal(wo.to(dtype), od) and torch.equal(wl, ld), f"{cname}: K2's two entry points differ")
+                del od, ld
+            ring_ms = min(cuda_ms(ring.run, reps=1, warmup=1 if r == 0 else 0) for r in range(3))
+            whole_ms = cuda_ms(lambda: k2.block_fwd(q, k, v, causal, sc), reps=3, warmup=1)
+            bound = k2_bound_ms(b * h, t, t, d, causal, q.element_size())
+        row = {"launches": counts["flash_attention_fwd"], "expected": blocks, "max_rel_err_o": err_o,
+               "max_abs_err_lse": err_lse, "cast_rel_err": cast_err, "ring_ms": ring_ms, "whole_k2_ms": whole_ms,
+               "bound_ms": bound[0], "bound_by": bound[1], "p": p}
+        if cname in ("bench_causal_f32", "bench_zigzag_f32", "long_causal_f32"):
+            prof = profile_device(ring.run)
+            if "device_ms_by_kind" in prof:
+                kinds = prof["device_ms_by_kind"]
+                k2_dev = kinds.get("k2_flash_attention", 0.0)
+                row["device_ms_by_kind"] = kinds
+                row["merge_share"] = 1.0 - k2_dev / prof["device_busy_ms"]
+                row["copy_ms"] = kinds.get("copy_transpose", 0.0)
+                row["device_idle_share"] = prof["device_idle_share"]
+            else:
+                row["device_trace"] = prof["device_trace"]
+        if cname == "bench_causal_f32":
+            with pipelined(True), torch.no_grad():
+                kernels.reset_launch_counts()
+                o3, l3 = ring.forward()
+                torch.cuda.synchronize()
+                c3 = kernels.launch_counts()
+            check(c3["flash_attention_fwd_pipelined"] == blocks and c3["flash_attention_fwd"] == 0,
+                  f"{cname} under the knob: launches {c3}")
+            row["k3_launches"] = c3["flash_attention_fwd_pipelined"]
+            row["k3_max_rel_err_o"] = rel_err(o3, wo)
+            check(row["k3_max_rel_err_o"] <= 2e-4, f"{cname}: the K3 ring is {row['k3_max_rel_err_o']} from K2")
+            del o3, l3
+        out["ring"][cname] = row
+        phase("ring_attention", case=cname, shape=f"{b}x{h}x{t}x{d}", dtype=dtype_name, causal=causal,
+              schedule=schedule, card=json.dumps(smi), **{k_: json.dumps(v_) if isinstance(v_, dict) else v_
+                                                          for k_, v_ in row.items()})
+        # the ring's backward and D/K4/K5 on the whole sequence from the same O and LSE
+        # (the whole-sequence K2's), so the two differ only in how they sum; both write
+        # f32 (bf16 too: the ring's blocks and the whole call round once, at the end)
+        torch.manual_seed(SEED + 1100 + i)
+        do = torch.randn(q.shape, device=dev).to(dtype)
+        o_q = wo.to(dtype)
+        with torch.no_grad():
+            kernels.reset_launch_counts()
+            grads = ring.backward(o_q, do, wl)
+            torch.cuda.synchronize()
+            bc = kernels.launch_counts()
+            check(bc["flash_attention_bwd_d"] == p and bc["flash_attention_bwd_dq"] == blocks
+                  and bc["flash_attention_bwd_dkv"] == blocks and bc["flash_attention_fwd"] == 0,
+                  f"{cname}: ring backward launches {bc}")
+            dd = k2._d_pass(o_q, do)
+            want = (k2._k4(q, k, v, do, wl, dd, causal, sc, None, out_f32=True),
+                    *k2._k5(q, k, v, do, wl, dd, causal, sc, None, out_f32=True))
+            legacy = k2.flash_attention_bwd(q, k, v, o_q, do, wl, causal, sc)
+            check(all(torch.equal(w.to(dtype), g) for w, g in zip(want, legacy)),
+                  f"{cname}: the f32-output K4/K5 rounded differ from the default entry's")
+            del legacy
+            errs = [rel_err(g, w) for g, w in zip(grads, want)]
+            # at 32,768 tokens both sum each key's dK and dV over up to 32,768 queries, in
+            # other orders: both are held to float64 on the keys with the longest sums, and
+            # the ring to the whole within 2e-4 plus the whole's own distance from float64
+            f64 = {}
+            if t >= 32768:
+                ref = bwd_f64(q, k, v, do, causal)
+                for n_, g_, w_, r_ in (("dk", grads[1], want[1], ref[0]), ("dv", grads[2], want[2], ref[1])):
+                    f64[n_] = {"ring": rel_err(g_[0, :512].double(), r_), "whole": rel_err(w_[0, :512].double(), r_)}
+                check(all(e["ring"] <= 2e-4 for e in f64.values()),
+                      f"{cname}: ring dK/dV against float64 {f64}")
+            slack = max((e["whole"] for e in f64.values()), default=0.0)
+            check(max(errs) <= 2e-4 + slack,
+                  f"{cname}: ring gradients (dQ, dK, dV) are {errs} from D/K4/K5 whole (float64: {f64})")
+            # from the ring's own forward (its O and LSE): what a training step sees
+            own = [rel_err(g, w) for g, w in zip(ring.backward(o.to(dtype), do, lse), want)]
+            parts = ring.chunks(o_q), ring.chunks(do), ring.chunks(wl)
+            bwd_ms = min(cuda_ms(lambda: ring.run_backward(*parts), reps=1, warmup=1 if r == 0 else 0)
+                         for r in range(3))
+            whole_bwd_ms = cuda_ms(lambda: k2.flash_attention_bwd(q, k, v, o_q, do, wl, causal, sc), reps=3,
+                                   warmup=1)
+        brow = {"launches": {n: bc[n] for n in flash[1:4]}, "max_rel_err": dict(zip(("dq", "dk", "dv"), errs)),
+                "max_rel_err_from_own_forward": dict(zip(("dq", "dk", "dv"), own)),
+                "rel_err_against_float64_head0_keys512": f64,
+                "ring_bwd_ms": bwd_ms, "whole_bwd_ms": whole_bwd_ms,
+                "bound_ms": bwd_bounds_ms(b * h, t, t, d, causal, q.element_size())}
+        out["ring_bwd"][cname] = brow
+        phase("ring_attention_bwd", case=cname, shape=f"{b}x{h}x{t}x{d}", dtype=dtype_name, ranks=p, schedule=schedule,
+              card=json.dumps(smi), **{k_: json.dumps(v_) if isinstance(v_, dict) else v_ for k_, v_ in brow.items()})
+        del do, o_q, grads, want, parts, dd
+        del q, k, v, ring, o, lse, wo, wl
+        torch.cuda.empty_cache()
+
+    # Ulysses at world 1, and MultiheadAttention on a sequence-split DNDarray at world 1
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1200)
+    qu, ku, vu = (torch.randn(2, 8, 2048, 64, generator=gen, device=dev) for _ in range(3))
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        got = ht.nn.ulysses_attention(qu, ku, vu, is_causal=True)
+        torch.cuda.synchronize()
+        uc = kernels.launch_counts()
+        want = ht.nn.scaled_dot_product_attention(qu, ku, vu, is_causal=True)
+    check(uc["flash_attention_fwd"] == 1, f"Ulysses launches {uc}")
+    check(torch.equal(got, want), "Ulysses at world 1 differs from sdpa")
+    torch.manual_seed(SEED + 1201)
+    mha = ht.nn.MultiheadAttention(512, 8)
+    mha_cpu = ht.nn.MultiheadAttention(512, 8, device="cpu")
+    mha_cpu.load_state_dict({n_: t_.cpu() for n_, t_ in mha.state_dict().items()})
+    x = torch.randn(2, 1024, 512, generator=gen, device=dev)
+    kernels.reset_launch_counts()
+    y = mha(ht.array(x, split=1), is_causal=True)[0]
+    (y.larray ** 2).sum().backward()
+    torch.cuda.synchronize()
+    mc = kernels.launch_counts()
+    y_cpu = mha_cpu(ht.array(x.cpu(), split=1, device="cpu"), is_causal=True)[0]
+    (y_cpu.larray ** 2).sum().backward()
+    check(y.split == 1 and all(mc[n] == 1 for n in flash[:4]), f"sequence-split MHA at world 1: split {y.split}, {mc}")
+    mha_err = rel_err(y.larray.cpu(), y_cpu.larray)
+    grad_err = max(rel_err(a.grad.cpu(), b_.grad) for a, b_ in zip(mha.parameters(), mha_cpu.parameters()))
+    check(mha_err <= 1e-5 and grad_err <= 1e-4, f"sequence-split MHA: card vs CPU {mha_err}, gradients {grad_err}")
+    out["ulysses"] = {"launches": uc["flash_attention_fwd"], "mha_launches": {n: mc[n] for n in flash[:4]},
+                      "mha_rel_err": mha_err, "mha_grad_rel_err": grad_err}
+    phase("ulysses", shape="2x8x2048x64", card=json.dumps(smi), **{k_: json.dumps(v_) for k_, v_ in out["ulysses"].items()})
+    del qu, ku, vu, got, want, mha, mha_cpu, x, y, y_cpu
+    torch.cuda.empty_cache()
+
+    out["zoo"] = zoo_phase(ht, smi, dev)
+    return out
+
+
+def zoo_phase(ht, smi: str, dev) -> dict:
+    """``[nn_zoo]``: the MNIST Net, an LSTM and a TransformerEncoderLayer, card against CPU."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "examples", "nn"))
+    import mnist_torch
+
+    seen = []
+    patched = {}
+
+    def spy(owner, name):
+        fn = getattr(owner, name)
+        patched[(owner, name)] = fn
+
+        def wrapped(*args, **kwargs):
+            seen.append((name, torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
+            return fn(*args, **kwargs)
+
+        setattr(owner, name, wrapped)
+
+    prior = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    for owner, name in ((torch, "matmul"), (torch.nn.functional, "linear"), (torch.nn.functional, "conv2d"),
+                        (torch.nn.LSTM, "forward")):
+        spy(owner, name)
+    key = (0, 42)
+    rows = {}
+    try:
+        def pair(build):
+            torch.manual_seed(SEED + 1300)
+            a = build(dev)
+            b_ = build("cpu")
+            b_.load_state_dict({n_: t_.cpu() for n_, t_ in a.state_dict().items()})
+            return a, b_
+
+        # heat_tpu's MNIST Net: forward in training mode (Dropout2d keyed) and one SGD step
+        net, net_cpu = pair(lambda d_: mnist_torch.Net(device=d_).train())
+        xs, ys = mnist_torch.synthetic(256)
+        x, y = torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev)
+
+        def loss_fn(m, xb, yb):
+            return ht.nn.functional.nll_loss(m(xb, key=key), yb)
+
+        # the step holds TF32 off through the backward (DataParallelOptimizer.step)
+        opts = [ht.optim.DataParallelOptimizer("sgd", lr=0.05) for _ in range(2)]
+        ht.nn.DataParallel(net, optimizer=opts[0])
+        ht.nn.DataParallel(net_cpu, optimizer=opts[1])
+        with torch.no_grad():
+            lg, lc = net(x, key=key), net_cpu(x.cpu(), key=key)
+        lo = opts[0].step(loss_fn, ht.array(x, split=0), ht.array(y, split=0))
+        lo_c = opts[1].step(loss_fn, ht.array(x.cpu(), split=0, device="cpu"), ht.array(y.cpu(), split=0, device="cpu"))
+        errs = [rel_err(lg.cpu(), lc)] + [rel_err(a.cpu(), b_) for a, b_ in zip(net.parameters(), net_cpu.parameters())]
+        check(max(errs) <= 1e-5 and abs(float(lo) - float(lo_c)) <= 1e-5 * abs(float(lo_c)),
+              f"MNIST Net: card vs CPU {max(errs)}, losses {float(lo)} {float(lo_c)}")
+        batch = ht.array(x, split=0), ht.array(y, split=0)
+        rows["mnist_net"] = {"batch": 256, "max_rel_err": max(errs), "loss": float(lo),
+                             "step_best_of_3_ms": 1e3 * best_s(lambda: opts[0].step(loss_fn, *batch), 3)[0]}
+        del net, net_cpu, x, y, opts, batch
+
+        lstm, lstm_cpu = pair(lambda d_: ht.nn.LSTM(512, 512, num_layers=2, device=d_))
+        xl = torch.randn(64, 256, 512, generator=torch.Generator(device=dev).manual_seed(SEED + 1301), device=dev)
+        with torch.no_grad():
+            (ol, (hl, cl)), (oc, (hc, cc)) = lstm(xl), lstm_cpu(xl.cpu())
+            err = max(rel_err(ol.cpu(), oc), rel_err(hl.cpu(), hc), rel_err(cl.cpu(), cc))
+            check(err <= 1e-5, f"LSTM: card vs CPU {err}")
+            rows["lstm"] = {"shape": "64x256x512", "max_rel_err": err,
+                            "best_of_3_ms": 1e3 * best_s(lambda: lstm(xl), 3)[0]}
+        del lstm, lstm_cpu, xl
+
+        enc, enc_cpu = pair(lambda d_: ht.nn.TransformerEncoderLayer(512, 8, dropout=0.1, device=d_).train())
+        xe = torch.randn(4, 512, 512, generator=torch.Generator(device=dev).manual_seed(SEED + 1302), device=dev)
+        with torch.no_grad():
+            oe, ocpu = enc(xe, key=key), enc_cpu(xe.cpu(), key=key)
+            err = rel_err(oe.cpu(), ocpu)
+            check(err <= 1e-5, f"TransformerEncoderLayer in training mode: card vs CPU {err}")
+            rows["encoder_layer_train"] = {"shape": "4x512x512", "dropout": 0.1, "max_rel_err": err,
+                                           "best_of_3_ms": 1e3 * best_s(lambda: enc(xe, key=key), 3)[0]}
+        del enc, enc_cpu, xe
+    finally:
+        for (owner, name), fn in patched.items():
+            setattr(owner, name, fn)
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prior
+    check(bool(seen) and not any(a or b_ for _, a, b_ in seen), f"TF32 inside the zoo: {sorted(set(seen))}")
+    rows["tf32_seen"] = sorted({f"{n}:{a}:{b_}" for n, a, b_ in seen})
+    phase("nn_zoo", card=json.dumps(smi), **{k_: json.dumps(v_) for k_, v_ in rows.items()})
+    torch.cuda.empty_cache()
+    return rows
+
 def linalg_child(out_path: str) -> int:
     """The child process of phases 13-18: the card, the package, :func:`linalg_phases`,
     :func:`array_phases`, :func:`cluster_phases` and :func:`domain_phases`; their results
@@ -2422,6 +2834,9 @@ def main() -> int:
     del bwd_data
     torch.cuda.empty_cache()
 
+    # 12b. the rest of heat_tpu.nn: ring, zigzag and Ulysses attention, the module zoo
+    nn_out = nn_phases(ht, kernels, smi, dev)
+
     # 13-18. distributed linear algebra: config #2's product, config #4's hsvd_rank, the rest
     #        small; then the array API: the manipulation benchmark at N = 40M, the random
     #        streams and KMeans' random init; then the clustering slice; then the domain
@@ -2499,6 +2914,13 @@ def main() -> int:
                 "shape": [e_heads, SRC_T, SRC_T, 64],
                 "dtype": "float32",
                 "launches_of": "one Transformer-base forward",
+                "launches_by_path": {
+                    "transformer_forward": t_counts["flash_attention_fwd"],
+                    "training_step": train_counts["flash_attention_fwd"],
+                    **{f"ring_forward_{c_}": r_["launches"] for c_, r_ in nn_out["ring"].items()},
+                    "ulysses_world_1": nn_out["ulysses"]["launches"],
+                    "mha_sequence_split_world_1": nn_out["ulysses"]["mha_launches"]["flash_attention_fwd"],
+                },
                 "ms_by_shape": k2_ms,
                 "bound_ms_by_shape": {c: b[0] for c, b in k2_bounds.items()},
                 "achieved_flops_per_s": 4 * e_heads * 64 * attention_pairs(SRC_T, SRC_T, False) / (k2_ms["encoder_self"] * 1e-3),
@@ -2531,6 +2953,11 @@ def main() -> int:
                     "shape": [t_heads, TRAIN_T, TRAIN_T, 64],
                     "dtype": "float32",
                     "launches_of": "one Transformer-base training step",
+                    "launches_by_path": {
+                        "training_step": train_counts[kname],
+                        **{f"ring_backward_{c_}": r_["launches"][kname] for c_, r_ in nn_out["ring_bwd"].items()},
+                        "mha_sequence_split_world_1": nn_out["ulysses"]["mha_launches"][kname],
+                    },
                     "ms_by_shape": {c: v[kname] for c, v in bwd_ms.items()},
                     "bound_ms_by_shape": {c: v[kname][0] for c, v in bwd_bounds.items()},
                     "bound_simt_ms_by_shape": {c: v[kname][0] for c, v in bwd_simt.items()},
@@ -2567,6 +2994,11 @@ def main() -> int:
                 "dtype": "float32",
                 "launches_of": "one Transformer-base forward with HEAT_TPU_FLASH_PIPELINE=1",
                 "launches_in_training_step": train_counts_on["flash_attention_fwd_pipelined"],
+                "launches_by_path": {
+                    "transformer_forward": t_counts_on["flash_attention_fwd_pipelined"],
+                    "training_step": train_counts_on["flash_attention_fwd_pipelined"],
+                    "ring_forward_bench_causal_f32": nn_out["ring"]["bench_causal_f32"]["k3_launches"],
+                },
                 "ms_by_shape": k3_ms,
                 "k2_ms_by_shape": k3_k2_ms,
                 "library_ms_by_shape": fwd_library_ms,
@@ -2598,7 +3030,7 @@ def main() -> int:
                        "train_step_pipelined_profile": train_breakdown_on, "bench_ab_runs_ms": ab_runs,
                        "bench_ab_k2_ms": ab_k2_ms, "bench_ab_k3_ms": ab_k3_ms, "linalg": linalg_out,
                        "array": array_out, "kmeans_pp": pp, "cluster": cluster_out,
-                       "domain": child_out["domain"]}, fh, indent=1)
+                       "domain": child_out["domain"], "nn": nn_out}, fh, indent=1)
 
     # 20. the last line
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -9,6 +9,7 @@
 //   D pass : D_i  = Σ_c dO_ic·O_ic                                 (bh, tq) f32
 //   K4     : dQ_i = scale·Σ_j dS_ij k_j,    dS = P∘(dO·vᵀ − D)      (bh, tq, d) in q's type
 //   K5     : dK_j = scale·Σ_i dS_ij q_i,    dV_j = Σ_i P_ij dO_i    (bh, tk, d) in k's type
+// (dQ, dK and dV in f32 through the `_f32_launch` entry points).
 // P is recomputed from the scores as the forward forms them (K2, flash_attention_fwd.cu), in
 // natural units: the product times scale, then the bias, masked scores at the finite
 // NEG_INF (-FLT_MAX), never -inf. A fully masked row has LSE = NEG_INF/2 + log(1e-30) and
@@ -174,12 +175,23 @@ __global__ void __launch_bounds__(kDWarps * 32) flash_attention_bwd_d_kernel(
 }
 
 
+// element `off` of an output, in T, or in f32 for a caller that sums blocks' gradients
+// (the ring attentions), so they round once, at the end
+template <typename T>
+__device__ __forceinline__ void store_out(void* out, long long off, float x, int out_f32) {
+    if (out_f32) {
+        static_cast<float*>(out)[off] = x;
+    } else {
+        static_cast<T*>(out)[off] = from_f32<T>(x);
+    }
+}
+
 // K4: dQ for kRows query rows of one batch·head
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads) flash_attention_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ dd, const float* __restrict__ bias,
-    T* __restrict__ dq, int tq, int tk, int d, float scale, int causal, int q_tiles, int copy_bytes) {
+    void* __restrict__ dq, int tq, int tk, int d, float scale, int causal, int q_tiles, int copy_bytes, int out_f32) {
     constexpr bool kExact = sizeof(T) == 2;
     constexpr int NT = kTile / 8;
     constexpr int DT = DP / 8;
@@ -267,7 +279,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bwd_dq_kernel(
         for (int i = 0; i < 4; ++i) {
             const int row = r_lo + 8 * (i / 2);
             const int col = acc_col(c, i, t);
-            if (row < tq && col < d) dq[(bh * tq + row) * d + col] = from_f32<T>(acc[c][i] * scale);
+            if (row < tq && col < d) store_out<T>(dq, (bh * tq + row) * d + col, acc[c][i] * scale, out_f32);
         }
     }
 }
@@ -277,8 +289,8 @@ template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads) flash_attention_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ dd, const float* __restrict__ bias,
-    T* __restrict__ dk, T* __restrict__ dv, int tq, int tk, int d, float scale, int causal, int k_tiles,
-    int copy_bytes) {
+    void* __restrict__ dk, void* __restrict__ dv, int tq, int tk, int d, float scale, int causal, int k_tiles,
+    int copy_bytes, int out_f32) {
     constexpr bool kExact = sizeof(T) == 2;
     constexpr int NT = kTile / 8;
     constexpr int DT = DP / 8;
@@ -378,8 +390,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bwd_dkv_kernel(
             const int col = acc_col(c, i, t);
             if (key < tk && col < d) {
                 const long long off = (bh * tk + key) * d + col;
-                dk[off] = from_f32<T>(dka[c][i] * scale);
-                dv[off] = from_f32<T>(dva[c][i]);
+                store_out<T>(dk, off, dka[c][i] * scale, out_f32);
+                store_out<T>(dv, off, dva[c][i], out_f32);
             }
         }
     }
@@ -390,7 +402,7 @@ namespace {
 template <typename T, int DP>
 cudaError_t launch_dq(int device, const void* q, const void* k, const void* v, const void* dout, const float* lse,
                       const float* dd, const float* bias, void* dq, int bh, int tq, int tk, int d, float scale,
-                      int causal, cudaStream_t stream) {
+                      int causal, int out_f32, cudaStream_t stream) {
     static std::atomic<unsigned long long> done{0};
     constexpr size_t smem = smem_bytes<T, DP>(false);
     const int q_tiles = (tq + kRows - 1) / kRows;
@@ -400,14 +412,14 @@ cudaError_t launch_dq(int device, const void* q, const void* k, const void* v, c
     if (err != cudaSuccess) return err;
     flash_attention_bwd_dq_kernel<T, DP><<<(unsigned)blocks, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout),
-        lse, dd, bias, static_cast<T*>(dq), tq, tk, d, scale, causal, q_tiles, copy_width<T>(d, q, k, v, dout));
+        lse, dd, bias, dq, tq, tk, d, scale, causal, q_tiles, copy_width<T>(d, q, k, v, dout), out_f32);
     return cudaGetLastError();
 }
 
 template <typename T, int DP>
 cudaError_t launch_dkv(int device, const void* q, const void* k, const void* v, const void* dout, const float* lse,
                        const float* dd, const float* bias, void* dk, void* dv, int bh, int tq, int tk, int d,
-                       float scale, int causal, cudaStream_t stream) {
+                       float scale, int causal, int out_f32, cudaStream_t stream) {
     static std::atomic<unsigned long long> done{0};
     constexpr size_t smem = smem_bytes<T, DP>(true);
     const int k_tiles = (tk + kRows - 1) / kRows;
@@ -417,8 +429,7 @@ cudaError_t launch_dkv(int device, const void* q, const void* k, const void* v, 
     if (err != cudaSuccess) return err;
     flash_attention_bwd_dkv_kernel<T, DP><<<(unsigned)blocks, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout),
-        lse, dd, bias, static_cast<T*>(dk), static_cast<T*>(dv), tq, tk, d, scale, causal, k_tiles,
-        copy_width<T>(d, q, k, v, dout));
+        lse, dd, bias, dk, dv, tq, tk, d, scale, causal, k_tiles, copy_width<T>(d, q, k, v, dout), out_f32);
     return cudaGetLastError();
 }
 
@@ -434,6 +445,46 @@ cudaError_t launch_d(const void* o, const void* dout, float* dd, long long rows,
 cudaError_t check(int device, int d, int bh, int tq, int tk) {
     if (d < 1 || d > 128 || bh < 1 || tq < 1 || tk < 1) return cudaErrorInvalidValue;
     return cudaSetDevice(device);
+}
+
+int dispatch_dq(int device, int dtype, const void* q, const void* k, const void* v, const void* dout,
+                const float* lse, const float* dd, const float* bias, void* dq, int bh, int tq, int tk, int d,
+                float scale, int causal, void* stream, int out_f32) {
+    cudaError_t err = check(device, d, bh, tq, tk);
+    if (err != cudaSuccess) return err;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const bool wide = d > 64;
+#define HT_DQ(T) (wide ? launch_dq<T, 128>(device, q, k, v, dout, lse, dd, bias, dq, bh, tq, tk, d, scale, causal, \
+                                           out_f32, s)                                                          \
+                       : launch_dq<T, 64>(device, q, k, v, dout, lse, dd, bias, dq, bh, tq, tk, d, scale, causal,  \
+                                          out_f32, s))
+    switch (dtype) {
+        case 0: return HT_DQ(float);
+        case 1: return HT_DQ(__nv_bfloat16);
+        case 2: return HT_DQ(__half);
+        default: return cudaErrorInvalidValue;
+    }
+#undef HT_DQ
+}
+
+int dispatch_dkv(int device, int dtype, const void* q, const void* k, const void* v, const void* dout,
+                 const float* lse, const float* dd, const float* bias, void* dk, void* dv, int bh, int tq, int tk,
+                 int d, float scale, int causal, void* stream, int out_f32) {
+    cudaError_t err = check(device, d, bh, tq, tk);
+    if (err != cudaSuccess) return err;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const bool wide = d > 64;
+#define HT_DKV(T) (wide ? launch_dkv<T, 128>(device, q, k, v, dout, lse, dd, bias, dk, dv, bh, tq, tk, d, scale, \
+                                             causal, out_f32, s)                                                  \
+                        : launch_dkv<T, 64>(device, q, k, v, dout, lse, dd, bias, dk, dv, bh, tq, tk, d, scale,  \
+                                            causal, out_f32, s))
+    switch (dtype) {
+        case 0: return HT_DKV(float);
+        case 1: return HT_DKV(__nv_bfloat16);
+        case 2: return HT_DKV(__half);
+        default: return cudaErrorInvalidValue;
+    }
+#undef HT_DKV
 }
 
 }  // namespace
@@ -457,45 +508,39 @@ int flash_attention_bwd_d_launch(int device, int dtype, const void* o, const voi
 }
 
 // q and dout (bh, tq, d), k and v (bh, tk, d) contiguous in the type `dtype`; lse and dd
-// (bh, tq) f32; bias (tq, tk) f32 contiguous or null; dq (bh, tq, d) allocated by the
-// caller; 1 <= d <= 128.
+// (bh, tq) f32; bias (tq, tk) f32 contiguous or null; dq (bh, tq, d) in that type allocated
+// by the caller; 1 <= d <= 128.
 int flash_attention_bwd_dq_launch(int device, int dtype, const void* q, const void* k, const void* v,
                                   const void* dout, const float* lse, const float* dd, const float* bias, void* dq,
                                   int bh, int tq, int tk, int d, float scale, int causal, void* stream) {
-    cudaError_t err = check(device, d, bh, tq, tk);
-    if (err != cudaSuccess) return err;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const bool wide = d > 64;
-#define HT_DQ(T) (wide ? launch_dq<T, 128>(device, q, k, v, dout, lse, dd, bias, dq, bh, tq, tk, d, scale, causal, s) \
-                       : launch_dq<T, 64>(device, q, k, v, dout, lse, dd, bias, dq, bh, tq, tk, d, scale, causal, s))
-    switch (dtype) {
-        case 0: return HT_DQ(float);
-        case 1: return HT_DQ(__nv_bfloat16);
-        case 2: return HT_DQ(__half);
-        default: return cudaErrorInvalidValue;
-    }
-#undef HT_DQ
+    return dispatch_dq(device, dtype, q, k, v, dout, lse, dd, bias, dq, bh, tq, tk, d, scale, causal, stream, 0);
 }
 
-// as flash_attention_bwd_dq_launch; dk and dv (bh, tk, d) allocated by the caller, every
-// element written
+// as flash_attention_bwd_dq_launch; dk and dv (bh, tk, d) in that type allocated by the
+// caller, every element written
 int flash_attention_bwd_dkv_launch(int device, int dtype, const void* q, const void* k, const void* v,
                                    const void* dout, const float* lse, const float* dd, const float* bias,
                                    void* dk, void* dv, int bh, int tq, int tk, int d, float scale, int causal,
                                    void* stream) {
-    cudaError_t err = check(device, d, bh, tq, tk);
-    if (err != cudaSuccess) return err;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const bool wide = d > 64;
-#define HT_DKV(T) (wide ? launch_dkv<T, 128>(device, q, k, v, dout, lse, dd, bias, dk, dv, bh, tq, tk, d, scale, causal, s) \
-                        : launch_dkv<T, 64>(device, q, k, v, dout, lse, dd, bias, dk, dv, bh, tq, tk, d, scale, causal, s))
-    switch (dtype) {
-        case 0: return HT_DKV(float);
-        case 1: return HT_DKV(__nv_bfloat16);
-        case 2: return HT_DKV(__half);
-        default: return cudaErrorInvalidValue;
-    }
-#undef HT_DKV
+    return dispatch_dkv(device, dtype, q, k, v, dout, lse, dd, bias, dk, dv, bh, tq, tk, d, scale, causal, stream,
+                        0);
+}
+
+// The same two with dq, dk and dv in f32 whatever the input type: a ring attention sums
+// its blocks' gradients, which then round once, at the end.
+int flash_attention_bwd_dq_f32_launch(int device, int dtype, const void* q, const void* k, const void* v,
+                                      const void* dout, const float* lse, const float* dd, const float* bias,
+                                      void* dq, int bh, int tq, int tk, int d, float scale, int causal,
+                                      void* stream) {
+    return dispatch_dq(device, dtype, q, k, v, dout, lse, dd, bias, dq, bh, tq, tk, d, scale, causal, stream, 1);
+}
+
+int flash_attention_bwd_dkv_f32_launch(int device, int dtype, const void* q, const void* k, const void* v,
+                                       const void* dout, const float* lse, const float* dd, const float* bias,
+                                       void* dk, void* dv, int bh, int tq, int tk, int d, float scale, int causal,
+                                       void* stream) {
+    return dispatch_dkv(device, dtype, q, k, v, dout, lse, dd, bias, dk, dv, bh, tq, tk, d, scale, causal, stream,
+                        1);
 }
 
 const char* flash_attention_bwd_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }

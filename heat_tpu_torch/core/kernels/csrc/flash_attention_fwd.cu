@@ -4,6 +4,7 @@
 // launched by `_flash_pallas`). For q (bh, tq, d) and k, v (bh, tk, d) in f32, bf16 or f16,
 // and an optional additive bias (tq, tk) f32 shared by every batch·head, it writes
 //   o   (bh, tq, d) in q's type : softmax(scale·q·kᵀ + bias) v, rows fully masked give 0
+//                                 (in f32 through the `_f32_launch` entry point)
 //   lse (bh, tq)    f32         : max(m, NEG_INF/2) + log(max(l, 1e-30)), m the row maximum
 // by the online-softmax recurrence of `_online_softmax_update` (flash_attention.py:135).
 // Causal attention is top-left aligned: row i attends columns j <= i, for any tq, tk.
@@ -75,8 +76,8 @@ using namespace flash::fwd;
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads, Shape<DP>::kBlocks) flash_attention_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, const float* __restrict__ bias,
-    T* __restrict__ o, float* __restrict__ lse, int tq, int tk, int d, float scale, int causal, int q_tiles,
-    int copy_bytes) {
+    void* __restrict__ o, float* __restrict__ lse, int tq, int tk, int d, float scale, int causal, int q_tiles,
+    int copy_bytes, int out_f32) {
     constexpr bool kExact = sizeof(T) == 2;
     constexpr int TILE = Shape<DP>::kTile;
     extern __shared__ float4 smem4[];
@@ -125,14 +126,16 @@ __global__ void __launch_bounds__(kThreads, Shape<DP>::kBlocks) flash_attention_
         at.j0 = it * TILE;
         softmax_pv<kExact, DP>(s, vp, st, at);
     }
-    finalize<T, DP>(st, o, lse, bh, at.r_lo, tq, d, t);
+    // O in q's type, or in f32 for a caller that merges blocks (the ring attentions)
+    if (out_f32) finalize<float, DP>(st, static_cast<float*>(o), lse, bh, at.r_lo, tq, d, t);
+    else finalize<T, DP>(st, static_cast<T*>(o), lse, bh, at.r_lo, tq, d, t);
 }
 
 namespace {
 
 template <typename T, int DP>
 cudaError_t launch(int device, const void* q, const void* k, const void* v, const float* bias, void* o, float* lse,
-                   int bh, int tq, int tk, int d, float scale, int causal, cudaStream_t stream) {
+                   int bh, int tq, int tk, int d, float scale, int causal, int out_f32, cudaStream_t stream) {
     static std::atomic<unsigned long long> done{0};
     constexpr size_t smem = smem_bytes<T, DP>();
     const int q_tiles = (tq + kRows - 1) / kRows;
@@ -141,16 +144,31 @@ cudaError_t launch(int device, const void* q, const void* k, const void* v, cons
     const cudaError_t err = opt_in(flash_attention_fwd_kernel<T, DP>, smem, device, done);
     if (err != cudaSuccess) return err;
     flash_attention_fwd_kernel<T, DP><<<(unsigned)blocks, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias, static_cast<T*>(o), lse,
-        tq, tk, d, scale, causal, q_tiles, copy_width<T>(d, k, v));
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias, o, lse, tq, tk, d, scale,
+        causal, q_tiles, copy_width<T>(d, k, v), out_f32);
     return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_d(int device, const void* q, const void* k, const void* v, const float* bias, void* o, float* lse,
-                     int bh, int tq, int tk, int d, float scale, int causal, cudaStream_t stream) {
-    if (d <= 64) return launch<T, 64>(device, q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, stream);
-    return launch<T, 128>(device, q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, stream);
+                     int bh, int tq, int tk, int d, float scale, int causal, int out_f32, cudaStream_t stream) {
+    if (d <= 64) return launch<T, 64>(device, q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, out_f32, stream);
+    return launch<T, 128>(device, q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, out_f32, stream);
+}
+
+// the entry points' checks and dispatch on the input type
+int dispatch(int device, int dtype, const void* q, const void* k, const void* v, const float* bias, void* o,
+             float* lse, int bh, int tq, int tk, int d, float scale, int causal, void* stream, int out_f32) {
+    if (d < 1 || d > 128 || bh < 1 || tq < 1 || tk < 1) return cudaErrorInvalidValue;
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (dtype) {
+        case 0: return launch_d<float>(device, q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, out_f32, s);
+        case 1: return launch_d<__nv_bfloat16>(device, q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, out_f32, s);
+        case 2: return launch_d<__half>(device, q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, out_f32, s);
+        default: return cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace
@@ -158,22 +176,21 @@ cudaError_t launch_d(int device, const void* q, const void* k, const void* v, co
 extern "C" {
 
 // dtype: 0 float32, 1 bfloat16, 2 float16. q (bh, tq, d), k and v (bh, tk, d) contiguous in
-// that type, bias (tq, tk) f32 contiguous or null, o (bh, tq, d) and lse (bh, tq) f32
-// allocated by the caller; 1 <= d <= 128. The kernel runs on `stream`; nothing is
+// that type, bias (tq, tk) f32 contiguous or null, o (bh, tq, d) in that type and lse (bh, tq)
+// f32 allocated by the caller; 1 <= d <= 128. The kernel runs on `stream`; nothing is
 // synchronised.
 int flash_attention_fwd_launch(int device, int dtype, const void* q, const void* k, const void* v,
                                const float* bias, void* o, float* lse, int bh, int tq, int tk, int d,
                                float scale, int causal, void* stream) {
-    if (d < 1 || d > 128 || bh < 1 || tq < 1 || tk < 1) return cudaErrorInvalidValue;
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (dtype) {
-        case 0: return launch_d<float>(device, q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, s);
-        case 1: return launch_d<__nv_bfloat16>(device, q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, s);
-        case 2: return launch_d<__half>(device, q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, s);
-        default: return cudaErrorInvalidValue;
-    }
+    return dispatch(device, dtype, q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, stream, 0);
+}
+
+// The same with o (bh, tq, d) f32 whatever the input type: blocks that a caller merges
+// by their LSEs (the ring attentions) round once, at the end, and not once a block.
+int flash_attention_fwd_f32_launch(int device, int dtype, const void* q, const void* k, const void* v,
+                               const float* bias, void* o, float* lse, int bh, int tq, int tk, int d,
+                               float scale, int causal, void* stream) {
+    return dispatch(device, dtype, q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, stream, 1);
 }
 
 const char* flash_attention_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }

@@ -23,6 +23,11 @@ same ``Function``. A CUDA tensor launches the kernels or raises: there is no fal
 ``launches`` counts K2's launches, ``fwd_pipelined.launches`` K3's, and
 ``bwd_d.launches``, ``bwd_dq.launches`` and ``bwd_dkv.launches`` those of the backward's
 three kernels.
+
+The ring attentions (``heat_tpu_torch.nn.attention``) call the kernels block by block
+through :func:`block_fwd`, :func:`block_d` and :func:`block_bwd`: K2/K3, K4 and K5 then
+write their outputs in f32 (a second C entry point of each source, ``*_f32_launch``), so
+the blocks' merged outputs and summed gradients round once, at the end.
 """
 
 from __future__ import annotations
@@ -43,6 +48,9 @@ from . import _nvcc
 
 __all__ = [
     "bind",
+    "block_bwd",
+    "block_d",
+    "block_fwd",
     "flash_attention",
     "flash_attention_bwd",
     "flash_attention_bwd_reference",
@@ -349,13 +357,19 @@ def use_flash(q, k, v, mask=None, scale=None) -> bool:
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P]
+_DQ_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P]
+_DKV_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P]
 # the C entry points of the flash sources, each returning an error code
 _ENTRY_POINTS = {
     "flash_attention_fwd_launch": _FWD_ARGS,
+    "flash_attention_fwd_f32_launch": _FWD_ARGS,
     "flash_attention_fwd_pipelined_launch": _FWD_ARGS,
+    "flash_attention_fwd_pipelined_f32_launch": _FWD_ARGS,
     "flash_attention_bwd_d_launch": [_I, _I, _P, _P, _P, ctypes.c_longlong, _I, _P],
-    "flash_attention_bwd_dq_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    "flash_attention_bwd_dkv_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "flash_attention_bwd_dq_launch": _DQ_ARGS,
+    "flash_attention_bwd_dq_f32_launch": _DQ_ARGS,
+    "flash_attention_bwd_dkv_launch": _DKV_ARGS,
+    "flash_attention_bwd_dkv_f32_launch": _DKV_ARGS,
 }
 _ERROR_STRINGS = (
     "flash_attention_error_string",
@@ -427,17 +441,19 @@ def _card(t: torch.Tensor) -> Tuple[int, int]:
     return dev, torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _k2(q, k, v, causal: bool, scale: float, bias) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2 on contiguous (bh, Tq, D), (bh, Tk, D) CUDA tensors."""
+def _k2(q, k, v, causal: bool, scale: float, bias, out_f32: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 on contiguous (bh, Tq, D), (bh, Tk, D) CUDA tensors; O in q's dtype, or in f32
+    with ``out_f32`` (blocks that the ring attentions merge)."""
     global launches
     bh, tq, d = q.shape
     tk = k.shape[1]
     lib = _lib()
     dev, stream = _card(q)
-    out = torch.empty((bh, tq, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((bh, tq, d), dtype=torch.float32 if out_f32 else q.dtype, device=q.device)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
     _launch(
-        lib.flash_attention_fwd_launch, lib.flash_attention_error_string, dev, _DTYPES[q.dtype],
+        lib.flash_attention_fwd_f32_launch if out_f32 else lib.flash_attention_fwd_launch,
+        lib.flash_attention_error_string, dev, _DTYPES[q.dtype],
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
         lse.data_ptr(), bh, tq, tk, d, scale, int(causal), stream,
     )
@@ -445,16 +461,18 @@ def _k2(q, k, v, causal: bool, scale: float, bias) -> Tuple[torch.Tensor, torch.
     return out, lse
 
 
-def _k3(q, k, v, causal: bool, scale: float, bias) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3 on contiguous (bh, Tq, D), (bh, Tk, D) CUDA tensors."""
+def _k3(q, k, v, causal: bool, scale: float, bias, out_f32: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 on contiguous (bh, Tq, D), (bh, Tk, D) CUDA tensors; O in q's dtype, or in f32
+    with ``out_f32``."""
     bh, tq, d = q.shape
     tk = k.shape[1]
     lib = _pipelined_lib()
     dev, stream = _card(q)
-    out = torch.empty((bh, tq, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((bh, tq, d), dtype=torch.float32 if out_f32 else q.dtype, device=q.device)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
     _launch(
-        lib.flash_attention_fwd_pipelined_launch, lib.flash_attention_fwd_pipelined_error_string, dev,
+        lib.flash_attention_fwd_pipelined_f32_launch if out_f32 else lib.flash_attention_fwd_pipelined_launch,
+        lib.flash_attention_fwd_pipelined_error_string, dev,
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
         out.data_ptr(), lse.data_ptr(), bh, tq, tk, d, scale, int(causal), stream,
     )
@@ -474,14 +492,16 @@ def _d_pass(o, do) -> torch.Tensor:
     return dd
 
 
-def _k4(q, k, v, do, lse, dd, causal: bool, scale: float, bias) -> torch.Tensor:
-    """K4 on contiguous (bh, T, D) CUDA tensors of one dtype: dQ."""
+def _k4(q, k, v, do, lse, dd, causal: bool, scale: float, bias, out_f32: bool = False) -> torch.Tensor:
+    """K4 on contiguous (bh, T, D) CUDA tensors of one dtype: dQ, in q's dtype or in f32 with
+    ``out_f32``."""
     bh, tq, d = q.shape
     lib = _bwd_lib()
     dev, stream = _card(q)
-    dq = torch.empty_like(q)
+    dq = torch.empty(q.shape, dtype=torch.float32 if out_f32 else q.dtype, device=q.device)
     _launch(
-        lib.flash_attention_bwd_dq_launch, lib.flash_attention_bwd_error_string, dev, _DTYPES[q.dtype],
+        lib.flash_attention_bwd_dq_f32_launch if out_f32 else lib.flash_attention_bwd_dq_launch,
+        lib.flash_attention_bwd_error_string, dev, _DTYPES[q.dtype],
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), dd.data_ptr(),
         None if bias is None else bias.data_ptr(), dq.data_ptr(), bh, tq, k.shape[1], d, scale, int(causal), stream,
     )
@@ -489,14 +509,18 @@ def _k4(q, k, v, do, lse, dd, causal: bool, scale: float, bias) -> torch.Tensor:
     return dq
 
 
-def _k5(q, k, v, do, lse, dd, causal: bool, scale: float, bias) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K5 on contiguous (bh, T, D) CUDA tensors of one dtype: dK and dV."""
+def _k5(
+    q, k, v, do, lse, dd, causal: bool, scale: float, bias, out_f32: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5 on contiguous (bh, T, D) CUDA tensors of one dtype: dK and dV, in k's dtype or in
+    f32 with ``out_f32``."""
     bh, tq, d = q.shape
     lib = _bwd_lib()
     dev, stream = _card(q)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dk, dv = (torch.empty(k.shape, dtype=torch.float32 if out_f32 else k.dtype, device=k.device) for _ in range(2))
     _launch(
-        lib.flash_attention_bwd_dkv_launch, lib.flash_attention_bwd_error_string, dev, _DTYPES[q.dtype],
+        lib.flash_attention_bwd_dkv_f32_launch if out_f32 else lib.flash_attention_bwd_dkv_launch,
+        lib.flash_attention_bwd_error_string, dev, _DTYPES[q.dtype],
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), dd.data_ptr(),
         None if bias is None else bias.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, tq, k.shape[1], d, scale,
         int(causal), stream,
@@ -511,6 +535,34 @@ def _backward(q, k, v, o, do, lse, causal: bool, scale: float, bias, on_card: bo
     do = do.to(q.dtype).contiguous()
     dd = _d_pass(o, do)
     return (_k4(q, k, v, do, lse, dd, causal, scale, bias), *_k5(q, k, v, do, lse, dd, causal, scale, bias))
+
+
+def block_fwd(q, k, v, causal: bool, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One block of a ring attention: (O f32, LSE f32) for contiguous (bh, Tq, D), (bh, Tk,
+    D) tensors of one type. K2 (K3 under ``HEAT_TPU_FLASH_PIPELINE=1``) writes O in f32 on
+    the card, so blocks merged by their LSEs round once, at the end; CPU tensors take the
+    plain versions on f32 copies (exact for every input type). No autograd."""
+    if _on_card(q, k, v, None):
+        return (_k3 if _pipeline_enabled() else _k2)(q, k, v, causal, scale, None, out_f32=True)
+    ref = flash_attention_pipelined_reference if _pipeline_enabled() else flash_attention_reference
+    return ref(q.float(), k.float(), v.float(), causal, scale)
+
+
+def block_d(o, do) -> Optional[torch.Tensor]:
+    """The D pass of a ring attention's backward on this rank's final O and dO (contiguous
+    (bh, T, D), one type): one launch on the card; None on the CPU, whose plain backward
+    forms D itself from the same O and dO."""
+    return _d_pass(o, do) if o.device.type == "cuda" else None
+
+
+def block_bwd(q, k, v, o, do, lse, dd, causal: bool, scale: float):
+    """(dQ, dK, dV) f32 of one ring block from the final O, dO, LSE and D of its query rows
+    (never the block's own): K4 and K5 writing f32 on the card, so the blocks' sums round
+    once, at the end; the plain backward on f32 copies on the CPU."""
+    if _on_card(q, k, v, None):
+        return (_k4(q, k, v, do, lse, dd, causal, scale, None, out_f32=True),
+                *_k5(q, k, v, do, lse, dd, causal, scale, None, out_f32=True))
+    return flash_attention_bwd_reference(*(t.float() for t in (q, k, v, o, do)), lse, causal, scale)
 
 
 class _FlashAttention(torch.autograd.Function):

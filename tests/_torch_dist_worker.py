@@ -100,11 +100,9 @@ def run(inputs) -> dict:
             out[f"mha_{name}"] = o.numpy()
             out[f"mha_{name}_meta"] = np.array([str(o.split), str(o.gshape)])
             out[f"mha_{name}_local"] = np.array(o.larray.shape)
-        try:
-            mha(ht.array(inputs["mha_x"], split=1))
-            out["mha_seq_split"] = np.array("ran")
-        except NotImplementedError:
-            out["mha_seq_split"] = np.array("NotImplementedError")
+        # a sequence split of 5 over three ranks: not the ring's equal chunks, so computed whole
+        o = mha(ht.array(inputs["mha_x"], split=1))[0]
+        out["mha_seq_split"], out["mha_seq_split_meta"] = o.numpy(), np.array([str(o.split), str(o.gshape)])
 
     # one data-parallel SGD step per batch, from parameters that differ between ranks
     # until DataParallel broadcasts rank 0's
@@ -148,6 +146,102 @@ def run(inputs) -> dict:
     out.update(run_array_api(comm))
     out.update(run_cluster(inputs))
     out.update(run_domain(inputs))
+    out.update(run_nn(inputs, comm))
+    return out
+
+
+TRANSFORMER = dict(d_model=16, nhead=4, num_encoder_layers=1, num_decoder_layers=1, dim_feedforward=32, dropout=0.0)
+
+
+def run_nn(inputs, comm) -> dict:
+    """heat_tpu.nn's distributed paths: ring, zigzag and Ulysses attention on this rank's
+    sequence chunks with gradients, sdpa and MultiheadAttention on sequence-split DNDarrays
+    (the ring counted by a spy), keyed dropout on split arrays, BatchNorm and the losses on
+    a ragged batch split."""
+    from heat_tpu_torch.nn import attention as att
+
+    out = {}
+    q, k, v, g = (torch.from_numpy(inputs[f"ring_{n}"]) for n in ("q", "k", "v", "g"))
+    t = q.shape[2]
+    _, _, rows = comm.chunk(tuple(q.shape), 2)
+    order = torch.from_numpy(att.zigzag_order(t, comm.size).astype(np.int64))
+    runs = {
+        "ring": (lambda a, b, c: att.ring_attention(a, b, c, comm), False),
+        "ring_causal": (lambda a, b, c: att.ring_attention(a, b, c, comm, is_causal=True), False),
+        "zigzag": (lambda a, b, c: att.ring_attention_zigzag(a, b, c, comm), True),
+        "ulysses": (lambda a, b, c: att.ulysses_attention(a, b, c, comm), False),
+        "ulysses_causal": (lambda a, b, c: att.ulysses_attention(a, b, c, comm, is_causal=True), False),
+    }
+    for name, (fn, zig) in runs.items():
+        lay = (lambda x: x[:, :, order]) if zig else (lambda x: x)
+        local = [lay(x)[rows].clone().requires_grad_() for x in (q, k, v)]
+        o = fn(*local)
+        o.backward(lay(g)[rows])
+        out[f"nn_{name}"] = o.detach().numpy()
+        for n, x in zip("qkv", local):
+            out[f"nn_{name}_d{n}"] = x.grad.numpy()
+
+    calls = []
+    ring = att.ring_attention
+
+    def spy(*args, **kwargs):
+        calls.append(1)
+        return ring(*args, **kwargs)
+
+    att.ring_attention = spy
+    try:
+        for tag in ("even", "ragged"):
+            x4 = [inputs[f"seq_{tag}_{n}"] for n in "qkv"]
+            calls.clear()
+            r = ht.nn.scaled_dot_product_attention(*(ht.array(a, split=2) for a in x4), is_causal=True)
+            out[f"nn_sdpa_{tag}"], out[f"nn_sdpa_{tag}_meta"] = r.numpy(), np.array([str(r.split), len(calls)])
+            params = {key[len("mha_param_"):]: inputs[key] for key in inputs.files if key.startswith("mha_param_")}
+            mha = load_jax_params(ht.nn.MultiheadAttention(inputs["mha_x"].shape[-1], int(inputs["mha_heads"])), params)
+            calls.clear()
+            with torch.no_grad():
+                r = mha(ht.array(inputs[f"seq_{tag}_x"], split=1), is_causal=True)[0]
+            out[f"nn_mha_{tag}"], out[f"nn_mha_{tag}_meta"] = r.numpy(), np.array([str(r.split), len(calls)])
+        # a Transformer on sequence-split src (12) and tgt (9): rank-local but for the ring
+        params = {key[len("tr_param_"):]: inputs[key] for key in inputs.files if key.startswith("tr_param_")}
+        tr = load_jax_params(ht.nn.Transformer(**TRANSFORMER), params)
+        calls.clear()
+        with torch.no_grad():
+            r = tr(ht.array(inputs["tr_src"], split=1), ht.array(inputs["tr_tgt"], split=1), tgt_is_causal=True)
+        out["nn_transformer"], out["nn_transformer_meta"] = r.numpy(), np.array([str(r.split), len(calls)])
+    finally:
+        att.ring_attention = ring
+
+    key = inputs["drop_key"]
+    for split in (0, 1):
+        r = ht.nn.functional.dropout(ht.array(inputs["drop_x"], split=split), 0.3, key=key)
+        out[f"nn_dropout_s{split}"], out[f"nn_dropout_s{split}_split"] = r.numpy(), np.array(str(r.split))
+    r = ht.nn.functional.dropout2d(ht.array(inputs["drop_x4"], split=0), 0.5, key=key)
+    out["nn_dropout2d"], out["nn_dropout2d_split"] = r.numpy(), np.array(str(r.split))
+
+    for name, shape in (("bn1", inputs["bn_x2"]), ("bn2", inputs["bn_x4"])):
+        bn = (ht.nn.BatchNorm1d if name == "bn1" else ht.nn.BatchNorm2d)(shape.shape[1]).train()
+        r = bn(ht.array(shape, split=0))
+        out[f"nn_{name}"], out[f"nn_{name}_split"] = r.numpy(), np.array(str(r.split))
+        out[f"nn_{name}_running"] = np.stack([bn.running_mean.numpy(), bn.running_var.numpy()])
+    pred, target = ht.array(inputs["loss_pred"], split=0), ht.array(inputs["loss_target"], split=0)
+    prob = ht.array(inputs["loss_prob"], split=0)
+    logits, labels = ht.array(inputs["loss_logits"], split=0), ht.array(inputs["loss_labels"], split=0)
+    w = torch.from_numpy(inputs["loss_weight"])
+    F = ht.nn.functional
+    for reduction in ("mean", "sum", "none"):
+        losses = {
+            "mse": F.mse_loss(pred, target, reduction),
+            "l1": F.l1_loss(pred, target, reduction),
+            "smooth_l1": F.smooth_l1_loss(pred, target, reduction, beta=0.5),
+            "huber": F.huber_loss(pred, target, reduction, delta=0.7),
+            "bce": F.binary_cross_entropy(prob, ht.array(inputs["loss_binary"], split=0), reduction=reduction),
+            "bce_logits": F.binary_cross_entropy_with_logits(pred, ht.array(inputs["loss_binary"], split=0),
+                                                            reduction=reduction),
+            "nll": F.nll_loss(F.log_softmax(logits, 1), labels, weight=w, reduction=reduction),
+            "ce": F.cross_entropy(logits, labels, weight=w, ignore_index=2, reduction=reduction, label_smoothing=0.1),
+        }
+        for n, r in losses.items():
+            out[f"nn_loss_{n}_{reduction}"] = r.numpy() if isinstance(r, ht.DNDarray) else r.detach().numpy()
     return out
 
 

@@ -104,13 +104,19 @@ def test_sdpa_errors():
     q = torch.zeros(1, 4, 5, 8)
     with pytest.raises(ValueError, match="dropout_p"):
         ht.nn.scaled_dot_product_attention(q, q, q, dropout_p=1.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="dropout_key"):
         ht.nn.scaled_dot_product_attention(q, q, q, dropout_p=0.1)
     with pytest.raises(ValueError, match="Hkv"):
         ht.nn.scaled_dot_product_attention(q, torch.zeros(1, 3, 5, 8), torch.zeros(1, 3, 5, 8), enable_gqa=True)
-    for fn in (ht.nn.ring_attention, ht.nn.ring_attention_zigzag, ht.nn.ulysses_attention):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(q, q, q, "x")
+    # ring, zigzag and Ulysses attention now run: at one rank each is the dense attention
+    # (zigzag: causal, its one rank's two chunks in order); float64 is not a kernel type
+    x = _t(_rand((1, 4, 6, 8), 9))
+    for fn, kw in ((ht.nn.ring_attention, {}), (ht.nn.ring_attention_zigzag, {"causal": True}),
+                   (ht.nn.ulysses_attention, {})):
+        want = jax_sdpa(_j(x.numpy()), _j(x.numpy()), _j(x.numpy()), is_causal=bool(kw))
+        np.testing.assert_allclose(fn(x, x, x).numpy(), np.asarray(want), **ATOL_ONE)
+    with pytest.raises(ValueError, match="ring attention takes"):
+        ht.nn.ring_attention(q.double(), q.double(), q.double())
 
 
 @pytest.mark.parametrize("split", [None, 0, 1, 2, 3])
@@ -232,7 +238,7 @@ def test_mha_errors():
     assert not drop.training  # eval mode from the start, as heat_tpu's modules
     drop(x)
     drop.train()
-    with pytest.raises(NotImplementedError, match="train-mode dropout"):
+    with pytest.raises(ValueError, match="key"):  # train-mode dropout takes heat_tpu's key
         drop(x)
 
 
@@ -368,7 +374,7 @@ def test_transformer_errors():
     with pytest.raises(ValueError, match="src and tgt"):
         tm(x, None)
     tm.train()
-    with pytest.raises(NotImplementedError, match="train-mode dropout"):
+    with pytest.raises(ValueError, match="key"):  # train-mode dropout takes heat_tpu's key
         tm(x, x)
     with pytest.raises(ValueError, match="activation"):
         ht.nn.TransformerEncoderLayer(16, 2, activation="swish")

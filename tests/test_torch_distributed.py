@@ -110,7 +110,52 @@ def _inputs():
         **_linalg_inputs(rng),
         **_cluster_inputs(rng),
         **_domain_inputs(rng),
+        **_nn_inputs(rng),
     }
+
+
+NN_KEY = jax.random.key(21)
+
+
+def _nn_inputs(rng):
+    """Ring inputs (B, H, T, D) = (2, 3, 12, 8): chunks of 4 over three ranks, 2 + 2 in the
+    zigzag layout, H divisible by 3 for Ulysses; sequences of 12 (the ring) and 10 (ragged:
+    gathered) for sdpa and MultiheadAttention; dropout inputs of 7 rows; BatchNorm and the
+    losses on 7 rows (3, 3, 1)."""
+    f32 = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa: E731
+    out = {f"ring_{n}": f32(2, 3, 12, 8) for n in ("q", "k", "v", "g")}
+    for tag, t in (("even", 12), ("ragged", 10)):
+        out.update({f"seq_{tag}_{n}": f32(2, 2, t, 8) for n in "qkv"})
+        out[f"seq_{tag}_x"] = f32(2, t, MHA_E)
+    out.update(
+        drop_key=np.asarray(jax.random.key_data(NN_KEY)),
+        drop_x=f32(7, 5),
+        drop_x4=f32(7, 3, 2, 2),
+        bn_x2=f32(7, 5) * 3 + 1,
+        bn_x4=f32(7, 3, 4, 4) * 2 - 1,
+        loss_pred=f32(7, 4),
+        loss_target=f32(7, 4),
+        loss_prob=rng.uniform(0.02, 0.98, (7, 4)).astype(np.float32),
+        loss_binary=(rng.random((7, 4)) < 0.5).astype(np.float32),
+        loss_logits=f32(7, 4),
+        loss_labels=rng.integers(0, 4, 7),
+        loss_weight=rng.uniform(0.5, 2.0, 4).astype(np.float32),
+        tr_src=f32(2, 12, 16),
+        tr_tgt=f32(2, 9, 16),
+    )
+    tree = ht.nn.Transformer(**TRANSFORMER).init(jax.random.key(4))
+    out.update({f"tr_param_{k}": v for k, v in _dotted(tree).items()})
+    return out
+
+
+TRANSFORMER = dict(d_model=16, nhead=4, num_encoder_layers=1, num_decoder_layers=1, dim_feedforward=32, dropout=0.0)
+
+
+def _dotted(tree, prefix=""):
+    """heat_tpu's parameter tree as {dotted path: numpy array}."""
+    if isinstance(tree, dict):
+        return {k: v for name, sub in tree.items() for k, v in _dotted(sub, f"{prefix}{name}.").items()}
+    return {prefix[:-1]: np.asarray(tree)}
 
 
 def _domain_inputs(rng):
@@ -352,12 +397,16 @@ def test_mha_batch_split(ranks, comm3, name):
         np.testing.assert_allclose(r[f"mha_{name}"], want.numpy(), rtol=2e-5, atol=2e-5)
 
 
-def test_mha_sequence_split_raises(ranks):
-    """A sequence split over several ranks needs ring attention, not ported yet: it
-    raises rather than gathering."""
-    _, res = ranks
+def test_mha_sequence_split_raises(ranks, comm3):
+    """A sequence split of 5 over three ranks (not the ring's equal chunks) no longer
+    raises: it is computed whole, keeps the split and matches heat_tpu."""
+    inputs, res = ranks
+    mha = ht.nn.MultiheadAttention(MHA_E, MHA_H)
+    params = {k: jnp.asarray(v) for k, v in _mha_params().items()}
+    want = mha.apply(params, ht.array(inputs["mha_x"], split=1, comm=comm3))
     for r in res:
-        assert str(r["mha_seq_split"]) == "NotImplementedError"
+        assert list(r["mha_seq_split_meta"]) == ["1", str(want.gshape)] and want.split == 1
+        np.testing.assert_allclose(r["mha_seq_split"], want.numpy(), rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.parametrize("batch", [7, 2])
@@ -1050,3 +1099,150 @@ def test_partition_interface_at_three_ranks(ranks, comm3, split):
         assert_record_equal(_rec(r, f"partitioned_{split}_round_trip"), a, rtol=0)
         lnumel = int(np.prod(comm3.chunk(a.gshape, split, rank=rank)[1]))
         assert r[f"partitioned_{split}_bytes"].tolist() == [a.nbytes, a.gnbytes, lnumel * 4]
+
+
+# ---------------------------------------------------------------------- heat_tpu.nn at three ranks
+def _gather_seq(res, key):
+    """The ranks' sequence chunks (axis 2) of ``key``, in rank order."""
+    return np.concatenate([r[key] for r in res], axis=2)
+
+
+def _jax_ring(comm, name):
+    """heat_tpu's function of ``name`` under shard_map on the three-device mesh."""
+    from functools import partial
+
+    from jax import shard_map
+    from jax.sharding import PartitionSpec as P
+
+    from heat_tpu.nn import attention as jatt
+
+    fn = {
+        "ring": partial(jatt.ring_attention, is_causal=False),
+        "ring_causal": partial(jatt.ring_attention, is_causal=True),
+        "zigzag": jatt.ring_attention_zigzag,
+        "ulysses": partial(jatt.ulysses_attention, is_causal=False),
+        "ulysses_causal": partial(jatt.ulysses_attention, is_causal=True),
+    }[name]
+    spec = P(None, None, comm.axis_name, None)
+    return shard_map(partial(fn, axis_name=comm.axis_name), mesh=comm.mesh, in_specs=(spec,) * 3, out_specs=spec)
+
+
+@pytest.mark.parametrize("name", ["ring", "ring_causal", "zigzag", "ulysses", "ulysses_causal"])
+def test_sequence_parallel_attention_at_three_ranks(ranks, comm3, name):
+    """Ring (full and causal), zigzag and Ulysses attention on three gloo ranks against
+    heat_tpu's under shard_map on a three-device mesh: the forward within 1e-5 and the
+    q, k, v gradients (jax.grad of <out, g>) within 1e-4 of their largest magnitude, f32.
+    Zigzag in its layout (the port's zigzag_order)."""
+    from heat_tpu.nn.attention import zigzag_order
+
+    inputs, res = ranks
+    lay = (lambda x: x[:, :, zigzag_order(12, WORLD)]) if name == "zigzag" else (lambda x: x)
+    q, k, v, g = (jnp.asarray(lay(inputs[f"ring_{n}"])) for n in ("q", "k", "v", "g"))
+    fn = _jax_ring(comm3, name)
+
+    @jax.jit
+    def fwd_bwd(q, k, v, g):
+        out, vjp = jax.vjp(fn, q, k, v)
+        return out, vjp(g)
+
+    want, grads = fwd_bwd(q, k, v, g)
+    got = _gather_seq(res, f"nn_{name}")
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-5 * float(np.abs(want).max()))
+    for n, gw in zip("qkv", grads):
+        gw = np.asarray(gw)
+        np.testing.assert_allclose(_gather_seq(res, f"nn_{name}_d{n}"), gw, rtol=0, atol=1e-4 * float(np.abs(gw).max()))
+
+
+@pytest.mark.parametrize("tag", ["even", "ragged"])
+def test_sequence_split_sdpa_and_mha_at_three_ranks(ranks, comm3, tag):
+    """sdpa and MultiheadAttention on DNDarrays split along the sequence: T = 12 takes the
+    ring (one ring_attention call, seen by a spy), T = 10 (ragged) the gathered path (no
+    call); both equal heat_tpu's on the three-device mesh and keep the split."""
+    from heat_tpu.nn.attention import scaled_dot_product_attention as jsdpa
+
+    inputs, res = ranks
+    want = jsdpa(*(ht.array(inputs[f"seq_{tag}_{n}"], split=2, comm=comm3) for n in "qkv"), is_causal=True)
+    mha = ht.nn.MultiheadAttention(MHA_E, MHA_H)
+    params = {k: jnp.asarray(v) for k, v in _mha_params().items()}
+    want_mha = mha.apply(params, ht.array(inputs[f"seq_{tag}_x"], split=1, comm=comm3), is_causal=True)
+    calls = "1" if tag == "even" else "0"
+    for r in res:
+        assert list(r[f"nn_sdpa_{tag}_meta"]) == ["2", calls] and want.split == 2
+        np.testing.assert_allclose(r[f"nn_sdpa_{tag}"], want.numpy(), rtol=1e-5, atol=1e-5)
+        assert list(r[f"nn_mha_{tag}_meta"]) == ["1", calls] and want_mha.split == 1
+        np.testing.assert_allclose(r[f"nn_mha_{tag}"], want_mha.numpy(), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("name", ["dropout_s0", "dropout_s1", "dropout2d"])
+def test_keyed_dropout_masks_at_three_ranks(ranks, comm3, name):
+    """Train-mode dropout on an array split over three ranks: each rank draws its chunk of
+    heat_tpu's global mask, so the result equals heat_tpu's bit for bit; the split follows
+    heat_tpu's rule (any for dropout, the batch axis for dropout2d)."""
+    from heat_tpu.nn import functional as jF
+
+    inputs, res = ranks
+    if name == "dropout2d":
+        want = jF.dropout2d(ht.array(inputs["drop_x4"], split=0, comm=comm3), 0.5, key=NN_KEY)
+    else:
+        split = int(name[-1])
+        want = jF.dropout(ht.array(inputs["drop_x"], split=split, comm=comm3), 0.3, key=NN_KEY)
+    for r in res:
+        assert str(r[f"nn_{name}_split"]) == str(want.split)
+        np.testing.assert_array_equal(r[f"nn_{name}"], want.numpy())
+
+
+@pytest.mark.parametrize("name", ["bn1", "bn2"])
+def test_batch_norm_ragged_batch_split(ranks, comm3, name):
+    """BatchNorm in training mode on a batch of 7 split 3, 3, 1: the moments are global
+    (one all_reduce), the output and the running statistics equal heat_tpu's."""
+    inputs, res = ranks
+    x = inputs["bn_x2" if name == "bn1" else "bn_x4"]
+    bn = (ht.nn.BatchNorm1d if name == "bn1" else ht.nn.BatchNorm2d)(x.shape[1])
+    want = bn.apply(bn.init(jax.random.key(0)), jnp.asarray(x), train=True)
+    for r in res:
+        assert str(r[f"nn_{name}_split"]) == "0"
+        np.testing.assert_allclose(r[f"nn_{name}"], np.asarray(want), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(r[f"nn_{name}_running"], np.stack([bn.running_mean, bn.running_var]),
+                                   rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("reduction", ["mean", "sum", "none"])
+@pytest.mark.parametrize("name", ["mse", "l1", "smooth_l1", "huber", "bce", "bce_logits", "nll", "ce"])
+def test_losses_ragged_batch_split(ranks, comm3, name, reduction):
+    """The losses on a batch of 7 split 3, 3, 1: global means and sums (the weighted mean of
+    nll and cross_entropy over the kept targets' global weight), 'none' per element."""
+    from heat_tpu.nn import functional as jF
+
+    inputs, res = ranks
+    arr = lambda n: ht.array(inputs[n], split=0, comm=comm3)  # noqa: E731
+    w = jnp.asarray(inputs["loss_weight"])
+    want = {
+        "mse": lambda: jF.mse_loss(arr("loss_pred"), arr("loss_target"), reduction),
+        "l1": lambda: jF.l1_loss(arr("loss_pred"), arr("loss_target"), reduction),
+        "smooth_l1": lambda: jF.smooth_l1_loss(arr("loss_pred"), arr("loss_target"), reduction, beta=0.5),
+        "huber": lambda: jF.huber_loss(arr("loss_pred"), arr("loss_target"), reduction, delta=0.7),
+        "bce": lambda: jF.binary_cross_entropy(arr("loss_prob"), arr("loss_binary"), reduction=reduction),
+        "bce_logits": lambda: jF.binary_cross_entropy_with_logits(arr("loss_pred"), arr("loss_binary"),
+                                                                 reduction=reduction),
+        "nll": lambda: jF.nll_loss(jF.log_softmax(arr("loss_logits"), 1), arr("loss_labels"), weight=w,
+                                   reduction=reduction),
+        "ce": lambda: jF.cross_entropy(arr("loss_logits"), arr("loss_labels"), weight=w, ignore_index=2,
+                                       reduction=reduction, label_smoothing=0.1),
+    }[name]()
+    want = want.numpy() if isinstance(want, ht.DNDarray) else np.asarray(want)
+    for r in res:
+        np.testing.assert_allclose(r[f"nn_loss_{name}_{reduction}"], want, rtol=1e-5, atol=1e-6)
+
+
+def test_transformer_sequence_split_at_three_ranks(ranks):
+    """A 1 + 1-layer Transformer on src (12) and tgt (9) split along the sequence over three
+    ranks: projections, norms and feedforward rank-local, its three attentions (encoder
+    self, causal decoder self, cross) by the ring (three ring_attention calls); the result
+    keeps the split and equals heat_tpu's."""
+    inputs, res = ranks
+    tm = ht.nn.Transformer(**TRANSFORMER)
+    want = tm.apply(tm.init(jax.random.key(4)), jnp.asarray(inputs["tr_src"]), jnp.asarray(inputs["tr_tgt"]),
+                    tgt_is_causal=True)
+    for r in res:
+        assert list(r["nn_transformer_meta"]) == ["1", "3"]
+        np.testing.assert_allclose(r["nn_transformer"], np.asarray(want), rtol=1e-4, atol=1e-4)
