@@ -18,14 +18,18 @@ Then the linear algebra of north-star configs #2 (``matmul`` of a split-0 and a 
 4096² f32 array) and #4 (``hsvd_rank`` of a rank-10 2048 × 32768 f32 array, split=1), and
 the rest of ``heat_tpu_torch.linalg`` at small sizes; the array API, the clustering
 estimators, and the FFTs, scalers, GaussianNB, Lasso, KNN and the DCSR matrix at the sizes
-their users run.
+their users run; and the training job's state and data: the step under DASO with a
+checkpoint and a resume, DASO's sync, and the I/O formats.
 
 Phases, one line each:
   1. the card: nvidia-smi's name and power limit, and torch's device name;
   2. build every ported kernel from the sources in this checkout (one nvcc per source,
      all started together), with each kernel instance's registers and spill bytes (ptxas)
      and its instructions and tensor-core (HMMA) instructions (cuobjdump -sass); every
-     instance of K2, K3, K4 and K5 must hold HMMA;
+     instance of K2, K3, K4 and K5 must hold HMMA. The KMeans path (3-5) waits only for
+     K1's build, so K3's and the backward's run on beside it; the host-bound k-means++
+     path waits for them all; ``[daso_sync]`` and ``[io]`` (12c), which launch no
+     kernel, run first;
   3. north-star #1: ``arange(10, split=0).sum()`` on the card is 45;
   4. K1 against its plain PyTorch version and against float64 on the card, within the
      rounding bound of its own summation order (``kmeans.rounding_depths``), at the main
@@ -111,6 +115,26 @@ Phases, one line each:
      mode with dropout 0.1 and a key, each equal to the CPU path within 1e-5 of the largest
      magnitude, with TF32 allowed for the process and seen off in every product,
      convolution and recurrence; each line carries the card's nvidia-smi name and limit;
+ 12c. the trainer's state and data (``train_resume_phase``, ``daso_sync_phase``,
+     ``io_phase``): ``[train_resume]``, the training step's configuration at full width
+     under ``DASO`` (world 1, a ``hierarchical(1)`` communicator, ``DataParallelMultiGPU``):
+     four steps in a row against two steps, ``CheckpointManager.save`` of the parameters,
+     Adam's moments and step counts, the scheduler's and DASO's counters and
+     ``ht.random``'s state, a fresh model and optimizer restored from it and two more
+     steps: the losses and every parameter equal bit for bit, K2, D, K4 and K5 exactly 18
+     times a step; a copy of the step with one flipped byte and one without its manifest
+     raise ``CheckpointCorrupt``; under an armed ``checkpoint.chunk_write`` fault plan the
+     save degrades to v1 and ``diagnostics.report()`` records one fallback; the state's
+     bytes, save, verify, restore and v1-save seconds and GB/s, and the DASO step's best
+     of 2 beside ``[train_step_time]``'s; ``[daso_sync]``, DASO's global sync on 2 and 4
+     virtual node replicas of the Transformer's parameters (the gather replaced by a
+     stack), bit for bit against the CPU with TF32 allowed and seen off, in ms beside its
+     bytes bound; ``[io]``, a 1,000,000 x 64 f32 split DNDarray through
+     ``save_npy``/``load_npy`` and ``save``/``load`` and a 40,000 x 18 CSV through
+     ``save_csv``/``load_csv``, exact and on the card, in MB/s (HDF5 and zarr only where
+     h5py and tensorstore import; the line says which ran). ``[daso_sync]`` and ``[io]``
+     launch no kernel and run during step 2's builds, on half the host's cores;
+     ``tools/train_state_probe.py`` runs the three alone;
  13. (13-17 run in a child process of this script, which traces nothing: see
      ``linalg_phases``) config #2 (``[linalg_matmul]``): ``ht.linalg.matmul`` of a (4096, 4096) split=0 and a
      (4096, 4096) split=1 f32 array from a seeded generator, with TF32 allowed for the
@@ -2100,6 +2124,326 @@ def zoo_phase(ht, smi: str, dev) -> dict:
     torch.cuda.empty_cache()
     return rows
 
+def state_tree(ht, model, opt, sched, daso) -> dict:
+    """The training state a resume needs: parameters and buffers, Adam's moments and step
+    counts, the scheduler's counters, DASO's counters and ht.random's state."""
+    return {
+        "model": model.state_dict(),
+        "adam": opt.local_optimizer.state_dict(),
+        "sched": {"last_epoch": sched.last_epoch, "base_lr": sched.base_lr},
+        "daso": {"epoch": daso.epoch, "batch": daso._batch_in_epoch, "global_skip": daso.global_skip},
+        "random": list(ht.random.get_state()),
+    }
+
+
+def train_resume_phase(ht, kernels, s2s, dev, smi: str, step_s_plain: float) -> dict:
+    """``[train_resume]``: the training step's configuration under DASO at world 1, four
+    steps in a row (A) against two steps, a checkpoint, a fresh model restored from it and
+    two more steps (B): B's losses and parameters equal A's bit for bit, K2, D, K4 and K5
+    18 times a step; a copy with one flipped byte and one without its manifest raise
+    CheckpointCorrupt; an armed ``checkpoint.chunk_write`` fault degrades the save to v1
+    and the report records it; the save, verify and restore rates and the DASO step's
+    time."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from heat_tpu_torch.core import checkpoint as ckpt, diagnostics, resilience
+
+    t_phase = time.perf_counter()
+    steps_s = {}
+
+    def lap(name: str) -> None:
+        torch.cuda.synchronize()
+        steps_s[name] = time.perf_counter() - t_phase - sum(steps_s.values())
+
+    cfg = dict(vocab=VOCAB, max_len=TRAIN_T, d_model=512, nhead=8, layers=6, dim_feedforward=2048)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    batches = [[ht.array(t, split=0) for t in s2s.reverse_batch(TRAIN_B, TRAIN_T, VOCAB, generator=gen, device=dev)]
+               for _ in range(4)]
+    flash = ("flash_attention_fwd", "flash_attention_bwd_d", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+    def fresh():
+        torch.manual_seed(SEED + 12)
+        model = s2s.Seq2Seq(**cfg).train()
+        comm = ht.TorchCommunication.hierarchical(1)
+        opt = ht.optim.DataParallelOptimizer("adam", lr=1.0)
+        ht.nn.DataParallelMultiGPU(model, optimizer=opt, comm=comm)
+        daso = ht.optim.DASO(opt, total_epochs=4, warmup_epochs=1, cooldown_epochs=1, comm=comm)
+        sched = ht.optim.lr_scheduler.LambdaLR(opt, lambda e: 512**-0.5 * min((e + 1) ** -0.5, (e + 1) * WARMUP**-1.5))
+        return model, opt, daso, sched
+
+    def steps(model, daso, sched, which, counts=None) -> list:
+        losses = []
+        for i in which:
+            kernels.reset_launch_counts()
+            loss = daso.step(s2s.seq2seq_loss, *batches[i])
+            sched.step()
+            torch.cuda.synchronize()
+            if counts is not None:
+                counts.append(kernels.launch_counts())
+            losses.append(float(loss))
+            if i == 1:
+                daso.epoch_end()
+        return losses
+
+    # run A: four steps in a row
+    model, opt, daso, sched = fresh()
+    a_counts = []
+    a_losses = steps(model, daso, sched, range(4), a_counts)
+    check(all(c[n] == FLASH_PER_FORWARD for c in a_counts for n in flash), f"launches a DASO step: {a_counts}")
+    a_params = {n: t.detach().clone() for n, t in model.state_dict().items()}
+    del model, opt, daso, sched
+    torch.cuda.empty_cache()
+    lap("run_a")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        # run B: two steps, a checkpoint, a fresh model restored, two more steps
+        model, opt, daso, sched = fresh()
+        b_counts = []
+        b_losses = steps(model, daso, sched, range(2), b_counts)
+        lap("run_b_steps_1_2")
+        mgr = ht.CheckpointManager(os.path.join(tmp, "run"), max_to_keep=2)
+        tree = state_tree(ht, model, opt, sched, daso)
+        leaves, _ = ckpt._flatten(tree)
+        state_bytes = sum(t.numel() * t.element_size() for t in leaves if isinstance(t, torch.Tensor))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(2, tree)
+        save_s = time.perf_counter() - t0
+        step_dir = os.path.join(tmp, "run", "step_2")
+        lap("save")
+        t0 = time.perf_counter()
+        problems = ckpt.verify_checkpoint(step_dir)
+        verify_s = time.perf_counter() - t0
+        check(problems == [], f"the saved checkpoint does not verify: {problems}")
+        manifest = ckpt.read_manifest(step_dir)
+        check(manifest["schema"] == ckpt.SCHEMA, f"the save wrote {manifest['schema']}")
+        del model, opt, daso, sched, tree
+        torch.cuda.empty_cache()
+        lap("verify")
+        model, opt, daso, sched = fresh()
+        # the template: the fresh objects' state, Adam's moments made to the saved shapes
+        params = [p for g in opt.local_optimizer.param_groups for p in g["params"]]
+        template = state_tree(ht, model, opt, sched, daso)
+        template["adam"]["state"] = {i: {"step": torch.zeros(()), "exp_avg": torch.zeros_like(p),
+                                         "exp_avg_sq": torch.zeros_like(p)} for i, p in enumerate(params)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = mgr.restore(template)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        read_bytes = ckpt.last_restore_stats()["read_bytes"]
+        check(all(t.device.type == dev.type for t in restored["model"].values()), "restored parameters are not on the card")
+        model.load_state_dict(restored["model"])
+        opt.local_optimizer.load_state_dict(restored["adam"])
+        sched.last_epoch, sched.base_lr = restored["sched"]["last_epoch"], restored["sched"]["base_lr"]
+        opt.lr = sched.get_lr()
+        daso.epoch, daso._batch_in_epoch = restored["daso"]["epoch"], restored["daso"]["batch"]
+        daso.global_skip = restored["daso"]["global_skip"]
+        if daso.epoch >= daso.warmup_epochs:
+            daso._phase = "cycling"
+        ht.random.set_state(tuple(restored["random"]))
+        lap("fresh_and_restore")
+        b_losses += steps(model, daso, sched, range(2, 4), b_counts)
+        check(all(c[n] == FLASH_PER_FORWARD for c in b_counts for n in flash), f"launches a resumed step: {b_counts}")
+        check(b_losses == a_losses, f"resumed losses {b_losses} differ from uninterrupted {a_losses}")
+        differ = [n for n, t in model.state_dict().items() if not torch.equal(t, a_params[n])]
+        check(not differ, f"resumed parameters differ from uninterrupted ones: {differ[:5]}")
+        del a_params, restored
+
+        # the DASO step's time: best of 2 after the counted runs
+        walls = []
+        for i in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            daso.step(s2s.seq2seq_loss, *batches[i])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        lap("run_b_steps_3_4_and_timed")
+
+        # corruption: one flipped byte in a copy of the step, and a copy without its manifest
+        # (copies of hard links: the flipped chunk alone is copied whole)
+        corrupt = {}
+        for case in ("flipped_byte", "missing_manifest"):
+            copy = os.path.join(tmp, case)
+            shutil.copytree(step_dir, copy, copy_function=os.link)
+            if case == "flipped_byte":
+                name = max(ckpt._manifest_files(manifest), key=lambda f: f[1])[0]
+                victim = os.path.join(copy, name)
+                os.unlink(victim)
+                shutil.copyfile(os.path.join(step_dir, name), victim)
+                with open(victim, "r+b") as fh:
+                    fh.seek(17)
+                    byte = fh.read(1)
+                    fh.seek(17)
+                    fh.write(bytes([byte[0] ^ 0x40]))
+            else:
+                os.unlink(os.path.join(copy, ckpt.MANIFEST_NAME))
+            try:
+                ht.load_checkpoint(template, copy)
+                corrupt[case] = "restored"
+            except ht.CheckpointCorrupt as exc:
+                corrupt[case] = exc.problems[0][:120]
+            shutil.rmtree(copy)
+        check(all(v != "restored" for v in corrupt.values()), f"a corrupt checkpoint restored: {corrupt}")
+        victim_meta = next(f for f in ckpt._manifest_files(manifest) if f[0] == name)
+        check(ckpt._verify_one(step_dir, *victim_meta) is None, "the original step changed with its corrupted copy")
+        lap("corruption")
+
+        # the degradation ladder: every chunk write fails, the save of the model's state goes
+        # to v1, recorded
+        diagnostics.reset()
+        diagnostics.enable()
+        resilience.set_policy("checkpoint.chunk_write", resilience.Policy(max_attempts=2, backoff_base=0.0))
+        resilience.arm_fault_plan([{"site": "checkpoint.chunk_write", "kind": "raise", "on_call": 1, "count": 10**6}])
+        tree = {"model": model.state_dict()}
+        v1_bytes = sum(t.numel() * t.element_size() for t in tree["model"].values())
+        try:
+            t0 = time.perf_counter()
+            ht.save_checkpoint(tree, os.path.join(tmp, "degraded"))
+            v1_s = time.perf_counter() - t0
+        finally:
+            resilience.disarm_fault_plan()
+            resilience.set_policy("checkpoint.chunk_write", None)
+            resilience.reset(clear_breakers=True)
+        report = diagnostics.report()
+        diagnostics.disable()
+        v1_schema = ckpt.read_manifest(os.path.join(tmp, "degraded"))["schema"]
+        fallbacks = [e for e in report["resilience_events"] if e["kind"] == "fallback"]
+        check(v1_schema == ckpt.SCHEMA_V1 and len(fallbacks) == 1
+              and report["counters"].get("fallback.checkpoint.save") == 1,
+              f"the degraded save: schema {v1_schema}, fallback events {fallbacks}, counters {report['counters']}")
+        check(ckpt.verify_checkpoint(os.path.join(tmp, "degraded")) == [], "the v1 checkpoint does not verify")
+        del tree
+        lap("degraded_v1")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gb = state_bytes / 1e9
+    out = {
+        "state_bytes": state_bytes, "leaves": len(leaves), "chunks": len(ckpt._manifest_files(manifest)),
+        "save_s": save_s, "save_gb_per_s": gb / save_s, "verify_s": verify_s, "verify_gb_per_s": gb / verify_s,
+        "restore_s": restore_s, "restore_gb_per_s": gb / restore_s, "restore_read_bytes": read_bytes,
+        "v1_bytes": v1_bytes, "v1_save_s": v1_s, "v1_save_gb_per_s": v1_bytes / 1e9 / v1_s, "losses": a_losses,
+        "launches": a_counts[0],
+        "daso_step_best_of_2_s": min(walls), "daso_step_walls_s": walls, "train_step_best_of_2_s": step_s_plain,
+        "corrupt": corrupt, "fallback_event": fallbacks[0]["detail"][-160:], "steps_s": steps_s,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    phase("train_resume", card=smi, **{k: json.dumps(v) for k, v in out.items()})
+    return out
+
+
+def daso_sync_phase(ht, s2s, dev, smi: str) -> dict:
+    """``[daso_sync]``: DASO's global sync on two and four virtual node replicas of the
+    Transformer's parameters on the card, each nudged by a seeded step: the sync's
+    rank-local body (``wire_deltas`` a replica, ``synced_params`` on their stack, the
+    gather replaced by ``torch.stack``) against the same on the CPU, bit for bit, TF32
+    allowed for the process and seen off."""
+    import torch
+
+    from heat_tpu_torch.core.devices import full_fp32_matmul
+    from heat_tpu_torch.optim.dp_optimizer import synced_params, wire_deltas
+
+    t_phase = time.perf_counter()
+    torch.manual_seed(SEED + 14)
+    model = s2s.Seq2Seq(vocab=VOCAB, max_len=TRAIN_T, d_model=512, nhead=8, layers=6, dim_feedforward=2048)
+    base = [p.detach() for p in model.parameters()]
+    numel = sum(p.numel() for p in base)
+    out = {}
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for n in (2, 4):
+            gen = torch.Generator(device=dev).manual_seed(SEED + 15 + n)
+            replicas = [base] + [[p + 1e-3 * torch.randn(p.shape, generator=gen, device=dev) for p in base]
+                                 for _ in range(n - 1)]
+            with full_fp32_matmul():
+                seen = torch.backends.cuda.matmul.allow_tf32
+
+                def body(reps):
+                    refs = reps[0]
+                    return synced_params(refs, torch.stack([wire_deltas(r, refs, torch.bfloat16) for r in reps]))
+
+                got = body(replicas)
+                torch.cuda.synchronize()
+                t_cpu = time.perf_counter()
+                want = body([[p.cpu() for p in r] for r in replicas])
+                cpu_s = time.perf_counter() - t_cpu
+                ms = cuda_ms(lambda: body(replicas), reps=5, warmup=1)
+            equal = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+            check(equal and not seen, f"the DASO sync on {n} virtual replicas: equal {equal}, TF32 seen {seen}")
+            moved = float(max((g - b).abs().max() for g, b in zip(got, base)))
+            check(0 < moved < 1e-2, f"the synced parameters moved {moved} from the reference replica")
+            nbytes = numel * (4 * n + 2 * n + 2 * n + 4 * n)  # replicas in, deltas out and in, n replicas out
+            out[n] = {"ms": ms, "bytes_bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S, "max_move": moved, "cpu_s": cpu_s}
+            phase("daso_sync", card=smi, nodes=n, params=numel, bit_equal_to_cpu=equal, tf32_seen=seen, ms=repr(ms),
+                  bytes_bound_ms=repr(out[n]["bytes_bound_ms"]), cpu_reference_s=repr(cpu_s),
+                  phase_s=repr(time.perf_counter() - t_phase))
+            del replicas, got, want
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    del model, base
+    torch.cuda.empty_cache()
+    return out
+
+
+def io_phase(ht, dev, smi: str) -> dict:
+    """``[io]``: a split DNDarray on the card, 1,000,000 x 64 f32, through ``save_npy``/
+    ``load_npy`` and ``save``/``load``, and a 40,000 x 18 CSV (SUSY's width) through
+    ``save_csv``/``load_csv``: exact round trips landing on the card, MB/s each; HDF5 and
+    zarr where ``supports_hdf5()``/``supports_zarr()`` say so."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    big = ht.array(torch.randn(1_000_000, 64, generator=gen, device=dev), split=0)
+    susy = ht.array(torch.rand(40_000, 18, generator=gen, device=dev) * 10, split=0)
+    formats = {"npy": ("save_npy", "load_npy", ".npy", big), "npy_dispatch": ("save", "load", ".npy", big),
+               "csv": ("save_csv", "load_csv", ".csv", susy)}
+    if ht.io.supports_hdf5():
+        formats["hdf5"] = ("save", "load", ".h5", big)
+    if ht.io.supports_zarr():
+        formats["zarr"] = ("save", "load", ".zarr", big)
+    out = {"formats_run": sorted(formats), "formats_skipped": sorted({"hdf5", "zarr"} - set(formats))}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_io_")
+    try:
+        for fmt, (save_name, load_name, ext, x) in formats.items():
+            path = os.path.join(tmp, "x" + ext)
+            extra = ("data",) if ext == ".h5" else ()
+            load_kw = {"dtype": ht.float32} if ext in (".h5", ".csv") else {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            getattr(ht, save_name)(x, path, *extra)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            y = getattr(ht, load_name)(path, *extra, split=0, **load_kw)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            exact = y.gshape == x.gshape and y.split == 0 and bool(torch.equal(y.larray, x.larray))
+            on_dev = y.larray.device.type == dev.type
+            check(exact and on_dev, f"[io] {fmt}: round trip exact {exact}, on the card {on_dev}")
+            mb = x.nbytes / 1e6
+            out[fmt] = {"shape": list(x.gshape), "mb": mb, "save_s": save_s, "load_s": load_s,
+                        "save_mb_per_s": mb / save_s, "load_mb_per_s": mb / load_s,
+                        "file_mb": (sum(os.path.getsize(os.path.join(d_, f_)) for d_, _, fs in os.walk(path) for f_ in fs)
+                                    if os.path.isdir(path) else os.path.getsize(path)) / 1e6}
+            phase("io", card=smi, format=fmt, **{k: json.dumps(v) for k, v in out[fmt].items()})
+            shutil.rmtree(path, ignore_errors=True) if os.path.isdir(path) else os.unlink(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    phase("io", card=smi, formats_run=json.dumps(out["formats_run"]), formats_skipped=json.dumps(out["formats_skipped"]),
+          phase_s=repr(out["phase_s"]))
+    del big, susy
+    torch.cuda.empty_cache()
+    return out
+
+
 def linalg_child(out_path: str) -> int:
     """The child process of phases 13-18: the card, the package, :func:`linalg_phases`,
     :func:`array_phases`, :func:`cluster_phases` and :func:`domain_phases`; their results
@@ -2174,26 +2518,49 @@ def main() -> int:
     check(CARD in name, f"the bounds are for the {CARD}; torch names {name!r}")
     phase("card", torch_name=repr(name), count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda)
 
-    # 2. build every kernel, one nvcc per source, all at once (as later kernels are added)
+    # 2. build every kernel, one nvcc per source, all at once (as later kernels are added);
+    #    a step waits for the sources it launches (``built``), so the later sources build
+    #    while the KMeans path runs, and the trainer's data phases, which launch no kernel,
+    #    run first: [daso_sync] and [io], on the card and half the host's cores
     t0 = time.perf_counter()
     sources = sorted({mod.SOURCE for mod in kernels.KERNELS.values()})
-    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
-        builds = dict(zip(sources, pool.map(_nvcc.build, sources)))
-    build_info = {}
-    for source, b in builds.items():
-        names = [kname for kname, mod in kernels.KERNELS.items() if mod.SOURCE == source]
-        ptxas = ptxas_summary(b["log"])
-        mix = {n: sass_counts(lines) for n, lines in sass(b["path"]).items()}
-        summary = {n: {"instructions": c["instructions"], "hmma": c["hmma"]} for n, c in mix.items()}
-        build_info[source.name] = {"nvcc_s": b["seconds"], "ptxas": ptxas, "sass": summary}
-        phase("build", source=source.name, kernels=",".join(names), built=b["built"], nvcc_s=f"{b['seconds']:.2f}",
-              ptxas=json.dumps(ptxas), sass=json.dumps(summary))
-        # every instance of K2, K3, K4 and K5 takes its products on the tensor cores
-        for kname in TENSOR_CORE_KERNELS.get(source.name, ()):
-            mma = [n for n in mix if kname in n]
-            check(bool(mma) and all(mix[n]["hmma"] > 0 for n in mma), f"{kname} in {source.name}: no instance, or one "
-                  f"without HMMA: {summary}")
-    phase("build", total_s=f"{time.perf_counter() - t0:.2f}")
+    build_pool = ThreadPoolExecutor(max_workers=len(sources))
+    pending, done_at, build_info = {}, {}, {}
+    for src in sources:
+        pending[src] = build_pool.submit(_nvcc.build, src)
+        pending[src].add_done_callback(lambda _f, name=src.name: done_at.__setitem__(name, time.perf_counter()))
+    build_pool.shutdown(wait=False)
+
+    def built(*srcs) -> None:
+        """Wait for the builds of ``srcs``; report each build once, with its checks, and the
+        total when every one is in."""
+        for source in srcs:
+            if source.name in build_info:
+                continue
+            b = pending[source].result()
+            names = [kname for kname, mod in kernels.KERNELS.items() if mod.SOURCE == source]
+            ptxas = ptxas_summary(b["log"])
+            mix = {n: sass_counts(lines) for n, lines in sass(b["path"]).items()}
+            summary = {n: {"instructions": c["instructions"], "hmma": c["hmma"]} for n, c in mix.items()}
+            build_info[source.name] = {"nvcc_s": b["seconds"], "ptxas": ptxas, "sass": summary}
+            phase("build", source=source.name, kernels=",".join(names), built=b["built"], nvcc_s=f"{b['seconds']:.2f}",
+                  ptxas=json.dumps(ptxas), sass=json.dumps(summary))
+            # every instance of K2, K3, K4 and K5 takes its products on the tensor cores
+            for kname in TENSOR_CORE_KERNELS.get(source.name, ()):
+                mma = [n for n in mix if kname in n]
+                check(bool(mma) and all(mix[n]["hmma"] > 0 for n in mma), f"{kname} in {source.name}: no instance, or "
+                      f"one without HMMA: {summary}")
+        if len(build_info) == len(sources):
+            phase("build", total_s=f"{max(done_at.values()) - t0:.2f}")
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads // 2))
+    try:
+        sync_out = daso_sync_phase(ht, s2s, dev, smi)
+        io_out = io_phase(ht, dev, smi)
+    finally:
+        torch.set_num_threads(threads)
+    built(k1.SOURCE)
     lib = k1._lib()
     for d_, k_ in ((D, K), (7, 5), (48, 12), (100, 4), (256, 25), (1, 3000)):
         p_ = k1.plan(d_, k_)
@@ -2290,7 +2657,9 @@ def main() -> int:
     del X, km, x, init, true, xs, cs, on_card, on_cpu, labels, centers
     torch.cuda.empty_cache()
 
-    # 5b. the k-means++ path: KMeans(init="kmeans++") at the same configuration
+    # 5b. the k-means++ path: KMeans(init="kmeans++") at the same configuration (host-bound:
+    #     it waits for the last builds, whose nvcc would share its cores)
+    built(*sources)
     pp = kmeans_pp_phase(ht, kernels, dev)
     torch.cuda.empty_cache()
 
@@ -2837,6 +3206,11 @@ def main() -> int:
     # 12b. the rest of heat_tpu.nn: ring, zigzag and Ulysses attention, the module zoo
     nn_out = nn_phases(ht, kernels, smi, dev)
 
+    # 12c. the trainer's state and data: the training step under DASO with a checkpoint and
+    #      a resume, DASO's sync on virtual node replicas, and the I/O formats
+    #      ([daso_sync] and [io] ran during the builds, step 2)
+    resume_out = train_resume_phase(ht, kernels, s2s, dev, smi, step_s)
+
     # 13-18. distributed linear algebra: config #2's product, config #4's hsvd_rank, the rest
     #        small; then the array API: the manipulation benchmark at N = 40M, the random
     #        streams and KMeans' random init; then the clustering slice; then the domain
@@ -2917,6 +3291,7 @@ def main() -> int:
                 "launches_by_path": {
                     "transformer_forward": t_counts["flash_attention_fwd"],
                     "training_step": train_counts["flash_attention_fwd"],
+                    "daso_step_and_resumed_step": resume_out["launches"]["flash_attention_fwd"],
                     **{f"ring_forward_{c_}": r_["launches"] for c_, r_ in nn_out["ring"].items()},
                     "ulysses_world_1": nn_out["ulysses"]["launches"],
                     "mha_sequence_split_world_1": nn_out["ulysses"]["mha_launches"]["flash_attention_fwd"],
@@ -2955,6 +3330,7 @@ def main() -> int:
                     "launches_of": "one Transformer-base training step",
                     "launches_by_path": {
                         "training_step": train_counts[kname],
+                        "daso_step_and_resumed_step": resume_out["launches"][kname],
                         **{f"ring_backward_{c_}": r_["launches"][kname] for c_, r_ in nn_out["ring_bwd"].items()},
                         "mha_sequence_split_world_1": nn_out["ulysses"]["mha_launches"][kname],
                     },
@@ -3030,7 +3406,8 @@ def main() -> int:
                        "train_step_pipelined_profile": train_breakdown_on, "bench_ab_runs_ms": ab_runs,
                        "bench_ab_k2_ms": ab_k2_ms, "bench_ab_k3_ms": ab_k3_ms, "linalg": linalg_out,
                        "array": array_out, "kmeans_pp": pp, "cluster": cluster_out,
-                       "domain": child_out["domain"], "nn": nn_out}, fh, indent=1)
+                       "domain": child_out["domain"], "nn": nn_out,
+                       "train_resume": resume_out, "daso_sync": sync_out, "io": io_out}, fh, indent=1)
 
     # 20. the last line
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,7 +1,10 @@
 """Core of heat_tpu_torch: types, devices, communication, the DNDarray, its operations,
-the array API (indexing, manipulations, the distributed sort, random streams) and linear
-algebra."""
+the array API (indexing, manipulations, the distributed sort, random streams), linear
+algebra, I/O and checkpoints, and the diagnostics and resilience planes they report
+through."""
 
+from . import diagnostics
+from . import resilience
 from .constants import *
 from .types import *
 from .devices import *
@@ -25,11 +28,14 @@ from .tiling import *
 from .trigonometrics import *
 from .statistics import *
 from .base import *
+from .io import *
+from .checkpoint import *
 from . import linalg
 from .linalg import *  # in the flat namespace too, as heat_tpu does
 from . import (
     arithmetics,
     base,
+    checkpoint,
     communication,
     complex_math,
     constants,
@@ -37,6 +43,7 @@ from . import (
     dist_sort,
     dndarray,
     exponential,
+    io,
     factories,
     indexing,
     kernels,

@@ -43,6 +43,41 @@ class TorchCommunication:
 
     def __init__(self, group=None):
         self.group = group
+        self._n_nodes = None  # set by :meth:`hierarchical`
+        self._node_comm = self._cross_comm = None
+
+    @classmethod
+    def hierarchical(cls, n_nodes: int) -> "TorchCommunication":
+        """A two-tier communicator over the world: ``n_nodes`` node groups of ``L = size /
+        n_nodes`` ranks each (heat_tpu's ``MeshCommunication.hierarchical``, its mesh
+        ``(n_nodes, L)``): node ``j`` is ranks ``j·L … (j+1)·L − 1``, and local index
+        ``l`` of every node forms the cross-node group ``{l, L + l, …}``. DASO reduces
+        gradients over :attr:`node_comm` and syncs the replicas over :attr:`cross_comm`.
+
+        ``torch.distributed.new_group`` is collective over the whole world, so every rank
+        creates every group, in the same order, also the groups it is not in. A group of
+        one rank or of the whole world needs none."""
+        world = cls()
+        size, rank = world.size, world.rank
+        if n_nodes <= 0 or size % n_nodes != 0:
+            raise ValueError(f"cannot split {size} devices into {n_nodes} equal node groups")
+        per_node = size // n_nodes
+        out = cls()
+        out._n_nodes = int(n_nodes)
+
+        def tier(groups_of_ranks, mine):
+            if len(mine) == 1:
+                return _SelfCommunication()
+            if len(mine) == size:
+                return cls()
+            made = [dist.new_group(ranks=r) for r in groups_of_ranks]  # every rank, every group
+            return cls(made[groups_of_ranks.index(mine)])
+
+        nodes = [list(range(j * per_node, (j + 1) * per_node)) for j in range(n_nodes)]
+        cross = [list(range(l, size, per_node)) for l in range(per_node)]
+        out._node_comm = tier(nodes, nodes[rank // per_node])
+        out._cross_comm = tier(cross, cross[rank % per_node])
+        return out
 
     # ------------------------------------------------------------------ topology
     @property
@@ -55,6 +90,42 @@ class TorchCommunication:
 
     def is_distributed(self) -> bool:
         return self.size > 1
+
+    @property
+    def is_hierarchical(self) -> bool:
+        """Whether this communicator was made by :meth:`hierarchical`."""
+        return self._n_nodes is not None
+
+    @property
+    def n_nodes(self) -> int:
+        """The number of node groups: 1 on a flat communicator."""
+        return self._n_nodes or 1
+
+    @property
+    def node_size(self) -> int:
+        """Ranks per node group."""
+        return self.size // self.n_nodes
+
+    @property
+    def node(self) -> int:
+        """The node group of this rank."""
+        return self.rank // self.node_size
+
+    @property
+    def local_rank(self) -> int:
+        """This rank's index within its node group."""
+        return self.rank % self.node_size
+
+    @property
+    def node_comm(self) -> "TorchCommunication":
+        """This rank's node group (the whole communicator when flat)."""
+        return self._node_comm if self._node_comm is not None else self
+
+    @property
+    def cross_comm(self) -> "TorchCommunication":
+        """The ranks of every node at this rank's local index, in node order (this rank
+        alone when flat)."""
+        return self._cross_comm if self._cross_comm is not None else _SelfCommunication()
 
     def __repr__(self) -> str:
         return f"TorchCommunication(size={self.size}, rank={self.rank})"
@@ -317,10 +388,38 @@ class TorchCommunication:
         return recv.bool() if dtype == torch.bool else recv
 
     def bcast(self, tensor: torch.Tensor, root: int = 0) -> torch.Tensor:
-        """Broadcast ``tensor`` from ``root`` in place and return it."""
+        """Broadcast ``tensor`` from ``root`` (a rank of this communicator) in place and
+        return it."""
         if self.size > 1:
-            dist.broadcast(tensor, src=root, group=self.group)
+            dist.broadcast(tensor, src=self._global_rank(root), group=self.group)
         return tensor
+
+    def barrier(self) -> None:
+        """Block until every rank of this communicator has reached it."""
+        if self.size > 1:
+            if dist.get_backend(self.group) == "nccl":
+                dist.barrier(group=self.group, device_ids=[torch.cuda.current_device()])
+            else:
+                dist.barrier(group=self.group)
+
+    def agree_min(self, flag: int) -> int:
+        """The least of every rank's integer ``flag``, the same on every rank: a branch
+        taken on it cannot split the ranks' sequences of collectives (the checkpoint's
+        agreement that turns one rank's failure into every rank's error)."""
+        if self.size == 1:
+            return int(flag)
+        on_card = dist.get_backend(self.group) == "nccl"
+        t = torch.tensor([int(flag)], dtype=torch.int64, device="cuda" if on_card else "cpu")
+        dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self.group)
+        return int(t.item())
+
+    def allgather_object(self, obj) -> list:
+        """Every rank's small picklable ``obj`` (metadata, not arrays), in rank order."""
+        if self.size == 1:
+            return [obj]
+        out = [None] * self.size
+        dist.all_gather_object(out, obj, group=self.group)
+        return out
 
     def ring_shift(
         self, tensor: torch.Tensor, shift: int = 1, recv_shape: Optional[Sequence[int]] = None, async_op: bool = False
@@ -522,10 +621,14 @@ def initialize(init_method: str = "env://") -> None:
 
     from .devices import get_device
 
+    from . import resilience
+
     on_card = get_device().device_type != "cpu"
     if on_card:
         if not torch.cuda.is_available():
             raise RuntimeError("initialize: the device is the card, but CUDA is not available")
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
-    dist.init_process_group("nccl" if on_card else "gloo", init_method=init_method, rank=int(os.environ["RANK"]),
+    rank = int(os.environ["RANK"])
+    dist.init_process_group("nccl" if on_card else "gloo", init_method=init_method, rank=rank,
                             world_size=int(os.environ["WORLD_SIZE"]))
+    resilience.set_fault_rank(rank)  # rank-targeted fault-plan entries fire on this process

@@ -246,6 +246,22 @@ class DNDarray:
             "get": lambda x: x,
         }
 
+    @property
+    def lshards(self) -> list:
+        """This rank's shard values (heat_tpu's ``lshards``): its chunk, or nothing when
+        the chunk is empty."""
+        return [value for _, value in self.iter_shards()]
+
+    def iter_shards(self):
+        """Yield ``(global_index, shard_value)`` for each shard this rank holds (heat_tpu's
+        ``iter_shards``, the backbone of per-shard I/O). A rank holds one chunk: its
+        slices of the global shape and its local tensor. An empty chunk yields nothing,
+        as heat_tpu skips the shards that are all padding."""
+        _, lshape, slices = self.__comm.chunk(self.__gshape, self.__split)
+        if 0 in lshape:
+            return
+        yield slices, self.__array
+
     # ------------------------------------------------------------------ distribution
     def lshape_map(self, force_check: bool = False) -> "DNDarray":
         """(size, ndim) map of every rank's chunk shape."""

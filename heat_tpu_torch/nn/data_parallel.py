@@ -55,9 +55,11 @@ class DataParallel(torch.nn.Module):
 
 class DataParallelMultiGPU(DataParallel):
     """The node-local tier of the reference's hierarchical data parallelism (``:313``),
-    meant to pair with ``DASO``. ``DASO`` needs node-local and global process groups,
-    which are not ported yet (ROADMAP.md Queue 1 item 8), so this is :class:`DataParallel`
-    over ``comm``."""
+    paired with :class:`~heat_tpu_torch.optim.DASO` as heat_tpu's is: ``comm`` is
+    expected to be a :meth:`TorchCommunication.hierarchical` communicator, and
+    ``optimizer`` a ``DataParallelOptimizer`` (or a ``DASO``, which attaches through its
+    local optimizer). The copies start equal (rank 0's parameters, broadcast); DASO then
+    reduces gradients within each node and syncs the node replicas on its cadence."""
 
     def __init__(self, module: torch.nn.Module, optimizer=None, comm: Optional[TorchCommunication] = None):
         super().__init__(module, comm=comm, optimizer=optimizer)

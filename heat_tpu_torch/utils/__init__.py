@@ -1,3 +1,4 @@
-"""Utilities (counterpart of heat_tpu/utils/: the data fixtures and test matrices)."""
+"""Utilities (counterpart of heat_tpu/utils/): the input pipeline and data fixtures, and
+the image transforms."""
 
-from . import data
+from . import data, vision_transforms

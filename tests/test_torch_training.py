@@ -162,8 +162,11 @@ def test_data_parallel_optimizer_api():
         ht.optim.DataParallelOptimizer(blocking="yes")
     with pytest.raises(ValueError, match="unknown optimizer"):
         ht.optim.DataParallelOptimizer("lamb")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ht.optim.DASO(None, total_epochs=4)
+    # DASO's argument errors are heat_tpu's (dp_optimizer.py:202-207)
+    for args, kw, err in (((-1,), {}, TypeError), ((4,), {"warmup_epochs": -1}, ValueError),
+                          ((4,), {"warmup_epochs": 3, "cooldown_epochs": 2}, ValueError)):
+        with pytest.raises(err):
+            ht.optim.DASO(None, *args, **kw)
     opt = ht.optim.DataParallelOptimizer("sgd", lr=0.5)
     with pytest.raises(RuntimeError, match="not attached"):
         opt.step(lambda m: 0.0)
