@@ -135,6 +135,28 @@ Phases, one line each:
      h5py and tensorstore import; the line says which ran). ``[daso_sync]`` and ``[io]``
      launch no kernel and run during step 2's builds, on half the host's cores;
      ``tools/train_state_probe.py`` runs the three alone;
+ 12d. the request-dispatch runtime (``runtime_phases``): ``[runtime_chain]``, heat_tpu's
+     dispatch microbenchmark chain (16 cycles of ``x + y``, ``* 0.5``, ``- y``, ``+ 1.0``:
+     64 ops) at 4,096 and 16M f32 elements split 0, forced 200 times through the executor
+     (one program, captured in a CUDA graph at its first force and replayed after) and
+     with ``HEAT_TPU_EAGER_DISPATCH=1``: the results bit-equal, misses 0, hits and graph
+     replays 200, per-force wall time both ways and one force's launches from one
+     ``torch.profiler`` pass; and the fan-out graph's ``reexecuted_steady`` (0);
+     ``[runtime_serving]``, heat_tpu's four serving request shapes at their on-chip sizes
+     (benchmarks/serving/workloads.py): ``kmeans_assign`` (predict on 65,536 x 64 against
+     the fitted model of step 5), ``cdist_knn`` (1,024 replicated queries against a
+     262,144 x 64 corpus split 0, then argmin), ``mlp_infer`` (784 -> 1024 -> 10 on 8,192
+     rows split 0) and ``sparse_matvec`` (a 262,144² DCSR matrix of ~34.4M entries from
+     seeded indices, never dense), each over 8 staged inputs, 200 requests from 1 thread
+     and from 16, each in ``profiler.request``: every result bit-equal to the same request
+     under ``HEAT_TPU_EAGER_DISPATCH=1``, p50/p99 from the profiler's histograms,
+     requests/s, batches formed, queue depth, no eager fallback or quarantine, and the
+     device's idle share from one traced run of 16 requests; ``[runtime_lifecycle]``, an
+     expired deadline typed and planning nothing, ``cancel(tag)``, ``drain``/``reopen``
+     under 16 threads, ``admitted + shed + failed == offered`` under ``HEAT_TPU_SHED=1``
+     and overload, and a fault plan at ``executor.execute`` leaving every bit of the
+     fault-free run with eager fallbacks counted; ``tools/runtime_probe.py`` runs the
+     three alone;
  13. (13-17 run in a child process of this script, which traces nothing: see
      ``linalg_phases``) config #2 (``[linalg_matmul]``): ``ht.linalg.matmul`` of a (4096, 4096) split=0 and a
      (4096, 4096) split=1 f32 array from a seeded generator, with TF32 allowed for the
@@ -226,6 +248,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -2444,6 +2467,460 @@ def io_phase(ht, dev, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------- the request-dispatch runtime
+RT_CHAIN_CYCLES, RT_CHAIN_SIZES, RT_FORCES = 16, (4096, 16 * 1024 * 1024), 200
+RT_FANOUT_N, RT_FANOUT_CONSUMERS = 1 << 19, 8
+RT_REQUESTS, RT_THREADS, RT_STAGED = 200, 16, 8
+
+
+@contextlib.contextmanager
+def dispatch_knob(name: str, value):
+    """One ``HEAT_TPU_*`` dispatch knob set for the block (the executor memoises them)."""
+    from heat_tpu_torch.core import _executor
+
+    old = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    _executor.reload_env_knobs()
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+        _executor.reload_env_knobs()
+
+
+def same_bits(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+
+
+def rt_chain(x, y):
+    """heat_tpu's dispatch microbenchmark chain (benchmarks/cb/dispatch.py): 16 cycles of
+    four binary ops, 64 framework-level ops."""
+    for _ in range(RT_CHAIN_CYCLES):
+        x = x + y
+        x = x * 0.5
+        x = x - y
+        x = x + 1.0
+    return x
+
+
+def rt_fanout(ht, x, y):
+    """dispatch.py's fan-out graph: a 64-op shared subchain (half transcendental) feeding
+    8 consumers forced one by one, then a direct read of the shared value."""
+    t = x
+    for _ in range(RT_CHAIN_CYCLES):
+        t = ht.exp(t)
+        t = t + y
+        t = ht.tanh(t)
+        t = t * 0.5
+    outs = [t * (1.0 + i) for i in range(RT_FANOUT_CONSUMERS)]
+    for o in outs:
+        o.larray
+    t.larray
+    return [o.larray for o in outs] + [t.larray]
+
+
+def launch_counts(fn) -> dict:
+    """Host launch calls and device kernels of one ``fn()`` from one ``torch.profiler``
+    pass."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {"device_kernels": 0, "cudaLaunchKernel": 0, "cudaGraphLaunch": 0, "cudaMemcpyAsync": 0}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out["device_kernels"] += 1
+        elif e.name in out:
+            out[e.name] += 1
+    return out
+
+
+def runtime_chain_phase(ht, dev, smi: str) -> dict:
+    """``[runtime_chain]``: the 64-op chain at 4,096 and 16M f32 elements, split 0, forced
+    200 times through the executor (its program captured in a CUDA graph at the first
+    force, replayed after) and with ``HEAT_TPU_EAGER_DISPATCH=1``: bit-equal results, the
+    executor's misses, hits and graph replays, per-force wall time both ways and the
+    launches of one force from one profiler pass; then the fan-out graph's
+    ``reexecuted_steady`` (0)."""
+    import torch
+
+    from heat_tpu_torch.core import _executor
+
+    out = {}
+    for n in RT_CHAIN_SIZES:
+        gen = torch.Generator(device=dev).manual_seed(SEED + n)
+        x = ht.array(torch.randn(n, generator=gen, device=dev), split=0)
+        y = ht.array(torch.randn(n, generator=gen, device=dev) * 0.1, split=0)
+        rec = {}
+        results = {}
+        for mode, knob in (("executor", None), ("eager", "1")):
+            with dispatch_knob("HEAT_TPU_EAGER_DISPATCH", knob):
+                _executor.clear_executor_cache()
+                first = rt_chain(x, y).larray  # the executor builds and captures here
+                torch.cuda.synchronize()
+                ht.reset_executor_stats()
+                t0 = time.perf_counter()
+                for _ in range(RT_FORCES):
+                    z = rt_chain(x, y).larray
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                st = ht.executor_stats()
+                launches = launch_counts(lambda: rt_chain(x, y).larray)
+            results[mode] = (first, z)
+            rec[mode] = {
+                "per_force_ms": 1e3 * wall / RT_FORCES,
+                "launches_per_force": launches,
+                "misses": st["misses"], "hits": st["hits"], "graph_replays": st["graph_replays"],
+                "graph_captures": st["graph_captures"], "graphs": st["graphs"],
+                "graph_pool_bytes": st["graph_pool_bytes"], "eager_fallbacks": st["eager_fallbacks"],
+            }
+        check(all(same_bits(a, b) for a, b in zip(results["executor"], results["eager"])),
+              f"[runtime_chain] n={n}: executor and eager results differ in bits")
+        e = rec["executor"]
+        check(e["misses"] == 0 and e["hits"] == RT_FORCES, f"[runtime_chain] n={n}: the 200 forces were not pure replay: {e}")
+        check(e["graph_replays"] == RT_FORCES and e["graphs"] == 1, f"[runtime_chain] n={n}: graph replays {e}")
+        # the plan drops each interior value after its last reader: the graph's pool holds
+        # a few of the chain's tensors (and the static buffers), not one per op
+        check(e["graph_pool_bytes"] <= 8 * 4 * n + (64 << 20), f"[runtime_chain] n={n}: graph pool {e['graph_pool_bytes']} B")
+        check(e["eager_fallbacks"] == 0, f"[runtime_chain] n={n}: eager fallbacks {e}")
+        check(rec["eager"]["hits"] == rec["eager"]["misses"] == 0, "[runtime_chain]: the eager path met the executor")
+        rec["speedup"] = rec["eager"]["per_force_ms"] / e["per_force_ms"]
+        out[f"chain_{n}"] = rec
+        phase("runtime_chain", n=n, ops=4 * RT_CHAIN_CYCLES, bit_equal=True,
+              executor_per_force_ms=repr(e["per_force_ms"]), eager_per_force_ms=repr(rec["eager"]["per_force_ms"]),
+              speedup=f"{rec['speedup']:.2f}", misses=e["misses"], hits=e["hits"], graph_replays=e["graph_replays"],
+              graph_pool_bytes=e["graph_pool_bytes"], executor_launches=json.dumps(e["launches_per_force"]),
+              eager_launches=json.dumps(rec["eager"]["launches_per_force"]), card=repr(smi))
+        del x, y, results
+        _executor.clear_executor_cache()
+        torch.cuda.empty_cache()
+    # the fan-out graph: the shared subchain runs once, the consumers replay one-op programs
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    x = ht.array(torch.randn(RT_FANOUT_N, generator=gen, device=dev), split=0)
+    y = ht.array(torch.randn(RT_FANOUT_N, generator=gen, device=dev) * 0.1, split=0)
+    with dispatch_knob("HEAT_TPU_EAGER_DISPATCH", "1"):
+        want = rt_fanout(ht, x, y)
+    _executor.clear_executor_cache()
+    rt_fanout(ht, x, y)  # warm-up
+    ht.reset_executor_stats()
+    got = rt_fanout(ht, x, y)
+    st = ht.executor_stats()
+    check(st["reexecuted"] == 0, f"[runtime_chain] fan-out re-executed {st['reexecuted']} nodes")
+    check(all(same_bits(a, b) for a, b in zip(got, want)), "[runtime_chain] fan-out: executor and eager bits differ")
+    out["fanout"] = {"reexecuted_steady": st["reexecuted"], "interior_outputs": st["interior_outputs"],
+                     "reexec_avoided": st["reexec_avoided"]}
+    phase("runtime_chain", case="fanout", n=RT_FANOUT_N, reexecuted_steady=st["reexecuted"],
+          interior_outputs=st["interior_outputs"], reexec_avoided=st["reexec_avoided"], bit_equal=True, card=repr(smi))
+    _executor.clear_executor_cache()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serving_requests(ht, dev, km) -> dict:
+    """heat_tpu's four serving request shapes (benchmarks/serving/workloads.py, smoke=False),
+    each as ``(request(i) -> tensor, staged inputs)`` at its on-chip size."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+
+    def staged(shape, split):
+        return [ht.array(torch.randn(shape, generator=gen, device=dev), split=split) for _ in range(RT_STAGED)]
+
+    # kmeans_assign: predict on 65,536 x 64 batches against the main path's fitted model
+    km_batches = staged((65_536, D), 0)
+    # cdist_knn: 1,024 replicated queries against a 262,144 x 64 corpus split 0, then argmin
+    corpus = ht.array(torch.randn(262_144, 64, generator=gen, device=dev), split=0)
+    knn_batches = staged((1024, 64), None)
+    # mlp_infer: 784 -> 1024 -> 10 on batches of 8,192, split 0
+    torch.manual_seed(SEED + 21)
+    mlp = ht.nn.Sequential(ht.nn.Linear(784, 1024), ht.nn.ReLU(), ht.nn.Linear(1024, 10))
+    mlp_batches = staged((8192, 784), 0)
+    # sparse_matvec: a 262,144² DCSR matrix at density 5e-4 (~34.4M entries) made from seeded
+    # indices, never dense, against staged vectors
+    n = 262_144
+    nnz = int(round(n * n * 5e-4))
+    rows = torch.randint(0, n, (nnz,), generator=gen, device=dev)
+    cols = torch.randint(0, n, (nnz,), generator=gen, device=dev)
+    vals = torch.randn(nnz, generator=gen, device=dev)
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, (n, n)).coalesce()
+    del rows, cols, vals
+    mat = ht.sparse.sparse_csr_matrix(coo.to_sparse_csr(), split=0)
+    del coo
+    csr = mat.larray
+    vecs = [torch.randn(n, generator=gen, device=dev) for _ in range(RT_STAGED)]
+    return {
+        "kmeans_assign": (lambda i: km.predict(km_batches[i % RT_STAGED]).larray, {"batch": [65_536, D], "k": K}),
+        "cdist_knn": (lambda i: ht.argmin(ht.spatial.cdist(knn_batches[i % RT_STAGED], corpus), axis=1).larray,
+                      {"corpus": [262_144, 64], "queries": 1024}),
+        "mlp_infer": (lambda i: mlp(mlp_batches[i % RT_STAGED]).larray, {"layers": [784, 1024, 10], "batch": 8192}),
+        "sparse_matvec": (lambda i: csr @ vecs[i % RT_STAGED], {"n": n, "nnz": int(mat.gnnz)}),
+    }
+
+
+def request_pool(dev, threads: int):
+    """A pool of ``threads`` request threads, each entering the card first."""
+    import torch
+
+    return ThreadPoolExecutor(max_workers=threads, initializer=torch.cuda.set_device, initargs=(dev,))
+
+
+def run_requests(ht, profiler, name, request, threads: int, dev) -> tuple:
+    """``RT_REQUESTS`` requests of one shape from ``threads`` threads, each in
+    ``profiler.request(name)`` and finished on the card before it returns; the results
+    in request order and the wall time."""
+    import torch
+
+    def one(i):
+        with profiler.request(name):
+            r = request(i)
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
+        return r
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if threads == 1:
+        results = [one(i) for i in range(RT_REQUESTS)]
+    else:
+        with request_pool(dev, threads) as pool:
+            results = list(pool.map(one, range(RT_REQUESTS)))
+    torch.cuda.synchronize()
+    return results, time.perf_counter() - t0
+
+
+def runtime_serving_phase(ht, dev, smi: str, km) -> dict:
+    """``[runtime_serving]``: each request shape 200 times from 1 thread and from 16, each
+    request in ``profiler.request``: every result bit-equal to the same request with
+    ``HEAT_TPU_EAGER_DISPATCH=1``, p50/p99 from the profiler's histograms, requests/s,
+    batches formed, queue depth, no eager fallback, nothing quarantined, and the device's
+    idle share from one traced run of 16 requests on 16 threads."""
+    import torch
+
+    from heat_tpu_torch.core import _executor, profiler
+
+    reqs = serving_requests(ht, dev, km)
+    out = {}
+    for name, (request, shape) in reqs.items():
+        with dispatch_knob("HEAT_TPU_EAGER_DISPATCH", "1"):
+            want = [request(i).clone() for i in range(RT_STAGED)]
+        _executor.clear_executor_cache()
+        for i in range(RT_STAGED):  # warm: first sightings build their programs
+            request(i)
+        rec = {"shape": shape}
+        for threads in (1, RT_THREADS):
+            profiler.disable()
+            profiler.reset()
+            ht.reset_executor_stats()
+            profiler.enable()
+            results, wall = run_requests(ht, profiler, name, request, threads, dev)
+            profiler.disable()
+            hist = profiler.report()["histograms"][f"request.{name}"]
+            st = ht.executor_stats()
+            bad = [i for i, r in enumerate(results) if not same_bits(r, want[i % RT_STAGED])]
+            check(not bad, f"[runtime_serving] {name} at {threads} threads: requests {bad[:5]} differ in bits from eager")
+            check(hist["count"] == RT_REQUESTS, f"[runtime_serving] {name}: {hist['count']} requests observed")
+            check(st["eager_fallbacks"] == 0 and not st["quarantined"],
+                  f"[runtime_serving] {name}: fallbacks {st['eager_fallbacks']}, quarantined {st['quarantined']}")
+            rec[f"threads_{threads}"] = {
+                "p50_ms": 1e3 * hist["p50_s"], "p99_ms": 1e3 * hist["p99_s"], "max_ms": 1e3 * hist["max_s"],
+                "requests_per_s": RT_REQUESTS / wall, "batched_requests": st["batched_requests"],
+                "batch_width_hist": st["batch_width_hist"], "queue_depth_peak": st["queue_depth_peak"],
+                "queued_dispatches": st["queued_dispatches"], "inline_dispatches": st["inline_dispatches"],
+                "programs": st["programs"], "hits": st["hits"], "misses": st["misses"],
+                "graph_replays": st["graph_replays"],
+            }
+            del results
+        with request_pool(dev, RT_THREADS) as pool:
+            trace = profile_device(lambda: list(pool.map(lambda i: request(i), range(RT_THREADS))), inference=False)
+        rec["trace_16_requests"] = {k: trace[k] for k in ("device_idle_share", "device_busy_ms", "traced_wall_ms")
+                                    if k in trace} or trace
+        out[name] = rec
+        t1, t16 = rec["threads_1"], rec[f"threads_{RT_THREADS}"]
+        phase("runtime_serving", request=name, shape=json.dumps(shape), bit_equal_to_eager=True,
+              p50_ms_1=f"{t1['p50_ms']:.4f}", p99_ms_1=f"{t1['p99_ms']:.4f}", rps_1=f"{t1['requests_per_s']:.1f}",
+              p50_ms_16=f"{t16['p50_ms']:.4f}", p99_ms_16=f"{t16['p99_ms']:.4f}",
+              rps_16=f"{t16['requests_per_s']:.1f}", batches_16=json.dumps(t16["batch_width_hist"]),
+              queue_depth_peak_16=t16["queue_depth_peak"], eager_fallbacks=0, quarantined=0,
+              idle_share=repr(rec["trace_16_requests"].get("device_idle_share", "not measured")), card=repr(smi))
+        del want
+        _executor.clear_executor_cache()
+        torch.cuda.empty_cache()
+    del reqs
+    torch.cuda.empty_cache()
+    return out
+
+
+def runtime_lifecycle_phase(ht, dev, smi: str) -> dict:
+    """``[runtime_lifecycle]``: an expired deadline raises ``DeadlineExceeded`` and plans
+    nothing; ``cancel(tag)``; ``drain``/``reopen`` under 16 threads; under
+    ``HEAT_TPU_SHED=1`` and overload, ``admitted + shed + failed == offered`` with typed
+    errors; a fault plan armed at ``executor.execute`` leaves the results bit-equal to the
+    fault-free run with ``eager_fallbacks`` > 0."""
+    import torch
+
+    from heat_tpu_torch.core import _executor, profiler, resilience
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    base = torch.randn(1 << 20, generator=gen, device=dev)
+    y = ht.array(torch.randn(1 << 20, generator=gen, device=dev), split=0)
+
+    def request(scale: float):
+        return rt_chain(ht.array(base * scale, split=0), y)
+
+    _executor.clear_executor_cache()
+    want = request(1.0).larray.clone()
+    sched = _executor._get_scheduler()
+    # an expired deadline: typed, and nothing planned
+    with profiler.request("expired", deadline_s=0.05):
+        z = request(1.0)
+    time.sleep(0.1)
+    before = ht.executor_stats()
+    try:
+        z.larray
+        raise RuntimeError("chip_smoke: [runtime_lifecycle] an expired request ran")
+    except resilience.DeadlineExceeded:
+        pass
+    after = ht.executor_stats()
+    check(after["misses"] == before["misses"] and after["retraces"] == before["retraces"]
+          and after["expired_requests"] == before["expired_requests"] + 1, "[runtime_lifecycle] expired request planned")
+    out["expired"] = {"typed": "DeadlineExceeded", "planned": 0}
+
+    def in_threads(fn, n):
+        outcomes = [None] * n
+
+        def w(i):
+            try:
+                outcomes[i] = ("ok", fn(i))
+            except Exception as exc:
+                outcomes[i] = ("err", exc)
+
+        def entered(i):
+            torch.cuda.set_device(dev)
+            w(i)
+
+        threads = [threading.Thread(target=entered, args=(i,), daemon=True) for i in range(n)]
+        return threads, outcomes
+
+    def join(threads):
+        for t in threads:
+            t.join(timeout=60)
+            check(not t.is_alive(), "[runtime_lifecycle] a request hung")
+
+    def wait_depth(n):
+        deadline = time.monotonic() + 30
+        while sched.depth() < n and time.monotonic() < deadline:
+            time.sleep(0.002)
+        check(sched.depth() >= n, "[runtime_lifecycle] requests never queued")
+
+    # cancel(tag): the cancelled tenant's queued force fails typed, the other completes
+    def tagged(i):
+        with profiler.request(f"c{i}"):
+            return request(1.0).larray
+
+    profiler.enable()
+    threads, outcomes = in_threads(tagged, 2)
+    sched.pause()
+    for t in threads:
+        t.start()
+    wait_depth(2)
+    cancelled = sched.cancel("c0")
+    sched.resume()
+    join(threads)
+    check(cancelled == 1 and isinstance(outcomes[0][1], resilience.RequestCancelled)
+          and outcomes[1][0] == "ok" and same_bits(outcomes[1][1], want), f"[runtime_lifecycle] cancel: {outcomes}")
+    # drain and reopen under 16 threads: every future settles with its value
+    threads, outcomes = in_threads(lambda i: request(1.0).larray, RT_THREADS)
+    sched.pause()
+    for t in threads:
+        t.start()
+    wait_depth(RT_THREADS // 2)
+    drained = sched.drain(timeout=60.0)
+    join(threads)
+    check(drained["flushed"] and all(o[0] == "ok" and same_bits(o[1], want) for o in outcomes),
+          f"[runtime_lifecycle] drain under {RT_THREADS} threads")
+    check(sched.draining(), "[runtime_lifecycle] admission open after drain")
+    sched.reopen()
+    profiler.disable()
+    profiler.reset()
+    out["cancel"] = {"cancelled": cancelled}
+    out["drain"] = {"threads": RT_THREADS, "flushed": True}
+    # overload under HEAT_TPU_SHED=1: a queue bound of 2 and 64 deadline-bearing requests
+    # from 16 threads against a paused queue; every request is admitted, shed or failed, typed
+    ht.reset_executor_stats()
+    offered = 64
+
+    def deadline_request(i):
+        with profiler.request(f"o{i % 4}", deadline_s=5.0):
+            return request(1.0).larray
+
+    with dispatch_knob("HEAT_TPU_SHED", "1"), dispatch_knob("HEAT_TPU_DISPATCH_QUEUE", "2"):
+        results = [None] * offered
+
+        def w(i):
+            try:
+                results[i] = ("ok", deadline_request(i))
+            except resilience.Shed as exc:
+                results[i] = ("shed", exc)
+            except resilience.DeadlineExceeded as exc:
+                results[i] = ("failed", exc)
+
+        sched.pause()
+        with request_pool(dev, RT_THREADS) as pool:
+            futures = [pool.submit(w, i) for i in range(offered)]
+            time.sleep(0.5)
+            sched.resume()
+            for f in futures:
+                f.result(timeout=120)
+    kinds = {k: sum(1 for r in results if r[0] == k) for k in ("ok", "shed", "failed")}
+    st = ht.executor_stats()
+    check(sum(kinds.values()) == offered, f"[runtime_lifecycle] overload: {kinds} of {offered}")
+    check(kinds["shed"] >= 1 and st["shed_requests"] == kinds["shed"], f"[runtime_lifecycle] overload shed {kinds}, {st['shed_requests']}")
+    check(all(same_bits(r[1], want) for r in results if r[0] == "ok"), "[runtime_lifecycle] an admitted request differs")
+    out["overload"] = {"offered": offered, "admitted": kinds["ok"], "shed": kinds["shed"], "failed": kinds["failed"],
+                       "ledger_shed": st["shed_requests"], "ledger_expired": st["expired_requests"]}
+    # a fault plan at executor.execute: the eager replay keeps every bit
+    ht.reset_executor_stats()
+    resilience.arm_fault_plan([{"site": "executor.execute", "on_call": 1, "count": 2, "kind": "raise"}])
+    try:
+        faulted = [request(1.0).larray for _ in range(4)]
+    finally:
+        resilience.disarm_fault_plan()
+    st = ht.executor_stats()
+    check(all(same_bits(f, want) for f in faulted) and st["eager_fallbacks"] > 0,
+          f"[runtime_lifecycle] fault plan: fallbacks {st['eager_fallbacks']}")
+    out["fault_plan"] = {"eager_fallbacks": st["eager_fallbacks"], "bit_equal": True}
+    phase("runtime_lifecycle", expired="DeadlineExceeded,planned=0", cancelled=cancelled,
+          drain=f"flushed,{RT_THREADS}_threads", overload=json.dumps(out["overload"]),
+          fault_plan_eager_fallbacks=st["eager_fallbacks"], bit_equal=True, card=repr(smi))
+    _executor.clear_executor_cache()
+    torch.cuda.empty_cache()
+    return out
+
+
+def runtime_phases(ht, dev, smi: str, km) -> dict:
+    """The request-dispatch runtime on the card: ``[runtime_chain]``,
+    ``[runtime_serving]`` and ``[runtime_lifecycle]``; ``km`` is the main path's fitted
+    KMeans model."""
+    return {
+        "chain": runtime_chain_phase(ht, dev, smi),
+        "serving": runtime_serving_phase(ht, dev, smi, km),
+        "lifecycle": runtime_lifecycle_phase(ht, dev, smi),
+    }
+
+
 def linalg_child(out_path: str) -> int:
     """The child process of phases 13-18: the card, the package, :func:`linalg_phases`,
     :func:`array_phases`, :func:`cluster_phases` and :func:`domain_phases`; their results
@@ -2654,6 +3131,7 @@ def main() -> int:
         check(k1_calls == [MAX_ITER + 1], f"the traced fit ran K1 {k1_calls} times")
     phase("kmeans_fit_profile", **{key: json.dumps(v) for key, v in fit_profile.items()})
 
+    serving_km = km  # the fitted model serves [runtime_serving]'s kmeans_assign requests
     del X, km, x, init, true, xs, cs, on_card, on_cpu, labels, centers
     torch.cuda.empty_cache()
 
@@ -3211,6 +3689,13 @@ def main() -> int:
     #      ([daso_sync] and [io] ran during the builds, step 2)
     resume_out = train_resume_phase(ht, kernels, s2s, dev, smi, step_s)
 
+    # 12d. the request-dispatch runtime: the executor's fused chain against eager dispatch,
+    #      heat_tpu's four serving request shapes from 1 and 16 threads, and the request
+    #      lifecycle (deadlines, cancel, drain, shedding, a fault plan)
+    runtime_out = runtime_phases(ht, dev, smi, serving_km)
+    del serving_km
+    torch.cuda.empty_cache()
+
     # 13-18. distributed linear algebra: config #2's product, config #4's hsvd_rank, the rest
     #        small; then the array API: the manipulation benchmark at N = 40M, the random
     #        streams and KMeans' random init; then the clustering slice; then the domain
@@ -3407,7 +3892,8 @@ def main() -> int:
                        "bench_ab_k2_ms": ab_k2_ms, "bench_ab_k3_ms": ab_k3_ms, "linalg": linalg_out,
                        "array": array_out, "kmeans_pp": pp, "cluster": cluster_out,
                        "domain": child_out["domain"], "nn": nn_out,
-                       "train_resume": resume_out, "daso_sync": sync_out, "io": io_out}, fh, indent=1)
+                       "train_resume": resume_out, "daso_sync": sync_out, "io": io_out,
+                       "runtime": runtime_out}, fh, indent=1, default=str)
 
     # 20. the last line
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

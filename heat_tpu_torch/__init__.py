@@ -16,6 +16,7 @@ first launch, so importing the package needs neither CUDA nor nvcc.
 from .core import *
 from . import core
 from .core import random
+from .core import profiler
 from . import spatial
 from . import fft
 from . import sparse

@@ -1,10 +1,19 @@
-"""Core of heat_tpu_torch: types, devices, communication, the DNDarray, its operations,
-the array API (indexing, manipulations, the distributed sort, random streams), linear
-algebra, I/O and checkpoints, and the diagnostics and resilience planes they report
+"""Core of heat_tpu_torch: types, devices, communication, the DNDarray, its operations
+and the signature-cached executor they dispatch through, the array API (indexing,
+manipulations, the distributed sort, random streams), linear algebra, I/O and
+checkpoints, and the diagnostics, profiler and resilience planes they report
 through."""
 
 from . import diagnostics
+from . import profiler
 from . import resilience
+from ._executor import (
+    executor_stats,
+    reset_executor_stats,
+    clear_executor_cache,
+    reload_env_knobs,
+    rebuild_scheduler,
+)
 from .constants import *
 from .types import *
 from .devices import *

@@ -1,8 +1,22 @@
 """The dispatch wrappers: binary, local (elementwise) and reduction operations with
-Heat's split and type semantics (counterpart of heat_tpu/core/_operations.py, eager
-torch only).
+Heat's split and type semantics (counterpart of heat_tpu/core/_operations.py).
 
-Each wrapper works on this rank's local tensors. A binary operation first brings both
+Each wrapper works on this rank's local tensors, and routes through the
+signature-cached executor (:mod:`_executor`) unless ``HEAT_TPU_EAGER_DISPATCH=1``:
+
+- an elementwise binary or local op whose operands share one ``(gshape, split,
+  comm)`` family, with no ``out=``/``where=``, does not run at call time: it
+  returns a deferred node of the executor's expression graph, which runs as one
+  program when the result's local tensor is first read;
+- every other call runs its local compute as a cached one-op program (the staged
+  ``b.log``/``l``/``r``/``c`` families); a reduction or scan over the split axis
+  of a distributed array issues a collective, so its program runs inline;
+- the eager path below each is the same compute called directly. Each wrapper's
+  compute is one function (a kernel object or a ``_*_compute`` function) that all
+  three paths call, so the executor's results are bit-equal to eager dispatch.
+
+Each wrapper is also a ``dispatch`` slice of the profiler's request scope while
+the profiler is on. A binary operation first brings both
 operands to the output's distribution (the dominant-split rule, :func:`_out_split_binary`);
 a reduction over the split axis is a local reduction followed by one ``all_reduce``.
 Result dtypes follow heat_tpu's, which are JAX's with x64 enabled: Python scalars are
@@ -13,12 +27,15 @@ integer types accumulate in int64.
 from __future__ import annotations
 
 import builtins
+import functools
+import threading
 from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from . import sanitation, types
+from . import _executor, factories, profiler, sanitation, types
+from ._executor import Deferred, operand_sig
 from .dndarray import DNDarray
 from .stride_tricks import broadcast_shapes, sanitize_axis
 
@@ -57,6 +74,150 @@ def _by_zero_as_xla(operation: Callable, a: torch.Tensor, b: torch.Tensor, bools
     else:
         special = torch.where(a == 0, -1, -2).to(value.dtype)
     return torch.where(zero, special, value)
+
+
+def _profiled_dispatch(family: str):
+    """Wrap a dispatch wrapper in a profiler ``dispatch`` slice so every
+    framework-level op attributes to the ambient request scope. Idle cost: one
+    module-attribute read."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapped(operation, *args, **kwargs):
+            if not profiler._active:
+                return fn(operation, *args, **kwargs)
+            name = operation if isinstance(operation, str) else _executor._op_label(operation)
+            with profiler.scope("dispatch", f"{family}:{name}"):
+                return fn(operation, *args, **kwargs)
+
+        return wrapped
+
+    return deco
+
+
+class _BinaryKernel:
+    """One binary operation at one (compute, result) type pair: the local compute of
+    :func:`binary_op` that its eager path, its staged programs and its deferred
+    nodes all run. Tensor operands are cast to the compute type; a scalar is filled
+    into a 0-d tensor of the compute type on the operand's device (no copy from the
+    host: some torch functions take no Python number or CPU scalar, and CUDA
+    divides by a CPU scalar as a product with its reciprocal, which rounds
+    otherwise). ``compute_dtype`` also tells a captured CUDA graph which dtype each
+    scalar's static buffer needs."""
+
+    __slots__ = ("operation", "compute_dtype", "result_dtype", "by_zero", "bools", "__name__")
+
+    def __init__(self, operation, compute_dtype, result_dtype, by_zero, bools):
+        self.operation = operation
+        self.compute_dtype = compute_dtype
+        self.result_dtype = result_dtype
+        self.by_zero = by_zero
+        self.bools = bools
+        self.__name__ = _executor._op_label(operation)
+
+    def __call__(self, a, b, **kw):
+        ct = self.compute_dtype
+        device = b.device if type(a) in _executor._PY_SCALAR_TYPES or not isinstance(a, torch.Tensor) else a.device
+        a = _as_compute(a, ct, device)
+        b = _as_compute(b, ct, device)
+        if self.by_zero:
+            value = _by_zero_as_xla(self.operation, a, b, self.bools, **kw)
+        else:
+            value = self.operation(a, b, **kw)
+        return value.to(self.result_dtype)
+
+
+def _as_compute(t, ct, device):
+    if type(t) not in _executor._PY_SCALAR_TYPES and isinstance(t, torch.Tensor):
+        return t.to(ct)
+    return torch.full((), t.item() if isinstance(t, np.generic) else t, dtype=ct, device=device)
+
+
+class _LocalKernel:
+    """One elementwise operation, with the input cast to ``cast`` first (the float
+    type heat_tpu's transcendental functions compute an exact input in) or not."""
+
+    __slots__ = ("operation", "cast", "__name__")
+
+    def __init__(self, operation, cast):
+        self.operation = operation
+        self.cast = cast
+        self.__name__ = _executor._op_label(operation)
+
+    def __call__(self, x, **kw):
+        return self.operation(x if self.cast is None else x.to(self.cast), **kw)
+
+
+# canonical kernel objects: the executor keys programs on their identity
+_KERNELS: dict = {}
+_KERNELS_LOCK = threading.Lock()
+_MAX_KERNELS = 4096
+
+
+def _kernel(cls, *args):
+    key = (cls,) + args
+    try:
+        k = _KERNELS.get(key)
+    except TypeError:  # an unhashable operation: a kernel of its own each call
+        return cls(*args)
+    if k is None:
+        with _KERNELS_LOCK:
+            k = _KERNELS.get(key)
+            if k is None:
+                if len(_KERNELS) >= _MAX_KERNELS:
+                    for stale in list(_KERNELS)[: _MAX_KERNELS // 2]:
+                        del _KERNELS[stale]
+                k = _KERNELS[key] = cls(*args)
+    return k
+
+
+# (operand type keys, operation) -> (compute type, result type, kernel): binary_op's
+# type rules and its kernel, resolved once per pair of operand types
+_BINARY_PLANS: dict = {}
+
+
+def _type_key(t):
+    """What binary_op's type rules read of an operand: a DNDarray's dtype, a Python
+    scalar's type (weakly typed), a numpy scalar's dtype (strongly typed)."""
+    if isinstance(t, DNDarray):
+        return t.dtype
+    if isinstance(t, np.generic):
+        return t.dtype
+    return type(t)
+
+
+def _binary_plan(t1, t2, operation):
+    """(compute type, result type, kernel) of ``operation(t1, t2)``, cached by the
+    operands' type keys."""
+    key = (_type_key(t1), _type_key(t2), operation)
+    try:
+        hit = _BINARY_PLANS.get(key)
+    except TypeError:  # an unhashable operation
+        hit, key = None, None
+    if hit is not None:
+        return hit
+    compute, result = _binary_types(t1, t2, operation)
+    by_zero = operation in _INT_DIVISIONS and types.heat_type_is_exact(compute)
+    bools = by_zero and all(
+        isinstance(t, builtins.bool) or (not _is_weak(t) and _strong_type(t) is types.bool) for t in (t1, t2)
+    )
+    hit = (compute, result, _kernel(_BinaryKernel, operation, compute.torch_type(), result.torch_type(), by_zero, bools))
+    if key is not None:
+        with _KERNELS_LOCK:
+            if len(_BINARY_PLANS) >= _MAX_KERNELS:
+                for stale in list(_BINARY_PLANS)[: _MAX_KERNELS // 2]:
+                    del _BINARY_PLANS[stale]
+            _BINARY_PLANS[key] = hit
+    return hit
+
+
+def _is_complexish(*ts) -> bool:
+    for t in ts:
+        if isinstance(t, DNDarray) and issubclass(t.dtype, types.complexfloating):
+            return True
+        if isinstance(t, complex) and not isinstance(t, bool):
+            return True
+    return False
 
 
 def _is_weak(x) -> bool:
@@ -192,6 +353,7 @@ def _local_operand(arr: DNDarray, out_shape: Tuple[int, ...], out_split: Optiona
     return arr._relayout(d)
 
 
+@_profiled_dispatch("binary")
 def binary_op(
     operation: Callable,
     t1,
@@ -201,54 +363,171 @@ def binary_op(
     fn_kwargs: Optional[dict] = None,
 ) -> DNDarray:
     """Apply a binary torch operation with Heat's split/type semantics."""
-    from . import factories
-
     fn_kwargs = fn_kwargs or {}
-    if np.isscalar(t1) and np.isscalar(t2):
+    both_scalars = not isinstance(t1, DNDarray) and not isinstance(t2, DNDarray) and np.isscalar(t1) and np.isscalar(t2)
+    if both_scalars:
         # two Python scalars compute at numpy's (x64) types: int → int64, float → float64
         t1 = factories.array(np.asarray(t1))
     proto = next((t for t in (t1, t2) if isinstance(t, DNDarray)), None)
     kw = {} if proto is None else {"device": proto.device, "comm": proto.comm}
-    t1, t2 = (t if np.isscalar(t) or isinstance(t, DNDarray) else factories.array(t, **kw) for t in (t1, t2))
+    t1, t2 = (t if isinstance(t, DNDarray) or np.isscalar(t) else factories.array(t, **kw) for t in (t1, t2))
     if proto is None:
         proto = next(t for t in (t1, t2) if isinstance(t, DNDarray))
 
-    compute, result = _binary_types(t1, t2, operation)
+    compute, result, kernel = _binary_plan(t1, t2, operation)
+    staged = not both_scalars and _executor.executor_enabled() and not _is_complexish(t1, t2)
+    if staged and out is None and where is None:
+        # fused deferral first: the aligned elementwise case grows the graph
+        res = _binary_defer(kernel, t1, t2, fn_kwargs)
+        if res is not NotImplemented:
+            return res
+
     shapes = [t.gshape for t in (t1, t2) if isinstance(t, DNDarray)]
     out_shape = broadcast_shapes(*shapes)
     out_split = _out_split_binary(out_shape, t1, t2)
-    ct = compute.torch_type()
-
-    def _operand(t):
-        if isinstance(t, DNDarray):
-            return _local_operand(t, out_shape, out_split).to(ct)
-        # a scalar as a 0-d tensor of the compute type on the array's device, filled there
-        # (no copy from the host, so no wait for the stream): some torch functions take
-        # no Python number or CPU scalar (maximum, logaddexp), and CUDA divides by a
-        # CPU scalar as a product with its reciprocal, which rounds otherwise
-        return torch.full((), t.item() if isinstance(t, np.generic) else t, dtype=ct, device=proto.larray.device)
-
-    if operation in _INT_DIVISIONS and types.heat_type_is_exact(compute):
-        bools = all(isinstance(t, builtins.bool) or (not _is_weak(t) and _strong_type(t) is types.bool) for t in (t1, t2))
-        value = _by_zero_as_xla(operation, _operand(t1), _operand(t2), bools, **fn_kwargs).to(result.torch_type())
-    else:
-        value = operation(_operand(t1), _operand(t2), **fn_kwargs).to(result.torch_type())
+    a, b = (_local_operand(t, out_shape, out_split) if isinstance(t, DNDarray) else t for t in (t1, t2))
+    leaves = [a, b]
+    if where is not None:
+        w = where if isinstance(where, DNDarray) else factories.array(where, device=proto.device, comm=proto.comm)
+        leaves.append(_local_operand(w, out_shape, out_split))
     if out_split is not None and out_split >= len(out_shape):
         out_split = None
-    if where is not None:
-        # numpy's rule: where ``where`` is False the result keeps ``out``'s value, or 0
-        w = where if isinstance(where, DNDarray) else factories.array(where, device=proto.device, comm=proto.comm)
-        w = _local_operand(w, out_shape, out_split).to(torch.bool)
-        if out is not None:
-            sanitation.sanitize_out(out, out_shape, out_split)
-            base = out.larray.to(value.dtype)
+    out_dtype = None
+    if out is not None:
+        sanitation.sanitize_out(out, out_shape, out_split)
+        out_dtype = out.dtype.torch_type()
+    compute_fn = functools.partial(_binary_compute, kernel, fn_kwargs, where is not None, out_dtype)
+    if staged:
+        value = _binary_jit(kernel, compute_fn, leaves, out, fn_kwargs, out_shape, out_split, where is not None)
+        if isinstance(value, DNDarray):
+            return value
+        if value is not NotImplemented:
+            return DNDarray(value, out_shape, result, out_split, proto.device, proto.comm, True)
+    value = compute_fn(*leaves, *(() if out is None else (out.larray,)))
+    if out is not None:
+        out.larray = value
+        return out
+    return DNDarray(value, out_shape, result, out_split, proto.device, proto.comm, True)
+
+
+def _binary_compute(kernel, fn_kwargs, has_where, out_dtype, a, b, *rest):
+    """binary_op's local compute: the kernel, then numpy's ``where`` rule (where it
+    is False the result keeps ``out``'s value, or 0), then the cast to ``out``'s
+    dtype. ``rest`` is (where,) / (where, out) / (out,)."""
+    value = kernel(a, b, **fn_kwargs)
+    if has_where:
+        w = rest[0].to(torch.bool)
+        if out_dtype is not None:
+            base = rest[1].to(value.dtype)
         else:
             base = torch.zeros((), dtype=value.dtype, device=value.device)
         value = torch.where(w, value, base)
-    res = DNDarray(value, out_shape, result, out_split, proto.device, proto.comm, True)
-    return handle_out(res, out)
+    if out_dtype is not None:
+        value = value.to(out_dtype)
+    return value
 
 
+def _binary_defer(kernel, t1, t2, fn_kwargs):
+    """Append a binary op to the executor's expression graph; NotImplemented when
+    the operands are not one aligned ``(gshape, split, comm)`` family."""
+    proto = None
+    raw = []
+    for t in (t1, t2):
+        if isinstance(t, DNDarray):
+            if proto is None:
+                proto = t
+            elif t.gshape != proto.gshape or t.split != proto.split or t.comm is not proto.comm:
+                return NotImplemented
+            payload = t._payload
+            raw.append(("d" if isinstance(payload, Deferred) else "a", payload))
+        elif np.isscalar(t):
+            raw.append(("s", t))
+        else:
+            return NotImplemented
+    node = _executor.defer_node(kernel, fn_kwargs, raw, proto.gshape, proto.split, proto.comm)
+    if node is _executor.UNSUPPORTED:
+        return NotImplemented
+    res = DNDarray(node, proto.gshape, types.canonical_heat_type(node.dtype), proto.split, proto.device, proto.comm, True)
+    # liveness registry: while this DNDarray lives, a program that executes the
+    # node must emit (memoise) its value
+    _executor.note_wrapped(node, res)
+    return res
+
+
+def _binary_jit(kernel, compute_fn, leaves, out, fn_kwargs, out_shape, out_split, has_where):
+    """Run binary_op's compute as a cached ``b.log`` program; with ``out`` the
+    program takes out's tensor as its trailing argument and may write the result
+    into its storage (``sanitation.sanitize_donation``). Returns the result
+    tensor, ``out``, or NotImplemented (the eager path)."""
+    kwsig = _executor.kwargs_sig(fn_kwargs)
+    if kwsig is _executor.UNSUPPORTED:
+        return NotImplemented
+    has_out = out is not None
+    key = (
+        "b.log", kernel, kwsig, tuple(out_shape), out_split, _executor._first_device(leaves),
+        tuple(operand_sig(v) for v in leaves[:2]),
+        operand_sig(leaves[2]) if has_where else None,
+        (out.larray.dtype, tuple(out.larray.shape)) if has_out else None,
+    )
+
+    def build():
+        return compute_fn, (len(leaves) if has_out else None), "staged", {}
+
+    prog = _executor.lookup(key, build, label=f"b.log:{kernel.__name__}")
+    if prog is None:
+        return NotImplemented
+    try:
+        if has_out:
+            donate = sanitation.sanitize_donation(out, leaves)
+            out.larray = prog(*leaves, out.larray, donate=donate)
+            return out
+        return prog(*leaves)
+    except Exception as exc:
+        if not _executor.fallback_after_failure(key, prog, exc):
+            raise
+        return NotImplemented
+
+
+def _staged(key, label, compute, value, out, out_shape, out_split, collective):
+    """Run ``compute(value)`` as a cached one-op program (the ``l``/``r``/``c``
+    families). With ``out`` the program also casts to out's dtype and takes out's
+    tensor as a trailing argument it may write into. A program that issues a
+    collective runs inline on this thread; the others go through
+    ``_executor.call_staged`` (batched with concurrent same-signature calls).
+    Returns the result tensor, ``out``, or NotImplemented (the eager path)."""
+    has_out = out is not None
+    out_dtype = out.dtype.torch_type() if has_out else None
+    key = key + (out_dtype,)
+
+    def build():
+        opts = {"collective": collective}
+        if has_out:
+            return functools.partial(_cast_out, compute, out_dtype), 1, "staged", opts
+        return compute, None, "staged", opts
+
+    prog = _executor.lookup(key, build, label=label)
+    if prog is None:
+        return NotImplemented
+    try:
+        if has_out:
+            sanitation.sanitize_out(out, out_shape, out_split)
+            donate = sanitation.sanitize_donation(out, [value])
+            out.larray = prog(value, out.larray, donate=donate)
+            return out
+        if collective:
+            return prog(value)
+        return _executor.call_staged(key, prog, value)
+    except Exception as exc:
+        if not _executor.fallback_after_failure(key, prog, exc):
+            raise
+        return NotImplemented
+
+
+def _cast_out(compute, out_dtype, value, out_buf):
+    return compute(value).to(out_dtype)
+
+
+@_profiled_dispatch("local")
 def local_op(
     operation: Callable, x: DNDarray, out: Optional[DNDarray] = None, no_cast: bool = True, **fn_kwargs
 ) -> DNDarray:
@@ -256,12 +535,41 @@ def local_op(
     False an exact input is first cast to the float type heat_tpu's function returns
     for it (float32; float64 from int64), as jnp's transcendental functions do."""
     sanitation.sanitize_in(x)
-    value = x.larray if no_cast else x.larray.to(_inexact(x.dtype).torch_type())
-    value = operation(value, **fn_kwargs)
+    kernel = _kernel(_LocalKernel, operation, None if no_cast else _inexact(x.dtype).torch_type())
+    if _executor.executor_enabled() and not _is_complexish(x):
+        if out is None:
+            res = _local_defer(kernel, x, fn_kwargs)
+            if res is not NotImplemented:
+                return res
+        kwsig = _executor.kwargs_sig(fn_kwargs)
+        if kwsig is not _executor.UNSUPPORTED:
+            value = x.larray
+            key = ("l", kernel, kwsig, operand_sig(value), x.gshape, x.split, value.device)
+            res = _staged(key, f"l:{kernel.__name__}", functools.partial(kernel, **fn_kwargs), value,
+                          out, x.gshape, x.split, False)
+            if isinstance(res, DNDarray):
+                return res
+            if res is not NotImplemented:
+                return DNDarray(res, x.gshape, types.canonical_heat_type(res.dtype), x.split, x.device, x.comm,
+                                x.balanced)
+    value = kernel(x.larray, **fn_kwargs)
     res = DNDarray(
         value, x.gshape, types.canonical_heat_type(value.dtype), x.split, x.device, x.comm, x.balanced
     )
     return handle_out(res, out)
+
+
+def _local_defer(kernel, x, fn_kwargs):
+    """Append an elementwise op to the expression graph; NotImplemented → staged."""
+    payload = x._payload
+    node = _executor.defer_node(
+        kernel, fn_kwargs, [("d" if isinstance(payload, Deferred) else "a", payload)], x.gshape, x.split, x.comm
+    )
+    if node is _executor.UNSUPPORTED:
+        return NotImplemented
+    res = DNDarray(node, x.gshape, types.canonical_heat_type(node.dtype), x.split, x.device, x.comm, x.balanced)
+    _executor.note_wrapped(node, res)
+    return res
 
 
 def _out_split_reduce(
@@ -340,6 +648,7 @@ def _local_reduce(kind: str, value: torch.Tensor, axes: Tuple[int, ...], keepdim
     return value
 
 
+@_profiled_dispatch("reduce")
 def reduce_op(
     kind: str,
     x: DNDarray,
@@ -355,40 +664,62 @@ def reduce_op(
     max takes a second ``all_reduce`` of its NaN flags, so a NaN on any rank gives NaN
     where it lies, as numpy does."""
     sanitation.sanitize_in(x)
-    neutral_kind, merge = _REDUCTIONS[kind]
     axis = sanitize_axis(x.gshape, axis)
     out_split = _out_split_reduce(x, axis, keepdims)
     axes = tuple(range(x.ndim)) if axis is None else (axis if isinstance(axis, tuple) else (axis,))
     rtype = _reduce_type(kind, x.dtype)
-    value = x.larray.to(rtype.torch_type())
     crosses = x.is_distributed() and x.split in axes
-    if crosses and value.shape[x.split] == 0:
-        shape = list(value.shape)
-        shape[x.split] = 1
-        value = torch.full(shape, _neutral(neutral_kind, value.dtype), dtype=value.dtype, device=value.device)
-    if x.ndim == 0:
-        result = value.clone()
-    else:
-        result = _local_reduce(kind, value, axes, keepdims)
-    if crosses:
-        # neither gloo nor NCCL promises that MIN/MAX propagate NaN: a rank's NaN is
-        # carried across by a flag of its own and written back after the merge
-        nan = torch.isnan(result) if kind in ("min", "max") and result.is_floating_point() else None
-        x.comm.all_reduce(result, merge)
-        if nan is not None:
-            result.masked_fill_(x.comm.all_reduce(nan, "max"), float("nan"))
-    if kind == "mean":
-        result = result / int(np.prod([x.gshape[a] for a in axes]))
     if keepdims:
         gshape = tuple(1 if i in axes else s for i, s in enumerate(x.gshape))
     else:
         gshape = tuple(s for i, s in enumerate(x.gshape) if i not in axes)
     if out_split is not None and out_split >= len(gshape):
         out_split = None
-    res = DNDarray(result, gshape, rtype, out_split, x.device, x.comm, True)
+    count = int(np.prod([x.gshape[a] for a in axes])) if kind == "mean" else None
+    compute = functools.partial(
+        _reduce_compute, kind, axes, keepdims, rtype.torch_type(), x.split if crosses else None,
+        x.comm if crosses else None, x.ndim == 0, count,
+    )
+    value = x.larray
+    if _executor.executor_enabled() and not _is_complexish(x):
+        key = ("r", kind, operand_sig(value), x.gshape, x.split, axis, keepdims, value.device,
+               x.comm if crosses else None)
+        res = _staged(key, f"r:{kind}", compute, value, out, gshape, out_split, crosses)
+        if isinstance(res, DNDarray):
+            return res
+        if res is not NotImplemented:
+            return DNDarray(res, gshape, rtype, out_split, x.device, x.comm, True)
+    res = DNDarray(compute(value), gshape, rtype, out_split, x.device, x.comm, True)
     return handle_out(res, out)
 
 
+def _reduce_compute(kind, axes, keepdims, rt, split, comm, scalar, count, value):
+    """reduce_op's compute on this rank's tensor. ``split``/``comm`` are set when the
+    reduction crosses the split axis of a distributed array: the identity element
+    stands in for an empty chunk, and the ranks' partials merge by ``all_reduce``."""
+    neutral_kind, merge = _REDUCTIONS[kind]
+    value = value.to(rt)
+    if comm is not None and value.shape[split] == 0:
+        shape = list(value.shape)
+        shape[split] = 1
+        value = torch.full(shape, _neutral(neutral_kind, value.dtype), dtype=value.dtype, device=value.device)
+    if scalar:
+        result = value.clone()
+    else:
+        result = _local_reduce(kind, value, axes, keepdims)
+    if comm is not None:
+        # neither gloo nor NCCL promises that MIN/MAX propagate NaN: a rank's NaN is
+        # carried across by a flag of its own and written back after the merge
+        nan = torch.isnan(result) if kind in ("min", "max") and result.is_floating_point() else None
+        comm.all_reduce(result, merge)
+        if nan is not None:
+            result.masked_fill_(comm.all_reduce(nan, "max"), float("nan"))
+    if kind == "mean":
+        result = result / count
+    return result
+
+
+@_profiled_dispatch("cum")
 def cum_op(kind: str, x: DNDarray, axis: int, out: Optional[DNDarray] = None, dtype=None) -> DNDarray:
     """Cumulative sum or product (``kind``) along ``axis`` (heat_tpu/core/_operations.py:1200).
     Along the split axis it is the local scan followed by an exclusive scan of the
@@ -404,17 +735,35 @@ def cum_op(kind: str, x: DNDarray, axis: int, out: Optional[DNDarray] = None, dt
     else:
         target = types.int64 if x.dtype is types.bool else x.dtype
     ct = target.torch_type()
-    value = x.larray.to(ct)
+    collective = x.is_distributed() and axis == x.split
+    compute = functools.partial(_cum_compute, kind, axis, ct, x.comm if collective else None)
+    value = x.larray
+    if _executor.executor_enabled() and not _is_complexish(x):
+        name = "cumsum" if kind == "sum" else "cumprod"
+        key = ("c", name, operand_sig(value), x.gshape, x.split, axis, ct, value.device,
+               x.comm if collective else None)
+        res = _staged(key, f"c:{name}", compute, value, out, x.gshape, x.split, collective)
+        if isinstance(res, DNDarray):
+            return res
+        if res is not NotImplemented:
+            return DNDarray(res, x.gshape, target, x.split, x.device, x.comm, True)
+    res = DNDarray(compute(value), x.gshape, target, x.split, x.device, x.comm, True)
+    return handle_out(res, out)
+
+
+def _cum_compute(kind, axis, ct, comm, value):
+    """cum_op's compute on this rank's tensor; ``comm`` is set for a scan along the
+    split axis of a distributed array (the ranks' totals, one all-gather)."""
+    value = value.to(ct)
     scan = torch.cumsum if kind == "sum" else torch.cumprod
     result = scan(value, dim=axis, dtype=ct) if value.ndim else value.clone()
-    if x.is_distributed() and axis == x.split:
+    if comm is not None:
         shape = list(result.shape)
         shape[axis] = 1
         neutral = 0 if kind == "sum" else 1
         total = result.narrow(axis, result.shape[axis] - 1, 1) if result.shape[axis] else result.new_full(shape, neutral)
-        totals = x.comm.all_gather_stacked(total)[: x.comm.rank]
+        totals = comm.all_gather_stacked(total)[: comm.rank]
         if totals.shape[0]:
             carry = totals.sum(0, dtype=ct) if kind == "sum" else totals.prod(0, dtype=ct)
             result = result + carry if kind == "sum" else result * carry
-    res = DNDarray(result.to(ct), x.gshape, target, x.split, x.device, x.comm, True)
-    return handle_out(res, out)
+    return result.to(ct)

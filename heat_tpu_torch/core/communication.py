@@ -5,6 +5,9 @@ A DNDarray holds its rank's local ``torch.Tensor``; ranks talk over ``torch.dist
 single rank and every collective is the identity. Every collective of the package lives
 in this file.
 
+While the profiler is on, every collective is one ``collective`` slice of the ambient
+request scope (one module-attribute read when it is off).
+
 Chunking follows heat_tpu's ceil-division rule (heat_tpu/core/communication.py:311-337):
 rank ``r`` owns ``[r*c, min((r+1)*c, n))`` with ``c = ceil(n / size)``, so lshape maps
 agree between the two packages. Trailing ranks may own empty chunks.
@@ -12,11 +15,14 @@ agree between the two packages. Trailing ranks may own empty chunks.
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from . import profiler
 
 __all__ = [
     "Communication",
@@ -30,6 +36,19 @@ __all__ = [
 ]
 
 _REDUCE_OPS = {"sum": "SUM", "prod": "PRODUCT", "min": "MIN", "max": "MAX"}
+
+
+def _collective(fn):
+    """A profiler ``collective`` slice around one collective method."""
+
+    @functools.wraps(fn)
+    def wrapped(self, *args, **kwargs):
+        if not profiler._active:
+            return fn(self, *args, **kwargs)
+        with profiler.scope("collective", fn.__name__):
+            return fn(self, *args, **kwargs)
+
+    return wrapped
 
 
 def _initialized() -> bool:
@@ -173,6 +192,7 @@ class TorchCommunication:
         return out
 
     # ------------------------------------------------------------------ collectives
+    @_collective
     def all_reduce(self, tensor: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """Reduce ``tensor`` across ranks in place (``op``: sum, prod, min, max) and
         return it."""
@@ -190,6 +210,7 @@ class TorchCommunication:
         dist.all_reduce(tensor, op=red, group=self.group)
         return tensor
 
+    @_collective
     def all_reduce_packed(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """The sums across ranks of ``tensors`` (one dtype and device, any shapes), by one
         collective over a flat buffer that packs them all; at world 1 the tensors as given.
@@ -204,6 +225,7 @@ class TorchCommunication:
         dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
         return [part.view(t.shape) for part, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
 
+    @_collective
     def all_gather(self, local: torch.Tensor, gshape: Sequence[int], split: Optional[int]) -> torch.Tensor:
         """The global tensor of shape ``gshape`` from every rank's chunk along
         ``split``; chunks may be uneven or empty (each is padded to the ceil-division
@@ -230,6 +252,7 @@ class TorchCommunication:
             full = full.bool()
         return full.movedim(0, split).contiguous()
 
+    @_collective
     def all_gather_stacked(self, tensor: torch.Tensor) -> torch.Tensor:
         """Every rank's equally shaped ``tensor``, stacked along a new leading axis: a few
         values a rank (counts, candidates, halos, totals) or, under :meth:`all_gather_v`,
@@ -249,6 +272,7 @@ class TorchCommunication:
             return [int(n)]
         return self.all_gather_stacked(torch.tensor(int(n), dtype=torch.int64, device=device)).tolist()
 
+    @_collective
     def all_gather_v(self, tensor: torch.Tensor, counts: Optional[Sequence[int]] = None) -> torch.Tensor:
         """Every rank's ``tensor``, whose leading extents may differ (``counts``, when
         known), joined along axis 0 in rank order: each is padded to the largest for one
@@ -268,6 +292,7 @@ class TorchCommunication:
         parts = self.all_gather_stacked(tensor)
         return torch.cat([parts[r, : counts[r]] for r in range(self.size)])
 
+    @_collective
     def redistribute(
         self,
         local: torch.Tensor,
@@ -325,6 +350,7 @@ class TorchCommunication:
         joined = joined.movedim(0, axis).contiguous()
         return joined.bool() if dtype == torch.bool else joined
 
+    @_collective
     def take(
         self, local: torch.Tensor, axis: int, counts: Sequence[int], index: torch.Tensor, replicate: bool = False
     ) -> torch.Tensor:
@@ -368,6 +394,7 @@ class TorchCommunication:
         result = result.movedim(0, axis).contiguous()
         return result.bool() if dtype == torch.bool else result
 
+    @_collective
     def exchange(self, tensor: torch.Tensor, peer: int, recv_shape: Optional[Sequence[int]] = None) -> torch.Tensor:
         """Send ``tensor`` to ``peer`` and receive what ``peer`` sends this rank (of
         ``recv_shape``, by default this tensor's): one send/recv pair, the block
@@ -387,6 +414,7 @@ class TorchCommunication:
             w.wait()
         return recv.bool() if dtype == torch.bool else recv
 
+    @_collective
     def bcast(self, tensor: torch.Tensor, root: int = 0) -> torch.Tensor:
         """Broadcast ``tensor`` from ``root`` (a rank of this communicator) in place and
         return it."""
@@ -394,6 +422,7 @@ class TorchCommunication:
             dist.broadcast(tensor, src=self._global_rank(root), group=self.group)
         return tensor
 
+    @_collective
     def barrier(self) -> None:
         """Block until every rank of this communicator has reached it."""
         if self.size > 1:
@@ -402,6 +431,7 @@ class TorchCommunication:
             else:
                 dist.barrier(group=self.group)
 
+    @_collective
     def agree_min(self, flag: int) -> int:
         """The least of every rank's integer ``flag``, the same on every rank: a branch
         taken on it cannot split the ranks' sequences of collectives (the checkpoint's
@@ -413,6 +443,7 @@ class TorchCommunication:
         dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self.group)
         return int(t.item())
 
+    @_collective
     def allgather_object(self, obj) -> list:
         """Every rank's small picklable ``obj`` (metadata, not arrays), in rank order."""
         if self.size == 1:
@@ -421,6 +452,7 @@ class TorchCommunication:
         dist.all_gather_object(out, obj, group=self.group)
         return out
 
+    @_collective
     def ring_shift(
         self, tensor: torch.Tensor, shift: int = 1, recv_shape: Optional[Sequence[int]] = None, async_op: bool = False
     ):
@@ -466,6 +498,7 @@ class TorchCommunication:
             if pending is not None:
                 blk = pending.wait()
 
+    @_collective
     def all_to_all(
         self, tensor: torch.Tensor, split_axis: int, concat_axis: int, concat_extent: Optional[int] = None
     ) -> torch.Tensor:
@@ -512,6 +545,7 @@ class TorchCommunication:
             joined = joined.bool()
         return joined.contiguous()
 
+    @_collective
     def reduce_scatter(self, tensor: torch.Tensor, scatter_axis: int = 0) -> torch.Tensor:
         """Sum ``tensor`` over the ranks and keep this rank's chunk of the sum along
         ``scatter_axis`` by the ceil-division rule (heat_tpu's ``psum_scatter``,

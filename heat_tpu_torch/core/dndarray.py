@@ -18,7 +18,8 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from . import types
+from . import _executor, types
+from ._executor import Deferred
 from .communication import TorchCommunication
 from .devices import Device
 from .stride_tricks import sanitize_axis
@@ -103,7 +104,29 @@ class DNDarray:
     # ------------------------------------------------------------------ properties
     @property
     def larray(self) -> torch.Tensor:
-        """This rank's local tensor."""
+        """This rank's local tensor — the one accessor every read of it goes
+        through. A payload deferred by the dispatch executor (a pending fused-op
+        graph node) is **forced** here: the reachable graph runs as one cached
+        program (or its value was already memoised by an earlier force) and the
+        concrete tensor replaces the node. Since a caller may write the tensor in
+        place, every pending deferred read of its storage is settled first
+        (``_executor.settle_readers``).
+
+        Replacing the payload also ends this array's role in the executor's
+        liveness registry: ``_executor.note_wrapped`` holds a weak reference to
+        this DNDarray and the force path checks ``holder._payload is node``."""
+        arr = self.__array
+        if isinstance(arr, Deferred):
+            arr = arr.force()
+            self.__array = arr
+        if _executor._readers:
+            _executor.settle_readers(arr)
+        return arr
+
+    @property
+    def _payload(self):
+        """The raw payload WITHOUT forcing: a concrete ``torch.Tensor`` or a pending
+        :class:`~._executor.Deferred` node. Only the dispatch layer reads this."""
         return self.__array
 
     @larray.setter
@@ -151,7 +174,7 @@ class DNDarray:
 
     @property
     def lnumel(self) -> int:
-        return self.__array.numel()
+        return self.__array.numel()  # a Deferred node knows its local size too
 
     @property
     def lshape(self) -> Tuple[int, ...]:
@@ -166,14 +189,14 @@ class DNDarray:
     @property
     def nbytes(self) -> int:
         """Bytes of the global array (its elements times their size; no padding)."""
-        return self.size * self.__array.element_size()
+        return self.size * self.__array.dtype.itemsize
 
     gnbytes = nbytes
 
     @property
     def lnbytes(self) -> int:
         """Bytes of this rank's chunk."""
-        return self.lnumel * self.__array.element_size()
+        return self.lnumel * self.__array.dtype.itemsize
 
     @property
     def stride(self) -> Tuple[int, ...]:
@@ -188,7 +211,7 @@ class DNDarray:
     @property
     def strides(self) -> Tuple[int, ...]:
         """Row-major strides of the global array in bytes."""
-        return tuple(s * self.__array.element_size() for s in self.stride)
+        return tuple(s * self.__array.dtype.itemsize for s in self.stride)
 
     @property
     def real(self) -> "DNDarray":
@@ -205,7 +228,7 @@ class DNDarray:
     @property
     def lloc(self) -> LocalIndex:
         """Get and set items of this rank's local tensor."""
-        return LocalIndex(self.__array)
+        return LocalIndex(self.larray)
 
     @property
     def __partitioned__(self) -> dict:
@@ -221,7 +244,7 @@ class DNDarray:
         def position(rank: int) -> Tuple[int, ...]:
             return tuple(rank if i == split else 0 for i in range(ndim))
 
-        dtype = _numpy_dtype(self.__array.dtype)
+        dtype = _numpy_dtype(self.larray.dtype)
         partitions = {}
         for r in range(comm.size):  # unsplit: one position, the last rank's entry kept, as heat_tpu's
             _, lshape, slices = comm.chunk(self.__gshape, split, rank=r)
@@ -234,7 +257,7 @@ class DNDarray:
             }
         own = position(comm.rank if split is not None else 0)
         if not no_data:
-            partitions[own]["data"] = self.__array
+            partitions[own]["data"] = self.larray
         grid = [1] * ndim
         if split is not None:
             grid[split] = comm.size
@@ -260,7 +283,7 @@ class DNDarray:
         _, lshape, slices = self.__comm.chunk(self.__gshape, self.__split)
         if 0 in lshape:
             return
-        yield slices, self.__array
+        yield slices, self.larray
 
     # ------------------------------------------------------------------ distribution
     def lshape_map(self, force_check: bool = False) -> "DNDarray":
@@ -332,8 +355,8 @@ class DNDarray:
         for lo, hi, want in ((max(start - halo_size, 0), start, prev and start > 0),
                              (end, min(end + halo_size, n), next and end < n)):
             lo, hi = (lo, hi) if want else (0, 0)
-            ranges = comm.all_gather_stacked(torch.tensor([lo, hi - lo], device=self.__array.device)).tolist()
-            got = comm.redistribute(self.__array, self.__gshape, ax, counts, [r[1] for r in ranges],
+            ranges = comm.all_gather_stacked(torch.tensor([lo, hi - lo], device=self.larray.device)).tolist()
+            got = comm.redistribute(self.larray, self.__gshape, ax, counts, [r[1] for r in ranges],
                                     src_displs=displs, dst_displs=[r[0] for r in ranges])
             halos.append(got if want else None)
         self.__halo_prev, self.__halo_next = halos
@@ -349,12 +372,12 @@ class DNDarray:
     @property
     def array_with_halos(self) -> torch.Tensor:
         """This rank's chunk with the fetched halos attached along the split axis."""
-        parts = [p for p in (self.halo_prev, self.__array, self.halo_next) if p is not None]
+        parts = [p for p in (self.halo_prev, self.larray, self.halo_next) if p is not None]
         return parts[0] if len(parts) == 1 else torch.cat(parts, dim=self.__split or 0)
 
     def _global(self) -> torch.Tensor:
         """The whole array on every rank (an all-gather when distributed)."""
-        return self.__comm.all_gather(self.__array, self.__gshape, self.__split)
+        return self.__comm.all_gather(self.larray, self.__gshape, self.__split)
 
     def _relayout(self, axis: Optional[int]) -> torch.Tensor:
         """This rank's local tensor for the array laid out along ``axis``. split→split
@@ -363,14 +386,14 @@ class DNDarray:
         ``HEAT_TPU_LINALG_PLAN=xla``, which gathers the whole array as heat_tpu's XLA path
         does; split→None gathers; None→split keeps this rank's chunk."""
         if axis == self.__split:
-            return self.__array
+            return self.larray
         if axis is not None and self.__split is not None:
             from .linalg import comm_plan
 
             moved = comm_plan.try_resplit(self, axis)
             if moved is not NotImplemented:
                 return moved
-        full = self.__array if self.__split is None else self._global()
+        full = self.larray if self.__split is None else self._global()
         if axis is None:
             return full
         _, _, slices = self.__comm.chunk(self.__gshape, axis)
@@ -392,9 +415,13 @@ class DNDarray:
         )
 
     def _rebind(self, other: "DNDarray") -> None:
-        """Take ``other``'s local tensor, shape, dtype and split in place (``qr``'s
-        ``overwrite_a``)."""
-        self.__array = other.larray
+        """Take ``other``'s payload, shape, dtype and split in place (``qr``'s
+        ``overwrite_a`` and the in-place operators); a deferred payload stays
+        deferred."""
+        payload = other._payload
+        if isinstance(payload, Deferred):
+            _executor.note_wrapped(payload, self)
+        self.__array = payload
         self.__gshape = other.gshape
         self.__dtype = other.dtype
         self.__split = other.split
@@ -410,7 +437,7 @@ class DNDarray:
     def astype(self, dtype, copy: bool = True) -> "DNDarray":
         """Cast to a new datatype."""
         dtype = types.canonical_heat_type(dtype)
-        casted = self.__array.to(dtype.torch_type())
+        casted = self.larray.to(dtype.torch_type())
         if copy:
             return DNDarray(casted, self.__gshape, dtype, self.__split, self.__device, self.__comm, self.__balanced)
         self.__array = casted
@@ -421,7 +448,7 @@ class DNDarray:
         """This array with its chunks on the host."""
         from .devices import cpu
 
-        return DNDarray(self.__array.cpu(), self.__gshape, self.__dtype, self.__split, cpu, self.__comm, self.__balanced)
+        return DNDarray(self.larray.cpu(), self.__gshape, self.__dtype, self.__split, cpu, self.__comm, self.__balanced)
 
     def numpy(self) -> np.ndarray:
         """The global array as numpy, on every rank (an all-gather when distributed).
@@ -484,9 +511,9 @@ class DNDarray:
         n = min(self.__gshape)
         lo, hi = max(offset, 0), min(offset + lshape[ax], n)
         if hi > lo:
-            g = torch.arange(lo, hi, device=self.__array.device)
+            g = torch.arange(lo, hi, device=self.larray.device)
             rows, cols = (g - offset, g) if ax == 0 else (g, g - offset)
-            self.__array[rows, cols] = torch.as_tensor(value, dtype=self.__array.dtype, device=self.__array.device)
+            self.larray[rows, cols] = torch.as_tensor(value, dtype=self.larray.dtype, device=self.larray.device)
         return self
 
     def _index_split(self, key) -> Optional[int]:

@@ -29,8 +29,11 @@ and knob, although the port moves ragged chunks and pads nothing. Each executed 
 counts ``linalg.plan.<kind>`` and ``linalg.bytes.<kind>`` in :data:`COUNTERS`.
 
 Unlike heat_tpu, a ring or rs plan that fails raises: no plan gives way to another.
-heat_tpu's signature-cached executor, jit threshold, quarantine and warm-up replay are
-XLA's and are not ported.
+The port has heat_tpu's signature-cached executor (``core/_executor.py``), with its jit
+threshold and its quarantine of failing signatures, but a plan is not one of its
+programs: every plan issues collectives, which every rank must issue in the same order,
+so plans run inline on the calling thread, as the executor runs its own
+collective-bearing programs. Warm-up replay comes with the compile cache.
 """
 
 from __future__ import annotations

@@ -1,9 +1,11 @@
-"""Input validation (counterpart of heat_tpu/core/sanitation.py; its buffer-donation
-helpers are XLA's and have no counterpart)."""
+"""Input validation and the executor's buffer-donation contract (counterpart of
+heat_tpu/core/sanitation.py)."""
 
 from __future__ import annotations
 
 from typing import List, Optional, Sequence, Union
+
+import sys
 
 import torch
 
@@ -11,9 +13,11 @@ from .dndarray import DNDarray
 
 __all__ = [
     "sanitize_distribution",
+    "sanitize_donation",
     "sanitize_in",
     "sanitize_in_tensor",
     "sanitize_infinity",
+    "sanitize_leaf_donation",
     "sanitize_lshape",
     "sanitize_out",
     "sanitize_sequence",
@@ -40,6 +44,78 @@ def sanitize_out(
         raise ValueError(f"Expecting output buffer of shape {tuple(output_shape)}, got {tuple(out.shape)}")
     if out.split != output_split:
         out.resplit_(output_split)
+
+
+def _storage_owned(t: torch.Tensor) -> bool:
+    """Whether writing into ``t``'s storage can be observed through nothing but
+    ``t``: no autograd history, and no other tensor on the storage — a view of
+    ``t`` or a sibling view; ``t`` may itself be a view of a base nothing else
+    holds (a local chunk cut from a temporary). The storage's use count is the
+    tensor's reference, its base's, and the temporary storage object asking for
+    it. (A CPU tensor made by ``torch.from_numpy`` shares the numpy array's
+    memory without a torch reference; the port's factories copy their input, so
+    such memory is never a user's array.)"""
+    if t.requires_grad:
+        return False
+    use_count = getattr(torch._C, "_storage_Use_Count", None)
+    if use_count is None:
+        return False
+    base = t._base
+    allowed = 2
+    if base is not None:
+        # the ``base`` local, getrefcount's argument, and the reference the view's
+        # tensor keeps to its base's Python object
+        if base.requires_grad or sys.getrefcount(base) > 3:
+            return False
+        allowed = 3
+    del base
+    return use_count(t.untyped_storage()._cdata) <= allowed
+
+
+def sanitize_donation(out: DNDarray, operand_arrays: Sequence) -> bool:
+    """Whether ``out``'s local tensor may be **donated** to a staged ``out=``
+    program: the program then writes the result into its storage.
+
+    heat_tpu's contract, for torch tensors: the tensor must not also be a program
+    operand (``ht.add(a, b, out=a)``), no reference beyond the ``out`` array itself
+    may exist (a user holding ``buf = x.larray``, or a deferred op still reading
+    it, keeps it undonatable for exactly as long as that holder exists), and — as a
+    torch tensor can share its storage — it must not be a view, have a live view,
+    or require grad. Callers check *before* putting the tensor into their own
+    argument list. When this returns False the program runs without writing in
+    place; correctness never depends on donation."""
+    buf = out.larray
+    if any(buf is arr for arr in operand_arrays):
+        return False
+    # expected references: the DNDarray's attribute, the ``buf`` local, and the
+    # getrefcount argument
+    return sys.getrefcount(buf) <= 3 and _storage_owned(buf)
+
+
+def _call_ref_overhead() -> int:
+    """How many references one Python call layer adds to an argument (measured
+    once, so the leaf-donation refcount contract is exact on any CPython)."""
+    probe = object()
+
+    def _measure(x):
+        return sys.getrefcount(x)
+
+    return _measure(probe) - sys.getrefcount(probe)
+
+
+_LEAF_CALL_OVERHEAD = _call_ref_overhead()
+
+
+def sanitize_leaf_donation(buf, plan_refs: int) -> bool:
+    """Whether a fused-graph *leaf* tensor may be donated to the deferred
+    executor's program (its storage receives an output of the same shape and
+    dtype). Safe only when the forcing program is the tensor's last reader:
+    ``plan_refs`` persistent references are accounted for by the caller (the
+    plan's operand tuples and its leaf list); on top of those come getrefcount's
+    argument and this call's own references. Anything beyond — a live DNDarray
+    payload, a user-held ``x.larray``, a deferred graph outside the plan —
+    refuses, as do a shared storage and autograd history (:func:`sanitize_donation`)."""
+    return sys.getrefcount(buf) <= plan_refs + 1 + _LEAF_CALL_OVERHEAD and _storage_owned(buf)
 
 
 def sanitize_sequence(seq):

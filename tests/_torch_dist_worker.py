@@ -147,6 +147,71 @@ def run(inputs) -> dict:
     out.update(run_cluster(inputs))
     out.update(run_domain(inputs))
     out.update(run_nn(inputs, comm))
+    out.update(run_runtime(inputs))
+    return out
+
+
+RUNTIME_THREADS = 4
+
+
+def run_runtime(inputs) -> dict:
+    """Threaded requests on every rank: each thread builds a deferred chain inside its
+    own ``profiler.request`` scope (the forces are local and may batch across
+    threads), then takes its turn — thread 0, 1, 2, 3 on every rank — to reduce and
+    scan the chain over the split axis (an ``all_reduce`` and an all-gather, issued
+    inline on the calling thread in the same order on every rank)."""
+    import threading
+
+    from heat_tpu_torch.core import _executor, profiler
+
+    out = {}
+    x = ht.array(inputs["rt_x"], split=0)
+    y = ht.array(inputs["rt_y"], split=0)
+    profiler.enable()
+    _executor.reset_executor_stats()
+    turn = {"next": 0}
+    cv = threading.Condition()
+    start = threading.Barrier(RUNTIME_THREADS)
+    results, errors = {}, []
+
+    def request(i):
+        try:
+            with profiler.request(f"rt{i}"):
+                c = x
+                for _ in range(4):
+                    c = c * float(i + 1)
+                    c = c + y
+                    c = c - 0.5
+                start.wait(timeout=60)
+                c.larray  # a local force: queued and batched across threads
+                with cv:
+                    assert cv.wait_for(lambda: turn["next"] == i, timeout=60), "turn never came"
+                results[f"rt{i}_chain"] = c.numpy()
+                results[f"rt{i}_sum0"] = ht.sum(c, axis=0).numpy()
+                results[f"rt{i}_cumsum0"] = ht.cumsum((c * 2.0) + y, axis=0).numpy()
+                results[f"rt{i}_max"] = np.array(ht.max(c).item())
+                with cv:
+                    turn["next"] += 1
+                    cv.notify_all()
+        except Exception as exc:  # reported through the results
+            errors.append(repr(exc))
+            with cv:
+                turn["next"] = max(turn["next"], i + 1)
+                cv.notify_all()
+
+    threads = [threading.Thread(target=request, args=(i,)) for i in range(RUNTIME_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    out["rt_alive"] = np.array(sum(t.is_alive() for t in threads))
+    out["rt_errors"] = np.array(" | ".join(errors))
+    out.update(results)
+    st = _executor.executor_stats()
+    out["rt_stats"] = np.array([st["misses"], st["hits"], st["reexecuted"], st["eager_fallbacks"]])
+    out["rt_requests"] = np.array(profiler.report()["requests_total"])
+    profiler.disable()
+    profiler.reset()
     return out
 
 

@@ -111,6 +111,9 @@ def _inputs():
         **_cluster_inputs(rng),
         **_domain_inputs(rng),
         **_nn_inputs(rng),
+        # the threaded requests of the runtime: 10 rows split 4, 4, 2
+        "rt_x": rng.standard_normal((10, 6)).astype(np.float32),
+        "rt_y": rng.standard_normal((10, 6)).astype(np.float32),
     }
 
 
@@ -1246,3 +1249,36 @@ def test_transformer_sequence_split_at_three_ranks(ranks):
     for r in res:
         assert list(r["nn_transformer_meta"]) == ["1", "3"]
         np.testing.assert_allclose(r["nn_transformer"], np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+RT_THREADS = 4
+
+
+def test_threaded_requests_match_heat_tpu(ranks, comm3):
+    """Several threads per rank issue tagged requests mixing deferred chains with
+    split-axis reductions and scans: nothing hangs, nothing falls back, and every
+    rank's results equal heat_tpu's on its three-device mesh."""
+    inputs, res = ranks
+    x = ht.array(inputs["rt_x"], split=0, comm=comm3)
+    y = ht.array(inputs["rt_y"], split=0, comm=comm3)
+    for r in res:
+        assert int(r["rt_alive"]) == 0 and str(r["rt_errors"]) == ""
+        misses, hits, reexecuted, fallbacks = r["rt_stats"]
+        assert misses >= 1 and reexecuted == 0 and fallbacks == 0
+        assert int(r["rt_requests"]) == RT_THREADS
+    for i in range(RT_THREADS):
+        c = x
+        for _ in range(4):
+            c = c * float(i + 1)
+            c = c + y
+            c = c - 0.5
+        want = {
+            "chain": c.numpy(),
+            "sum0": ht.sum(c, axis=0).numpy(),
+            "cumsum0": ht.cumsum((c * 2.0) + y, axis=0).numpy(),
+            "max": np.array(ht.max(c).item()),
+        }
+        for r in res:
+            np.testing.assert_array_max_ulp(r[f"rt{i}_chain"], want["chain"], maxulp=4)
+            for key in ("sum0", "cumsum0", "max"):
+                np.testing.assert_allclose(r[f"rt{i}_{key}"], want[key], rtol=1e-5, atol=1e-5)
