@@ -137,17 +137,17 @@ Phases, one line each:
      ``tools/train_state_probe.py`` runs the three alone;
  12d. the request-dispatch runtime (``runtime_phases``): ``[runtime_chain]``, heat_tpu's
      dispatch microbenchmark chain (16 cycles of ``x + y``, ``* 0.5``, ``- y``, ``+ 1.0``:
-     64 ops) at 4,096 and 16M f32 elements split 0, forced 200 times through the executor
+     64 ops) at 4,096 and 16M f32 elements split 0, forced 100 times through the executor
      (one program, captured in a CUDA graph at its first force and replayed after) and
      with ``HEAT_TPU_EAGER_DISPATCH=1``: the results bit-equal, misses 0, hits and graph
-     replays 200, per-force wall time both ways and one force's launches from one
+     replays 100, per-force wall time both ways and one force's launches from one
      ``torch.profiler`` pass; and the fan-out graph's ``reexecuted_steady`` (0);
      ``[runtime_serving]``, heat_tpu's four serving request shapes at their on-chip sizes
      (benchmarks/serving/workloads.py): ``kmeans_assign`` (predict on 65,536 x 64 against
      the fitted model of step 5), ``cdist_knn`` (1,024 replicated queries against a
      262,144 x 64 corpus split 0, then argmin), ``mlp_infer`` (784 -> 1024 -> 10 on 8,192
      rows split 0) and ``sparse_matvec`` (a 262,144² DCSR matrix of ~34.4M entries from
-     seeded indices, never dense), each over 8 staged inputs, 200 requests from 1 thread
+     seeded indices, never dense), each over 8 staged inputs, 100 requests from 1 thread
      and from 16, each in ``profiler.request``: every result bit-equal to the same request
      under ``HEAT_TPU_EAGER_DISPATCH=1``, p50/p99 from the profiler's histograms,
      requests/s, batches formed, queue depth, no eager fallback or quarantine, and the
@@ -157,6 +157,42 @@ Phases, one line each:
      and overload, and a fault plan at ``executor.execute`` leaving every bit of the
      fault-free run with eager fallbacks counted; ``tools/runtime_probe.py`` runs the
      three alone;
+ 12e. the serving plane (``serving_phases``): ``[serving_swap]``, heat_tpu's
+     swap_gate.py on a ``ModelPool`` of Transformer-base (the forward path's widths, ~44M parameters,
+     a tree of split-None DNDarrays; each request reads ``pool.state`` once and runs
+     ``torch.func.functional_call`` on src and tgt of (4, 1024, 512), causal target,
+     under ``inference_mode``, then pools the output through the executor): generations
+     A and B saved by ``save_checkpoint``, C a copy of B with one chunk's bytes flipped;
+     200 requests from 16 threads, ``swap_state`` to B after a third of them and to C
+     after two thirds; every result bit-equal to A's or B's answer for its input and B's
+     after the first swap returned, ``admitted + shed + failed == offered`` with no untyped
+     failure, the swap to C a ``SwapFailed`` at stage ``stage`` with the pool still on B,
+     1 swap and 1 rollback in the ledger and the flight recorder's post-mortem written,
+     K2 18 times a request; p50/p99 before, during and after the swap, requests/s, the
+     swap's drain and total seconds and the traced idle share; ``[serving_failover]``,
+     supervision armed over a ``LocalCoordinator`` with a virtual peer that beats and then
+     goes silent under 16-thread traffic: the abort, typed refusals, ``on_peer_failure``
+     and serving after it; ``[planes]``, the swap's traffic without swaps with every plane
+     off and then with forensics, ops (0.5 s) and telemetry on: requests/s, p99 and the
+     overhead, ``explain``'s exemplars, the OpenMetrics page round-tripping and a
+     one-shard merge; ``[serving_cache]``, heat_tpu's cache_gate.py: a 16M f32 state at
+     split 0, twelve registered 64 MB slots drawn Zipf (alpha 1.1), 400 requests of
+     ``x_slot * w + w`` from 16 threads with the result cache on (1 GiB) and off and a
+     ``swap_state`` A -> B halfway, every result bit-equal to the eager value for its slot
+     and generation, a poisoned entry rejected typed and an in-place write into a slot
+     never served stale: hit rate, p50/p99 both ways, host-hash bytes; ``[serving_coldstart]``,
+     heat_tpu's coldstart_gate.py: three fresh processes of this script (record, cold,
+     warm) running ``[runtime_chain]``'s chain at 4,096 and 16M and the fan-out graph,
+     warm replaying the recorded manifest (``executor_warmup``) first: every signature
+     replayed, ``failed`` 0, ``aot_loaded`` 0, its first requests hits and graph replays,
+     a corrupted ``index.json`` a typed rejection with the boot still serving: first-request
+     ms and steady p50/p99 cold against warm, the warmup's seconds; ``[supervised_train]``,
+     a fresh process joining an NCCL group of one through a file store:
+     ``run_supervised`` drives 4 steps of the training step, checkpointing every 2; a
+     fault plan's entry at step 3 raises ``PeerFailed``; the restart aborts and destroys
+     the group, joins a new one and restores step 2; the parameters and Adam state
+     bit-equal to an uninterrupted 4-step run, K2, D, K4 and K5 18 times a step: the
+     restart's seconds. ``tools/serving_probe.py`` runs the six alone;
  13. (13-17 run in a child process of this script, which traces nothing: see
      ``linalg_phases``) config #2 (``[linalg_matmul]``): ``ht.linalg.matmul`` of a (4096, 4096) split=0 and a
      (4096, 4096) split=1 f32 array from a seeded generator, with TF32 allowed for the
@@ -2468,9 +2504,9 @@ def io_phase(ht, dev, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------- the request-dispatch runtime
-RT_CHAIN_CYCLES, RT_CHAIN_SIZES, RT_FORCES = 16, (4096, 16 * 1024 * 1024), 200
+RT_CHAIN_CYCLES, RT_CHAIN_SIZES, RT_FORCES = 16, (4096, 16 * 1024 * 1024), 100  # 100: cut from 200 for time
 RT_FANOUT_N, RT_FANOUT_CONSUMERS = 1 << 19, 8
-RT_REQUESTS, RT_THREADS, RT_STAGED = 200, 16, 8
+RT_REQUESTS, RT_THREADS, RT_STAGED = 100, 16, 8  # 100 requests: cut from 200 to fit the serving plane
 
 
 @contextlib.contextmanager
@@ -2588,7 +2624,7 @@ def runtime_chain_phase(ht, dev, smi: str) -> dict:
         check(all(same_bits(a, b) for a, b in zip(results["executor"], results["eager"])),
               f"[runtime_chain] n={n}: executor and eager results differ in bits")
         e = rec["executor"]
-        check(e["misses"] == 0 and e["hits"] == RT_FORCES, f"[runtime_chain] n={n}: the 200 forces were not pure replay: {e}")
+        check(e["misses"] == 0 and e["hits"] == RT_FORCES, f"[runtime_chain] n={n}: the {RT_FORCES} forces were not pure replay: {e}")
         check(e["graph_replays"] == RT_FORCES and e["graphs"] == 1, f"[runtime_chain] n={n}: graph replays {e}")
         # the plan drops each interior value after its last reader: the graph's pool holds
         # a few of the chain's tensors (and the static buffers), not one per op
@@ -2921,6 +2957,779 @@ def runtime_phases(ht, dev, smi: str, km) -> dict:
     }
 
 
+# ------------------------------------------------------------------ the serving plane
+# [serving_swap] / [serving_failover] / [planes]: a ModelPool serving Transformer-base at
+# the forward path's widths (N = 6, d_model 512, d_ff 2048, h 8, f32) on src and tgt of (4, 1024, 512)
+SV_BATCH, SV_T, SV_INPUTS = 4, 1024, 8
+SV_REQUESTS, SV_THREADS = 200, 16
+SV_FAILOVER_REQUESTS, SV_FAILOVER_HOLD_S = 64, 10.0
+PL_REQUESTS = 100  # [planes]: requests an arm, cut from the swap's 200 for time
+# [serving_cache]: a 16M f32 state at split 0, twelve registered 64 MB slots drawn Zipf
+# (alpha 1.1) from the seed, 400 requests of ``x_slot * w + w``, cache budget 1 GiB
+SC_N, SC_SLOTS, SC_REQUESTS, SC_ALPHA = 16 * 1024 * 1024, 12, 400, 1.1
+# [serving_coldstart]: steady requests a workload after the first one
+CS_STEADY = 25
+# [supervised_train]: run_supervised over the training path's step, checkpoints every 2 steps, a fault at step 3
+ST_STEPS, ST_SAVE_EVERY, ST_FAULT_STEP = 4, 2, 3
+
+
+def percentiles_ms(seconds) -> dict:
+    """p50/p99 (and the count) of a list of latencies in seconds, in ms."""
+    if not seconds:
+        return {"count": 0}
+    a = np.asarray(seconds) * 1e3
+    return {"count": len(seconds), "p50_ms": float(np.percentile(a, 50)), "p99_ms": float(np.percentile(a, 99))}
+
+
+class ServedTransformer:
+    """Transformer-base served from a ``ModelPool``: the pool's state is a tree of split-None
+    DNDarrays named as the model's ``state_dict``; a request reads ``pool.state`` once,
+    runs ``torch.func.functional_call`` of a per-thread copy of the module (on ``meta``:
+    the call binds the state's tensors) under ``inference_mode``, then pools its output
+    through the executor: a fused chain ``o * 2 + 1`` and a mean over the sequence."""
+
+    def __init__(self, ht, dev):
+        import copy
+
+        import torch
+
+        torch.manual_seed(SEED + 40)
+        model = ht.nn.Transformer()
+        self.names = list(model.state_dict())
+        self.params = sum(p.numel() for p in model.parameters())
+        self.meta = copy.deepcopy(model).to("meta")
+        self.first = {n: t.detach().clone() for n, t in model.state_dict().items()}
+        del model
+        gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+        self.inputs = [(torch.randn(SV_BATCH, SV_T, 512, generator=gen, device=dev),
+                        torch.randn(SV_BATCH, SV_T, 512, generator=gen, device=dev)) for _ in range(SV_INPUTS)]
+        self.local = threading.local()
+        self.ht = ht
+
+    def template(self):
+        return {n: self.ht.zeros(tuple(t.shape), dtype=self.ht.float32, split=None) for n, t in self.first.items()}
+
+    def generation(self, seed: int) -> dict:
+        """A seeded weight set: the model's initial state with every float tensor redrawn."""
+        import torch
+
+        gen = torch.Generator(device=self.first[self.names[0]].device).manual_seed(seed)
+        out = {}
+        for n, t in self.first.items():
+            if t.is_floating_point() and t.dim() >= 2:
+                out[n] = torch.randn(t.shape, generator=gen, device=t.device) * (1.0 / t.shape[-1]) ** 0.5
+            else:
+                out[n] = t.clone()
+        return {n: self.ht.array(t, split=None) for n, t in out.items()}
+
+    def module(self):
+        import copy
+
+        m = getattr(self.local, "m", None)
+        if m is None:
+            m = self.local.m = copy.deepcopy(self.meta)
+        return m
+
+    def request(self, state, i: int):
+        import torch
+
+        src, tgt = self.inputs[i % SV_INPUTS]
+        tensors = {n: state[n].larray for n in self.names}
+        with torch.inference_mode():
+            out = torch.func.functional_call(self.module(), tensors, (src, tgt), {"tgt_is_causal": True})
+        o = self.ht.array(out.clone())  # leave inference mode: the executor tracks versions
+        pooled = self.ht.mean(o * 2.0 + 1.0, axis=1)
+        return pooled.larray
+
+
+def serve(pool, served, n: int, threads: int, dev, on_done=None, tenant: str = "serving"):
+    """``n`` requests from ``threads`` threads, each in ``profiler.request(tenant)`` and
+    finished on the card; per request: (index, result or the exception, start, end, kind)
+    with kind ``ok``, ``typed`` (a lifecycle or supervision error) or ``untyped``.
+    ``on_done(k, record)`` is called as the k-th request finishes."""
+    import torch
+
+    from heat_tpu_torch.core import profiler, resilience
+
+    typed = (resilience.Shed, resilience.DeadlineExceeded, resilience.RequestCancelled, resilience.DrainTimeout,
+             resilience.PeerFailed, resilience.CollectiveTimeout)
+    records = [None] * n
+    done = [0]
+    lock = threading.Lock()
+
+    def one(i):
+        t0 = time.perf_counter()
+        try:
+            with profiler.request(tenant):
+                r = served.request(pool.state, i)
+                ev = torch.cuda.Event()
+                ev.record()
+                ev.synchronize()
+            rec = (i, r, t0, time.perf_counter(), "ok")
+        except typed as exc:
+            rec = (i, exc, t0, time.perf_counter(), "typed")
+        except Exception as exc:  # counted: the gates require none
+            rec = (i, exc, t0, time.perf_counter(), "untyped")
+        records[i] = rec
+        with lock:
+            done[0] += 1
+            k = done[0]
+        if on_done is not None:
+            on_done(k, rec)
+
+    with request_pool(dev, threads) as ex:
+        list(ex.map(one, range(n)))
+    return records
+
+
+def serving_swap_phase(ht, kernels, served, dev, smi: str, tmp: str) -> dict:
+    """``[serving_swap]`` (heat_tpu's swap_gate.py on the Transformer): generations A and B
+    saved by ``save_checkpoint``, C a copy of B with one chunk's bytes flipped; 200 requests
+    from 16 threads; ``swap_state`` to B after about a third of them and to C after about
+    two thirds. Gates: ``admitted + shed + failed == offered`` on both sides of each swap
+    with 0 untyped failures; every result bit-equal to A's or B's answer for its input
+    computed alone beforehand, and B's for every request that starts after the first swap
+    returned; the swap to C raises ``SwapFailed`` at stage ``stage``, the pool serves B,
+    the ledger holds 1 swap and 1 rollback, and the flight recorder wrote its post-mortem;
+    K2 launched 18 times a request."""
+    import glob
+    import shutil
+
+    import torch
+
+    from heat_tpu_torch.core import checkpoint as ckpt, resilience, telemetry
+
+    gens = {}
+    for name, seed in (("A", SEED + 42), ("B", SEED + 43)):
+        gens[name] = os.path.join(tmp, f"gen_{name}")
+        ht.save_checkpoint(served.generation(seed), gens[name])
+    gens["C"] = os.path.join(tmp, "gen_C")
+    shutil.copytree(gens["B"], gens["C"])
+    victim = max(ckpt._manifest_files(ckpt.read_manifest(gens["C"])), key=lambda f: f[1])[0]
+    with open(os.path.join(gens["C"], victim), "r+b") as fh:
+        b = fh.read(1)
+        fh.seek(0)
+        fh.write(bytes([b[0] ^ 0xFF]))
+    pool = ht.serving.ModelPool(served.template(), name="transformer").load(gens["A"])
+    answers = {"A": [served.request(pool.state, i).clone() for i in range(SV_INPUTS)]}
+    staged_b = ht.load_checkpoint(served.template(), gens["B"])
+    answers["B"] = [served.request(staged_b, i).clone() for i in range(SV_INPUTS)]
+    del staged_b
+    check(not any(torch.equal(a, b) for a, b in zip(answers["A"], answers["B"])), "[serving_swap] A and B answer alike")
+    flight_dir = os.path.join(tmp, "flight")
+    os.environ["HEAT_TPU_FLIGHT_DIR"] = flight_dir
+    marks, swap_out, swappers = {}, {}, []
+    swap_lock = threading.Lock()
+
+    def on_done(k, _rec):
+        for at, to in ((SV_REQUESTS // 3, "B"), (2 * SV_REQUESTS // 3, "C")):
+            if k == at:
+                t = threading.Thread(target=do_swap, args=(to,), daemon=True)
+                swappers.append(t)
+                t.start()
+
+    def do_swap(to):
+        with swap_lock:  # the swap to C waits for the swap to B
+            marks[f"{to}_start"] = time.perf_counter()
+            try:
+                swap_out[to] = ht.serving.swap_state(pool, gens[to])
+            except resilience.SwapFailed as exc:
+                swap_out[to] = exc
+            marks[f"{to}_end"] = time.perf_counter()
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    records = serve(pool, served, SV_REQUESTS, SV_THREADS, dev, on_done=on_done)
+    for t in swappers:
+        t.join(timeout=120)
+    check(len(swappers) == 2 and not any(t.is_alive() for t in swappers), "[serving_swap] a swap hung")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    kinds = {k: sum(1 for r in records if r[4] == k) for k in ("ok", "typed", "untyped")}
+    check(kinds["untyped"] == 0, f"[serving_swap] untyped failures: {[repr(r[1]) for r in records if r[4] == 'untyped'][:3]}")
+    check(sum(kinds.values()) == SV_REQUESTS, f"[serving_swap] {kinds} of {SV_REQUESTS}")
+    st = ht.executor_stats()
+    for side, lo, hi in (("before_B", 0.0, marks["B_start"]), ("after_B", marks["B_end"], marks["C_start"]),
+                         ("after_C", marks["C_end"], float("inf"))):
+        side_kinds = [r[4] for r in records if lo <= r[2] < hi]
+        check(all(k != "untyped" for k in side_kinds), f"[serving_swap] {side}: untyped failure")
+    wrong, stale = [], []
+    for i, r, start, end, kind in records:
+        if kind != "ok":
+            continue
+        is_a, is_b = same_bits(r, answers["A"][i % SV_INPUTS]), same_bits(r, answers["B"][i % SV_INPUTS])
+        if not (is_a or is_b):
+            wrong.append(i)
+        if start > marks["B_end"] and not is_b:
+            stale.append(i)
+    check(not wrong, f"[serving_swap] results from no whole generation: {wrong[:5]}")
+    check(not stale, f"[serving_swap] requests after the swap to B served A: {stale[:5]}")
+    check(isinstance(swap_out["B"], dict) and swap_out["B"]["ok"], f"[serving_swap] swap to B: {swap_out['B']!r}")
+    check(isinstance(swap_out["C"], resilience.SwapFailed) and swap_out["C"].stage == "stage",
+          f"[serving_swap] swap to C: {swap_out['C']!r}")
+    check(pool.generation == gens["B"], f"[serving_swap] the pool serves {pool.generation}")
+    ledger = pool.swap_ledger()
+    check([e["ok"] for e in ledger] == [True, False] and pool._swaps == 1 and pool._rollbacks == 1,
+          f"[serving_swap] ledger {ledger}")
+    deadline = time.monotonic() + 10.0
+    dumps = []
+    while time.monotonic() < deadline and not dumps:
+        dumps = glob.glob(os.path.join(flight_dir, "*swap-failed*.json"))
+        time.sleep(0.05)
+    check(bool(dumps), f"[serving_swap] no flight post-mortem under {flight_dir}")
+    with open(dumps[0]) as fh:
+        dump = json.load(fh)
+    check(any(e.get("kind") == "swap-failed" for e in dump["events"]), "[serving_swap] the post-mortem lacks the rollback")
+    check(counts["flash_attention_fwd"] == FLASH_PER_FORWARD * kinds["ok"],
+          f"[serving_swap] K2 launched {counts['flash_attention_fwd']} times for {kinds['ok']} requests")
+    lat = {"before": [r[3] - r[2] for r in records if r[3] < marks["B_start"]],
+           "during": [r[3] - r[2] for r in records if r[3] >= marks["B_start"] and r[2] <= marks["B_end"]],
+           "after": [r[3] - r[2] for r in records if r[2] > marks["B_end"]]}
+    with request_pool(dev, SV_THREADS) as ex:
+        trace = profile_device(lambda: list(ex.map(lambda i: served.request(pool.state, i), range(SV_THREADS))),
+                               inference=False)
+    out = {
+        "params": served.params, "requests": SV_REQUESTS, "threads": SV_THREADS, "kinds": kinds,
+        "requests_per_s": SV_REQUESTS / wall, "latency": {k: percentiles_ms(v) for k, v in lat.items()},
+        "swap_B": {"drain_s": swap_out["B"]["drain_s"], "total_s": swap_out["B"]["total_s"]},
+        "rollback_C": {"stage": swap_out["C"].stage, "total_s": ledger[-1]["total_s"]},
+        "k2_launches": counts["flash_attention_fwd"], "k2_per_request": counts["flash_attention_fwd"] / kinds["ok"],
+        "queued_dispatches": st["queued_dispatches"], "batched_requests": st["batched_requests"],
+        "postmortem": os.path.basename(dumps[0]),
+        "device_idle_share": trace.get("device_idle_share", "not measured"),
+    }
+    phase("serving_swap", params=served.params, requests=SV_REQUESTS, threads=SV_THREADS, kinds=json.dumps(kinds),
+          bit_equal_to_a_whole_generation=True, stale_after_swap=0, rps=f"{out['requests_per_s']:.2f}",
+          latency_ms=json.dumps(out["latency"]), swap_drain_s=repr(out["swap_B"]["drain_s"]),
+          swap_total_s=repr(out["swap_B"]["total_s"]), rollback=json.dumps(out["rollback_C"]),
+          k2_per_request=out["k2_per_request"], idle_share=repr(out["device_idle_share"]), card=repr(smi))
+    telemetry.reset()
+    os.environ.pop("HEAT_TPU_FLIGHT_DIR", None)
+    return out, pool
+
+
+def serving_cache_phase(ht, dev, smi: str, tmp: str) -> dict:
+    """``[serving_cache]`` (heat_tpu's cache_gate.py): a pool whose state ``w`` is 16M f32
+    at split 0; twelve registered 64 MB slots; the request ``x_slot * w + w``, one fused
+    force; slots drawn Zipf (alpha 1.1) from the seed; 400 requests from 16 threads with
+    ``HEAT_TPU_RESULT_CACHE=1`` (1 GiB) and with the cache off; ``swap_state`` A -> B after
+    half of them. Gates: every result bit-equal to the eager value for its (slot,
+    generation) and B's for every request that starts after the swap returned; hits > 0;
+    a poisoned entry rejected typed and recomputed; an in-place write into a registered
+    slot never served stale."""
+    import torch
+
+    from heat_tpu_torch.core import _executor, _result_cache, diagnostics, profiler
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+    gens = {}
+    for name in ("A", "B"):
+        gens[name] = os.path.join(tmp, f"cache_gen_{name}")
+        ht.save_checkpoint({"w": ht.array(torch.randn(SC_N, generator=gen, device=dev), split=0)}, gens[name])
+    slots = [ht.array(torch.randn(SC_N, generator=gen, device=dev), split=0) for _ in range(SC_SLOTS)]
+    rng = np.random.default_rng(SEED + 51)
+    p = 1.0 / np.arange(1, SC_SLOTS + 1) ** SC_ALPHA
+    draws = rng.choice(SC_SLOTS, size=SC_REQUESTS, p=p / p.sum())
+    eager = {}
+    with dispatch_knob("HEAT_TPU_EAGER_DISPATCH", "1"):
+        for name in ("A", "B"):
+            w = ht.load_checkpoint({"w": ht.zeros((SC_N,), split=0)}, gens[name])["w"]
+            eager[name] = [(slots[s] * w + w).larray.clone() for s in range(SC_SLOTS)]
+            del w
+    out = {}
+    for arm, knob in (("cache_on", "1"), ("cache_off", None)):
+        old = {k: os.environ.get(k) for k in ("HEAT_TPU_RESULT_CACHE", "HEAT_TPU_RESULT_CACHE_BYTES")}
+        if knob:
+            os.environ.update(HEAT_TPU_RESULT_CACHE="1", HEAT_TPU_RESULT_CACHE_BYTES=str(1 << 30))
+        else:
+            os.environ.pop("HEAT_TPU_RESULT_CACHE", None)
+        _executor.clear_executor_cache()
+        pool = ht.serving.ModelPool({"w": ht.zeros((SC_N,), split=0)}, name=f"cache-{arm}").load(gens["A"])
+        for s, x in enumerate(slots):
+            _result_cache.register_generation(x.larray, f"{arm}:slot:{s}", 1)
+        swap = {}
+        records = [None] * SC_REQUESTS
+        count = [0]
+        lock = threading.Lock()
+
+        def one(i):
+            t0 = time.perf_counter()
+            with profiler.request("cache"):
+                r = (slots[draws[i]] * pool.state["w"] + pool.state["w"]).larray
+                ev = torch.cuda.Event()
+                ev.record()
+                ev.synchronize()
+            records[i] = (i, r, t0, time.perf_counter())
+            with lock:
+                count[0] += 1
+                k = count[0]
+            if k == SC_REQUESTS // 2:
+                swap["start"] = time.perf_counter()
+                swap["entry"] = ht.serving.swap_state(pool, gens["B"])
+                swap["end"] = time.perf_counter()
+
+        _executor.reset_executor_stats()
+        t0 = time.perf_counter()
+        with request_pool(dev, SV_THREADS) as ex:
+            list(ex.map(one, range(SC_REQUESTS)))
+        wall = time.perf_counter() - t0
+        rc = ht.executor_stats()["result_cache"]
+        wrong, stale = [], []
+        for i, r, start, end in records:
+            s = draws[i]
+            is_a, is_b = same_bits(r, eager["A"][s]), same_bits(r, eager["B"][s])
+            if not (is_a or is_b):
+                wrong.append(i)
+            if start > swap["end"] and not is_b:
+                stale.append(i)
+        check(not wrong, f"[serving_cache] {arm}: results equal to no generation's eager value: {wrong[:5]}")
+        check(not stale, f"[serving_cache] {arm}: stale values after the swap: {stale[:5]}")
+        rec = {"requests": SC_REQUESTS, "rps": SC_REQUESTS / wall, "latency": percentiles_ms([r[3] - r[2] for r in records]),
+               "hits": rc["hits"], "misses": rc["misses"], "stores": rc["stores"],
+               "invalidations": rc["invalidations"], "hit_rate": rc["hits"] / max(1, rc["hits"] + rc["misses"]),
+               "host_hash_bytes": _result_cache.host_hash_bytes(), "swap_total_s": swap["entry"]["total_s"]}
+        if knob:
+            check(rc["hits"] > 0, f"[serving_cache] no hits: {rc}")
+            # a poisoned entry: typed rejection, recompute
+            s0 = int(draws[-1])
+            with profiler.request("cache"):
+                (slots[s0] * pool.state["w"] + pool.state["w"]).larray
+                poisoned = _result_cache._poison_one()
+                r0 = ht.executor_stats()["result_cache"]["rejects"]
+                again = (slots[s0] * pool.state["w"] + pool.state["w"]).larray.clone()
+            events = [e for e in diagnostics.report()["resilience_events"]
+                      if e["site"] == "executor.result_cache" and e["kind"] == "cache-corrupt"]
+            check(poisoned >= 1 and ht.executor_stats()["result_cache"]["rejects"] == r0 + 1 and events
+                  and same_bits(again, eager["B"][s0]), "[serving_cache] the poisoned entry was not rejected typed")
+            # an in-place write into a registered slot: never served stale
+            with profiler.request("cache"):
+                before = (slots[s0] * pool.state["w"] + pool.state["w"]).larray.clone()
+                slots[s0].larray.mul_(2.0)
+                after = (slots[s0] * pool.state["w"] + pool.state["w"]).larray.clone()
+            with dispatch_knob("HEAT_TPU_EAGER_DISPATCH", "1"):
+                w = pool.state["w"]
+                want = (slots[s0] * w + w).larray.clone()
+            slots[s0].larray.mul_(0.5)
+            check(same_bits(after, want) and not same_bits(after, before), "[serving_cache] an in-place write was served stale")
+            rec.update(poison_rejected=True, in_place_write_fails_closed=True)
+        out[arm] = rec
+        del pool, records
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        _executor.clear_executor_cache()
+    phase("serving_cache", slots=SC_SLOTS, slot_mb=4 * SC_N / 2**20, zipf_alpha=SC_ALPHA, requests=SC_REQUESTS,
+          threads=SV_THREADS, bit_equal=True, stale_after_swap=0, hit_rate=f"{out['cache_on']['hit_rate']:.3f}",
+          on=json.dumps(out["cache_on"]), off=json.dumps(out["cache_off"]),
+          host_hash_bytes=out["cache_on"]["host_hash_bytes"], card=repr(smi))
+    del slots, eager
+    torch.cuda.empty_cache()
+    return out
+
+
+def coldstart_child(mode: str, manifest: str, out_path: str) -> int:
+    """One fresh process of ``[serving_coldstart]``: ``record`` runs the workloads and
+    saves the warmup manifest; ``cold`` runs them as they come; ``warm`` replays the
+    manifest before its first request (and then shows a corrupted index is a typed
+    rejection and a boot that still serves). Each workload is ``[runtime_chain]``'s 64-op
+    chain at 4,096 and 16M elements and the fan-out graph: its first request's ms, the
+    executor's misses and graph replays in it, and then the steady p50/p99."""
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.core import _executor, diagnostics
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    ht.use_device("gpu")
+    out = {"mode": mode}
+    if mode == "warm":
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out["warmup"] = ht.executor_warmup(manifest)
+        torch.cuda.synchronize()
+        out["warmup"]["seconds"] = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    data = {n: (ht.array(torch.randn(n, generator=gen, device=dev), split=0),
+                ht.array(torch.randn(n, generator=gen, device=dev) * 0.1, split=0)) for n in RT_CHAIN_SIZES}
+    fx = (ht.array(torch.randn(RT_FANOUT_N, generator=gen, device=dev), split=0),
+          ht.array(torch.randn(RT_FANOUT_N, generator=gen, device=dev) * 0.1, split=0))
+    work = {f"chain_{n}": (lambda xy=data[n]: rt_chain(*xy).larray) for n in RT_CHAIN_SIZES}
+    work["fanout"] = lambda: rt_fanout(ht, *fx)
+    for name, fn in work.items():
+        ht.reset_executor_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        st = ht.executor_stats()
+        steady = []
+        for _ in range(CS_STEADY):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            steady.append(time.perf_counter() - t0)
+        out[name] = {"first_ms": first_ms, "first_misses": st["misses"], "first_graph_replays": st["graph_replays"],
+                     "first_graph_captures": st["graph_captures"], "steady": percentiles_ms(steady)}
+    if mode == "record":
+        out["saved"] = ht.executor_save_warmup(manifest, top=64)
+    if mode == "warm":
+        bad = os.path.join(os.path.dirname(out_path), "corrupt_manifest")
+        os.makedirs(bad, exist_ok=True)
+        with open(os.path.join(bad, "index.json"), "w") as fh:
+            fh.write('{"schema": "heat-tpu-compile-cache/1", "entries": ')
+        _executor.clear_executor_cache()
+        stats = ht.executor_warmup(bad)
+        events = [e for e in diagnostics.report()["resilience_events"]
+                  if e["site"] == "executor.compile_cache" and e["kind"] == "cache-corrupt"]
+        still = rt_chain(*data[RT_CHAIN_SIZES[0]]).larray
+        want = None
+        with dispatch_knob("HEAT_TPU_EAGER_DISPATCH", "1"):
+            want = rt_chain(*data[RT_CHAIN_SIZES[0]]).larray
+        out["corrupt_index"] = {"typed": bool(events) and "CompileCacheCorrupt" in events[-1]["detail"],
+                                "replayed": stats["replayed"], "serves": same_bits(still, want)}
+    with open(out_path, "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+def serving_coldstart_phase(smi: str, tmp: str) -> dict:
+    """``[serving_coldstart]`` (heat_tpu's coldstart_gate.py): three fresh child processes,
+    record, cold and warm (:func:`coldstart_child`). Gates: warm replays every recorded
+    signature with ``failed == 0`` and ``aot_loaded == 0``, its first request of every
+    workload is a hit (0 misses) and a graph replay; a corrupted index.json is a typed
+    ``CompileCacheCorrupt`` event and the boot still serves."""
+    manifest = os.path.join(tmp, "manifest")
+    runs = {}
+    for mode in ("record", "cold", "warm"):
+        path = os.path.join(tmp, f"coldstart_{mode}.json")
+        sys.stdout.flush()
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--coldstart-child", mode, manifest, path]).returncode
+        check(rc == 0, f"[serving_coldstart] the {mode} child failed (exit code {rc})")
+        with open(path) as fh:
+            runs[mode] = json.load(fh)
+    warm, cold = runs["warm"], runs["cold"]
+    saved = runs["record"]["saved"]["saved"]
+    check(warm["warmup"]["replayed"] == saved and warm["warmup"]["failed"] == 0 and warm["warmup"]["aot_loaded"] == 0,
+          f"[serving_coldstart] warmup {warm['warmup']} of {saved} recorded")
+    names = [k for k in warm if k.startswith("chain_") or k == "fanout"]
+    for n in names:
+        check(warm[n]["first_misses"] == 0 and warm[n]["first_graph_replays"] >= 1,
+              f"[serving_coldstart] warm {n}'s first request: {warm[n]}")
+    check(warm["corrupt_index"]["typed"] and warm["corrupt_index"]["serves"],
+          f"[serving_coldstart] corrupt index: {warm['corrupt_index']}")
+    out = {"recorded": saved, "warmup": warm["warmup"], "corrupt_index": warm["corrupt_index"],
+           **{n: {"cold_first_ms": cold[n]["first_ms"], "warm_first_ms": warm[n]["first_ms"],
+                  "cold_steady": cold[n]["steady"], "warm_steady": warm[n]["steady"],
+                  "cold_first_misses": cold[n]["first_misses"]} for n in names}}
+    phase("serving_coldstart", recorded=saved, replayed=warm["warmup"]["replayed"], failed=warm["warmup"]["failed"],
+          aot_loaded=warm["warmup"]["aot_loaded"], warmup_s=repr(warm["warmup"]["seconds"]),
+          first_ms=json.dumps({n: [out[n]["cold_first_ms"], out[n]["warm_first_ms"]] for n in names}),
+          steady_ms=json.dumps({n: [out[n]["cold_steady"], out[n]["warm_steady"]] for n in names}),
+          corrupt_index=json.dumps(warm["corrupt_index"]), card=repr(smi))
+    return out
+
+
+def serving_failover_phase(ht, served, pool, dev, smi: str) -> dict:
+    """``[serving_failover]`` (heat_tpu's failover_gate.py, one process): supervision armed
+    over a ``LocalCoordinator`` with a virtual peer that beats and then goes silent; the
+    Transformer pool takes 16-thread traffic; the monitor posts the abort, the executor and
+    the scheduler refuse work typed until a request reports the failure (the balancer's
+    cue), and ``pool.on_peer_failure`` quiesces and reopens. Gates: ``admitted + shed + failed ==
+    offered`` with at least one typed refusal and 0 untyped errors; every admitted result
+    is the pool's generation's; serving continues afterwards."""
+    import torch
+
+    from heat_tpu_torch.core import resilience, supervision
+
+    answers = [served.request(pool.state, i).clone() for i in range(SV_INPUTS)]
+    co = supervision.LocalCoordinator()
+    mon = supervision.arm(co, rank=0, nprocs=2, peer_timeout_s=0.5)
+    stop_beats = threading.Event()
+
+    def virtual_peer():
+        seq = 0
+        while not stop_beats.is_set():
+            seq += 1
+            co.set(f"{mon.ns}/hb/1", str(seq))
+            time.sleep(0.05)
+
+    threading.Thread(target=virtual_peer, daemon=True).start()
+    failover = {}
+    refused = threading.Event()
+
+    def on_done(k, rec):
+        if k == 1:
+            stop_beats.set()  # the peer goes silent early: most of the traffic follows
+        if rec[4] == "typed":
+            refused.set()
+
+    def watcher():
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and supervision.aborted() is None:
+            time.sleep(0.01)
+        payload = supervision.aborted()
+        failover["payload"] = payload
+        if payload is not None:
+            # the balancer fails over once the pool's requests report the failure (the
+            # threads run in rounds: a fixed hold may fall between two rounds' forces)
+            refused.wait(timeout=SV_FAILOVER_HOLD_S)
+            failover["entry"] = pool.on_peer_failure(resilience.PeerFailed(payload["rank"], payload["last_seen_s"]))
+
+    w = threading.Thread(target=watcher, daemon=True)
+    w.start()
+    try:
+        records = serve(pool, served, SV_FAILOVER_REQUESTS, SV_THREADS, dev, on_done=on_done, tenant="failover")
+        w.join(timeout=60)
+        after = serve(pool, served, SV_THREADS, SV_THREADS, dev, tenant="failover")
+    finally:
+        supervision.disarm()
+        supervision.reset_abort()
+    kinds = {k: sum(1 for r in records if r[4] == k) for k in ("ok", "typed", "untyped")}
+    check(failover.get("payload", {}).get("kind") == "peer-failed" and failover.get("entry", {}).get("kind") == "peer-failover",
+          f"[serving_failover] no failover: {failover}")
+    check(kinds["untyped"] == 0 and kinds["typed"] >= 1 and sum(kinds.values()) == SV_FAILOVER_REQUESTS,
+          f"[serving_failover] {kinds}")
+    check(all(same_bits(r, answers[i % SV_INPUTS]) for i, r, *_ in (x for x in records if x[4] == "ok")),
+          "[serving_failover] an admitted result is not the pool's generation's")
+    check(all(r[4] == "ok" and same_bits(r[1], answers[r[0] % SV_INPUTS]) for r in after),
+          "[serving_failover] serving did not continue after the failover")
+    typed_names = sorted({type(r[1]).__name__ for r in records if r[4] == "typed"})
+    out = {"offered": SV_FAILOVER_REQUESTS, "admitted": kinds["ok"], "failed_typed": kinds["typed"],
+           "typed_errors": typed_names, "untyped": 0, "after_failover_ok": len(after),
+           "failover_total_s": failover["entry"]["total_s"], "shed_at_drain": failover["entry"]["shed_at_drain"]}
+    phase("serving_failover", **{k: json.dumps(v) if isinstance(v, (list, dict)) else v for k, v in out.items()},
+          card=repr(smi))
+    del answers
+    torch.cuda.empty_cache()
+    return out
+
+
+def supervised_child(out_path: str) -> int:
+    """``[supervised_train]``'s process: an NCCL group of one joined through a file store
+    (``supervision.bootstrap_distributed``); ``run_supervised`` drives 4 steps of the training path's
+    seq2seq Transformer-base step (Adam), checkpointing every 2 steps; a fault plan entry
+    at the step's site fires at step 3 and the site raises the supervision plane's
+    ``PeerFailed`` (a virtual peer's abort); the restart aborts and destroys the group,
+    joins a new one over a new store and restores step 2. Then an uninterrupted 4-step
+    run from the same seed: its parameters and Adam state equal the supervised run's bit
+    for bit; K2, D, K4 and K5 launch 18 times a step."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.core import kernels, resilience, supervision
+
+    sys.path.insert(0, os.path.join(ROOT, "examples", "nn"))
+    import seq2seq_transformer_torch as s2s
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    ht.use_device("gpu")
+    flash = ("flash_attention_fwd", "flash_attention_bwd_d", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_supervised_")
+    supervision.bootstrap_distributed(f"file://{tmp}/rdv0", 1, 0, backend="nccl")
+    ones = torch.ones(1, device=dev)
+    dist.all_reduce(ones)  # the NCCL communicator exists before the fault
+    torch.cuda.synchronize()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 70)
+    batches = [[ht.array(t, split=0) for t in s2s.reverse_batch(TRAIN_B, TRAIN_T, VOCAB, generator=gen, device=dev)]
+               for _ in range(ST_STEPS)]
+    cfg = dict(vocab=VOCAB, max_len=TRAIN_T, d_model=512, nhead=8, layers=6, dim_feedforward=2048)
+
+    def fresh():
+        torch.manual_seed(SEED + 71)
+        model = s2s.Seq2Seq(**cfg).train()
+        opt = ht.optim.DataParallelOptimizer("adam", lr=1e-4)
+        ht.nn.DataParallel(model, optimizer=opt)
+        return model, opt
+
+    def tree(model, opt):
+        return {"model": model.state_dict(), "adam": opt.local_optimizer.state_dict()}
+
+    model, opt = fresh()
+    counts, marks = [], {}
+    live = [tree(model, opt)]
+
+    def step_fn(step, state):
+        if state is not live[0]:  # a restored state: into the model and the optimizer
+            model.load_state_dict(state["model"])
+            opt.local_optimizer.load_state_dict(state["adam"])
+            marks.setdefault("resumed_at", time.perf_counter())
+            marks["resumed_step"] = step
+        entry = resilience.fault_signal("train.step")
+        if entry is not None:  # the plan's entry: a peer of this job failed
+            marks["fault_at"] = time.perf_counter()
+            supervision.post_abort("peer-failed", site="train.step", rank=1, last_seen_s=0.0)
+        supervision.poll("train.step")
+        kernels.reset_launch_counts()
+        opt.step(s2s.seq2seq_loss, *batches[step])
+        torch.cuda.synchronize()
+        counts.append(kernels.launch_counts())
+        live[0] = tree(model, opt)
+        return live[0]
+
+    def template():
+        return tree(model, opt)
+
+    mgr = ht.CheckpointManager(os.path.join(tmp, "ckpt"), max_to_keep=4)
+    reinits = []
+
+    def reinit(exc):
+        reinits.append(type(exc).__name__)
+        return {"coordinator_address": f"file://{tmp}/rdv{len(reinits)}", "num_processes": 1, "process_id": 0}
+
+    resilience.arm_fault_plan([{"site": "train.step", "kind": "raise", "on_call": ST_FAULT_STEP + 1}])
+    # the first step's state is the fresh model's: Adam has no moments until it steps
+    out = resilience.run_supervised(step_fn, mgr, template=template, state=live[0],
+                                    max_steps=ST_STEPS, save_every=ST_SAVE_EVERY, reinit=reinit)
+    resilience.disarm_fault_plan()
+    world_after = (dist.get_world_size(), dist.get_backend())
+    got_model = {n: t.detach().clone() for n, t in model.state_dict().items()}
+    got_adam = {i: {k: (v.clone() if torch.is_tensor(v) else v) for k, v in s.items()}
+                for i, s in opt.local_optimizer.state_dict()["state"].items()}
+    del model, opt
+    torch.cuda.empty_cache()
+    model2, opt2 = fresh()
+    for s in range(ST_STEPS):
+        opt2.step(s2s.seq2seq_loss, *batches[s])
+    torch.cuda.synchronize()
+    params_differ = [n for n, t in model2.state_dict().items() if not torch.equal(t, got_model[n])]
+    adam2 = opt2.local_optimizer.state_dict()["state"]
+    adam_differ = [i for i, s in adam2.items() for k, v in s.items()
+                   if torch.is_tensor(v) and not torch.equal(v, got_adam[i][k])]
+    res = {
+        "steps": out["steps"], "restarts": out["restarts"], "reinit_cause": reinits,
+        "resumed_step": marks.get("resumed_step"), "restart_s": marks["resumed_at"] - marks["fault_at"],
+        "steps_run": len(counts), "launches": counts, "world_after": list(world_after),
+        "params_differ": params_differ[:5], "adam_differ": adam_differ[:5],
+        "teardown": [e["detail"] for e in ht.diagnostics.report()["resilience_events"]
+                     if e["site"] == "supervision.runtime" and e["kind"] == "teardown"],
+    }
+    supervision.teardown_distributed(clean=True)
+    with open(out_path, "w") as fh:
+        json.dump(res, fh)
+    return 0
+
+
+def supervised_train_phase(smi: str, tmp: str) -> dict:
+    """``[supervised_train]``: :func:`supervised_child` in a fresh process of this script.
+    Gates: one restart, caused by ``PeerFailed``, resuming at step 3 from step 2; the
+    final parameters and Adam state bit-equal to the uninterrupted run; K2, D, K4 and K5
+    18 times in each of the 5 steps run (4 plus the re-run step 3)."""
+    path = os.path.join(tmp, "supervised.json")
+    sys.stdout.flush()
+    rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--supervised-child", path]).returncode
+    check(rc == 0, f"[supervised_train] the child failed (exit code {rc})")
+    with open(path) as fh:
+        res = json.load(fh)
+    flash = ("flash_attention_fwd", "flash_attention_bwd_d", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    check(res["restarts"] == 1 and res["reinit_cause"] == ["PeerFailed"] and res["steps"] == ST_STEPS
+          and res["resumed_step"] == ST_FAULT_STEP, f"[supervised_train] {res}")
+    check(not res["params_differ"] and not res["adam_differ"],
+          f"[supervised_train] differs from the uninterrupted run: {res['params_differ']} {res['adam_differ']}")
+    check(res["steps_run"] == ST_STEPS and all(c[n] == FLASH_PER_FORWARD for c in res["launches"] for n in flash),
+          f"[supervised_train] launches {res['launches']}")
+    check(res["world_after"] == [1, "nccl"], f"[supervised_train] the group after the restart: {res['world_after']}")
+    phase("supervised_train", steps=res["steps"], restarts=res["restarts"], cause=res["reinit_cause"][0],
+          resumed_step=res["resumed_step"], restart_s=repr(res["restart_s"]), bit_equal_to_uninterrupted=True,
+          launches_per_step=json.dumps({n: FLASH_PER_FORWARD for n in flash}), teardown=json.dumps(res["teardown"]),
+          card=repr(smi))
+    return res
+
+
+def planes_phase(ht, served, pool, dev, smi: str, tmp: str) -> dict:
+    """``[planes]``: ``[serving_swap]``'s traffic without the swaps (100 requests an arm),
+    with every plane off
+    and then with ``HEAT_TPU_FORENSICS=1``, ops armed at 0.5 s and telemetry collecting:
+    requests/s and p99 of both and the planes' overhead. Gates: ``explain(tenant)``
+    returns exemplars with a dominant stage; ``parse_openmetrics(render_openmetrics())``
+    round-trips; ``dump_shard`` and ``merge`` of the one shard reproduce its counters."""
+    from heat_tpu_torch.core import _executor, diagnostics, forensics, ops, telemetry
+
+    runs = {}
+    for arm in ("off", "on"):
+        if arm == "on":
+            os.environ["HEAT_TPU_FORENSICS"] = "1"
+            _executor.reload_env_knobs()
+            diagnostics.enable()
+            telemetry.enable()
+            ops.arm(interval_s=0.5)
+        t0 = time.perf_counter()
+        records = serve(pool, served, PL_REQUESTS, SV_THREADS, dev, tenant="planes")
+        wall = time.perf_counter() - t0
+        check(all(r[4] == "ok" for r in records), f"[planes] {arm}: a request failed")
+        runs[arm] = {"rps": PL_REQUESTS / wall, **percentiles_ms([r[3] - r[2] for r in records])}
+        if arm == "on":  # the serving harness's own counter beside the executor's
+            diagnostics.counter("planes.requests", PL_REQUESTS)
+    try:
+        ex = ht.explain("planes")
+        check(ex["records"] > 0 and ex["slowest"] and all(r["dominant"] for r in ex["slowest"]),
+              f"[planes] explain: {ex.get('records')} records")
+        ops.sample_once()
+        page = ops.render_openmetrics()
+        parsed = ops.parse_openmetrics(page)
+        reparsed = ops.parse_openmetrics(ops.render_openmetrics())
+        check(set(reparsed) == set(parsed) and "ht_samples" in parsed and page.endswith("# EOF\n"),
+              "[planes] the OpenMetrics page does not round-trip")
+        ops.disarm()  # its sampler counts too: the shard is taken with the plane still
+        shard_dir = os.path.join(tmp, "shards")
+        with open(telemetry.dump_shard(shard_dir)) as fh:
+            shard = json.load(fh)
+        merged = telemetry.merge(shard_dir)
+        check(merged["counters"] == shard["diagnostics"]["counters"] and merged["counters"],
+              "[planes] the one-shard merge does not reproduce the shard's counters")
+        dominant = ex["dominant_stages"]
+    finally:
+        ops.disarm()
+        telemetry.disable()
+        diagnostics.disable()
+        os.environ.pop("HEAT_TPU_FORENSICS", None)
+        _executor.reload_env_knobs()
+        forensics.reset()
+    out = {"off": runs["off"], "on": runs["on"], "rps_overhead": 1.0 - runs["on"]["rps"] / runs["off"]["rps"],
+           "p99_overhead": runs["on"]["p99_ms"] / runs["off"]["p99_ms"] - 1.0, "dominant_stages": dominant,
+           "openmetrics_families": len(parsed), "merged_counters": len(merged["counters"])}
+    phase("planes", off=json.dumps(runs["off"]), on=json.dumps(runs["on"]), rps_overhead=f"{out['rps_overhead']:.4f}",
+          p99_overhead=f"{out['p99_overhead']:.4f}", explain_dominant=json.dumps(dominant),
+          openmetrics_families=out["openmetrics_families"], shard_merge_counters=out["merged_counters"], card=repr(smi))
+    return out
+
+
+def serving_phases(ht, kernels, dev, smi: str) -> dict:
+    """The serving plane on the card: ``[serving_swap]``, ``[serving_cache]``,
+    ``[serving_coldstart]``, ``[serving_failover]``, ``[supervised_train]`` and
+    ``[planes]``; their files under the temporary directory (``TMPDIR``),
+    deleted after."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serving_")
+    try:
+        served = ServedTransformer(ht, dev)
+        swap, pool = serving_swap_phase(ht, kernels, served, dev, smi, tmp)
+        out = {"swap": swap}
+        out["failover"] = serving_failover_phase(ht, served, pool, dev, smi)
+        out["planes"] = planes_phase(ht, served, pool, dev, smi, tmp)
+        del pool, served
+        torch.cuda.empty_cache()
+        out["cache"] = serving_cache_phase(ht, dev, smi, tmp)
+        out["coldstart"] = serving_coldstart_phase(smi, tmp)
+        out["supervised_train"] = supervised_train_phase(smi, tmp)
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def linalg_child(out_path: str) -> int:
     """The child process of phases 13-18: the card, the package, :func:`linalg_phases`,
     :func:`array_phases`, :func:`cluster_phases` and :func:`domain_phases`; their results
@@ -2959,6 +3768,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--json-out", default=None, help="also write the kernels line and the fit's numbers here")
     parser.add_argument("--linalg-child", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--coldstart-child", nargs=3, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--supervised-child", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
 
     import torch
@@ -2978,6 +3789,10 @@ def main() -> int:
         return 2
     if args.linalg_child:
         return linalg_child(args.linalg_child)
+    if args.coldstart_child:
+        return coldstart_child(*args.coldstart_child)
+    if args.supervised_child:
+        return supervised_child(args.supervised_child)
     k1 = kernels.kmeans
     k2 = kernels.flash_attention
     os.environ.pop(PIPELINE_KNOB, None)  # K2 wherever a phase does not ask for K3
@@ -3696,6 +4511,12 @@ def main() -> int:
     del serving_km
     torch.cuda.empty_cache()
 
+    # 12e. the serving plane: a ModelPool of Transformer-base hot-swapped under 16-thread
+    #      traffic, the result cache, the cold start against a warmup manifest, a peer's
+    #      failure and failover, run_supervised's elastic restart of the training step, and
+    #      the observability planes' cost
+    serving_out = serving_phases(ht, kernels, dev, smi)
+
     # 13-18. distributed linear algebra: config #2's product, config #4's hsvd_rank, the rest
     #        small; then the array API: the manipulation benchmark at N = 40M, the random
     #        streams and KMeans' random init; then the clustering slice; then the domain
@@ -3780,6 +4601,8 @@ def main() -> int:
                     **{f"ring_forward_{c_}": r_["launches"] for c_, r_ in nn_out["ring"].items()},
                     "ulysses_world_1": nn_out["ulysses"]["launches"],
                     "mha_sequence_split_world_1": nn_out["ulysses"]["mha_launches"]["flash_attention_fwd"],
+                    "serving_swap_per_request": serving_out["swap"]["k2_per_request"],
+                    "supervised_train_per_step": serving_out["supervised_train"]["launches"][-1]["flash_attention_fwd"],
                 },
                 "ms_by_shape": k2_ms,
                 "bound_ms_by_shape": {c: b[0] for c, b in k2_bounds.items()},
@@ -3818,6 +4641,7 @@ def main() -> int:
                         "daso_step_and_resumed_step": resume_out["launches"][kname],
                         **{f"ring_backward_{c_}": r_["launches"][kname] for c_, r_ in nn_out["ring_bwd"].items()},
                         "mha_sequence_split_world_1": nn_out["ulysses"]["mha_launches"][kname],
+                        "supervised_train_per_step": serving_out["supervised_train"]["launches"][-1][kname],
                     },
                     "ms_by_shape": {c: v[kname] for c, v in bwd_ms.items()},
                     "bound_ms_by_shape": {c: v[kname][0] for c, v in bwd_bounds.items()},
@@ -3893,7 +4717,7 @@ def main() -> int:
                        "array": array_out, "kmeans_pp": pp, "cluster": cluster_out,
                        "domain": child_out["domain"], "nn": nn_out,
                        "train_resume": resume_out, "daso_sync": sync_out, "io": io_out,
-                       "runtime": runtime_out}, fh, indent=1, default=str)
+                       "runtime": runtime_out, "serving": serving_out}, fh, indent=1, default=str)
 
     # 20. the last line
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -14,9 +14,16 @@ first launch, so importing the package needs neither CUDA nor nvcc.
 """
 
 from .core import *
+from .core import __version__
 from . import core
 from .core import random
+from .core import diagnostics
+from .core import forensics
+from .core import ops
 from .core import profiler
+from .core import resilience
+from .core import supervision
+from . import telemetry
 from . import spatial
 from . import fft
 from . import sparse
@@ -32,3 +39,4 @@ from . import optim
 from . import interop
 from . import utils
 from . import testing
+from . import serving

@@ -1,17 +1,24 @@
 """Core of heat_tpu_torch: types, devices, communication, the DNDarray, its operations
 and the signature-cached executor they dispatch through, the array API (indexing,
 manipulations, the distributed sort, random streams), linear algebra, I/O and
-checkpoints, and the diagnostics, profiler and resilience planes they report
-through."""
+checkpoints, and the observability and supervision planes they report through (diagnostics,
+profiler, resilience, forensics, telemetry, supervision, ops)."""
 
 from . import diagnostics
 from . import profiler
+from . import forensics
 from . import resilience
+from . import telemetry
+from . import supervision
+from . import ops
+from .forensics import explain
 from ._executor import (
     executor_stats,
     reset_executor_stats,
     clear_executor_cache,
     reload_env_knobs,
+    executor_warmup,
+    executor_save_warmup,
     rebuild_scheduler,
 )
 from .constants import *
@@ -41,6 +48,7 @@ from .io import *
 from .checkpoint import *
 from . import linalg
 from .linalg import *  # in the flat namespace too, as heat_tpu does
+from .version import __version__
 from . import (
     arithmetics,
     base,
@@ -70,4 +78,5 @@ from . import (
     tiling,
     trigonometrics,
     types,
+    version,
 )

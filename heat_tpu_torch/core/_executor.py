@@ -43,6 +43,14 @@ collectives inside a program    a program that issues a collective (a reduction 
                                 issue it in the same order, so it runs inline on the
                                 calling thread (recorded deviation: heat_tpu's single
                                 controller has no such hazard).
+persistent compile cache, AOT   the same replay specs and index (:mod:`._compile_cache`);
+warmup                          no compiled artifact (recorded deviation): warmup
+                                replays the specs through the public dispatch path,
+                                so a program's build and CUDA-graph capture leave the
+                                first request; ``aot_loaded`` stays 0.
+result cache over immutable     the same keys and invalidation (:mod:`._result_cache`),
+``jax.Array`` buffers           plus each tensor's version and storage, checked at
+                                every hit: an in-place write fails the entry closed.
 ==============================  =====================================================
 
 **The deferred expression graph.** Supported elementwise ops (binary/local, no
@@ -84,6 +92,13 @@ sheds deadline-bearing work that the program's service-time EWMA says cannot fit
 and queue-full backpressure for such work, with a typed ``Shed``. Every shed,
 cancel and expiry lands in the scheduler's lifecycle ledger.
 
+**The planes.** Each program records the replay spec of its signature
+(``lookup(spec=...)``, :func:`_plan_spec`), the compile cache's fingerprint and the
+result cache's key; with ``HEAT_TPU_RESULT_CACHE=1`` a plain call (and a force, before it
+queues) is served from the cache when its key validates. While the forensics plane is
+armed, admissions, cache outcomes, program times and failure legs land on the ambient
+request's record; once a supervision abort is up, a force is refused typed.
+
 Failure hardening: a program whose call fails falls back to the eager path (the
 same math, :func:`fallback_after_failure`), and a signature that keeps failing is
 quarantined to it. Escape hatch: ``HEAT_TPU_EAGER_DISPATCH=1`` turns the executor
@@ -94,6 +109,7 @@ from __future__ import annotations
 
 import atexit
 import contextlib
+import json
 import os
 import sys
 import threading
@@ -105,7 +121,11 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import _scheduler, diagnostics, profiler, resilience
+from . import (
+    _compile_cache, _result_cache, _scheduler, diagnostics, forensics, ops, profiler, resilience,
+    supervision,
+)
+from ._compile_cache import executor_save_warmup, executor_warmup
 from ._scheduler import PendingValue
 
 __all__ = [
@@ -116,6 +136,8 @@ __all__ = [
     "executor_enabled",
     "async_dispatch_enabled",
     "rebuild_scheduler",
+    "executor_warmup",
+    "executor_save_warmup",
 ]
 
 # Retrace-storm guard: genuinely polymorphic workloads must not grow the program
@@ -303,6 +325,11 @@ def reload_env_knobs() -> None:
     ``BATCH_WINDOW_US``). ``HEAT_TPU_SCHED_SHARDS`` is re-read but applied only
     when the scheduler is (re)constructed — see :func:`rebuild_scheduler`."""
     _knobs.reload()
+    supervision.reload_env_knobs()
+    _compile_cache.reload()
+    _result_cache.reload()
+    ops.reload()
+    forensics.reload()
 
 
 def jit_threshold() -> int:
@@ -376,6 +403,11 @@ def _acquire_buffers(read_leaves, donate_leaves):
             _inflight_reads[i] = _inflight_reads.get(i, 0) + 1
     if diagnostics._enabled and len(granted) != len(donate_leaves):
         diagnostics.counter("executor.donation_refused", len(donate_leaves) - len(granted))
+    if granted and _result_cache._enabled:
+        # the donation doubles as result-cache invalidation: every entry whose
+        # inputs or outputs alias a granted tensor is dropped BEFORE the donating
+        # call writes into it
+        _result_cache.note_donation([id(v) for v in granted])
     return granted
 
 
@@ -473,6 +505,9 @@ def executor_stats(top: int = 0) -> dict:
     - The port's CUDA graphs: ``graphs`` (captured and live), ``graph_pool_bytes``
       (the bytes their pools and static buffers hold), ``graph_captures``,
       ``graph_replays``, ``graph_capture_failures``.
+    - The result cache (``result_cache`` with ``cache_hits``, ``cache_misses``,
+      ``cache_bytes_saved``, ``cache_invalidations``) and the forensics plane's
+      per-tenant cost meters (``tenant_cost``).
 
     ``top > 0`` adds ``top_signatures``: the N hottest programs by lifetime replay
     count, each ``{"label", "hits", "compile_s"}`` (ties by label)."""
@@ -526,6 +561,15 @@ def executor_stats(top: int = 0) -> dict:
             "stolen_batch_items": 0, "window_holds": 0, "window_widened": 0,
             "window_hold_ns": 0, "pressure": _pressure_block([]),
         })
+    rc = _result_cache.stats()
+    stats["result_cache"] = rc
+    stats["cache_hits"] = rc["hits"]
+    stats["cache_misses"] = rc["misses"]
+    stats["cache_bytes_saved"] = rc["bytes_saved"]
+    stats["cache_invalidations"] = rc["invalidations"]
+    # per-tenant cost meters (forensics plane): empty until armed; the fold over
+    # tenants reconciles exactly with forensics.totals()
+    stats["tenant_cost"] = forensics.tenant_cost()
     with _lock:
         stats["quarantined"] = dict(_quarantined)
         graphs = [e._graph for e in _programs.values() if e is not UNSUPPORTED and e._graph is not None]
@@ -549,17 +593,20 @@ def reset_executor_stats() -> None:
     sched = _dispatch_scheduler
     if sched is not None:
         sched.reset_stats()
+    _result_cache.reset_stats()
 
 
 def clear_executor_cache() -> None:
-    """Drop every cached program (and its CUDA graph), the warm-up counts and the
-    result-type cache, reset all statistics, and re-read the knobs."""
+    """Drop every cached program (and its CUDA graph), the warm-up counts, the
+    result-type cache and every result-cache entry, reset all statistics, and
+    re-read the knobs."""
     with _lock:
         _programs.clear()
         _seen.clear()
         _quarantined.clear()
     with _aval_lock:
         _aval_cache.clear()
+    _result_cache.clear()
     reset_executor_stats()
     reload_env_knobs()
 
@@ -701,12 +748,19 @@ class _Program:
     ``capturable`` marks a fused chain the card may capture in a CUDA graph;
     ``scalar_uses`` lists the (leaf position, dtype) pairs its scalars are used
     at. Telemetry: ``label``, ``hits`` (lifetime replays), ``compile_s`` (first-call
-    wall time), ``ewma_s`` (replay service-time EWMA, behind ``HEAT_TPU_SHED``)."""
+    wall time), ``ewma_s`` (replay service-time EWMA, behind ``HEAT_TPU_SHED``).
+
+    Persistent compile cache: ``spec`` is the JSON-able replay description the
+    miss site captured (heat_tpu's dict for the same signature; None when the
+    signature cannot be described portably), ``fingerprint`` its content hash
+    (computed lazily), ``aot_loaded`` whether the program came from a loaded
+    artifact (never in the port: see :mod:`._compile_cache`)."""
 
     __slots__ = (
         "body", "donate_index", "meta", "label", "hits", "compile_s",
         "_variants", "_seen", "_batched", "failures", "proven", "ewma_s",
         "collective", "capturable", "scalar_uses", "_graph", "_graph_tried",
+        "spec", "fingerprint", "aot_loaded",
     )
 
     def __init__(self, body, donate_index, meta, opts=None):
@@ -728,6 +782,9 @@ class _Program:
         self.scalar_uses = tuple(opts.get("scalar_uses", ()))
         self._graph: Optional[_Graph] = None
         self._graph_tried = False
+        self.spec = None
+        self.fingerprint = None
+        self.aot_loaded = False
 
     def _lifecycle_check(self) -> None:
         """Admission checkpoint for staged dispatches: an ambient deadline already
@@ -738,12 +795,18 @@ class _Program:
             return
         now = time.monotonic()
         if now >= dl:
+            if forensics._enabled:
+                forensics.note_admission("staged", "deadline-expired", dl - now)
             raise resilience.DeadlineExceeded(f"deadline passed before dispatch ({self.label or 'program'})")
         if _knobs.shed and self.ewma_s > 0.0 and now + self.ewma_s >= dl:
+            if forensics._enabled:
+                forensics.note_admission("staged", "shed", dl - now)
             raise resilience.Shed(
                 f"admission control: estimated service time {self.ewma_s * 1e3:.2f} ms exceeds the "
                 f"remaining deadline budget ({self.label or 'program'})"
             )
+        if forensics._enabled:
+            forensics.note_admission("staged", "admitted", dl - now)
 
     def _first_of(self, variant, table: str) -> bool:
         """Whether this call is the first of ``variant`` (and so "builds" it: a
@@ -774,6 +837,24 @@ class _Program:
             # fault fires before any launch, so every argument is still intact
             resilience.maybe_fault("executor.execute")
         donating = donate and self.donate_index is not None
+        rkey = None
+        if _result_cache._enabled and not donating and not donate_leaves and self.donate_index is None:
+            # cross-request result memoization (HEAT_TPU_RESULT_CACHE=1): the
+            # plain variant is a pure function of (fingerprint, input digest), so
+            # a validated hit IS the execution
+            rkey, rwhy = _result_key_explained(self, args)
+            if rkey is not None:
+                cached = _result_cache.lookup(rkey, _tenant_or_none())
+                if cached is not _result_cache.MISS:
+                    if forensics._enabled:
+                        forensics.note_result_cache("hit", nbytes=_result_cache.result_nbytes(cached))
+                    return cached
+                if forensics._enabled:
+                    forensics.note_result_cache("miss")
+            elif forensics._enabled:
+                forensics.note_result_cache("bypass", rwhy)
+        elif forensics._enabled:
+            forensics.note_result_cache("bypass", "cache-off" if not _result_cache._enabled else "donation")
         if donate_leaves:
             variants = self._variants
             if variants is not None and donate_leaves not in variants and len(variants) >= _MAX_DONATE_VARIANTS:
@@ -782,6 +863,10 @@ class _Program:
             first = self._first_of(donate_leaves, "_variants")
         else:
             first = self._first_of("out" if donating else "plain", "_seen")
+            if first and not donating and self.donate_index is None and _compile_cache.armed():
+                # the persistent cache's first-call hook: the port loads no artifact
+                # (None), but an indexed blob is verified and the outcome recorded
+                _compile_cache.load_program(self)
         t0 = time.perf_counter()
         if profiler._active:
             with profiler.scope("compile" if first else "execute", self.label or "program"):
@@ -793,9 +878,17 @@ class _Program:
             self.compile_s += dt
             if diagnostics._enabled:
                 diagnostics.record_compile(self.label or "program", dt)
+            if forensics._enabled:
+                forensics.note_program(self.label or "program", dt, "compile")
+                forensics.note_compile_cache("miss" if _compile_cache.armed() else "off")
         else:
             self._note_service(dt)
+            if forensics._enabled:
+                forensics.note_program(self.label or "program", dt, "execute")
         self.proven = True
+        if rkey is not None:
+            # memoised only after a successful plain-path execution
+            _result_cache.store(rkey, out, _tenant_or_none())
         return out
 
     def _run(self, args, first: bool, donating: bool, donate_leaves: Tuple[int, ...]):
@@ -913,7 +1006,7 @@ class _Program:
             profiler.observe(f"service.{self.label or 'program'}", per)
 
     def call_batched(self, width: int, array_pos: Tuple[int, ...], scalar_pos: Tuple[int, ...],
-                     flat_arrays: Sequence, scalars: Sequence) -> Tuple:
+                     flat_arrays: Sequence, scalars: Sequence, reqs: Optional[Sequence] = None) -> Tuple:
         """Run ``width`` same-signature calls as ONE batched call: each leaf
         position's ``width`` tensors are stacked along a new leading axis; a fused
         (elementwise) plan runs once on the stacks, a staged one-op program through
@@ -926,6 +1019,7 @@ class _Program:
         label = f"{self.label or 'program'}[x{width}]"
         t0 = time.perf_counter()
         ctx = profiler.scope("compile" if first else "execute", label) if profiler._active else contextlib.nullcontext()
+        t_f = time.perf_counter() if forensics._enabled else 0.0
         with ctx:
             stacked = [torch.stack([flat_arrays[i * n_arr + k] for i in range(width)]) for k in range(n_arr)]
             argv: List[Any] = [None] * (len(array_pos) + len(scalar_pos))
@@ -946,6 +1040,8 @@ class _Program:
             if not isinstance(outs, tuple):
                 outs = (outs,)
             out = tuple(o[i] for i in range(width) for o in outs)
+        if forensics._enabled:
+            forensics.note_batch_execute(list(reqs or ()), self.label or "program", time.perf_counter() - t_f)
         dt = time.perf_counter() - t0
         if first:
             self.compile_s += dt
@@ -955,6 +1051,31 @@ class _Program:
             self._note_service(dt, items=width)
         self.proven = True
         return out
+
+
+def _result_key_explained(prog: "_Program", args) -> Tuple[Optional[Tuple[str, Tuple]], Optional[str]]:
+    """The result-cache key ``(fingerprint, input digest)`` for a plain call of
+    ``prog`` over ``args``, or ``(None, reason)`` when the call is uncacheable:
+    ``no-replay-spec``, ``rng-label`` or ``undigestable-operand`` (the forensic
+    record's bypass label). The fingerprint is the compile cache's, memoised on the
+    program."""
+    spec = prog.spec
+    if spec is None:
+        return None, "no-replay-spec"
+    if _result_cache.uncacheable_label(prog.label):
+        return None, "rng-label"
+    digest = _result_cache.digest_args(args)
+    if digest is None:
+        return None, "undigestable-operand"
+    fp = prog.fingerprint
+    if fp is None:
+        fp = prog.fingerprint = _compile_cache.fingerprint(spec)
+    return (fp, digest), None
+
+
+def _result_key(prog: "_Program", args) -> Optional[Tuple[str, Tuple]]:
+    """The key half of :func:`_result_key_explained`."""
+    return _result_key_explained(prog, args)[0]
 
 
 _capture_lock = threading.Lock()
@@ -968,12 +1089,17 @@ def _side_stream(device):
     return s
 
 
-def lookup(key, build: Callable[[], Any], label: Optional[str] = None) -> Optional[_Program]:
+def lookup(key, build: Callable[[], Any], label: Optional[str] = None,
+           spec: Optional[Callable[[], Optional[dict]]] = None) -> Optional[_Program]:
     """The cached :class:`_Program` for ``key``, building it on miss.
 
     ``build()`` returns ``(body, donate_index, meta[, opts])`` or
     :data:`UNSUPPORTED`; both are cached, so an eager-only signature is rejected in
-    O(1) later. Returns None for unsupported (and below the jit threshold)."""
+    O(1) later. Returns None for unsupported (and below the jit threshold).
+    ``spec`` (a zero-arg callable, evaluated only on a successful build) returns
+    the JSON-able replay description behind the compile cache, the warmup and the
+    result cache, or None; a spec that raises is a counted ``executor.warmup_spec``
+    gap, never a dispatch failure."""
     with _tlock:
         entry = _programs.get(key)
         if entry is not None:
@@ -1003,6 +1129,15 @@ def lookup(key, build: Callable[[], Any], label: Optional[str] = None) -> Option
         else:
             entry = _Program(*built)
             entry.label = label or _key_label(key)
+            if spec is not None:
+                try:
+                    entry.spec = spec()
+                except Exception as exc:
+                    entry.spec = None
+                    if diagnostics._enabled:
+                        diagnostics.record_fallback(
+                            "executor.warmup_spec", f"{entry.label}: {type(exc).__name__}: {exc}"
+                        )
         while len(_programs) >= _MAX_PROGRAMS:
             _programs.popitem(last=False)
         _programs[key] = entry
@@ -1037,6 +1172,13 @@ def fallback_after_failure(key, prog: "_Program", exc: BaseException, donated: S
         kind = "deadline_expired" if isinstance(exc, resilience.DeadlineExceeded) else "shed"
         if not getattr(exc, "_ht_ledgered", False):
             _get_scheduler().note_lifecycle(kind, _tenant_or_none())
+            if forensics._enabled:
+                forensics.note_event("typed-failure", f"{kind}: {prog.label or _key_label(key)}")
+        return False
+    if isinstance(exc, (resilience.PeerFailed, resilience.CollectiveTimeout)):
+        # a supervision abort delivered into a queued execution: typed re-raise,
+        # no eager replay (the signature is healthy, the cluster aborted) and no
+        # quarantine — the shed was ledgered at the shard
         return False
     label = prog.label or _key_label(key)
     phase = "execute" if prog.proven else "compile"
@@ -1052,6 +1194,9 @@ def fallback_after_failure(key, prog: "_Program", exc: BaseException, donated: S
             diagnostics.record_resilience_event(f"executor.{phase}", "quarantine", f"{label}: {reason}")
     if diagnostics._enabled:
         diagnostics.record_fallback(f"executor.{phase}", f"{label}: {type(exc).__name__}: {exc}")
+    if forensics._enabled:
+        # the caller re-runs the op eagerly: the record's eager-replay leg
+        forensics.note_event("eager-replay", f"{label}: {type(exc).__name__}")
     return True
 
 
@@ -1303,7 +1448,7 @@ def defer_node(operation, fn_kwargs, operands, gshape, split, comm):
             v.consumers.append(weakref.ref(node))
     if versions is not None:
         node.versions = tuple(versions)
-    if profiler._active:
+    if profiler.attribution_active():
         node.req = profiler.current_request()
     if profiler._deadline_seen:
         dl = profiler.current_deadline()
@@ -1312,6 +1457,8 @@ def defer_node(operation, fn_kwargs, operands, gshape, split, comm):
                 # defer-time admission: a request already over its deadline dies at
                 # its first op instead of building a graph it may never force
                 _get_scheduler().note_lifecycle("deadline_expired", _tenant_or_none())
+                if forensics._enabled:
+                    forensics.note_admission("defer", "deadline-expired", dl - time.monotonic())
                 raise resilience.DeadlineExceeded(f"deadline passed before defer of {_op_label(operation)}")
             node.deadline = dl
     return node
@@ -1372,6 +1519,13 @@ def _tenant_or_none() -> Optional[str]:
 def _force_graph_inner(roots: Tuple[Deferred, ...]) -> bool:
     """True when this call planned work; False when every root was already forced
     or in flight."""
+    if supervision._aborted:
+        # the executor's supervision checkpoint: once the abort sentinel is up, a
+        # force is refused typed at admission; the nodes stay unforced
+        abort = supervision.abort_error("executor.force")
+        if abort is not None:
+            _get_scheduler().note_lifecycle("shed", _tenant_or_none())
+            raise abort
     deadline = _roots_deadline(roots)
     if deadline is not None:
         now = time.monotonic()
@@ -1382,9 +1536,13 @@ def _force_graph_inner(roots: Tuple[Deferred, ...]) -> bool:
             for r in roots:
                 r.deadline = None
             _get_scheduler().note_lifecycle("deadline_expired", _tenant_or_none())
+            if forensics._enabled:
+                forensics.note_admission("force", "deadline-expired", deadline - now)
             raise resilience.DeadlineExceeded(
                 f"deadline passed before force admission ({_op_label(roots[0].operation)})"
             )
+        if forensics._enabled:
+            forensics.note_admission("force", "admitted", deadline - now)
     if async_dispatch_enabled():
         return _force_async(roots, deadline)
     _settle_pending_nodes(roots)
@@ -1657,6 +1815,53 @@ def _plan_build(pl: _ForcePlan):
     return build
 
 
+def _plan_spec(pl: _ForcePlan) -> Optional[dict]:
+    """The JSON-able replay description of a fused-graph plan, heat_tpu's dict for
+    the same graph (heat_tpu/core/_executor.py:2326): every operation by its jnp
+    name (``_operations.JNP_OPS``), kwargs that survive JSON, tensor leaves by the
+    global shape and dtype of their family (the port pads nothing), scalar leaves by
+    value and type, the emission and root sets and the mesh. None when an operation
+    has no jnp name or a leaf has no portable description (a pending value, a
+    bfloat16 tensor): the signature is not warmup-coverable."""
+    from . import _operations
+
+    entries = []
+    names = []
+    for operation, fn_kwargs, refs in pl.plan:
+        name = _operations.jnp_name(operation)
+        if name is None:
+            return None
+        if fn_kwargs and json.loads(json.dumps(fn_kwargs)) != fn_kwargs:
+            return None
+        names.append(name)
+        entries.append({"op": name, "kwargs": dict(fn_kwargs) if fn_kwargs else {},
+                        "refs": [[r[0], r[1]] for r in refs]})
+    leaves = []
+    for leaf in pl.leaves:
+        if isinstance(leaf, torch.Tensor):
+            dt = _operations._np_dtype_str(leaf.dtype)
+            if dt is None:
+                return None
+            leaves.append({"shape": list(pl.gshape), "dtype": dt})
+        elif isinstance(leaf, (bool, int, float)):
+            leaves.append({"scalar": leaf, "py": type(leaf).__name__})
+        elif isinstance(leaf, (np.number, np.bool_)):
+            leaves.append({"scalar": leaf.item(), "np": np.dtype(leaf.dtype).str})
+        else:
+            return None  # an in-flight value has no portable description
+    return {
+        "family": "defer",
+        "label": f"defer:{names[0]}..{names[-1]}[{len(names)}]",
+        "entries": entries,
+        "leaves": leaves,
+        "gshape": list(pl.gshape),
+        "split": pl.split,
+        "out_idxs": list(pl.out_idxs),
+        "root_idxs": sorted(set(pl.root_idxs)),
+        "mesh": _operations.mesh_spec(pl.root.comm),
+    }
+
+
 def _plan_replay_eager(pl: _ForcePlan) -> list:
     """Op-by-op replay of the plan: below the jit threshold, and as the no-data-loss
     fallback when a program fails. A deadline-bearing plan checks its budget
@@ -1736,7 +1941,7 @@ def _force_sync_locked(roots: Tuple[Deferred, ...], deadline: Optional[float] = 
     if pl is None:
         return False
     pl.deadline = deadline
-    prog = lookup(pl.key, _plan_build(pl), label=pl.label)
+    prog = lookup(pl.key, _plan_build(pl), label=pl.label, spec=lambda: _plan_spec(pl))
     if prog is None:
         try:
             outs = _plan_replay_eager(pl)
@@ -1745,6 +1950,10 @@ def _force_sync_locked(roots: Tuple[Deferred, ...], deadline: Optional[float] = 
             raise
     else:
         donate_idx = _pick_donations(pl, prog)
+        if donate_idx and _result_cache._enabled:
+            # the serialized path claims no ownership: invalidate the donated leaves'
+            # entries here, before the donating call writes into them
+            _result_cache.note_donation([id(pl.leaves[i]) for i in donate_idx])
         try:
             with _on_device(pl.device):
                 if donate_idx:
@@ -1787,7 +1996,7 @@ def _force_async(roots: Tuple[Deferred, ...], deadline: Optional[float] = None) 
         if pl is None:
             return False
         pl.deadline = deadline
-        prog = lookup(pl.key, _plan_build(pl), label=pl.label)
+        prog = lookup(pl.key, _plan_build(pl), label=pl.label, spec=lambda: _plan_spec(pl))
         if prog is None:
             if not any(isinstance(v, PendingValue) for v in pl.leaves):
                 try:
@@ -1801,6 +2010,18 @@ def _force_async(roots: Tuple[Deferred, ...], deadline: Optional[float] = None) 
                 return True
             donate_idx = ()
         else:
+            if _result_cache._enabled and (deadline is None or time.monotonic() < deadline):
+                # result-cache consult BEFORE donation picking and queueing: a
+                # validated hit memoises straight into the plan's nodes
+                rkey = _result_key(prog, pl.leaves)
+                if rkey is not None:
+                    cached = _result_cache.lookup(rkey, _tenant_or_none(), count_miss=False)
+                    if cached is not _result_cache.MISS:
+                        outs = (cached,) if pl.single else cached
+                        if profiler._active:
+                            _record_force_memory(pl, outs)
+                        _memoise(pl, outs)
+                        return True
             donate_idx = _pick_donations(pl, prog)
         donate_set = set(donate_idx)
         read_leaves = [v for i, v in enumerate(pl.leaves) if isinstance(v, torch.Tensor) and i not in donate_set]
@@ -1958,7 +2179,8 @@ def _execute_batch(items) -> None:
         flat = [it.leaves[j] for it in items for j in array_pos]
         scalars = [base[j] for j in scalar_pos]
         with profiler.attributed(items[0].req), _on_device(_first_device(base)):
-            out_flat = prog.call_batched(width, array_pos, scalar_pos, flat, scalars)
+            out_flat = prog.call_batched(width, array_pos, scalar_pos, flat, scalars,
+                                         reqs=[it.req for it in items])
         n_outs = len(out_flat) // width
         if diagnostics._enabled:
             diagnostics.counter("executor.batched_requests", width)

@@ -27,14 +27,16 @@ integer types accumulate in int64.
 from __future__ import annotations
 
 import builtins
+import contextlib
 import functools
+import json
 import threading
 from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from . import _executor, factories, profiler, sanitation, types
+from . import _executor, _result_cache, factories, profiler, sanitation, types
 from ._executor import Deferred, operand_sig
 from .dndarray import DNDarray
 from .stride_tricks import broadcast_shapes, sanitize_axis
@@ -169,6 +171,170 @@ def _kernel(cls, *args):
                         del _KERNELS[stale]
                 k = _KERNELS[key] = cls(*args)
     return k
+
+
+# heat_tpu's ``jax.numpy`` name of each operation the port dispatches through the
+# wrappers above: (jnp name, port module, the module's public function, the operation
+# the function hands to binary_op/local_op, ``torch.<name>`` or a module attribute).
+# The replay specs of the compile cache name operations by their jnp names, so a
+# manifest written by either package replays in the other; :func:`jnp_name` maps a
+# kernel to its name and :func:`resolve_jnp` a name to the public function that
+# dispatches it. An operation outside the table has no spec (a counted warmup gap).
+JNP_OPS = (
+    ("add", "arithmetics", "add", "torch.add"),
+    ("subtract", "arithmetics", "sub", "torch.sub"),
+    ("multiply", "arithmetics", "mul", "torch.mul"),
+    ("true_divide", "arithmetics", "div", "torch.true_divide"),
+    ("floor_divide", "arithmetics", "floordiv", "torch.floor_divide"),
+    ("mod", "arithmetics", "mod", "torch.remainder"),
+    ("fmod", "arithmetics", "fmod", "torch.fmod"),
+    ("power", "arithmetics", "pow", "torch.pow"),
+    ("copysign", "arithmetics", "copysign", "torch.copysign"),
+    ("hypot", "arithmetics", "hypot", "torch.hypot"),
+    ("bitwise_and", "arithmetics", "bitwise_and", "torch.bitwise_and"),
+    ("bitwise_or", "arithmetics", "bitwise_or", "torch.bitwise_or"),
+    ("bitwise_xor", "arithmetics", "bitwise_xor", "torch.bitwise_xor"),
+    ("bitwise_not", "arithmetics", "bitwise_not", "torch.bitwise_not"),
+    ("left_shift", "arithmetics", "left_shift", "torch.bitwise_left_shift"),
+    ("right_shift", "arithmetics", "right_shift", "torch.bitwise_right_shift"),
+    ("negative", "arithmetics", "neg", "torch.neg"),
+    ("exp", "exponential", "exp", "torch.exp"),
+    ("exp2", "exponential", "exp2", "torch.exp2"),
+    ("expm1", "exponential", "expm1", "torch.expm1"),
+    ("log", "exponential", "log", "torch.log"),
+    ("log2", "exponential", "log2", "torch.log2"),
+    ("log10", "exponential", "log10", "torch.log10"),
+    ("log1p", "exponential", "log1p", "torch.log1p"),
+    ("logaddexp", "exponential", "logaddexp", "torch.logaddexp"),
+    ("logaddexp2", "exponential", "logaddexp2", "torch.logaddexp2"),
+    ("sqrt", "exponential", "sqrt", "torch.sqrt"),
+    ("square", "exponential", "square", "_square"),
+    ("sin", "trigonometrics", "sin", "torch.sin"),
+    ("cos", "trigonometrics", "cos", "torch.cos"),
+    ("tan", "trigonometrics", "tan", "torch.tan"),
+    ("sinh", "trigonometrics", "sinh", "torch.sinh"),
+    ("cosh", "trigonometrics", "cosh", "torch.cosh"),
+    ("tanh", "trigonometrics", "tanh", "torch.tanh"),
+    ("arcsin", "trigonometrics", "arcsin", "torch.asin"),
+    ("arccos", "trigonometrics", "arccos", "torch.acos"),
+    ("arctan", "trigonometrics", "arctan", "torch.atan"),
+    ("arcsinh", "trigonometrics", "arcsinh", "torch.asinh"),
+    ("arccosh", "trigonometrics", "arccosh", "torch.acosh"),
+    ("arctanh", "trigonometrics", "arctanh", "torch.atanh"),
+    ("arctan2", "trigonometrics", "arctan2", "torch.atan2"),
+    ("deg2rad", "trigonometrics", "deg2rad", "torch.deg2rad"),
+    ("rad2deg", "trigonometrics", "rad2deg", "torch.rad2deg"),
+    ("abs", "rounding", "abs", "_abs_any"),
+    ("fabs", "rounding", "fabs", "torch.abs"),
+    ("ceil", "rounding", "ceil", "_ceil"),
+    ("floor", "rounding", "floor", "_floor"),
+    ("trunc", "rounding", "trunc", "_trunc"),
+    ("equal", "relational", "eq", "torch.eq"),
+    ("not_equal", "relational", "ne", "torch.ne"),
+    ("less", "relational", "lt", "torch.lt"),
+    ("less_equal", "relational", "le", "torch.le"),
+    ("greater", "relational", "gt", "torch.gt"),
+    ("greater_equal", "relational", "ge", "torch.ge"),
+    ("logical_and", "logical", "logical_and", "torch.logical_and"),
+    ("logical_or", "logical", "logical_or", "torch.logical_or"),
+    ("logical_xor", "logical", "logical_xor", "torch.logical_xor"),
+    ("logical_not", "logical", "logical_not", "torch.logical_not"),
+    ("isfinite", "logical", "isfinite", "torch.isfinite"),
+    ("isinf", "logical", "isinf", "torch.isinf"),
+    ("isnan", "logical", "isnan", "torch.isnan"),
+)
+_JNP_BY_OP: Optional[dict] = None
+_CUM_JNP = {"sum": "cumsum", "prod": "cumprod"}
+
+
+def _jnp_by_op() -> dict:
+    global _JNP_BY_OP
+    if _JNP_BY_OP is None:
+        import importlib
+
+        table = {}
+        for name, module, _fn, op in JNP_OPS:
+            if op.startswith("torch."):
+                table[getattr(torch, op[len("torch."):])] = name
+            else:
+                table[getattr(importlib.import_module(f"{__package__}.{module}"), op)] = name
+        _JNP_BY_OP = table
+    return _JNP_BY_OP
+
+
+def jnp_name(kernel) -> Optional[str]:
+    """heat_tpu's ``jax.numpy`` name of a binary or local kernel's operation, or None."""
+    return _jnp_by_op().get(getattr(kernel, "operation", None))
+
+
+def resolve_jnp(name: str) -> Callable:
+    """The port's public function that dispatches heat_tpu's ``jax.numpy`` ``name``
+    (``KeyError`` for a name outside :data:`JNP_OPS`)."""
+    import importlib
+
+    for jname, module, fn, _op in JNP_OPS:
+        if jname == name:
+            return getattr(importlib.import_module(f"{__package__}.{module}"), fn)
+    raise KeyError(name)
+
+
+_staged_only = threading.local()
+
+
+@contextlib.contextmanager
+def staged_only():
+    """Within the block, binary and local ops skip the deferred graph and take their
+    staged one-op programs (the compile cache's replay of a recorded ``l`` spec)."""
+    prev = getattr(_staged_only, "on", False)
+    _staged_only.on = True
+    try:
+        yield
+    finally:
+        _staged_only.on = prev
+
+
+def _np_dtype_str(dtype: torch.dtype) -> Optional[str]:
+    """numpy's ``dtype.str`` of a torch dtype (None for bfloat16, which numpy lacks)."""
+    try:
+        return torch.empty((), dtype=dtype).numpy().dtype.str
+    except (TypeError, RuntimeError):
+        return None
+
+
+def mesh_spec(comm) -> dict:
+    """heat_tpu's mesh description of a communicator: one axis ``d`` of ``size``
+    devices, or the ``(dcn, ici)`` mesh of a hierarchical one."""
+    if comm.is_hierarchical:
+        return {"shape": [comm.n_nodes, comm.node_size], "axes": ["dcn", "ici"]}
+    return {"shape": [comm.size], "axes": ["d"]}
+
+
+def _staged_spec(family, name, fn_kwargs, value, gshape, split, comm, **extra):
+    """The JSON-able replay description of one staged ``l``/``r``/``c`` signature,
+    heat_tpu's dict for the same signature (heat_tpu/core/_operations.py:83): the jnp
+    name, kwargs, global shape, split, input dtype, physical shape and mesh. The port
+    pads nothing, so its physical shape is the global one: a spec recorded on a ragged
+    heat_tpu layout names another physical shape, and replays as skipped. None when
+    the operation has no jnp name or the kwargs do not survive JSON; raises (a
+    counted warmup-spec gap) when ``extra`` is not JSON-able."""
+    if name is None:
+        return None
+    if fn_kwargs and json.loads(json.dumps(fn_kwargs)) != fn_kwargs:
+        return None
+    if extra:
+        json.dumps(extra)
+    dt = _np_dtype_str(value.dtype)
+    if dt is None:
+        return None
+    spec = {
+        "family": family, "op": name,
+        "kwargs": dict(fn_kwargs) if fn_kwargs else {},
+        "gshape": list(gshape), "split": split,
+        "dtype": dt, "phys": list(gshape),
+        "mesh": mesh_spec(comm),
+    }
+    spec.update(extra)
+    return spec
 
 
 # (operand type keys, operation) -> (compute type, result type, kernel): binary_op's
@@ -376,7 +542,7 @@ def binary_op(
 
     compute, result, kernel = _binary_plan(t1, t2, operation)
     staged = not both_scalars and _executor.executor_enabled() and not _is_complexish(t1, t2)
-    if staged and out is None and where is None:
+    if staged and out is None and where is None and not getattr(_staged_only, "on", False):
         # fused deferral first: the aligned elementwise case grows the graph
         res = _binary_defer(kernel, t1, t2, fn_kwargs)
         if res is not NotImplemented:
@@ -479,6 +645,8 @@ def _binary_jit(kernel, compute_fn, leaves, out, fn_kwargs, out_shape, out_split
     try:
         if has_out:
             donate = sanitation.sanitize_donation(out, leaves)
+            if donate and _result_cache._enabled:
+                _result_cache.note_donation((id(out.larray),))
             out.larray = prog(*leaves, out.larray, donate=donate)
             return out
         return prog(*leaves)
@@ -488,13 +656,15 @@ def _binary_jit(kernel, compute_fn, leaves, out, fn_kwargs, out_shape, out_split
         return NotImplemented
 
 
-def _staged(key, label, compute, value, out, out_shape, out_split, collective):
+def _staged(key, label, compute, value, out, out_shape, out_split, collective, spec=None):
     """Run ``compute(value)`` as a cached one-op program (the ``l``/``r``/``c``
     families). With ``out`` the program also casts to out's dtype and takes out's
     tensor as a trailing argument it may write into. A program that issues a
     collective runs inline on this thread; the others go through
     ``_executor.call_staged`` (batched with concurrent same-signature calls).
-    Returns the result tensor, ``out``, or NotImplemented (the eager path)."""
+    ``spec`` is the lazy replay description (:func:`_staged_spec`) of the call
+    without ``out``. Returns the result tensor, ``out``, or NotImplemented (the
+    eager path)."""
     has_out = out is not None
     out_dtype = out.dtype.torch_type() if has_out else None
     key = key + (out_dtype,)
@@ -505,13 +675,15 @@ def _staged(key, label, compute, value, out, out_shape, out_split, collective):
             return functools.partial(_cast_out, compute, out_dtype), 1, "staged", opts
         return compute, None, "staged", opts
 
-    prog = _executor.lookup(key, build, label=label)
+    prog = _executor.lookup(key, build, label=label, spec=None if has_out else spec)
     if prog is None:
         return NotImplemented
     try:
         if has_out:
             sanitation.sanitize_out(out, out_shape, out_split)
             donate = sanitation.sanitize_donation(out, [value])
+            if donate and _result_cache._enabled:
+                _result_cache.note_donation((id(out.larray),))
             out.larray = prog(value, out.larray, donate=donate)
             return out
         if collective:
@@ -537,7 +709,7 @@ def local_op(
     sanitation.sanitize_in(x)
     kernel = _kernel(_LocalKernel, operation, None if no_cast else _inexact(x.dtype).torch_type())
     if _executor.executor_enabled() and not _is_complexish(x):
-        if out is None:
+        if out is None and not getattr(_staged_only, "on", False):
             res = _local_defer(kernel, x, fn_kwargs)
             if res is not NotImplemented:
                 return res
@@ -546,7 +718,9 @@ def local_op(
             value = x.larray
             key = ("l", kernel, kwsig, operand_sig(value), x.gshape, x.split, value.device)
             res = _staged(key, f"l:{kernel.__name__}", functools.partial(kernel, **fn_kwargs), value,
-                          out, x.gshape, x.split, False)
+                          out, x.gshape, x.split, False,
+                          spec=lambda: _staged_spec("l", jnp_name(kernel), fn_kwargs, value, x.gshape,
+                                                    x.split, x.comm))
             if isinstance(res, DNDarray):
                 return res
             if res is not NotImplemented:
@@ -684,7 +858,9 @@ def reduce_op(
     if _executor.executor_enabled() and not _is_complexish(x):
         key = ("r", kind, operand_sig(value), x.gshape, x.split, axis, keepdims, value.device,
                x.comm if crosses else None)
-        res = _staged(key, f"r:{kind}", compute, value, out, gshape, out_split, crosses)
+        res = _staged(key, f"r:{kind}", compute, value, out, gshape, out_split, crosses,
+                      spec=lambda: _staged_spec("r", kind, {}, value, x.gshape, x.split, x.comm,
+                                                axis=axis, keepdims=keepdims, out_split=out_split))
         if isinstance(res, DNDarray):
             return res
         if res is not NotImplemented:
@@ -742,7 +918,9 @@ def cum_op(kind: str, x: DNDarray, axis: int, out: Optional[DNDarray] = None, dt
         name = "cumsum" if kind == "sum" else "cumprod"
         key = ("c", name, operand_sig(value), x.gshape, x.split, axis, ct, value.device,
                x.comm if collective else None)
-        res = _staged(key, f"c:{name}", compute, value, out, x.gshape, x.split, collective)
+        res = _staged(key, f"c:{name}", compute, value, out, x.gshape, x.split, collective,
+                      spec=lambda: _staged_spec("c", name, {}, value, x.gshape, x.split, x.comm, axis=axis,
+                                                target=None if dtype is None else _np_dtype_str(ct)))
         if isinstance(res, DNDarray):
             return res
         if res is not NotImplemented:

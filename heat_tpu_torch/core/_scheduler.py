@@ -70,7 +70,9 @@ import zlib
 from collections import OrderedDict, deque
 from typing import Callable, Dict, List, Optional, Tuple
 
+from . import forensics  # request lifecycle records; stdlib-only like us
 from . import resilience
+from . import supervision  # sentinel checkpoint; stdlib-only like us
 
 __all__ = ["PendingValue", "WorkItem", "DispatchScheduler"]
 
@@ -143,7 +145,8 @@ class WorkItem:
 
     __slots__ = (
         "seq", "tenant", "req", "execute", "batch_key", "prog", "leaves",
-        "complete", "fail", "deadline",
+        "complete", "fail", "deadline", "t_submit", "t_popped", "hold_s",
+        "stolen_from",
     )
 
     def __init__(self, tenant: str, execute: Callable[[], None], *,
@@ -161,6 +164,14 @@ class WorkItem:
         # absolute wall-clock deadline (time.monotonic() instant) or None:
         # the scheduler cancels rather than executes an item past it
         self.deadline = deadline
+        # forensics timeline stamps (time.monotonic()): enqueue instant
+        # (always stamped — the submit path already holds the clock value),
+        # dequeue instant (stamped only while forensics is armed), leader's
+        # batch-window hold, and the shard index the item was stolen from
+        self.t_submit: Optional[float] = None
+        self.t_popped: Optional[float] = None
+        self.hold_s = 0.0
+        self.stolen_from: Optional[int] = None
 
     def expired(self, now: float) -> bool:
         return self.deadline is not None and now >= self.deadline
@@ -282,6 +293,7 @@ class _Shard:
             if self._depth > self.queue_depth_peak:
                 self.queue_depth_peak = self._depth
             now = time.monotonic()
+            item.t_submit = now
             last = self._last_submit
             self._last_submit = now
             if last is not None:
@@ -344,6 +356,8 @@ class _Shard:
                     del self._queues[tenant]
                 self._unindex_locked(item)
                 self._depth -= 1
+                if forensics._enabled:
+                    item.t_popped = time.monotonic()
                 return item
         return None
 
@@ -388,6 +402,7 @@ class _Shard:
                 break  # the batch is full: no reason to keep holding
             self._cv.wait(hold_until - now)
         held = time.monotonic() - t0
+        item.hold_s = held
         self.window_hold_ns += int(held * 1e9)
         if len(self._by_key.get(key, ())) > before:
             self.window_widened += 1
@@ -544,6 +559,10 @@ class _Shard:
                     need -= len(live)
                     if other is not self:
                         stolen += len(live)
+                        for w in live:
+                            w.stolen_from = other.index
+                            if w.t_popped is None:
+                                w.t_popped = now
                     for w in exp:
                         sched._deliver_lifecycle(
                             w, "deadline_expired",
@@ -561,6 +580,37 @@ class _Shard:
                     self.batch_width_hist[width] = (
                         self.batch_width_hist.get(width, 0) + 1
                     )
+            if forensics._enabled:
+                # lifecycle records: queue wait / window hold / shard / width
+                # / steal provenance per item — OUTSIDE self._cv (forensics'
+                # lock is a strict leaf; no scheduler lock is held here)
+                t_sched = time.monotonic()
+                width = len(group)
+                for w in group:
+                    if w.req is None:
+                        continue
+                    tp = w.t_popped if w.t_popped is not None else t_sched
+                    qw = (max(0.0, tp - w.t_submit)
+                          if w.t_submit is not None else 0.0)
+                    forensics.note_scheduled(
+                        w.req, self.index, qw, w.hold_s, width, w.stolen_from
+                    )
+            if supervision._armed:
+                # the scheduler's supervision checkpoint: once the abort
+                # sentinel is up, queued work is SHED typed (PeerFailed /
+                # CollectiveTimeout) pre-dispatch instead of walking into a
+                # collective whose peer is gone — counted in the lifecycle
+                # ledger like every other rejection, never silently dropped
+                abort = supervision.abort_error("scheduler.dispatch")
+                if abort is not None:
+                    with self._cv:
+                        for w in group:
+                            self._count_lifecycle_locked("shed", w.tenant)
+                        self._active -= 1
+                        self._cv.notify_all()
+                    for w in group:
+                        sched._deliver_lifecycle(w, "shed", abort)
+                    continue
             try:
                 if len(group) == 1:
                     group[0].execute()
@@ -742,12 +792,16 @@ class DispatchScheduler:
         shard = self._shard_for(tenant)
         with shard._cv:
             shard._count_lifecycle_locked(kind, tenant, n)
-        from . import diagnostics, profiler
+        from . import diagnostics, profiler, telemetry
 
         if diagnostics._enabled:
             diagnostics.counter(f"executor.{kind}", n)
         if profiler._active:
             profiler.record_counter(f"lifecycle.{kind}", self._lifecycle_total(kind))
+        telemetry.flight_record(  # always-on ring: post-mortems need the tail
+            "lifecycle", f"scheduler.{kind}",
+            f"tenant={tenant or '<none>'} n={n}", kind=kind,
+        )
 
     def _lifecycle_total(self, kind: str) -> int:
         # relaxed cross-shard sum: the cumulative value behind the profiler
@@ -774,12 +828,19 @@ class DispatchScheduler:
                 item.fail(exc)
         except BaseException:  # belt: a bookkeeping bug in
             pass               # one item must not strand the rest
-        from . import diagnostics, profiler
+        from . import diagnostics, profiler, telemetry
 
         if diagnostics._enabled:
             diagnostics.counter(f"executor.{kind}", 1)
         if profiler._active:
             profiler.record_counter(f"lifecycle.{kind}", self._lifecycle_total(kind))
+        if forensics._enabled and item.req is not None:
+            forensics.note_event(
+                "typed-failure", f"{kind}: {item.describe()}", rid=item.req
+            )
+        telemetry.flight_record(
+            "lifecycle", f"scheduler.{kind}", item.describe(), kind=kind,
+        )
 
     def cancel(self, tag: str) -> int:
         """Cancel every still-queued item of tenant ``tag``: the items never

@@ -44,10 +44,13 @@ Failure contract (heat_tpu's):
   single-writer path (schema ``heat-tpu-checkpoint/1``), recorded as a ``fallback``
   resilience event and a ``diagnostics.record_fallback``; an open breaker sends later
   saves to v1 until its cooldown.
-- **Agreement by collectives.** heat_tpu agrees across processes over the jax
-  coordination service; here the barriers and the MIN agreement are collectives of the
-  world communicator (``TorchCommunication.barrier``/``agree_min``), run
-  rank-symmetrically on every exit path, so a failed write on any rank raises
+- **Agreement.** heat_tpu agrees across processes over its coordination service
+  through the supervised ``kv_barrier``/``kv_wait``. Here, while the supervision plane
+  is armed on the job's store, the barriers and the MIN agreement are the same
+  supervised waits over that store (abortable mid-wait, typed on timeout, naming the
+  ranks that never arrived); otherwise they are collectives of the world communicator
+  (``TorchCommunication.barrier``/``agree_min``). Either runs rank-symmetrically on
+  every exit path, so a failed write on any rank raises
   :class:`CheckpointWriteFailed` or the original error on every rank, never a hang.
   Ranks other than 0 publish their chunk metadata in ``chunkmeta.p{rank}.json``
   sidecars, which rank 0 folds into the manifest.
@@ -69,7 +72,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from . import diagnostics, resilience
+from . import diagnostics, resilience, supervision
 from . import types as _types
 from .communication import COMM_WORLD, sanitize_comm
 from .devices import sanitize_device
@@ -244,16 +247,76 @@ def _is_writer() -> bool:
     return _world().rank == 0
 
 
+# The supervised coordination waits: one namespace per barrier/agreement, numbered in
+# call order (every rank calls them in one order). A rank entering wait ``n`` has
+# seen every rank publish ``n - 1``, so every rank has finished reading ``n - 2``:
+# its own keys of ``n - 2`` are deleted then.
+_coord_seq = 0
+_coord_mine: Dict[int, List[str]] = {}
+
+
+def _reset_coordination() -> None:
+    """Restart the wait numbering (an elastic restart's new generation)."""
+    global _coord_seq
+    with _state_lock:
+        _coord_seq = 0
+        _coord_mine.clear()
+
+
+def _coord_monitor():
+    """The armed supervision monitor when its coordinator is the world's store, else
+    None (single process, or the plane off: the waits are collectives)."""
+    if not supervision._armed:
+        return None
+    mon = supervision.current_monitor()
+    if (mon is None or mon.nprocs <= 1 or mon.nprocs != _world().size
+            or not isinstance(mon.coordinator, supervision.ClientCoordinator)):
+        return None
+    return mon
+
+
+def _coord_publish(mon, kind: str, value: str) -> str:
+    """Publish this rank's key of the next wait namespace; returns the namespace."""
+    global _coord_seq
+    with _state_lock:
+        _coord_seq += 1
+        seq = _coord_seq
+        stale = [k for s in list(_coord_mine) if s <= seq - 2 for k in _coord_mine.pop(s)]
+        ns = f"heat_tpu/ckpt/{seq}/{kind}"
+        _coord_mine[seq] = [f"{ns}/{mon.rank}"]
+    for key in stale:
+        try:
+            mon.coordinator.store.delete_key(key)
+        except Exception as exc:  # a leftover key costs bytes, not correctness
+            diagnostics.record_resilience_event("checkpoint.coord", "sweep-failed",
+                                                f"{type(exc).__name__}: {exc}")
+    mon.coordinator.set(f"{ns}/{mon.rank}", value)
+    return ns
+
+
 def _barrier(tag: str) -> None:
     """Every rank of the world reaches this point (``tag`` names it for the reader)."""
-    _world().barrier()
+    mon = _coord_monitor()
+    if mon is None:
+        _world().barrier()
+        return
+    ns = _coord_publish(mon, "barrier", "1")
+    supervision.kv_barrier(ns, nprocs=mon.nprocs, rank=mon.rank, site="checkpoint.barrier",
+                           coordinator=mon.coordinator)
 
 
 def _agree_min(flag: int) -> int:
     """The least of every rank's ``flag``, the same on every rank: a branch on it cannot
     split the ranks' collectives. The agreement that turns one rank's failure into every
     rank's typed exception instead of a distributed hang."""
-    return _world().agree_min(flag)
+    mon = _coord_monitor()
+    if mon is None:
+        return _world().agree_min(flag)
+    ns = _coord_publish(mon, "agree", str(int(flag)))
+    return min(
+        int(supervision.kv_wait(f"{ns}/{i}", site="checkpoint.agree", coordinator=mon.coordinator))
+        for i in range(mon.nprocs)
+    )
 
 
 def _writer_pool_size() -> int:

@@ -5,8 +5,12 @@ A DNDarray holds its rank's local ``torch.Tensor``; ranks talk over ``torch.dist
 single rank and every collective is the identity. Every collective of the package lives
 in this file.
 
-While the profiler is on, every collective is one ``collective`` slice of the ambient
-request scope (one module-attribute read when it is off).
+Every collective of :class:`TorchCommunication` runs through the one guarded chokepoint
+(:func:`_guarded`, heat_tpu/core/communication.py:42-100): the supervision plane's
+sentinel poll and watchdog, the fault plan and site policies of ``ht.resilience``, the
+telemetry plane's collective window, the forensics plane's collective timer and the
+profiler's ``collective`` slice, each one module-attribute read when its plane is off.
+The site of a collective is ``comm.<method>``.
 
 Chunking follows heat_tpu's ceil-division rule (heat_tpu/core/communication.py:311-337):
 rank ``r`` owns ``[r*c, min((r+1)*c, n))`` with ``c = ceil(n / size)``, so lshape maps
@@ -16,13 +20,15 @@ agree between the two packages. Trailing ranks may own empty chunks.
 from __future__ import annotations
 
 import functools
+import os
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from . import profiler
+from . import diagnostics, forensics, profiler, resilience, supervision, telemetry
 
 __all__ = [
     "Communication",
@@ -39,16 +45,78 @@ _REDUCE_OPS = {"sum": "SUM", "prod": "PRODUCT", "min": "MIN", "max": "MAX"}
 
 
 def _collective(fn):
-    """A profiler ``collective`` slice around one collective method."""
+    """Route one collective method through :func:`_guarded` at site ``comm.<name>``;
+    while diagnostics or forensics collect, first report its logical bytes
+    (:func:`_record_collective`)."""
+    site = f"comm.{fn.__name__}"
+    op = fn.__name__
 
     @functools.wraps(fn)
     def wrapped(self, *args, **kwargs):
-        if not profiler._active:
-            return fn(self, *args, **kwargs)
-        with profiler.scope("collective", fn.__name__):
-            return fn(self, *args, **kwargs)
+        if diagnostics._enabled or forensics._enabled:
+            _record_collective(self, op, args)
+        return _guarded(site, fn, self, *args, **kwargs)
 
     return wrapped
+
+
+def _record_collective(comm, op: str, args) -> None:
+    """One collective's logical bytes (this rank's tensor payload × participants) to
+    ht.diagnostics and the forensics cost meters, each gated on its own switch
+    (heat_tpu's ``MeshCommunication._record_collective``)."""
+    participants = comm.size
+    nbytes = participants * sum(a.numel() * a.element_size() for a in args if isinstance(a, torch.Tensor))
+    if diagnostics._enabled:
+        diagnostics.record_collective(op, "d", participants, nbytes)
+    if forensics._enabled:
+        forensics.note_collective(op, 0.0, nbytes=nbytes)
+
+
+def _guarded(site, fn, *args, **kwargs):
+    """Run one collective invocation under ht.supervision, ht.telemetry,
+    ht.forensics, ht.profiler and ht.resilience (heat_tpu's chokepoint).
+
+    Idle fast path: one module-attribute read per plane. When the supervision
+    plane is armed the abort sentinel is polled before and after the invocation
+    (a peer failure raises typed ``PeerFailed`` instead of entering a collective
+    its dead peer will never join) and, with ``HEAT_TPU_COLLECTIVE_TIMEOUT_S`` set,
+    the invocation window is armed on the collective watchdog
+    (``supervision.watch``). When telemetry collection is on, the invocation is
+    timed into a :func:`telemetry.collective_window`; when the forensics plane is
+    armed, onto the ambient request's record. When the profiler is active the
+    invocation is a ``collective`` slice of the ambient request scope. When a fault
+    plan is armed or a site policy is registered, the call goes through
+    ``resilience.guard``: injected faults fire per attempt and the policy retries.
+    All of it is host-side timing: nothing is added to what the card runs."""
+    if supervision._armed:
+        with supervision.watch(site):
+            return _guarded_telemetry(site, fn, *args, **kwargs)
+    return _guarded_telemetry(site, fn, *args, **kwargs)
+
+
+def _guarded_telemetry(site, fn, *args, **kwargs):
+    if telemetry._collecting:
+        with telemetry.collective_window(site):
+            return _guarded_forensics(site, fn, *args, **kwargs)
+    return _guarded_forensics(site, fn, *args, **kwargs)
+
+
+def _guarded_forensics(site, fn, *args, **kwargs):
+    if forensics._enabled:
+        with forensics.collective_timer(site):
+            return _guarded_run(site, fn, *args, **kwargs)
+    return _guarded_run(site, fn, *args, **kwargs)
+
+
+def _guarded_run(site, fn, *args, **kwargs):
+    if profiler._active:
+        with profiler.scope("collective", site):
+            if resilience._active:
+                return resilience.guard(site, fn, *args, **kwargs)
+            return fn(*args, **kwargs)
+    if resilience._active:
+        return resilience.guard(site, fn, *args, **kwargs)
+    return fn(*args, **kwargs)
 
 
 def _initialized() -> bool:
@@ -650,12 +718,10 @@ def initialize(init_method: str = "env://") -> None:
     given). The backend follows the default device: NCCL with one card a process, the
     card of ``LOCAL_RANK``, when the device is the card, and gloo when the CPU was asked
     for (``use_device("cpu")``). Without CUDA on the card's path it raises; it never
-    falls back to gloo."""
-    import os
-
+    falls back to gloo. Then the telemetry clock handshake runs over the group's store
+    and the supervision plane is armed on it (:func:`_telemetry_bootstrap`); an elastic
+    restart re-joins through :func:`supervision.bootstrap_distributed`."""
     from .devices import get_device
-
-    from . import resilience
 
     on_card = get_device().device_type != "cpu"
     if on_card:
@@ -665,4 +731,52 @@ def initialize(init_method: str = "env://") -> None:
     rank = int(os.environ["RANK"])
     dist.init_process_group("nccl" if on_card else "gloo", init_method=init_method, rank=rank,
                             world_size=int(os.environ["WORLD_SIZE"]))
-    resilience.set_fault_rank(rank)  # rank-targeted fault-plan entries fire on this process
+    _telemetry_bootstrap()
+
+
+# Every bootstrap (each initialize() and each elastic restart) gets its own barrier
+# namespace: the store's keys are scoped per use, and every process counts its
+# bootstraps in the same order, so a re-init re-anchors instead of failing the
+# handshake.
+_handshake_generation = 0
+
+
+def _telemetry_bootstrap() -> None:
+    """Stamp this process's rank into ht.telemetry (and for rank-targeted fault
+    plans) and, on multi-process jobs, run the boot-time clock-offset handshake
+    (heat_tpu/core/communication.py:786-844): a supervised barrier over the job's
+    store, then every process samples ``time.monotonic_ns()`` and publishes it
+    through the store — the zero point that lets ``telemetry.merge`` align trace
+    timestamps across ranks. No collective and nothing on the card. A failed
+    handshake degrades to unaligned anchors, recorded on the resilience stream.
+    Afterwards the supervision plane is armed for the job."""
+    global _handshake_generation
+    rank = dist.get_rank() if _initialized() else 0
+    world = dist.get_world_size() if _initialized() else 1
+    try:
+        telemetry.set_process_info(rank, world)
+        resilience.set_fault_rank(rank)  # rank-targeted fault-plan entries fire on this process
+        if world > 1 and os.environ.get("HEAT_TPU_TELEMETRY_HANDSHAKE") != "0":
+            co = supervision.default_coordinator()
+            if co is None:
+                raise RuntimeError("the process group has no store")
+            gen = _handshake_generation
+            _handshake_generation += 1
+            # boot-time liveness wait, capped at 60 s: the plane is not armed yet,
+            # so a peer that died before the handshake cannot abort it mid-wait
+            boot_ms = min(supervision.coord_timeout_ms(), 60_000)
+            supervision.kv_barrier(
+                f"heat_tpu/telemetry/clock/{gen}", nprocs=world, rank=rank, timeout_ms=boot_ms,
+                site="telemetry.handshake", coordinator=co,
+            )
+            anchor = time.monotonic_ns()
+            co.set(f"heat_tpu/telemetry/anchor/{gen}/{rank}", str(anchor))
+            anchors = [
+                int(supervision.kv_wait(f"heat_tpu/telemetry/anchor/{gen}/{i}", boot_ms,
+                                        site="telemetry.handshake", coordinator=co))
+                for i in range(world)
+            ]
+            telemetry.record_clock_anchor(anchor, anchors)
+    except Exception as exc:
+        diagnostics.record_resilience_event("telemetry.handshake", "degraded", f"{type(exc).__name__}: {exc}")
+    supervision.auto_arm()

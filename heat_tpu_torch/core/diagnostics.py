@@ -13,9 +13,9 @@ The registry the port's failure paths report into:
 - **Provider sections**: :func:`register_provider` attaches named sections computed at
   :func:`report` time; ``resilience`` reports through it.
 
-``record_collective``, ``record_compile``, ``record_dispatch_event`` and
-``record_pad_waste`` keep heat_tpu's names and report sections; nothing of the port
-feeds them yet (the collective chokepoint is ROADMAP.md Queue 1 item 15).
+``record_collective`` is fed by every ``TorchCommunication`` collective, and
+``record_compile`` and ``record_dispatch_event`` by the executor;
+``record_pad_waste`` keeps heat_tpu's name and report section (the port pads nothing).
 
 Zero-cost contract: while disabled (the default) the metric hooks are one module
 attribute read and a branch not taken. Every mutation of the registries runs under the

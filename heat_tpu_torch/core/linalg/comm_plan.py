@@ -29,11 +29,12 @@ and knob, although the port moves ragged chunks and pads nothing. Each executed 
 counts ``linalg.plan.<kind>`` and ``linalg.bytes.<kind>`` in :data:`COUNTERS`.
 
 Unlike heat_tpu, a ring or rs plan that fails raises: no plan gives way to another.
-The port has heat_tpu's signature-cached executor (``core/_executor.py``), with its jit
-threshold and its quarantine of failing signatures, but a plan is not one of its
-programs: every plan issues collectives, which every rank must issue in the same order,
-so plans run inline on the calling thread, as the executor runs its own
-collective-bearing programs. Warm-up replay comes with the compile cache.
+Each ring or rs plan, and each all-to-all resplit, is a program of heat_tpu's
+signature-cached executor (``core/_executor.py``, family ``"mm"``) with heat_tpu's replay
+spec, so the compile cache records it and :func:`replay_warmup` rebuilds it at boot.
+Every plan issues collectives, which every rank must issue in the same order, so its
+program runs inline on the calling thread (the executor's collective-bearing programs
+never queue); below the jit threshold the plan runs without a program.
 """
 
 from __future__ import annotations
@@ -44,11 +45,13 @@ from typing import Any, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .. import types
+from .. import _executor, types
 from ..devices import full_fp32_matmul
 from ..dndarray import DNDarray
 
-__all__ = ["COUNTERS", "Plan", "linalg_plan", "plan_matmul", "reset_counters", "try_matmul", "try_resplit"]
+__all__ = [
+    "COUNTERS", "Plan", "linalg_plan", "plan_matmul", "replay_warmup", "reset_counters", "try_matmul", "try_resplit",
+]
 
 PLAN_KNOB = "HEAT_TPU_LINALG_PLAN"
 _PLANS = ("auto", "xla", "ring", "rs")
@@ -199,11 +202,51 @@ def try_matmul(a: DNDarray, b: DNDarray) -> Any:
     if plan.kind == "xla":
         _record(plan)
         return NotImplemented
-    run = _ring if plan.kind == "ring" else _reduce_scatter
-    value, split = run(plan.variant, a, b)
+    value, split = _execute(plan, a, b)
     _record(plan)
     gshape = (a.gshape[0], b.gshape[1])
     return DNDarray(value, gshape, types.canonical_heat_type(value.dtype), split, a.device, a.comm, True)
+
+
+def _mm_spec(plan: Plan, a: DNDarray, b: DNDarray) -> dict:
+    """heat_tpu's replay spec of a planned contraction (comm_plan.py:372): the port pads
+    nothing, so each operand's physical shape is its global one; ``precision`` is
+    ``HIGHEST`` when an operand is float32 (heat_tpu's ``_contraction_precision``)."""
+    from .._operations import _np_dtype_str, mesh_spec
+
+    f32 = any(x.larray.dtype == torch.float32 for x in (a, b))
+    return {
+        "family": "mm", "kind": plan.kind, "variant": plan.variant,
+        "a_gshape": list(a.gshape), "a_split": a.split,
+        "a_dtype": _np_dtype_str(a.larray.dtype), "a_phys": list(a.gshape),
+        "b_gshape": list(b.gshape), "b_split": b.split,
+        "b_dtype": _np_dtype_str(b.larray.dtype), "b_phys": list(b.gshape),
+        "precision": "HIGHEST" if f32 else None, "mesh": mesh_spec(a.comm),
+    }
+
+
+def _execute(plan: Plan, a: DNDarray, b: DNDarray):
+    """Run a ring or rs plan as the executor's ``mm`` program for its signature (the
+    plan itself below the jit threshold). Returns ``(local product, split)``."""
+    comm = a.comm
+    run = _ring if plan.kind == "ring" else _reduce_scatter
+    al, bl = _operands(a, b)
+    ag, bg = a.gshape, b.gshape
+    key = ("mm", plan.kind, plan.variant, ag, bg, a.split, b.split, comm,
+           _executor.operand_sig(al), _executor.operand_sig(bl))
+    split = {"ring": 1 if plan.variant == "rB" else 0, "rs": 0}[plan.kind]
+
+    def build():
+        def body(x, y):
+            return run(plan.variant, comm, ag, bg, x, y)[0]
+
+        return body, None, "staged", {"collective": True}
+
+    prog = _executor.lookup(key, build, label=f"mm.{plan.kind}.{plan.variant}",
+                            spec=lambda: _mm_spec(plan, a, b))
+    if prog is None:
+        return run(plan.variant, comm, ag, bg, al, bl)
+    return prog(al, bl), split
 
 
 # ------------------------------------------------------------------ the products
@@ -220,7 +263,7 @@ def _operands(a: DNDarray, b: DNDarray):
     return a.larray.to(ct), b.larray.to(ct)
 
 
-def _ring(variant: str, a: DNDarray, b: DNDarray):
+def _ring(variant: str, comm, a_gshape, b_gshape, al: torch.Tensor, bl: torch.Tensor):
     """The ring collective matmul (heat_tpu ``_ring_body``, comm_plan.py:219): ``P − 1``
     hops of one panel of the rotating operand (:meth:`TorchCommunication.ring_blocks`),
     each overlapping the product of the panel in hand; the last panel is consumed without
@@ -231,9 +274,7 @@ def _ring(variant: str, a: DNDarray, b: DNDarray):
     matching column panel of a's rows. ``rB``: a split 1 (contraction), b split 1: a's
     column panels rotate and meet the matching rows of b's columns. ``rC``: a split 0, b
     split 1: b's column panels rotate into their column slot of a's rows."""
-    comm = a.comm
-    (m, k), n = a.gshape, b.gshape[1]
-    al, bl = _operands(a, b)
+    (m, k), n = a_gshape, b_gshape[1]
     k_counts, k_displs, _ = comm.counts_displs_shape((k,), 0)
     if variant == "rA":
         rot, fixed, out = bl, al, al.new_zeros((al.shape[0], n))
@@ -274,14 +315,12 @@ def _ring(variant: str, a: DNDarray, b: DNDarray):
     return out, split
 
 
-def _reduce_scatter(variant: str, a: DNDarray, b: DNDarray):
+def _reduce_scatter(variant: str, comm, a_gshape, b_gshape, al: torch.Tensor, bl: torch.Tensor):
     """The reduce-scatter contraction (heat_tpu ``_rs_body``, comm_plan.py:309): this
     rank's partial product over its contraction-dim chunk, reduce-scattered straight into
     a ``split=0`` result. ``s10``: both operands split on the contraction dim; ``sN0``: a
     whole, sliced to b's rows; ``s1N``: b whole, sliced to a's columns."""
-    comm = a.comm
-    k = a.gshape[1]
-    al, bl = _operands(a, b)
+    k = a_gshape[1]
     start, (kr,), _ = comm.chunk((k,), 0)
     if variant == "sN0":
         al = al[:, start : start + kr]
@@ -312,10 +351,58 @@ def try_resplit(x: DNDarray, axis: int) -> Any:
     if not resplit_eligible(x, axis):
         return NotImplemented
     comm = x.comm
-    moved = comm.all_to_all(x.larray, split_axis=axis, concat_axis=x.split, concat_extent=x.gshape[x.split])
+    src, extent = x.split, x.gshape[x.split]
+    value = x.larray
+    key = ("mm", "resplit", x.gshape, src, axis, comm, _executor.operand_sig(value))
+
+    def build():
+        def body(v):
+            return comm.all_to_all(v, split_axis=axis, concat_axis=src, concat_extent=extent)
+
+        return body, None, "staged", {"collective": True}
+
+    def spec():
+        from .._operations import _np_dtype_str, mesh_spec
+
+        return {
+            "family": "mm", "kind": "resplit", "gshape": list(x.gshape), "split": src, "dst": axis,
+            "dtype": _np_dtype_str(value.dtype), "phys": list(x.gshape), "mesh": mesh_spec(comm),
+        }
+
+    prog = _executor.lookup(key, build, label=f"mm.resplit.{src}->{axis}", spec=spec)
+    if prog is None:
+        moved = comm.all_to_all(value, split_axis=axis, concat_axis=src, concat_extent=extent)
+    else:
+        moved = prog(value)
     P = comm.size
     phys = _phys_bytes(comm, x.gshape, x.split, x.dtype)
     _count("linalg.plan.resplit")
     _count("linalg.bytes.resplit", (P - 1) * phys // P)
     _count("linalg.bytes.resplit_gather_baseline", (P - 1) * phys)
     return moved
+
+
+# ------------------------------------------------------------------ warmup replay
+def replay_warmup(spec: dict, zeros_dnd) -> bool:
+    """Re-enter a recorded family-``"mm"`` program over zeros of the recorded
+    signature (heat_tpu comm_plan.py:478; the compile cache's warmup).
+    ``zeros_dnd(gshape, split, dtype_str)`` is ``_compile_cache._zeros_dnd``. False when
+    the recorded physical layout or mesh is not this process's, or the plan the
+    planner makes here is another one."""
+    from .._operations import mesh_spec
+
+    if spec.get("kind") == "resplit":
+        x = zeros_dnd(spec["gshape"], spec["split"], spec["dtype"])
+        if list(x.gshape) != list(spec["phys"]) or mesh_spec(x.comm) != spec.get("mesh"):
+            return False
+        return try_resplit(x, spec["dst"]) is not NotImplemented
+    a = zeros_dnd(spec["a_gshape"], spec["a_split"], spec["a_dtype"])
+    b = zeros_dnd(spec["b_gshape"], spec["b_split"], spec["b_dtype"])
+    if (list(a.gshape) != list(spec["a_phys"]) or list(b.gshape) != list(spec["b_phys"])
+            or mesh_spec(a.comm) != spec.get("mesh")):
+        return False
+    plan = plan_matmul(a, b)
+    if plan is None or (plan.kind, plan.variant) != (spec["kind"], spec["variant"]):
+        return False
+    _execute(plan, a, b)
+    return True

@@ -130,6 +130,14 @@ _current_deadline: "contextvars.ContextVar[Optional[float]]" = contextvars.Conte
 )
 _deadline_seen: bool = False
 
+# Late-bound forensics module (set once at ``forensics`` import, read bare
+# afterwards — the diagnostics tee pattern). While the forensics plane is
+# armed, `request()` runs "lite-active": it allocates a request id and threads
+# the contextvar (so tenant attribution and forensic records work) even when
+# the profiler itself is disabled, but records no slices and observes no
+# histograms. Forensics calls happen OUTSIDE `_lock`.
+_forensics = None
+
 # perf_counter origin for trace timestamps; rebased on enable() so a long-lived
 # process's trace starts near zero. Microseconds, Chrome's native unit.
 _t0 = time.perf_counter()
@@ -377,10 +385,12 @@ def current_request() -> Optional[int]:
 
 
 def attribution_active() -> bool:
-    """True while request attribution is flowing (the profiler is enabled). Hot
-    paths that only need a tenant/request id gate on this; a relaxed attribute
-    read."""
-    return _active
+    """True while request attribution is flowing: the profiler is enabled, or
+    the forensics plane is armed (its lifecycle records ride the same request
+    contextvar). Hot paths that only need a tenant/request id gate on this;
+    relaxed attribute reads."""
+    f = _forensics
+    return _active or (f is not None and f._enabled)
 
 
 def request_slices(rid: int) -> List[dict]:
@@ -446,13 +456,20 @@ def request(tag: str, deadline_s: Optional[float] = None):
     that cannot meet it, and readers get a typed
     ``ht.resilience.DeadlineExceeded`` instead of late results. The deadline
     is a lifecycle contract, not telemetry: it is armed even while the
-    profiler is disabled."""
+    profiler is disabled.
+
+    While the forensics plane is armed the scope runs "lite-active" even with
+    the profiler disabled: a request id is allocated and threaded (so tenant
+    attribution and the lifecycle record work) and the forensic record is
+    opened/closed around the body, but no slices or histograms are recorded."""
     global _deadline_seen
     dtoken = None
     if deadline_s is not None:
         _deadline_seen = True
         dtoken = _current_deadline.set(time.monotonic() + float(deadline_s))
-    if not _active:
+    f = _forensics
+    fon = f is not None and f._enabled
+    if not _active and not fon:
         try:
             yield None
         finally:
@@ -466,6 +483,8 @@ def request(tag: str, deadline_s: Optional[float] = None):
         while len(_requests) > _MAX_REQUESTS:
             _requests.popitem(last=False)
     token = _current_request.set(rid)
+    if fon:
+        f.begin_request(rid, str(tag), _current_deadline.get())
     try:
         yield rid
     finally:
@@ -480,6 +499,8 @@ def request(tag: str, deadline_s: Optional[float] = None):
             if _active:
                 _slices.append((rid, threading.get_ident(), "request", str(tag), t0, t1))
                 _hist_locked(f"request.{tag}").observe((t1 - t0) / 1e6)
+        if fon:
+            f.finish_request(rid, (t1 - t0) / 1e6)
 
 
 @contextlib.contextmanager

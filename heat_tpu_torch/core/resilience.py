@@ -23,9 +23,8 @@ the stdlib alone).
 The request-lifecycle errors (:class:`DeadlineExceeded`, :class:`Shed`,
 :class:`RequestCancelled`, :class:`DrainTimeout`, :class:`SwapFailed`) and the
 supervision errors (:class:`PeerFailed`, :class:`CollectiveTimeout`,
-:class:`CoordinationTimeout`) keep heat_tpu's names and messages. heat_tpu's
-``run_supervised`` needs its supervision plane, which is not ported
-(ROADMAP.md Queue 1 item 15); the port has no such name rather than a stub.
+:class:`CoordinationTimeout`) keep heat_tpu's names and messages;
+:func:`run_supervised` delegates to the supervision plane's elastic restart.
 
 Zero-cost contract: instrumented sites gate on ``resilience._armed`` (a plan is
 loaded) and ``resilience._active`` (a plan or a site policy), one attribute read and a
@@ -83,6 +82,7 @@ __all__ = [
     "CollectiveTimeout",
     "CoordinationTimeout",
     "set_fault_rank",
+    "run_supervised",
 ]
 
 # Hot-path gates, read as ``resilience._armed`` / ``resilience._active`` by the
@@ -907,6 +907,21 @@ def atomic_write(path: str, writer: Callable[[str], Any], *, site: str = "io.wri
         return result
 
     return pol.run(site, attempt)
+
+
+# ------------------------------------------------------------- supervision
+def run_supervised(step_fn, manager, policy=None, **kwargs):
+    """Run a training loop under the supervision plane with elastic restart
+    from checkpoint — the recovery half of the typed failure vocabulary
+    above. Delegates to :func:`heat_tpu_torch.core.supervision.run_supervised`
+    (see there for the full contract): on :class:`PeerFailed` /
+    :class:`CollectiveTimeout` / :class:`CoordinationTimeout` the harness
+    drains the scheduler, re-initializes the process group at the surviving
+    world size, restores the latest ``CheckpointManager`` step via
+    reshard-on-restore, and resumes under ``policy``'s restart budget."""
+    from . import supervision
+
+    return supervision.run_supervised(step_fn, manager, policy, **kwargs)
 
 
 # ------------------------------------------------------------------ reporting

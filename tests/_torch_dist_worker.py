@@ -745,6 +745,70 @@ NO_GATHER = {
 PRINTED = np.arange(40 * 50, dtype=np.float32).reshape(40, 50) / 7
 
 
+SUP_STEPS = 6
+SUP_DEAD_RANK = 2
+SUP_DEAD_STEP = 3
+
+
+def sup_step(step, state):
+    """One step of the supervised run: a local update and a global sum (a collective,
+    so a dead peer is met inside it)."""
+    from heat_tpu_torch.core import resilience
+
+    resilience.maybe_fault("train.step")
+    w = state["w"]
+    return {"w": w * 0.5 + w.sum() * 1e-3 + float(step)}
+
+
+def run_supervised_case(rank: int, init_file: str, out_dir: str) -> dict:
+    """Three ranks under the supervision plane; rank 2 dies at step 3 through the
+    ``peer-dead`` fault (silence, then exit 43). The survivors' collective fails on the
+    dead peer and surfaces as ``PeerFailed``; ``run_supervised`` tears the group down,
+    re-initialises at world 2 over a new file store, restores the latest step (saved
+    at world 3) through reshard-on-restore and runs to the end. Then each survivor
+    restores that step again and runs the remaining steps plainly at world 2: the
+    uninterrupted run the supervised one must equal."""
+    from heat_tpu_torch.core import resilience, supervision
+
+    # a survivor can block inside gloo on a survivor that already left the collective;
+    # the process group's timeout (the watchdog budget) ends that wait
+    os.environ["HEAT_TPU_PEER_TIMEOUT_S"] = "3"
+    os.environ["HEAT_TPU_COLLECTIVE_TIMEOUT_S"] = "6"
+    os.environ["HEAT_TPU_FLIGHT_DIR"] = os.path.join(out_dir, "flight")  # the abort's post-mortem
+    supervision.reload_env_knobs()
+    ht.get_comm().barrier()
+    supervision.arm(supervision.default_coordinator(), rank=rank, nprocs=3)
+    ht.get_comm().barrier()
+    manager = ht.CheckpointManager(os.path.join(out_dir, "sup_ckpt"), max_to_keep=8)
+    resilience.arm_fault_plan([{"site": "train.step", "kind": "peer-dead", "on_call": SUP_DEAD_STEP + 1,
+                                "rank": SUP_DEAD_RANK}])
+    restored = []
+
+    def reinit(exc):
+        restored.append(type(exc).__name__)
+        return {"coordinator_address": f"file://{init_file}.gen2", "num_processes": 2, "process_id": rank}
+
+    def template():
+        return {"w": ht.zeros((12,), split=0)}
+
+    out = resilience.run_supervised(sup_step, manager, template=template,
+                                    state={"w": ht.array(np.arange(12.0, dtype=np.float32), split=0)},
+                                    max_steps=SUP_STEPS, save_every=1, reinit=reinit)
+    resilience.disarm_fault_plan()
+    resumed_from = manager.latest_step
+    plain = manager.restore(template(), step=SUP_DEAD_STEP - 1)
+    for step in range(SUP_DEAD_STEP, SUP_STEPS):
+        plain = sup_step(step, plain)
+    return {
+        "world_after": np.array([dist.get_world_size(), dist.get_rank()]),
+        "steps_restarts": np.array([out["steps"], out["restarts"]]),
+        "cause": np.array(restored),
+        "latest_step": np.array(resumed_from),
+        "w": out["state"]["w"].numpy(),
+        "w_plain": plain["w"].numpy(),
+    }
+
+
 def main():
     rank, world, init_file, inputs_path, out_dir = sys.argv[1:6]
     torch.set_num_threads(1)
@@ -754,9 +818,13 @@ def main():
     ht.initialize(init_method=f"file://{init_file}")
     try:
         out = run(np.load(inputs_path)) if int(world) == 3 else run_sort_cases()
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+        if int(world) == 3:  # last: rank 2 does not come back from it
+            sup = run_supervised_case(int(rank), init_file, out_dir)
+            np.savez(os.path.join(out_dir, f"sup{rank}.npz"), **sup)
     finally:
-        dist.destroy_process_group()
-    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -638,7 +638,7 @@ def test_writer_merges_peer_sidecars_into_manifest(tmp_path):
 def test_resilience_and_diagnostics_match_heat_tpu():
     """The port's copies keep heat_tpu's surface and behaviour: the names, a policy's
     retry ladder, a breaker's transitions, a plan's parse errors and rank targeting."""
-    assert set(resilience.__all__) == set(jres.__all__) - {"run_supervised"}
+    assert resilience.__all__ == jres.__all__
     from heat_tpu.core import diagnostics as jdiag
 
     assert diagnostics.__all__ == jdiag.__all__

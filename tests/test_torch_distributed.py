@@ -225,7 +225,11 @@ def _linalg_inputs(rng):
 def ranks(tmp_path_factory):
     """Every rank's results, from one spawn of three gloo ranks."""
     inputs = _inputs()
-    return inputs, _spawn(tmp_path_factory.mktemp("torch_dist"), WORLD, inputs)
+    tmp = tmp_path_factory.mktemp("torch_dist")
+    res = _spawn(tmp, WORLD, inputs)
+    for r in (0, 1):  # the survivors of the supervised-restart case
+        res[r]["sup"] = dict(np.load(tmp / f"sup{r}.npz"))
+    return inputs, res
 
 
 @pytest.fixture(scope="module")
@@ -257,7 +261,10 @@ def _spawn(tmp, world, inputs):
                 p.kill()
                 p.wait()
     for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{log}"
+        # at world 3 the supervised-restart case, which runs last, kills rank 2 through
+        # the peer-dead fault (exit status 43, resilience.PEER_DEAD_EXIT_STATUS)
+        want = 43 if world == WORLD and r == 2 else 0
+        assert p.returncode == want, f"rank {r} exited {p.returncode}:\n{log}"
     return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(world)]
 
 
@@ -1282,3 +1289,24 @@ def test_threaded_requests_match_heat_tpu(ranks, comm3):
             np.testing.assert_array_max_ulp(r[f"rt{i}_chain"], want["chain"], maxulp=4)
             for key in ("sum0", "cumsum0", "max"):
                 np.testing.assert_allclose(r[f"rt{i}_{key}"], want[key], rtol=1e-5, atol=1e-5)
+
+
+def test_supervised_restart_after_a_dead_peer(ranks):
+    """Rank 2 dies at step 3 (the peer-dead fault); the survivors raise PeerFailed typed
+    and run_supervised resumes at world 2 from the latest step, bit-equal to an
+    uninterrupted world-2 run from that step and, within float32 rounding of the
+    global sums' order, to heat_tpu's single-process run of the same six steps."""
+    _, res = ranks
+    w = ht.array(np.arange(12.0, dtype=np.float32), split=0)
+    for step in range(6):
+        w = w * 0.5 + w.sum() * 1e-3 + float(step)
+    want = np.asarray(w.numpy())
+    for r in (0, 1):
+        sup = res[r]["sup"]
+        assert sup["world_after"].tolist() == [2, r]
+        assert sup["steps_restarts"].tolist() == [6, 1]
+        assert sup["cause"].tolist() == ["PeerFailed"]
+        assert int(sup["latest_step"]) == 5
+        np.testing.assert_array_equal(sup["w"], sup["w_plain"])
+        np.testing.assert_allclose(sup["w"], want, rtol=1e-6)
+    np.testing.assert_array_equal(res[0]["sup"]["w"], res[1]["sup"]["w"])
