@@ -193,6 +193,14 @@ Phases, one line each:
      the group, joins a new one and restores step 2; the parameters and Adam state
      bit-equal to an uninterrupted 4-step run, K2, D, K4 and K5 18 times a step: the
      restart's seconds. ``tools/serving_probe.py`` runs the six alone;
+ 12f. ``[launch_counts_threaded]``: 16 request threads, each making 64 calls of
+     ``KMeans(max_iter=0).fit`` (one K1 launch: the fit's final assignment pass) at
+     4,096 x 64, k = 8, and of ``flash_attention`` (causal, (8, 256, 64) f32) in turns,
+     the counts zeroed just before: K1's and K2's counts rise by exactly 16 x 64 each (the
+     kernels count under a lock); then ``[analysis]``: ``python -m
+     heat_tpu_torch.analysis --check --no-cache --json`` in a child process over this
+     tree, which must exit 0 with no new finding and no stale baseline entry (modules
+     scanned, findings by rule, those pragmas suppressed, seconds);
  13. (13-17 run in a child process of this script, which traces nothing: see
      ``linalg_phases``) config #2 (``[linalg_matmul]``): ``ht.linalg.matmul`` of a (4096, 4096) split=0 and a
      (4096, 4096) split=1 f32 array from a seeded generator, with TF32 allowed for the
@@ -2840,7 +2848,7 @@ def runtime_lifecycle_phase(ht, dev, smi: str) -> dict:
         def w(i):
             try:
                 outcomes[i] = ("ok", fn(i))
-            except Exception as exc:
+            except Exception as exc:  # ht: ignore[silent-except] -- not silent: the outcome is recorded per thread and the phase's gates read every one
                 outcomes[i] = ("err", exc)
 
         def entered(i):
@@ -3068,7 +3076,7 @@ def serve(pool, served, n: int, threads: int, dev, on_done=None, tenant: str = "
             rec = (i, r, t0, time.perf_counter(), "ok")
         except typed as exc:
             rec = (i, exc, t0, time.perf_counter(), "typed")
-        except Exception as exc:  # counted: the gates require none
+        except Exception as exc:  # ht: ignore[silent-except] -- not silent: the failure is recorded as untyped with the request, and the gates require none
             rec = (i, exc, t0, time.perf_counter(), "untyped")
         records[i] = rec
         with lock:
@@ -3537,7 +3545,7 @@ def supervised_child(out_path: str) -> int:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_supervised_")
     supervision.bootstrap_distributed(f"file://{tmp}/rdv0", 1, 0, backend="nccl")
     ones = torch.ones(1, device=dev)
-    dist.all_reduce(ones)  # the NCCL communicator exists before the fault
+    dist.all_reduce(ones)  # ht: ignore[collective-uncontracted] -- the communicator returns at once at world 1 without reaching NCCL; this raw call is what makes NCCL's communicator exist before the injected fault
     torch.cuda.synchronize()
     gen = torch.Generator(device=dev).manual_seed(SEED + 70)
     batches = [[ht.array(t, split=0) for t in s2s.reverse_batch(TRAIN_B, TRAIN_T, VOCAB, generator=gen, device=dev)]
@@ -3728,6 +3736,98 @@ def serving_phases(ht, kernels, dev, smi: str) -> dict:
         return out
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# [launch_counts_threaded]: request threads and the calls each makes through each entry
+LC_THREADS, LC_CALLS, LC_ROWS, LC_T = 16, 64, 4096, 256
+
+
+def analysis_phase(smi: str) -> dict:
+    """``[analysis]``: the port's invariant checker, ``python -m heat_tpu_torch.analysis
+    --check --no-cache --json``, in a child process over the tree as shipped here. It
+    must exit 0 with no new finding and no stale baseline entry; the modules scanned,
+    the findings by rule (and those the pragmas suppressed) and its seconds are
+    printed."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_analysis_") as td:
+        report_path = os.path.join(td, "report.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "heat_tpu_torch.analysis", "--check", "--no-cache", "--json", report_path],
+            cwd=ROOT, capture_output=True, text=True, timeout=600,
+        )
+        seconds = time.perf_counter() - t0
+        check(proc.returncode == 0, f"the invariant checker exited {proc.returncode}:\n{proc.stdout[-4000:]}"
+              f"{proc.stderr[-2000:]}")
+        with open(report_path) as fh:
+            report = json.load(fh)
+    check(report["new_findings"] == [] and report["stale_baseline"] == [],
+          f"the invariant checker: {len(report['new_findings'])} new findings, "
+          f"{len(report['stale_baseline'])} stale baseline entries")
+    out = {"modules_scanned": report["modules_scanned"], "rule_counts": report["rule_counts"],
+           "suppressed_counts": report["suppressed_counts"], "grandfathered": len(report["grandfathered"]),
+           "lock_graph_edges": len(report["lock_graph"]["edges"]), "seconds": seconds}
+    phase("analysis", card=smi, **{k_: json.dumps(v) for k_, v in out.items()})
+    return out
+
+
+def launch_counts_threaded_phase(ht, kernels, dev, smi: str) -> dict:
+    """``[launch_counts_threaded]``: ``LC_THREADS`` request threads on the card, each
+    making ``LC_CALLS`` calls through each of two public entries in turn: K1 by
+    KMeans' assignment (``KMeans(max_iter=0).fit`` runs the fit's one final assignment
+    pass, one K1 launch, at ``LC_ROWS`` × 64, k = 8, on the thread's own data) and K2
+    by ``flash_attention`` (causal, (8, ``LC_T``, 64) f32). One call of each alone
+    launches its kernel once; with the counts zeroed just before the threads start,
+    each count must rise by exactly ``LC_THREADS`` · ``LC_CALLS``."""
+    import threading
+
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+    data = []
+    for _ in range(LC_THREADS):
+        x = torch.randn(LC_ROWS, D, generator=gen, device=dev)
+        data.append((ht.array(x, split=0), ht.array(x[:K].clone())))
+    q, k, v = (torch.randn(8, LC_T, 64, generator=gen, device=dev) for _ in range(3))
+
+    def k1_call(i):
+        ht.cluster.KMeans(n_clusters=K, init=data[i][1], max_iter=0).fit(data[i][0])
+
+    def k2_call(i):
+        kernels.flash_attention.flash_attention(q, k, v, causal=True)
+
+    entries = {"kmeans_assign": k1_call, "flash_attention_fwd": k2_call}
+    for name, fn in entries.items():
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        fn(0)
+        torch.cuda.synchronize()
+        alone = kernels.launch_counts()
+        check(alone[name] == 1 and sum(alone.values()) == 1, f"one call of {name}'s entry launched {alone}")
+    start = threading.Barrier(LC_THREADS)
+
+    def worker(i):
+        start.wait(timeout=120)
+        for _ in range(LC_CALLS):
+            k1_call(i)
+            k2_call(i)
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with request_pool(dev, LC_THREADS) as pool:
+        list(pool.map(worker, range(LC_THREADS)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    calls = LC_THREADS * LC_CALLS
+    out = {"threads": LC_THREADS, "calls_per_thread": LC_CALLS, "calls": {n: calls for n in entries},
+           "launches": {n: counts[n] for n in entries}, "wall_s": wall}
+    phase("launch_counts_threaded", card=smi, **{k_: json.dumps(v_) for k_, v_ in out.items()})
+    check(all(counts[n] == calls for n in entries) and sum(counts.values()) == 2 * calls,
+          f"{LC_THREADS} threads x {LC_CALLS} calls of each entry: launches {counts}, expected {calls} each")
+    return out
 
 
 def linalg_child(out_path: str) -> int:
@@ -4517,6 +4617,11 @@ def main() -> int:
     #      the observability planes' cost
     serving_out = serving_phases(ht, kernels, dev, smi)
 
+    # 12f. the launch counters under 16 request threads, and the port's invariant checker
+    #      over this tree, in a child process
+    counts_out = launch_counts_threaded_phase(ht, kernels, dev, smi)
+    analysis_out = analysis_phase(smi)
+
     # 13-18. distributed linear algebra: config #2's product, config #4's hsvd_rank, the rest
     #        small; then the array API: the manipulation benchmark at N = 40M, the random
     #        streams and KMeans' random init; then the clustering slice; then the domain
@@ -4556,6 +4661,7 @@ def main() -> int:
                     **{f"cluster_bench_{n_}": v["k1_launches"] for n_, v in cluster_out["cluster_bench"].items()},
                     **{n_: cluster_out[n_]["k1_launches"] for n_ in ("kmedians_fit", "kmedoids_fit", "batchparallel_fit",
                                                                      "spectral_fit")},
+                    "launch_counts_threaded": counts_out["launches"]["kmeans_assign"],
                 },
                 "launches_note": "KMedians, KMedoids and the batch-parallel solves assign by heat_tpu's generic step, "
                                  "as heat_tpu does; Spectral's embedding is float64 (heat_tpu's rbf of a NumPy "
@@ -4603,6 +4709,7 @@ def main() -> int:
                     "mha_sequence_split_world_1": nn_out["ulysses"]["mha_launches"]["flash_attention_fwd"],
                     "serving_swap_per_request": serving_out["swap"]["k2_per_request"],
                     "supervised_train_per_step": serving_out["supervised_train"]["launches"][-1]["flash_attention_fwd"],
+                    "launch_counts_threaded": counts_out["launches"]["flash_attention_fwd"],
                 },
                 "ms_by_shape": k2_ms,
                 "bound_ms_by_shape": {c: b[0] for c, b in k2_bounds.items()},
@@ -4717,7 +4824,8 @@ def main() -> int:
                        "array": array_out, "kmeans_pp": pp, "cluster": cluster_out,
                        "domain": child_out["domain"], "nn": nn_out,
                        "train_resume": resume_out, "daso_sync": sync_out, "io": io_out,
-                       "runtime": runtime_out, "serving": serving_out}, fh, indent=1, default=str)
+                       "runtime": runtime_out, "serving": serving_out, "launch_counts_threaded": counts_out,
+                       "analysis": analysis_out}, fh, indent=1, default=str)
 
     # 20. the last line
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -119,7 +119,7 @@ def _kmex_loop(X: torch.Tensor, centers: torch.Tensor, p: int, max_iter: int, to
     done = torch.zeros((), dtype=torch.bool, device=X.device)
     for q in range(max_iter):
         active = ~done
-        if q and q % CHECK_EVERY == 0 and not bool(active):
+        if q and q % CHECK_EVERY == 0 and not bool(active):  # ht: ignore[spmd-divergent-collective] -- a block's loop runs on this rank's data alone: _update hands _medians no communicator, so no collective runs inside it and the ranks may stop at different passes
             break
         labels = torch.argmin(_cdist_p(X, centers, p), dim=1)
         new = _update(X, labels, centers, p)
@@ -235,9 +235,9 @@ class _BatchParallelKCluster(ClusteringMixin, BaseEstimator):
         # the merge tree: cluster the concatenated centroid sets, group-wise
         arity = max(self.n_procs_to_merge or len(centers_list) or 2, 2)
         level_key = keys[-1]
-        while len(centers_list) > 1:
+        while len(centers_list) > 1:  # ht: ignore[spmd-divergent-collective] -- centers_list is every rank's centers from one all-gather (or this rank's alone at one block): its length, and so the merge tree, is the same on every rank, and _kmex runs no collective
             merged = []
-            for i in range(0, len(centers_list), arity):
+            for i in range(0, len(centers_list), arity):  # ht: ignore[spmd-divergent-collective] -- centers_list is every rank's centers from one all-gather (or this rank's alone at one block): its length, and so the merge tree, is the same on every rank, and _kmex runs no collective
                 cat = torch.cat(centers_list[i : i + arity], dim=0)
                 level_key, sub = random._split(level_key)
                 c, it = _kmex(cat, self._p, self.n_clusters, "++", self.max_iter, self.tol, sub)

@@ -1619,7 +1619,7 @@ def _linearise(roots: Tuple[Deferred, ...]) -> Optional[_ForcePlan]:
                 # repr, not the value: equality would collapse distinct scalars
                 # (-0.0 == 0.0, 1 == True) into one leaf
                 k = ("s", type(value), repr(value))
-            except Exception:
+            except Exception:  # ht: ignore[silent-except] -- a scalar whose repr raises is keyed by its identity instead: the leaf stays distinct from every other and the plan's result is unchanged
                 k = ("s", id(value))
         idx = leaf_index.get(k)
         if idx is None:
@@ -1776,7 +1776,7 @@ def _run_plan(plan, out_idxs, single, leaf_vals, scalar_slots=None, deadline=Non
     ``deadline`` is checked between ops (the eager replay's checkpoint)."""
     vals = []
     for j, (operation, fn_kwargs, refs) in enumerate(plan):
-        if deadline is not None and time.monotonic() >= deadline:
+        if deadline is not None and time.monotonic() >= deadline:  # ht: ignore[trace-time-call] -- runs only in the eager replay: the captured body (build's body) calls _run_plan without a deadline, so no clock is read inside a capture
             raise resilience.DeadlineExceeded(
                 f"deadline passed between ops of the eager replay ({label}, {len(vals)}/{len(plan)} ops done)"
             )
@@ -2309,5 +2309,5 @@ def _drain_scheduler_at_exit() -> None:
         return
     try:
         sched.drain(timeout=5.0)
-    except Exception:  # the drain delivered typed errors; raising would mask the exit status
+    except Exception:  # ht: ignore[silent-except] -- atexit hook: the drain already delivered typed errors to every leftover future; raising here would mask the process's real exit status
         pass

@@ -116,7 +116,9 @@ _shards: Tuple["_ShardCache", ...] = ()
 _enabled = False
 _budget_bytes = _DEFAULT_BUDGET
 
-# bytes of CPU tensors hashed on the host for digests (relaxed tally)
+# bytes of CPU tensors hashed on the host for digests, exact under its own leaf
+# lock (request threads hash concurrently)
+_hash_lock = threading.Lock()
 _host_hash_bytes = 0
 
 
@@ -324,7 +326,8 @@ def _digest_one(v) -> Optional[Tuple]:
         h = hashlib.sha1(v.detach().contiguous().view(-1).view(torch.uint8).numpy().tobytes()).hexdigest()
     except Exception:  # ht: ignore[silent-except] -- any digest failure (exotic dtype, a view torch refuses) means "uncacheable", the documented fallback; the call executes normally
         return None
-    _host_hash_bytes += nbytes
+    with _hash_lock:
+        _host_hash_bytes += nbytes
     return ("h", str(tuple(v.shape)), str(v.dtype), h)
 
 
@@ -643,7 +646,8 @@ def reset_stats() -> None:
     """Zero the tallies and the host-hash byte count (entries are kept — they
     are cache contents, not statistics; ``clear_executor_cache`` drops both)."""
     global _host_hash_bytes
-    _host_hash_bytes = 0
+    with _hash_lock:
+        _host_hash_bytes = 0
     for sh in _shards:
         with sh._mu:
             sh.hits = 0

@@ -384,7 +384,7 @@ class TorchCommunication:
         if sum(src_counts) != gshape[axis] or (dst_displs is None and sum(dst_counts) != gshape[axis]):
             raise ValueError(f"redistribute: counts {src_counts} -> {dst_counts} do not cover extent {gshape[axis]}")
         rank = self.rank
-        if local.shape[axis] != src_counts[rank]:
+        if local.shape[axis] != src_counts[rank]:  # ht: ignore[spmd-divergent-collective] -- argument check, not a branch of a correct call: a rank whose chunk disagrees with the counts every rank was given is the caller's error and raises at once; its peers' collective then ends at the group's timeout (typed by the supervision watchdog when armed)
             raise ValueError(f"redistribute: this rank holds {local.shape[axis]} along {axis}, not {src_counts[rank]}")
         if src_displs is None:
             src_displs = _displs(src_counts)
@@ -468,7 +468,7 @@ class TorchCommunication:
         ``recv_shape``, by default this tensor's): one send/recv pair, the block
         compare-exchange of the distributed sort."""
         recv_shape = tuple(tensor.shape) if recv_shape is None else tuple(int(s) for s in recv_shape)
-        if peer == self.rank:
+        if peer == self.rank:  # ht: ignore[spmd-divergent-collective] -- pairwise exchange: a rank paired with itself has no partner waiting on it, and every other pair meets in its own send/recv
             return tensor
         dtype = tensor.dtype
         send = tensor.to(torch.uint8) if dtype == torch.bool else tensor.contiguous()
@@ -589,7 +589,7 @@ class TorchCommunication:
             concat_extent = local[concat_axis] * self.size
         send_counts, _, _ = self.counts_displs_shape(local, split_axis)
         recv_counts, _, _ = self.counts_displs_shape(local[:concat_axis] + [concat_extent] + local[concat_axis + 1 :], concat_axis)
-        if recv_counts[self.rank] != local[concat_axis]:
+        if recv_counts[self.rank] != local[concat_axis]:  # ht: ignore[spmd-divergent-collective] -- argument check, not a branch of a correct call: a rank whose extent disagrees with the chunk rule is the caller's error and raises at once; its peers' collective then ends at the group's timeout (typed by the supervision watchdog when armed)
             raise ValueError(
                 f"all_to_all: this rank holds {local[concat_axis]} along axis {concat_axis}, the chunk rule "
                 f"over {concat_extent} gives it {recv_counts[self.rank]}"
@@ -626,7 +626,7 @@ class TorchCommunication:
         shape = list(tensor.shape)
         counts, _, _ = self.counts_displs_shape(shape, scatter_axis)
         moved = tensor.movedim(scatter_axis, 0).contiguous()
-        if tensor.dtype != torch.bool and len(set(counts)) == 1:
+        if tensor.dtype != torch.bool and len(set(counts)) == 1:  # ht: ignore[spmd-divergent-collective] -- counts is the chunk rule over every rank (counts_displs_shape's first element), the same tuple on every rank; only its third element, this rank's lshape, depends on the rank, and the checker's return taint is per function, not per element
             out = moved.new_empty((counts[0],) + tuple(moved.shape[1:]))
             _reduce_scatter(out, moved, group=self.group)
             return out.movedim(0, scatter_axis).contiguous()
@@ -761,7 +761,7 @@ def _telemetry_bootstrap() -> None:
             if co is None:
                 raise RuntimeError("the process group has no store")
             gen = _handshake_generation
-            _handshake_generation += 1
+            _handshake_generation += 1  # ht: ignore[lock-racing-increment] -- bootstrap-only: runs inside initialize() and an elastic restart's re-join, both single-threaded launch paths; SPMD symmetry (not thread-safety) is what keeps the counter aligned
             # boot-time liveness wait, capped at 60 s: the plane is not armed yet,
             # so a peer that died before the handshake cannot abort it mid-wait
             boot_ms = min(supervision.coord_timeout_ms(), 60_000)

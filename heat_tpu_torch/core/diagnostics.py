@@ -386,7 +386,7 @@ def report() -> dict:
     for name, provider in providers:
         try:
             rep[name] = provider()
-        except Exception as exc:  # not silent: the error lands in the report itself; a broken provider must not kill the report
+        except Exception as exc:  # ht: ignore[silent-except] -- not silent: the error lands in the report payload itself; a broken provider must not kill the report
             rep[name] = {"error": repr(exc)}
     return rep
 
@@ -428,5 +428,5 @@ if _dump_path and __package__:
     def _dump_at_exit(path: str = _dump_path) -> None:  # pragma: no cover - exit hook
         try:
             dump(path)
-        except Exception:  # an atexit hook: raising here would mask the process's real exit status
+        except Exception:  # ht: ignore[silent-except] -- atexit hook: raising here would mask the process's real exit status
             pass

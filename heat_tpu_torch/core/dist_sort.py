@@ -99,7 +99,7 @@ def distributed_sort(comm, local: torch.Tensor, n: int, axis: int, descending: b
     values, index = _lexsort(values, index, axis, descending)
     for partner, keep_lower in _network_rounds(P):
         peer = partner[rank]
-        if peer == rank:
+        if peer == rank:  # ht: ignore[spmd-divergent-collective] -- pairwise compare-exchange: a rank that sits out a round of the network is its own partner, so no peer waits on it, and every other pair meets in its own exchange
             continue
         other_v = comm.exchange(values.contiguous(), peer)
         other_i = comm.exchange(index.contiguous(), peer)

@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels for Hopper (counterparts of heat_tpu/core/kernels/).
 
 Each kernel module keeps its plain PyTorch version beside the wrapper, used for CPU
-tensors and by the tests, and a ``launches`` counter for each kernel. Importing a kernel
-module needs neither CUDA nor nvcc: a kernel is built at its first launch.
+tensors and by the tests, and a ``launches`` counter for each kernel, counted under the
+module's ``_count_lock`` so that concurrent request threads lose no launch. Importing a
+kernel module needs neither CUDA nor nvcc: a kernel is built at its first launch.
 """
 
 from . import flash_attention, kmeans
@@ -48,5 +49,6 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNELS.values():
-        mod.launches = 0
+    with flash_attention._count_lock, kmeans._count_lock:
+        for mod in KERNELS.values():
+            mod.launches = 0

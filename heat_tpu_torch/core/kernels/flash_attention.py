@@ -35,6 +35,7 @@ from __future__ import annotations
 import ctypes
 import math
 import os
+import threading
 import types
 from pathlib import Path
 from typing import Optional, Tuple
@@ -67,6 +68,10 @@ PIPELINED_SOURCE = SOURCE.with_name("flash_attention_fwd_pipelined.cu")
 
 launches = 0
 """Launches of K2 since import (or since a caller reset it to 0)."""
+# every count of this module moves under this lock: the scheduler's request threads
+# launch the kernels concurrently, and a bare ``+= 1`` is a read-modify-write that
+# threads may interleave
+_count_lock = threading.Lock()
 
 # the backward's kernels, each with its source and its count of launches
 bwd_d = types.SimpleNamespace(SOURCE=BWD_SOURCE, launches=0)
@@ -457,7 +462,8 @@ def _k2(q, k, v, causal: bool, scale: float, bias, out_f32: bool = False) -> Tup
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
         lse.data_ptr(), bh, tq, tk, d, scale, int(causal), stream,
     )
-    launches += 1
+    with _count_lock:
+        launches += 1
     return out, lse
 
 
@@ -476,7 +482,8 @@ def _k3(q, k, v, causal: bool, scale: float, bias, out_f32: bool = False) -> Tup
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
         out.data_ptr(), lse.data_ptr(), bh, tq, tk, d, scale, int(causal), stream,
     )
-    fwd_pipelined.launches += 1
+    with _count_lock:
+        fwd_pipelined.launches += 1
     return out, lse
 
 
@@ -488,7 +495,8 @@ def _d_pass(o, do) -> torch.Tensor:
     dd = torch.empty((bh, tq), dtype=torch.float32, device=o.device)
     _launch(lib.flash_attention_bwd_d_launch, lib.flash_attention_bwd_error_string, dev, _DTYPES[o.dtype],
             o.data_ptr(), do.data_ptr(), dd.data_ptr(), bh * tq, d, stream)
-    bwd_d.launches += 1
+    with _count_lock:
+        bwd_d.launches += 1
     return dd
 
 
@@ -505,7 +513,8 @@ def _k4(q, k, v, do, lse, dd, causal: bool, scale: float, bias, out_f32: bool = 
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), dd.data_ptr(),
         None if bias is None else bias.data_ptr(), dq.data_ptr(), bh, tq, k.shape[1], d, scale, int(causal), stream,
     )
-    bwd_dq.launches += 1
+    with _count_lock:
+        bwd_dq.launches += 1
     return dq
 
 
@@ -525,7 +534,8 @@ def _k5(
         None if bias is None else bias.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, tq, k.shape[1], d, scale,
         int(causal), stream,
     )
-    bwd_dkv.launches += 1
+    with _count_lock:
+        bwd_dkv.launches += 1
     return dk, dv
 
 

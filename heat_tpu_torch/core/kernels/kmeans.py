@@ -29,6 +29,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 from pathlib import Path
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -55,6 +56,8 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "kmeans_assign.cu"
 
 launches = 0
 """Launches of the CUDA kernel since import (or since a caller reset it to 0)."""
+# the count moves under this lock: request threads launch the kernel concurrently
+_count_lock = threading.Lock()
 
 _MAX_D = 256
 # dynamic shared memory a block may opt into on sm_90 (227 KB)
@@ -368,7 +371,8 @@ def fused_assign_update_packed(x: torch.Tensor, centers: torch.Tensor) -> Tuple[
         packed.data_ptr(), _counter(dev, stream, x.device).data_ptr(), p.threads, p.stages, stream,
     )
     _raise_on(lib, rc, "launch")
-    launches += 1
+    with _count_lock:
+        launches += 1
     return labels, packed
 
 

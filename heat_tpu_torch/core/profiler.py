@@ -741,5 +741,5 @@ if _trace_path:
     def _dump_trace_at_exit(path: str = _trace_path) -> None:  # pragma: no cover - exit hook
         try:
             dump_trace(path)
-        except Exception:  # atexit hook: raising here would mask the process's real exit status
+        except Exception:  # ht: ignore[silent-except] -- atexit hook: raising here would mask the process's real exit status
             pass

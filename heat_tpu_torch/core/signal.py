@@ -61,7 +61,7 @@ def convolve(a, v, mode: str = "full") -> DNDarray:
         trail = local.new_zeros(m - 1) if last else local[:0]
         piece = _full_valid(torch.cat([lead, prev, local, trail]), vv) if lshape[0] else local[:0]
         res = _operations.rebalance(piece, 0, a)
-        res = DNDarray(res.larray, res.gshape, dt, 0, a.device, a.comm, True)
+        res = DNDarray(res.larray, res.gshape, dt, a.split, a.device, a.comm, True)
     if mode == "same":
         off = (m - 1) // 2
         res = res[off : off + n]

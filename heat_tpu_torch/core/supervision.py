@@ -383,10 +383,10 @@ class ClientCoordinator:
         if overwrite:
             self._store.set(key, value)
         else:
-            got = self._store.compare_set(key, "", value)
+            got = self._store.compare_set(key, "", value)  # ht: ignore[coord-unbounded-wait] -- a compare-and-set answers at once: it never waits for the key
             if isinstance(got, bytes):
                 got = got.decode()
-            if got != value or self._store.get(key).decode() != value:
+            if got != value or self._store.get(key).decode() != value:  # ht: ignore[coord-unbounded-wait] -- the compare-and-set above has just set the key, so the read answers at once
                 raise ValueError(f"key {key!r} already set")
         self._index(key)
 
@@ -394,7 +394,7 @@ class ClientCoordinator:
         if not self._store.check([key]):
             return None
         try:
-            return self._store.get(key).decode()
+            return self._store.get(key).decode()  # ht: ignore[coord-unbounded-wait] -- guarded by check([key]) just above: the key exists, so the read answers at once (a delete in between raises, handled below)
         except Exception:  # ht: ignore[silent-except] -- deleted between check and get: absent, as a listing taken a moment later would show
             return None
 
@@ -417,7 +417,7 @@ class ClientCoordinator:
         import datetime
 
         self._store.wait([key], datetime.timedelta(milliseconds=max(1, int(timeout_ms))))
-        return self._store.get(key).decode()
+        return self._store.get(key).decode()  # ht: ignore[coord-unbounded-wait] -- after the bounded wait on the same key above: the key exists, so the read answers at once
 
     def delete(self, key: str) -> None:
         for name, _ in self.get_dir(key):
@@ -1177,7 +1177,7 @@ def teardown_distributed(*, clean: Optional[bool] = None) -> None:
         if not clean:
             try:
                 how = _abort_group()
-            except Exception as exc:
+            except Exception as exc:  # ht: ignore[silent-except] -- not silent: the failure is carried in `how` into the teardown's resilience event below, and the destroy still runs
                 # recorded; the destroy below still runs
                 how = f"abort failed: {type(exc).__name__}: {exc}"
         try:
@@ -1371,7 +1371,7 @@ def run_supervised(step_fn, manager, policy=None, *, template=None,
                 )
                 raise
             time.sleep(pol.delay_s(restarts))
-            elastic_restart(exc, reinit=reinit,
+            elastic_restart(exc, reinit=reinit,  # ht: ignore[spmd-collective-in-except] -- every survivor enters this handler: the abort sentinel delivers the same typed PeerFailed/CollectiveTimeout/CoordinationTimeout to all of them, and the re-join's store barrier is among the survivors of the new world
                             drain_timeout_s=drain_timeout_s)
             latest = manager.latest_step
             if latest is None:

@@ -1,6 +1,7 @@
-"""Import contract of the PyTorch port: heat_tpu_torch, chip_smoke.py, the example it
-drives and the scripts in tools/ import neither JAX nor anything of heat_tpu, and
-importing the package loads neither."""
+"""Import contract of the PyTorch port: heat_tpu_torch (its invariant checker
+heat_tpu_torch.analysis included), chip_smoke.py, the example it drives and the scripts
+in tools/ import neither JAX nor anything of heat_tpu, and importing the package loads
+neither, nor the checker."""
 
 import ast
 import os
@@ -54,6 +55,12 @@ def test_scan_sees_the_package():
         "core/linalg/svd.py",
         "core/linalg/svdtools.py",
         "core/linalg/solver.py",
+        "analysis/__init__.py",
+        "analysis/__main__.py",
+        "analysis/engine.py",
+        "analysis/dataflow.py",
+        "analysis/rules.py",
+        "analysis/rules_locks.py",
     ):
         assert f"heat_tpu_torch/{module}" in names, module
     assert not _forbidden("heat_tpu_torch") and not _forbidden("heat_tpu_torch.core")
@@ -82,6 +89,20 @@ def test_import_loads_neither_jax_nor_heat_tpu():
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120, cwd=REPO)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_import_does_not_load_the_checker():
+    """The invariant checker runs as a process of its own: importing the package loads
+    none of heat_tpu_torch.analysis, so it adds nothing at run time."""
+    code = (
+        "import sys, heat_tpu_torch\n"
+        "print(repr(sorted(m for m in sys.modules if m.startswith('heat_tpu_torch.analysis'))))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120, cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    assert len([p for p in PORT_FILES if p.parent.name == "analysis"]) == 17
 
 
 def test_package_data_ships_the_kernel_sources():
