@@ -269,13 +269,32 @@ Phases, one line each:
      minutes), at most 64 KiB read back to the host, timed best of 3 (Lasso and
      GaussianNB best of 2) beside its bytes at 3.35 TB/s; then integer division and
      remainders by zero on the card against the CPU path;
+ 18b. (in the same child process) the dtypes (``dtype_phases``): ``[int_matmul]``, the integer
+     and bool product's hand kernel through ``ht.matmul`` at 8192³ int32 split 0 (path counts
+     of a 1%-dense adjacency), 4096³ int64 and 8192³ int8 (full-range entries: every sum
+     wraps), 8192³ bool split 0 (one reachability step) and ``ht.dot`` of two 40M int64
+     vectors: launch counts zeroed just before each product and read just after (one
+     launch), the result bit for bit against the plain version on the card (float64
+     products of byte planes, carried byte by byte; the largest difference reported), the
+     kernel best of 3 beside its bound (bytes, or the faster of the card's int8 tensor cores
+     on byte planes and its IMAD rate: ``int_bound_ms``) and the plain version's time, and
+     ``torch._int_mm`` cut to int8 timed and held to the int8 product; ``[int_matmul_plans]``, the ring (rA, rB, rC) and reduce-scatter (s10,
+     sN0, s1N) plans' rank-local bodies over 4 virtual ranks of one card at 4096³ int32,
+     each rank's products by the kernel (P² launches a ring, P an rs plan), bit for bit;
+     ``[dtype_sweep]``, every case of tests/_torch_array_cases.py (inputs of every dtype
+     heat_tpu computes on) on the card against the same case on the CPU path, exact for
+     exact results and within the case's tolerance for floats, no case raising;
+     ``[array_gaps]``, ``randint(0, 2**40, 40M, int64)``, a split-1 mask assignment from a
+     split-0 value and pad's computed modes at 1000 x 40,000 f32, bit for bit against the
+     CPU path;
  19. one JSON line listing every ported kernel with its launches on its path (K1's on
      every clustering path too), its time, its bound on this card (f32 attention work at
      the 3xTF32 rate, with the fp32 FMA rate's bound beside it), its plain version's time
-     and a library call's time (the linear algebra runs no hand kernel: its products are
-     cuBLAS and cuSOLVER; the array API and the clustering none: their torch ops stand in
-     for XLA's; the domain steps none either: heat_tpu's fft, sparse and estimators reach
-     no pl.pallas_call);
+     and a library call's time (the linear algebra's float products are cuBLAS and
+     cuSOLVER, its integer and bool products the integer kernel, whose row is last; the
+     array API and the clustering run no hand kernel: their torch ops stand in for XLA's;
+     the domain steps none either: heat_tpu's fft, sparse and estimators reach no
+     pl.pallas_call);
  20. the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script then exits non-zero without the last line. It
@@ -3830,10 +3849,398 @@ def launch_counts_threaded_phase(ht, kernels, dev, smi: str) -> dict:
     return out
 
 
+# The integer product and the dtypes: the integer kernel at the sizes users run, the ring
+# and reduce-scatter plans' rank-local bodies on virtual ranks, every shared parity case on
+# the card against the CPU path, and the array gaps this slice closed.
+INT_MM_CASES = {
+    # name: (dtype, m, k, n, split of A, what users run it for)
+    "int32_8192_split0": ("int32", 8192, 8192, 8192, 0, "path counting: A @ A on an int32 adjacency"),
+    "int64_4096": ("int64", 4096, 4096, 4096, None, "int64 products, wrapping"),
+    "int8_8192": ("int8", 8192, 8192, 8192, None, "int8 products, wrapping"),
+    "bool_8192": ("bool", 8192, 8192, 8192, 0, "reachability: one step of A @ A on a bool adjacency"),
+}
+INT_DOT_N = 40_000_000
+# the card's integer instruction rate: 64 IMAD (or LOP3) a clock an SM, 132 SMs at 1.98 GHz
+IMAD_PER_S = 132 * 64 * 1.98e9
+# IMAD a multiply-add: one at 8 to 32 bits, three at 64 bits; bool one LOP3 (acc | a & b) for
+# 32 multiply-adds on bits packed 32 to a word
+IMAD_PER_MAC = {"bool": 1 / 32, "uint8": 1, "int8": 1, "int16": 1, "int32": 1, "int64": 3}
+# the int8 tensor cores' published dense peak (on-chip-measurement guide), two operations a
+# multiply-add; int8 and uint8 (and bool as 0/1 int8, int32 sums) are one int8 product, a
+# wider type the int8 products of its byte planes whose weights stay below 2^bits: 3 for
+# int16, 10 for int32, 36 for int64 (each a wrapping int32 sum, exact modulo 2^32; int64's
+# planes need their sums whole, which holds while k < 66,051, or in chunks of k)
+INT8_TENSOR_OPS_PER_S = 1.979e15
+INT8_PRODUCTS = {"bool": 1, "uint8": 1, "int8": 1, "int16": 3, "int32": 10, "int64": 36}
+INT_PLAN_N = 4096  # the plans' int32 product, over INT_PLAN_P virtual ranks
+INT_PLAN_P = 4
+GAP_RANDINT_N = 40_000_000
+GAP_RANDINT_CHECK = 4_000_000  # element i of a draw depends on i and the draw's key alone
+GAP_PAD_SHAPE = (1000, 40_000)
+
+
+def int_bound_ms(dtype: str, m: int, k: int, n: int, batch: int = 1, itemsize: int = 0) -> tuple:
+    """(bound ms, "bytes" or "operations", the operations' route, the IMAD route's ms) of
+    an integer product: each operand read once and C written once at 3.35 TB/s, against
+    m·n·k multiply-adds by the faster of the card's two routes for them: integer
+    instructions (IMAD, packed LOP3 for bool) or int8 tensor-core products."""
+    macs = batch * m * n * k
+    bytes_ms = 1e3 * batch * (m * k + k * n + m * n) * itemsize / PEAK_BYTES_PER_S
+    imad_ms = 1e3 * macs * IMAD_PER_MAC[dtype] / IMAD_PER_S
+    imma_ms = 1e3 * 2 * macs * INT8_PRODUCTS[dtype] / INT8_TENSOR_OPS_PER_S
+    ops_ms, route = (imma_ms, "int8 tensor cores") if imma_ms <= imad_ms else (imad_ms, "IMAD")
+    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", route, imad_ms)
+
+
+def int_abs_err(got, ref) -> int:
+    """The largest |got - ref| of two integer or bool tensors, in Python integers (exact:
+    int64 differences of full-range int64 entries would wrap)."""
+    import torch
+
+    if got.dtype == torch.bool:
+        return int((got != ref).any())
+    if got.dtype != torch.int64:
+        return int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
+    diff = got != ref
+    if not bool(diff.any()):
+        return 0
+    return max(abs(int(g) - int(r)) for g, r in zip(got[diff][:1000].tolist(), ref[diff][:1000].tolist()))
+
+
+def best_ms(fn, reps: int = 3) -> float:
+    """The least device time of ``reps`` runs of ``fn()``, each between two CUDA events."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return min(times)
+
+
+def int_operands(dtype: str, m: int, k: int, n: int, seed: int, dev):
+    """A (m, k) and B (k, n) on the card: a 0/1 adjacency (1% dense) for the int32 and bool
+    graph cases, full-range entries (every product wraps) otherwise."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if dtype in ("int32", "bool"):
+        a = torch.rand(m, k, generator=gen, device=dev) < 0.01
+        b = a if (m, k) == (k, n) else torch.rand(k, n, generator=gen, device=dev) < 0.01
+        return (a, b) if dtype == "bool" else (a.to(torch.int32), b.to(torch.int32))
+    tt = getattr(torch, dtype)
+    info = torch.iinfo(tt)
+    a = torch.randint(info.min, info.max, (m, k), generator=gen, device=dev, dtype=tt)
+    b = torch.randint(info.min, info.max, (k, n), generator=gen, device=dev, dtype=tt)
+    return a, b
+
+
+class _VirtualRank:
+    """Rank ``rank`` of ``size`` virtual ranks on one card, for the planner's rank-local
+    bodies: the chunk rule of a communicator of that size, the ring's blocks from the
+    other ranks' operands held here, and a reduce-scatter that hands back the rank's
+    partial (the caller adds the ranks' partials). One card is one rank, so the ring and
+    rs plans run no collective on it; their bodies' products are what they launch."""
+
+    def __new__(cls, size: int, rank: int, blocks=None):
+        from heat_tpu_torch.core.communication import TorchCommunication
+
+        class Virtual(TorchCommunication):
+            @property
+            def size(self) -> int:
+                return size
+
+            @property
+            def rank(self) -> int:
+                return rank
+
+            def ring_blocks(self, block, shape_of):
+                for i in range(size):
+                    src = (rank - i) % size
+                    yield src, blocks[src]
+
+            def reduce_scatter(self, tensor, scatter_axis: int = 0):
+                return tensor
+
+        return Virtual()
+
+
+def int_matmul_phases(ht, kernels, dev, smi: str) -> dict:
+    """``[int_matmul]``: the integer kernel through ``ht.matmul`` and ``ht.dot`` at the sizes
+    users run (INT_MM_CASES and a 40M int64 dot), each with the launch counts zeroed just
+    before and read just after (one launch a product), its result bit for bit against the
+    plain version on the card (float64 products of byte planes: torch.matmul takes no CUDA
+    integer tensor), the kernel timed best of 3 after the counted run beside its bound
+    (``int_bound_ms``) and the plain version's time, and for int8 ``torch._int_mm`` (int32 out,
+    cut to int8: the nearest library call) timed and held to it; then
+    ``[int_matmul_plans]``: the ring (rA, rB, rC) and reduce-scatter (s10, sN0, s1N) plans'
+    rank-local bodies over INT_PLAN_P virtual ranks of one card, each rank's products by the
+    kernel, the assembled product bit for bit against the plain version."""
+    import torch
+
+    from heat_tpu_torch.core.kernels import int_matmul
+    from heat_tpu_torch.core.linalg import comm_plan
+
+    res = {"nvidia_smi": smi, "cases": {}, "plans": {}}
+    t0 = time.perf_counter()
+    for i, (cname, (dtype, m, k, n, split, what)) in enumerate(INT_MM_CASES.items()):
+        a_t, b_t = int_operands(dtype, m, k, n, SEED + 9000 + i, dev)
+        A = ht.array(a_t, split=split)
+        B = A if b_t is a_t else ht.array(b_t)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        C = ht.matmul(A, B)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()["int_matmul"]
+        check(launches == 1, f"[int_matmul] {cname}: {launches} launches of the integer kernel")
+        check(C.larray.is_cuda and C.larray.dtype == a_t.dtype and C.gshape == (m, n), f"[int_matmul] {cname}: {C}")
+        ref = int_matmul.int_matmul_reference(a_t, b_t)
+        err = int_abs_err(C.larray, ref)
+        check(err == 0, f"[int_matmul] {cname}: differs from the plain version by up to {err}")
+        ms = best_ms(lambda: int_matmul.matmul(a_t, b_t))
+        plain_ms = best_ms(lambda: int_matmul.int_matmul_reference(a_t, b_t), reps=1)
+        bound, bound_by, route, imad_ms = int_bound_ms(dtype, m, k, n, itemsize=a_t.element_size())
+        entry = {"dtype": dtype, "shape": [m, k, n], "split": split, "what": what, "launches": launches,
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                 "bound_by": bound_by, "bound_route": route, "bound_share": bound / ms, "imad_bound_ms": imad_ms,
+                 "library_ms": None,
+                 "library_note": "none: torch.matmul raises on CUDA integer tensors"}
+        if dtype == "int8":
+            lib = torch._int_mm(a_t, b_t).to(torch.int8)
+            check(torch.equal(lib, ref), "[int_matmul] torch._int_mm cut to int8 differs from the plain version")
+            entry["int_mm_ms"] = best_ms(lambda: torch._int_mm(a_t, b_t).to(torch.int8))
+            entry["library_note"] = ("torch.matmul raises on CUDA integer tensors; int_mm_ms is torch._int_mm "
+                                     "(int32 out, tensor cores) cut to int8, the nearest library call")
+        res["cases"][cname] = entry
+        phase("int_matmul", case=cname, **{k_: (json.dumps(v) if isinstance(v, (list, dict)) else v)
+                                           for k_, v in entry.items()}, card=repr(smi))
+        del A, B, C, ref, a_t, b_t
+        torch.cuda.empty_cache()
+
+    # the 1-D dot of 40M int64 (full range: the sum wraps)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9100)
+    info = torch.iinfo(torch.int64)
+    u = torch.randint(info.min, info.max, (INT_DOT_N,), generator=gen, device=dev, dtype=torch.int64)
+    v = torch.randint(info.min, info.max, (INT_DOT_N,), generator=gen, device=dev, dtype=torch.int64)
+    U, V = ht.array(u, split=0), ht.array(v, split=0)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    d = ht.dot(U, V)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()["int_matmul"]
+    check(launches == 1, f"[int_matmul] dot: {launches} launches")
+    ref = int_matmul.int_matmul_reference(u, v)
+    err = int_abs_err(d.larray.reshape(()), ref.reshape(()))
+    check(err == 0, f"[int_matmul] dot: {d.larray} against {ref}")
+    ms = best_ms(lambda: int_matmul.matmul(u, v))
+    plain_ms = best_ms(lambda: int_matmul.int_matmul_reference(u, v), reps=1)
+    bound, bound_by, route, imad_ms = int_bound_ms("int64", 1, INT_DOT_N, 1, itemsize=8)
+    entry = {"dtype": "int64", "shape": [INT_DOT_N], "launches": launches,
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound, "bound_by": bound_by, "bound_route": route, "bound_share": bound / ms,
+             "imad_bound_ms": imad_ms, "library_ms": None, "library_note": "none: torch.dot raises on CUDA integer tensors"}
+    res["cases"]["dot_int64_40M"] = entry
+    phase("int_matmul", case="dot_int64_40M", **entry, card=repr(smi))
+    del U, V, u, v
+    torch.cuda.empty_cache()
+
+    # the plans' rank-local bodies over virtual ranks: every rank's products by the kernel
+    n, P = INT_PLAN_N, INT_PLAN_P
+    a_t, b_t = int_operands("int64", n, n, n, SEED + 9200, dev)
+    a_t, b_t = a_t.to(torch.int32), b_t.to(torch.int32)  # full-range int32: every sum wraps
+    ref = int_matmul.int_matmul_reference(a_t, b_t)
+    counts = [len(r) for r in torch.arange(n).tensor_split(P)]
+    cuts = [sum(counts[:r]) for r in range(P + 1)]
+
+    def rows(t, r):
+        return t[cuts[r]:cuts[r + 1]]
+
+    def cols(t, r):
+        return t[:, cuts[r]:cuts[r + 1]].contiguous()
+
+    layouts = {  # variant: (a's chunk, b's chunk, the rotating operand's chunks, result's concat axis)
+        "rA": (rows, rows, lambda r: rows(b_t, r), 0),
+        "rB": (cols, cols, lambda r: cols(a_t, r), 1),
+        "rC": (rows, cols, lambda r: cols(b_t, r), 0),
+        "s10": (cols, rows, None, None),
+        "sN0": (lambda t, r: t, rows, None, None),
+        "s1N": (cols, lambda t, r: t, None, None),
+    }
+    for variant, (ca, cb, rot, axis) in layouts.items():
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        outs = []
+        for r in range(P):
+            comm = _VirtualRank(P, r, [rot(q) for q in range(P)] if rot is not None else None)
+            al, bl = ca(a_t, r), cb(b_t, r)
+            if rot is not None:
+                outs.append(comm_plan._ring(variant, comm, (n, n), (n, n), al, bl)[0])
+            else:
+                outs.append(comm_plan._reduce_scatter(variant, comm, (n, n), (n, n), al, bl)[0])
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()["int_matmul"]
+        got = torch.cat(outs, dim=axis) if axis is not None else sum(outs[1:], outs[0])
+        check(torch.equal(got, ref), f"[int_matmul_plans] {variant}: differs from the plain version")
+        want = P * P if rot is not None else P
+        check(launches == want, f"[int_matmul_plans] {variant}: {launches} launches, expected {want}")
+        res["plans"][variant] = {"launches": launches, "virtual_ranks": P, "shape": [n, n, n]}
+        phase("int_matmul_plans", variant=variant, launches=launches, virtual_ranks=P, shape=f"{n}x{n}x{n}",
+              bit_equal=True, card=repr(smi))
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def dtype_sweep_phase(ht, dev, smi: str) -> dict:
+    """``[dtype_sweep]``: every case of tests/_torch_array_cases.py (its inputs of every dtype
+    heat_tpu computes on: bool, uint8, int8, int16, int32, int64, float16, bfloat16,
+    float32, float64, complex64 and complex128) on CUDA tensors at one rank, each held to
+    the same case on the port's CPU path: integer, bool and ordering results exactly,
+    float results within the case's tolerance (RTOL at least). A case that raises on the
+    card is a failure unless it is listed in DTYPE_SWEEP_EXPECTED_RAISES (none)."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_array_cases import CASES, RTOL, Arrays, rtol_of, splits_of
+
+    res = {"nvidia_smi": smi, "cases": 0, "outputs": 0, "failures": [], "expected_raises": []}
+    t0 = time.perf_counter()
+    card, host = Arrays(ht), Arrays(ht, device="cpu")
+    for name, fn in CASES.items():
+        for split in splits_of(name):
+            res["cases"] += 1
+            try:
+                got = fn(ht, card, split)
+                want = fn(ht, host, split)
+            except Exception as exc:  # ht: ignore[silent-except] -- every raise is recorded, in failures (the phase then fails) or among the listed expected raises, and printed
+                entry = f"{name}[{split}]: {type(exc).__name__}: {exc}"
+                (res["expected_raises"] if name in DTYPE_SWEEP_EXPECTED_RAISES else res["failures"]).append(entry)
+                continue
+            got, want = (got if isinstance(got, tuple) else (got,)), (want if isinstance(want, tuple) else (want,))
+            for i, (g, w) in enumerate(zip(got, want)):
+                res["outputs"] += 1
+                problem = sweep_difference(g, w, max(rtol_of(name), RTOL))
+                if problem:
+                    res["failures"].append(f"{name}[{split}] #{i}: {problem}")
+    res["seconds"] = time.perf_counter() - t0
+    phase("dtype_sweep", cases=res["cases"], outputs=res["outputs"], failures=json.dumps(res["failures"]),
+          expected_raises=json.dumps(res["expected_raises"]), seconds=res["seconds"], card=repr(smi))
+    check(not res["failures"], f"[dtype_sweep] {len(res['failures'])} cases differ on the card: {res['failures'][:5]}")
+    return res
+
+
+DTYPE_SWEEP_EXPECTED_RAISES = set()
+
+
+def sweep_difference(g, w, rtol: float):
+    """What differs between a card result and the CPU path's (None if nothing): the type,
+    shape and split, the device, then the values, exactly for exact types and within
+    ``rtol`` of each value (NaN where NaN) for float and complex ones."""
+    import torch
+
+    if not hasattr(w, "larray"):
+        gv, wv = np.asarray(g), np.asarray(w)
+        return None if np.array_equal(gv, wv) or np.allclose(gv, wv, rtol=rtol, equal_nan=True) else f"{gv} != {wv}"
+    if (g.dtype, g.gshape, g.split) != (w.dtype, w.gshape, w.split):
+        return f"{g.dtype.__name__} {g.gshape} split {g.split} against {w.dtype.__name__} {w.gshape} split {w.split}"
+    if not g.larray.is_cuda:
+        return "not on the card"
+    gv, wv = g.larray.cpu(), w.larray
+    if gv.is_floating_point() or gv.is_complex():
+        gv, wv = gv.to(torch.complex128 if gv.is_complex() else torch.float64), wv.to(
+            torch.complex128 if wv.is_complex() else torch.float64)
+        ok = torch.allclose(gv, wv, rtol=rtol, atol=0, equal_nan=True)
+    else:
+        ok = torch.equal(gv, wv)
+    if ok:
+        return None
+    return f"max difference {float((gv - wv).abs().nan_to_num().max()) if gv.numel() else 0}"
+
+
+def array_gaps_phase(ht, dev, smi: str) -> dict:
+    """``[array_gaps]``: the array functions this slice completed, on the card against the
+    CPU path bit for bit: ``randint(0, 2**40, 40M, int64)`` (its first 4M elements against a
+    4M draw on the CPU: element i depends only on i and the draw's key), the mask
+    assignment of a split=1 array from a split=0 value (at one rank a local write), and
+    pad's computed modes at 1000 x 40,000 f32 (mean summed in float64 and rounded once,
+    so the sum's order cannot reach its bits), each timed best of 3."""
+    import torch
+
+    res = {"nvidia_smi": smi}
+    t0 = time.perf_counter()
+    ht.random.seed(SEED + 9300)
+    draw = ht.random.randint(0, 2**40, (GAP_RANDINT_N,), dtype=ht.int64, split=0)
+    ht.random.seed(SEED + 9300)
+    host = ht.random.randint(0, 2**40, (GAP_RANDINT_CHECK,), dtype=ht.int64, split=0, device="cpu")
+    check(draw.larray.is_cuda and torch.equal(draw.larray[:GAP_RANDINT_CHECK].cpu(), host.larray),
+          "[array_gaps] randint(0, 2**40) differs from the CPU path")
+    check(bool(((draw.larray >= 0) & (draw.larray < 2**40)).all()), "[array_gaps] randint out of range")
+
+    def timed_draw():
+        ht.random.seed(SEED + 9300)
+        return ht.random.randint(0, 2**40, (GAP_RANDINT_N,), dtype=ht.int64, split=0)
+
+    res["randint_2_40"] = {"n": GAP_RANDINT_N, "checked": GAP_RANDINT_CHECK, "ms": best_ms(timed_draw),
+                           "bytes": 8 * GAP_RANDINT_N, "bound_ms": 1e3 * 8 * GAP_RANDINT_N / PEAK_BYTES_PER_S}
+    phase("array_gaps", step="randint_2_40", **res["randint_2_40"], bit_equal=True, card=repr(smi))
+    del draw, host
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9400)
+    x = torch.rand(*GAP_PAD_SHAPE, generator=gen, device=dev)
+    mask = x > 0.5
+    vals = torch.arange(int(mask.sum()), dtype=torch.float32, device=dev)
+    X, Xc = ht.array(x.clone(), split=1), ht.array(x.cpu(), split=1, device="cpu")
+    X[ht.array(mask, split=1)] = ht.array(vals, split=0)
+    Xc[ht.array(mask.cpu(), split=1, device="cpu")] = ht.array(vals.cpu(), split=0, device="cpu")
+    check(torch.equal(X.larray.cpu(), Xc.larray), "[array_gaps] the split-1 mask assignment differs from the CPU path")
+    M, Vd = ht.array(mask, split=1), ht.array(vals, split=0)
+
+    def assign():
+        X[M] = Vd
+
+    res["set_mask_split1"] = {"shape": list(GAP_PAD_SHAPE), "hits": int(vals.numel()), "ms": best_ms(assign)}
+    phase("array_gaps", step="set_mask_split1", **{k: json.dumps(v) if isinstance(v, list) else v
+                                                   for k, v in res["set_mask_split1"].items()}, bit_equal=True,
+          card=repr(smi))
+    del X, Xc, M, Vd, mask, vals
+
+    P = ht.array(x, split=0)
+    Pc = ht.array(x.cpu(), split=0, device="cpu")
+    widths = ((2, 3), (4, 1))
+    for mode in ("mean", "median", "maximum", "minimum", "linear_ramp", "empty"):
+        got = ht.pad(P, widths, mode=mode)
+        want = ht.pad(Pc, widths, mode=mode)
+        check(got.larray.is_cuda and got.gshape == want.gshape, f"[array_gaps] pad {mode}: {got.gshape}")
+        check(torch.equal(got.larray.cpu(), want.larray), f"[array_gaps] pad {mode} differs from the CPU path")
+        nbytes = 4 * (x.numel() + got.size)
+        entry = {"shape": list(GAP_PAD_SHAPE), "ms": best_ms(lambda: ht.pad(P, widths, mode=mode)), "bytes": nbytes,
+                 "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S}
+        res[f"pad_{mode}"] = entry
+        phase("array_gaps", step=f"pad_{mode}", **{k: json.dumps(v) if isinstance(v, list) else v for k, v in entry.items()},
+              bit_equal=True, card=repr(smi))
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def dtype_phases(ht, dev) -> dict:
+    """Phase 18b (``[int_matmul]``, ``[int_matmul_plans]``, ``[dtype_sweep]``,
+    ``[array_gaps]``): see their functions."""
+    from heat_tpu_torch.core import kernels
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    return {"int_matmul": int_matmul_phases(ht, kernels, dev, smi), "dtype_sweep": dtype_sweep_phase(ht, dev, smi),
+            "array_gaps": array_gaps_phase(ht, dev, smi)}
+
+
 def linalg_child(out_path: str) -> int:
-    """The child process of phases 13-18: the card, the package, :func:`linalg_phases`,
-    :func:`array_phases`, :func:`cluster_phases` and :func:`domain_phases`; their results
-    go to ``out_path`` as JSON."""
+    """The child process of phases 13-18b: the card, the package, :func:`linalg_phases`,
+    :func:`array_phases`, :func:`cluster_phases`, :func:`domain_phases` and
+    :func:`dtype_phases`; their results go to ``out_path`` as JSON."""
     import torch
 
     import heat_tpu_torch as ht
@@ -3845,13 +4252,14 @@ def linalg_child(out_path: str) -> int:
     out["array"] = array_phases(ht, dev)
     out["cluster"] = cluster_phases(ht, dev)
     out["domain"] = domain_phases(ht, dev)
+    out["dtype"] = dtype_phases(ht, dev)
     with open(out_path, "w") as fh:
         json.dump(out, fh)
     return 0
 
 
 def run_linalg_child() -> dict:
-    """Phases 13-18 in a fresh process of this script (its phase lines go to this
+    """Phases 13-18b in a fresh process of this script (its phase lines go to this
     stdout); fails unless it ends with code 0."""
     import tempfile
 
@@ -4625,10 +5033,12 @@ def main() -> int:
     # 13-18. distributed linear algebra: config #2's product, config #4's hsvd_rank, the rest
     #        small; then the array API: the manipulation benchmark at N = 40M, the random
     #        streams and KMeans' random init; then the clustering slice; then the domain
-    #        estimators; in a child process (linalg_phases, array_phases, cluster_phases,
-    #        domain_phases)
+    #        estimators; then the integer kernel, the dtype sweep and the array gaps; in a
+    #        child process (linalg_phases, array_phases, cluster_phases, domain_phases,
+    #        dtype_phases)
     child_out = run_linalg_child()
     linalg_out, array_out, cluster_out = child_out["linalg"], child_out["array"], child_out["cluster"]
+    int_out = child_out["dtype"]["int_matmul"]
 
     # 19. every ported kernel: launches on its path, time, bound, plain version's and library's time
     x, init, _ = blobs(N, D, K, SEED, dev)
@@ -4797,6 +5207,41 @@ def main() -> int:
                 "bound_ms_by_shape": {c: b[0] for c, b in k3_bounds.items()},
                 "achieved_flops_per_s": 4 * e_heads * 64 * attention_pairs(SRC_T, SRC_T, False) / (k3_ms["encoder_self"] * 1e-3),
             },
+            {
+                "name": "int_matmul",
+                "route": "cuda",
+                "source": "heat_tpu_torch/core/kernels/csrc/int_gemm.cu",
+                "replaces": "XLA integer dot (no Pallas kernel): jnp.matmul/dot/vdot of integer and bool operands",
+                "launches": sum(c["launches"] for c in int_out["cases"].values()),
+                "launches_by_path": {
+                    **{f"matmul_{c_}": v["launches"] for c_, v in int_out["cases"].items() if c_ != "dot_int64_40M"},
+                    "dot_int64_40M": int_out["cases"]["dot_int64_40M"]["launches"],
+                    **{f"plan_{v_}_{INT_PLAN_P}_virtual_ranks": p_["launches"] for v_, p_ in int_out["plans"].items()},
+                },
+                "max_abs_err": max(c["max_abs_err"] for c in int_out["cases"].values()),
+                "max_abs_err_of": "every product against the plain version (float64 products of byte planes), "
+                                  "bit for bit",
+                "ms": int_out["cases"]["int32_8192_split0"]["ms"],
+                "plain_ms": int_out["cases"]["int32_8192_split0"]["plain_ms"],
+                "bound_ms": int_out["cases"]["int32_8192_split0"]["bound_ms"],
+                "bound_by": int_out["cases"]["int32_8192_split0"]["bound_by"],
+                "bound_rate": "the faster of int8 tensor cores at 1.979e15 op/s, 2 a multiply-add, times the int8 "
+                              "products of byte planes (1 int8, uint8 and bool; 3 int16, 10 int32, 36 int64) and "
+                              "IMAD at 132 SMs x 64 a clock x 1.98 GHz = 1.67e13/s (3 an int64 multiply-add; bool "
+                              "1 LOP3 a 32 packed); bytes at 3.35e12 B/s",
+                "library_ms": None,
+                "library_note": "torch.matmul raises on CUDA integer tensors; for int8, torch._int_mm cut to int8 "
+                                "is in int8_int_mm_ms",
+                "int8_int_mm_ms": int_out["cases"]["int8_8192"].get("int_mm_ms"),
+                "shape": [8192, 8192, 8192],
+                "dtype": "int32",
+                "ms_by_case": {c_: v["ms"] for c_, v in int_out["cases"].items()},
+                "plain_ms_by_case": {c_: v["plain_ms"] for c_, v in int_out["cases"].items()},
+                "bound_ms_by_case": {c_: v["bound_ms"] for c_, v in int_out["cases"].items()},
+                "bound_by_case": {c_: v["bound_by"] for c_, v in int_out["cases"].items()},
+                "bound_route_by_case": {c_: v["bound_route"] for c_, v in int_out["cases"].items()},
+                "imad_bound_ms_by_case": {c_: v["imad_bound_ms"] for c_, v in int_out["cases"].items()},
+            },
         ]
     }
     print(json.dumps(line), flush=True)
@@ -4822,7 +5267,7 @@ def main() -> int:
                        "train_step_pipelined_profile": train_breakdown_on, "bench_ab_runs_ms": ab_runs,
                        "bench_ab_k2_ms": ab_k2_ms, "bench_ab_k3_ms": ab_k3_ms, "linalg": linalg_out,
                        "array": array_out, "kmeans_pp": pp, "cluster": cluster_out,
-                       "domain": child_out["domain"], "nn": nn_out,
+                       "domain": child_out["domain"], "dtype": child_out["dtype"], "nn": nn_out,
                        "train_resume": resume_out, "daso_sync": sync_out, "io": io_out,
                        "runtime": runtime_out, "serving": serving_out, "launch_counts_threaded": counts_out,
                        "analysis": analysis_out}, fh, indent=1, default=str)

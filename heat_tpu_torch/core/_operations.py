@@ -36,7 +36,7 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from . import _executor, _result_cache, factories, profiler, sanitation, types
+from . import _complex_order, _executor, _result_cache, factories, profiler, sanitation, types
 from ._executor import Deferred, operand_sig
 from .dndarray import DNDarray
 from .stride_tricks import broadcast_shapes, sanitize_axis
@@ -787,7 +787,8 @@ def _neutral(kind: str, dtype: torch.dtype):
     if not dtype.is_floating_point and not dtype.is_complex:
         info = torch.iinfo(dtype)
         return info.max if kind == "highest" else info.min
-    return float("inf") if kind == "highest" else float("-inf")
+    inf = float("inf") if kind == "highest" else float("-inf")
+    return complex(inf, inf) if dtype.is_complex else inf  # both parts: last in either order
 
 
 def _reduce_type(kind: str, t) -> type:
@@ -813,6 +814,8 @@ def _local_reduce(kind: str, value: torch.Tensor, axes: Tuple[int, ...], keepdim
         return torch.any(value, dim=axes, keepdim=keepdims)
     if kind in ("sum", "mean"):
         return torch.sum(value, dim=axes, keepdim=keepdims)
+    if kind in ("min", "max") and value.is_complex():
+        return _complex_extreme(kind, value, axes, keepdims)
     if kind == "min":
         return torch.amin(value, dim=axes, keepdim=keepdims)
     if kind == "max":
@@ -820,6 +823,17 @@ def _local_reduce(kind: str, value: torch.Tensor, axes: Tuple[int, ...], keepdim
     for ax in sorted(axes, reverse=True):  # torch.prod takes one dim at a time
         value = torch.prod(value, dim=ax, keepdim=keepdims)
     return value
+
+
+def _complex_extreme(kind: str, value: torch.Tensor, axes: Tuple[int, ...], keepdims: bool) -> torch.Tensor:
+    """min or max of complex ``value`` over ``axes`` in (real, imaginary) order
+    (:mod:`._complex_order`): the axes moved last and flattened, the first extreme taken."""
+    rest = [d for d in range(value.ndim) if d not in axes]
+    moved = value.permute(*rest, *axes).reshape([value.shape[d] for d in rest] + [-1])
+    result = _complex_order.extreme(moved, -1, kind)[0].squeeze(-1)
+    if keepdims:
+        result = result.reshape([1 if d in axes else s for d, s in enumerate(value.shape)])
+    return result
 
 
 @_profiled_dispatch("reduce")
@@ -874,7 +888,10 @@ def _reduce_compute(kind, axes, keepdims, rt, split, comm, scalar, count, value)
     reduction crosses the split axis of a distributed array: the identity element
     stands in for an empty chunk, and the ranks' partials merge by ``all_reduce``."""
     neutral_kind, merge = _REDUCTIONS[kind]
-    value = value.to(rt)
+    # jnp sums float16 and bfloat16 in float32 and rounds once, also across devices: the
+    # ranks' partials stay float32 until the merge is done
+    half = kind in ("sum", "nansum", "mean") and rt in (torch.float16, torch.bfloat16)
+    value = value.to(torch.float32 if half else rt)
     if comm is not None and value.shape[split] == 0:
         shape = list(value.shape)
         shape[split] = 1
@@ -887,12 +904,15 @@ def _reduce_compute(kind, axes, keepdims, rt, split, comm, scalar, count, value)
         # neither gloo nor NCCL promises that MIN/MAX propagate NaN: a rank's NaN is
         # carried across by a flag of its own and written back after the merge
         nan = torch.isnan(result) if kind in ("min", "max") and result.is_floating_point() else None
-        comm.all_reduce(result, merge)
+        if kind in ("min", "max") and result.is_complex():
+            result = comm.all_reduce_lexicographic(result, kind)
+        else:
+            comm.all_reduce(result, merge)
         if nan is not None:
             result.masked_fill_(comm.all_reduce(nan, "max"), float("nan"))
     if kind == "mean":
         result = result / count
-    return result
+    return result.to(rt) if half else result
 
 
 @_profiled_dispatch("cum")

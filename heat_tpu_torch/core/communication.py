@@ -28,7 +28,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from . import diagnostics, forensics, profiler, resilience, supervision, telemetry
+from . import _complex_order, diagnostics, forensics, profiler, resilience, supervision, telemetry
 
 __all__ = [
     "Communication",
@@ -42,6 +42,20 @@ __all__ = [
 ]
 
 _REDUCE_OPS = {"sum": "SUM", "prod": "PRODUCT", "min": "MIN", "max": "MAX"}
+
+# the types neither gloo nor NCCL moves, and the carrier each travels as (cast back after)
+_CARRIERS = {torch.bool: torch.uint8, torch.int16: torch.int32}
+
+
+def _to_wire(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in a type the backends move (bool as uint8, int16 as int32)."""
+    carrier = _CARRIERS.get(t.dtype)
+    return t.to(carrier) if carrier is not None else t
+
+
+def _from_wire(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A tensor received as :func:`_to_wire`'s carrier, back in ``dtype``."""
+    return t if t.dtype == dtype else t.to(dtype)
 
 
 def _collective(fn):
@@ -269,14 +283,26 @@ class TorchCommunication:
         if self.size == 1:
             return tensor
         red = getattr(dist.ReduceOp, _REDUCE_OPS[op])
-        if tensor.dtype == torch.bool:
-            # neither NCCL nor gloo reduces bool; sum over bool means "any"
-            buf = tensor.to(torch.uint8)
-            dist.all_reduce(buf, op=dist.ReduceOp.MAX if op == "sum" else red, group=self.group)
-            tensor.copy_(buf.bool())
+        if tensor.dtype in _CARRIERS:
+            # neither NCCL nor gloo reduces bool or int16; sum over bool means "any", and an
+            # int16 sum in int32 wraps to the same bits when cut back
+            buf = _to_wire(tensor)
+            dist.all_reduce(buf, op=dist.ReduceOp.MAX if op == "sum" and tensor.dtype == torch.bool else red,
+                            group=self.group)
+            tensor.copy_(_from_wire(buf, tensor.dtype))
             return tensor
         dist.all_reduce(tensor, op=red, group=self.group)
         return tensor
+
+    @_collective
+    def all_reduce_lexicographic(self, tensor: torch.Tensor, kind: str) -> torch.Tensor:
+        """The ``kind`` ("min" or "max") across ranks of complex ``tensor`` in (real,
+        imaginary) order, which no backend's MIN or MAX has: every rank's candidates
+        in one all-gather, then the first extreme in rank order (the first NaN where a
+        rank holds one). Returns a new tensor."""
+        if self.size == 1:
+            return tensor
+        return _complex_order.extreme(self.all_gather_stacked(tensor), 0, kind)[0].squeeze(0)
 
     @_collective
     def all_reduce_packed(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -307,17 +333,14 @@ class TorchCommunication:
         c = -(-n // self.size)
         moved = local.movedim(split, 0)
         dtype = moved.dtype
-        if dtype == torch.bool:
-            moved = moved.to(torch.uint8)
+        moved = _to_wire(moved)
         if moved.shape[0] < c:
             pad = moved.new_zeros((c - moved.shape[0],) + tuple(moved.shape[1:]))
             moved = torch.cat([moved, pad], dim=0)
         moved = moved.contiguous()
         parts = [torch.empty_like(moved) for _ in range(self.size)]
         dist.all_gather(parts, moved, group=self.group)
-        full = torch.cat(parts, dim=0)[:n]
-        if dtype == torch.bool:
-            full = full.bool()
+        full = _from_wire(torch.cat(parts, dim=0)[:n], dtype)
         return full.movedim(0, split).contiguous()
 
     @_collective
@@ -328,11 +351,10 @@ class TorchCommunication:
         if self.size == 1:
             return tensor.unsqueeze(0)
         dtype = tensor.dtype
-        send = (tensor.to(torch.uint8) if dtype == torch.bool else tensor).reshape(-1).contiguous()
+        send = _to_wire(tensor).reshape(-1).contiguous()
         out = send.new_empty(self.size * send.numel())
         dist.all_gather_into_tensor(out, send, group=self.group)
-        out = out.view((self.size,) + tuple(tensor.shape))
-        return out.bool() if dtype == torch.bool else out
+        return _from_wire(out.view((self.size,) + tuple(tensor.shape)), dtype)
 
     def all_gather_counts(self, n: int, device=None) -> List[int]:
         """Every rank's integer ``n``, in rank order (one small all-gather)."""
@@ -397,7 +419,7 @@ class TorchCommunication:
             return max(0, min(s0 + n0, s1 + n1) - max(s0, s1)), max(s0, s1)
 
         dtype = local.dtype
-        moved = (local.to(torch.uint8) if dtype == torch.bool else local).movedim(axis, 0)
+        moved = _to_wire(local).movedim(axis, 0)
         row = int(np.prod(moved.shape[1:]))
         send_parts, in_sizes, out_sizes = [], [], []
         for peer in range(self.size):
@@ -415,8 +437,7 @@ class TorchCommunication:
         starts = [max(src_displs[p], dst_displs[rank]) for p in range(self.size)]
         pieces = [piece for _, piece in sorted(zip(starts, out.split(out_sizes)), key=lambda t: t[0])]
         joined = torch.cat(pieces).view((dst_counts[rank],) + tuple(moved.shape[1:]))
-        joined = joined.movedim(0, axis).contiguous()
-        return joined.bool() if dtype == torch.bool else joined
+        return _from_wire(joined.movedim(0, axis).contiguous(), dtype)
 
     @_collective
     def take(
@@ -442,7 +463,7 @@ class TorchCommunication:
             c = -(-m // self.size) if m else 0
             ranges = [(min(r * c, m), min((r + 1) * c, m)) for r in range(self.size)]
         dtype = local.dtype
-        moved = (local.to(torch.uint8) if dtype == torch.bool else local).movedim(axis, 0)
+        moved = _to_wire(local).movedim(axis, 0)
         row = int(np.prod(moved.shape[1:]))
         # what this rank sends each peer, and the positions each peer's reply fills here
         send_parts, in_sizes = [], []
@@ -459,8 +480,38 @@ class TorchCommunication:
         dist.all_to_all_single(out, send.contiguous(), out_sizes, in_sizes, group=self.group)
         result = moved.new_empty((hi - lo,) + tuple(moved.shape[1:]))
         result[torch.cat(positions)] = out.view((-1,) + tuple(moved.shape[1:]))
-        result = result.movedim(0, axis).contiguous()
-        return result.bool() if dtype == torch.bool else result
+        return _from_wire(result.movedim(0, axis).contiguous(), dtype)
+
+    @_collective
+    def fetch(self, local: torch.Tensor, counts: Sequence[int], index: torch.Tensor) -> torch.Tensor:
+        """The elements at this rank's own global positions ``index`` (int64, each rank its
+        own list) of a 1-D array whose rank ``r`` holds ``counts[r]`` consecutive elements,
+        in ``index`` order: each rank sends its positions to their owners and the owners
+        answer with those elements (two ``all_to_all_single``, after one small gather of
+        the P·P request counts), so no rank receives an element it did not ask for."""
+        counts = [int(c) for c in counts]
+        index = index.to(torch.int64).reshape(-1).to(local.device)
+        if self.size == 1:
+            return local[index]
+        dtype = local.dtype
+        moved = _to_wire(local)
+        ends = torch.tensor(np.cumsum(counts), dtype=torch.int64, device=local.device)
+        owner = torch.searchsorted(ends, index, right=True)
+        order = torch.argsort(owner, stable=True)
+        asked = torch.bincount(owner, minlength=self.size)
+        table = self.all_gather_stacked(asked).tolist()  # table[r][q]: r asks q for so many
+        send_sizes = [int(c) for c in asked.tolist()]
+        recv_sizes = [int(table[r][self.rank]) for r in range(self.size)]
+        wanted = index.new_empty(sum(recv_sizes))
+        dist.all_to_all_single(wanted, index[order].contiguous(), recv_sizes, send_sizes, group=self.group)
+        row = int(np.prod(moved.shape[1:]))
+        reply = moved[wanted - sum(counts[: self.rank])].contiguous()
+        got = moved.new_empty((index.numel(),) + tuple(moved.shape[1:]))
+        dist.all_to_all_single(got.view(-1), reply.view(-1), [n * row for n in send_sizes],
+                               [n * row for n in recv_sizes], group=self.group)
+        result = torch.empty_like(got)
+        result[order] = got
+        return _from_wire(result, dtype)
 
     @_collective
     def exchange(self, tensor: torch.Tensor, peer: int, recv_shape: Optional[Sequence[int]] = None) -> torch.Tensor:
@@ -471,7 +522,7 @@ class TorchCommunication:
         if peer == self.rank:  # ht: ignore[spmd-divergent-collective] -- pairwise exchange: a rank paired with itself has no partner waiting on it, and every other pair meets in its own send/recv
             return tensor
         dtype = tensor.dtype
-        send = tensor.to(torch.uint8) if dtype == torch.bool else tensor.contiguous()
+        send = _to_wire(tensor).contiguous()
         recv = torch.empty(recv_shape, dtype=send.dtype, device=send.device)
         ops = []
         if send.numel():
@@ -480,14 +531,17 @@ class TorchCommunication:
             ops.append(dist.P2POp(dist.irecv, recv, self._global_rank(peer), self.group))
         for w in dist.batch_isend_irecv(ops) if ops else []:
             w.wait()
-        return recv.bool() if dtype == torch.bool else recv
+        return _from_wire(recv, dtype)
 
     @_collective
     def bcast(self, tensor: torch.Tensor, root: int = 0) -> torch.Tensor:
         """Broadcast ``tensor`` from ``root`` (a rank of this communicator) in place and
         return it."""
         if self.size > 1:
-            dist.broadcast(tensor, src=self._global_rank(root), group=self.group)
+            buf = _to_wire(tensor)
+            dist.broadcast(buf, src=self._global_rank(root), group=self.group)
+            if buf is not tensor:
+                tensor.copy_(_from_wire(buf, tensor.dtype))
         return tensor
 
     @_collective
@@ -539,7 +593,7 @@ class TorchCommunication:
             return _Pending([], tensor, tensor.dtype) if async_op else tensor
         rank = self.rank
         dtype = tensor.dtype
-        send = tensor.to(torch.uint8) if dtype == torch.bool else tensor.contiguous()
+        send = _to_wire(tensor).contiguous()
         recv = torch.empty(recv_shape, dtype=send.dtype, device=send.device)
         ops = []
         if send.numel():
@@ -595,8 +649,7 @@ class TorchCommunication:
                 f"over {concat_extent} gives it {recv_counts[self.rank]}"
             )
         dtype = tensor.dtype
-        moved = tensor.to(torch.uint8) if dtype == torch.bool else tensor
-        moved = moved.movedim(split_axis, 0).contiguous()
+        moved = _to_wire(tensor).movedim(split_axis, 0).contiguous()
         rest = list(moved.shape[1:])
         c = concat_axis - 1 if concat_axis > split_axis else concat_axis  # concat_axis in ``rest``
         mine = send_counts[self.rank]
@@ -608,10 +661,7 @@ class TorchCommunication:
         blocks = [
             part.view([mine] + rest[:c] + [n] + rest[c + 1 :]) for part, n in zip(out.split(out_sizes), recv_counts)
         ]
-        joined = torch.cat(blocks, dim=c + 1).movedim(0, split_axis)
-        if dtype == torch.bool:
-            joined = joined.bool()
-        return joined.contiguous()
+        return _from_wire(torch.cat(blocks, dim=c + 1).movedim(0, split_axis), dtype).contiguous()
 
     @_collective
     def reduce_scatter(self, tensor: torch.Tensor, scatter_axis: int = 0) -> torch.Tensor:
@@ -626,7 +676,7 @@ class TorchCommunication:
         shape = list(tensor.shape)
         counts, _, _ = self.counts_displs_shape(shape, scatter_axis)
         moved = tensor.movedim(scatter_axis, 0).contiguous()
-        if tensor.dtype != torch.bool and len(set(counts)) == 1:  # ht: ignore[spmd-divergent-collective] -- counts is the chunk rule over every rank (counts_displs_shape's first element), the same tuple on every rank; only its third element, this rank's lshape, depends on the rank, and the checker's return taint is per function, not per element
+        if tensor.dtype not in _CARRIERS and len(set(counts)) == 1:  # ht: ignore[spmd-divergent-collective] -- counts is the chunk rule over every rank (counts_displs_shape's first element), the same tuple on every rank; only its third element, this rank's lshape, depends on the rank, and the checker's return taint is per function, not per element
             out = moved.new_empty((counts[0],) + tuple(moved.shape[1:]))
             _reduce_scatter(out, moved, group=self.group)
             return out.movedim(0, scatter_axis).contiguous()
@@ -654,7 +704,7 @@ class _Pending:
         for w in self._works:
             w.wait()
         self._works, self._keep = [], None
-        return self._recv.bool() if self._dtype == torch.bool else self._recv
+        return _from_wire(self._recv, self._dtype)
 
 
 def _displs(counts: Sequence[int]) -> List[int]:

@@ -11,10 +11,11 @@ rounds, neighbours only) otherwise (``_network_rounds``, heat_tpu/core/dist_sort
 The order is total, so the result equals ``torch.sort(stable=True)`` of the whole
 array, NaN placement included: elements compare by (value, global index), the value in
 the requested direction and the index ascending, by two stable sorts (first by index,
-then by value). Ragged chunks are padded to ``c`` with a sentinel that sorts after every
-element (heat_tpu's ``_pad_sentinel``, :93) and a pad index past ``n``; with the
-ceil-division chunk rule the sorted pads land exactly in the slots past each rank's
-canonical chunk, so slicing them off leaves the canonical layout. At one rank it is one
+then by value; a complex value by its imaginary and then its real part, as jnp
+orders it). Ragged chunks are padded to ``c`` with a sentinel that sorts after every element
+(heat_tpu's ``_pad_sentinel``, :93) and a pad index past ``n``; with the ceil-division
+chunk rule the sorted pads land exactly in the slots past each rank's canonical chunk,
+so slicing them off leaves the canonical layout. At one rank it is one
 ``torch.sort(stable=True)``.
 """
 
@@ -23,6 +24,8 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import torch
+
+from . import _complex_order
 
 __all__ = ["distributed_sort"]
 
@@ -53,6 +56,8 @@ def _network_rounds(nproc: int) -> List[Tuple[List[int], List[bool]]]:
 def _pad_sentinel(dtype: torch.dtype, descending: bool):
     """A value that sorts after every element in the requested direction (ties with real
     elements lose on the pad's larger index)."""
+    if dtype.is_complex:  # jnp's order: both parts NaN is last, -inf - inf·j first
+        return complex(float("-inf"), float("-inf")) if descending else complex(float("nan"), float("nan"))
     if dtype.is_floating_point:
         return float("-inf") if descending else float("nan")
     if dtype == torch.bool:
@@ -63,7 +68,11 @@ def _pad_sentinel(dtype: torch.dtype, descending: bool):
 
 def _lexsort(values: torch.Tensor, index: torch.Tensor, axis: int, descending: bool):
     """Sort by (value, index) along ``axis``: the value in the given direction, the index
-    ascending; two stable sorts."""
+    ascending; two stable sorts (complex values: the index, then the imaginary and the
+    real part, :mod:`._complex_order`)."""
+    if values.is_complex():
+        order = _complex_order.lexsort_with_index(values, index, axis, descending)
+        return values.take_along_dim(order, axis), index.take_along_dim(order, axis)
     order = torch.argsort(index, dim=axis, stable=True)
     values, index = values.take_along_dim(order, axis), index.take_along_dim(order, axis)
     order = torch.sort(values, dim=axis, descending=descending, stable=True).indices
@@ -75,6 +84,9 @@ def distributed_sort(comm, local: torch.Tensor, n: int, axis: int, descending: b
     rank's canonical chunk of the sorted values and of their int64 global indices, the
     order of a stable sort of the whole array."""
     if not comm.is_distributed():
+        if local.is_complex():
+            indices = _complex_order.argsort(local, axis, descending)
+            return local.take_along_dim(indices, axis), indices
         values, indices = torch.sort(local, dim=axis, descending=descending, stable=True)
         return values, indices.to(torch.int64)
     P, rank = comm.size, comm.rank

@@ -135,12 +135,20 @@ def _assign(t: torch.Tensor, keys, value: torch.Tensor) -> None:
     """``t[keys] = value`` with numpy's negative slice steps: the slice is taken forward
     over the same elements and the value reversed along its output axis."""
     keys, dim, flips = list(keys), 0, []
+    if not all(_is_basic(e) for e in keys) and any(
+            isinstance(k, slice) and k.step is not None and k.step < 0 for k in keys):
+        # beside array indices: the flat positions the key reads (numpy's layout, which
+        # _index gives), written in one put
+        where = _index(torch.arange(t.numel(), device=t.device).view(t.shape), keys)
+        dense = t if t.is_contiguous() else t.contiguous()
+        dense.view(-1)[where.reshape(-1)] = torch.broadcast_to(value, where.shape).reshape(-1)
+        if dense is not t:
+            t.copy_(dense)
+        return
     for i, k in enumerate(keys):
         if k is None:
             continue
         if isinstance(k, slice) and k.step is not None and k.step < 0:
-            if not all(_is_basic(e) for e in keys):
-                raise NotImplementedError("negative slice steps beside array indices are not ported for assignment")
             r = range(*k.indices(t.shape[dim]))
             flips.append(_out_dim(keys, i))
             keys[i] = slice(r[-1], r[0] + 1, -k.step) if len(r) else slice(0, 0)
@@ -287,9 +295,52 @@ def _take_rows(x: DNDarray, rows: torch.Tensor) -> DNDarray:
     return DNDarray(value, x.gshape, x.dtype, x.split, x.device, x.comm, True)
 
 
+def _mask_positions(x: DNDarray, m: torch.Tensor) -> torch.Tensor:
+    """The positions in the global C order of ``x``'s selection of this rank's hits of the
+    mask chunk ``m`` (along x's split axis), in local C order. The leading axes before the
+    split interleave the ranks' hits, so each rank counts its hits in every row of the
+    leading axes, and one all-gather of those counts gives, by an exclusive scan in
+    (row, rank) order, where each rank's run of a row starts."""
+    s = x.split
+    rows = int(np.prod(m.shape[:s])) if s else 1
+    per_row = m.reshape(rows, -1).sum(1)
+    counts = x.comm.all_gather_stacked(per_row)  # (ranks, rows)
+    starts = torch.cumsum(counts.t().reshape(-1), 0) - counts.t().reshape(-1)  # (row, rank) order
+    start = starts.view(rows, -1)[:, x.comm.rank]
+    row_of = torch.nonzero(m.reshape(rows, -1))[:, 0]  # the row of each hit, in C order
+    first = torch.cumsum(per_row, 0) - per_row
+    return start[row_of] + torch.arange(row_of.numel(), device=m.device) - first[row_of]
+
+
+def _set_mask(x: DNDarray, mask: DNDarray, value) -> None:
+    """``x[mask] = value`` for a bool mask of a split ``x``'s shape: each rank writes its own
+    hits, whose places in the selection's global order :func:`_mask_positions` gives. A
+    split 1-D value is fetched element by element from the ranks holding it, never whole."""
+    dev, dt = x.larray.device, x.larray.dtype
+    m = mask._relayout(x.split).to(torch.bool)
+    pos = _mask_positions(x, m)
+    fetched = isinstance(value, DNDarray) and value.split == 0 and value.ndim == 1 and value.is_distributed()
+    if fetched:  # ht: ignore[spmd-divergent-collective] -- the value's split and shape are global metadata, the same on every rank, so every rank takes the same branch
+        hits = int(x.comm.all_reduce(torch.tensor(pos.numel(), device=dev), "sum"))
+        if hits != value.gshape[0]:
+            raise ValueError(f"shape mismatch: {value.gshape[0]} values for the mask's selection of {hits}")
+        x.larray[m] = x.comm.fetch(value.larray, x.comm.counts_displs_shape(value.gshape, 0)[0], pos).to(dt)
+        return
+    if isinstance(value, DNDarray):
+        value = value._relayout(None)
+    value = torch.as_tensor(value, device=dev).to(dt) if not isinstance(value, torch.Tensor) else value.to(dev, dt)
+    x.larray[m] = value.reshape(()) if value.numel() <= 1 else value.reshape(-1)[pos]
+
+
 def _setitem(x: DNDarray, key, value) -> None:
     """Write ``value`` where ``key`` hits x: each rank its own elements."""
     keys = _expand_key(x, key)
+    if x.split is not None and x.is_distributed():
+        mask = keys[_split_entry(x, keys)]
+        if (isinstance(mask, DNDarray) and mask.dtype is types.bool and mask.gshape == x.gshape
+                and len([k for k in keys if k is not None]) == 1):
+            _set_mask(x, mask, value)
+            return
     dev, dt = x.larray.device, x.larray.dtype
     if isinstance(value, DNDarray):
         value = value._relayout(None)
@@ -318,19 +369,6 @@ def _setitem(x: DNDarray, key, value) -> None:
             lkeys = list(keys)
             lkeys[pos] = i - offset
             _assign(x.larray, lkeys, value)
-        return
-    mask = keys[pos]
-    if (isinstance(mask, DNDarray) and mask.dtype is types.bool and mask.gshape == x.gshape
-            and len([k for k in keys if k is not None]) == 1):
-        m = mask._relayout(x.split).to(torch.bool)
-        if value.numel() <= 1:
-            x.larray[m] = value.reshape(())
-            return
-        if x.split != 0:
-            raise NotImplementedError("a mask assignment of an array value is ported for split 0 and None only")
-        counts = x.comm.all_gather_counts(int(m.sum()), dev)
-        start = sum(counts[: x.comm.rank])
-        x.larray[m] = value.reshape(-1)[start : start + counts[x.comm.rank]]
         return
     # integer arrays on the split axis: write the gathered array, keep this rank's chunk
     full = x._relayout(None).clone()

@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels for Hopper (counterparts of heat_tpu/core/kernels/).
+"""Hand-written CUDA kernels for Hopper (counterparts of heat_tpu/core/kernels/, and the
+integer and bool product that heat_tpu leaves to XLA and cuBLAS cannot run).
 
 Each kernel module keeps its plain PyTorch version beside the wrapper, used for CPU
 tensors and by the tests, and a ``launches`` counter for each kernel, counted under the
@@ -6,7 +7,7 @@ module's ``_count_lock`` so that concurrent request threads lose no launch. Impo
 kernel module needs neither CUDA nor nvcc: a kernel is built at its first launch.
 """
 
-from . import flash_attention, kmeans
+from . import flash_attention, int_matmul, kmeans
 from .flash_attention import (
     flash_attention_bwd,
     flash_attention_bwd_reference,
@@ -14,6 +15,7 @@ from .flash_attention import (
     flash_attention_pipelined_reference,
     flash_attention_reference,
 )
+from .int_matmul import int_matmul_reference
 from .kmeans import fused_assign_update, fused_assign_update_reference
 
 __all__ = [
@@ -26,6 +28,8 @@ __all__ = [
     "flash_attention_reference",
     "fused_assign_update",
     "fused_assign_update_reference",
+    "int_matmul",
+    "int_matmul_reference",
     "kmeans",
     "launch_counts",
     "reset_launch_counts",
@@ -40,6 +44,7 @@ KERNELS = {
     "flash_attention_bwd_dq": flash_attention.bwd_dq,
     "flash_attention_bwd_dkv": flash_attention.bwd_dkv,
     "flash_attention_fwd_pipelined": flash_attention.fwd_pipelined,
+    "int_matmul": int_matmul,
 }
 
 
@@ -49,6 +54,6 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    with flash_attention._count_lock, kmeans._count_lock:
+    with flash_attention._count_lock, int_matmul._count_lock, kmeans._count_lock:
         for mod in KERNELS.values():
             mod.launches = 0

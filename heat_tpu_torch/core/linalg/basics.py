@@ -1,9 +1,11 @@
 """Basic linear algebra (counterpart of heat_tpu/core/linalg/basics.py).
 
-Every product is ``torch.matmul`` (cuBLAS on the card) with f32 in full fp32, TF32 off
-(:func:`.comm_plan._mm`), where heat_tpu asks XLA for ``Precision.HIGHEST``
-(heat_tpu/core/linalg/basics.py:53-69). There is no hand kernel: heat_tpu's linalg runs no
-Pallas kernel either.
+Every float product is ``torch.matmul`` (cuBLAS on the card) with f32 in full fp32, TF32
+off (:func:`.comm_plan._mm`), where heat_tpu asks XLA for ``Precision.HIGHEST``
+(heat_tpu/core/linalg/basics.py:53-69). Bool and integer products, ``matmul``'s, ``dot``'s
+and ``vdot``'s, go to the integer product (:mod:`..kernels.int_matmul`, a hand kernel on the
+card, where cuBLAS has none): modulo 2^bits of the type, bool the OR of ANDs, as XLA's dot.
+heat_tpu's linalg runs no Pallas kernel.
 
 Each rank holds its chunk, so the data movement heat_tpu leaves to XLA is written out.
 ``matmul`` of two split 2-D operands goes through the planner (:mod:`.comm_plan`: the ring
@@ -23,6 +25,7 @@ import torch
 
 from .. import _operations, sanitation, types
 from ..dndarray import DNDarray
+from ..kernels import int_matmul
 from ..stride_tricks import broadcast_shapes, sanitize_axis
 from . import comm_plan
 
@@ -149,11 +152,19 @@ def dot(a, b, out: Optional[DNDarray] = None, precision=None) -> Union[DNDarray,
             raise ValueError(f"shapes {a.gshape} and {b.gshape} not aligned")
         ct = types.promote_types(a.dtype, b.dtype).torch_type()
         if a.is_distributed() and a.split == b.split:
-            value = a.comm.all_reduce(torch.dot(a.larray.to(ct), b.larray.to(ct)), "sum")
+            value = a.comm.all_reduce(_dot(a.larray.to(ct), b.larray.to(ct)), "sum")
         else:
-            value = torch.dot(a._relayout(None).to(ct), b._relayout(None).to(ct))
+            value = _dot(a._relayout(None).to(ct), b._relayout(None).to(ct))
         return _operations.handle_out(_operations.wrap_global(value, a, None), out)
     return _operations.handle_out(matmul(a, b), out)
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The inner product of two 1-D tensors of one type: ``torch.dot``, bool and integers
+    through the integer product (torch.dot takes neither on the card)."""
+    if a.is_floating_point() or a.is_complex():
+        return torch.dot(a, b)
+    return int_matmul.matmul(a, b)
 
 
 def vecdot(x1: DNDarray, x2: DNDarray, axis: Optional[int] = None, keepdims: bool = False) -> DNDarray:
@@ -170,8 +181,7 @@ def vdot(x1: DNDarray, x2: DNDarray) -> DNDarray:
     """Dot of the flattened operands, the first conjugated."""
     ct = types.promote_types(x1.dtype, x2.dtype).torch_type()
     a, b = x1._relayout(None).reshape(-1).to(ct), x2._relayout(None).reshape(-1).to(ct)
-    # torch.vdot takes no bool; jnp's dot of bools is their "any" of products
-    value = (a & b).any() if ct == torch.bool else torch.vdot(a, b)
+    value = torch.vdot(a, b) if a.is_complex() or a.is_floating_point() else _dot(a, b)
     return _operations.wrap_global(value, x1, None)
 
 
@@ -292,10 +302,16 @@ def triu(m: DNDarray, k: int = 0) -> DNDarray:
 
 def vector_norm(x: DNDarray, axis=None, keepdims: bool = False, ord=None) -> DNDarray:
     """Vector norm over ``axis`` (every axis by default); float64 for integer and bool
-    input, as jnp.linalg.vector_norm's under x64. The 2-norm over the split axis is a
-    local sum of squares and one all-reduce; other orders work on the gathered value."""
+    input, as jnp.linalg.vector_norm's under x64, and the real type for complex input. The
+    2-norm over the split axis is a local sum of squares and one all-reduce; other orders
+    work on the gathered value."""
     rt = x.dtype if types.heat_type_is_inexact(x.dtype) else types.float64
-    return _vector_norm(x, axis, keepdims, ord, rt.torch_type())
+    return _vector_norm(x, axis, keepdims, ord, _real(rt.torch_type()))
+
+
+def _real(t: torch.dtype) -> torch.dtype:
+    """The real type of a complex torch type (a real one as it is)."""
+    return t.to_real() if t.is_complex else t
 
 
 def _vector_norm(x: DNDarray, axis, keepdims: bool, ord, rt: torch.dtype) -> DNDarray:
@@ -310,13 +326,16 @@ def _vector_norm(x: DNDarray, axis, keepdims: bool, ord, rt: torch.dtype) -> DND
         gshape = tuple(s for d, s in enumerate(x.gshape) if d not in axes)
     if split is not None and split >= len(gshape):
         split = None
-    if ord in (None, 2) and not x.larray.is_complex():
-        v = x.larray.to(rt)
-        sq = torch.sum(v * v, dim=axes, keepdim=keepdims) if x.ndim else v * v
+    if ord in (None, 2):
+        v = x.larray
+        # complex: jnp's real(x·conj(x)), the squares of both parts
+        sq = v.real * v.real + v.imag * v.imag if v.is_complex() else v.to(rt) * v.to(rt)
+        sq = torch.sum(sq, dim=axes, keepdim=keepdims) if x.ndim else sq
         if x.is_distributed() and x.split in axes:
             x.comm.all_reduce(sq, "sum")
         return _wrap_local(torch.sqrt(sq), x, split, gshape)
-    value = torch.linalg.vector_norm(x._relayout(None).to(rt), ord=ord, dim=axes, keepdim=keepdims)
+    whole = x._relayout(None)
+    value = torch.linalg.vector_norm(whole if whole.is_complex() else whole.to(rt), ord=ord, dim=axes, keepdim=keepdims)
     return _operations.wrap_global(value, x, split)
 
 
@@ -336,7 +355,7 @@ def norm(x: DNDarray, axis=None, keepdims: bool = False, ord=None) -> DNDarray:
     """numpy's ``norm``: the 2-norm of the flattened array by default, a matrix norm over
     two axes, a vector norm over one."""
     sanitation.sanitize_in(x)
-    rt = _operations._inexact(x.dtype).torch_type()  # jnp.linalg.norm: float32 for int32
+    rt = _real(_operations._inexact(x.dtype).torch_type())  # jnp.linalg.norm: float32 for int32
     if axis is None and ord is None:
         return _vector_norm(x, None, False, None, rt)
     axis = sanitize_axis(x.gshape, axis)

@@ -48,6 +48,7 @@ import torch
 from .. import _executor, types
 from ..devices import full_fp32_matmul
 from ..dndarray import DNDarray
+from ..kernels import int_matmul
 
 __all__ = [
     "COUNTERS", "Plan", "linalg_plan", "plan_matmul", "replay_warmup", "reset_counters", "try_matmul", "try_resplit",
@@ -252,7 +253,11 @@ def _execute(plan: Plan, a: DNDarray, b: DNDarray):
 # ------------------------------------------------------------------ the products
 def _mm(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Every product of the linalg package: ``torch.matmul`` with f32 in full fp32 (TF32
-    off; heat_tpu's ``Precision.HIGHEST``)."""
+    off; heat_tpu's ``Precision.HIGHEST``); bool and integer operands through the integer
+    product (:mod:`..kernels.int_matmul`: the hand kernel on the card, where cuBLAS has
+    no integer GEMM), modulo 2^bits and the OR of ANDs, as XLA's dot."""
+    if not (x.is_floating_point() or x.is_complex()):
+        return int_matmul.matmul(x, y)
     with full_fp32_matmul():
         return torch.matmul(x, y)
 

@@ -24,7 +24,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from . import _operations, sanitation, stride_tricks, types
+from . import _complex_order, _operations, sanitation, stride_tricks, types
 from .dndarray import DNDarray
 from .stride_tricks import sanitize_axis
 
@@ -490,12 +490,69 @@ def _pad_index(n: int, before: int, after: int, mode: str, device) -> torch.Tens
     return torch.where(j < n, j, 2 * (n - 1) - j)
 
 
+def _median(v: torch.Tensor, axis: int) -> torch.Tensor:
+    """jnp.median along ``axis`` (kept): the middle of the sorted values, the mean of the two
+    middles for an even count, NaN where the axis holds one."""
+    n = v.shape[axis]
+    s = torch.sort(v, dim=axis).values  # NaN last
+    lo, hi = s.narrow(axis, (n - 1) // 2, 1), s.narrow(axis, n // 2, 1)
+    mid = (lo + hi) * 0.5
+    return torch.where(torch.isnan(v).any(axis, keepdim=True), float("nan"), mid)
+
+
+def _pad_fill(v: torch.Tensor, axis: int, b: int, e: int, mode: str):
+    """The ``b`` leading and ``e`` trailing slices of ``v`` padded along ``axis`` in one of
+    numpy's computed modes, as jnp.pad computes them (``_pad_stats``, ``_pad_linear_ramp``,
+    ``_pad_empty``) with its defaults (every element counted, end values 0). A float mean
+    is summed in float64 and rounded once, so the sum's order cannot change its bits."""
+    n = v.shape[axis]
+    integer = not (v.dtype.is_floating_point or v.dtype.is_complex or v.dtype == torch.bool)
+
+    def slab(fill: torch.Tensor, count: int) -> torch.Tensor:
+        shape = list(v.shape)
+        shape[axis] = count
+        return fill.expand(shape)
+
+    if b == 0 and e == 0:
+        return v.narrow(axis, 0, 0), v.narrow(axis, 0, 0)
+    if mode == "empty":  # jnp.empty is jnp.zeros
+        return slab(v.new_zeros(()), b), slab(v.new_zeros(()), e)
+    if n == 0:
+        raise ValueError(f"can't extend an empty axis with mode {mode!r}")
+    if mode == "linear_ramp":
+        ct = _operations._inexact(types.canonical_heat_type(v.dtype)).torch_type()
+
+        def ramp(edge: torch.Tensor, num: int) -> torch.Tensor:
+            # jnp.linspace(0, edge, num, endpoint=False): 0·(1 − t) + edge·t, t = i / num
+            shape = [1] * v.ndim
+            shape[axis] = num
+            t = (torch.arange(num, dtype=ct, device=v.device) / num).view(shape)
+            out = 0 * (1 - t) + edge.to(ct) * t
+            return (torch.floor(out) if integer else out).to(v.dtype)
+
+        return ramp(v.narrow(axis, 0, 1), b), torch.flip(ramp(v.narrow(axis, n - 1, 1), e), [axis])
+    if mode in ("maximum", "minimum"):
+        stat = (torch.amax if mode == "maximum" else torch.amin)(v, axis, keepdim=True)
+    else:
+        ct = _operations._inexact(types.canonical_heat_type(v.dtype)).torch_type()
+        if mode == "mean":
+            acc = torch.float64 if ct in (torch.float16, torch.bfloat16, torch.float32) else ct
+            stat = torch.mean(v.to(acc), axis, keepdim=True).to(ct)
+        else:
+            stat = _median(v.to(ct), axis)
+        if integer:
+            stat = torch.round(stat)
+        stat = stat.to(v.dtype)
+    return slab(stat, b), slab(stat, e)
+
+
 def pad(array: DNDarray, pad_width, mode: str = "constant", constant_values=0) -> DNDarray:
     """Pad an array (numpy's widths). Constant padding is local, the first rank taking
     the leading pad of the split axis and the last the trailing one, then rebalanced.
     The modes that copy elements (edge, wrap, reflect, symmetric) gather the array and
-    index it on its device (later work: a halo); numpy's other modes run only on a CPU
-    tensor and raise on another device."""
+    index it on its device (later work: a halo); the computed modes (mean, median,
+    maximum, minimum, linear_ramp, empty) gather it and compute each axis's pad from the
+    array padded so far, by torch ops on its device, as jnp.pad does."""
     sanitation.sanitize_in(array)
     widths = _pad_widths(pad_width, array.ndim)
     if mode in ("edge", "wrap", "reflect", "symmetric"):
@@ -503,11 +560,14 @@ def pad(array: DNDarray, pad_width, mode: str = "constant", constant_values=0) -
         for axis, (b, e) in enumerate(widths):
             value = value.index_select(axis, _pad_index(value.shape[axis], b, e, mode, value.device))
         return _operations.wrap_global(value, array, array.split)
-    if mode != "constant":
-        if array.larray.device.type != "cpu":
-            raise NotImplementedError(f"pad mode {mode!r} has no device implementation")
-        value = torch.from_numpy(np.pad(array._relayout(None).numpy(), widths, mode=mode))
+    if mode in ("mean", "median", "maximum", "minimum", "linear_ramp", "empty"):
+        value = array._relayout(None)
+        for axis, (b, e) in enumerate(widths):
+            before, after = _pad_fill(value, axis, b, e, mode)
+            value = torch.cat([before, value, after], dim=axis)
         return _operations.wrap_global(value, array, array.split)
+    if mode != "constant":
+        raise ValueError(f"mode {mode!r} is not supported")
     comm = array.comm
     local_widths = list(widths)
     if array.split is not None and array.is_distributed():
@@ -591,7 +651,8 @@ def diag(a: DNDarray, offset: int = 0) -> DNDarray:
 # --------------------------------------------------------------------------- sorting
 def sort(a: DNDarray, axis: int = -1, descending: bool = False, out=None):
     """Sort along ``axis``; returns ``(values, int64 indices)``, the order of a stable
-    sort. Along the split axis this is the distributed merge-split network
+    sort (complex values in jnp's order: by the real part, then the imaginary, each with
+    NaN last). Along the split axis this is the distributed merge-split network
     (:mod:`.dist_sort`), O(n/P) a rank; along another axis a local sort."""
     from . import dist_sort
 
@@ -601,6 +662,9 @@ def sort(a: DNDarray, axis: int = -1, descending: bool = False, out=None):
         values, indices = a.larray.clone(), torch.zeros((), dtype=torch.int64, device=a.larray.device)
     elif axis == a.split:
         values, indices = dist_sort.distributed_sort(a.comm, a.larray, a.gshape[axis], axis, descending)
+    elif a.larray.is_complex():  # jnp's (real, imaginary) order, which torch.sort lacks
+        indices = _complex_order.argsort(a.larray, axis, descending)
+        values = a.larray.take_along_dim(indices, axis)
     else:
         values, indices = torch.sort(a.larray, dim=axis, descending=descending, stable=True)
     v = _wrap(values, a.gshape, a, a.split)
@@ -706,6 +770,33 @@ def _unique_slices(full: torch.Tensor, axis: int) -> Tuple[torch.Tensor, torch.T
     return out.movedim(0, axis).contiguous(), inverse.to(torch.int64)
 
 
+def _unique_complex(a: DNDarray, return_inverse: bool):
+    """:func:`unique` of a complex array in jnp's order (:mod:`._complex_order`): every
+    value with a NaN counts as one, ``nan+0j``. A split array's partial uniques are merged
+    by one variable-length all-gather, as the real path's; the inverse ranks each local
+    element among the merged values by a stable sort of both."""
+    local = a.larray.reshape(-1)
+    part = _complex_order.unique(local)
+    if a.split is not None and a.is_distributed():
+        part = _complex_order.unique(a.comm.all_gather_v(part))
+    local = torch.where(torch.isnan(local.real) | torch.isnan(local.imag), complex(float("nan"), 0.0), local)
+    res = _operations.wrap_global(part, a, None)
+    if not return_inverse:
+        return res
+    # part first, so an element sorts right after its own distinct value: its inverse is
+    # the count of distinct values up to it, less one
+    both = torch.cat([part, local])
+    order = _complex_order.lexsort_with_index(both, torch.arange(both.numel(), device=both.device), 0, False)
+    is_part = order < part.numel()
+    before = torch.cumsum(is_part, 0) - 1
+    inv = torch.empty_like(local, dtype=torch.int64)
+    inv[order[~is_part] - part.numel()] = before[~is_part]
+    inv = inv.view(a.larray.shape)
+    if a.split is None:
+        return res, _operations.wrap_global(inv, a, None)
+    return res, _wrap(inv, a.gshape, a, a.split)
+
+
 def unique(a: DNDarray, sorted: bool = False, return_inverse: bool = False, axis: Optional[int] = None):  # noqa: A002
     """The sorted unique elements. A split array's per-rank partial uniques are merged on
     the device by one variable-length all-gather of the partials (heat_tpu merges them on
@@ -719,6 +810,8 @@ def unique(a: DNDarray, sorted: bool = False, return_inverse: bool = False, axis
         if return_inverse:
             return _operations.wrap_global(res, a, None), _operations.wrap_global(inv, a, None)
         return _operations.wrap_global(res, a, None)
+    if a.larray.is_complex():
+        return _unique_complex(a, return_inverse)
     local = a.larray.reshape(-1)
     nan = torch.isnan(local) if local.is_floating_point() else None
     part = torch.unique(local[~nan] if nan is not None else local, sorted=True)

@@ -280,8 +280,8 @@ def sample(*args, **kwargs) -> DNDarray:
 
 def randint(low: int, high: Optional[int] = None, size=None, dtype=types.int32, split=None, device=None, comm=None) -> DNDarray:
     """Integers in [low, high): jax's draw of two words an element, reduced modulo the
-    span (jax ``_randint``), with its unsigned wrap-around replayed. A 64-bit span of
-    2**31 or more raises (its products would overflow the int64 lanes)."""
+    span (jax ``_randint``), with its unsigned wrap-around replayed (a 64-bit span of
+    2**31 or more in 32-bit limbs, so no int64 product overflows)."""
     if high is None:
         low, high = 0, low
     if size is None:
@@ -291,6 +291,8 @@ def randint(low: int, high: Optional[int] = None, size=None, dtype=types.int32, 
     size = sanitize_shape(size)
     if low >= high:
         raise ValueError(f"low >= high ({low} >= {high})")
+    if not -(2**63) <= low < high < 2**63:  # jax reads both bounds as int64
+        raise OverflowError(f"randint bounds ({low}, {high}) overflow int64")
     dtype = types.canonical_heat_type(dtype)
     if dtype not in (types.int32, types.int64):
         raise ValueError(f"Unsupported dtype {dtype} for randint")
@@ -355,19 +357,85 @@ def _randint_values(key, size, low: int, high: int, dtype, split=None, comm=None
     k1, k2 = _split(key)
     if nbits == 32:
         higher, lower = (_bits32(k, size, split, comm, dev) for k in (k1, k2))
-        mult = (2**16 % span) ** 2 % 2**32 % span
-        offset = (((higher % span) * mult) & M32) + (lower % span)
-        offset = (offset & M32) % span
+        if span == 0:  # the whole range: XLA's x % 0 is x, so the offset is the low word
+            offset = lower
+        else:
+            mult = (2**16 % span) ** 2 % 2**32 % span
+            offset = (((higher % span) * mult) & M32) + (lower % span)
+            offset = (offset & M32) % span
     else:
-        if span >= 2**31:
-            raise NotImplementedError("randint: int64 spans of 2**31 or more are not ported")
         h, l = (_bits(k, size, split, comm, dev) for k in (k1, k2))  # noqa: E741
-        mult = (2**32 % span) ** 2 % span
-        r32 = 2**32 % span
-        h_mod = ((h[0] % span) * r32 + h[1] % span) % span
-        l_mod = ((l[0] % span) * r32 + l[1] % span) % span
-        offset = (h_mod * mult + l_mod) % span
+        if 0 < span < 2**31:  # every product below 2**62: plain int64 arithmetic
+            mult = (2**32 % span) ** 2 % span
+            r32 = 2**32 % span
+            h_mod = ((h[0] % span) * r32 + h[1] % span) % span
+            l_mod = ((l[0] % span) * r32 + l[1] % span) % span
+            offset = (h_mod * mult + l_mod) % span
+        else:
+            # jax's uint64 arithmetic, wrapping, replayed in 32-bit limbs; a span of 0 (the
+            # whole range) leaves every remainder as it is, as XLA's x % 0 does for unsigned x
+            mult = (2**32 % span) ** 2 % 2**64 % span if span else 0
+            offset = _u64_mod(_u64_add(_u64_mul_const(_u64_mod(h, span), mult), _u64_mod(l, span)), span)
+            return _u64_to_int64(_u64_add(offset, (lo % 2**64 >> 32, lo % 2**32)))
     return (offset + lo).to(dtype.torch_type())
+
+
+# uint64 values as (high, low) pairs of uint32 held in int64 tensors (or Python ints): no
+# int64 product below takes factors of more than 16 and 32 bits, so none overflows
+def _u64_mul_const(x, c: int):
+    """x · c modulo 2**64 for the constant c."""
+    xh, xl = x
+    ch, cl = c >> 32, c & M32
+    x0, x1 = xl & 0xFFFF, xl >> 16
+    c0, c1 = cl & 0xFFFF, cl >> 16
+    mid = x0 * c1 + x1 * c0  # < 2**33
+    low = x0 * c0 + ((mid & 0xFFFF) << 16)  # < 2**33
+    high = x1 * c1 + (mid >> 16) + (low >> 32)  # the high word of xl · cl
+    # the cross terms xh·cl + xl·ch only reach the high word: their low 32 bits
+    cross = _lo32_mul(xh, cl) + _lo32_mul(xl, ch)
+    return (high + cross) & M32, low & M32
+
+
+def _lo32_mul(a, c: int):
+    """(a · c) mod 2**32 for a uint32 tensor ``a`` and a uint32 constant ``c``."""
+    c0, c1 = c & 0xFFFF, c >> 16
+    return (a * c0 + (((a & 0xFFFF) * c1) << 16)) & M32
+
+
+def _u64_add(x, y):
+    lo = x[1] + y[1]
+    return (x[0] + y[0] + (lo >> 32)) & M32, lo & M32
+
+
+def _u64_sub(x, y):
+    """x - y modulo 2**64."""
+    lo = x[1] - y[1]  # in (-2**32, 2**32): lo >> 32 is the borrow, 0 or -1
+    return (x[0] - y[0] + (lo >> 32)) & M32, lo & M32
+
+
+def _u64_mod(x, s: int):
+    """x mod s for the constant s >= 2**31 (0: x as it is). The quotient x / s (below
+    2**33) from float64, which misses it by less than one; one less than its floor is at
+    most the true quotient and at least two below it, so x - q·s is exact in limbs and
+    below 3s, and two conditional subtractions of s finish it."""
+    if s == 0:
+        return x
+    xh, xl = x
+    q = torch.floor((xh.double() * 2**32 + xl.double()) / float(s)).to(torch.int64)
+    q = (q - 1).clamp_min(0)
+    r = _u64_sub(x, _u64_mul_const((q >> 32, q & M32), s))
+    sh, sl = s >> 32, s & M32
+    for _ in range(2):
+        ge = (r[0] > sh) | ((r[0] == sh) & (r[1] >= sl))
+        d = _u64_sub(r, (sh, sl))
+        r = torch.where(ge, d[0], r[0]), torch.where(ge, d[1], r[1])
+    return r
+
+
+def _u64_to_int64(x) -> torch.Tensor:
+    """The int64 of the same 64 bits."""
+    xh, xl = x
+    return (xh - ((xh >> 31) << 32)) * 2**32 + xl
 
 
 def _key_randint(key, shape, low: int, high: int, device=None) -> torch.Tensor:

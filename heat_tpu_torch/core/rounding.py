@@ -80,13 +80,15 @@ def modf(x: DNDarray, out=None):
 def _round(v: torch.Tensor, decimals: int = 0) -> torch.Tensor:
     if v.dtype == torch.bool:
         raise ValueError("round is not defined for bool arrays")
+    if v.is_complex():  # numpy's: each part rounded
+        return torch.complex(torch.round(v.real, decimals=decimals), torch.round(v.imag, decimals=decimals))
     if not v.is_floating_point():
         return v.clone() if decimals >= 0 else (torch.round(v.double(), decimals=decimals)).to(v.dtype)
     return torch.round(v, decimals=decimals)
 
 
 def round(x: DNDarray, decimals: int = 0, out=None, dtype=None) -> DNDarray:  # noqa: A001
-    """Round half to even, to ``decimals`` places."""
+    """Round half to even, to ``decimals`` places (complex: the real and imaginary parts)."""
     res = _operations.local_op(_round, x, out, decimals=decimals)
     if dtype is not None:
         res = res.astype(dtype, copy=False)

@@ -12,16 +12,19 @@ from __future__ import annotations
 import torch
 
 from . import _operations, types
+from .devices import full_fp32_matmul
 from .dndarray import DNDarray
 
 __all__ = ["convolve"]
 
 
 def _full_valid(ext: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """The valid correlation of ``ext`` with the reversed filter ``v`` (conv1d)."""
+    """The valid correlation of ``ext`` with the reversed filter ``v`` (conv1d, in full fp32
+    on the card: cuDNN takes f32 convolutions in TF32 by default)."""
     if ext.shape[0] < v.shape[0]:
         return ext[:0]
-    return torch.nn.functional.conv1d(ext.view(1, 1, -1), v.flip(0).view(1, 1, -1)).view(-1)
+    with full_fp32_matmul():
+        return torch.nn.functional.conv1d(ext.view(1, 1, -1), v.flip(0).view(1, 1, -1)).view(-1)
 
 
 def convolve(a, v, mode: str = "full") -> DNDarray:

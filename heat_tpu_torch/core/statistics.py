@@ -17,7 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import _operations, sanitation, types
+from . import _complex_order, _operations, sanitation, types
 from .dndarray import DNDarray
 from .stride_tricks import sanitize_axis
 
@@ -138,14 +138,22 @@ def mean(x: DNDarray, axis=None, keepdims: bool = False) -> DNDarray:
     return _operations.reduce_op("mean", x, axis, None, keepdims)
 
 
+def _maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _complex_order.maximum(a, b) if a.is_complex() else torch.maximum(a, b)
+
+
+def _minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _complex_order.minimum(a, b) if a.is_complex() else torch.minimum(a, b)
+
+
 def maximum(x1, x2, out=None) -> DNDarray:
-    """Elementwise maximum (NaN propagates)."""
-    return _operations.binary_op(torch.maximum, x1, x2, out)
+    """Elementwise maximum (NaN propagates; complex by jnp's (real, imaginary) rule)."""
+    return _operations.binary_op(_maximum, x1, x2, out)
 
 
 def minimum(x1, x2, out=None) -> DNDarray:
-    """Elementwise minimum (NaN propagates)."""
-    return _operations.binary_op(torch.minimum, x1, x2, out)
+    """Elementwise minimum (NaN propagates; complex by jnp's (real, imaginary) rule)."""
+    return _operations.binary_op(_minimum, x1, x2, out)
 
 
 def _inexact(x: DNDarray) -> DNDarray:
@@ -162,7 +170,7 @@ def _central(x: DNDarray, axis):
 
 def var(x: DNDarray, axis=None, ddof: int = 0, **kwargs) -> DNDarray:
     """Variance: the summed squared deviations from the distributed mean over
-    ``N - ddof``."""
+    ``N - ddof`` (of complex input, the squared moduli: a real result, as numpy's)."""
     from . import arithmetics
 
     sanitation.sanitize_in(x)
@@ -170,7 +178,14 @@ def var(x: DNDarray, axis=None, ddof: int = 0, **kwargs) -> DNDarray:
     axis = sanitize_axis(x.gshape, axis)
     d = _central(x, axis)
     n = x.size if axis is None else int(np.prod([x.gshape[a] for a in (axis if isinstance(axis, tuple) else (axis,))]))
-    return arithmetics.div(arithmetics.sum(arithmetics.mul(d, d), axis, keepdims=keepdims), builtins_max(n - ddof, 0))
+    if types.heat_type_is_complexfloating(d.dtype):  # numpy's |x - mean|², in the real type
+        from . import complex_math
+
+        re, im = complex_math.real(d), complex_math.imag(d)
+        sq = arithmetics.add(arithmetics.mul(re, re), arithmetics.mul(im, im))
+    else:
+        sq = arithmetics.mul(d, d)
+    return arithmetics.div(arithmetics.sum(sq, axis, keepdims=keepdims), builtins_max(n - ddof, 0))
 
 
 def std(x: DNDarray, axis=None, ddof: int = 0, **kwargs) -> DNDarray:
@@ -191,7 +206,9 @@ def _moment_ratio(x: DNDarray, axis, power: int):
 
         x, axis = manipulations.flatten(x), 0
     axis = sanitize_axis(x.gshape, axis)
-    d = _central(x, axis)
+    # heat_tpu computes the moments in promote_types(dtype, float32): float16 and bfloat16
+    # in float32, every exact type in float32 (int64 too)
+    d = _central(x if x.dtype in (types.float64, types.complex64, types.complex128) else x.astype(types.float32), axis)
     n = x.gshape[axis]
     m2 = mean(arithmetics.pow(d, 2), axis)
     mp = mean(arithmetics.pow(d, power), axis)

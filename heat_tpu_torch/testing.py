@@ -62,8 +62,9 @@ def assert_record_equal(port: dict, tpu, rtol: float = 1e-5, atol: float = 0.0, 
     if "dtype" not in want:
         return
     for key in ("dtype", "gshape", "split"):
-        np.testing.assert_array_equal(port[key], want[key], err_msg=f"{what} {key}")
-    if int(port["size"]) == int(want["size"]):
+        if key in want:  # a record cut to the keys a comparison holds
+            np.testing.assert_array_equal(port[key], want[key], err_msg=f"{what} {key}")
+    if "size" in want and int(port["size"]) == int(want["size"]):
         np.testing.assert_array_equal(port["lshape_map"], want["lshape_map"], err_msg=f"{what} lshape map")
 
 

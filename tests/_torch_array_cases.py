@@ -5,7 +5,9 @@ Each case is ``fn(m, arr, split)``: ``m`` is the package (heat_tpu or heat_tpu_t
 communicator under test, and ``arr.kw`` holds the keywords that put a factory on it
 (``comm=`` for heat_tpu's three-device mesh). The inputs are fixed numpy arrays made from a seed. A case
 returns a DNDarray or a tuple of them. The cases in ``FLOAT`` compare within ``RTOL`` (a
-float result summed or interpolated in another order); every other case is exact.
+float result summed or interpolated in another order), those in ``TOLERANCES`` within
+their own; every other case is exact (``rtol_of``). The cases in ``AT_NONE`` hold the port
+on every layout to heat_tpu's result at split=None.
 
 Imports numpy only: the worker processes of the spawn import it beside the port alone.
 """
@@ -45,6 +47,36 @@ INPUTS["blobs"] = (_centers[_rng.integers(0, 3, 30)] + _rng.normal(0, 0.5, (30, 
 # a mask that selects nothing in the first three rows (the first rank's chunk)
 INPUTS["mask_a"] = INPUTS["a"] > 0.4
 INPUTS["mask_a"][:3] = False
+INPUTS["mask_vals"] = np.arange(100, 100 + INPUTS["mask_a"].sum(), dtype=np.float32)
+
+
+def _complex(shape, dtype=np.complex64):
+    """Real parts in halves from -1 to 1 (ties, so the imaginary parts order them), a -0.0."""
+    c = (_rng.integers(-2, 3, shape) / 2 + 1j * _rng.standard_normal(shape)).astype(dtype)
+    c.flat[3] = complex(-0.0, c.flat[3].imag)
+    return c
+
+
+# every dtype heat_tpu computes on: the sweep's inputs (bfloat16 is made from "a" by astype)
+INPUTS["cplx"] = _complex((7, 5))
+INPUTS["cplx_b"] = _complex((7, 5))
+INPUTS["cplx_b"].flat[[4, 11, 30]] = [complex(np.nan, 1), complex(0.5, np.nan), complex(np.nan, np.nan)]
+INPUTS["cplx128"] = _complex((7, 5), np.complex128)
+INPUTS["cplx_round"] = (np.round(_complex((7, 5)) * 2) / 2).astype(np.complex64)  # repeated values
+INPUTS["cplx_nan"] = np.array([1 + 2j, complex(np.nan, 0), complex(1, np.nan), 1 + 1j, -1 + 5j, 1 + 2j,
+                               complex(np.nan, np.nan), 0 + 1j, complex(np.nan, -3), 2 + 0j, complex(0.0, -0.0),
+                               complex(-0.0, 0.0), complex(-1, np.nan)], np.complex64)
+INPUTS["u8"] = _rng.integers(0, 256, (7, 5)).astype(np.uint8)
+INPUTS["i8"] = _rng.integers(-128, 128, (7, 5)).astype(np.int8)
+INPUTS["i16"] = _rng.integers(-2000, 2000, (7, 5)).astype(np.int16)
+INPUTS["f16"] = _rng.standard_normal((7, 5)).astype(np.float16)
+INPUTS["bools_t"] = np.ascontiguousarray(INPUTS["bools"].T)
+# integer products that wrap: int8 rows of k = 300 (100 · 100 · 300 overflows int8), int32
+# entries near 2**20 (their products overflow int32)
+INPUTS["mm_i8"] = _rng.integers(60, 128, (7, 300)).astype(np.int8)
+INPUTS["mm_i8t"] = _rng.integers(60, 128, (300, 5)).astype(np.int8)
+INPUTS["mm_i32"] = _rng.integers(2**19, 2**21, (7, 11)).astype(np.int32)
+INPUTS["mm_i32t"] = _rng.integers(2**19, 2**21, (11, 5)).astype(np.int32)
 
 
 
@@ -217,11 +249,111 @@ CASES = {
     "edge_int_div_zero": lambda m, arr, s: tuple(fn(arr("div_x", s), y) for fn in (m.floor_divide, m.mod, m.fmod,
                                                                                     m.remainder)
                                                  for y in (arr("div_y", s), 0)),
+    # every dtype heat_tpu computes on, where the port raised or answered otherwise: bool
+    # products, complex rounding, variance, ordering and norms, float16 moments, 64-bit
+    # randint spans, mask assignment at any split, negative steps beside index arrays
+    "edge_matmul_bool": lambda m, arr, s: (m.matmul(arr("bools", s), arr("bools_t", s)),
+                                           m.dot(arr("bools", s), arr("bools_t", None))),
+    "edge_dot_bool": lambda m, arr, s: m.dot(arr("bools7", s), arr("bools7", s)),
+    "edge_matmul_int_wrap": lambda m, arr, s: (m.matmul(arr("mm_i8", s), arr("mm_i8t", s)),
+                                               m.matmul(arr("mm_i32", s), arr("mm_i32t", s)),
+                                               m.matmul(arr("mm_i8", s), arr("mm_i8t", None).astype(m.int16))),
+    "edge_round_complex": lambda m, arr, s: (m.round(arr("cplx", s) * 3), m.round(arr("cplx128", s) * 7)),
+    # XLA's division by 10**decimals rounds otherwise in the last bit (the real round(x, 1) is
+    # held within 4 ulp in tests/test_torch_elementwise.py for the same reason)
+    "edge_round_complex_decimals": lambda m, arr, s: m.round(arr("cplx128", s) * 7, 1),
+    "edge_var_complex": lambda m, arr, s: (m.var(arr("cplx", s)), m.std(arr("cplx", s)),
+                                           m.var(arr("cplx128", s), ddof=1)),
+    "edge_sort_complex": lambda m, arr, s: (*m.sort(arr("cplx", s), axis=0), *m.sort(arr("cplx_round", s), axis=1,
+                                                                                       descending=True)),
+    "edge_sort_complex_nan": lambda m, arr, s: (*m.sort(arr("cplx_nan", s)), *m.sort(arr("cplx_nan", s),
+                                                                                    descending=True)),
+    "edge_unique_complex": lambda m, arr, s: m.unique(arr("cplx_round", s), return_inverse=True),
+    "edge_unique_complex_nan": lambda m, arr, s: m.unique(arr("cplx_nan", s), return_inverse=True),
+    "edge_max_complex": lambda m, arr, s: (m.max(arr("cplx", s)), m.min(arr("cplx_round", s)),
+                                           m.max(arr("cplx128", s))),
+    "edge_maximum_complex": lambda m, arr, s: (m.maximum(arr("cplx", s), arr("cplx_b", s)),
+                                               m.minimum(arr("cplx_b", s), arr("cplx", s))),
+    "edge_norm_complex": lambda m, arr, s: (m.linalg.norm(arr("cplx", s)), m.vector_norm(arr("cplx", s), axis=0),
+                                            m.vector_norm(arr("cplx128", s), axis=1, ord=1)),
+    "edge_moments_f16": lambda m, arr, s: (m.skew(arr("f16", s)), m.kurtosis(arr("f16", s), axis=0),
+                                           m.skew(arr("f16", s), axis=1, unbiased=False)),
+    "edge_randint_spans": lambda m, arr, s: tuple(
+        _drawn(m, 20 + i, lambda: m.random.randint(lo, hi, (7, 5), dtype=dt, split=s, **arr.kw))
+        for i, (lo, hi, dt) in enumerate([(0, 2**31, m.int64), (0, 2**40, m.int64), (0, 2**63 - 1, m.int64),
+                                          (-2**63, 2**63 - 1, m.int64), (-7, 2**62 + 5, m.int64),
+                                          (0, 2**31, m.int32), (-2**31, 2**31, m.int32)])),
+    "edge_set_mask_values": lambda m, arr, s: _set(arr("a", s), arr("mask_a", s),
+                                                   arr("mask_vals", None if s is None else 0)),
+    "edge_set_mask_whole_values": lambda m, arr, s: _set(arr("a", s), arr("mask_a", s), arr("mask_vals", None)),
+    "edge_set_neg_step_array": lambda m, arr, s: (_set(arr("a", s), (m.array([0, 2, 5], **arr.kw), slice(None, None, -1)),
+                                                       arr("a", None)[0:3]),
+                                                  _set(arr("cube", s), (slice(None, None, -2), [1, 0], slice(0, 2)), 5.0)),
+    # pad's computed modes, by torch ops on the array's device
+    "pad_stats": lambda m, arr, s: tuple(m.pad(arr("a", s), ((1, 2), (3, 1)), mode=mode)
+                                         for mode in ("mean", "median", "maximum", "minimum", "linear_ramp", "empty")),
+    "pad_stats_int": lambda m, arr, s: tuple(m.pad(arr("ints", s), ((2, 1), (0, 2)), mode=mode)
+                                             for mode in ("mean", "median", "maximum", "linear_ramp")),
+    # the dtype sweep: common operations over every input type, and their sums (heat_tpu's
+    # sums of uint8 are uint64, which neither package has)
+    **{f"dtype_{name}": (lambda name: lambda m, arr, s: _sweep(m, arr, s, name))(name)
+       for name in ("bools", "u8", "i8", "i16", "f16", "bf16", "cplx", "cplx128")},
+    **{f"dtype_sums_{name}": (lambda name: lambda m, arr, s: _sums(m, arr, s, name))(name)
+       for name in ("bools", "i8", "i16", "f16", "bf16", "cplx", "cplx128")},
 }
 
+
+def _typed(m, arr, name, split):
+    """The sweep's input ``name`` (``bf16``: "a" as bfloat16)."""
+    return arr("a", split).astype(m.bfloat16) if name == "bf16" else arr(name, split)
+
+
+def _sweep(m, arr, s, name):
+    """Operations every dtype meets: reshape, concatenate, transpose, slicing, a mask, sort
+    along the split axis, max, sum and cumsum along an axis, elementwise arithmetic and
+    comparisons, where, astype."""
+    x = _typed(m, arr, name, s)
+    y = _typed(m, arr, name, None)
+    out = [m.reshape(x, (5, 7)), m.concatenate([x, y], axis=0), m.transpose(x), x[1:6:2], x[::-1, 1],
+           x[arr("mask_a", s)], m.equal(x, y), x == y, x != m.flip(y, 0), m.where(arr("mask_a", s), x, y),
+           x.astype(m.float32), *m.sort(x, axis=0)]
+    if name != "bools":
+        out += [x + y, x * y, x - m.flip(y, 0), m.maximum(x, m.flip(y, 1))]
+    if name not in ("cplx", "cplx128"):  # the complex max and min are edge_max_complex's
+        out += [abs(x), x < m.flip(y, 0), m.max(x, axis=0), m.min(x)]
+    return tuple(out)
+
+
+def _sums(m, arr, s, name):
+    """The sums of the sweep's input along each axis, its cumulative sum (not of float16
+    and bfloat16: see tests/test_torch_dtypes.py) and a complex input's modulus."""
+    x = _typed(m, arr, name, s)
+    out = [m.sum(x, axis=1), m.sum(x, axis=0)]
+    if name not in ("f16", "bf16"):
+        out.append(m.cumsum(x, 0))
+    if name in ("cplx", "cplx128"):  # |x| by another hypot: within a rounding
+        out.append(abs(x))
+    return tuple(out)
+
 FLOAT = {"convolve_full", "convolve_same", "kmeans_random", "cumsum1", "percentile", "percentile_axis0", "percentile_axis1", "median", "median_all", "median_ints",
-         "percentile_nan", "edge_vector_norm_int"}
+         "percentile_nan", "edge_vector_norm_int", "edge_var_complex", "edge_norm_complex", "edge_moments_f16", "edge_round_complex_decimals",
+         "pad_stats", "dtype_sums_cplx", "dtype_sums_cplx128"}
 RTOL = 1e-6
+# cases held within a wider tolerance than RTOL, with the reason: the float16 moments are
+# float32 sums in another order, and kurtosis' unbiased correction subtracts 3(n - 1) from
+# (n + 1)·g2, which multiplies their relative error by about n
+TOLERANCES = {"edge_moments_f16": 1e-4}
+# heat_tpu's result at split=None stands for every layout where its split result differs
+# from its own one-device answer (ROADMAP Queue 3, "The reference's own differences"): the
+# max and min of a split complex array raise in XLA, its variance is wrong there, and the
+# inverse of unique gives its NaN elements other indices. Values, dtype and global shape
+# are compared.
+AT_NONE = {"edge_var_complex", "edge_max_complex", "edge_unique_complex_nan"}
+
+
+def rtol_of(name):
+    """The relative tolerance a case is held to (0: exact)."""
+    return TOLERANCES.get(name, RTOL if name in FLOAT else 0)
 
 
 def splits_of(name):
@@ -230,4 +362,5 @@ def splits_of(name):
                                  "percentile", "percentile_nan", "bincount", "nansum", "randperm",
                                  "convolve_full", "convolve_same", "convolve_valid",
                                  "kmeans_random", "edge_sign_nan", "edge_histogram_bool", "edge_bincount_bool",
-                                 "edge_int_div_zero") else (None, 0, 1)
+                                 "edge_int_div_zero", "edge_dot_bool", "edge_sort_complex_nan",
+                                 "edge_unique_complex_nan") else (None, 0, 1)

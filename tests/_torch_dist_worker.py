@@ -499,6 +499,8 @@ def run_cluster(inputs) -> dict:
 
 def _record(out: dict, key: str, x) -> None:
     for name, value in port_record(x).items():
+        if getattr(value, "dtype", None) is not None and value.dtype.name == "bfloat16":
+            value = value.astype(np.float32)  # npz keeps no bfloat16 (exact in float32)
         out[f"{key}__{name}"] = value
 
 
@@ -519,7 +521,19 @@ def run_linalg(inputs, comm) -> dict:
                 comm_plan.reset_counters()
                 _record(out, f"mm_{value}_{sa}_{sb}", ht.matmul(x, y))
                 out[f"mm_{value}_{sa}_{sb}_counted"] = np.array(repr(sorted(comm_plan.COUNTERS.items())))
+    # integer and bool products under every knob: the ring, rs and general paths
+    for value in ("auto", "xla", "ring", "rs"):
+        os.environ[knob] = value
+        for dt in ("i8", "i32", "bool"):
+            for sa in (None, 0, 1):
+                for sb in (None, 0, 1):
+                    x, y = ht.array(inputs[f"la_{dt}_a"], split=sa), ht.array(inputs[f"la_{dt}_b"], split=sb)
+                    comm_plan.reset_counters()
+                    _record(out, f"imm_{value}_{dt}_{sa}_{sb}", ht.matmul(x, y))
+                    out[f"imm_{value}_{dt}_{sa}_{sb}_counted"] = np.array(repr(sorted(comm_plan.COUNTERS.items())))
     os.environ.pop(knob)
+    for dt in ("i64", "bool"):
+        _record(out, f"idot_{dt}", ht.dot(ht.array(inputs[f"v_{dt}"], split=0), ht.array(inputs[f"v_{dt}"], split=0)))
 
     # a ring plan whose collective fails raises on every rank, and nothing else runs
     def failing(self, *args, **kwargs):
@@ -710,7 +724,8 @@ def run_sort_cases() -> dict:
 SORT_CASES = ["sort0", "sort1", "sort_ties", "sort_ties_desc", "sort_ties2d", "sort_ints", "sort_small", "topk",
               "topk_small", "topk_ties", "unique", "unique_inverse", "unique_ties", "percentile", "percentile_axis0",
               "percentile_nan", "median", "median_all", "reshape_new_split1", "concatenate1", "get_neg_step",
-              "get_mask", "rand", "randint", "randperm", "permutation", "kmeans_random"]
+              "get_mask", "rand", "randint", "randperm", "permutation", "kmeans_random", "edge_sort_complex",
+              "edge_sort_complex_nan", "edge_unique_complex"]
 
 # (source counts, destination counts) over three ranks, 7 slices each
 REDISTRIBUTE_PAIRS = [([3, 3, 1], [0, 7, 0]), ([0, 7, 0], [2, 2, 3]), ([1, 0, 6], [5, 2, 0]), ([7, 0, 0], [0, 0, 7])]
@@ -740,6 +755,7 @@ NO_GATHER = {
     "permutation": lambda m, arr: m.random.permutation(arr("a", 0)),
     "convolve": lambda m, arr: m.convolve(arr("long", 0), m.array([1.0, 2.0, 1.0]), mode="same"),
     "print": lambda m, arr: str(m.array(PRINTED, split=0)),
+    "set_mask_split_value": lambda m, arr: arr("a", 1).__setitem__(arr("mask_a", 1), arr("mask_vals", 0)),
 }
 
 PRINTED = np.arange(40 * 50, dtype=np.float32).reshape(40, 50) / 7

@@ -218,6 +218,15 @@ def _linalg_inputs(rng):
         "cd_x": rng.standard_normal((7, 4)).astype(np.float32),
         "cd_y": rng.standard_normal((8, 4)).astype(np.float32),
         "cd_y2": rng.standard_normal((2, 4)).astype(np.float32),
+        # integer products that wrap (int8 entries near 100, int32 near 2**20) and bool ones
+        "la_i8_a": rng.integers(60, 128, (7, 5)).astype(np.int8),
+        "la_i8_b": rng.integers(60, 128, (5, 4)).astype(np.int8),
+        "la_i32_a": rng.integers(2**19, 2**21, (7, 5)).astype(np.int32),
+        "la_i32_b": rng.integers(2**19, 2**21, (5, 4)).astype(np.int32),
+        "la_bool_a": rng.standard_normal((7, 5)) > 0.8,
+        "la_bool_b": rng.standard_normal((5, 4)) > 0.8,
+        "v_i64": rng.integers(2**30, 2**31, 8).astype(np.int64) * 2**20,
+        "v_bool": rng.standard_normal(8) > 1.0,
     }
 
 
@@ -506,6 +515,44 @@ def test_matmul_plans_match_heat_tpu(ranks, comm3, jknob, knob, pair):
         assert plan.kind == "ring"
 
 
+INT_DTYPES = ("i8", "i32", "bool")
+
+
+@pytest.mark.parametrize("dt", INT_DTYPES)
+@pytest.mark.parametrize("pair", PAIRS, ids=str)
+@pytest.mark.parametrize("knob", KNOBS)
+def test_int_matmul_plans_match_heat_tpu(ranks, comm3, jknob, knob, pair, dt):
+    """Integer and bool products under every knob value and split pair, through the ring,
+    rs and general paths (each product by the integer kernel's plain version on the CPU):
+    exactly heat_tpu's, wrapping modulo 2^bits, bool the OR of ANDs; the plan executed is
+    heat_tpu's (bool is never planned)."""
+    inputs, res = ranks
+    jknob(knob)
+    sa, sb = pair
+    a = ht.array(inputs[f"la_{dt}_a"], split=sa, comm=comm3)
+    b = ht.array(inputs[f"la_{dt}_b"], split=sb, comm=comm3)
+    plan = jplan.plan_matmul(a, b)
+    want = ht.matmul(a, b)
+    for r in res:
+        assert_record_equal(_rec(r, f"imm_{knob}_{dt}_{sa}_{sb}"), want, rtol=0)
+        counted = str(r[f"imm_{knob}_{dt}_{sa}_{sb}_counted"])
+        assert (plan is None) == (counted == "[]")
+        if plan is not None:
+            assert f"('linalg.plan.{plan.kind}', 1)" in counted
+    if dt == "bool":
+        assert plan is None
+
+
+@pytest.mark.parametrize("dt", ["i64", "bool"])
+def test_int_dot_split(ranks, comm3, dt):
+    """The 1-D dot of two split integer or bool vectors: partial dots all-reduced, exact."""
+    inputs, res = ranks
+    v = inputs[f"v_{dt}"]
+    want = ht.dot(ht.array(v, split=0, comm=comm3), ht.array(v, split=0, comm=comm3))
+    for r in res:
+        assert_record_equal(_rec(r, f"idot_{dt}"), want, rtol=0)
+
+
 def test_failing_ring_plan_raises(ranks):
     """A ring plan whose ring_shift fails raises on every rank; nothing falls back."""
     _, res = ranks
@@ -652,7 +699,7 @@ def test_ring_cdist(ranks, comm3, name):
 
 
 # ---------------------------------------------------------------- the array API
-from _torch_array_cases import CASES, FLOAT, INPUTS, RTOL, Arrays, splits_of  # noqa: E402
+from _torch_array_cases import AT_NONE, CASES, INPUTS, Arrays, rtol_of, splits_of  # noqa: E402
 
 from heat_tpu_torch.testing import tpu_record  # noqa: E402
 
@@ -663,19 +710,22 @@ ARRAY_CASES = [(name, split) for name in CASES for split in splits_of(name)]
 def test_array_api_matches_heat_tpu(ranks, comm3, name, split):
     """Every array-API case (tests/_torch_array_cases.py) on three gloo ranks against
     heat_tpu's three-device mesh: values, dtype, gshape, split and lshape map, exact but
-    for the cases in FLOAT (within RTOL)."""
+    for the cases in FLOAT and TOLERANCES (``rtol_of``); the cases in AT_NONE against
+    heat_tpu's split=None answer, whose split layouts differ from it."""
     _, res = ranks
     previous = ht.get_comm()
     ht.use_comm(comm3)  # heat_tpu's KMeans draws its init on the default communicator
     try:
-        want = CASES[name](ht, Arrays(ht, comm=comm3), split)
+        want = CASES[name](ht, Arrays(ht, comm=comm3), None if name in AT_NONE else split)
     finally:
         ht.use_comm(previous)
     want = want if isinstance(want, tuple) else (want,)
     for r in res:
         assert f"case_{name}_{split}_error" not in r, str(r.get(f"case_{name}_{split}_error"))
         for i, w in enumerate(want):
-            assert_record_equal(_rec(r, f"case_{name}_{split}_{i}"), w, rtol=RTOL if name in FLOAT else 0, what=name)
+            if name in AT_NONE:  # heat_tpu's split=None answer: values, dtype, gshape
+                w = {k: v for k, v in tpu_record(w).items() if k in ("value", "dtype", "gshape")}
+            assert_record_equal(_rec(r, f"case_{name}_{split}_{i}"), w, rtol=rtol_of(name), what=name)
 
 
 REDISTRIBUTE_PAIRS = [([3, 3, 1], [0, 7, 0]), ([0, 7, 0], [2, 2, 3]), ([1, 0, 6], [5, 2, 0]), ([7, 0, 0], [0, 0, 7])]
@@ -751,7 +801,9 @@ NO_GATHER = ["reshape_new_split", "reshape_flat", "concatenate_1_none_1", "respl
 # flat and the 2-D indices, 1.5·P·R); every other function gathers counts alone
 SMALL_GATHERS = {"topk": lambda P, R: P * 5 * (4 + 8), "cumsum": lambda P, R: P * 5 * 4,
                  "convolve": lambda P, R: 2 * P * 2 * 8, "mask": lambda P, R: P * R, "unique": lambda P, R: P * R,
-                 "nonzero_split1": lambda P, R: 3 * P * R // 2}
+                 "nonzero_split1": lambda P, R: 3 * P * R // 2,
+                 # the hits of each of the mask's 7 rows a rank, and the P·P request counts
+                 "set_mask_split_value": lambda P, R: P * 7 * 8 + P * P * 8}
 
 
 @pytest.mark.parametrize("name", NO_GATHER)
@@ -773,7 +825,8 @@ SORT_CASES = [(n, s) for n in ("sort0", "sort1", "sort_ties", "sort_ties_desc", 
                                "sort_small", "topk", "topk_small", "topk_ties", "unique", "unique_inverse",
                                "unique_ties", "percentile", "percentile_axis0", "percentile_nan", "median",
                                "median_all", "reshape_new_split1", "concatenate1", "get_neg_step", "get_mask", "rand",
-                               "randint", "randperm", "permutation", "kmeans_random") for s in splits_of(n)]
+                               "randint", "randperm", "permutation", "kmeans_random", "edge_sort_complex",
+                               "edge_sort_complex_nan", "edge_unique_complex") for s in splits_of(n)]
 
 
 @pytest.fixture(scope="module")
@@ -796,7 +849,7 @@ def test_sorting_at_four_ranks(ranks4, comm4, name, split):
     want = want if isinstance(want, tuple) else (want,)
     for r in ranks4:
         for i, w in enumerate(want):
-            assert_record_equal(_rec(r, f"case_{name}_{split}_{i}"), w, rtol=RTOL if name in FLOAT else 0, what=name)
+            assert_record_equal(_rec(r, f"case_{name}_{split}_{i}"), w, rtol=rtol_of(name), what=name)
 
 
 @pytest.mark.parametrize("split", [None, 0, 1])

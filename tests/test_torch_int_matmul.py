@@ -1,0 +1,182 @@
+"""The integer and bool product (heat_tpu_torch/core/kernels/int_matmul.py) against
+heat_tpu's ``matmul``, ``dot`` and ``vdot``, the port as one rank: every integer type and
+bool, mixed pairs through promotion, 1-D, 2-D and batched operands, contractions long
+enough to wrap int8 and int32 (and int64), every split pair. XLA's integer dot wraps
+modulo 2^bits and its bool dot is the OR of ANDs; the port's results are exact and equal
+to heat_tpu's. On the CPU the products take the kernel's plain version; the kernel itself
+runs in chip_smoke.py's ``[int_matmul]`` phase, bit for bit against that version."""
+
+import ast
+
+import numpy as np
+import pytest
+import torch
+
+import heat_tpu as ht
+
+import heat_tpu_torch as htt
+from heat_tpu_torch.core.kernels import int_matmul
+from heat_tpu_torch.testing import assert_record_equal, port_record
+
+TYPES = ["bool", "uint8", "int8", "int16", "int32", "int64"]
+PAIRS = [(sa, sb) for sa in (None, 0, 1) for sb in (None, 0, 1)]
+
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    htt.use_device("cpu")
+
+
+def _ints(dtype: str, shape, seed: int) -> np.ndarray:
+    """Entries that make the products wrap: near 100 for 8 and 16 bits (k = 300 overflows
+    int8 and int16 sums), near 2**20 for int32, near 2**40 for int64; bool at random."""
+    rng = np.random.default_rng(seed)
+    if dtype == "bool":
+        return rng.standard_normal(shape) > 0.7
+    lo, hi = {"uint8": (150, 256), "int8": (-128, 128), "int16": (-3000, 3000), "int32": (2**19, 2**21),
+              "int64": (2**39, 2**41)}[dtype]
+    return rng.integers(lo, hi, shape).astype(dtype)
+
+
+def _k(dtype: str) -> int:
+    return 300 if dtype in ("bool", "uint8", "int8", "int16") else 40
+
+
+def _same(got, want):
+    assert_record_equal(port_record(got), want, rtol=0)
+
+
+@pytest.mark.parametrize("pair", PAIRS, ids=str)
+@pytest.mark.parametrize("dtype", TYPES)
+def test_matmul_every_type_and_split(dtype, pair):
+    """(7, k) · (k, 5) at every split pair: exactly heat_tpu's product, wrapped."""
+    a, b = _ints(dtype, (7, _k(dtype)), 1), _ints(dtype, (_k(dtype), 5), 2)
+    sa, sb = pair
+    _same(htt.matmul(htt.array(a, split=sa), htt.array(b, split=sb)), ht.matmul(ht.array(a, split=sa), ht.array(b, split=sb)))
+    if dtype != "bool":  # the sums really wrap: the exact product leaves the type
+        exact = a.astype(object) @ b.astype(object)
+        assert any(int(v) != int(w) for v, w in zip(exact.ravel(), htt.matmul(htt.array(a), htt.array(b)).numpy().ravel()))
+
+
+@pytest.mark.parametrize("pair", [("int8", "int16"), ("uint8", "int8"), ("int32", "uint8"), ("bool", "int8"),
+                                  ("int16", "int64"), ("bool", "uint8")])
+def test_mixed_pairs_promote(pair):
+    """Operands of two types meet in the promoted type (jnp's rules), then wrap there."""
+    a, b = _ints(pair[0], (6, 300), 3), _ints(pair[1], (300, 4), 4)
+    for sa, sb in ((None, None), (0, 1), (1, 0)):
+        got = htt.matmul(htt.array(a, split=sa), htt.array(b, split=sb))
+        want = ht.matmul(ht.array(a, split=sa), ht.array(b, split=sb))
+        _same(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["bool", "int8", "int32", "int64"])
+def test_vector_and_batched_operands(dtype):
+    """1-D operands (a row, a column, the inner product), a batch against a matrix, two
+    batches, broadcast batch dimensions, and dot and vdot of vectors and matrices."""
+    k = _k(dtype)
+    m3, m3b, m4 = _ints(dtype, (3, 7, k), 5), _ints(dtype, (3, k, 5), 6), _ints(dtype, (2, 1, 7, k), 7)
+    mat, vec, vec2 = _ints(dtype, (k, 5), 8), _ints(dtype, k, 9), _ints(dtype, k, 10)
+    cases = [
+        (lambda m: m.matmul(m.array(vec), m.array(mat))),
+        (lambda m: m.matmul(m.array(mat.T.copy()), m.array(vec))),
+        (lambda m: m.matmul(m.array(vec), m.array(vec2))),
+        (lambda m: m.matmul(m.array(m3, split=0), m.array(mat))),
+        (lambda m: m.matmul(m.array(m3), m.array(m3b))),
+        (lambda m: m.matmul(m.array(m4), m.array(m3b))),
+        (lambda m: m.dot(m.array(vec, split=0), m.array(vec2, split=0))),
+        (lambda m: m.dot(m.array(vec), m.array(vec2, split=0))),
+        (lambda m: m.vdot(m.array(mat, split=1), m.array(mat))),
+    ]
+    for case in cases:
+        _same(case(htt), case(ht))
+
+
+def test_plain_version():
+    """The plain version: torch's integer matmul wraps (int8 of 100s, k = 300, gives jnp's
+    -64), and bool is the OR of ANDs."""
+    a = torch.full((2, 300), 100, dtype=torch.int8)
+    assert int(int_matmul.int_matmul_reference(a, a.T)[0, 0]) == -64
+    rng = np.random.default_rng(11)
+    x, y = rng.standard_normal((5, 40)) > 1.0, rng.standard_normal((40, 3)) > 1.0
+    want = np.array([[any(x[i, j] and y[j, c] for j in range(40)) for c in range(3)] for i in range(5)])
+    np.testing.assert_array_equal(int_matmul.int_matmul_reference(torch.from_numpy(x), torch.from_numpy(y)).numpy(), want)
+    np.testing.assert_array_equal(int_matmul.matmul(torch.from_numpy(x), torch.from_numpy(y)).numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", TYPES)
+def test_limb_version_equals_the_plain_version(dtype):
+    """The card's plain version (float64 products of byte planes, carried byte by byte;
+    torch.matmul takes no CUDA integer tensor) equals the CPU's on full-range entries,
+    batched and 1-D operands included."""
+    rng = np.random.default_rng(15)
+    if dtype == "bool":
+        a, b = rng.standard_normal((2, 6, 300)) > 0.5, rng.standard_normal((300, 4)) > 0.5
+    else:
+        info = np.iinfo(dtype)
+        a = rng.integers(info.min, info.max, (2, 6, 300), dtype=np.int64).astype(dtype)
+        b = rng.integers(info.min, info.max, (300, 4), dtype=np.int64).astype(dtype)
+    a, b = torch.from_numpy(a), torch.from_numpy(b)
+    for x, y in ((a, b), (a[0, 0], b[:, 1]), (a[1], b)):
+        got, want = int_matmul._limb_matmul(x, y), int_matmul.int_matmul_reference(x, y)
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k", [1, 300, 5000, 70_000])
+@pytest.mark.parametrize("dtype", ["bool", "uint8", "int8", "int16", "int32", "int64"])
+def test_split_k_partials_wrap_to_the_same_bits(dtype, k):
+    """The 1-D dot kernel splits k over its threads (a grid-stride loop over ``blocks`` of
+    256, as the wrapper sizes the grid for 132 SMs), sums each thread's share in uint32
+    (uint64 for int64; OR for bool) and combines the threads' partials: wrapping sums in
+    any grouping give the product's bits. Replayed here in numpy's unsigned types."""
+    acc = np.uint64 if dtype == "int64" else np.uint32
+    a, b = _ints(dtype, (k,), 13), _ints(dtype, (k,), 14)
+    threads = max(1, min(-(-k // (256 * 8)), 4 * 132)) * 256
+    with np.errstate(over="ignore"):
+        shares = [(a[t::threads].astype(acc) * b[t::threads].astype(acc)) for t in range(min(threads, k))]
+        if dtype == "bool":
+            got = np.bool_(any(s.any() for s in shares))
+        else:
+            partials = np.array([s.sum(dtype=acc) for s in shares], dtype=acc)
+            got = partials.sum(dtype=acc).astype(dtype)
+    want = int_matmul.int_matmul_reference(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    assert got == want
+
+
+def test_wrapper_checks_and_cpu_route():
+    """The wrapper refuses floats, mixed types and devices other than the CPU and CUDA;
+    CPU tensors take the plain version and launch nothing."""
+    before = int_matmul.launches
+    a = torch.ones((2, 3), dtype=torch.int32)
+    np.testing.assert_array_equal(int_matmul.matmul(a, a.T).numpy(), np.full((2, 2), 3))
+    assert int_matmul.launches == before
+    with pytest.raises(TypeError):
+        int_matmul.matmul(a.float(), a.T.float())
+    with pytest.raises(TypeError):
+        int_matmul.matmul(a, a.T.to(torch.int64))
+    with pytest.raises(ValueError):
+        int_matmul.matmul(a, a)
+    with pytest.raises(ValueError):
+        int_matmul.matmul(a.to("meta"), a.T.to("meta"))
+
+
+def test_launch_count_under_its_lock():
+    """The launch counter moves only inside ``with _count_lock`` and resets with the
+    package's other kernels."""
+    from heat_tpu_torch.core import kernels
+
+    tree = ast.parse(open(int_matmul.__file__).read())
+    parents = {c: p for p in ast.walk(tree) for c in ast.iter_child_nodes(p)}
+    incs = [n for n in ast.walk(tree) if isinstance(n, ast.AugAssign) and ast.unparse(n.target) == "launches"]
+    assert incs and all(isinstance(parents[n], ast.With) and ast.unparse(parents[n].items[0].context_expr)
+                        == "_count_lock" for n in incs)
+    assert kernels.KERNELS["int_matmul"] is int_matmul
+    saved = kernels.launch_counts()
+    try:
+        with int_matmul._count_lock:
+            int_matmul.launches += 2
+        assert kernels.launch_counts()["int_matmul"] == saved["int_matmul"] + 2
+        kernels.reset_launch_counts()
+        assert kernels.launch_counts()["int_matmul"] == 0
+    finally:
+        for name, mod in kernels.KERNELS.items():
+            mod.launches = saved[name]

@@ -119,5 +119,31 @@ def test_erfinv_is_xlas(dtype, fn, ulps):
 
 
 def test_randint_refuses_wide_int64_spans():
-    with pytest.raises(NotImplementedError):
-        htt.random.randint(0, 2**40, (3,), dtype=htt.int64)
+    """Bounds past int64 raise OverflowError, as jax's argument parsing does; spans of
+    2**31 and more within int64 are drawn as heat_tpu draws them (jax's uint64 arithmetic
+    replayed in limbs)."""
+    with pytest.raises(OverflowError):
+        htt.random.randint(0, 2**63, (3,), dtype=htt.int64)
+    with pytest.raises(OverflowError):
+        ht.random.randint(0, 2**63, (3,), dtype=ht.int64)
+    htt.random.seed(31)
+    ht.random.seed(31)
+    np.testing.assert_array_equal(htt.random.randint(0, 2**40, (3,), dtype=htt.int64).numpy(),
+                                  ht.random.randint(0, 2**40, (3,), dtype=ht.int64).numpy())
+
+
+@pytest.mark.parametrize("s", [2**31, 2**31 + 1, 2**40 - 3, 2**40, 2**53 + 1, 2**63 - 1, 2**63, (2**64) // 3 + 1,
+                               3 * 2**62, 2**64 - 1, 0xDEADBEEFCAFEF00D])
+def test_u64_mod_is_exact(s):
+    """randint's remainder by a constant span of 2**31 or more, in 32-bit limbs, against
+    Python's integers: random words, and words at and beside multiples of s, where the
+    float64 quotient it starts from is least sure."""
+    rng = np.random.default_rng(s % 2**32)
+    xs = [int(v) for v in rng.integers(0, 2**64, 64, dtype=np.uint64)]
+    for q in (1, 2, 3, (2**64 - 1) // s, rng.integers(1, max(2, (2**64 - 1) // s))):
+        for d in (-2, -1, 0, 1, 2):
+            xs.append((int(q) * s + d) % 2**64)
+    xs += [0, 1, s - 1, 2**64 - 1, 2**63, 2**32 - 1, 2**32]
+    x = (torch.tensor([v >> 32 for v in xs]), torch.tensor([v & prandom.M32 for v in xs]))
+    rh, rl = prandom._u64_mod(x, s)
+    assert [(h << 32) | l for h, l in zip(rh.tolist(), rl.tolist())] == [v % s for v in xs]
