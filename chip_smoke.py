@@ -270,17 +270,26 @@ Phases, one line each:
      GaussianNB best of 2) beside its bytes at 3.35 TB/s; then integer division and
      remainders by zero on the card against the CPU path;
  18b. (in the same child process) the dtypes (``dtype_phases``): ``[int_matmul]``, the integer
-     and bool product's hand kernel through ``ht.matmul`` at 8192³ int32 split 0 (path counts
-     of a 1%-dense adjacency), 4096³ int64 and 8192³ int8 (full-range entries: every sum
-     wraps), 8192³ bool split 0 (one reachability step) and ``ht.dot`` of two 40M int64
-     vectors: launch counts zeroed just before each product and read just after (one
-     launch), the result bit for bit against the plain version on the card (float64
-     products of byte planes, carried byte by byte; the largest difference reported), the
-     kernel best of 3 beside its bound (bytes, or the faster of the card's int8 tensor cores
-     on byte planes and its IMAD rate: ``int_bound_ms``) and the plain version's time, and
-     ``torch._int_mm`` cut to int8 timed and held to the int8 product; ``[int_matmul_plans]``, the ring (rA, rB, rC) and reduce-scatter (s10,
-     sN0, s1N) plans' rank-local bodies over 4 virtual ranks of one card at 4096³ int32,
-     each rank's products by the kernel (P² launches a ring, P an rs plan), bit for bit;
+     and bool products' hand kernels through ``ht.matmul`` at 8192³ int32 split 0 (path counts
+     of a 1%-dense adjacency) and 4096³ int64 on the IMAD kernel, 8192³ int8 and uint8
+     (full-range entries: every sum wraps) and 8192³ bool split 0 (one reachability step) on
+     the int8 tensor cores, and ``ht.dot`` of two 40M int64 vectors: launch counts zeroed
+     just before each product and read just after (one launch of the route's kernel, and one
+     of the transpose that gives the tensor cores Bᵀ), the result bit for bit against the
+     plain version on the card (float64 products of byte planes, carried byte by byte; the
+     largest difference reported), the kernel best of 3 (5 on the tensor cores) beside its
+     bound (bytes, or the faster of the card's int8 tensor cores on byte planes and its IMAD
+     rate: ``int_bound_ms``) and the plain version's time, and ``torch._int_mm`` cut to
+     int8, or compared with 0 for bool, timed and held to the product (int8 and bool must
+     beat it and their plain versions); the transpose alone at 8192² against its plain
+     version and ``b.t().contiguous()`` (``[int_transpose_pad]``); then, bit for bit with
+     their launches, the int32 wrap (int8 and uint8 at 256 x (2^17 + 64) x 256, a 128 x 128
+     block of C summing past 2^31), ragged sizes (1000 x 1001 x 999, 3 x 1 x 5) and a batch
+     of 4 against one shared A for bool, uint8 and int8, and one breadth-first step (8192²
+     bool adjacency @ a bool frontier) timed beside its bytes; ``[int_matmul_plans]``, the
+     ring (rA, rB, rC) and reduce-scatter (s10, sN0, s1N) plans' rank-local bodies over 4
+     virtual ranks of one card at 4096³ int32, each rank's products by the kernel (P²
+     launches a ring, P an rs plan), bit for bit;
      ``[dtype_sweep]``, every case of tests/_torch_array_cases.py (inputs of every dtype
      heat_tpu computes on) on the card against the same case on the CPU path, exact for
      exact results and within the case's tolerance for floats, no case raising;
@@ -291,7 +300,8 @@ Phases, one line each:
      every clustering path too), its time, its bound on this card (f32 attention work at
      the 3xTF32 rate, with the fp32 FMA rate's bound beside it), its plain version's time
      and a library call's time (the linear algebra's float products are cuBLAS and
-     cuSOLVER, its integer and bool products the integer kernel, whose row is last; the
+     cuSOLVER, its integer and bool products the integer kernels, whose rows are last:
+     int_matmul (IMAD), int_matmul_tc (the int8 tensor cores) and its transpose; the
      array API and the clustering run no hand kernel: their torch ops stand in for XLA's;
      the domain steps none either: heat_tpu's fft, sparse and estimators reach no
      pl.pallas_call);
@@ -365,6 +375,8 @@ TENSOR_CORE_KERNELS = {
     "flash_attention_fwd_pipelined.cu": ("flash_attention_fwd_pipelined_kernel",),
     "flash_attention_bwd.cu": ("flash_attention_bwd_dq_kernel", "flash_attention_bwd_dkv_kernel"),
 }
+# the kernels, by source, whose every instance takes its products as integer wgmma (IGMMA)
+WGMMA_KERNELS = {"int_gemm_tc.cu": ("int_gemm_tc_kernel",)}
 
 
 def gamma(h: int, u: float = U32) -> float:
@@ -3857,8 +3869,16 @@ INT_MM_CASES = {
     "int32_8192_split0": ("int32", 8192, 8192, 8192, 0, "path counting: A @ A on an int32 adjacency"),
     "int64_4096": ("int64", 4096, 4096, 4096, None, "int64 products, wrapping"),
     "int8_8192": ("int8", 8192, 8192, 8192, None, "int8 products, wrapping"),
+    "uint8_8192": ("uint8", 8192, 8192, 8192, None, "uint8 products (pixel and quantised data), wrapping"),
     "bool_8192": ("bool", 8192, 8192, 8192, 0, "reachability: one step of A @ A on a bool adjacency"),
 }
+# the tensor-core product's edges: int32 sums that overflow (a 128 x 128 block of C whose
+# sums are k·128² or k·255², past 2^31), ragged sizes, a batch against one shared A, and one
+# step of breadth-first search (a bool matrix against a bool vector)
+INT_WRAP_MN, INT_WRAP_K, INT_WRAP_BLOCK = 256, 2**17 + 64, 128
+INT_RAGGED = {"1000x1001x999": (1, 1000, 1001, 999), "3x1x5": (1, 3, 1, 5),
+              "shared_a_4x300x777x500": (4, 300, 777, 500)}
+INT_MATVEC_N = 8192
 INT_DOT_N = 40_000_000
 # the card's integer instruction rate: 64 IMAD (or LOP3) a clock an SM, 132 SMs at 1.98 GHz
 IMAD_PER_S = 132 * 64 * 1.98e9
@@ -3872,6 +3892,7 @@ IMAD_PER_MAC = {"bool": 1 / 32, "uint8": 1, "int8": 1, "int16": 1, "int32": 1, "
 # planes need their sums whole, which holds while k < 66,051, or in chunks of k)
 INT8_TENSOR_OPS_PER_S = 1.979e15
 INT8_PRODUCTS = {"bool": 1, "uint8": 1, "int8": 1, "int16": 3, "int32": 10, "int64": 36}
+INT_KERNELS = ("int_matmul", "int_matmul_tc", "int_transpose_pad")
 INT_PLAN_N = 4096  # the plans' int32 product, over INT_PLAN_P virtual ranks
 INT_PLAN_P = 4
 GAP_RANDINT_N = 40_000_000
@@ -3987,39 +4008,150 @@ def int_matmul_phases(ht, kernels, dev, smi: str) -> dict:
 
     res = {"nvidia_smi": smi, "cases": {}, "plans": {}}
     t0 = time.perf_counter()
+
+    def counted(fn):
+        """fn()'s result and the integer kernels' launches in it, counted from 0."""
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k_: kernels.launch_counts()[k_] for k_ in INT_KERNELS}
+
+    def launches_of(cname, counts, dtype, batch, m, n) -> tuple:
+        """The product's route and its kernel's launches, after checking that the product
+        launched its route's kernel once (and the transpose once where the tensor cores'
+        B is not already Bᵀ) and nothing else."""
+        kind = int_matmul.route(getattr(torch, dtype), batch, m, n)
+        tc = kind == "tensor_cores"
+        want = {"int_matmul": int(not tc), "int_matmul_tc": int(tc), "int_transpose_pad": int(tc and n > 1)}
+        check(counts == want, f"[int_matmul] {cname}: launches {counts}, expected {want}")
+        return kind, counts["int_matmul_tc" if tc else "int_matmul"]
+
+    def record(cname, entry) -> None:
+        res["cases"][cname] = entry
+        phase("int_matmul", case=cname, **{k_: (json.dumps(v) if isinstance(v, (list, dict)) else v)
+                                           for k_, v in entry.items()}, card=repr(smi))
+
     for i, (cname, (dtype, m, k, n, split, what)) in enumerate(INT_MM_CASES.items()):
         a_t, b_t = int_operands(dtype, m, k, n, SEED + 9000 + i, dev)
         A = ht.array(a_t, split=split)
         B = A if b_t is a_t else ht.array(b_t)
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        C = ht.matmul(A, B)
-        torch.cuda.synchronize()
-        launches = kernels.launch_counts()["int_matmul"]
-        check(launches == 1, f"[int_matmul] {cname}: {launches} launches of the integer kernel")
+        C, counts = counted(lambda: ht.matmul(A, B))
+        kind, launches = launches_of(cname, counts, dtype, 1, m, n)
         check(C.larray.is_cuda and C.larray.dtype == a_t.dtype and C.gshape == (m, n), f"[int_matmul] {cname}: {C}")
         ref = int_matmul.int_matmul_reference(a_t, b_t)
         err = int_abs_err(C.larray, ref)
         check(err == 0, f"[int_matmul] {cname}: differs from the plain version by up to {err}")
-        ms = best_ms(lambda: int_matmul.matmul(a_t, b_t))
+        ms = best_ms(lambda: int_matmul.matmul(a_t, b_t), reps=5 if kind == "tensor_cores" else 3)
         plain_ms = best_ms(lambda: int_matmul.int_matmul_reference(a_t, b_t), reps=1)
         bound, bound_by, route, imad_ms = int_bound_ms(dtype, m, k, n, itemsize=a_t.element_size())
-        entry = {"dtype": dtype, "shape": [m, k, n], "split": split, "what": what, "launches": launches,
+        entry = {"dtype": dtype, "shape": [m, k, n], "split": split, "what": what, "route": kind,
+                 "launches": launches, "launches_by_kernel": counts,
                  "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                  "bound_by": bound_by, "bound_route": route, "bound_share": bound / ms, "imad_bound_ms": imad_ms,
                  "library_ms": None,
                  "library_note": "none: torch.matmul raises on CUDA integer tensors"}
-        if dtype == "int8":
-            lib = torch._int_mm(a_t, b_t).to(torch.int8)
-            check(torch.equal(lib, ref), "[int_matmul] torch._int_mm cut to int8 differs from the plain version")
-            entry["int_mm_ms"] = best_ms(lambda: torch._int_mm(a_t, b_t).to(torch.int8))
+        if dtype in ("int8", "bool"):
+            # torch._int_mm: int8 operands, int32 out, on the tensor cores; bool's bytes are 0/1 int8
+            a8, b8 = a_t.view(torch.int8), b_t.view(torch.int8)
+            cut = (lambda x: x != 0) if dtype == "bool" else (lambda x: x.to(torch.int8))
+            cut_name = "!= 0" if dtype == "bool" else "cut to int8"
+            check(torch.equal(cut(torch._int_mm(a8, b8)), ref),
+                  f"[int_matmul] {cname}: torch._int_mm, cut to the type, differs from the plain version")
+            entry["int_mm_ms"] = best_ms(lambda: cut(torch._int_mm(a8, b8)), reps=5)
             entry["library_note"] = ("torch.matmul raises on CUDA integer tensors; int_mm_ms is torch._int_mm "
-                                     "(int32 out, tensor cores) cut to int8, the nearest library call")
-        res["cases"][cname] = entry
-        phase("int_matmul", case=cname, **{k_: (json.dumps(v) if isinstance(v, (list, dict)) else v)
-                                           for k_, v in entry.items()}, card=repr(smi))
+                                     f"(int8 operands, int32 out, tensor cores) {cut_name}, "
+                                     "the nearest library call")
+            check(ms < entry["int_mm_ms"] and ms < plain_ms, f"[int_matmul] {cname}: {ms} ms, not below "
+                  f"torch._int_mm's {entry['int_mm_ms']} and the plain version's {plain_ms}")
+        if cname == "int8_8192":
+            # the transpose that gives the tensor cores Bᵀ, alone, against its plain version
+            b3 = b_t.view(1, k, n)
+            bt = int_matmul._transpose_pad(b3, k)
+            t_err = int_abs_err(bt, int_matmul.transpose_pad_reference(b3, k))
+            check(t_err == 0, f"[int_matmul] the transpose differs from its plain version by up to {t_err}")
+            res["transpose"] = {"shape": [k, n], "dtype": dtype, "max_abs_err": t_err,
+                                "ms": best_ms(lambda: int_matmul._transpose_pad(b3, k), reps=5),
+                                "plain_ms": best_ms(lambda: int_matmul.transpose_pad_reference(b3, k), reps=5),
+                                "library_ms": best_ms(lambda: b_t.t().contiguous(), reps=5),
+                                "bound_ms": 1e3 * 2 * k * n / PEAK_BYTES_PER_S, "bound_by": "bytes"}
+            phase("int_transpose_pad", **{k_: json.dumps(v) if isinstance(v, list) else v
+                                          for k_, v in res["transpose"].items()}, card=repr(smi))
+            del bt
+        record(cname, entry)
         del A, B, C, ref, a_t, b_t
         torch.cuda.empty_cache()
+
+    # the 8-bit products whose int32 sums overflow: full-range entries, and a block of rows of A
+    # and columns of B at the type's largest magnitude, whose 128 x 128 block of C sums past 2^31
+    for i, dtype in enumerate(("int8", "uint8")):
+        tt = getattr(torch, dtype)
+        info = torch.iinfo(tt)
+        big = info.min if info.min < 0 else info.max
+        gen = torch.Generator(device=dev).manual_seed(SEED + 9050 + i)
+        a_t = torch.randint(info.min, info.max + 1, (INT_WRAP_MN, INT_WRAP_K), generator=gen, device=dev, dtype=tt)
+        b_t = torch.randint(info.min, info.max + 1, (INT_WRAP_K, INT_WRAP_MN), generator=gen, device=dev, dtype=tt)
+        a_t[:INT_WRAP_BLOCK] = big
+        b_t[:, :INT_WRAP_BLOCK] = big
+        block_sum = big * big * INT_WRAP_K
+        check(block_sum > 2**31 - 1, "the wrap case's block sums stay inside int32")
+        C, counts = counted(lambda: ht.matmul(ht.array(a_t), ht.array(b_t)))
+        kind, launches = launches_of(f"wrap_{dtype}", counts, dtype, 1, INT_WRAP_MN, INT_WRAP_MN)
+        ref = int_matmul.int_matmul_reference(a_t, b_t)
+        err = int_abs_err(C.larray, ref)
+        wrapped = int(C.larray[0, 0])
+        want = ((block_sum + 128) % 256 - 128) if dtype == "int8" else block_sum % 256
+        check(err == 0 and wrapped == want, f"[int_matmul] wrap_{dtype}: differs from the plain version by up to "
+              f"{err}; C[0, 0] = {wrapped}, the low 8 bits of {block_sum} are {want}")
+        record(f"wrap_{dtype}", {"dtype": dtype, "shape": [INT_WRAP_MN, INT_WRAP_K, INT_WRAP_MN], "route": kind,
+                                 "launches": launches, "launches_by_kernel": counts, "max_abs_err": err,
+                                 "block_sum": block_sum, "block_value": wrapped})
+        del C, ref, a_t, b_t
+
+    # ragged sizes and a batch against one shared A, for each type of one byte
+    for i, (rname, (batch, m, k, n)) in enumerate(INT_RAGGED.items()):
+        for j, dtype in enumerate(("bool", "uint8", "int8")):
+            tt = getattr(torch, dtype)
+            gen = torch.Generator(device=dev).manual_seed(SEED + 9060 + 3 * i + j)
+            b_shape = (batch, k, n) if batch > 1 else (k, n)
+            if dtype == "bool":
+                a_t = torch.rand(m, k, generator=gen, device=dev) < 0.5
+                b_t = torch.rand(b_shape, generator=gen, device=dev) < 0.5
+            else:
+                info = torch.iinfo(tt)
+                a_t = torch.randint(info.min, info.max + 1, (m, k), generator=gen, device=dev, dtype=tt)
+                b_t = torch.randint(info.min, info.max + 1, b_shape, generator=gen, device=dev, dtype=tt)
+            cname = f"{dtype}_{rname}"
+            C, counts = counted(lambda: ht.matmul(ht.array(a_t), ht.array(b_t)))
+            kind, launches = launches_of(cname, counts, dtype, batch, m, n)
+            ref = int_matmul.int_matmul_reference(a_t, b_t)
+            check(C.gshape == tuple(ref.shape), f"[int_matmul] {cname}: shape {C.gshape}, expected {tuple(ref.shape)}")
+            err = int_abs_err(C.larray, ref)
+            check(err == 0, f"[int_matmul] {cname}: differs from the plain version by up to {err}")
+            record(cname, {"dtype": dtype, "shape": [batch, m, k, n], "shared_a": batch > 1, "route": kind,
+                           "launches": launches, "launches_by_kernel": counts, "max_abs_err": err})
+            del C, ref, a_t, b_t
+
+    # one step of breadth-first search: a 1%-dense bool adjacency against a bool frontier
+    nv = INT_MATVEC_N
+    a_t, _ = int_operands("bool", nv, nv, nv, SEED + 9080, dev)
+    x_t = torch.rand(nv, generator=torch.Generator(device=dev).manual_seed(SEED + 9081), device=dev) < 0.01
+    A, X = ht.array(a_t, split=0), ht.array(x_t)
+    Y, counts = counted(lambda: ht.matmul(A, X))
+    kind, launches = launches_of("bool_matvec", counts, "bool", 1, nv, 1)
+    ref = int_matmul.int_matmul_reference(a_t, x_t)
+    err = int_abs_err(Y.larray, ref)
+    check(err == 0 and Y.gshape == (nv,), f"[int_matmul] bool_matvec: {Y.gshape}, differs by up to {err}")
+    ms = best_ms(lambda: int_matmul.matmul(a_t, x_t), reps=5)
+    bound = 1e3 * (nv * nv + 2 * nv) / PEAK_BYTES_PER_S
+    record(f"bool_matvec_{nv}", {"dtype": "bool", "shape": [nv, nv, 1], "split": 0,
+                                  "what": "one step of breadth-first search: adjacency @ frontier", "route": kind,
+                                  "launches": launches, "launches_by_kernel": counts, "max_abs_err": err, "ms": ms,
+                                  "plain_ms": best_ms(lambda: int_matmul.int_matmul_reference(a_t, x_t), reps=3),
+                                  "bound_ms": bound, "bound_by": "bytes", "bound_share": bound / ms,
+                                  "library_ms": None, "library_note": "none: torch.mv raises on CUDA bool tensors"})
+    del A, X, Y, ref, a_t, x_t
+    torch.cuda.empty_cache()
 
     # the 1-D dot of 40M int64 (full range: the sum wraps)
     gen = torch.Generator(device=dev).manual_seed(SEED + 9100)
@@ -4027,19 +4159,15 @@ def int_matmul_phases(ht, kernels, dev, smi: str) -> dict:
     u = torch.randint(info.min, info.max, (INT_DOT_N,), generator=gen, device=dev, dtype=torch.int64)
     v = torch.randint(info.min, info.max, (INT_DOT_N,), generator=gen, device=dev, dtype=torch.int64)
     U, V = ht.array(u, split=0), ht.array(v, split=0)
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    d = ht.dot(U, V)
-    torch.cuda.synchronize()
-    launches = kernels.launch_counts()["int_matmul"]
-    check(launches == 1, f"[int_matmul] dot: {launches} launches")
+    d, counts = counted(lambda: ht.dot(U, V))
+    kind, launches = launches_of("dot", counts, "int64", 1, 1, 1)
     ref = int_matmul.int_matmul_reference(u, v)
     err = int_abs_err(d.larray.reshape(()), ref.reshape(()))
     check(err == 0, f"[int_matmul] dot: {d.larray} against {ref}")
     ms = best_ms(lambda: int_matmul.matmul(u, v))
     plain_ms = best_ms(lambda: int_matmul.int_matmul_reference(u, v), reps=1)
     bound, bound_by, route, imad_ms = int_bound_ms("int64", 1, INT_DOT_N, 1, itemsize=8)
-    entry = {"dtype": "int64", "shape": [INT_DOT_N], "launches": launches,
+    entry = {"dtype": "int64", "shape": [INT_DOT_N], "route": kind, "launches": launches,
              "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
              "bound_ms": bound, "bound_by": bound_by, "bound_route": route, "bound_share": bound / ms,
              "imad_bound_ms": imad_ms, "library_ms": None, "library_note": "none: torch.dot raises on CUDA integer tensors"}
@@ -4341,7 +4469,8 @@ def main() -> int:
             names = [kname for kname, mod in kernels.KERNELS.items() if mod.SOURCE == source]
             ptxas = ptxas_summary(b["log"])
             mix = {n: sass_counts(lines) for n, lines in sass(b["path"]).items()}
-            summary = {n: {"instructions": c["instructions"], "hmma": c["hmma"]} for n, c in mix.items()}
+            summary = {n: {"instructions": c["instructions"], "hmma": c["hmma"], "igmma": c["opcodes"].get("IGMMA", 0)}
+                       for n, c in mix.items()}
             build_info[source.name] = {"nvcc_s": b["seconds"], "ptxas": ptxas, "sass": summary}
             phase("build", source=source.name, kernels=",".join(names), built=b["built"], nvcc_s=f"{b['seconds']:.2f}",
                   ptxas=json.dumps(ptxas), sass=json.dumps(summary))
@@ -4350,6 +4479,10 @@ def main() -> int:
                 mma = [n for n in mix if kname in n]
                 check(bool(mma) and all(mix[n]["hmma"] > 0 for n in mma), f"{kname} in {source.name}: no instance, or "
                       f"one without HMMA: {summary}")
+            for kname in WGMMA_KERNELS.get(source.name, ()):
+                mma = [n for n in mix if kname in n]
+                check(bool(mma) and all(summary[n]["igmma"] > 0 for n in mma), f"{kname} in {source.name}: no "
+                      f"instance, or one without IGMMA: {summary}")
         if len(build_info) == len(sources):
             phase("build", total_s=f"{max(done_at.values()) - t0:.2f}")
 
@@ -5039,6 +5172,8 @@ def main() -> int:
     child_out = run_linalg_child()
     linalg_out, array_out, cluster_out = child_out["linalg"], child_out["array"], child_out["cluster"]
     int_out = child_out["dtype"]["int_matmul"]
+    tc_cases = {c_: v for c_, v in int_out["cases"].items() if v["route"] == "tensor_cores"}
+    imad_cases = {c_: v for c_, v in int_out["cases"].items() if v["route"] != "tensor_cores"}
 
     # 19. every ported kernel: launches on its path, time, bound, plain version's and library's time
     x, init, _ = blobs(N, D, K, SEED, dev)
@@ -5212,15 +5347,15 @@ def main() -> int:
                 "route": "cuda",
                 "source": "heat_tpu_torch/core/kernels/csrc/int_gemm.cu",
                 "replaces": "XLA integer dot (no Pallas kernel): jnp.matmul/dot/vdot of integer and bool operands",
-                "launches": sum(c["launches"] for c in int_out["cases"].values()),
+                "launches": sum(c["launches"] for c in imad_cases.values()),
                 "launches_by_path": {
-                    **{f"matmul_{c_}": v["launches"] for c_, v in int_out["cases"].items() if c_ != "dot_int64_40M"},
+                    **{f"matmul_{c_}": v["launches"] for c_, v in imad_cases.items() if c_ != "dot_int64_40M"},
                     "dot_int64_40M": int_out["cases"]["dot_int64_40M"]["launches"],
                     **{f"plan_{v_}_{INT_PLAN_P}_virtual_ranks": p_["launches"] for v_, p_ in int_out["plans"].items()},
                 },
-                "max_abs_err": max(c["max_abs_err"] for c in int_out["cases"].values()),
-                "max_abs_err_of": "every product against the plain version (float64 products of byte planes), "
-                                  "bit for bit",
+                "max_abs_err": max(c["max_abs_err"] for c in imad_cases.values()),
+                "max_abs_err_of": "every int16, int32 and int64 product and the dot against the plain version "
+                                  "(float64 products of byte planes), bit for bit",
                 "ms": int_out["cases"]["int32_8192_split0"]["ms"],
                 "plain_ms": int_out["cases"]["int32_8192_split0"]["plain_ms"],
                 "bound_ms": int_out["cases"]["int32_8192_split0"]["bound_ms"],
@@ -5230,17 +5365,60 @@ def main() -> int:
                               "IMAD at 132 SMs x 64 a clock x 1.98 GHz = 1.67e13/s (3 an int64 multiply-add; bool "
                               "1 LOP3 a 32 packed); bytes at 3.35e12 B/s",
                 "library_ms": None,
-                "library_note": "torch.matmul raises on CUDA integer tensors; for int8, torch._int_mm cut to int8 "
-                                "is in int8_int_mm_ms",
-                "int8_int_mm_ms": int_out["cases"]["int8_8192"].get("int_mm_ms"),
+                "library_note": "torch.matmul raises on CUDA integer tensors",
                 "shape": [8192, 8192, 8192],
                 "dtype": "int32",
-                "ms_by_case": {c_: v["ms"] for c_, v in int_out["cases"].items()},
-                "plain_ms_by_case": {c_: v["plain_ms"] for c_, v in int_out["cases"].items()},
-                "bound_ms_by_case": {c_: v["bound_ms"] for c_, v in int_out["cases"].items()},
-                "bound_by_case": {c_: v["bound_by"] for c_, v in int_out["cases"].items()},
-                "bound_route_by_case": {c_: v["bound_route"] for c_, v in int_out["cases"].items()},
-                "imad_bound_ms_by_case": {c_: v["imad_bound_ms"] for c_, v in int_out["cases"].items()},
+                "ms_by_case": {c_: v["ms"] for c_, v in imad_cases.items()},
+                "plain_ms_by_case": {c_: v["plain_ms"] for c_, v in imad_cases.items()},
+                "bound_ms_by_case": {c_: v["bound_ms"] for c_, v in imad_cases.items()},
+                "bound_by_case": {c_: v["bound_by"] for c_, v in imad_cases.items()},
+                "bound_route_by_case": {c_: v["bound_route"] for c_, v in imad_cases.items()},
+                "imad_bound_ms_by_case": {c_: v["imad_bound_ms"] for c_, v in imad_cases.items()},
+            },
+            {
+                "name": "int_matmul_tc",
+                "route": "cuda",
+                "source": "heat_tpu_torch/core/kernels/csrc/int_gemm_tc.cu",
+                "replaces": "XLA integer dot (no Pallas kernel): jnp.matmul/dot/vdot of int8, uint8 and bool operands",
+                "launches": sum(c["launches"] for c in tc_cases.values()),
+                "launches_by_path": {f"matmul_{c_}": v["launches"] for c_, v in tc_cases.items()},
+                "max_abs_err": max(c["max_abs_err"] for c in tc_cases.values()),
+                "max_abs_err_of": "every int8, uint8 and bool product (8192³, the int32 wrap, ragged, a shared A, "
+                                  "the bool matrix-vector step) against the plain version, bit for bit",
+                "ms": int_out["cases"]["int8_8192"]["ms"],
+                "plain_ms": int_out["cases"]["int8_8192"]["plain_ms"],
+                "bound_ms": int_out["cases"]["int8_8192"]["bound_ms"],
+                "bound_by": int_out["cases"]["int8_8192"]["bound_by"],
+                "bound_rate": "int8 tensor cores at 1.979e15 op/s, 2 a multiply-add; bytes at 3.35e12 B/s",
+                "library_ms": None,
+                "library_note": "torch.matmul raises on CUDA integer tensors; torch._int_mm (int8 operands, int32 "
+                                "out) cut to int8, or compared with 0 for bool, is in int_mm_ms_by_case",
+                "shape": [8192, 8192, 8192],
+                "dtype": "int8",
+                "ms_by_case": {c_: v["ms"] for c_, v in tc_cases.items() if "ms" in v},
+                "plain_ms_by_case": {c_: v["plain_ms"] for c_, v in tc_cases.items() if "plain_ms" in v},
+                "bound_ms_by_case": {c_: v["bound_ms"] for c_, v in tc_cases.items() if "bound_ms" in v},
+                "bound_by_case": {c_: v["bound_by"] for c_, v in tc_cases.items() if "bound_by" in v},
+                "int_mm_ms_by_case": {c_: v["int_mm_ms"] for c_, v in tc_cases.items() if "int_mm_ms" in v},
+            },
+            {
+                "name": "int_transpose_pad",
+                "route": "cuda",
+                "source": "heat_tpu_torch/core/kernels/csrc/int_gemm_tc.cu",
+                "replaces": "none: gives int_matmul_tc B as Bᵀ (k padded to 16), since wgmma reads 8-bit operands "
+                            "K-major only",
+                "launches": sum(c["launches_by_kernel"]["int_transpose_pad"] for c in tc_cases.values()),
+                "launches_by_path": {f"matmul_{c_}": v["launches_by_kernel"]["int_transpose_pad"]
+                                     for c_, v in tc_cases.items()},
+                "max_abs_err": int_out["transpose"]["max_abs_err"],
+                "ms": int_out["transpose"]["ms"],
+                "plain_ms": int_out["transpose"]["plain_ms"],
+                "bound_ms": int_out["transpose"]["bound_ms"],
+                "bound_by": int_out["transpose"]["bound_by"],
+                "library_ms": int_out["transpose"]["library_ms"],
+                "library_note": "b.t().contiguous() on the same int8 8192 x 8192 B",
+                "shape": int_out["transpose"]["shape"],
+                "dtype": "int8",
             },
         ]
     }

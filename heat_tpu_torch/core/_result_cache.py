@@ -70,6 +70,7 @@ The whole tier is OFF — every dispatch-path hook one relaxed-flag read — unl
 from __future__ import annotations
 
 import hashlib
+import itertools
 import os
 import threading
 import weakref
@@ -111,6 +112,9 @@ _lock = threading.Lock()
 _registry: Dict[int, Tuple[str, int, Any, Tuple[int, int]]] = {}
 _tag_gen: Dict[str, int] = {}                    # tag -> live generation
 _shards: Tuple["_ShardCache", ...] = ()
+# stamps each entry at store, hit and replication, so the newest use across
+# shards is known (each shard's LRU order is its own)
+_use_stamp = itertools.count()
 
 # memoised knobs — relaxed single-word reads on the dispatch hot path
 _enabled = False
@@ -128,7 +132,7 @@ class _Entry:
     was keyed on (re-validated on every hit), and the output buffer ids the
     donation sweep matches against."""
 
-    __slots__ = ("key", "value", "avals", "nbytes", "gens", "out_ids", "hits", "marks")
+    __slots__ = ("key", "value", "avals", "nbytes", "gens", "out_ids", "hits", "marks", "used")
 
     def __init__(self, key, value, avals, nbytes, gens, out_ids, marks):
         self.key = key
@@ -139,6 +143,7 @@ class _Entry:
         self.out_ids = out_ids
         self.hits = 0
         self.marks = marks  # each result tensor's (version, storage address) when stored
+        self.used = 0
 
 
 class _ShardCache:
@@ -182,6 +187,7 @@ class _ShardCache:
             _, old = self._entries.popitem(last=False)
             self._bytes -= old.nbytes
             self.evictions += 1
+        entry.used = next(_use_stamp)
         self._entries[entry.key] = entry
         self._bytes += entry.nbytes
         return True
@@ -465,6 +471,7 @@ def lookup(key: Tuple[str, Tuple], tenant=None, count_miss: bool = True):
             entry.hits += 1
             sh.hits += 1
             sh.bytes_saved += entry.nbytes
+            entry.used = next(_use_stamp)
             sh._entries.move_to_end(key)
             promote = entry.hits == _PROMOTE_AFTER
             value = entry.value
@@ -509,6 +516,7 @@ def store(key: Tuple[str, Tuple], value, tenant=None) -> bool:
                    gens, tuple(id(leaf) for leaf in leaves), marks)
     with sh._mu:
         if key in sh._entries:
+            sh._entries[key].used = next(_use_stamp)
             sh._entries.move_to_end(key)
             return True
         if not sh._insert_locked(entry):
@@ -664,13 +672,16 @@ def _poison_one() -> int:
     """TEST HOOK: corrupt the most-recently-used cached entry in place
     (recorded avals mangled) — every cross-shard replica of its key too — so
     the next hit on it exercises the typed ``cache-corrupt`` rejection path.
-    Returns how many entry copies were poisoned."""
-    key = None
+    Returns how many entry copies were poisoned.  The newest use is taken
+    across shards: each shard's last entry is its own newest, and the shard
+    a request fills depends on its tenant (or thread)."""
+    key, newest = None, -1
     for sh in _shards:
         with sh._mu:
             if sh._entries:
-                key = next(reversed(sh._entries))
-                break
+                last = sh._entries[next(reversed(sh._entries))]
+                if last.used > newest:
+                    key, newest = last.key, last.used
     if key is None:
         return 0
     poisoned = 0

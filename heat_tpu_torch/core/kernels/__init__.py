@@ -1,5 +1,5 @@
 """Hand-written CUDA kernels for Hopper (counterparts of heat_tpu/core/kernels/, and the
-integer and bool product that heat_tpu leaves to XLA and cuBLAS cannot run).
+integer and bool products that heat_tpu leaves to XLA and cuBLAS cannot run).
 
 Each kernel module keeps its plain PyTorch version beside the wrapper, used for CPU
 tensors and by the tests, and a ``launches`` counter for each kernel, counted under the
@@ -45,6 +45,8 @@ KERNELS = {
     "flash_attention_bwd_dkv": flash_attention.bwd_dkv,
     "flash_attention_fwd_pipelined": flash_attention.fwd_pipelined,
     "int_matmul": int_matmul,
+    "int_matmul_tc": int_matmul.tc,
+    "int_transpose_pad": int_matmul.transpose,
 }
 
 

@@ -11,6 +11,9 @@
 //   bool                      : acc |= a & b
 // Every order of these sums gives the same bits, so the result is exact and equal to XLA's.
 //
+// Since the tensor-core product (int_gemm_tc.cu) takes the matrices of bool, uint8 and int8, the
+// product here serves int16, int32 and int64, and the 1-D dot every type.
+//
 // What bounds this design on an H100: nothing here runs on the tensor cores. A multiply-add of
 // 8 to 32 bits is one IMAD (64 a clock an SM: 16.7e12 a second at 1.98 GHz on 132 SMs); an
 // int64 one is three (IMAD.WIDE.U32 for the low words with the 64-bit sum, and one IMAD for
@@ -29,9 +32,8 @@
 //     loop a thread, a warp reduction by shuffles and one integer atomic a warp (atomicAdd, or
 //     atomicOr for bool: they commute exactly) into a zeroed accumulator, which a second
 //     kernel cuts to the type.
-// Later work (ROADMAP Queue 2): int8 on the tensor cores (IMMA mma.sync or DP4A), bool
-// bit-packed 32 to a word with AND and POPC, k split over blocks where m·n gives few tiles,
-// and a pipelined cp.async ring.
+// Later work (ROADMAP Queue 2): the wider types as int8 tensor-core products of their byte
+// planes, k split over blocks where m·n gives few tiles, and a pipelined cp.async ring.
 //
 // Built with nvcc for sm_90a into a shared library with a plain C interface (loaded with ctypes
 // by heat_tpu_torch/core/kernels/int_matmul.py). Every entry point returns a cudaError_t.
@@ -208,9 +210,9 @@ int int_gemm_sm_count(int device, int* sms) {
     return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
 }
 
-// c (batch, m, n) = a (batch, m, k) · b (batch, k, n), each contiguous, a batch's stride
-// a_batch (b_batch) elements, 0 where one matrix serves every batch. One launch on `stream`;
-// nothing is synchronised.
+// c (batch, m, n) = a (batch, m, k) · b (batch, k, n) of int16, int32 or int64, each contiguous,
+// a batch's stride a_batch (b_batch) elements, 0 where one matrix serves every batch (bool, uint8
+// and int8 products go to int_gemm_tc.cu). One launch on `stream`; nothing is synchronised.
 int int_gemm_launch(int device, int dtype, const void* a, const void* b, void* c, long long batch, long long m,
                     long long n, long long k, long long a_batch, long long b_batch, void* stream) {
     if (batch < 1 || m < 1 || n < 1 || k < 1) return cudaErrorInvalidValue;
@@ -219,9 +221,6 @@ int int_gemm_launch(int device, int dtype, const void* a, const void* b, void* c
     const Args p{a, b, c, m, n, k, a_batch, b_batch, (n + kBN - 1) / kBN};
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (dtype) {
-        case kBool: return gemm<BoolRing>(p, batch, s);
-        case kUInt8: return gemm<Ring<uint8_t, U32>>(p, batch, s);
-        case kInt8: return gemm<Ring<int8_t, U32>>(p, batch, s);
         case kInt16: return gemm<Ring<int16_t, U32>>(p, batch, s);
         case kInt32: return gemm<Ring<int32_t, U32>>(p, batch, s);
         case kInt64: return gemm<Ring<int64_t, U64>>(p, batch, s);

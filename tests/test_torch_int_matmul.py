@@ -180,3 +180,148 @@ def test_launch_count_under_its_lock():
     finally:
         for name, mod in kernels.KERNELS.items():
             mod.launches = saved[name]
+
+
+# The tensor-core product (csrc/int_gemm_tc.cu) of bool, uint8 and int8: its route, the
+# operands the wrapper gives it (k padded with zeros to 16 bytes, B as Bᵀ, batch rows) and
+# the arithmetic it does on them (int32 sums that wrap, then the cut), in plain PyTorch on
+# the CPU, held to heat_tpu. The kernel itself runs in chip_smoke.py's [int_matmul].
+TC_TYPES = ["bool", "uint8", "int8"]
+
+
+def _full_range(dtype: str, shape, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    if dtype == "bool":
+        return rng.standard_normal(shape) > 0.3
+    info = np.iinfo(dtype)
+    return rng.integers(info.min, info.max + 1, shape, dtype=np.int64).astype(dtype)
+
+
+def _tc_product(a: np.ndarray, b: np.ndarray) -> torch.Tensor:
+    """The kernel's contract on CPU tensors: the batch operands as ``matmul`` makes them
+    (``batched``), the kernel's operands by ``tc_operands`` and its sums by
+    ``tc_reference``."""
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    a3, b3, a_batch, b_batch, batch_shape = int_matmul.batched(at, bt)
+    ops = int_matmul.tc_operands(a3, b3, a_batch, b_batch, batch_shape.numel())
+    k = at.shape[-1]
+    assert ops.k_pad % 16 == 0 and ops.k_pad - 16 < k <= ops.k_pad
+    assert not ops.a[:, k:].any() and not ops.bt[:, k:].any()  # the padding is zeros
+    c = int_matmul.tc_reference(ops, at.dtype)
+    return c.view(*batch_shape, *c.shape[-2:])
+
+
+@pytest.mark.parametrize(
+    "dtype,batch,m,n,want",
+    [(d, 1, 1, 1, "dot") for d in TYPES]
+    + [(d, b, m, n, "tensor_cores") for d in TC_TYPES for b, m, n in ((1, 7, 5), (1, 1, 9), (1, 9, 1), (3, 1, 1),
+                                                                      (4, 300, 500), (1, 8192, 8192))]
+    + [(d, b, m, n, "imad") for d in ("int16", "int32", "int64") for b, m, n in ((1, 7, 5), (1, 1, 9), (1, 9, 1),
+                                                                                (3, 1, 1), (1, 8192, 8192))],
+    ids=str,
+)
+def test_route_of_each_type_and_shape(dtype, batch, m, n, want):
+    """One 1-D dot takes the dot kernel whatever its type; every other product of bool,
+    uint8 and int8 the int8 tensor cores (matrix-vector shapes and batches of dots too);
+    int16, int32 and int64 the IMAD kernel."""
+    assert int_matmul.route(getattr(torch, dtype), batch, m, n) == want
+
+
+@pytest.mark.parametrize("k", [1, 15, 16, 17, 33, 300])
+@pytest.mark.parametrize("dtype", TC_TYPES)
+def test_tensor_core_operands_pad_k_without_changing_the_product(dtype, k):
+    """k padded with zeros to the next multiple of 16 (TMA's stride rule) leaves the product
+    as heat_tpu computes it: (9, k) · (k, 6), and a matrix against a vector."""
+    a, b = _full_range(dtype, (9, k), 21 + k), _full_range(dtype, (k, 6), 22 + k)
+    assert int_matmul.padded_k(k) == -(-k // 16) * 16
+    _same(htt.array(_tc_product(a, b)), ht.matmul(ht.array(a), ht.array(b)))
+    _same(htt.array(_tc_product(a, b[:, :1])), ht.matmul(ht.array(a), ht.array(b[:, :1])))
+
+
+@pytest.mark.parametrize("dtype", ["int8", "uint8"])
+def test_tensor_core_sums_wrap_in_int32_to_xlas_bits(dtype):
+    """At k = 2^17 + 64 a block of the type's largest magnitudes sums past 2^31 (128² · k, or
+    255² · k): the kernel's int32 accumulators wrap, and their low 8 bits are still heat_tpu's
+    wrapped product, at m = n = 8 with the other entries full range."""
+    k = 2**17 + 64
+    a, b = _full_range(dtype, (8, k), 31), _full_range(dtype, (k, 8), 32)
+    big = np.iinfo(dtype).min if dtype == "int8" else np.iinfo(dtype).max
+    a[:4], b[:, :4] = big, big
+    assert int(big) * int(big) * k > 2**31 - 1
+    want = ht.matmul(ht.array(a), ht.array(b))
+    _same(htt.array(_tc_product(a, b)), want)
+    _same(htt.matmul(htt.array(a), htt.array(b)), want)
+    block = int(big) * int(big) * k
+    assert int(want.numpy()[0, 0]) == (((block + 128) % 256) - 128 if dtype == "int8" else block % 256)
+
+
+@pytest.mark.parametrize("k", [1, 15, 17, 33])
+@pytest.mark.parametrize("dtype", ["bool", "uint8"])
+def test_bool_and_uint8_at_short_k(dtype, k):
+    """bool (the OR of ANDs, as a u8 product compared with 0) and uint8 at k = 1, 15, 17
+    and 33, ragged m and n, against heat_tpu, through the kernel's contract and through
+    the port's matmul."""
+    a, b = _full_range(dtype, (13, k), 41 + k), _full_range(dtype, (k, 11), 42 + k)
+    want = ht.matmul(ht.array(a), ht.array(b))
+    _same(htt.array(_tc_product(a, b)), want)
+    _same(htt.matmul(htt.array(a, split=0), htt.array(b)), ht.matmul(ht.array(a, split=0), ht.array(b)))
+
+
+@pytest.mark.parametrize("dtype", TC_TYPES)
+def test_tensor_core_batches_and_shared_operands(dtype):
+    """Batch rows of A and Bᵀ: both batched, A shared by every batch (a_rows_batch 0), B
+    shared, and broadcast batch dimensions, against heat_tpu."""
+    k = 37
+    a3, b3 = _full_range(dtype, (3, 5, k), 51), _full_range(dtype, (3, k, 7), 52)
+    a2, b2 = _full_range(dtype, (5, k), 53), _full_range(dtype, (k, 7), 54)
+    a4 = _full_range(dtype, (2, 1, 5, k), 55)
+    for x, y in ((a3, b3), (a2, b3), (a3, b2), (a4, b3)):
+        _same(htt.array(_tc_product(x, y)), ht.matmul(ht.array(x), ht.array(y)))
+
+
+@pytest.mark.parametrize("dtype", TC_TYPES)
+def test_transpose_pad_reference(dtype):
+    """The transpose kernel's plain version: bt[z, j, i] = b[z, i, j], zeros for k ≤ i <
+    k_pad; n = 1 needs no transpose (B already is Bᵀ) and only the padding."""
+    b = torch.from_numpy(_full_range(dtype, (2, 19, 6), 61))
+    bt = int_matmul.transpose_pad_reference(b, 32)
+    assert bt.shape == (2, 6, 32) and bt.is_contiguous() and bt.dtype == b.dtype
+    assert torch.equal(bt[..., :19], b.transpose(-1, -2)) and not bt[..., 19:].any()
+    col = b[:, :, :1].contiguous()
+    assert torch.equal(int_matmul._transpose_pad(col, 32), int_matmul.transpose_pad_reference(col, 32))
+    aligned = torch.from_numpy(_full_range(dtype, (1, 32, 1), 62))
+    assert torch.equal(int_matmul._transpose_pad(aligned, 32), aligned.view(1, 1, 32))
+
+
+def test_tensor_core_launch_counts_under_the_lock():
+    """The tensor-core product's and the transpose's counters move only inside ``with
+    _count_lock``, are the package's ``int_matmul_tc`` and ``int_transpose_pad`` kernels,
+    built from int_gemm_tc.cu, and reset with the others; CPU tensors launch nothing."""
+    from heat_tpu_torch.core import kernels
+
+    tree = ast.parse(open(int_matmul.__file__).read())
+    parents = {c: p for p in ast.walk(tree) for c in ast.iter_child_nodes(p)}
+    incs = [n for n in ast.walk(tree) if isinstance(n, ast.AugAssign) and ast.unparse(n.target).endswith("launches")]
+    assert {ast.unparse(n.target) for n in incs} == {"launches", "tc.launches", "transpose.launches"}
+    assert all(isinstance(parents[n], ast.With) and ast.unparse(parents[n].items[0].context_expr) == "_count_lock"
+               for n in incs)
+    assert kernels.KERNELS["int_matmul_tc"] is int_matmul.tc
+    assert kernels.KERNELS["int_transpose_pad"] is int_matmul.transpose
+    assert int_matmul.tc.SOURCE == int_matmul.transpose.SOURCE == int_matmul.TC_SOURCE
+    assert int_matmul.TC_SOURCE.is_file()
+    saved = kernels.launch_counts()
+    try:
+        a = torch.ones((4, 40), dtype=torch.int8)
+        int_matmul.matmul(a, a.T)
+        assert kernels.launch_counts() == saved
+        with int_matmul._count_lock:
+            int_matmul.tc.launches += 2
+            int_matmul.transpose.launches += 1
+        counts = kernels.launch_counts()
+        assert counts["int_matmul_tc"] == saved["int_matmul_tc"] + 2
+        assert counts["int_transpose_pad"] == saved["int_transpose_pad"] + 1
+        kernels.reset_launch_counts()
+        assert kernels.launch_counts()["int_matmul_tc"] == kernels.launch_counts()["int_transpose_pad"] == 0
+    finally:
+        for name, mod in kernels.KERNELS.items():
+            mod.launches = saved[name]

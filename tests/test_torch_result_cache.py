@@ -16,6 +16,7 @@ import itertools
 
 import numpy as np
 import pytest
+import torch
 
 import heat_tpu as ht
 from heat_tpu.core import _executor as jexec
@@ -234,3 +235,36 @@ def test_in_place_write_into_a_cached_result_fails_closed(pkgs):
     assert again.tobytes() == want.tobytes()
     st1 = p.stats()
     assert st1["hits"] == st0["hits"] and st1["invalidations"] == st0["invalidations"] + 1
+
+
+@pytest.mark.parametrize("order", ["newest_on_a_later_shard", "newest_on_the_first_shard"])
+def test_poison_takes_the_newest_use_across_shards(monkeypatch, order):
+    """With several shards, ``_poison_one`` corrupts the entry used last by any tenant,
+    not the last of the first shard that holds one: a request on another shard that
+    poisons its own last result is then rejected typed."""
+    from heat_tpu_torch.core import _scheduler
+
+    monkeypatch.setenv("HEAT_TPU_RESULT_CACHE", "1")
+    monkeypatch.setenv("HEAT_TPU_SCHED_SHARDS", "4")
+    _result_cache.reload()
+    _result_cache.clear()
+    _result_cache.reset_stats()
+    try:
+        tenants = {}
+        for i in range(64):
+            tenants.setdefault(_scheduler.shard_index_for(f"tenant{i}", 4), f"tenant{i}")
+        first, later = tenants[0], tenants[2]
+        keys = {first: ("first", ()), later: ("later", ())}
+        for tenant, key in keys.items():
+            assert _result_cache.store(key, torch.arange(4.0), tenant=tenant)
+        newest, other = (later, first) if order == "newest_on_a_later_shard" else (first, later)
+        assert _result_cache.lookup(keys[newest], tenant=newest) is not _result_cache.MISS
+        assert _result_cache._poison_one() == 1
+        assert _result_cache.lookup(keys[newest], tenant=newest) is _result_cache.MISS
+        assert _result_cache.stats()["rejects"] == 1
+        assert _result_cache.lookup(keys[other], tenant=other) is not _result_cache.MISS
+    finally:
+        _result_cache.clear()
+        _result_cache.reset_stats()
+        monkeypatch.undo()
+        _result_cache.reload()

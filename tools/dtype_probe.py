@@ -3,9 +3,10 @@
 
     python3 tools/dtype_probe.py [--json-out FILE] [--only int_matmul dtype_sweep array_gaps]
 
-Builds the integer product's kernel (``csrc/int_gemm.cu``; its ptxas registers and spills
-and its SASS instruction count printed), then runs ``chip_smoke.int_matmul_phases``
-(``[int_matmul]``, ``[int_matmul_plans]``), ``chip_smoke.dtype_sweep_phase``
+Builds the integer products' kernels (``csrc/int_gemm.cu`` and ``csrc/int_gemm_tc.cu``;
+their ptxas registers and spills and their SASS instruction counts printed), then runs
+``chip_smoke.int_matmul_phases`` (``[int_matmul]``, ``[int_transpose_pad]``,
+``[int_matmul_plans]``), ``chip_smoke.dtype_sweep_phase``
 (``[dtype_sweep]``) and ``chip_smoke.array_gaps_phase`` (``[array_gaps]``), with their launch
 counts, gates and times, each beside the card's nvidia-smi name and power limit. The quick
 way to iterate on those paths without the rest of chip_smoke.py.
@@ -46,11 +47,11 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    source = kernels.int_matmul.SOURCE
-    b = _nvcc.build(source)
-    mix = {n: chip_smoke.sass_counts(lines)["instructions"] for n, lines in chip_smoke.sass(b["path"]).items()}
-    chip_smoke.phase("build", source=source.name, nvcc_s=f"{b['seconds']:.2f}",
-                     ptxas=json.dumps(chip_smoke.ptxas_summary(b["log"])), sass=json.dumps(mix))
+    for source in (kernels.int_matmul.SOURCE, kernels.int_matmul.TC_SOURCE):
+        b = _nvcc.build(source)
+        mix = {n: chip_smoke.sass_counts(lines)["instructions"] for n, lines in chip_smoke.sass(b["path"]).items()}
+        chip_smoke.phase("build", source=source.name, nvcc_s=f"{b['seconds']:.2f}",
+                         ptxas=json.dumps(chip_smoke.ptxas_summary(b["log"])), sass=json.dumps(mix))
     out = {"nvidia_smi": smi}
     if "int_matmul" in args.only:
         out["int_matmul"] = chip_smoke.int_matmul_phases(ht, kernels, dev, smi)
