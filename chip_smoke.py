@@ -271,25 +271,31 @@ Phases, one line each:
      remainders by zero on the card against the CPU path;
  18b. (in the same child process) the dtypes (``dtype_phases``): ``[int_matmul]``, the integer
      and bool products' hand kernels through ``ht.matmul`` at 8192³ int32 split 0 (path counts
-     of a 1%-dense adjacency) and 4096³ int64 on the IMAD kernel, 8192³ int8 and uint8
-     (full-range entries: every sum wraps) and 8192³ bool split 0 (one reachability step) on
-     the int8 tensor cores, and ``ht.dot`` of two 40M int64 vectors: launch counts zeroed
-     just before each product and read just after (one launch of the route's kernel, and one
-     of the transpose that gives the tensor cores Bᵀ), the result bit for bit against the
-     plain version on the card (float64 products of byte planes, carried byte by byte; the
-     largest difference reported), the kernel best of 3 (5 on the tensor cores) beside its
-     bound (bytes, or the faster of the card's int8 tensor cores on byte planes and its IMAD
-     rate: ``int_bound_ms``) and the plain version's time, and ``torch._int_mm`` cut to
-     int8, or compared with 0 for bool, timed and held to the product (int8 and bool must
-     beat it and their plain versions); the transpose alone at 8192² against its plain
-     version and ``b.t().contiguous()`` (``[int_transpose_pad]``); then, bit for bit with
-     their launches, the int32 wrap (int8 and uint8 at 256 x (2^17 + 64) x 256, a 128 x 128
-     block of C summing past 2^31), ragged sizes (1000 x 1001 x 999, 3 x 1 x 5) and a batch
-     of 4 against one shared A for bool, uint8 and int8, and one breadth-first step (8192²
-     bool adjacency @ a bool frontier) timed beside its bytes; ``[int_matmul_plans]``, the
-     ring (rA, rB, rC) and reduce-scatter (s10, sN0, s1N) plans' rank-local bodies over 4
-     virtual ranks of one card at 4096³ int32, each rank's products by the kernel (P²
-     launches a ring, P an rs plan), bit for bit;
+     of a 1%-dense adjacency), 4096³ int64 and 8192³ int16 (full-range entries: every sum
+     wraps) on the int8 tensor cores as products of byte planes, 8192³ int8 and uint8 (full
+     range) and 8192³ bool split 0 (one reachability step) on the int8 tensor cores, and
+     ``ht.dot`` of two 40M int64 vectors on the dot kernel: launch counts zeroed just before
+     each product and read just after (one launch of the route's kernel, and one of the
+     transpose that gives the tensor cores Bᵀ, or one of each split into byte planes), the
+     result bit for bit against the plain version on the card (float64 products of byte
+     planes, carried byte by byte; the largest difference reported), the kernel best of 5
+     beside its bound (bytes, or the faster of the card's int8 tensor cores on byte planes and
+     its IMAD rate: ``int_bound_ms``) and the plain version's time (every full-size product
+     must beat it), and ``torch._int_mm`` cut to int8, or compared with 0 for bool, timed and
+     held to the product (int8 and bool must beat it); the transpose alone at 8192² against
+     its plain version and ``b.t().contiguous()`` (``[int_transpose_pad]``), and the two
+     splits into byte planes alone on the int32 operands against theirs and a permuted torch
+     copy (``[int_planes]``); then, bit for bit with their launches, the accumulators' wraps
+     (int8 and uint8 at 256 x (2^17 + 64) x 256, a 128 x 128 block of C summing past 2^31;
+     int32 and int64 at 256 x (2^15 + 64) x 256 with a block of -1, whose class-3 byte-plane
+     sums pass 2^32 and whose int64 k crosses two chunks: C[0, 0] = k), ragged sizes (1000 x
+     1001 x 999, 3 x 1 x 5) and a batch of 4 against one shared A for every type, and one
+     breadth-first step (8192² bool adjacency @ a bool frontier) and one path-counting step
+     (8192² int32 adjacency @ a count vector), each timed beside its bytes;
+     ``[int_matmul_plans]``, the ring (rA, rB, rC) and reduce-scatter (s10, sN0, s1N) plans'
+     rank-local bodies over 4 virtual ranks of one card at 4096³ int32, each rank's products
+     by the byte planes (P² products a ring, P an rs plan, each with its two splits), bit for
+     bit;
      ``[dtype_sweep]``, every case of tests/_torch_array_cases.py (inputs of every dtype
      heat_tpu computes on) on the card against the same case on the CPU path, exact for
      exact results and within the case's tolerance for floats, no case raising;
@@ -301,7 +307,8 @@ Phases, one line each:
      the 3xTF32 rate, with the fp32 FMA rate's bound beside it), its plain version's time
      and a library call's time (the linear algebra's float products are cuBLAS and
      cuSOLVER, its integer and bool products the integer kernels, whose rows are last:
-     int_matmul (IMAD), int_matmul_tc (the int8 tensor cores) and its transpose; the
+     int_matmul (the 1-D dot), int_matmul_planes (int16, int32 and int64 on byte planes) and
+     its two splits, int_matmul_tc (the 8-bit types) and its transpose; the
      array API and the clustering run no hand kernel: their torch ops stand in for XLA's;
      the domain steps none either: heat_tpu's fft, sparse and estimators reach no
      pl.pallas_call);
@@ -375,8 +382,9 @@ TENSOR_CORE_KERNELS = {
     "flash_attention_fwd_pipelined.cu": ("flash_attention_fwd_pipelined_kernel",),
     "flash_attention_bwd.cu": ("flash_attention_bwd_dq_kernel", "flash_attention_bwd_dkv_kernel"),
 }
-# the kernels, by source, whose every instance takes its products as integer wgmma (IGMMA)
-WGMMA_KERNELS = {"int_gemm_tc.cu": ("int_gemm_tc_kernel",)}
+# the kernels, by source, whose every instance takes its products as integer wgmma (IGMMA) and
+# spills nothing
+WGMMA_KERNELS = {"int_gemm_tc.cu": ("int_gemm_tc_kernel",), "int_gemm_planes.cu": ("int_gemm_planes_kernel",)}
 
 
 def gamma(h: int, u: float = U32) -> float:
@@ -3868,16 +3876,21 @@ INT_MM_CASES = {
     # name: (dtype, m, k, n, split of A, what users run it for)
     "int32_8192_split0": ("int32", 8192, 8192, 8192, 0, "path counting: A @ A on an int32 adjacency"),
     "int64_4096": ("int64", 4096, 4096, 4096, None, "int64 products, wrapping"),
+    "int16_8192": ("int16", 8192, 8192, 8192, None, "int16 products (audio samples, quantised data), wrapping"),
     "int8_8192": ("int8", 8192, 8192, 8192, None, "int8 products, wrapping"),
     "uint8_8192": ("uint8", 8192, 8192, 8192, None, "uint8 products (pixel and quantised data), wrapping"),
     "bool_8192": ("bool", 8192, 8192, 8192, 0, "reachability: one step of A @ A on a bool adjacency"),
 }
-# the tensor-core product's edges: int32 sums that overflow (a 128 x 128 block of C whose
-# sums are k·128² or k·255², past 2^31), ragged sizes, a batch against one shared A, and one
-# step of breadth-first search (a bool matrix against a bool vector)
+# the tensor-core products' edges: int32 sums that overflow (a 128 x 128 block of C whose
+# sums are k·128² or k·255², past 2^31; for the wider types a block of -1, every byte 255, whose
+# class-3 sums of byte planes, 4·255²·k, pass 2^32 and whose int64 k crosses its chunks), ragged
+# sizes, a batch against one shared A, one step of breadth-first search (a bool matrix against
+# a bool vector) and one of path counting (an int32 adjacency against a count vector)
 INT_WRAP_MN, INT_WRAP_K, INT_WRAP_BLOCK = 256, 2**17 + 64, 128
+INT_WIDE_WRAP_K = 2**15 + 64
 INT_RAGGED = {"1000x1001x999": (1, 1000, 1001, 999), "3x1x5": (1, 3, 1, 5),
               "shared_a_4x300x777x500": (4, 300, 777, 500)}
+INT_RAGGED_TYPES = ("bool", "uint8", "int8", "int16", "int32", "int64")
 INT_MATVEC_N = 8192
 INT_DOT_N = 40_000_000
 # the card's integer instruction rate: 64 IMAD (or LOP3) a clock an SM, 132 SMs at 1.98 GHz
@@ -3888,11 +3901,15 @@ IMAD_PER_MAC = {"bool": 1 / 32, "uint8": 1, "int8": 1, "int16": 1, "int32": 1, "
 # the int8 tensor cores' published dense peak (on-chip-measurement guide), two operations a
 # multiply-add; int8 and uint8 (and bool as 0/1 int8, int32 sums) are one int8 product, a
 # wider type the int8 products of its byte planes whose weights stay below 2^bits: 3 for
-# int16, 10 for int32, 36 for int64 (each a wrapping int32 sum, exact modulo 2^32; int64's
-# planes need their sums whole, which holds while k < 66,051, or in chunks of k)
+# int16, 10 for int32, 36 for int64 (summed by weight in int32 accumulators, one a weight
+# class s = i + j: for int16 and int32 a wrap modulo 2^32 is exact; int64's classes 0 to 3
+# need their sums whole below 2^32, and class 3 adds 4 products of up to 255² a step of k, so
+# it holds for 16,512 steps and the kernel sums those classes in chunks of 16,384)
 INT8_TENSOR_OPS_PER_S = 1.979e15
 INT8_PRODUCTS = {"bool": 1, "uint8": 1, "int8": 1, "int16": 3, "int32": 10, "int64": 36}
-INT_KERNELS = ("int_matmul", "int_matmul_tc", "int_transpose_pad")
+INT_KERNELS = ("int_matmul", "int_matmul_tc", "int_transpose_pad", "int_matmul_planes", "int_planes", "int_planes_t")
+# each route's product kernel
+INT_ROUTE_KERNEL = {"dot": "int_matmul", "tensor_cores": "int_matmul_tc", "byte_planes": "int_matmul_planes"}
 INT_PLAN_N = 4096  # the plans' int32 product, over INT_PLAN_P virtual ranks
 INT_PLAN_P = 4
 GAP_RANDINT_N = 40_000_000
@@ -3990,6 +4007,44 @@ class _VirtualRank:
         return Virtual()
 
 
+def int_split_phase(int_matmul, a_t, b_t, smi: str) -> dict:
+    """``[int_planes]``: the byte-plane product's two split kernels alone on the int32 8192²
+    operands of ``[int_matmul]``, bit for bit against their plain version and against one torch
+    copy that computes the same planes (a permuted byte view made contiguous: k is a multiple
+    of 16 already, so no padding), each timed best of 5 beside its bytes (each entry read once,
+    each plane byte written once)."""
+    import torch
+
+    rows, k = a_t.shape
+    n = b_t.shape[1]
+    k_pad = int_matmul.padded_k(k)
+    check(k_pad == k, f"[int_planes] k = {k} needs padding, which the library copy does not give")
+    nbytes = a_t.element_size()
+    b3 = b_t.view(1, k, n)
+    cases = {  # kernel: (the kernel's call, its plain version, one torch copy, shape)
+        "int_planes": (lambda: int_matmul._split(a_t, k_pad), lambda: int_matmul.planes_reference(a_t, k_pad),
+                       lambda: a_t.view(torch.uint8).view(rows, k, nbytes).permute(2, 0, 1).contiguous(), [rows, k]),
+        "int_planes_t": (lambda: int_matmul._split_t(b3, k_pad), lambda: int_matmul.planes_reference(b_t.t(), k_pad),
+                         lambda: b_t.view(torch.uint8).view(k, n, nbytes).permute(2, 1, 0).contiguous(), [k, n]),
+    }
+    out = {}
+    for name, (kernel, plain, library, shape) in cases.items():
+        got = kernel()
+        err = int_abs_err(got, plain())
+        check(err == 0 and torch.equal(got, library()), f"[int_planes] {name}: differs from its plain version by up "
+              f"to {err}, or from the torch copy")
+        bound = 1e3 * 2 * nbytes * shape[0] * shape[1] / PEAK_BYTES_PER_S
+        ms = best_ms(kernel, reps=5)
+        out[name] = {"shape": shape, "dtype": str(a_t.dtype).replace("torch.", ""), "max_abs_err": err, "ms": ms,
+                     "plain_ms": best_ms(plain, reps=3), "library_ms": best_ms(library, reps=5), "bound_ms": bound,
+                     "bound_by": "bytes", "bound_share": bound / ms,
+                     "library_note": "x.view(torch.uint8) permuted to planes and made contiguous"}
+        phase("int_planes", kernel=name, **{k_: json.dumps(v) if isinstance(v, list) else v
+                                            for k_, v in out[name].items()}, card=repr(smi))
+        del got
+    return out
+
+
 def int_matmul_phases(ht, kernels, dev, smi: str) -> dict:
     """``[int_matmul]``: the integer kernel through ``ht.matmul`` and ``ht.dot`` at the sizes
     users run (INT_MM_CASES and a 40M int64 dot), each with the launch counts zeroed just
@@ -4019,13 +4074,18 @@ def int_matmul_phases(ht, kernels, dev, smi: str) -> dict:
 
     def launches_of(cname, counts, dtype, batch, m, n) -> tuple:
         """The product's route and its kernel's launches, after checking that the product
-        launched its route's kernel once (and the transpose once where the tensor cores'
-        B is not already Bᵀ) and nothing else."""
+        launched its route's kernel once (the tensor cores' transpose once where B is not
+        already Bᵀ; the byte planes' split of A once, and of B once, by the transposing split
+        where n > 1) and nothing else."""
         kind = int_matmul.route(getattr(torch, dtype), batch, m, n)
-        tc = kind == "tensor_cores"
-        want = {"int_matmul": int(not tc), "int_matmul_tc": int(tc), "int_transpose_pad": int(tc and n > 1)}
+        want = dict.fromkeys(INT_KERNELS, 0)
+        want[INT_ROUTE_KERNEL[kind]] = 1
+        if kind == "tensor_cores":
+            want["int_transpose_pad"] = int(n > 1)
+        elif kind == "byte_planes":
+            want["int_planes"], want["int_planes_t"] = 1 + int(n == 1), int(n > 1)
         check(counts == want, f"[int_matmul] {cname}: launches {counts}, expected {want}")
-        return kind, counts["int_matmul_tc" if tc else "int_matmul"]
+        return kind, counts[INT_ROUTE_KERNEL[kind]]
 
     def record(cname, entry) -> None:
         res["cases"][cname] = entry
@@ -4042,7 +4102,7 @@ def int_matmul_phases(ht, kernels, dev, smi: str) -> dict:
         ref = int_matmul.int_matmul_reference(a_t, b_t)
         err = int_abs_err(C.larray, ref)
         check(err == 0, f"[int_matmul] {cname}: differs from the plain version by up to {err}")
-        ms = best_ms(lambda: int_matmul.matmul(a_t, b_t), reps=5 if kind == "tensor_cores" else 3)
+        ms = best_ms(lambda: int_matmul.matmul(a_t, b_t), reps=5)
         plain_ms = best_ms(lambda: int_matmul.int_matmul_reference(a_t, b_t), reps=1)
         bound, bound_by, route, imad_ms = int_bound_ms(dtype, m, k, n, itemsize=a_t.element_size())
         entry = {"dtype": dtype, "shape": [m, k, n], "split": split, "what": what, "route": kind,
@@ -4064,6 +4124,8 @@ def int_matmul_phases(ht, kernels, dev, smi: str) -> dict:
                                      "the nearest library call")
             check(ms < entry["int_mm_ms"] and ms < plain_ms, f"[int_matmul] {cname}: {ms} ms, not below "
                   f"torch._int_mm's {entry['int_mm_ms']} and the plain version's {plain_ms}")
+        if kind == "byte_planes":
+            check(ms < plain_ms, f"[int_matmul] {cname}: {ms} ms, not below the plain version's {plain_ms}")
         if cname == "int8_8192":
             # the transpose that gives the tensor cores Bᵀ, alone, against its plain version
             b3 = b_t.view(1, k, n)
@@ -4078,6 +4140,8 @@ def int_matmul_phases(ht, kernels, dev, smi: str) -> dict:
             phase("int_transpose_pad", **{k_: json.dumps(v) if isinstance(v, list) else v
                                           for k_, v in res["transpose"].items()}, card=repr(smi))
             del bt
+        if cname == "int32_8192_split0":
+            res["splits"] = int_split_phase(int_matmul, a_t, b_t, smi)
         record(cname, entry)
         del A, B, C, ref, a_t, b_t
         torch.cuda.empty_cache()
@@ -4108,19 +4172,45 @@ def int_matmul_phases(ht, kernels, dev, smi: str) -> dict:
                                  "block_sum": block_sum, "block_value": wrapped})
         del C, ref, a_t, b_t
 
-    # ragged sizes and a batch against one shared A, for each type of one byte
+    # the byte planes' int32 accumulators past 2^32: a 128 x 128 block of C whose operands are all
+    # -1 (every byte 255), so class 3 sums 4·255²·k; int64 takes k in three chunks. C[0, 0] = k.
+    for i, dtype in enumerate(("int32", "int64")):
+        tt = getattr(torch, dtype)
+        info = torch.iinfo(tt)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 9055 + i)
+        k = INT_WIDE_WRAP_K
+        a_t = torch.randint(info.min, info.max, (INT_WRAP_MN, k), generator=gen, device=dev, dtype=tt)
+        b_t = torch.randint(info.min, info.max, (k, INT_WRAP_MN), generator=gen, device=dev, dtype=tt)
+        a_t[:INT_WRAP_BLOCK] = -1
+        b_t[:, :INT_WRAP_BLOCK] = -1
+        check(4 * 255**2 * k > 2**32 and (dtype != "int64" or k > int_matmul.INT64_CHUNK),
+              "the wide wrap case's class sums stay inside uint32, or its k inside one chunk")
+        C, counts = counted(lambda: ht.matmul(ht.array(a_t), ht.array(b_t)))
+        kind, launches = launches_of(f"wrap_{dtype}", counts, dtype, 1, INT_WRAP_MN, INT_WRAP_MN)
+        ref = int_matmul.int_matmul_reference(a_t, b_t)
+        err = int_abs_err(C.larray, ref)
+        corner = int(C.larray[0, 0])
+        check(err == 0 and corner == k, f"[int_matmul] wrap_{dtype}: differs from the plain version by up to "
+              f"{err}; C[0, 0] = {corner}, expected k = {k}")
+        record(f"wrap_{dtype}", {"dtype": dtype, "shape": [INT_WRAP_MN, k, INT_WRAP_MN], "route": kind,
+                                 "launches": launches, "launches_by_kernel": counts, "max_abs_err": err,
+                                 "class3_bytes_sum": 4 * 255**2 * k, "block_value": corner})
+        del C, ref, a_t, b_t
+
+    # ragged sizes and a batch against one shared A, for every type
     for i, (rname, (batch, m, k, n)) in enumerate(INT_RAGGED.items()):
-        for j, dtype in enumerate(("bool", "uint8", "int8")):
+        for j, dtype in enumerate(INT_RAGGED_TYPES):
             tt = getattr(torch, dtype)
-            gen = torch.Generator(device=dev).manual_seed(SEED + 9060 + 3 * i + j)
+            gen = torch.Generator(device=dev).manual_seed(SEED + (9060 + 3 * i + j if j < 3 else 9160 + 3 * i + j - 3))
             b_shape = (batch, k, n) if batch > 1 else (k, n)
             if dtype == "bool":
                 a_t = torch.rand(m, k, generator=gen, device=dev) < 0.5
                 b_t = torch.rand(b_shape, generator=gen, device=dev) < 0.5
-            else:
+            else:  # full range (int64's randint takes no high past its max)
                 info = torch.iinfo(tt)
-                a_t = torch.randint(info.min, info.max + 1, (m, k), generator=gen, device=dev, dtype=tt)
-                b_t = torch.randint(info.min, info.max + 1, b_shape, generator=gen, device=dev, dtype=tt)
+                high = info.max if dtype == "int64" else info.max + 1
+                a_t = torch.randint(info.min, high, (m, k), generator=gen, device=dev, dtype=tt)
+                b_t = torch.randint(info.min, high, b_shape, generator=gen, device=dev, dtype=tt)
             cname = f"{dtype}_{rname}"
             C, counts = counted(lambda: ht.matmul(ht.array(a_t), ht.array(b_t)))
             kind, launches = launches_of(cname, counts, dtype, batch, m, n)
@@ -4131,6 +4221,29 @@ def int_matmul_phases(ht, kernels, dev, smi: str) -> dict:
             record(cname, {"dtype": dtype, "shape": [batch, m, k, n], "shared_a": batch > 1, "route": kind,
                            "launches": launches, "launches_by_kernel": counts, "max_abs_err": err})
             del C, ref, a_t, b_t
+
+    # a batch past the matrix kernels' grid (MAX_BATCH in z): launched in two runs
+    for i, dtype in enumerate(("int8", "int32")):
+        tt = getattr(torch, dtype)
+        info = torch.iinfo(tt)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 9070 + i)
+        batch = int_matmul.MAX_BATCH + 3
+        a_t = torch.randint(info.min, info.max, (batch, 2, 3), generator=gen, device=dev, dtype=tt)
+        b_t = torch.randint(info.min, info.max, (3, 2), generator=gen, device=dev, dtype=tt)
+        C, counts = counted(lambda: ht.matmul(ht.array(a_t), ht.array(b_t)))
+        kind = int_matmul.route(tt, batch, 2, 2)
+        want = dict.fromkeys(INT_KERNELS, 0)
+        if kind == "tensor_cores":
+            want.update(int_matmul_tc=2, int_transpose_pad=2)
+        else:
+            want.update(int_matmul_planes=2, int_planes=2, int_planes_t=2)
+        check(counts == want, f"[int_matmul] {dtype}_batch_{batch}: launches {counts}, expected {want}")
+        err = int_abs_err(C.larray, int_matmul.int_matmul_reference(a_t, b_t))
+        check(err == 0, f"[int_matmul] {dtype}_batch_{batch}: differs from the plain version by up to {err}")
+        record(f"{dtype}_batch_{batch}", {"dtype": dtype, "shape": [batch, 2, 3, 2], "route": kind,
+                                          "launches": counts[INT_ROUTE_KERNEL[kind]], "launches_by_kernel": counts,
+                                          "max_abs_err": err})
+        del C, a_t, b_t
 
     # one step of breadth-first search: a 1%-dense bool adjacency against a bool frontier
     nv = INT_MATVEC_N
@@ -4151,6 +4264,26 @@ def int_matmul_phases(ht, kernels, dev, smi: str) -> dict:
                                   "bound_ms": bound, "bound_by": "bytes", "bound_share": bound / ms,
                                   "library_ms": None, "library_note": "none: torch.mv raises on CUDA bool tensors"})
     del A, X, Y, ref, a_t, x_t
+
+    # one step of path counting: a 1%-dense int32 adjacency against a vector of path counts
+    a_t, _ = int_operands("int32", nv, nv, nv, SEED + 9082, dev)
+    x_t = torch.randint(0, 1000, (nv,), generator=torch.Generator(device=dev).manual_seed(SEED + 9083), device=dev,
+                        dtype=torch.int32)
+    A, X = ht.array(a_t, split=0), ht.array(x_t)
+    Y, counts = counted(lambda: ht.matmul(A, X))
+    kind, launches = launches_of("int32_matvec", counts, "int32", 1, nv, 1)
+    ref = int_matmul.int_matmul_reference(a_t, x_t)
+    err = int_abs_err(Y.larray, ref)
+    check(err == 0 and Y.gshape == (nv,), f"[int_matmul] int32_matvec: {Y.gshape}, differs by up to {err}")
+    ms = best_ms(lambda: int_matmul.matmul(a_t, x_t), reps=5)
+    bound = 1e3 * 4 * (nv * nv + 2 * nv) / PEAK_BYTES_PER_S
+    record(f"int32_matvec_{nv}", {"dtype": "int32", "shape": [nv, nv, 1], "split": 0,
+                                   "what": "one step of path counting: adjacency @ path counts", "route": kind,
+                                   "launches": launches, "launches_by_kernel": counts, "max_abs_err": err, "ms": ms,
+                                   "plain_ms": best_ms(lambda: int_matmul.int_matmul_reference(a_t, x_t), reps=3),
+                                   "bound_ms": bound, "bound_by": "bytes", "bound_share": bound / ms,
+                                   "library_ms": None, "library_note": "none: torch.mv raises on CUDA integer tensors"})
+    del A, X, Y, ref, a_t, x_t
     torch.cuda.empty_cache()
 
     # the 1-D dot of 40M int64 (full range: the sum wraps)
@@ -4168,7 +4301,7 @@ def int_matmul_phases(ht, kernels, dev, smi: str) -> dict:
     plain_ms = best_ms(lambda: int_matmul.int_matmul_reference(u, v), reps=1)
     bound, bound_by, route, imad_ms = int_bound_ms("int64", 1, INT_DOT_N, 1, itemsize=8)
     entry = {"dtype": "int64", "shape": [INT_DOT_N], "route": kind, "launches": launches,
-             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "launches_by_kernel": counts, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
              "bound_ms": bound, "bound_by": bound_by, "bound_route": route, "bound_share": bound / ms,
              "imad_bound_ms": imad_ms, "library_ms": None, "library_note": "none: torch.dot raises on CUDA integer tensors"}
     res["cases"]["dot_int64_40M"] = entry
@@ -4210,14 +4343,18 @@ def int_matmul_phases(ht, kernels, dev, smi: str) -> dict:
             else:
                 outs.append(comm_plan._reduce_scatter(variant, comm, (n, n), (n, n), al, bl)[0])
         torch.cuda.synchronize()
-        launches = kernels.launch_counts()["int_matmul"]
+        counts = {k_: kernels.launch_counts()[k_] for k_ in INT_KERNELS}
+        launches = counts["int_matmul_planes"]
         got = torch.cat(outs, dim=axis) if axis is not None else sum(outs[1:], outs[0])
         check(torch.equal(got, ref), f"[int_matmul_plans] {variant}: differs from the plain version")
-        want = P * P if rot is not None else P
-        check(launches == want, f"[int_matmul_plans] {variant}: {launches} launches, expected {want}")
-        res["plans"][variant] = {"launches": launches, "virtual_ranks": P, "shape": [n, n, n]}
-        phase("int_matmul_plans", variant=variant, launches=launches, virtual_ranks=P, shape=f"{n}x{n}x{n}",
-              bit_equal=True, card=repr(smi))
+        products = P * P if rot is not None else P  # each by the byte planes, with a split of A and of B
+        want = {**dict.fromkeys(INT_KERNELS, 0), "int_matmul_planes": products, "int_planes": products,
+                "int_planes_t": products}
+        check(counts == want, f"[int_matmul_plans] {variant}: launches {counts}, expected {want}")
+        res["plans"][variant] = {"launches": launches, "launches_by_kernel": counts, "virtual_ranks": P,
+                                 "shape": [n, n, n]}
+        phase("int_matmul_plans", variant=variant, launches=launches, launches_by_kernel=json.dumps(counts),
+              virtual_ranks=P, shape=f"{n}x{n}x{n}", bit_equal=True, card=repr(smi))
     res["seconds"] = time.perf_counter() - t0
     return res
 
@@ -4483,6 +4620,8 @@ def main() -> int:
                 mma = [n for n in mix if kname in n]
                 check(bool(mma) and all(summary[n]["igmma"] > 0 for n in mma), f"{kname} in {source.name}: no "
                       f"instance, or one without IGMMA: {summary}")
+                spills = [row for row in ptxas if kname in row[0] and (row[2] or row[3])]
+                check(not spills, f"{kname} in {source.name}: instances that spill: {spills}")
         if len(build_info) == len(sources):
             phase("build", total_s=f"{max(done_at.values()) - t0:.2f}")
 
@@ -5173,7 +5312,8 @@ def main() -> int:
     linalg_out, array_out, cluster_out = child_out["linalg"], child_out["array"], child_out["cluster"]
     int_out = child_out["dtype"]["int_matmul"]
     tc_cases = {c_: v for c_, v in int_out["cases"].items() if v["route"] == "tensor_cores"}
-    imad_cases = {c_: v for c_, v in int_out["cases"].items() if v["route"] != "tensor_cores"}
+    plane_cases = {c_: v for c_, v in int_out["cases"].items() if v["route"] == "byte_planes"}
+    dot_out = int_out["cases"]["dot_int64_40M"]
 
     # 19. every ported kernel: launches on its path, time, bound, plain version's and library's time
     x, init, _ = blobs(N, D, K, SEED, dev)
@@ -5346,35 +5486,73 @@ def main() -> int:
                 "name": "int_matmul",
                 "route": "cuda",
                 "source": "heat_tpu_torch/core/kernels/csrc/int_gemm.cu",
-                "replaces": "XLA integer dot (no Pallas kernel): jnp.matmul/dot/vdot of integer and bool operands",
-                "launches": sum(c["launches"] for c in imad_cases.values()),
+                "replaces": "XLA integer dot (no Pallas kernel): jnp.dot/vdot of two integer or bool vectors",
+                "launches": dot_out["launches"],
+                "launches_by_path": {"dot_int64_40M": dot_out["launches"]},
+                "max_abs_err": dot_out["max_abs_err"],
+                "max_abs_err_of": "the 40M int64 dot against the plain version, exactly",
+                "ms": dot_out["ms"],
+                "plain_ms": dot_out["plain_ms"],
+                "bound_ms": dot_out["bound_ms"],
+                "bound_by": dot_out["bound_by"],
+                "library_ms": None,
+                "library_note": dot_out["library_note"],
+                "shape": dot_out["shape"],
+                "dtype": "int64",
+            },
+            {
+                "name": "int_matmul_planes",
+                "route": "cuda",
+                "source": "heat_tpu_torch/core/kernels/csrc/int_gemm_planes.cu",
+                "replaces": "XLA integer dot (no Pallas kernel): jnp.matmul/dot/vdot of int16, int32 and int64 "
+                            "matrices",
+                "launches": sum(c["launches"] for c in plane_cases.values()),
                 "launches_by_path": {
-                    **{f"matmul_{c_}": v["launches"] for c_, v in imad_cases.items() if c_ != "dot_int64_40M"},
-                    "dot_int64_40M": int_out["cases"]["dot_int64_40M"]["launches"],
+                    **{f"matmul_{c_}": v["launches"] for c_, v in plane_cases.items()},
                     **{f"plan_{v_}_{INT_PLAN_P}_virtual_ranks": p_["launches"] for v_, p_ in int_out["plans"].items()},
                 },
-                "max_abs_err": max(c["max_abs_err"] for c in imad_cases.values()),
-                "max_abs_err_of": "every int16, int32 and int64 product and the dot against the plain version "
-                                  "(float64 products of byte planes), bit for bit",
+                "max_abs_err": max(c["max_abs_err"] for c in plane_cases.values()),
+                "max_abs_err_of": "every int16, int32 and int64 product (full size, the 2^32 wraps, ragged, a shared "
+                                  "A, the int32 matrix-vector step) and the plans against the plain version, bit for "
+                                  "bit",
                 "ms": int_out["cases"]["int32_8192_split0"]["ms"],
                 "plain_ms": int_out["cases"]["int32_8192_split0"]["plain_ms"],
                 "bound_ms": int_out["cases"]["int32_8192_split0"]["bound_ms"],
                 "bound_by": int_out["cases"]["int32_8192_split0"]["bound_by"],
-                "bound_rate": "the faster of int8 tensor cores at 1.979e15 op/s, 2 a multiply-add, times the int8 "
-                              "products of byte planes (1 int8, uint8 and bool; 3 int16, 10 int32, 36 int64) and "
-                              "IMAD at 132 SMs x 64 a clock x 1.98 GHz = 1.67e13/s (3 an int64 multiply-add; bool "
-                              "1 LOP3 a 32 packed); bytes at 3.35e12 B/s",
+                "bound_rate": "int8 tensor cores at 1.979e15 op/s, 2 a multiply-add, times the int8 products of "
+                              "byte planes (3 int16, 10 int32, 36 int64); bytes at 3.35e12 B/s (the matrix-vector "
+                              "step's bound is its bytes)",
                 "library_ms": None,
                 "library_note": "torch.matmul raises on CUDA integer tensors",
                 "shape": [8192, 8192, 8192],
                 "dtype": "int32",
-                "ms_by_case": {c_: v["ms"] for c_, v in imad_cases.items()},
-                "plain_ms_by_case": {c_: v["plain_ms"] for c_, v in imad_cases.items()},
-                "bound_ms_by_case": {c_: v["bound_ms"] for c_, v in imad_cases.items()},
-                "bound_by_case": {c_: v["bound_by"] for c_, v in imad_cases.items()},
-                "bound_route_by_case": {c_: v["bound_route"] for c_, v in imad_cases.items()},
-                "imad_bound_ms_by_case": {c_: v["imad_bound_ms"] for c_, v in imad_cases.items()},
+                "ms_by_case": {c_: v["ms"] for c_, v in plane_cases.items() if "ms" in v},
+                "plain_ms_by_case": {c_: v["plain_ms"] for c_, v in plane_cases.items() if "plain_ms" in v},
+                "bound_ms_by_case": {c_: v["bound_ms"] for c_, v in plane_cases.items() if "bound_ms" in v},
+                "bound_by_case": {c_: v["bound_by"] for c_, v in plane_cases.items() if "bound_by" in v},
+                "imad_bound_ms_by_case": {c_: v["imad_bound_ms"] for c_, v in plane_cases.items()
+                                          if "imad_bound_ms" in v},
             },
+            *(
+                {
+                    "name": kname,
+                    "route": "cuda",
+                    "source": "heat_tpu_torch/core/kernels/csrc/int_gemm_planes.cu",
+                    "replaces": "none: gives int_matmul_planes the byte planes of "
+                                + ("A (and of B where n is 1)" if kname == "int_planes" else "Bᵀ")
+                                + ", since wgmma reads 8-bit operands K-major only",
+                    "launches": sum(c["launches_by_kernel"][kname] for c in plane_cases.values()),
+                    "launches_by_path": {
+                        **{f"matmul_{c_}": v["launches_by_kernel"][kname] for c_, v in plane_cases.items()},
+                        **{f"plan_{v_}_{INT_PLAN_P}_virtual_ranks": p_["launches_by_kernel"][kname]
+                           for v_, p_ in int_out["plans"].items()},
+                    },
+                    **{key: int_out["splits"][kname][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                                       "bound_by", "library_ms", "library_note",
+                                                                       "shape", "dtype")},
+                }
+                for kname in ("int_planes", "int_planes_t")
+            ),
             {
                 "name": "int_matmul_tc",
                 "route": "cuda",

@@ -47,6 +47,9 @@ KERNELS = {
     "int_matmul": int_matmul,
     "int_matmul_tc": int_matmul.tc,
     "int_transpose_pad": int_matmul.transpose,
+    "int_matmul_planes": int_matmul.byte_planes,
+    "int_planes": int_matmul.split_planes,
+    "int_planes_t": int_matmul.split_planes_t,
 }
 
 

@@ -216,14 +216,16 @@ def _tc_product(a: np.ndarray, b: np.ndarray) -> torch.Tensor:
     [(d, 1, 1, 1, "dot") for d in TYPES]
     + [(d, b, m, n, "tensor_cores") for d in TC_TYPES for b, m, n in ((1, 7, 5), (1, 1, 9), (1, 9, 1), (3, 1, 1),
                                                                       (4, 300, 500), (1, 8192, 8192))]
-    + [(d, b, m, n, "imad") for d in ("int16", "int32", "int64") for b, m, n in ((1, 7, 5), (1, 1, 9), (1, 9, 1),
-                                                                                (3, 1, 1), (1, 8192, 8192))],
+    + [(d, b, m, n, "byte_planes") for d in ("int16", "int32", "int64")
+       for b, m, n in ((1, 7, 5), (1, 1, 9), (1, 9, 1), (3, 1, 1), (1, 8192, 8192), (1, 8192, 1))],
     ids=str,
 )
 def test_route_of_each_type_and_shape(dtype, batch, m, n, want):
     """One 1-D dot takes the dot kernel whatever its type; every other product of bool,
     uint8 and int8 the int8 tensor cores (matrix-vector shapes and batches of dots too);
-    int16, int32 and int64 the IMAD kernel."""
+    every other product of int16, int32 and int64 the byte planes on the same cores, with no
+    matrix-vector threshold: at n = 1 (8192² against a vector) the byte planes beat the IMAD
+    kernel they replace for all three types, so no shape stays on IMAD."""
     assert int_matmul.route(getattr(torch, dtype), batch, m, n) == want
 
 
@@ -302,7 +304,9 @@ def test_tensor_core_launch_counts_under_the_lock():
     tree = ast.parse(open(int_matmul.__file__).read())
     parents = {c: p for p in ast.walk(tree) for c in ast.iter_child_nodes(p)}
     incs = [n for n in ast.walk(tree) if isinstance(n, ast.AugAssign) and ast.unparse(n.target).endswith("launches")]
-    assert {ast.unparse(n.target) for n in incs} == {"launches", "tc.launches", "transpose.launches"}
+    assert {ast.unparse(n.target) for n in incs} == {"launches", "tc.launches", "transpose.launches",
+                                                     "byte_planes.launches", "split_planes.launches",
+                                                     "split_planes_t.launches"}
     assert all(isinstance(parents[n], ast.With) and ast.unparse(parents[n].items[0].context_expr) == "_count_lock"
                for n in incs)
     assert kernels.KERNELS["int_matmul_tc"] is int_matmul.tc
@@ -325,3 +329,166 @@ def test_tensor_core_launch_counts_under_the_lock():
     finally:
         for name, mod in kernels.KERNELS.items():
             mod.launches = saved[name]
+
+
+# The byte-plane product (csrc/int_gemm_planes.cu) of int16, int32 and int64: the operands the
+# wrapper gives it (each operand's bytes as u8 planes, B's as planes of Bᵀ, k padded with zeros
+# to 16) and the arithmetic it does on them (plane pairs summed by weight in int32 accumulators,
+# combined modulo 2^bits; int64's low classes in chunks of k), in plain PyTorch on the CPU, held
+# to heat_tpu. The kernel itself runs in chip_smoke.py's [int_matmul].
+PLANE_TYPES = ["int16", "int32", "int64"]
+
+
+def _plane_product(a: np.ndarray, b: np.ndarray, chunk: int = int_matmul.INT64_CHUNK) -> torch.Tensor:
+    """The kernel's contract on CPU tensors: the batch operands as ``matmul`` makes them, the
+    planes by ``plane_operands`` and the sums by ``plane_reference``."""
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    a3, b3, a_batch, b_batch, batch_shape = int_matmul.batched(at, bt)
+    ops = int_matmul.plane_operands(a3, b3, a_batch, b_batch, batch_shape.numel())
+    k = at.shape[-1]
+    assert ops.a.dtype == ops.bt.dtype == torch.uint8 and ops.a.shape[0] == ops.bt.shape[0] == at.element_size()
+    assert ops.k_pad % 16 == 0 and ops.k_pad - 16 < k <= ops.k_pad
+    assert not ops.a[..., k:].any() and not ops.bt[..., k:].any()  # the padding is zeros
+    c = int_matmul.plane_reference(ops, at.dtype, chunk)
+    return c.view(*batch_shape, *c.shape[-2:])
+
+
+def _plane_case_equal(a: np.ndarray, b: np.ndarray) -> None:
+    want = ht.matmul(ht.array(a), ht.array(b))
+    _same(htt.array(_plane_product(a, b)), want)
+    plain = int_matmul.int_matmul_reference(torch.from_numpy(a), torch.from_numpy(b))
+    assert torch.equal(_plane_product(a, b), plain.view(_plane_product(a, b).shape))
+
+
+@pytest.mark.parametrize("shape", [(9, 17, 6), (5, 1, 3), (4, 16, 7), (7, 300, 5), (8, 40, 1), (1, 33, 9)], ids=str)
+@pytest.mark.parametrize("dtype", PLANE_TYPES)
+def test_plane_product_equals_heat_tpu(dtype, shape):
+    """Full-range entries (every product and sum wraps) at ragged m, n and k, k of 1 and of
+    16, a matrix against a vector and a row against a matrix: the planes' sums combined by
+    weight give heat_tpu's product and the plain version's, bit for bit."""
+    m, k, n = shape
+    _plane_case_equal(_full_range(dtype, (m, k), 71 + k), _full_range(dtype, (k, n), 72 + k))
+
+
+@pytest.mark.parametrize("dtype", PLANE_TYPES)
+def test_plane_product_minus_one_block_past_2_32(dtype):
+    """A block of -1 (every byte 255) at k = 2^15 + 64: class 3's sum, 4·255²·k, passes 2^32,
+    which int16 and int32 may wrap and int64 takes in chunks of k; C[0, 0] = k, as heat_tpu's."""
+    k = 2**15 + 64
+    assert 4 * 255**2 * k > 2**32
+    a, b = _full_range(dtype, (4, k), 81), _full_range(dtype, (k, 3), 82)
+    a[:2], b[:, :2] = -1, -1
+    _plane_case_equal(a, b)
+    assert int(_plane_product(a, b)[0, 0]) == (k if dtype != "int16" else k - 2**16)
+
+
+@pytest.mark.parametrize("dtype", PLANE_TYPES)
+def test_plane_product_batches_and_shared_operands(dtype):
+    """Batch rows of A's and Bᵀ's planes: both batched, A shared by every batch (a_rows_batch
+    0), B shared, broadcast batch dimensions, and a batch against one column, against
+    heat_tpu."""
+    k = 37
+    a3, b3 = _full_range(dtype, (3, 5, k), 91), _full_range(dtype, (3, k, 7), 92)
+    a2, b2 = _full_range(dtype, (5, k), 93), _full_range(dtype, (k, 7), 94)
+    a4 = _full_range(dtype, (2, 1, 5, k), 95)
+    for x, y in ((a3, b3), (a2, b3), (a3, b2), (a4, b3), (a3, b3[..., :1])):
+        _same(htt.array(_plane_product(x, y)), ht.matmul(ht.array(x), ht.array(y)))
+
+
+@pytest.mark.parametrize("k", [16384, 16385, 20000])
+def test_int64_chunks_of_k(k):
+    """int64 at k = 16,384 (one chunk), 16,385 (one step past it) and 20,000, a few rows with
+    full-range entries and rows of -1: heat_tpu's product. Summed as one chunk instead, the
+    rows of -1 past 16,512 steps leave uint32 and the result differs."""
+    a, b = _full_range("int64", (3, k), 101), _full_range("int64", (k, 2), 102)
+    a[0], b[:, 0] = -1, -1
+    want = ht.matmul(ht.array(a), ht.array(b))
+    _same(htt.array(_plane_product(a, b)), want)
+    one_chunk = _plane_product(a, b, chunk=int_matmul.padded_k(k))
+    assert torch.equal(one_chunk, _plane_product(a, b)) == (k <= 16512)
+
+
+def test_int64_chunk_bound_in_the_source():
+    """16,512 steps of 4·255² stay below 2^32 and 16,513 do not; the chunk, the same in the
+    wrapper and in int_gemm_planes.cu, is within that bound and whole tiles of 128 bytes."""
+    assert 16512 * 4 * 255**2 < 2**32 <= 16513 * 4 * 255**2
+    assert int_matmul.INT64_CHUNK <= 16512 and int_matmul.INT64_CHUNK % 128 == 0
+    source = int_matmul.PLANES_SOURCE.read_text()
+    assert f"constexpr int kChunkK = {int_matmul.INT64_CHUNK};" in source
+    assert "constexpr int kBK = 128;" in (int_matmul.PLANES_SOURCE.parent / "wgmma_int8.cuh").read_text()
+
+
+@pytest.mark.parametrize("dtype", PLANE_TYPES)
+def test_planes_reference(dtype):
+    """The split kernels' plain version: plane p holds byte p of each entry (the little-endian
+    bytes of its two's complement), zeros from k to k_pad; Bᵀ's planes are those of B's
+    columns, and a one-column B needs no transpose."""
+    x = _full_range(dtype, (5, 19), 111)
+    planes = int_matmul.planes_reference(torch.from_numpy(x), 32)
+    nbytes = x.dtype.itemsize
+    assert planes.shape == (nbytes, 5, 32) and planes.dtype == torch.uint8 and not planes[..., 19:].any()
+    np.testing.assert_array_equal(planes[..., :19].numpy(), np.moveaxis(x.astype(f"<{x.dtype.str[1:]}").view(np.uint8)
+                                                                          .reshape(5, 19, nbytes), 2, 0))
+    b = torch.from_numpy(_full_range(dtype, (2, 19, 6), 112))
+    assert torch.equal(int_matmul._split_t(b, 32), int_matmul.planes_reference(b.transpose(-1, -2).reshape(12, 19), 32))
+    col = b[:, :, :1].contiguous()
+    assert torch.equal(int_matmul._split_t(col, 32), int_matmul.planes_reference(col.view(2, 19), 32))
+
+
+def test_plane_launch_counts_under_the_lock():
+    """The byte-plane product's and its splits' counters are the package's
+    ``int_matmul_planes``, ``int_planes`` and ``int_planes_t`` kernels, built from
+    int_gemm_planes.cu, move under the lock and reset with the others; CPU tensors launch
+    nothing."""
+    from heat_tpu_torch.core import kernels
+
+    assert kernels.KERNELS["int_matmul_planes"] is int_matmul.byte_planes
+    assert kernels.KERNELS["int_planes"] is int_matmul.split_planes
+    assert kernels.KERNELS["int_planes_t"] is int_matmul.split_planes_t
+    assert {int_matmul.byte_planes.SOURCE, int_matmul.split_planes.SOURCE, int_matmul.split_planes_t.SOURCE} == {
+        int_matmul.PLANES_SOURCE}
+    assert int_matmul.PLANES_SOURCE.is_file()
+    saved = kernels.launch_counts()
+    try:
+        for dtype in (torch.int16, torch.int32, torch.int64):
+            a = torch.ones((4, 40), dtype=dtype)
+            int_matmul.matmul(a, a.T)
+            int_matmul.matmul(a, a[0])
+        assert kernels.launch_counts() == saved
+        with int_matmul._count_lock:
+            int_matmul.byte_planes.launches += 1
+            int_matmul.split_planes.launches += 2
+            int_matmul.split_planes_t.launches += 3
+        counts = kernels.launch_counts()
+        assert [counts[n] - saved[n] for n in ("int_matmul_planes", "int_planes", "int_planes_t")] == [1, 2, 3]
+        kernels.reset_launch_counts()
+        assert counts.keys() == kernels.launch_counts().keys() and not any(kernels.launch_counts().values())
+    finally:
+        for name, mod in kernels.KERNELS.items():
+            mod.launches = saved[name]
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int32"])
+def test_batches_past_the_grid_run_in_turns(dtype, monkeypatch):
+    """A batch past MAX_BATCH (65,535, the matrix kernels' grid z) is launched in runs of at
+    most that many, each run's operands and output the batch's own slices, A shared where
+    it is one matrix; heat_tpu computes any batch. The launches are replayed on the CPU by
+    the kernels' plain versions."""
+    batches = []
+
+    def fake(a, b, a_batch, b_batch, batch, c):
+        batches.append(batch)
+        c.copy_(torch.matmul(a.to(torch.int64), b.to(torch.int64)).to(c.dtype).expand(batch, *c.shape[1:]))
+
+    monkeypatch.setattr(int_matmul, "_launch_tc" if dtype == "int8" else "_launch_planes", fake)
+    batch = int_matmul.MAX_BATCH + 3
+    a, b = _full_range(dtype, (batch, 2, 3), 121), _full_range(dtype, (3, 2), 122)
+    a3, b3, a_batch, b_batch, batch_shape = int_matmul.batched(torch.from_numpy(a), torch.from_numpy(b))
+    got = int_matmul._launch(a3, b3, a_batch, b_batch, batch_shape.numel())
+    assert batches == [int_matmul.MAX_BATCH, 3]
+    _same(htt.array(got), ht.matmul(ht.array(a), ht.array(b)))
+    batches.clear()
+    shared = int_matmul._launch(torch.from_numpy(b.T.copy()), torch.from_numpy(a).transpose(1, 2).contiguous(), 0,
+                                6, batch)
+    assert batches == [int_matmul.MAX_BATCH, 3]
+    _same(htt.array(shared), ht.matmul(ht.array(b.T.copy()), ht.array(a.transpose(0, 2, 1).copy())))

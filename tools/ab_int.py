@@ -1,25 +1,31 @@
 #!/usr/bin/env python3
-"""The 8-bit integer and bool products of this checkout against the parent's integer kernel,
-on one CUDA card.
+"""The integer and bool matrix products of this checkout against the parent's integer kernel
+(IMAD), on one CUDA card.
 
     python3 tools/ab_int.py (--rev REV | --parent-source FILE) [--reps N] [--json-out FILE]
 
-The parent is an ``int_gemm.cu`` whose ``int_gemm_launch`` still takes bool, uint8 and
-int8 (on integer instructions): that of the commit before the tensor-core route, from ``git
-show REV:heat_tpu_torch/core/kernels/csrc/int_gemm.cu``, or from FILE where the checkout
-has no git history, as on the card's machine (a copy written beforehand, into a directory
-that .gitignore lists, such as ``tree_check/``). It is built with the package's nvcc flags
-into a scratch directory, beside this checkout's ``csrc/int_gemm_tc.cu`` (the package's
-build), both at once, and called through its own C entry point.
+The parent is an ``int_gemm.cu`` whose ``int_gemm_launch`` computes integer matrix products
+on integer instructions: from ``git show REV:heat_tpu_torch/core/kernels/csrc/int_gemm.cu``,
+or from FILE where the checkout has no git history, as on the card's machine (a copy
+written beforehand, into a directory that .gitignore lists, such as ``tree_check/``). It is
+built with the package's nvcc flags into a scratch directory, beside this checkout's
+sources (the package's builds), all at once, and called through its own C entry point.
+The parent's kernel of the commit before the 8-bit tensor-core route takes every type; that
+of the commit before the byte-plane route takes int16, int32 and int64 only. A case whose
+type the parent refuses is reported as such and not timed.
 
-At the four 8-bit cases at 8192 (int8 and uint8 with full-range entries, bool on a
-1%-dense adjacency squared, and that adjacency against a bool frontier vector, one step
-of breadth-first search) both results must equal the plain version bit for bit, and the
-two are timed in turns, parent, this, this, parent (median of CUDA-event-timed calls;
-this checkout's call includes its transpose of B). Each pair is printed with its bound
-share (``chip_smoke.int_bound_ms``, or the bytes for the matrix-vector step).
+The cases: the 8-bit types at 8192 (int8 and uint8 with full-range entries, bool on a
+1%-dense adjacency squared, and that adjacency against a bool frontier vector, one step of
+breadth-first search) and the wider types (int16 and int32 8192³ and int64 4096³ with
+full-range entries, an 8192² int32 adjacency against a count vector, one step of path
+counting, and full-range 8192² int64 and int16 matrices against a vector: the shapes that
+``int_matmul.route`` would keep on IMAD if IMAD won them). Both results must equal the
+plain version bit for bit, and the two are timed in turns, parent, this, this, parent
+(median of CUDA-event-timed calls; this checkout's call includes its transpose of B, or its
+splits into byte planes). Each pair is printed with its bound share
+(``chip_smoke.int_bound_ms``, or the bytes for the matrix-vector steps).
 
-The 40M int64 dot, whose kernel the tensor-core route leaves on ``int_gemm.cu``, is timed
+The 40M int64 dot, whose kernel stays on ``int_gemm.cu``, is timed
 too: the parent's and this checkout's dot kernels through their own C entry points on the
 same inputs, in turns, each call queued behind a sleep kernel so that only device time
 counts (``_measure.queued_ms``), and this checkout's ``int_matmul.matmul`` both ways, as
@@ -50,9 +56,11 @@ from heat_tpu_torch.core.kernels._measure import cuda_ms, ptxas_summary, queued_
 
 PARENT_PATH = "heat_tpu_torch/core/kernels/csrc/int_gemm.cu"
 N = 8192
-# name: (dtype, n of B's columns)
-CASES = {"int8_8192": ("int8", N), "uint8_8192": ("uint8", N), "bool_8192": ("bool", N),
-         "bool_matvec_8192": ("bool", 1)}
+# name: (dtype, m = k, n of B's columns)
+CASES = {"int8_8192": ("int8", N, N), "uint8_8192": ("uint8", N, N), "bool_8192": ("bool", N, N),
+         "bool_matvec_8192": ("bool", N, 1), "int16_8192": ("int16", N, N), "int32_8192": ("int32", N, N),
+         "int64_4096": ("int64", 4096, 4096), "int32_matvec_8192": ("int32", N, 1),
+         "int64_matvec_8192": ("int64", N, 1), "int16_matvec_8192": ("int16", N, 1)}
 
 
 def parent_source(args, scratch: Path) -> Path:
@@ -89,12 +97,22 @@ class Parent:
         lib.int_dot_launch.restype = i
         self.lib = lib
 
-    def __call__(self, a, b):
+    def launch(self, a, b):
+        """(the product, the launch's return code)."""
         m, k = a.shape
         n = b.shape[1]
         c = torch.empty((m, n), dtype=a.dtype, device=a.device)
         rc = self.lib.int_gemm_launch(0, int_matmul.DTYPES[a.dtype], a.data_ptr(), b.data_ptr(), c.data_ptr(), 1, m,
                                       n, k, 0, 0, torch.cuda.current_stream().cuda_stream)
+        return c, rc
+
+    def takes(self, dtype) -> bool:
+        """Whether the parent's matrix kernel takes ``dtype`` (it returns an error code if not)."""
+        x = torch.zeros((1, 16), dtype=dtype, device="cuda")
+        return self.launch(x, x.T.contiguous())[1] == 0
+
+    def __call__(self, a, b):
+        c, rc = self.launch(a, b)
         if rc != 0:
             raise RuntimeError(f"the parent's int_gemm_launch failed ({rc})")
         return c
@@ -135,15 +153,23 @@ def dot_case(parent: "Parent", reps: int) -> dict:
             "wrapper_queued_ms": queued_ms(lambda: int_matmul.matmul(u, v), reps)}
 
 
-def operands(dtype: str, n: int, seed: int):
-    """A (N, N) and B (N, n) on the card: full-range int8 and uint8, a 1%-dense bool adjacency
-    (B = A where n = N) and a 1%-dense bool frontier."""
+def operands(dtype: str, m: int, n: int, seed: int):
+    """A (m, m) and B (m, n) on the card: full-range int8, uint8, int16, int32 and int64 (B a
+    column of counts below 1000 for the int32 matrix-vector step, A then a 1%-dense
+    adjacency), a 1%-dense bool adjacency (B = A where n = m) and a 1%-dense bool frontier."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     if dtype == "bool":
-        a, b = chip_smoke.int_operands("bool", N, N, N, seed, "cuda")
+        a, b = chip_smoke.int_operands("bool", m, m, m, seed, "cuda")
         if n == 1:
-            b = torch.rand((N, 1), generator=torch.Generator(device="cuda").manual_seed(seed + 1), device="cuda") < 0.01
+            b = torch.rand((m, 1), generator=gen, device="cuda") < 0.01
         return a, b
-    return chip_smoke.int_operands(dtype, N, N, n, seed, "cuda")
+    if dtype == "int32":
+        if n == 1:
+            a, _ = chip_smoke.int_operands("int32", m, m, m, seed, "cuda")
+            return a, torch.randint(0, 1000, (m, 1), generator=gen, device="cuda", dtype=torch.int32)
+        # full range: int_operands gives int32 an adjacency, so its int64 entries are cut to int32
+        return tuple(t.to(torch.int32) for t in chip_smoke.int_operands("int64", m, m, n, seed, "cuda"))
+    return chip_smoke.int_operands(dtype, m, m, n, seed, "cuda")
 
 
 def main() -> int:
@@ -161,18 +187,21 @@ def main() -> int:
     report = {"builds": {}, "cases": {}}
     with tempfile.TemporaryDirectory() as scratch:
         src = parent_source(args, Path(scratch))
-        with ThreadPoolExecutor(max_workers=3) as pool:
+        with ThreadPoolExecutor(max_workers=4) as pool:
             parent_build = pool.submit(build_parent, src)
-            this_build = pool.submit(_nvcc.build, int_matmul.TC_SOURCE)
-            dot_build = pool.submit(_nvcc.build, int_matmul.SOURCE)
-            pb, tb = parent_build.result(), this_build.result()
-            dot_build.result()
-        report["builds"] = {"parent": ptxas_summary(pb["log"]), "this": ptxas_summary(tb["log"])}
+            these = [pool.submit(_nvcc.build, s) for s in (int_matmul.TC_SOURCE, int_matmul.PLANES_SOURCE,
+                                                           int_matmul.SOURCE)]
+            pb, tb = parent_build.result(), [f.result() for f in these]
+        report["builds"] = {"parent": ptxas_summary(pb["log"]), "this": [row for b in tb for row in ptxas_summary(b["log"])]}
         print(json.dumps({"builds": report["builds"]}), flush=True)
         parent = Parent(pb["path"])
         ok = True
-        for i, (name, (dtype, n)) in enumerate(CASES.items()):
-            a, b = operands(dtype, n, chip_smoke.SEED + 9300 + i)
+        for i, (name, (dtype, m, n)) in enumerate(CASES.items()):
+            if not parent.takes(getattr(torch, dtype)):
+                report["cases"][name] = {"dtype": dtype, "parent": "refuses the type: not timed"}
+                print(json.dumps({name: report["cases"][name]}), flush=True)
+                continue
+            a, b = operands(dtype, m, n, chip_smoke.SEED + 9300 + i)
             ref = int_matmul.int_matmul_reference(a, b)
             mine, theirs = int_matmul.matmul(a, b), parent(a, b)
             torch.cuda.synchronize()
@@ -181,11 +210,11 @@ def main() -> int:
             turns = [cuda_ms(lambda: parent(a, b), args.reps), cuda_ms(lambda: int_matmul.matmul(a, b), args.reps),
                      cuda_ms(lambda: int_matmul.matmul(a, b), args.reps), cuda_ms(lambda: parent(a, b), args.reps)]
             if n == 1:
-                bound, bound_by = 1e3 * (N * N + 2 * N) / chip_smoke.PEAK_BYTES_PER_S, "bytes"
+                bound, bound_by = 1e3 * (m * m + 2 * m) * a.element_size() / chip_smoke.PEAK_BYTES_PER_S, "bytes"
             else:
-                bound, bound_by, _, _ = chip_smoke.int_bound_ms(dtype, N, N, n, itemsize=1)
+                bound, bound_by, _, _ = chip_smoke.int_bound_ms(dtype, m, m, n, itemsize=a.element_size())
             this_ms, parent_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
-            row = {"dtype": dtype, "shape": [N, N, n], "bit_equal": equal, "turns_ms": turns, "this_ms": this_ms,
+            row = {"dtype": dtype, "shape": [m, m, n], "route": int_matmul.route(a.dtype, 1, m, n), "bit_equal": equal, "turns_ms": turns, "this_ms": this_ms,
                    "parent_ms": parent_ms, "speedup": parent_ms / this_ms, "bound_ms": bound, "bound_by": bound_by,
                    "this_bound_share": bound / this_ms, "parent_bound_share": bound / parent_ms}
             report["cases"][name] = row

@@ -3,10 +3,11 @@
 
     python3 tools/dtype_probe.py [--json-out FILE] [--only int_matmul dtype_sweep array_gaps]
 
-Builds the integer products' kernels (``csrc/int_gemm.cu`` and ``csrc/int_gemm_tc.cu``;
-their ptxas registers and spills and their SASS instruction counts printed), then runs
-``chip_smoke.int_matmul_phases`` (``[int_matmul]``, ``[int_transpose_pad]``,
-``[int_matmul_plans]``), ``chip_smoke.dtype_sweep_phase``
+Builds the integer products' kernels (``csrc/int_gemm.cu``, ``csrc/int_gemm_tc.cu`` and
+``csrc/int_gemm_planes.cu``, at once; their ptxas registers and spills and their SASS
+instruction counts printed), then runs ``chip_smoke.int_matmul_phases`` (``[int_matmul]``,
+``[int_transpose_pad]``, ``[int_planes]``, ``[int_matmul_plans]``),
+``chip_smoke.dtype_sweep_phase``
 (``[dtype_sweep]``) and ``chip_smoke.array_gaps_phase`` (``[array_gaps]``), with their launch
 counts, gates and times, each beside the card's nvidia-smi name and power limit. The quick
 way to iterate on those paths without the rest of chip_smoke.py.
@@ -18,6 +19,7 @@ import argparse
 import json
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -47,8 +49,10 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    for source in (kernels.int_matmul.SOURCE, kernels.int_matmul.TC_SOURCE):
-        b = _nvcc.build(source)
+    sources = (kernels.int_matmul.SOURCE, kernels.int_matmul.TC_SOURCE, kernels.int_matmul.PLANES_SOURCE)
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        builds = list(pool.map(_nvcc.build, sources))
+    for source, b in zip(sources, builds):
         mix = {n: chip_smoke.sass_counts(lines)["instructions"] for n, lines in chip_smoke.sass(b["path"]).items()}
         chip_smoke.phase("build", source=source.name, nvcc_s=f"{b['seconds']:.2f}",
                          ptxas=json.dumps(chip_smoke.ptxas_summary(b["log"])), sass=json.dumps(mix))
