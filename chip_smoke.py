@@ -25,8 +25,10 @@ Phases, one line each:
   1. the card: nvidia-smi's name and power limit, and torch's device name;
   2. build every ported kernel from the sources in this checkout (one nvcc per source,
      all started together), with each kernel instance's registers and spill bytes (ptxas)
-     and its instructions and tensor-core (HMMA) instructions (cuobjdump -sass); every
-     instance of K2, K3, K4 and K5 must hold HMMA. The KMeans path (3-5) waits only for
+     and its instructions and tensor-core (HMMA, HGMMA, IGMMA) instructions (cuobjdump
+     -sass); every instance of K2 and K3 and every f32 instance of K4 and K5 must hold HMMA,
+     every bf16 and f16 instance of K4 and K5 HGMMA (16-bit wgmma) and no spill, and every
+     integer product IGMMA and no spill. The KMeans path (3-5) waits only for
      K1's build, so K3's and the backward's run on beside it; the host-bound k-means++
      path waits for them all; ``[daso_sync]`` and ``[io]`` (12c), which launch no
      kernel, run first;
@@ -73,11 +75,13 @@ Phases, one line each:
      exactly 18 times, K2 none), its output equal to the knob-off one within 1e-4 of its
      largest magnitude, timed and traced;
   9. the D pass, K4 and K5 against the plain backward on the card, in dQ, dK and dV: at
-     the training step's three attention shapes in f32, at bench.py's bf16 causal shape
-     and at small ragged shapes (causal with Tk > Tq, Tq > Tk, d of 32, 33, 72, 100 and
-     128, lengths one off the kernels' tiles, bool masks with a fully masked row in f32,
-     bf16 and f16); bit-identical across two runs; and autograd through the port's
-     ``flash_attention`` equal to autograd through the plain forward;
+     the training step's three attention shapes in f32 and its first in bf16, at bench.py's
+     causal shape in bf16 and f16, and at small ragged shapes (causal with Tk > Tq, Tq > Tk,
+     d of 8 to 128, 33 and 100 among them, lengths one off the kernels' tiles of both
+     designs, 63 to 193, bool masks with a fully masked row in f32, bf16 and f16), 16-bit
+     inputs by the rule of ``check_bwd`` (P and dS rounded on both sides); bit-identical
+     across two runs; and autograd through the port's ``flash_attention`` equal to autograd
+     through the plain forward;
  10. the training path: counts zeroed, one step (forward, backward, Adam), counts read
      (K2, D, K4 and K5 exactly 18 times each); TF32 off inside the forward and the
      backward; the loss and every gradient finite and the parameters changed; a
@@ -92,8 +96,12 @@ Phases, one line each:
      traced;
  11. bench.py's attention A/B (bench.py:252-274): causal scaled_dot_product_attention at
      b8 h16 t4096 d64 bf16 with the knob off (K2) and on (K3), in turns, in ms and TFLOP/s;
- 12. the D pass, K4 and K5 timed at the step's two shapes and bench.py's, in turns with the
-     backward of ``scaled_dot_product_attention`` on the same inputs;
+ 11b. ``[bench_attention_bwd]``: the same attention forward and backward through
+     ``ht.nn.scaled_dot_product_attention`` and autograd (one K2, one D, one K4 and one K5
+     launch), in turns with ``scaled_dot_product_attention``'s forward and backward;
+ 12. the D pass, K4 and K5 timed at the step's two shapes in f32 and its first in bf16 and
+     at bench.py's in bf16 and f16, in turns with the backward of
+     ``scaled_dot_product_attention`` on the same inputs;
  12b. the rest of heat_tpu.nn (``nn_phases``): ``[ring_attention]``, ring attention (causal
      and full) and zigzag attention at bench.py's (8, 16, 4096, 64) in f32 and bf16 over
      P = 4 virtual ranks and at (1, 8, 32768, 64) f32 causal over P = 8, the ring's
@@ -326,6 +334,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -380,11 +389,30 @@ HSVD_M, HSVD_N, HSVD_RANK = 2048, 8 * 4096, 10
 TENSOR_CORE_KERNELS = {
     "flash_attention_fwd.cu": ("flash_attention_fwd_kernel",),
     "flash_attention_fwd_pipelined.cu": ("flash_attention_fwd_pipelined_kernel",),
-    "flash_attention_bwd.cu": ("flash_attention_bwd_dq_kernel", "flash_attention_bwd_dkv_kernel"),
 }
-# the kernels, by source, whose every instance takes its products as integer wgmma (IGMMA) and
-# spills nothing
-WGMMA_KERNELS = {"int_gemm_tc.cu": ("int_gemm_tc_kernel",), "int_gemm_planes.cu": ("int_gemm_planes_kernel",)}
+# the kernels, by source, whose every instance takes its products as wgmma (integer: IGMMA;
+# 16-bit floats: HGMMA) and spills nothing
+WGMMA_KERNELS = {
+    "int_gemm_tc.cu": {"int_gemm_tc_kernel": "IGMMA"},
+    "int_gemm_planes.cu": {"int_gemm_planes_kernel": "IGMMA"},
+    "flash_attention_bwd.cu": {"flash_attention_bwd_dq_wgmma_kernel": "HGMMA",
+                               "flash_attention_bwd_dkv_wgmma_kernel": "HGMMA"},
+}
+# K4 and K5 (every kernel of flash_attention_bwd.cu named flash_attention_bwd_dq_...kernel or
+# flash_attention_bwd_dkv_...kernel) by the type of an instance: the f32 ones take 3xTF32
+# mma.sync (HMMA), the bf16 and f16 ones wgmma (HGMMA); each type has an instance of each
+# kernel at either padded head dim, and no instance of another type
+BWD_OPCODES = {"float": "HMMA", "bf16": "HGMMA", "f16": "HGMMA"}
+
+
+def bwd_instances(names) -> dict:
+    """{type: [instance names]} of K4 and K5 among a build's kernel instances."""
+    out = {}
+    for n in names:
+        m = re.search(r"flash_attention_bwd_(dq|dkv)_\w*kernel<(\w+),", n)
+        if m:
+            out.setdefault(m.group(2), []).append(n)
+    return out
 
 
 def gamma(h: int, u: float = U32) -> float:
@@ -649,24 +677,44 @@ def bwd_bounds_ms(bh: int, tq: int, tk: int, d: int, causal: bool, itemsize: int
     return {name: roof_ms(nbytes, flops, rate) for name, (nbytes, flops, rate) in work.items()}
 
 
+# the 16-bit rule of the flash backward: a share of each gradient's largest magnitude, beside
+# one unit in the last place of the element; tests/test_torch_flash_bwd_bf16.py holds heat_tpu's
+# own Pallas backward to the plain one by the same rule
+BWD_SHARE_16 = {"bfloat16": 1e-3, "float16": 2.5e-4}
+# the backward's cases timed in [k2_bwd_time], each beside the library's backward in turns: the
+# training step's two f32 shapes and its first in bf16, bench.py's causal shape in bf16 and f16
+BWD_TIMED = ("encoder_self", "decoder_self_causal", "encoder_self_bf16", "bench_causal_bf16", "bench_causal_f16")
+
+
 def check_bwd(k2, q, k, v, causal: bool, mask, seed: int) -> dict:
     """The D pass, K4 and K5 against the plain backward on the same card and inputs, in dQ,
     dK and dV, on O and LSE from K2 and a random output gradient.
 
     f32: both compute in fp32 and differ in summation order only; each gradient must agree
     within 2e-4 of its largest magnitude (the relative level of heat_tpu's own flash tests).
-    bf16/f16: both compute in f32 from the same inputs and round each gradient once to the
-    input type, so an element may differ by one unit in the last place of that type (2⁻⁷
-    of its magnitude for bf16, 2⁻¹⁰ for f16) on top of that. Key rows that no query attends
-    (causal with Tk > Tq) must be exactly 0 and every value finite. Two runs must be
-    identical. The plain version runs in chunks of batch·heads to bound its memory."""
+    bf16/f16: both take the products of 16-bit operands in f32, round P and dS to the input
+    type before their products (as heat_tpu does) and each gradient once at the end. Their
+    f32 values of S, P and dS differ by summation order and by ex2.approx (about 2⁻²²
+    relative), so a value near a rounding boundary may round the other way on one side: one
+    unit in the last place of the type (2⁻⁷ of the element's magnitude for bf16, 2⁻¹⁰ for
+    f16) for the output's own rounding, plus ``BWD_SHARE_16`` of the gradient's largest
+    magnitude (1e-3 for bf16, 2.5e-4 for f16) for the terms of its sum whose P or dS rounded
+    the other way: a flip moves a term by one unit in the last place of the type, and a large
+    P or dS term of a sum of many small ones reaches 1e-3 of the largest gradient in bf16.
+    heat_tpu's own Pallas backward is within the same rule of the plain one
+    (tests/test_torch_flash_bwd_bf16.py), and an arithmetic that keeps P and dS f32 is
+    not. Key rows that no query attends (causal with Tk > Tq) must be exactly 0 and every
+    value finite. Two runs must be identical. The plain version runs in chunks of
+    batch·heads to bound its memory."""
     import torch
 
     gen = torch.Generator(device=q.device).manual_seed(seed)
     do = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
     with torch.no_grad():
         o, lse = k2.flash_attention_fwd(q, k, v, causal, None, mask)
+        copies = k2.tma_copies
         got = k2.flash_attention_bwd(q, k, v, o, do, lse, causal, None, mask)
+        copies = k2.tma_copies - copies
         again = k2.flash_attention_bwd(q, k, v, o, do, lse, causal, None, mask)
         torch.cuda.synchronize()
         check(all(torch.equal(a, b) for a, b in zip(got, again)), "the flash backward is not deterministic")
@@ -675,6 +723,7 @@ def check_bwd(k2, q, k, v, causal: bool, mask, seed: int) -> dict:
         chunk = max(1, (1 << 28) // (tq * tk))
         bias = k2._as_bias(mask)
         ulp = {torch.float32: 0.0, torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10}[q.dtype]
+        share = 2e-4 if q.dtype == torch.float32 else BWD_SHARE_16[str(q.dtype).split(".")[-1]]
         refs = [[], [], []]
         for s0 in range(0, bh, chunk):
             sl = slice(s0, s0 + chunk)
@@ -684,9 +733,12 @@ def check_bwd(k2, q, k, v, causal: bool, mask, seed: int) -> dict:
         for name, g, parts in zip(("dq", "dk", "dv"), got, refs):
             ref = torch.cat(parts)
             err = (g.float() - ref).abs()
-            tol = 2e-4 * float(ref.abs().max()) + ulp * ref.abs() + 1e-30
+            top = float(ref.abs().max())
+            tol = share * top + ulp * ref.abs() + 1e-30
             out[f"max_abs_err_{name}"] = float(err.max())
             out[f"err_over_tol_{name}"] = float((err / tol).max())
+            # the share of the largest magnitude that the element's own ulp leaves to cover
+            out[f"share_needed_{name}"] = float((err - ulp * ref.abs()).max()) / max(top, 1e-30)
             check(bool(torch.isfinite(g.float()).all()), f"the flash backward gave a {name} that is not finite")
             del ref, err, tol
         worst = max(out[f"err_over_tol_{n}"] for n in ("dq", "dk", "dv"))
@@ -694,7 +746,7 @@ def check_bwd(k2, q, k, v, causal: bool, mask, seed: int) -> dict:
         if causal and tk > tq:
             check(float(got[1][:, tq:].abs().max()) == 0.0 and float(got[2][:, tq:].abs().max()) == 0.0,
                   "key rows that no query attends did not get zero dK and dV")
-    return {**out, "err_over_tol": worst}
+    return {**out, "err_over_tol": worst, "share": share, "tma_copies": copies}
 
 
 KERNEL_KINDS = (
@@ -4606,7 +4658,8 @@ def main() -> int:
             names = [kname for kname, mod in kernels.KERNELS.items() if mod.SOURCE == source]
             ptxas = ptxas_summary(b["log"])
             mix = {n: sass_counts(lines) for n, lines in sass(b["path"]).items()}
-            summary = {n: {"instructions": c["instructions"], "hmma": c["hmma"], "igmma": c["opcodes"].get("IGMMA", 0)}
+            summary = {n: {"instructions": c["instructions"], "hmma": c["hmma"], "igmma": c["opcodes"].get("IGMMA", 0),
+                           "hgmma": c["opcodes"].get("HGMMA", 0)}
                        for n, c in mix.items()}
             build_info[source.name] = {"nvcc_s": b["seconds"], "ptxas": ptxas, "sass": summary}
             phase("build", source=source.name, kernels=",".join(names), built=b["built"], nvcc_s=f"{b['seconds']:.2f}",
@@ -4616,12 +4669,18 @@ def main() -> int:
                 mma = [n for n in mix if kname in n]
                 check(bool(mma) and all(mix[n]["hmma"] > 0 for n in mma), f"{kname} in {source.name}: no instance, or "
                       f"one without HMMA: {summary}")
-            for kname in WGMMA_KERNELS.get(source.name, ()):
+            for kname, opcode in WGMMA_KERNELS.get(source.name, {}).items():
                 mma = [n for n in mix if kname in n]
-                check(bool(mma) and all(summary[n]["igmma"] > 0 for n in mma), f"{kname} in {source.name}: no "
-                      f"instance, or one without IGMMA: {summary}")
+                check(bool(mma) and all(mix[n]["opcodes"].get(opcode, 0) > 0 for n in mma), f"{kname} in "
+                      f"{source.name}: no instance, or one without {opcode}: {summary}")
                 spills = [row for row in ptxas if kname in row[0] and (row[2] or row[3])]
                 check(not spills, f"{kname} in {source.name}: instances that spill: {spills}")
+            if source == k2.BWD_SOURCE:
+                by_type = bwd_instances(mix)
+                check(set(by_type) == set(BWD_OPCODES) and all(
+                    len(names) == 4 and all(mix[n]["opcodes"].get(BWD_OPCODES[t], 0) > 0 for n in names)
+                    for t, names in by_type.items()), f"K4 and K5 by type: {by_type}, want two instances of each "
+                      f"kernel a type holding {BWD_OPCODES}: {summary}")
         if len(build_info) == len(sources):
             phase("build", total_s=f"{max(done_at.values()) - t0:.2f}")
 
@@ -4988,6 +5047,24 @@ def main() -> int:
         "edge_d72_causal_f32": (2, 100, 140, 72, True, f32, None),
         "ragged_d33_causal_bf16": (2, 90, 77, 33, True, bf16, None),
         "dead_row_d64_f16": (2, 96, 80, 64, False, torch.float16, "random"),
+        # the 2-byte K4 and K5 (wgmma): the step shape in bf16 and bench.py's in f16 (also
+        # timed below), then around their tiles (128 own rows a block, rings of 64-row tiles),
+        # head dims of 8 to 128 (33 and 100 copied into padded tensors for TMA), causal both
+        # ways, dead rows under a bias, f16
+        "encoder_self_bf16": (t_heads, TRAIN_T, TRAIN_T, 64, False, bf16, None),
+        "bench_causal_f16": (BENCH_B * BENCH_H, BENCH_T, BENCH_T, BENCH_D, True, torch.float16, None),
+        "edge16_63x65_bf16": (2, 63, 65, 64, False, bf16, None),
+        "edge16_65x63_causal_bf16": (2, 65, 63, 64, True, bf16, None),
+        "edge16_127x129_causal_bf16": (2, 127, 129, 64, True, bf16, None),
+        "edge16_129x127_f16": (2, 129, 127, 64, False, torch.float16, None),
+        "edge16_191x193_d128_causal_f16": (2, 191, 193, 128, True, torch.float16, None),
+        "edge16_193x191_d96_bf16": (2, 193, 191, 96, False, bf16, None),
+        "edge16_d8_causal_tk_gt_tq_bf16": (3, 37, 200, 8, True, bf16, None),
+        "edge16_d16_bf16": (2, 100, 140, 16, False, bf16, None),
+        "edge16_d33_causal_f16": (2, 130, 70, 33, True, torch.float16, None),
+        "edge16_d72_dead_row_bf16": (2, 129, 191, 72, False, bf16, "random"),
+        "edge16_d128_dead_row_causal_f16": (2, 193, 65, 128, True, torch.float16, "random"),
+        "edge16_d100_causal_tk_gt_tq_bf16": (2, 65, 193, 100, True, bf16, None),
     }
     bwd_checks, bwd_data = {}, {}
     for i, (cname, (bh, tq, tk, dh, causal, dtype, mkind)) in enumerate(bwd_cases.items()):
@@ -5001,7 +5078,7 @@ def main() -> int:
         bwd_checks[cname] = got
         phase("k2_bwd_vs_plain", case=cname, shape=f"{bh}x{tq}x{tk}x{dh}", dtype=str(dtype).split(".")[-1],
               causal=causal, mask=mkind, **got, deterministic=True)
-        if cname in ("encoder_self", "decoder_self_causal", "bench_causal_bf16"):
+        if cname in BWD_TIMED:
             bwd_data[cname] = (q, k, v, causal)
         else:
             del q, k, v
@@ -5226,7 +5303,38 @@ def main() -> int:
     phase("bench_attention_ab", shape=f"{BENCH_B}x{BENCH_H}x{BENCH_T}x{BENCH_D}", dtype="bfloat16", causal=True,
           runs_ms=json.dumps(ab_runs), k2_ms=repr(ab_k2_ms), k3_ms=repr(ab_k3_ms),
           k2_tflops=repr(bench_flops / ab_k2_ms / 1e9), k3_tflops=repr(bench_flops / ab_k3_ms / 1e9))
-    del qb, kb, vb
+
+    # 11b. bench.py's attention forward and backward: sdpa through ht.nn and autograd (K2, then
+    #      D, K4 and K5 once each), in turns with scaled_dot_product_attention's forward and
+    #      backward on the same inputs
+    gb = torch.randn(qb.shape, generator=gen, device=dev).to(bf16)
+    leaves = [t.clone().requires_grad_() for t in (qb, kb, vb)]
+
+    def port_step():
+        out = ht.nn.scaled_dot_product_attention(*leaves, is_causal=True)
+        return torch.autograd.grad(out, leaves, gb)
+
+    def library_step():
+        out = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=True)
+        return torch.autograd.grad(out, leaves, gb)
+
+    kernels.reset_launch_counts()
+    port_grads = port_step()
+    torch.cuda.synchronize()
+    fb_counts = kernels.launch_counts()
+    want = {n: int(n in ("flash_attention_fwd", *flash[1:])) for n in flash}
+    check(all(fb_counts[n] == c for n, c in want.items()), f"[bench_attention_bwd]'s launches: {fb_counts}")
+    check(all(bool(torch.isfinite(g_.float()).all()) and g_.shape == qb.shape for g_ in port_grads),
+          "[bench_attention_bwd]'s gradients are not finite or not of q's shape")
+    del port_grads
+    fb_runs = [cuda_ms(fn, reps=5, warmup=1) for fn in (library_step, port_step, port_step, library_step)]
+    fb_port_ms, fb_library_ms = (fb_runs[1] + fb_runs[2]) / 2, (fb_runs[0] + fb_runs[3]) / 2
+    fb_flops = 3.5 * bench_flops  # the forward's two products and the backward's five (S again, dP, dV, dQ, dK)
+    phase("bench_attention_bwd", shape=f"{BENCH_B}x{BENCH_H}x{BENCH_T}x{BENCH_D}", dtype="bfloat16", causal=True,
+          launches=json.dumps({n: fb_counts[n] for n in flash}), runs_ms=json.dumps(fb_runs), port_ms=repr(fb_port_ms),
+          library_ms=repr(fb_library_ms), over_library=repr(fb_port_ms / fb_library_ms),
+          port_tflops=repr(fb_flops / fb_port_ms / 1e9), library_tflops=repr(fb_flops / fb_library_ms / 1e9))
+    del qb, kb, vb, gb, leaves
     torch.cuda.empty_cache()
 
     # the backward's kernels one by one at each shape, each beside the backward of
@@ -5260,7 +5368,7 @@ def main() -> int:
             del q4, k4, v4, o4, g4
             bwd_library_ms[cname] = (turns[0] + turns[3]) / 2
             bwd_ms[cname] = {n: (turns[1][n] + turns[2][n]) / 2 for n in turns[1]}
-            if cname != "bench_causal_bf16":
+            if cname in ("encoder_self", "decoder_self_causal"):
                 bwd_ms[cname]["flash_attention_fwd"] = cuda_ms(lambda: k2.flash_attention_fwd(q, k, v, causal), reps=5, warmup=1)
             bwd_bounds[cname] = bwd_bounds_ms(bh, tq, k.shape[1], dh, causal, q.element_size())
             bwd_simt[cname] = bwd_bounds_ms(bh, tq, k.shape[1], dh, causal, q.element_size(), simt=True)
@@ -5395,6 +5503,7 @@ def main() -> int:
                     "serving_swap_per_request": serving_out["swap"]["k2_per_request"],
                     "supervised_train_per_step": serving_out["supervised_train"]["launches"][-1]["flash_attention_fwd"],
                     "launch_counts_threaded": counts_out["launches"]["flash_attention_fwd"],
+                    "bench_attention_bwd": fb_counts["flash_attention_fwd"],
                 },
                 "ms_by_shape": k2_ms,
                 "bound_ms_by_shape": {c: b[0] for c, b in k2_bounds.items()},
@@ -5434,8 +5543,10 @@ def main() -> int:
                         **{f"ring_backward_{c_}": r_["launches"][kname] for c_, r_ in nn_out["ring_bwd"].items()},
                         "mha_sequence_split_world_1": nn_out["ulysses"]["mha_launches"][kname],
                         "supervised_train_per_step": serving_out["supervised_train"]["launches"][-1][kname],
+                        "bench_attention_bwd": fb_counts[kname],
                     },
                     "ms_by_shape": {c: v[kname] for c, v in bwd_ms.items()},
+                    "bound_share_by_shape": {c: bwd_bounds[c][kname][0] / v[kname] for c, v in bwd_ms.items()},
                     "bound_ms_by_shape": {c: v[kname][0] for c, v in bwd_bounds.items()},
                     "bound_simt_ms_by_shape": {c: v[kname][0] for c, v in bwd_simt.items()},
                     "backward_total_ms": bwd_total["encoder_self"],
@@ -5621,7 +5732,9 @@ def main() -> int:
                        "train_step_pipelined_best_of_2_s": step_on_s, "train_step_pipelined_walls_s": step_on_walls,
                        "train_step_pipelined_peak_gb": train_peak_on_gb,
                        "train_step_pipelined_profile": train_breakdown_on, "bench_ab_runs_ms": ab_runs,
-                       "bench_ab_k2_ms": ab_k2_ms, "bench_ab_k3_ms": ab_k3_ms, "linalg": linalg_out,
+                       "bench_ab_k2_ms": ab_k2_ms, "bench_ab_k3_ms": ab_k3_ms,
+                       "bench_attention_bwd": {"launches": fb_counts, "runs_ms": fb_runs, "port_ms": fb_port_ms,
+                                               "library_ms": fb_library_ms}, "linalg": linalg_out,
                        "array": array_out, "kmeans_pp": pp, "cluster": cluster_out,
                        "domain": child_out["domain"], "dtype": child_out["dtype"], "nn": nn_out,
                        "train_resume": resume_out, "daso_sync": sync_out, "io": io_out,

@@ -10,33 +10,31 @@
 //   K4     : dQ_i = scale·Σ_j dS_ij k_j,    dS = P∘(dO·vᵀ − D)      (bh, tq, d) in q's type
 //   K5     : dK_j = scale·Σ_i dS_ij q_i,    dV_j = Σ_i P_ij dO_i    (bh, tk, d) in k's type
 // (dQ, dK and dV in f32 through the `_f32_launch` entry points).
-// P is recomputed from the scores as the forward forms them (K2, flash_attention_fwd.cu), in
-// natural units: the product times scale, then the bias, masked scores at the finite
-// NEG_INF (-FLT_MAX), never -inf. A fully masked row has LSE = NEG_INF/2 + log(1e-30) and
-// O = 0, so its P is 0, its D is 0, its dQ is 0 and it adds nothing to dK and dV: inf − inf
-// never occurs.
+// P is recomputed from the scores as the forward forms them (K2, flash_attention_fwd.cu): the
+// product times scale, then the bias, masked scores at the finite NEG_INF (-FLT_MAX), never
+// -inf (in natural units for f32, in log2 units for 2-byte types, below). A fully masked row
+// has LSE = NEG_INF/2 + log(1e-30) and O = 0, so its P is 0, its D is 0, its dQ is 0 and it
+// adds nothing to dK and dV: inf − inf never occurs.
 //
-// Products in 3xTF32 on the tensor cores (mma_tf32x3.cuh), on tiles, fragments and
-// products shared with the forwards (flash_tiles.cuh): each f32 operand splits into a
-// TF32 big part and a TF32 residual, and a·b is taken as small·big + big·small + big·big
-// with f32 accumulation. The dropped small·small term is below 2⁻²² of |a·b|, so the
-// products keep fp32's level of accuracy, P and dS included: they stay f32 and split like
-// any operand (the TPU kernels round them to the input type first). bf16 and f16 inputs are
-// exact in TF32, so their instances skip the products with a zero small part: one product
-// for q·kᵀ and dO·vᵀ, two for those with P or dS.
+// Two designs, by the input type.
+//
+// f32: products in 3xTF32 on the tensor cores (mma_tf32x3.cuh), on tiles, fragments and
+// products shared with the forwards (flash_tiles.cuh): each f32 operand splits into a TF32 big
+// part and a TF32 residual, and a·b is taken as small·big + big·small + big·big with f32
+// accumulation. The dropped small·small term is below 2⁻²² of |a·b|, so the products keep
+// fp32's level of accuracy, P and dS included: they stay f32 and split like any operand.
 //
 // What bounds them on an H100: K4 does 6·d operations per attended (query, key) pair
 // (q·kᵀ, dO·vᵀ, dS·k) and K5 8·d (q·kᵀ, dO·vᵀ, dSᵀ·q, Pᵀ·dO) against a few hundred MB of
 // inputs and outputs at the Transformer's shapes: both are bound by arithmetic, at the
 // 3xTF32 rate of 495/3 = 165 TFLOP/s for f32 (the fp32 FMA pipe's 67 TFLOP/s is the bound
-// of a kernel without tensor cores) and, for 2-byte inputs, at the bf16 rate of 989 (their
-// products run here at the TF32 rate of 495, one or two per product). What holds mma.sync
-// below that rate is the work that feeds it (loading fragments, splitting every f32 value,
-// the softmax in between, two barriers a tile) and the warps there are to hide its
+// of a kernel without tensor cores) and at the 16-bit rate of 989 for bf16 and f16. What
+// holds mma.sync below its rate is the work that feeds it (loading fragments, splitting every
+// f32 value, the softmax in between, two barriers a tile) and the warps there are to hide its
 // latency: in trials on the card, the time fell as the warps an SM rose from four to
 // eight to twelve, the last step gained at the non-causal shapes and lost some at the
-// causal one (PERF.md, PR 5). The D pass reads O and dO once
-// and writes one float per row: it is bound by bytes. The design:
+// causal one (PERF.md). The D pass reads O and dO once
+// and writes one float per row: it is bound by bytes. The f32 design:
 //   * K4 owns 96 query rows of one batch·head (6 warps of 16: one m16 row block each) and
 //     loops over the tiles of 32 keys they attend (`_pair_schedule`'s bound); K5 owns 96
 //     key rows and loops over the tiles of 32 queries that attend them
@@ -48,15 +46,13 @@
 //   * Shared memory is what limits the warps on an SM, so the block's own rows (q and dO in
 //     K4, k and v in K5) are kept once as f32 and split as each warp reads its fragments,
 //     while each tile of the other side (k and v; q and dO), read by every warp, is split
-//     once as it lands: f32 in place (big parts over the values, small parts beside),
-//     2-byte values only widened (they are exact in TF32). 96 KB a block (f32, d <= 64)
-//     lets two blocks, twelve warps, share an SM.
-//   * The tiles come through a cp.async ring of two stages in the input type (LSE and D
-//     beside them in K5): the next tile's copies are issued after the barrier that opens a
-//     step and land while the step splits and computes, two barriers a step. Copies are 16,
-//     8 or 4 bytes as the addresses and the row width allow, rows past the end are
-//     zero-filled through src-size, and 2-byte rows of odd d (not 4-byte aligned) are
-//     copied with plain loads. The head dim is padded to DP = 64 or 128 with zeros.
+//     once as it lands (big parts over the values, small parts beside). 96 KB a block
+//     (d <= 64) lets two blocks, twelve warps, share an SM.
+//   * The tiles come through a cp.async ring of two stages (LSE and D beside them in K5):
+//     the next tile's copies are issued after the barrier that opens a step and land while
+//     the step splits and computes, two barriers a step. Copies are 16, 8 or 4 bytes as the
+//     addresses and the row width allow, rows past the end are zero-filled through src-size.
+//     The head dim is padded to DP = 64 or 128 with zeros.
 //   * Fragments: a row's 16-byte chunks are XOR-swizzled by row % 8, so ldmatrix reads an A
 //     fragment, or the B fragments of two n-tiles, in one instruction without bank
 //     conflicts. S and dP (Sᵀ and dPᵀ in K5) become P and dS in the accumulator registers
@@ -67,8 +63,57 @@
 //     a thread's four output columns per 16 are adjacent.
 //   * Causal tiles wholly on the masked side are skipped by the loop bounds; only tiles that
 //     straddle the diagonal pay the mask (flag bit 4). Ragged tq and tk are masked here.
-// Shared memory above 48 KB (96 KB f32 and 80 KB 2-byte at d <= 64, 192 KB and 160 KB at
-// d <= 128) is opted into once per instance and device (cudaFuncSetAttribute).
+// Shared memory above 48 KB (96 KB at d <= 64, 192 KB at d <= 128) is opted into once per
+// instance and device (cudaFuncSetAttribute).
+//
+// bf16 and f16: heat_tpu's arithmetic on Hopper's 16-bit tensor cores (wgmma_16bit.cuh). S
+// and dP are products of 16-bit operands accumulated in f32; P = exp(S − LSE) and
+// dS = P∘(dP − D) are f32 and are rounded to the input type, to nearest even, as the A
+// operand of dS·k, dSᵀ·q and Pᵀ·dO (heat_tpu's `.astype` at flash_attention.py:460, :520 and
+// :525), whose sums are f32 again. Their bound is 6·d and 8·d operations a pair at 989
+// TFLOP/s; at bench.py's causal shape (128 × 4096² × 64) 0.417 ms for K4 and 0.556 for K5.
+// The design (PERF.md):
+//   * A block is a producer warpgroup and two consumer warpgroups of 64 own rows each: 128
+//     query rows in K4, 128 key rows in K5. setmaxnreg hands the producer's registers to the
+//     consumers (40 and 232 a thread), and a consumer holds its accumulators in registers:
+//     dQ, or dK and dV, 64 x DP f32 each (DP / 2 a thread), S and dP of a tile (32 each) and
+//     the 16-bit A registers of P and dS (16 each).
+//   * TMA brings everything: the own rows once (q and dO in K4, k and v in K5), then a ring of
+//     two stages of 64-row tiles of the other side (k and v; q and dO), a full and an empty
+//     mbarrier a stage. Boxes are 64 columns (128 bytes) by 64 rows of one batch·head from
+//     3-D tensor maps, 128-byte swizzled; rows past tq or tk and columns past d arrive as
+//     zeros, which pads the head dim to DP = 64 or 128. TMA wants 16-byte row strides, so the
+//     head dim must be a multiple of 8 and the tensors 16-byte aligned: the wrapper copies
+//     other inputs into padded tensors (flash_attention.py, `_tma_ready`) and these entry
+//     points refuse them. In K5 the producer's second warp copies each stage's LSE and D into
+//     shared memory with plain loads (any tq: LSE and D rows need not be 16-byte aligned)
+//     and arrives on the stage's full barrier beside the TMA thread. A bias is read from
+//     global memory where it is added.
+//   * A tile is three or four products of wgmma m64nNk16 (f32 accumulators). S = q·kᵀ and
+//     dP = dO·vᵀ (Sᵀ = k·qᵀ and dPᵀ = v·dOᵀ in K5) take both operands K-major from shared
+//     memory, 64 x 64 each; the second is issued before the first is read, so the softmax of
+//     S overlaps dP. The accumulator fragment of S or dP is an A fragment of the next product
+//     once its f32 pairs are packed into the input type (as FlashAttention-3's forward does),
+//     so P and dS never leave registers: dQ += dS·k (dV += Pᵀ·dO, dK += dSᵀ·q) take A from
+//     registers and B from the ring tile read MN-major (the head dim is N), m64nDPk16.
+//   * The softmax runs in log2 units: P = 2^(S·scale·log2 e + bias·log2 e − LSE·log2 e) by
+//     ex2.approx (MUFU.EX2). Masked entries get P = 0: the causal mask where key > query, only
+//     in tiles that straddle the diagonal, and keys past tk (K4) or queries past tq (K5). A
+//     fully masked row has bias·log2 e = −inf, so its P is 0 and inf − inf never occurs.
+//   * Causal tiles wholly on the masked side are not loaded (the loop bounds), and a consumer
+//     warpgroup whose 64 rows a loaded tile does not reach skips its products. Blocks launch
+//     longest first within a batch·head (K4 from its last query block, K5 from its first key
+//     block), so neighbouring blocks share their batch·head's tiles in L2. K5 writes zeros
+//     for key rows no query attends. No atomics and no sum across blocks: two runs give
+//     identical bits.
+//   * Shared memory (1024-byte aligned): 66 KB at d <= 64 and 130 KB at d <= 128, one block
+//     an SM (its 384 threads take the register file).
+//   * Trials on the card (tools/ab_flash.py --bwd-only, each variant in turns with this one,
+//     PERF.md) chose this shape: a ring of 3 stages was no faster for K4 and 5% slower
+//     for K5 at bench.py's causal bf16 shape; issuing a tile's S and dP before the products of
+//     the tile before had ended (each consumer keeping two groups in flight) was 21% (K4) and
+//     30% (K5) slower; blocks of one consumer warpgroup, two an SM, gained 0–4% at that shape
+//     and 10% for K5 at the step's, but K5 then spills at d <= 128 (setmaxnreg 216).
 //
 // Built with nvcc for sm_90a into a shared library with a plain C interface (loaded with
 // ctypes by heat_tpu_torch/core/kernels/flash_attention.py). Entry points return a
@@ -84,6 +129,7 @@
 #include <cstdint>
 
 #include "flash_tiles.cuh"
+#include "wgmma_16bit.cuh"
 
 using namespace flash;
 
@@ -98,10 +144,10 @@ constexpr int kDWarps = 8;             // rows (one warp each) per block of the 
 
 // Shared memory of K4 (K5 in brackets), for the head dim padded to DP:
 //   own   : q and dO (k and v) of the block's kRows rows as f32, (kRows, DP) words each
-//   ring  : kStages stages of the k and v (q and dO) tiles as copied, in the input type,
-//           (kTile, DP) each; for f32 a tile's big parts replace it in place
+//   ring  : kStages stages of the k and v (q and dO) tiles as copied, (kTile, DP) each; a
+//           tile's big parts replace it in place
 //   work  : (kTile, DP) words each for the current tile's k and v (q and dO): their small
-//           parts (f32) or their values widened to f32 (2-byte types)
+//           parts
 //   [K5]  : kStages stages of LSE and D, kTile floats each
 // 96 KB for f32 and d <= 64 (K5: 96.5 KB), so two blocks (12 warps) share an SM.
 __host__ __device__ constexpr int kOwnWords(int dp) { return 2 * kRows * dp; }
@@ -123,7 +169,7 @@ __device__ __forceinline__ void copy_vec(float* dst, const float* src, int i0, i
 // X (16 × kTile) = A·Bᵀ and Y = C·Eᵀ over the padded head dim, for A and C rows m0.. of the
 // block's own (kRows, DP) f32 tiles, split as they are read, and B and E (kTile, DP) tiles
 // in parts: S and dP in K4, Sᵀ and dPᵀ in K5
-template <bool kExact, int DP>
+template <int DP>
 __device__ __forceinline__ void two_products(const uint32_t* a, Parts b, const uint32_t* c, Parts e, int m0,
                                              int lane, float (&x)[kTile / 8][4], float (&y)[kTile / 8][4]) {
 #pragma unroll
@@ -138,20 +184,20 @@ __device__ __forceinline__ void two_products(const uint32_t* a, Parts b, const u
         frag_a<DP>(cb, c, m0, 8 * kk, lane);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-            tf32x3::split<kExact>(__uint_as_float(ab[i]), ab[i], as[i]);
-            tf32x3::split<kExact>(__uint_as_float(cb[i]), cb[i], cs[i]);
+            tf32x3::split<false>(__uint_as_float(ab[i]), ab[i], as[i]);
+            tf32x3::split<false>(__uint_as_float(cb[i]), cb[i], cs[i]);
         }
 #pragma unroll
         for (int np = 0; np < kTile / 16; ++np) {
             uint32_t bb[4], bs[4] = {};
             frag_b_nk<DP>(bb, b.big, 16 * np, 8 * kk, lane);
-            if constexpr (!kExact) frag_b_nk<DP>(bs, b.small, 16 * np, 8 * kk, lane);
-            tf32x3::mma3<kExact, kExact>(x[2 * np], ab, as, {bb[0], bb[1]}, {bs[0], bs[1]});
-            tf32x3::mma3<kExact, kExact>(x[2 * np + 1], ab, as, {bb[2], bb[3]}, {bs[2], bs[3]});
+            frag_b_nk<DP>(bs, b.small, 16 * np, 8 * kk, lane);
+            tf32x3::mma3<false, false>(x[2 * np], ab, as, {bb[0], bb[1]}, {bs[0], bs[1]});
+            tf32x3::mma3<false, false>(x[2 * np + 1], ab, as, {bb[2], bb[3]}, {bs[2], bs[3]});
             frag_b_nk<DP>(bb, e.big, 16 * np, 8 * kk, lane);
-            if constexpr (!kExact) frag_b_nk<DP>(bs, e.small, 16 * np, 8 * kk, lane);
-            tf32x3::mma3<kExact, kExact>(y[2 * np], cb, cs, {bb[0], bb[1]}, {bs[0], bs[1]});
-            tf32x3::mma3<kExact, kExact>(y[2 * np + 1], cb, cs, {bb[2], bb[3]}, {bs[2], bs[3]});
+            frag_b_nk<DP>(bs, e.small, 16 * np, 8 * kk, lane);
+            tf32x3::mma3<false, false>(y[2 * np], cb, cs, {bb[0], bb[1]}, {bs[0], bs[1]});
+            tf32x3::mma3<false, false>(y[2 * np + 1], cb, cs, {bb[2], bb[3]}, {bs[2], bs[3]});
         }
     }
 }
@@ -192,7 +238,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ dd, const float* __restrict__ bias,
     void* __restrict__ dq, int tq, int tk, int d, float scale, int causal, int q_tiles, int copy_bytes, int out_f32) {
-    constexpr bool kExact = sizeof(T) == 2;
+    static_assert(sizeof(T) == 4, "2-byte types take the wgmma kernels below");
     constexpr int NT = kTile / 8;
     constexpr int DT = DP / 8;
     constexpr int kOwn = kRows * DP;
@@ -252,7 +298,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bwd_dq_kernel(
         const int j0 = it * kTile;
 
         float s[NT][4], dp[NT][4];
-        two_products<kExact, DP>(own, kp, own + kOwn, vp, m0, lane, s, dp);
+        two_products<DP>(own, kp, own + kOwn, vp, m0, lane, s, dp);
 
         const bool straddles = causal && j0 + kTile - 1 > row0;  // flag bit 4 of _pair_schedule
         const bool ragged = j0 + kTile > tk;
@@ -270,7 +316,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bwd_dq_kernel(
                 s[n][i] = p * (dp[n][i] - d_r[i / 2]);  // dS
             }
         }
-        accumulate<kExact, DP>(s, kp, g, t, acc);  // dQ += dS·k
+        accumulate<false, DP>(s, kp, g, t, acc);  // dQ += dS·k
     }
 
 #pragma unroll
@@ -291,7 +337,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bwd_dkv_kernel(
     const float* __restrict__ lse, const float* __restrict__ dd, const float* __restrict__ bias,
     void* __restrict__ dk, void* __restrict__ dv, int tq, int tk, int d, float scale, int causal, int k_tiles,
     int copy_bytes, int out_f32) {
-    constexpr bool kExact = sizeof(T) == 2;
+    static_assert(sizeof(T) == 4, "2-byte types take the wgmma kernels below");
     constexpr int NT = kTile / 8;
     constexpr int DT = DP / 8;
     constexpr int kOwn = kRows * DP;
@@ -357,7 +403,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bwd_dkv_kernel(
         const int i0 = it * kTile;
 
         float s[NT][4], dp[NT][4];  // Sᵀ and dPᵀ: keys × queries
-        two_products<kExact, DP>(own, qp, own + kOwn, gp, m0, lane, s, dp);
+        two_products<DP>(own, qp, own + kOwn, gp, m0, lane, s, dp);
 
         const bool straddles = causal && key0 + kRows - 1 > i0;  // flag bit 4 of _pair_schedule_kv
         const bool ragged = i0 + kTile > tq;
@@ -377,8 +423,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bwd_dkv_kernel(
                 dp[n][i] = p * (dp[n][i] - ds[c]);    // dSᵀ
             }
         }
-        accumulate<kExact, DP>(s, gp, g, t, dva);   // dV += Pᵀ·dO
-        accumulate<kExact, DP>(dp, qp, g, t, dka);  // dK += dSᵀ·q
+        accumulate<false, DP>(s, gp, g, t, dva);   // dV += Pᵀ·dO
+        accumulate<false, DP>(dp, qp, g, t, dka);  // dK += dSᵀ·q
     }
 
     // written for every key row of the block, zeros where no query attends it
@@ -392,6 +438,403 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bwd_dkv_kernel(
                 const long long off = (bh * tk + key) * d + col;
                 store_out<T>(dk, off, dka[c][i] * scale, out_f32);
                 store_out<T>(dv, off, dva[c][i], out_f32);
+            }
+        }
+    }
+}
+
+
+// ---------------------------------------------------------------- K4 and K5 for 2-byte types
+
+namespace tc {
+
+constexpr int kConsumers = 2;                  // consumer warpgroups a block, 64 own rows each
+constexpr int kThreads = 128 * (1 + kConsumers);  // the producer warpgroup, then the consumers
+constexpr int kRows = 64 * kConsumers;         // a block's own rows: queries in K4, keys in K5
+constexpr int kTile = 64;                      // rows of a ring tile: keys in K4, queries in K5
+constexpr int kStages = 2;                     // stages of the ring
+constexpr int kBox = 64 * 64 * 2;              // bytes of a 64 x 64 box of 2-byte values
+constexpr int kVecFloats = 2 * kTile;          // K5: a stage's LSE and D, kTile floats each
+
+// Shared memory, for the head dim padded to DP (DP / 64 column blocks of 64 values):
+//   own  : the block's own two tensors (q, dO in K4; k, v in K5), each DP / 64 blocks of
+//          (kRows x 64) values, rows 128 bytes apart, as TMA's 128-byte swizzle lays them out
+//   ring : kStages stages of the other side's two tiles (k, v in K4; q, dO in K5), each DP / 64
+//          boxes of (kTile x 64)
+//   vecs : K5 only, kStages stages of LSE and D of the stage's queries
+//   bars : full[kStages], empty[kStages], and the own tensors' barrier
+// from a 1024-byte boundary, as the swizzle wants it.
+template <int DP>
+struct Smem {
+    static constexpr int kCB = DP / 64;
+    static constexpr int kOwnBlock = (kRows / 64) * kBox;  // one column block of an own tensor
+    static constexpr int kOwn = kCB * kOwnBlock;           // one own tensor
+    static constexpr int kTileBytes = kCB * kBox;          // one ring tile
+    static constexpr int kStage = 2 * kTileBytes;
+    static constexpr int kRing = 2 * kOwn;
+    static constexpr int kVecs = kRing + kStages * kStage;
+    static constexpr int kBars = kVecs + kStages * kVecFloats * 4;
+    static constexpr int kBytes = kBars + 8 * (2 * kStages + 1) + 1024;
+};
+static_assert(Smem<128>::kBytes <= 232448, "the 2-byte backward's shared memory exceeds an H100 block's");
+
+// W (a warpgroup's 64 x 64 accumulator, f32) as the A operand of a product over its 64
+// columns: for each k16 step kk, the accumulator's fragment of columns 16·kk .. packed in pairs
+// into T, then fenced, so that every register is written before wgmma.fence
+template <typename T>
+__device__ __forceinline__ void a_frags(uint32_t (&a)[kTile / 16][4], const float (&w)[32]) {
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            a[kk][i] = wg16::pack2<T>(w[8 * kk + 2 * i], w[8 * kk + 2 * i + 1]);
+            asm volatile("" : "+r"(a[kk][i])::"memory");
+        }
+    }
+}
+
+// X (64 x 64) = A·Bᵀ over the padded head dim for A rows of an own tensor (at `a`, a column
+// block every kOwnBlock bytes) and B a ring tile (at `b`, a box every kBox bytes), both K-major
+template <typename T, int DP>
+__device__ __forceinline__ void own_by_tile(float (&x)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t at = (kk / 4) * Smem<DP>::kOwnBlock + (kk % 4) * 32;
+        const uint32_t bt = (kk / 4) * kBox + (kk % 4) * 32;
+        wg16::ss_m64n64k16<T>(x, wg16::desc_k_major(a + at), wg16::desc_k_major(b + bt), kk > 0);
+    }
+}
+
+// acc (64 x DP) += W·B for W (64 x 64) in a_frags' registers and B a ring tile (64 rows of the
+// padded head dim, at `b`), MN-major
+template <typename T, int DP>
+__device__ __forceinline__ void acc_by_tile(float (&acc)[DP / 2], const uint32_t (&a)[kTile / 16][4], uint32_t b) {
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+        wg16::rs_m64k16<T, DP>(acc, a[kk], wg16::desc_mn_major(b + kk * 16 * 128, kBox));
+}
+
+// two neighbouring values of an output row, in T or in f32
+template <typename T>
+__device__ __forceinline__ void store_pair(void* out, long long off, float x, float y, int out_f32) {
+    if (out_f32) {
+        *reinterpret_cast<float2*>(static_cast<float*>(out) + off) = make_float2(x, y);
+    } else {
+        *reinterpret_cast<uint32_t*>(static_cast<T*>(out) + off) = wg16::pack2<T>(x, y);
+    }
+}
+
+}  // namespace tc
+
+// K4 for bf16 and f16: dQ for tc::kRows query rows of one batch·head. A producer warpgroup,
+// one thread of which keeps the ring of k and v tiles full by TMA, and two consumer
+// warpgroups of 64 rows; thread t of a consumer holds rows 16·(t/32) + (t%32)/4 and 8 below,
+// columns 8j + 2·(t%4) and the next of each accumulator (wgmma's layout).
+template <typename T, int DP>
+__global__ void __launch_bounds__(tc::kThreads, 1) flash_attention_bwd_dq_wgmma_kernel(
+    const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+    const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+    const float* __restrict__ lse, const float* __restrict__ dd, const float* __restrict__ bias,
+    void* __restrict__ dq, int tq, int tk, int d, float scale, int causal, int q_tiles, int out_f32) {
+    using L = tc::Smem<DP>;
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+    const uint32_t q_own = base, do_own = base + L::kOwn;
+    const uint32_t bars = base + L::kBars;
+    auto full = [&](int st) { return bars + 8u * st; };
+    auto empty = [&](int st) { return bars + 8u * (tc::kStages + st); };
+    const uint32_t own_bar = bars + 8u * 2 * tc::kStages;
+    auto k_tile = [&](int st) { return base + L::kRing + st * L::kStage; };
+    auto v_tile = [&](int st) { return k_tile(st) + L::kTileBytes; };
+
+    const int bh = blockIdx.x / q_tiles;
+    const int row0 = (q_tiles - 1 - (int)(blockIdx.x % q_tiles)) * tc::kRows;  // the longest causal blocks first
+    // causal: the last key any row of this block attends is its last row
+    int tiles = (tk + tc::kTile - 1) / tc::kTile;
+    if (causal) tiles = min(tiles, (min(row0 + tc::kRows, tq) - 1) / tc::kTile + 1);
+
+    if (threadIdx.x == 0) {
+        for (int st = 0; st < tc::kStages; ++st) {
+            mbar_init(full(st), 1);                    // the producer's arrival, with the stage's bytes
+            mbar_init(empty(st), 4 * tc::kConsumers);  // one arrival a consumer warp
+        }
+        mbar_init(own_bar, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    const int warpgroup = threadIdx.x / 128;
+    if (warpgroup == 0) {
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+        if (threadIdx.x == 0) {
+            mbar_expect_tx(own_bar, 2 * L::kOwn);
+            for (int cb = 0; cb < L::kCB; ++cb) {
+                for (int h = 0; h < tc::kRows / 64; ++h) {
+                    const uint32_t at = cb * L::kOwnBlock + h * tc::kBox;
+                    wg16::tma_load_3d(&map_q, q_own + at, own_bar, 64 * cb, row0 + 64 * h, bh);
+                    wg16::tma_load_3d(&map_do, do_own + at, own_bar, 64 * cb, row0 + 64 * h, bh);
+                }
+            }
+            int st = 0;
+            uint32_t phase = 0;
+            for (int it = 0; it < tiles; ++it) {
+                mbar_wait(empty(st), phase ^ 1u);
+                mbar_expect_tx(full(st), L::kStage);
+                for (int cb = 0; cb < L::kCB; ++cb) {
+                    wg16::tma_load_3d(&map_k, k_tile(st) + cb * tc::kBox, full(st), 64 * cb, it * tc::kTile, bh);
+                    wg16::tma_load_3d(&map_v, v_tile(st) + cb * tc::kBox, full(st), 64 * cb, it * tc::kTile, bh);
+                }
+                if (++st == tc::kStages) {
+                    st = 0;
+                    phase ^= 1u;
+                }
+            }
+        }
+    } else {
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+        const int wg = warpgroup - 1;
+        const int t = threadIdx.x % 128;
+        const int lane = t % 32, qd = lane % 4;
+        const int wrow0 = row0 + 64 * wg;            // the warpgroup's rows
+        const int r_lo = wrow0 + 16 * (t / 32) + lane / 4;  // this thread's rows: r_lo, r_lo + 8
+        const float c2 = scale * kLog2e;
+        float lse_r[2], d_r[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int row = r_lo + 8 * h;
+            lse_r[h] = row < tq ? lse[(long long)bh * tq + row] : 0.f;
+            d_r[h] = row < tq ? dd[(long long)bh * tq + row] : 0.f;
+        }
+        float acc[DP / 2];
+#pragma unroll
+        for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+
+        mbar_wait(own_bar, 0);
+        int st = 0;
+        uint32_t phase = 0;
+        for (int it = 0; it < tiles; ++it) {
+            mbar_wait(full(st), phase);
+            const int j0 = it * tc::kTile;
+            if (!causal || j0 <= wrow0 + 63) {  // else every key of the tile is past every row
+                float s[32], dp[32];
+                wg16::wgmma_fence();
+                tc::own_by_tile<T, DP>(s, q_own + wg * tc::kBox, k_tile(st));  // S = q·kᵀ
+                wg16::wgmma_commit();
+                tc::own_by_tile<T, DP>(dp, do_own + wg * tc::kBox, v_tile(st));  // dP = dO·vᵀ
+                wg16::wgmma_commit();
+                wg16::wgmma_wait<1>();
+                wg16::fence_operands(s);
+                const bool straddles = causal && j0 + tc::kTile - 1 > wrow0;  // flag bit 4 of _pair_schedule
+                const bool ragged = j0 + tc::kTile > tk;
+#pragma unroll
+                for (int i = 0; i < 32; ++i) {
+                    const int row = r_lo + 8 * ((i / 2) % 2);
+                    const int key = j0 + 8 * (i / 4) + 2 * qd + (i & 1);
+                    float x = s[i] * c2;
+                    if (bias != nullptr && row < tq && key < tk) x = fmaf(bias[(long long)row * tk + key], kLog2e, x);
+                    float p = exp2_approx(fmaf(lse_r[(i / 2) % 2], -kLog2e, x));
+                    if ((straddles && key > row) || (ragged && key >= tk)) p = 0.f;
+                    s[i] = p;
+                }
+                wg16::wgmma_wait<0>();
+                wg16::fence_operands(dp);
+#pragma unroll
+                for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - d_r[(i / 2) % 2]);  // dS
+                uint32_t da[tc::kTile / 16][4];
+                tc::a_frags<T>(da, dp);  // dS rounded to T
+                wg16::wgmma_fence();
+                tc::acc_by_tile<T, DP>(acc, da, k_tile(st));  // dQ += dS·k
+                wg16::wgmma_commit();
+                wg16::wgmma_wait<0>();
+                wg16::fence_operands(acc);
+            }
+            if (lane == 0) mbar_arrive(empty(st));
+            if (++st == tc::kStages) {
+                st = 0;
+                phase ^= 1u;
+            }
+        }
+
+#pragma unroll
+        for (int j = 0; j < DP / 8; ++j) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int row = r_lo + 8 * h;
+                const int col = 8 * j + 2 * qd;
+                if (row < tq && col < d)
+                    tc::store_pair<T>(dq, ((long long)bh * tq + row) * d + col, acc[4 * j + 2 * h] * scale,
+                                      acc[4 * j + 2 * h + 1] * scale, out_f32);
+            }
+        }
+    }
+}
+
+// K5 for bf16 and f16: dK and dV for tc::kRows key rows of one batch·head, in K4's layout of
+// threads; the producer warpgroup's first thread brings the q and dO tiles by TMA, its second
+// warp each stage's LSE and D by plain loads
+template <typename T, int DP>
+__global__ void __launch_bounds__(tc::kThreads, 1) flash_attention_bwd_dkv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+    const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+    const float* __restrict__ lse, const float* __restrict__ dd, const float* __restrict__ bias,
+    void* __restrict__ dk, void* __restrict__ dv, int tq, int tk, int d, float scale, int causal, int k_tiles,
+    int out_f32) {
+    using L = tc::Smem<DP>;
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t raw = smem_u32(smem_raw);
+    const uint32_t base = (raw + 1023u) & ~1023u;
+    const uint32_t k_own = base, v_own = base + L::kOwn;
+    const uint32_t bars = base + L::kBars;
+    auto full = [&](int st) { return bars + 8u * st; };
+    auto empty = [&](int st) { return bars + 8u * (tc::kStages + st); };
+    const uint32_t own_bar = bars + 8u * 2 * tc::kStages;
+    auto q_tile = [&](int st) { return base + L::kRing + st * L::kStage; };
+    auto do_tile = [&](int st) { return q_tile(st) + L::kTileBytes; };
+    float* vecs = reinterpret_cast<float*>(smem_raw + (base - raw) + L::kVecs);  // stage st: LSE, then D
+
+    const int bh = blockIdx.x / k_tiles;
+    const int key0 = (int)(blockIdx.x % k_tiles) * tc::kRows;  // the longest causal blocks first
+    // causal: query i attends key j iff i >= j, so the first query tile to visit holds query
+    // key0; when key0 >= tq no query attends the block and it only writes zeros
+    const int t0 = causal ? key0 / tc::kTile : 0;
+    const int tiles = max((tq + tc::kTile - 1) / tc::kTile - t0, 0);
+
+    if (threadIdx.x == 0) {
+        for (int st = 0; st < tc::kStages; ++st) {
+            mbar_init(full(st), 1 + 32);               // the TMA thread's, with its bytes, and the LSE/D warp's
+            mbar_init(empty(st), 4 * tc::kConsumers);  // one arrival a consumer warp
+        }
+        mbar_init(own_bar, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    const int warpgroup = threadIdx.x / 128;
+    if (warpgroup == 0) {
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+        const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+        if (tiles > 0 && threadIdx.x == 0) {
+            mbar_expect_tx(own_bar, 2 * L::kOwn);
+            for (int cb = 0; cb < L::kCB; ++cb) {
+                for (int h = 0; h < tc::kRows / 64; ++h) {
+                    const uint32_t at = cb * L::kOwnBlock + h * tc::kBox;
+                    wg16::tma_load_3d(&map_k, k_own + at, own_bar, 64 * cb, key0 + 64 * h, bh);
+                    wg16::tma_load_3d(&map_v, v_own + at, own_bar, 64 * cb, key0 + 64 * h, bh);
+                }
+            }
+            int st = 0;
+            uint32_t phase = 0;
+            for (int it = 0; it < tiles; ++it) {
+                mbar_wait(empty(st), phase ^ 1u);
+                mbar_expect_tx(full(st), L::kStage);
+                const int i0 = (t0 + it) * tc::kTile;
+                for (int cb = 0; cb < L::kCB; ++cb) {
+                    wg16::tma_load_3d(&map_q, q_tile(st) + cb * tc::kBox, full(st), 64 * cb, i0, bh);
+                    wg16::tma_load_3d(&map_do, do_tile(st) + cb * tc::kBox, full(st), 64 * cb, i0, bh);
+                }
+                if (++st == tc::kStages) {
+                    st = 0;
+                    phase ^= 1u;
+                }
+            }
+        } else if (tiles > 0 && warp == 1) {
+            const float* lb = lse + (long long)bh * tq;
+            const float* db = dd + (long long)bh * tq;
+            int st = 0;
+            uint32_t phase = 0;
+            for (int it = 0; it < tiles; ++it) {
+                mbar_wait(empty(st), phase ^ 1u);
+                const int i0 = (t0 + it) * tc::kTile;
+                float* v = vecs + st * tc::kVecFloats;
+                for (int c = lane; c < tc::kTile; c += 32) {
+                    const bool in = i0 + c < tq;
+                    v[c] = in ? lb[i0 + c] : 0.f;
+                    v[tc::kTile + c] = in ? db[i0 + c] : 0.f;
+                }
+                mbar_arrive(full(st));
+                if (++st == tc::kStages) {
+                    st = 0;
+                    phase ^= 1u;
+                }
+            }
+        }
+    } else {
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+        const int wg = warpgroup - 1;
+        const int t = threadIdx.x % 128;
+        const int lane = t % 32, qd = lane % 4;
+        const int wkey0 = key0 + 64 * wg;                   // the warpgroup's keys
+        const int k_lo = wkey0 + 16 * (t / 32) + lane / 4;  // this thread's keys: k_lo, k_lo + 8
+        const float c2 = scale * kLog2e;
+        float dka[DP / 2], dva[DP / 2];
+#pragma unroll
+        for (int i = 0; i < DP / 2; ++i) dka[i] = dva[i] = 0.f;
+
+        if (tiles > 0) mbar_wait(own_bar, 0);
+        int st = 0;
+        uint32_t phase = 0;
+        for (int it = 0; it < tiles; ++it) {
+            mbar_wait(full(st), phase);
+            const int i0 = (t0 + it) * tc::kTile;
+            if (!causal || i0 + tc::kTile - 1 >= wkey0) {  // else every query of the tile is before every key
+                float s[32], dp[32];  // Sᵀ and dPᵀ: keys x queries
+                wg16::wgmma_fence();
+                tc::own_by_tile<T, DP>(s, k_own + wg * tc::kBox, q_tile(st));  // Sᵀ = k·qᵀ
+                wg16::wgmma_commit();
+                tc::own_by_tile<T, DP>(dp, v_own + wg * tc::kBox, do_tile(st));  // dPᵀ = v·dOᵀ
+                wg16::wgmma_commit();
+                wg16::wgmma_wait<1>();
+                wg16::fence_operands(s);
+                const float* ls = vecs + st * tc::kVecFloats;
+                const float* ds = ls + tc::kTile;
+                const bool straddles = causal && wkey0 + 63 > i0;  // flag bit 4 of _pair_schedule_kv
+                const bool ragged = i0 + tc::kTile > tq;
+#pragma unroll
+                for (int i = 0; i < 32; ++i) {
+                    const int key = k_lo + 8 * ((i / 2) % 2);
+                    const int c = 8 * (i / 4) + 2 * qd + (i & 1);
+                    const int query = i0 + c;
+                    float x = s[i] * c2;
+                    if (bias != nullptr && query < tq && key < tk)
+                        x = fmaf(bias[(long long)query * tk + key], kLog2e, x);
+                    float p = exp2_approx(fmaf(ls[c], -kLog2e, x));
+                    if ((straddles && key > query) || (ragged && query >= tq)) p = 0.f;
+                    s[i] = p;  // Pᵀ
+                }
+                uint32_t pa[tc::kTile / 16][4], da[tc::kTile / 16][4];
+                tc::a_frags<T>(pa, s);  // Pᵀ rounded to T
+                wg16::wgmma_wait<0>();
+                wg16::fence_operands(dp);
+#pragma unroll
+                for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - ds[8 * (i / 4) + 2 * qd + (i & 1)]);  // dSᵀ
+                tc::a_frags<T>(da, dp);  // dSᵀ rounded to T
+                wg16::wgmma_fence();
+                tc::acc_by_tile<T, DP>(dva, pa, do_tile(st));  // dV += Pᵀ·dO
+                tc::acc_by_tile<T, DP>(dka, da, q_tile(st));  // dK += dSᵀ·q
+                wg16::wgmma_commit();
+                wg16::wgmma_wait<0>();
+                wg16::fence_operands(dka);
+                wg16::fence_operands(dva);
+            }
+            if (lane == 0) mbar_arrive(empty(st));
+            if (++st == tc::kStages) {
+                st = 0;
+                phase ^= 1u;
+            }
+        }
+
+        // written for every key row of the block, zeros where no query attends it
+#pragma unroll
+        for (int j = 0; j < DP / 8; ++j) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int key = k_lo + 8 * h;
+                const int col = 8 * j + 2 * qd;
+                if (key < tk && col < d) {
+                    const long long off = ((long long)bh * tk + key) * d + col;
+                    tc::store_pair<T>(dk, off, dka[4 * j + 2 * h] * scale, dka[4 * j + 2 * h + 1] * scale, out_f32);
+                    tc::store_pair<T>(dv, off, dva[4 * j + 2 * h], dva[4 * j + 2 * h + 1], out_f32);
+                }
             }
         }
     }
@@ -442,6 +885,65 @@ cudaError_t launch_d(const void* o, const void* dout, float* dd, long long rows,
     return cudaGetLastError();
 }
 
+// the 2-byte K4 and K5: four TMA maps of q, k, v and dO (boxes of 64 rows), then one launch
+template <typename T>
+int make_maps(CUtensorMap (&maps)[4], const void* q, const void* k, const void* v, const void* dout, int bh, int tq,
+              int tk, int d) {
+    const void* ptrs[4] = {q, k, v, dout};
+    const int rows[4] = {tq, tk, tk, tq};
+    for (int i = 0; i < 4; ++i) {
+        const int rc = wg16::make_map_3d<T>(&maps[i], ptrs[i], bh, rows[i], d, tc::kTile);
+        if (rc != 0) return rc;
+    }
+    return 0;
+}
+
+template <typename T, int DP>
+int launch_dq_wgmma(int device, const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                    const float* dd, const float* bias, void* dq, int bh, int tq, int tk, int d, float scale,
+                    int causal, int out_f32, cudaStream_t stream) {
+    static std::atomic<unsigned long long> done{0};
+    constexpr size_t smem = tc::Smem<DP>::kBytes;
+    const int q_tiles = (tq + tc::kRows - 1) / tc::kRows;
+    const long long blocks = (long long)bh * q_tiles;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+    CUtensorMap maps[4];
+    const int rc = make_maps<T>(maps, q, k, v, dout, bh, tq, tk, d);
+    if (rc != 0) return rc;
+    const cudaError_t err = opt_in(flash_attention_bwd_dq_wgmma_kernel<T, DP>, smem, device, done);
+    if (err != cudaSuccess) return err;
+    flash_attention_bwd_dq_wgmma_kernel<T, DP><<<(unsigned)blocks, tc::kThreads, smem, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], lse, dd, bias, dq, tq, tk, d, scale, causal, q_tiles, out_f32);
+    return cudaGetLastError();
+}
+
+template <typename T, int DP>
+int launch_dkv_wgmma(int device, const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                     const float* dd, const float* bias, void* dk, void* dv, int bh, int tq, int tk, int d,
+                     float scale, int causal, int out_f32, cudaStream_t stream) {
+    static std::atomic<unsigned long long> done{0};
+    constexpr size_t smem = tc::Smem<DP>::kBytes;
+    const int k_tiles = (tk + tc::kRows - 1) / tc::kRows;
+    const long long blocks = (long long)bh * k_tiles;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+    CUtensorMap maps[4];
+    const int rc = make_maps<T>(maps, q, k, v, dout, bh, tq, tk, d);
+    if (rc != 0) return rc;
+    const cudaError_t err = opt_in(flash_attention_bwd_dkv_wgmma_kernel<T, DP>, smem, device, done);
+    if (err != cudaSuccess) return err;
+    flash_attention_bwd_dkv_wgmma_kernel<T, DP><<<(unsigned)blocks, tc::kThreads, smem, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], lse, dd, bias, dk, dv, tq, tk, d, scale, causal, k_tiles, out_f32);
+    return cudaGetLastError();
+}
+
+// what TMA takes: a head dim of 8·n values (16-byte row strides) and 16-byte aligned tensors;
+// the wrapper pads any other head dim and copies a tensor that is not aligned
+bool tma_ready(int d, const void* q, const void* k, const void* v, const void* dout) {
+    const uintptr_t bits = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                           reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout);
+    return d % 8 == 0 && bits % 16 == 0;
+}
+
 cudaError_t check(int device, int d, int bh, int tq, int tk) {
     if (d < 1 || d > 128 || bh < 1 || tq < 1 || tk < 1) return cudaErrorInvalidValue;
     return cudaSetDevice(device);
@@ -454,17 +956,20 @@ int dispatch_dq(int device, int dtype, const void* q, const void* k, const void*
     if (err != cudaSuccess) return err;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const bool wide = d > 64;
-#define HT_DQ(T) (wide ? launch_dq<T, 128>(device, q, k, v, dout, lse, dd, bias, dq, bh, tq, tk, d, scale, causal, \
-                                           out_f32, s)                                                          \
-                       : launch_dq<T, 64>(device, q, k, v, dout, lse, dd, bias, dq, bh, tq, tk, d, scale, causal,  \
-                                          out_f32, s))
-    switch (dtype) {
-        case 0: return HT_DQ(float);
-        case 1: return HT_DQ(__nv_bfloat16);
-        case 2: return HT_DQ(__half);
-        default: return cudaErrorInvalidValue;
-    }
+    if (dtype == 1 || dtype == 2) {
+        if (!tma_ready(d, q, k, v, dout)) return cudaErrorInvalidValue;
+#define HT_DQ(T) (wide ? launch_dq_wgmma<T, 128>(device, q, k, v, dout, lse, dd, bias, dq, bh, tq, tk, d, scale, \
+                                                 causal, out_f32, s)                                              \
+                       : launch_dq_wgmma<T, 64>(device, q, k, v, dout, lse, dd, bias, dq, bh, tq, tk, d, scale,  \
+                                                causal, out_f32, s))
+        return dtype == 1 ? HT_DQ(__nv_bfloat16) : HT_DQ(__half);
 #undef HT_DQ
+    }
+    if (dtype != 0) return cudaErrorInvalidValue;
+    return wide ? launch_dq<float, 128>(device, q, k, v, dout, lse, dd, bias, dq, bh, tq, tk, d, scale, causal,
+                                        out_f32, s)
+                : launch_dq<float, 64>(device, q, k, v, dout, lse, dd, bias, dq, bh, tq, tk, d, scale, causal,
+                                       out_f32, s);
 }
 
 int dispatch_dkv(int device, int dtype, const void* q, const void* k, const void* v, const void* dout,
@@ -474,17 +979,20 @@ int dispatch_dkv(int device, int dtype, const void* q, const void* k, const void
     if (err != cudaSuccess) return err;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const bool wide = d > 64;
-#define HT_DKV(T) (wide ? launch_dkv<T, 128>(device, q, k, v, dout, lse, dd, bias, dk, dv, bh, tq, tk, d, scale, \
-                                             causal, out_f32, s)                                                  \
-                        : launch_dkv<T, 64>(device, q, k, v, dout, lse, dd, bias, dk, dv, bh, tq, tk, d, scale,  \
-                                            causal, out_f32, s))
-    switch (dtype) {
-        case 0: return HT_DKV(float);
-        case 1: return HT_DKV(__nv_bfloat16);
-        case 2: return HT_DKV(__half);
-        default: return cudaErrorInvalidValue;
-    }
+    if (dtype == 1 || dtype == 2) {
+        if (!tma_ready(d, q, k, v, dout)) return cudaErrorInvalidValue;
+#define HT_DKV(T) (wide ? launch_dkv_wgmma<T, 128>(device, q, k, v, dout, lse, dd, bias, dk, dv, bh, tq, tk, d, \
+                                                   scale, causal, out_f32, s)                                   \
+                        : launch_dkv_wgmma<T, 64>(device, q, k, v, dout, lse, dd, bias, dk, dv, bh, tq, tk, d,  \
+                                                  scale, causal, out_f32, s))
+        return dtype == 1 ? HT_DKV(__nv_bfloat16) : HT_DKV(__half);
 #undef HT_DKV
+    }
+    if (dtype != 0) return cudaErrorInvalidValue;
+    return wide ? launch_dkv<float, 128>(device, q, k, v, dout, lse, dd, bias, dk, dv, bh, tq, tk, d, scale, causal,
+                                         out_f32, s)
+                : launch_dkv<float, 64>(device, q, k, v, dout, lse, dd, bias, dk, dv, bh, tq, tk, d, scale, causal,
+                                        out_f32, s);
 }
 
 }  // namespace
@@ -543,6 +1051,6 @@ int flash_attention_bwd_dkv_f32_launch(int device, int dtype, const void* q, con
                         1);
 }
 
-const char* flash_attention_bwd_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }
+const char* flash_attention_bwd_error_string(int code) { return tc_error_string(code); }
 
 }  // extern "C"

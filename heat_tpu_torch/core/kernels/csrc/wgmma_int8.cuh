@@ -1,7 +1,8 @@
 // The int8 tensor-core machinery that the integer products share (int_gemm_tc.cu for the 8-bit
 // types, int_gemm_planes.cu for the byte planes of int16, int32 and int64): the tile shape, the
-// mbarrier, TMA and wgmma descriptor helpers, the 128-register wgmma m64n256k32 of 8-bit
-// operands, and the host's tensor maps (cuTensorMapEncodeTiled from libcuda.so.1 by dlsym).
+// TMA load and wgmma descriptor of its tiles, the 128-register wgmma m64n256k32 of 8-bit
+// operands, and the host's tensor maps; the ring's mbarriers and cuTensorMapEncodeTiled come
+// from tma_ring.cuh.
 //
 // A block computes a 128 x 256 tile of C: a producer warpgroup, of which one thread keeps a ring
 // of kStages stages full by TMA (a 128 x 128-byte tile of A and a 256 x 128-byte tile of B^T a
@@ -11,12 +12,7 @@
 
 #pragma once
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
-
-#include <cstdint>
-#include <cstdio>
+#include "tma_ring.cuh"
 
 namespace {
 
@@ -31,42 +27,6 @@ constexpr int kBTile = kBN * kBK;        // 32 KB
 constexpr int kStageBytes = kATile + kBTile;
 constexpr int kSmemBytes = kStages * kStageBytes + 2 * kStages * 8 + 1024;  // + barriers, alignment
 constexpr int kAcc = kBN / 2;            // int32 accumulators a thread: 64 x 256 over 128 threads
-
-// the error codes of the sources that include this header, above CUDA's
-constexpr int kErrNoEncode = 100001;     // no cuTensorMapEncodeTiled in libcuda.so.1
-constexpr int kErrEncode = 100002;       // cuTensorMapEncodeTiled refused a map
-constexpr int kErrShape = 100003;        // a size past what the kernel addresses
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-// spin until the phase of parity `parity` of the barrier has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "WAIT:\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-        "@p bra DONE;\n"
-        "bra WAIT;\n"
-        "DONE:\n"
-        "}\n" ::"r"(bar),
-        "r"(parity)
-        : "memory");
-}
 
 // a (box rows x 128 bytes) tile at (k byte x, row y) of the map into shared memory, its bytes
 // counted on `bar`
@@ -133,22 +93,6 @@ __device__ __forceinline__ void wgmma_m64n256k32(int32_t (&d)[kAcc], uint64_t de
     }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the libcuda.so.1 the process has loaded (the runtime links no libcuda)
-EncodeTiled encode_tiled() {
-    static EncodeTiled fn = [] {
-        void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-        if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-        return lib == nullptr ? nullptr : reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
-    }();
-    return fn;
-}
-
-CUresult last_encode_result = CUDA_SUCCESS;
-
 // a 2-D map of `rows` rows of `k_pad` bytes, boxes of `box_rows` x 128 bytes, 128-byte swizzle,
 // zeros out of bounds
 int make_map(CUtensorMap* map, const void* ptr, long long rows, long long k_pad, int box_rows) {
@@ -166,26 +110,6 @@ int make_map(CUtensorMap* map, const void* ptr, long long rows, long long k_pad,
         return kErrEncode;
     }
     return 0;
-}
-
-cudaError_t use_device(int device) {
-    int current = -1;
-    cudaError_t err = cudaGetDevice(&current);
-    if (err != cudaSuccess || current == device) return err;
-    return cudaSetDevice(device);
-}
-
-// the message of a code of this header's sources
-const char* tc_error_string(int code) {
-    static thread_local char buf[160];
-    switch (code) {
-        case kErrNoEncode: return "no cuTensorMapEncodeTiled in libcuda.so.1";
-        case kErrEncode:
-            snprintf(buf, sizeof buf, "cuTensorMapEncodeTiled refused a map (CUresult %d)", (int)last_encode_result);
-            return buf;
-        case kErrShape: return "a size past what the kernel addresses (rows, k or tiles past 2^31, or 65535 batches)";
-        default: return cudaGetErrorString(static_cast<cudaError_t>(code));
-    }
 }
 
 }  // namespace

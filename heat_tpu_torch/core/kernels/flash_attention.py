@@ -79,6 +79,9 @@ bwd_dq = types.SimpleNamespace(SOURCE=BWD_SOURCE, launches=0)
 bwd_dkv = types.SimpleNamespace(SOURCE=BWD_SOURCE, launches=0)
 # K3, the pipelined forward
 fwd_pipelined = types.SimpleNamespace(SOURCE=PIPELINED_SOURCE, launches=0)
+tma_copies = 0
+"""Inputs of the 2-byte K4 and K5 copied into padded or aligned tensors for TMA (see
+:func:`_tma_ready`) since import."""
 
 _NEG_INF = float(torch.finfo(torch.float32).min)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -281,26 +284,34 @@ def flash_attention_bwd_reference(
     bias: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the D pass, K4 and K5: (dq, dk, dv) in q's, k's and v's
-    dtypes, in full fp32 whatever the input type, for the forward's ``o`` and ``lse`` and
-    the output gradient ``do``.
+    dtypes, for the forward's ``o`` and ``lse`` and the output gradient ``do``, in fp32
+    with heat_tpu's roundings.
 
     The probabilities are recomputed from the saved LSE exactly as the forward formed the
     scores (heat_tpu's ``_dq_kernel``/``_dkv_kernel``, flash_attention.py:450-458 and
     :510-518): s = (q·kᵀ)·scale, then + ``bias``, masked entries at NEG_INF, P = exp(s − LSE);
     D = rowsum(dO∘O) (:592-596) and dS = P∘(dO·vᵀ − D); dq = scale·dS·k, dk = scale·dSᵀ·q,
-    dv = Pᵀ·dO. Fully masked rows (LSE = NEG_INF/2 + log(1e-30), O = 0) give P = 0 and
-    contribute nothing. Unlike heat_tpu, dS and P stay f32 for the products."""
+    dv = Pᵀ·dO. For 16-bit inputs, dS is rounded to q's type before its products and P to
+    dO's before Pᵀ·dO, as heat_tpu's kernels round them (:460, :520, :525); for f32 both
+    stay f32. Fully masked rows (LSE = NEG_INF/2 + log(1e-30), O = 0) give P = 0 and
+    contribute nothing."""
     s = _scale(q, scale)
     qf, kf, vf, of, gf = (t.float() for t in (q, k, v, o, do))
     scores = _scores(qf, kf, s, causal, bias)
     p = torch.exp(scores - lse.to(torch.float32).unsqueeze(-1))
     dd = torch.sum(gf * of, dim=-1, keepdim=True)
     with full_fp32_matmul():
-        ds = p * (torch.matmul(gf, vf.transpose(-1, -2)) - dd)
+        ds = _rounded(p * (torch.matmul(gf, vf.transpose(-1, -2)) - dd), q.dtype)
         dq = torch.matmul(ds, kf) * s
         dk = torch.matmul(ds.transpose(-1, -2), qf) * s
-        dv = torch.matmul(p.transpose(-1, -2), gf)
+        dv = torch.matmul(_rounded(p, do.dtype).transpose(-1, -2), gf)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """f32 ``x`` rounded to a 16-bit ``dtype`` (to nearest even) and back; ``x`` itself for
+    any other type."""
+    return x.to(dtype).float() if dtype in (torch.bfloat16, torch.float16) else x
 
 
 def _takes(q, k, v, mask, scale, float_bias: bool) -> bool:
@@ -500,10 +511,31 @@ def _d_pass(o, do) -> torch.Tensor:
     return dd
 
 
+def _tma_ready(q, k, v, do) -> Tuple[torch.Tensor, ...]:
+    """q, k, v and dO as the 2-byte K4 and K5 take them: TMA reads rows of 16-byte strides
+    from 16-byte aligned tensors. A head dim that is not a multiple of 8 is padded with zero
+    columns (they add nothing to a product, and the padded columns of the gradients are cut
+    off), and a tensor that is not aligned is copied; ``tma_copies`` counts the copies. f32
+    tensors pass as they are (K4 and K5 read them with cp.async)."""
+    global tma_copies
+    if q.dtype == torch.float32:
+        return q, k, v, do
+    pad = -q.shape[-1] % 8
+    out = tuple(torch.nn.functional.pad(t, (0, pad)) if pad else t.clone() if t.data_ptr() % 16 else t
+                for t in (q, k, v, do))
+    copies = sum(a is not b for a, b in zip(out, (q, k, v, do)))
+    if copies:
+        with _count_lock:
+            tma_copies += copies
+    return out
+
+
 def _k4(q, k, v, do, lse, dd, causal: bool, scale: float, bias, out_f32: bool = False) -> torch.Tensor:
     """K4 on contiguous (bh, T, D) CUDA tensors of one dtype: dQ, in q's dtype or in f32 with
     ``out_f32``."""
     bh, tq, d = q.shape
+    q, k, v, do = _tma_ready(q, k, v, do)
+    dp = q.shape[-1]
     lib = _bwd_lib()
     dev, stream = _card(q)
     dq = torch.empty(q.shape, dtype=torch.float32 if out_f32 else q.dtype, device=q.device)
@@ -511,11 +543,11 @@ def _k4(q, k, v, do, lse, dd, causal: bool, scale: float, bias, out_f32: bool = 
         lib.flash_attention_bwd_dq_f32_launch if out_f32 else lib.flash_attention_bwd_dq_launch,
         lib.flash_attention_bwd_error_string, dev, _DTYPES[q.dtype],
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), dd.data_ptr(),
-        None if bias is None else bias.data_ptr(), dq.data_ptr(), bh, tq, k.shape[1], d, scale, int(causal), stream,
+        None if bias is None else bias.data_ptr(), dq.data_ptr(), bh, tq, k.shape[1], dp, scale, int(causal), stream,
     )
     with _count_lock:
         bwd_dq.launches += 1
-    return dq
+    return dq[..., :d]
 
 
 def _k5(
@@ -524,6 +556,8 @@ def _k5(
     """K5 on contiguous (bh, T, D) CUDA tensors of one dtype: dK and dV, in k's dtype or in
     f32 with ``out_f32``."""
     bh, tq, d = q.shape
+    q, k, v, do = _tma_ready(q, k, v, do)
+    dp = q.shape[-1]
     lib = _bwd_lib()
     dev, stream = _card(q)
     dk, dv = (torch.empty(k.shape, dtype=torch.float32 if out_f32 else k.dtype, device=k.device) for _ in range(2))
@@ -531,12 +565,12 @@ def _k5(
         lib.flash_attention_bwd_dkv_f32_launch if out_f32 else lib.flash_attention_bwd_dkv_launch,
         lib.flash_attention_bwd_error_string, dev, _DTYPES[q.dtype],
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), dd.data_ptr(),
-        None if bias is None else bias.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, tq, k.shape[1], d, scale,
+        None if bias is None else bias.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, tq, k.shape[1], dp, scale,
         int(causal), stream,
     )
     with _count_lock:
         bwd_dkv.launches += 1
-    return dk, dv
+    return dk[..., :d], dv[..., :d]
 
 
 def _backward(q, k, v, o, do, lse, causal: bool, scale: float, bias, on_card: bool):

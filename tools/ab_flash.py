@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The flash kernels of this checkout against those of another one, on one CUDA card.
 
-    python3 tools/ab_flash.py --parent DIR [--parent DIR ...] [--fwd-only] [--json-out FILE]
+    python3 tools/ab_flash.py --parent DIR [--parent DIR ...] [--fwd-only | --bwd-only] [--json-out FILE]
 
 Each DIR holds another checkout of the repository, or only its
 ``heat_tpu_torch/core/kernels/csrc`` (for example the parent commit, unpacked by ``git
@@ -14,13 +14,19 @@ inputs:
 
 - at each shape, each other version's O and LSE (K2, K3) and dQ, dK, dV (D, K4, K5) are
   compared bit for bit with this checkout's, and every version's forward is held to the
-  plain version (``_measure.fwd_err``'s tolerances, chip_smoke.py's);
+  plain version (``_measure.fwd_err``'s tolerances, chip_smoke.py's). The bf16 and f16 K4
+  and K5 round P and dS to the input type before their products, as heat_tpu does, where
+  earlier builds kept them f32: for 2-byte inputs two such builds differ by that rounding, so the line gives each version's distance from the plain
+  backward (which rounds them) as a share of each gradient's largest magnitude beside the
+  bit comparison, and only f32 gradients are expected to be bit-equal across builds of the
+  same arithmetic;
 - each kernel is timed in turns with this checkout's, other, this, this, other (median
   of CUDA-event-timed launches), beside ``scaled_dot_product_attention`` on the same
-  inputs.
+  inputs (its forward; its backward beside K4 and K5). ``--bwd-only`` times only D, K4
+  and K5 (the forward that feeds them is this checkout's K2).
 
-A first JSON line gives each build's nvcc seconds and its f32 instances' ptxas registers
-and spill bytes; then one JSON line per shape, then the card's name and power limit.
+A first JSON line gives each build's nvcc seconds and its instances' ptxas registers and
+spill bytes; then one JSON line per shape, then the card's name and power limit.
 Fails without a card.
 """
 
@@ -50,14 +56,17 @@ PIPELINED = ("flash_attention_fwd_pipelined.cu", "flash_attention_fwd_pipelined_
 BWD = "flash_attention_bwd.cu"
 
 # (name, bh, tq, tk, d, causal, dtype): the Transformer forward's three attention shapes,
-# the training step's two and bench.py's causal bf16 one
+# the training step's two (the first also in bf16) and bench.py's causal one in bf16 and f16;
+# the backward runs at the step's and bench.py's
 SHAPES = (
     ("encoder_self", 64, 4096, 4096, 64, False, torch.float32),
     ("decoder_cross", 64, 2048, 4096, 64, False, torch.float32),
     ("decoder_self_causal", 64, 2048, 2048, 64, True, torch.float32),
     ("step_self", 96, 2048, 2048, 64, False, torch.float32),
     ("step_self_causal", 96, 2048, 2048, 64, True, torch.float32),
+    ("step_self_bf16", 96, 2048, 2048, 64, False, torch.bfloat16),
     ("bench_causal_bf16", 128, 4096, 4096, 64, True, torch.bfloat16),
+    ("bench_causal_f16", 128, 4096, 4096, 64, True, torch.float16),
 )
 
 
@@ -121,11 +130,26 @@ def plain_err(q, k, v, causal, o, lse) -> float:
     return worst
 
 
+def bwd_share(q, k, v, o, do, lse, causal, grads) -> dict:
+    """Each gradient's largest distance from the plain backward as a share of its largest
+    magnitude, in chunks of batch·heads."""
+    chunk = max(1, (1 << 28) // (q.shape[1] * k.shape[1]))
+    err, top = [0.0] * 3, [0.0] * 3
+    for s0 in range(0, q.shape[0], chunk):
+        sl = slice(s0, s0 + chunk)
+        ref = fa.flash_attention_bwd_reference(q[sl], k[sl], v[sl], o[sl], do[sl], lse[sl], causal)
+        for i, (g, r) in enumerate(zip(grads, ref)):
+            err[i] = max(err[i], float((g[sl].float() - r.float()).abs().max()))
+            top[i] = max(top[i], float(r.float().abs().max()))
+    return {n: e / max(t, 1e-30) for n, e, t in zip(("dq", "dk", "dv"), err, top)}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", type=Path, action="append", required=True,
                         help="another checkout of the repository (repeatable)")
     parser.add_argument("--fwd-only", action="store_true", help="K2 and K3 only")
+    parser.add_argument("--bwd-only", action="store_true", help="D, K4 and K5 only")
     parser.add_argument("--json-out", default=None)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -141,8 +165,8 @@ def main() -> int:
     builds = {s: _nvcc.build(s) if s not in built else built[s] for s in sources}
     ver = {name: Version(root, builds) for name, root in roots.items()}
     print(json.dumps({"nvcc_s": {f"{n}:{s}": builds[r / CSRC / s]["seconds"] for n, r in roots.items() for s in names},
-                      "ptxas_f32": {f"{n}:{s}": [row for row in ptxas_summary(builds[r / CSRC / s]["log"]) if "float" in row[0]]
-                                    for n, r in roots.items() for s in names}}), flush=True)
+                      "ptxas": {f"{n}:{s}": ptxas_summary(builds[r / CSRC / s]["log"]) for n, r in roots.items()
+                                for s in names}}), flush=True)
 
     def turns(fn) -> dict:
         """Each other version timed in turns with this checkout's: other, this, this, other."""
@@ -159,7 +183,10 @@ def main() -> int:
             q, k, v = k2_inputs(bh, tq, tk, d, dtype, 10 + i, dev)
             scale = d**-0.5
             row = {"shape": name, "dims": [bh, tq, tk, d], "causal": causal, "dtype": str(dtype).split(".")[-1]}
-            for source, label in ((FWD[0], "k2"), (PIPELINED[0], "k3")):
+            backward = not args.fwd_only and (name.startswith("step") or name.startswith("bench"))
+            if args.bwd_only and not backward:
+                continue
+            for source, label in () if args.bwd_only else ((FWD[0], "k2"), (PIPELINED[0], "k3")):
                 outs = {n: v_.forward(source, q, k, v, causal, scale) for n, v_ in ver.items()}
                 row[f"{label}_bits_equal"] = {o: all(torch.equal(a, b) for a, b in zip(outs[o], outs["change"]))
                                               for o in others}
@@ -167,9 +194,10 @@ def main() -> int:
                 del outs
                 row[f"{label}_ms"] = turns(lambda n: ver[n].forward(source, q, k, v, causal, scale))
             q4, k4, v4 = (t.view(bh // 8, 8, t.shape[1], d) for t in (q, k, v))
-            row["library_ms"] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, is_causal=causal),
-                                        reps=5, warmup=1)
-            if not args.fwd_only and (name.startswith("step") or name.startswith("bench")):
+            if not args.bwd_only:
+                row["library_ms"] = cuda_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, is_causal=causal), reps=5, warmup=1)
+            if backward:
                 o, lse = ver["change"].forward(FWD[0], q, k, v, causal, scale)
                 do = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(600), device=dev).to(dtype)
                 grads = {}
@@ -178,10 +206,21 @@ def main() -> int:
                     grads[n] = (dd, v_.dq(q, k, v, do, lse, dd, causal, scale), *v_.dkv(q, k, v, do, lse, dd, causal, scale))
                 row["bwd_bits_equal"] = {o_: all(torch.equal(a, b) for a, b in zip(grads[o_], grads["change"]))
                                          for o_ in others}
+                if dtype != torch.float32:
+                    row["bwd_share_from_plain"] = {n: bwd_share(q, k, v, o, do, lse, causal, g[1:]) for n, g in grads.items()}
                 dd = grads["change"][0]
+                del grads
+                row["d_ms"] = turns(lambda n: ver[n].d_pass(o, do))
                 row["k4_ms"] = turns(lambda n: ver[n].dq(q, k, v, do, lse, dd, causal, scale))
                 row["k5_ms"] = turns(lambda n: ver[n].dkv(q, k, v, do, lse, dd, causal, scale))
-                del o, lse, do, grads
+                with torch.enable_grad():
+                    leaves = [t.view(q4.shape[0], 8, t.shape[1], d).clone().requires_grad_() for t in (q, k, v)]
+                    out = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=causal)
+                    g4 = do.view(out.shape)
+                    row["library_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(out, leaves, g4, retain_graph=True),
+                                                    reps=5, warmup=1)
+                    del leaves, out, g4
+                del o, lse, do
             print(json.dumps(row), flush=True)
             results.append(row)
             del q, k, v, q4, k4, v4
