@@ -26,8 +26,9 @@ Phases, one line each:
   2. build every ported kernel from the sources in this checkout (one nvcc per source,
      all started together), with each kernel instance's registers and spill bytes (ptxas)
      and its instructions and tensor-core (HMMA, HGMMA, IGMMA) instructions (cuobjdump
-     -sass); every instance of K2 and K3 and every f32 instance of K4 and K5 must hold HMMA,
-     every bf16 and f16 instance of K4 and K5 HGMMA (16-bit wgmma) and no spill, and every
+     -sass); every mma.sync instance of K2 and K3 (f32, and the 2-byte ones behind the ring's
+     f32-output entry points) and every f32 instance of K4 and K5 must hold HMMA, every bf16
+     and f16 wgmma instance of K2, K3, K4 and K5 HGMMA (16-bit wgmma) and no spill, and every
      integer product IGMMA and no spill. The KMeans path (3-5) waits only for
      K1's build, so K3's and the backward's run on beside it; the host-bound k-means++
      path waits for them all; ``[daso_sync]`` and ``[io]`` (12c), which launch no
@@ -56,16 +57,19 @@ Phases, one line each:
      fit timed and one fit traced;
   6. K2 against its plain PyTorch version on the card, in O and LSE: at the Transformer
      forward's three attention shapes in f32, at bench.py's attention configuration (b8
-     h16 t4096 d64 bf16, causal, and with its padding mask), at small ragged shapes
-     with a fully masked row, and around the forwards' tiles and blocks (lengths one off
-     them, d of 8, 72 and 96); bit-identical across two runs;
-  7. K3 against its plain PyTorch version and against K2 on the card, in O and LSE: at the
-     forward's three shapes and the step's two (f32), at bench.py's two, at small ragged
+     h16 t4096 d64 bf16, causal, and with its padding mask; causal in f16), at small ragged
+     shapes with a fully masked row, and around the forwards' tiles and blocks (lengths one
+     off them, d of 8, 72 and 96; in 2 bytes d of 8, 33, 72, 100 and 128, Tq and Tk past each
+     other both ways, dead rows under a bias); 2-byte O by the 16-bit rule
+     (``FWD_SHARE_16``, each line with the share it needed); bit-identical across two runs;
+  7. K3 against its plain PyTorch version and against K2 on the card, in O and LSE (2-byte:
+     the plain version walking the kernels' tiles, by the 16-bit rule, and K2's bits): at the
+     forward's three shapes and the step's two (f32), at bench.py's three, at small ragged
      shapes (d of 32, 33, 100 and 128, f16, causal with Tk > Tq and Tq > Tk, a bool mask
      with a fully masked row), with a float bias and at K2's tile edges; bit-identical
      across two runs; then ``scaled_dot_product_attention``, K2 and K3 timed in turns at
-     each large shape (the forward's three, the step's two and bench.py's), and K3's plain
-     version at the encoder shape;
+     each large shape (the forward's three, the step's two and bench.py's three: 2 bytes on
+     wgmma, the padding mask in both), and K3's plain version at the encoder shape;
   8. the Transformer path: counts zeroed, one forward under ``torch.inference_mode()``,
      counts read (K2 exactly 18 times); the output is finite and of the right shape, and
      a 1 + 1-layer model at T = 512 on the card equals the port's CPU path; then the
@@ -94,8 +98,10 @@ Phases, one line each:
      exactly 18 times each, K2 none), its loss within 1e-5 of the knob-off step's and each
      gradient within 1e-2 of its norm (two knob-off steps give the same bits), timed and
      traced;
- 11. bench.py's attention A/B (bench.py:252-274): causal scaled_dot_product_attention at
-     b8 h16 t4096 d64 bf16 with the knob off (K2) and on (K3), in turns, in ms and TFLOP/s;
+ 11. bench.py's attention A/B (bench.py:252-274) through ``ht.nn`` under
+     ``torch.inference_mode()``: scaled_dot_product_attention at b8 h16 t4096 d64, causal in
+     bf16 and f16 and with bench.py's padding mask in bf16, with the knob off (K2) and on
+     (K3), in turns, launch counts zeroed and read for each, in ms and TFLOP/s;
  11b. ``[bench_attention_bwd]``: the same attention forward and backward through
      ``ht.nn.scaled_dot_product_attention`` and autograd (one K2, one D, one K4 and one K5
      launch), in turns with ``scaled_dot_product_attention``'s forward and backward;
@@ -346,7 +352,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 try:
-    from heat_tpu_torch.core.kernels._measure import cuda_ms, fwd_err, k2_inputs, ptxas_summary, sass, sass_counts
+    from heat_tpu_torch.core.kernels._measure import (FWD_SHARE_16, cuda_ms, fwd16_err, fwd_err, k2_inputs,
+                                                      ptxas_summary, sass, sass_counts)
 except ImportError as exc:
     sys.exit(f"chip_smoke: the heat_tpu_torch package is not beside this script ({exc})")
 
@@ -385,7 +392,8 @@ MM_N = 4096
 HSVD_M, HSVD_N, HSVD_RANK = 2048, 8 * 4096, 10
 
 # the kernels, by source, whose every instance takes its products as mma.sync (HMMA in
-# its SASS)
+# its SASS): the f32 K2 and K3, and their 2-byte instances behind the f32-output entry points
+# (the ring attentions' blocks)
 TENSOR_CORE_KERNELS = {
     "flash_attention_fwd.cu": ("flash_attention_fwd_kernel",),
     "flash_attention_fwd_pipelined.cu": ("flash_attention_fwd_pipelined_kernel",),
@@ -397,6 +405,8 @@ WGMMA_KERNELS = {
     "int_gemm_planes.cu": {"int_gemm_planes_kernel": "IGMMA"},
     "flash_attention_bwd.cu": {"flash_attention_bwd_dq_wgmma_kernel": "HGMMA",
                                "flash_attention_bwd_dkv_wgmma_kernel": "HGMMA"},
+    "flash_attention_fwd.cu": {"flash_attention_fwd_wgmma_kernel": "HGMMA"},
+    "flash_attention_fwd_pipelined.cu": {"flash_attention_fwd_pipelined_wgmma_kernel": "HGMMA"},
 }
 # K4 and K5 (every kernel of flash_attention_bwd.cu named flash_attention_bwd_dq_...kernel or
 # flash_attention_bwd_dkv_...kernel) by the type of an instance: the f32 ones take 3xTF32
@@ -575,12 +585,17 @@ def roof_ms(nbytes: float, flops: float, rate: float) -> tuple:
     return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations")
 
 
-def k2_bound_ms(bh: int, tq: int, tk: int, d: int, causal: bool, itemsize: int, simt: bool = False) -> tuple:
+def k2_bound_ms(bh: int, tq: int, tk: int, d: int, causal: bool, itemsize: int, simt: bool = False,
+                mask=None) -> tuple:
     """(bound ms, "bytes" or "operations") of one K2 call: q, k, v read once and O, LSE
-    written once, against 4·d operations per (query, key) pair at :func:`attention_rate`."""
+    written once, against 4·d operations per (query, key) pair at :func:`attention_rate`.
+    With a (Tq, Tk) bool ``mask`` the pairs it attends count, and its f32 bias is read once."""
     nbytes = itemsize * bh * d * (2 * tq + 2 * tk) + 4 * bh * tq
-    flops = 4 * bh * d * attention_pairs(tq, tk, causal)
-    return roof_ms(nbytes, flops, attention_rate(itemsize, simt))
+    pairs = attention_pairs(tq, tk, causal)
+    if mask is not None:
+        nbytes += 4 * tq * tk
+        pairs = int(mask.sum()) if not causal else int(mask.tril().sum())
+    return roof_ms(nbytes, 4 * bh * d * pairs, attention_rate(itemsize, simt))
 
 
 def check_dead_rows(name, k2, o, lse, dead_rows) -> None:
@@ -592,47 +607,70 @@ def check_dead_rows(name, k2, o, lse, dead_rows) -> None:
         check(bool((o[:, r] == 0).all()) and bool((lse[:, r].cpu() == dead_lse).all()), f"{name}'s fully masked row {r}")
 
 
+def plain_forward(ref, q, k, v, causal: bool, bias, **kw) -> tuple:
+    """(O, LSE) of a plain forward ``ref`` on the card, in chunks of batch·heads to bound its
+    memory."""
+    import torch
+
+    chunk = max(1, (1 << 28) // (q.shape[1] * k.shape[1]))
+    outs = [ref(q[s0:s0 + chunk], k[s0:s0 + chunk], v[s0:s0 + chunk], causal, None, bias, **kw)
+            for s0 in range(0, q.shape[0], chunk)]
+    return torch.cat([o for o, _ in outs]), torch.cat([l_ for _, l_ in outs])
+
+
+def fwd_vs(o, lse, ro, rl) -> tuple:
+    """(max |ΔO|, max |ΔLSE|, worst err/tol, share needed or None) of a forward against a
+    reference: f32 by :func:`fwd_err`, bf16 and f16 by the 16-bit rule (:func:`fwd16_err`)."""
+    import torch
+
+    if o.dtype == torch.float32:
+        return (*fwd_err(o, lse, ro, rl), None)
+    return fwd16_err(o, lse, ro, rl)
+
+
 def check_k2(k2, q, k, v, causal: bool, mask, dead_rows=()) -> dict:
     """K2 against its plain version on the same card and inputs, in O and LSE.
 
     f32: both compute in fp32 and differ in summation order only, so O and LSE agree
-    within rtol = atol = 2e-4 (the tolerance of heat_tpu's own flash tests). bf16/f16:
-    both compute in f32 and round O once to the input type, so O may differ by one
-    rounding, 2⁻⁷ relative (the bf16 unit in the last place), plus 2e-4; LSE is f32 in
-    both, 2e-4. Rows in ``dead_rows`` (fully masked) must give O exactly 0 and LSE
-    exactly NEG_INF/2 + log(1e-30). Two runs must be identical. The plain version runs
-    in chunks of batch·heads to bound its memory."""
+    within rtol = atol = 2e-4 (the tolerance of heat_tpu's own flash tests). bf16/f16: both
+    take the products of 16-bit operands in f32 and round P to the input type before P·V, as
+    heat_tpu does; the kernel relative to the running maximum of each 64-key tile, the plain
+    version relative to the whole row's, so a P may round the other way: O within one unit
+    in the last place of the type of |O| plus ``FWD_SHARE_16`` of max|O| (the share each case
+    needed is reported), LSE (f32) within 2e-4. Rows in ``dead_rows`` (fully masked) must
+    give O exactly 0 and LSE exactly NEG_INF/2 + log(1e-30). Two runs must be identical."""
     import torch
 
     with torch.no_grad():
+        copies = k2.tma_copies
         o, lse = k2.flash_attention_fwd(q, k, v, causal, None, mask)
+        copies = k2.tma_copies - copies
         o2, lse2 = k2.flash_attention_fwd(q, k, v, causal, None, mask)
         torch.cuda.synchronize()
         check(torch.equal(o, o2) and torch.equal(lse, lse2), "K2 is not deterministic")
-        bh, tq, _ = q.shape
-        tk = k.shape[1]
-        chunk = max(1, (1 << 28) // (tq * tk))
-        bias = k2._as_bias(mask)
-        err_o = err_lse = worst = 0.0
-        for s0 in range(0, bh, chunk):
-            sl = slice(s0, s0 + chunk)
-            ro, rl = k2.flash_attention_reference(q[sl], k[sl], v[sl], causal, None, bias)
-            e = fwd_err(o[sl], lse[sl], ro, rl)
-            err_o, err_lse, worst = max(err_o, e[0]), max(err_lse, e[1]), max(worst, e[2])
-        check(worst <= 1.0, f"K2 disagrees with its plain version: err/tol {worst} (O {err_o}, LSE {err_lse})")
+        err_o, err_lse, worst, need = fwd_vs(o, lse, *plain_forward(k2.flash_attention_reference, q, k, v, causal,
+                                                                    k2._as_bias(mask)))
+        check(worst <= 1.0, f"K2 disagrees with its plain version: err/tol {worst} (O {err_o}, LSE {err_lse}, "
+                            f"share needed {need})")
         check_dead_rows("K2", k2, o, lse, dead_rows)
         check(bool(torch.isfinite(o.float()).all() and torch.isfinite(lse).all()), "K2 gave a value that is not finite")
-    return {"max_abs_err_o": err_o, "max_abs_err_lse": err_lse, "err_over_tol": worst}
+    out = {"max_abs_err_o": err_o, "max_abs_err_lse": err_lse, "err_over_tol": worst}
+    if need is not None:
+        out.update(share_needed=need, share=FWD_SHARE_16[str(q.dtype).split(".")[-1]], tma_copies=copies)
+    return out
 
 
 def check_k3(k2, q, k, v, causal: bool, mask, dead_rows=()) -> dict:
     """K3 (``flash_attention_fwd`` with ``HEAT_TPU_FLASH_PIPELINE=1``) against its plain
     version, ``flash_attention_pipelined_reference``, and against K2 on the same card and
-    inputs, in O and LSE, within :func:`fwd_err`'s tolerances: all three compute in fp32
-    and differ in the order of their sums. Fully masked rows as in K2; every value finite;
-    two runs identical. The plain version runs in chunks of batch·heads."""
+    inputs, in O and LSE. f32: all three compute in fp32 and differ in the order of their
+    sums, within :func:`fwd_err`'s tolerances. bf16/f16: the plain version walks the
+    kernels' tiles (128 query rows, 64 keys) and rounds P per tile as they do, held by the
+    16-bit rule; K3 walks K2's tiles with K2's arithmetic, so the two must give the same
+    bits. Fully masked rows as in K2; every value finite; two runs identical."""
     import torch
 
+    wide = q.dtype == torch.float32
     with torch.no_grad():
         with pipelined(True):
             o, lse = k2.flash_attention_fwd(q, k, v, causal, None, mask)
@@ -641,23 +679,34 @@ def check_k3(k2, q, k, v, causal: bool, mask, dead_rows=()) -> dict:
             ko, kl = k2.flash_attention_fwd(q, k, v, causal, None, mask)
         torch.cuda.synchronize()
         check(torch.equal(o, o2) and torch.equal(lse, lse2), "K3 is not deterministic")
-        bh, tq, _ = q.shape
-        tk = k.shape[1]
-        chunk = max(1, (1 << 28) // (tq * tk))
-        bias = k2._as_bias(mask)
-        err_o = err_lse = worst = 0.0
-        for s0 in range(0, bh, chunk):
-            sl = slice(s0, s0 + chunk)
-            ro, rl = k2.flash_attention_pipelined_reference(q[sl], k[sl], v[sl], causal, None, bias)
-            e = fwd_err(o[sl], lse[sl], ro, rl)
-            err_o, err_lse, worst = max(err_o, e[0]), max(err_lse, e[1]), max(worst, e[2])
-        check(worst <= 1.0, f"K3 disagrees with its plain version: err/tol {worst} (O {err_o}, LSE {err_lse})")
+        tiles = {} if wide else {"bq": 128, "bk": 64}
+        err_o, err_lse, worst, need = fwd_vs(o, lse, *plain_forward(k2.flash_attention_pipelined_reference, q, k, v,
+                                                                    causal, k2._as_bias(mask), **tiles))
+        check(worst <= 1.0, f"K3 disagrees with its plain version: err/tol {worst} (O {err_o}, LSE {err_lse}, "
+                            f"share needed {need})")
         vs_k2 = fwd_err(o, lse, ko, kl)
-        check(vs_k2[2] <= 1.0, f"K3 disagrees with K2: err/tol {vs_k2[2]} (O {vs_k2[0]}, LSE {vs_k2[1]})")
+        if wide:
+            check(vs_k2[2] <= 1.0, f"K3 disagrees with K2: err/tol {vs_k2[2]} (O {vs_k2[0]}, LSE {vs_k2[1]})")
+        else:
+            check(torch.equal(o, ko) and torch.equal(lse, kl), f"the 2-byte K3 and K2 differ: O {vs_k2[0]}, LSE {vs_k2[1]}")
         check_dead_rows("K3", k2, o, lse, dead_rows)
         check(bool(torch.isfinite(o.float()).all() and torch.isfinite(lse).all()), "K3 gave a value that is not finite")
-    return {"max_abs_err_o": err_o, "max_abs_err_lse": err_lse, "err_over_tol": worst,
-            "vs_k2_max_abs_err_o": vs_k2[0], "vs_k2_max_abs_err_lse": vs_k2[1], "vs_k2_err_over_tol": vs_k2[2]}
+    out = {"max_abs_err_o": err_o, "max_abs_err_lse": err_lse, "err_over_tol": worst,
+           "vs_k2_max_abs_err_o": vs_k2[0], "vs_k2_max_abs_err_lse": vs_k2[1], "vs_k2_err_over_tol": vs_k2[2]}
+    if need is not None:
+        out.update(share_needed=need, vs_k2_bits_equal=True)
+    return out
+
+
+def fwd16_entry(ms: dict, checks: dict) -> dict:
+    """The 2-byte forward's part of K2's or K3's entry in the kernels line: its times at
+    ``FWD16_TIMED`` (in turns with the library's forward, which ``k3_time`` also gives), and
+    the share of max|O| each 2-byte case needed against the plain version."""
+    return {
+        "ms_16bit": {c: ms[c] for c in FWD16_TIMED},
+        "share_16bit": FWD_SHARE_16,
+        "share_needed_16bit": {c: r["share_needed"] for c, r in checks.items() if "share_needed" in r},
+    }
 
 
 def bwd_bounds_ms(bh: int, tq: int, tk: int, d: int, causal: bool, itemsize: int, simt: bool = False) -> dict:
@@ -684,6 +733,9 @@ BWD_SHARE_16 = {"bfloat16": 1e-3, "float16": 2.5e-4}
 # the backward's cases timed in [k2_bwd_time], each beside the library's backward in turns: the
 # training step's two f32 shapes and its first in bf16, bench.py's causal shape in bf16 and f16
 BWD_TIMED = ("encoder_self", "decoder_self_causal", "encoder_self_bf16", "bench_causal_bf16", "bench_causal_f16")
+# the 2-byte forward's cases timed in [k3_time] (K2 and K3 on wgmma, in turns with the library's
+# forward): bench.py's causal shape in bf16 and f16 and its padding mask
+FWD16_TIMED = ("bench_causal_bf16", "bench_causal_f16", "bench_padding_mask_bf16")
 
 
 def check_bwd(k2, q, k, v, causal: bool, mask, seed: int) -> dict:
@@ -752,11 +804,12 @@ def check_bwd(k2, q, k, v, causal: bool, mask, seed: int) -> dict:
 KERNEL_KINDS = (
     # (kind, substrings of a CUDA kernel's name), the first match wins
     ("k1_kmeans_assign", ("kmeans_assign",)),
-    ("k2_flash_attention", ("flash_attention_fwd_kernel",)),
-    ("k3_flash_attention_pipelined", ("flash_attention_fwd_pipelined_kernel",)),
+    ("k2_flash_attention", ("flash_attention_fwd_kernel", "flash_attention_fwd_wgmma_kernel")),
+    ("k3_flash_attention_pipelined", ("flash_attention_fwd_pipelined_kernel",
+                                      "flash_attention_fwd_pipelined_wgmma_kernel")),
     ("d_pass", ("flash_attention_bwd_d_kernel",)),
-    ("k4_dq", ("flash_attention_bwd_dq_kernel",)),
-    ("k5_dkv", ("flash_attention_bwd_dkv_kernel",)),
+    ("k4_dq", ("flash_attention_bwd_dq_kernel", "flash_attention_bwd_dq_wgmma_kernel")),
+    ("k5_dkv", ("flash_attention_bwd_dkv_kernel", "flash_attention_bwd_dkv_wgmma_kernel")),
     # cuSOLVER's gesvd: Householder bidiagonalisation (labrd, larfg, geqrf, orgqr, its gemv)
     # and the rotations of its host-steered QR iteration (lasr); gesvdj's Jacobi sweeps
     ("svd_cusolver", ("gesvd", "gebrd", "labrd", "bdsqr", "lasr", "orgbr", "ormbr", "geqrf", "geqr2", "orgqr",
@@ -2063,12 +2116,18 @@ def nn_phases(ht, kernels, smi: str, dev) -> dict:
             check(err_o <= 2e-4 and err_lse <= 2e-4 * max(1.0, float(wl.abs().max())) and cast_err <= cast_tol,
                   f"{cname}: the ring's O/LSE are {err_o}/{err_lse} (cast {cast_err}) from one K2 call")
             if i == 0 or dtype != torch.float32:
-                # the f32-output entry against the plain version on a few heads, and rounded
-                # to the input type, bit for bit the default entry's output
+                # the f32-output entry against the plain version on a few heads (P f32, as
+                # heat_tpu's ring keeps it); f32: rounded, bit for bit the default entry's
+                # output; 2-byte: the default entry (wgmma, P rounded to the type as heat_tpu's
+                # kernel rounds it) against the plain K2 by the 16-bit rule
                 ro, rl = k2.flash_attention_reference(q[:8].float(), k[:8].float(), v[:8].float(), causal, sc)
                 check(rel_err(wo[:8], ro) <= 2e-4, f"{cname}: K2's f32 output disagrees with its plain version")
                 od, ld = k2._k2(q, k, v, causal, sc, None)
-                check(torch.equal(wo.to(dtype), od) and torch.equal(wl, ld), f"{cname}: K2's two entry points differ")
+                if dtype == torch.float32:
+                    check(torch.equal(wo, od) and torch.equal(wl, ld), f"{cname}: K2's two entry points differ")
+                else:
+                    e16 = fwd16_err(od[:8], ld[:8], *k2.flash_attention_reference(q[:8], k[:8], v[:8], causal, sc))
+                    check(e16[2] <= 1.0, f"{cname}: K2's default entry is {e16} from the plain K2")
                 del od, ld
             ring_ms = min(cuda_ms(ring.run, reps=1, warmup=1 if r == 0 else 0) for r in range(3))
             whole_ms = cuda_ms(lambda: k2.block_fwd(q, k, v, causal, sc), reps=3, warmup=1)
@@ -4810,6 +4869,15 @@ def main() -> int:
         "edge_d72_17x15_causal_f32": (2, 17, 15, 72, True, f32, None),
         "edge_d72_dead_row_f16": (2, 100, 140, 72, False, f16, "random"),
         "edge_d96_causal_f32": (2, 130, 33, 96, True, f32, None),
+        # the 2-byte kernels (wgmma, 128 query rows and 64-key tiles, head dims padded to 64
+        # or 128 by TMA): d of 8, 33, 72, 100 and 128, Tq and Tk past each other both ways,
+        # dead rows under a bias
+        "edge16_d8_causal_bf16": (2, 65, 129, 8, True, bf16, None),
+        "edge16_d33_dead_row_f16": (2, 70, 45, 33, False, f16, "random"),
+        "edge16_d72_causal_f16": (2, 17, 150, 72, True, f16, None),
+        "edge16_d100_causal_bf16": (2, 130, 61, 100, True, bf16, None),
+        "edge16_d128_dead_row_bf16": (2, 70, 300, 128, False, bf16, "random"),
+        "edge16_257x191_causal_bf16": (3, 257, 191, 64, True, bf16, None),
     }
     e_heads = BATCH * 8  # batch x heads of Transformer-base
     k2_cases = {
@@ -4818,6 +4886,7 @@ def main() -> int:
         "decoder_self_causal": (e_heads, TGT_T, TGT_T, 64, True, f32, None),
         "decoder_cross": (e_heads, TGT_T, SRC_T, 64, False, f32, None),
         "bench_causal_bf16": (BENCH_B * BENCH_H, BENCH_T, BENCH_T, BENCH_D, True, bf16, None),
+        "bench_causal_f16": (BENCH_B * BENCH_H, BENCH_T, BENCH_T, BENCH_D, True, f16, None),
         "bench_padding_mask_bf16": (BENCH_B * BENCH_H, BENCH_T, BENCH_T, BENCH_D, False, bf16, "padding"),
         "ragged_causal_dead_row_f32": (3, 37, 53, 8, True, f32, "random"),
         "ragged_d128_dead_row_f32": (2, 70, 100, 128, True, f32, "random"),
@@ -4854,6 +4923,7 @@ def main() -> int:
         "decoder_self_causal": (e_heads, TGT_T, TGT_T, 64, True, f32, None),
         "decoder_cross": (e_heads, TGT_T, SRC_T, 64, False, f32, None),
         "bench_causal_bf16": (BENCH_B * BENCH_H, BENCH_T, BENCH_T, BENCH_D, True, bf16, None),
+        "bench_causal_f16": (BENCH_B * BENCH_H, BENCH_T, BENCH_T, BENCH_D, True, f16, None),
         "bench_padding_mask_bf16": (BENCH_B * BENCH_H, BENCH_T, BENCH_T, BENCH_D, False, bf16, "padding"),
         "step_self": (t_heads, TRAIN_T, TRAIN_T, 64, False, f32, None),
         "step_self_causal": (t_heads, TRAIN_T, TRAIN_T, 64, True, f32, None),
@@ -4865,7 +4935,8 @@ def main() -> int:
         "float_bias_dead_row_f32": (4, 300, 260, 64, False, f32, "float"),
         **fwd_edges,
     }
-    k3_timed = ("encoder_self", "decoder_self_causal", "decoder_cross", "bench_causal_bf16", "step_self", "step_self_causal")
+    k3_timed = ("encoder_self", "decoder_self_causal", "decoder_cross", "bench_causal_bf16", "bench_causal_f16",
+                "bench_padding_mask_bf16", "step_self", "step_self_causal")
     k3_checks, k3_data = {}, {}
     for i, (cname, (bh, tq, tk, dh, causal, dtype, mkind)) in enumerate(k3_cases.items()):
         q, k, v = k2_inputs(bh, tq, tk, dh, dtype, SEED + 700 + i, dev)
@@ -4886,28 +4957,31 @@ def main() -> int:
         phase("k3_vs_plain_and_k2", case=cname, shape=f"{bh}x{tq}x{tk}x{dh}", dtype=str(dtype).split(".")[-1],
               causal=causal, mask=mkind, **got, deterministic=True)
         if cname in k3_timed:
-            k3_data[cname] = (q, k, v, causal)
+            k3_data[cname] = (q, k, v, causal, mask)
         else:
             del q, k, v
     # the library call, K2 and K3 in turns (library, K2, K3, K3, K2, library) at each large
-    # shape, then K3's plain version at the encoder shape
+    # shape (the 2-byte ones on wgmma, bench.py's padding mask with its bool mask in both),
+    # then K3's plain version at the encoder shape
     k3_ms, k3_k2_ms, k3_bounds, fwd_library_ms = {}, {}, {}, {}
     with torch.no_grad():
-        for cname, (q, k, v, causal) in k3_data.items():
+        for cname, (q, k, v, causal, mask) in k3_data.items():
             q4, k4, v4 = (t.view(t.shape[0] // 8, 8, t.shape[1], t.shape[2]) for t in (q, k, v))
-            runs = [cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, is_causal=causal),
-                            reps=5, warmup=1)]
+
+            def library():
+                return torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, is_causal=causal)
+
+            runs = [cuda_ms(library, reps=5, warmup=1)]
             for on in (False, True, True, False):
                 with pipelined(on):
-                    runs.append(cuda_ms(lambda: k2.flash_attention_fwd(q, k, v, causal), reps=5, warmup=1))
-            runs.append(cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, is_causal=causal),
-                                reps=5, warmup=1))
+                    runs.append(cuda_ms(lambda: k2.flash_attention_fwd(q, k, v, causal, None, mask), reps=5, warmup=1))
+            runs.append(cuda_ms(library, reps=5, warmup=1))
             del q4, k4, v4
             fwd_library_ms[cname] = (runs[0] + runs[5]) / 2
             k3_ms[cname], k3_k2_ms[cname] = (runs[2] + runs[3]) / 2, (runs[1] + runs[4]) / 2
             bh, tq, dh = q.shape
-            k3_bounds[cname] = k2_bound_ms(bh, tq, k.shape[1], dh, causal, q.element_size())
-        q, k, v, _ = k3_data["encoder_self"]
+            k3_bounds[cname] = k2_bound_ms(bh, tq, k.shape[1], dh, causal, q.element_size(), mask=mask)
+        q, k, v, _, _ = k3_data["encoder_self"]
         k3_plain_ms = cuda_ms(lambda: k2.flash_attention_pipelined_reference(q, k, v, False), reps=3, warmup=1)
     phase("k3_time", k3_ms=json.dumps(k3_ms), k2_ms_in_turns=json.dumps(k3_k2_ms),
           library_ms_in_turns=json.dumps(fwd_library_ms),
@@ -5284,25 +5358,35 @@ def main() -> int:
     del model, opt, sched, batch, loss
     torch.cuda.empty_cache()
 
-    # 11. bench.py's attention A/B (bench.py:252-274): causal sdpa at b8 h16 t4096 d64 bf16,
-    #     the knob off (K2) and on (K3), in turns; TFLOP/s under bench.py's count
+    # 11. bench.py's attention A/B (bench.py:252-274) through ht.nn under inference mode: causal
+    #     sdpa at b8 h16 t4096 d64 in bf16 and f16, and bench.py's padding mask (:246-248) in
+    #     bf16, the knob off (K2) and on (K3), in turns; TFLOP/s under bench.py's count
     gen = torch.Generator(device=dev).manual_seed(SEED + 900)
     qb, kb, vb = (torch.randn(BENCH_B, BENCH_H, BENCH_T, BENCH_D, generator=gen, device=dev).to(bf16) for _ in range(3))
     bench_flops = 2 * 2 * BENCH_B * BENCH_H * BENCH_T * BENCH_T * BENCH_D / 2
-    ab_runs, ab_counts = [], []
-    with torch.no_grad():
-        for on in (False, True, True, False):
-            with pipelined(on):
-                kernels.reset_launch_counts()
-                ht.nn.scaled_dot_product_attention(qb, kb, vb, is_causal=True)
-                ab_counts.append(kernels.launch_counts())
-                ab_runs.append(cuda_ms(lambda: ht.nn.scaled_dot_product_attention(qb, kb, vb, is_causal=True), reps=10))
-    check(all(c["flash_attention_fwd"] == (not on) and c["flash_attention_fwd_pipelined"] == on
-              for c, on in zip(ab_counts, (False, True, True, False))), f"the A/B's launches: {ab_counts}")
-    ab_k2_ms, ab_k3_ms = (ab_runs[0] + ab_runs[3]) / 2, (ab_runs[1] + ab_runs[2]) / 2
-    phase("bench_attention_ab", shape=f"{BENCH_B}x{BENCH_H}x{BENCH_T}x{BENCH_D}", dtype="bfloat16", causal=True,
-          runs_ms=json.dumps(ab_runs), k2_ms=repr(ab_k2_ms), k3_ms=repr(ab_k3_ms),
-          k2_tflops=repr(bench_flops / ab_k2_ms / 1e9), k3_tflops=repr(bench_flops / ab_k3_ms / 1e9))
+    pad_mask = (torch.arange(BENCH_T, device=dev)[None, :] < BENCH_T - BENCH_T // 8).expand(BENCH_T, BENCH_T)
+    ab_configs = {  # name: (q, k, v, causal, mask, bench.py's operations)
+        "causal_bf16": (qb, kb, vb, True, None, bench_flops),
+        "causal_f16": (qb.to(f16), kb.to(f16), vb.to(f16), True, None, bench_flops),
+        "padding_mask_bf16": (qb, kb, vb, False, pad_mask, 4 * BENCH_B * BENCH_H * BENCH_T * (BENCH_T - BENCH_T // 8) * BENCH_D),
+    }
+    for name_, (qa, ka, va, causal_, mask_, flops_) in ab_configs.items():
+        ab_runs, ab_counts = [], []
+        with torch.inference_mode():
+            for on in (False, True, True, False):
+                with pipelined(on):
+                    kernels.reset_launch_counts()
+                    ht.nn.scaled_dot_product_attention(qa, ka, va, attn_mask=mask_, is_causal=causal_)
+                    ab_counts.append(kernels.launch_counts())
+                    ab_runs.append(cuda_ms(lambda: ht.nn.scaled_dot_product_attention(qa, ka, va, attn_mask=mask_,
+                                                                                     is_causal=causal_), reps=10))
+        check(all(c["flash_attention_fwd"] == (not on) and c["flash_attention_fwd_pipelined"] == on
+                  for c, on in zip(ab_counts, (False, True, True, False))), f"the A/B's launches ({name_}): {ab_counts}")
+        ab_k2_ms, ab_k3_ms = (ab_runs[0] + ab_runs[3]) / 2, (ab_runs[1] + ab_runs[2]) / 2
+        phase("bench_attention_ab", config=name_, shape=f"{BENCH_B}x{BENCH_H}x{BENCH_T}x{BENCH_D}",
+              dtype=str(qa.dtype).split(".")[-1], causal=causal_, runs_ms=json.dumps(ab_runs), k2_ms=repr(ab_k2_ms),
+              k3_ms=repr(ab_k3_ms), k2_tflops=repr(flops_ / ab_k2_ms / 1e9), k3_tflops=repr(flops_ / ab_k3_ms / 1e9))
+    del ab_configs, pad_mask
 
     # 11b. bench.py's attention forward and backward: sdpa through ht.nn and autograd (K2, then
     #      D, K4 and K5 once each), in turns with scaled_dot_product_attention's forward and
@@ -5512,6 +5596,7 @@ def main() -> int:
                 "ms_by_shape_in_turns": k3_k2_ms,
                 "library_ms_by_shape": fwd_library_ms,
                 "bound_ms_by_shape_in_turns": {c: b[0] for c, b in k3_bounds.items()},
+                **fwd16_entry(k3_k2_ms, k2_checks),
             },
             *(
                 {
@@ -5592,6 +5677,7 @@ def main() -> int:
                 "library_ms_by_shape": fwd_library_ms,
                 "bound_ms_by_shape": {c: b[0] for c, b in k3_bounds.items()},
                 "achieved_flops_per_s": 4 * e_heads * 64 * attention_pairs(SRC_T, SRC_T, False) / (k3_ms["encoder_self"] * 1e-3),
+                **fwd16_entry(k3_ms, k3_checks),
             },
             {
                 "name": "int_matmul",

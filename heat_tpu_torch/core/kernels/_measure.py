@@ -14,7 +14,19 @@ import subprocess
 
 from . import _nvcc
 
-__all__ = ["cuda_ms", "demangle", "fwd_err", "k2_inputs", "ptxas_summary", "queued_ms", "sass", "sass_counts"]
+__all__ = ["FWD_SHARE_16", "cuda_ms", "demangle", "fwd16_err", "fwd_err", "k2_inputs", "ptxas_summary", "queued_ms",
+           "sass", "sass_counts"]
+
+# The 16-bit rule of the flash forward: |got − ref| ≤ u·|ref| + s·max|ref| for every element of
+# O, u one unit in the last place of the type (its own rounding) and s this share of the
+# largest |O|, for the terms whose P rounded the other way. The bf16 and f16 K2 and K3 round P
+# relative to the running maximum of each 64-key tile, as heat_tpu's kernels do relative to
+# theirs, and the plain K2 relative to the whole row's; the share is the largest that
+# heat_tpu's own interpret-mode kernel needs against the plain K2, 1.4488e-3 (bf16) and
+# 2.187e-4 (f16) of max|O| (tests/test_torch_flash_fwd_bf16.py, which asserts this table
+# equal to its own)
+FWD_SHARE_16 = {"bfloat16": 1.449e-3, "float16": 2.187e-4}
+_ULP_16 = {"bfloat16": 2.0**-7, "float16": 2.0**-10}
 
 # one SASS instruction: its address, its opcode (predicate dropped, up to the first dot)
 # and its operands
@@ -166,3 +178,18 @@ def fwd_err(o, lse, ro, rl) -> tuple:
     dl = (lse - rl).abs()
     worst = max(float((do / (2e-4 + rtol * ro.float().abs())).max()), float((dl / (2e-4 + 2e-4 * rl.abs())).max()))
     return float(do.max()), float(dl.max()), worst
+
+
+def fwd16_err(o, lse, ro, rl) -> tuple:
+    """(max |ΔO|, max |ΔLSE|, worst err/tol, share needed) of a bf16 or f16 flash forward
+    against a reference: O by the 16-bit rule (``FWD_SHARE_16``), LSE within 2e-4 (absolute
+    and relative); the share needed is the largest |ΔO| − u·|ref| over max|ref|."""
+    name = str(o.dtype).split(".")[-1]
+    ulp, share = _ULP_16[name], FWD_SHARE_16[name]
+    ref = ro.float()
+    err = (o.float() - ref).abs()
+    top = float(ref.abs().max())
+    dl = (lse - rl).abs()
+    worst = max(float((err / (ulp * ref.abs() + share * top + 1e-30)).max()),
+                float((dl / (2e-4 + 2e-4 * rl.abs())).max()))
+    return float(err.max()), float(dl.max()), worst, float((err - ulp * ref.abs()).max()) / max(top, 1e-30)

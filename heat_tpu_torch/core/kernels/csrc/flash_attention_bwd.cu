@@ -453,7 +453,7 @@ constexpr int kThreads = 128 * (1 + kConsumers);  // the producer warpgroup, the
 constexpr int kRows = 64 * kConsumers;         // a block's own rows: queries in K4, keys in K5
 constexpr int kTile = 64;                      // rows of a ring tile: keys in K4, queries in K5
 constexpr int kStages = 2;                     // stages of the ring
-constexpr int kBox = 64 * 64 * 2;              // bytes of a 64 x 64 box of 2-byte values
+constexpr int kBox = wg16::kBox;               // bytes of a 64 x 64 box of 2-byte values
 constexpr int kVecFloats = 2 * kTile;          // K5: a stage's LSE and D, kTile floats each
 
 // Shared memory, for the head dim padded to DP (DP / 64 column blocks of 64 values):
@@ -478,51 +478,11 @@ struct Smem {
 };
 static_assert(Smem<128>::kBytes <= 232448, "the 2-byte backward's shared memory exceeds an H100 block's");
 
-// W (a warpgroup's 64 x 64 accumulator, f32) as the A operand of a product over its 64
-// columns: for each k16 step kk, the accumulator's fragment of columns 16·kk .. packed in pairs
-// into T, then fenced, so that every register is written before wgmma.fence
-template <typename T>
-__device__ __forceinline__ void a_frags(uint32_t (&a)[kTile / 16][4], const float (&w)[32]) {
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            a[kk][i] = wg16::pack2<T>(w[8 * kk + 2 * i], w[8 * kk + 2 * i + 1]);
-            asm volatile("" : "+r"(a[kk][i])::"memory");
-        }
-    }
-}
-
-// X (64 x 64) = A·Bᵀ over the padded head dim for A rows of an own tensor (at `a`, a column
-// block every kOwnBlock bytes) and B a ring tile (at `b`, a box every kBox bytes), both K-major
-template <typename T, int DP>
-__device__ __forceinline__ void own_by_tile(float (&x)[32], uint32_t a, uint32_t b) {
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-        const uint32_t at = (kk / 4) * Smem<DP>::kOwnBlock + (kk % 4) * 32;
-        const uint32_t bt = (kk / 4) * kBox + (kk % 4) * 32;
-        wg16::ss_m64n64k16<T>(x, wg16::desc_k_major(a + at), wg16::desc_k_major(b + bt), kk > 0);
-    }
-}
-
-// acc (64 x DP) += W·B for W (64 x 64) in a_frags' registers and B a ring tile (64 rows of the
-// padded head dim, at `b`), MN-major
-template <typename T, int DP>
-__device__ __forceinline__ void acc_by_tile(float (&acc)[DP / 2], const uint32_t (&a)[kTile / 16][4], uint32_t b) {
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk)
-        wg16::rs_m64k16<T, DP>(acc, a[kk], wg16::desc_mn_major(b + kk * 16 * 128, kBox));
-}
-
-// two neighbouring values of an output row, in T or in f32
-template <typename T>
-__device__ __forceinline__ void store_pair(void* out, long long off, float x, float y, int out_f32) {
-    if (out_f32) {
-        *reinterpret_cast<float2*>(static_cast<float*>(out) + off) = make_float2(x, y);
-    } else {
-        *reinterpret_cast<uint32_t*>(static_cast<T*>(out) + off) = wg16::pack2<T>(x, y);
-    }
-}
+using wg16::a_frags;
+using wg16::acc_by_tile;
+using wg16::own_by_tile;
+using wg16::store_pair;
+static_assert(Smem<64>::kOwnBlock == wg16::kOwnBlock, "the backward's own rows are wgmma_16bit.cuh's");
 
 }  // namespace tc
 
@@ -936,14 +896,6 @@ int launch_dkv_wgmma(int device, const void* q, const void* k, const void* v, co
     return cudaGetLastError();
 }
 
-// what TMA takes: a head dim of 8·n values (16-byte row strides) and 16-byte aligned tensors;
-// the wrapper pads any other head dim and copies a tensor that is not aligned
-bool tma_ready(int d, const void* q, const void* k, const void* v, const void* dout) {
-    const uintptr_t bits = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                           reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout);
-    return d % 8 == 0 && bits % 16 == 0;
-}
-
 cudaError_t check(int device, int d, int bh, int tq, int tk) {
     if (d < 1 || d > 128 || bh < 1 || tq < 1 || tk < 1) return cudaErrorInvalidValue;
     return cudaSetDevice(device);
@@ -957,7 +909,7 @@ int dispatch_dq(int device, int dtype, const void* q, const void* k, const void*
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const bool wide = d > 64;
     if (dtype == 1 || dtype == 2) {
-        if (!tma_ready(d, q, k, v, dout)) return cudaErrorInvalidValue;
+        if (!wg16::tma_ready(d, q, k, v, dout)) return cudaErrorInvalidValue;
 #define HT_DQ(T) (wide ? launch_dq_wgmma<T, 128>(device, q, k, v, dout, lse, dd, bias, dq, bh, tq, tk, d, scale, \
                                                  causal, out_f32, s)                                              \
                        : launch_dq_wgmma<T, 64>(device, q, k, v, dout, lse, dd, bias, dq, bh, tq, tk, d, scale,  \
@@ -980,7 +932,7 @@ int dispatch_dkv(int device, int dtype, const void* q, const void* k, const void
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const bool wide = d > 64;
     if (dtype == 1 || dtype == 2) {
-        if (!tma_ready(d, q, k, v, dout)) return cudaErrorInvalidValue;
+        if (!wg16::tma_ready(d, q, k, v, dout)) return cudaErrorInvalidValue;
 #define HT_DKV(T) (wide ? launch_dkv_wgmma<T, 128>(device, q, k, v, dout, lse, dd, bias, dk, dv, bh, tq, tk, d, \
                                                    scale, causal, out_f32, s)                                   \
                         : launch_dkv_wgmma<T, 64>(device, q, k, v, dout, lse, dd, bias, dk, dv, bh, tq, tk, d,  \

@@ -1,4 +1,5 @@
-// K2 for Hopper: the flash-attention forward, on the tensor cores in 3xTF32.
+// K2 for Hopper: the flash-attention forward, on the tensor cores: bf16 and f16 on wgmma,
+// f32 in 3xTF32.
 //
 // Replaces the Pallas TPU kernel heat_tpu/core/kernels/flash_attention.py:156 (`_kernel`,
 // launched by `_flash_pallas`). For q (bh, tq, d) and k, v (bh, tk, d) in f32, bf16 or f16,
@@ -9,17 +10,29 @@
 // by the online-softmax recurrence of `_online_softmax_update` (flash_attention.py:135).
 // Causal attention is top-left aligned: row i attends columns j <= i, for any tq, tk.
 //
-// What bounds it on an H100: 4·d operations per attended (query, key) pair (q·kᵀ and P·V)
-// against q, k, v read and O written once, some 1e3 operations per byte: arithmetic. Every
-// product runs on the tensor cores as m16n8k8 TF32 mma.sync in 3xTF32 (mma_tf32x3.cuh):
-// an f32 operand splits into a TF32 big part and a TF32 residual, a·b is small·big +
-// big·small + big·big with f32 accumulation, and the dropped small·small term keeps the
-// result at fp32's level of accuracy. So the bound is the 3xTF32 rate, 495/3 = 165 TFLOP/s:
+// Two kernels, by the input type:
+//   * flash_attention_fwd_wgmma_kernel, for bf16 and f16 with o in their type: heat_tpu's
+//     arithmetic (P rounded to the input type before P·V, l summed over the f32 P) on
+//     Hopper's 16-bit tensor cores with wgmma, fed by TMA; flash_fwd_16bit.cuh holds its
+//     design, which it shares with K3. Its bound at bench.py's causal bf16 shape (128 x
+//     4096² x 64) is 0.278 ms: 4·d operations a pair at 989 TFLOP/s. TMA wants a head dim of
+//     8·n and 16-byte aligned tensors: the wrapper pads or copies others
+//     (flash_attention.py, `_tma_ready`) and the entry point refuses them.
+//   * flash_attention_fwd_kernel, below, for f32, and for bf16 and f16 through the
+//     `_f32_launch` entry point, which keeps P in f32 as heat_tpu's ring attention does for
+//     its blocks.
+//
+// What bounds the f32 kernel on an H100: 4·d operations per attended (query, key) pair
+// (q·kᵀ and P·V) against q, k, v read and O written once, some 1e3 operations per byte:
+// arithmetic. Every product runs on the tensor cores as m16n8k8 TF32 mma.sync in 3xTF32
+// (mma_tf32x3.cuh): an f32 operand splits into a TF32 big part and a TF32 residual, a·b is
+// small·big + big·small + big·big with f32 accumulation, and the dropped small·small term
+// keeps the result at fp32's level of accuracy. So the bound is the 3xTF32 rate, 495/3 = 165 TFLOP/s:
 // 1.666 ms at the Transformer forward's encoder shape, 64 × 4096² × 64 f32 (the fp32 FMA
 // pipe's 67 TFLOP/s, this kernel's roof until it moved to the tensor cores, would put it at
-// 4.103 ms). bf16 and f16 values are exact in TF32: their instances skip the products with
-// a zero small part, one product for q·kᵀ and two for P·V. The design, as the backward's
-// K4 (flash_attention_bwd.cu), on the tiles and fragments of flash_tiles.cuh:
+// 4.103 ms). bf16 and f16 values are exact in TF32: their f32-output instances skip the
+// products with a zero small part, one product for q·kᵀ and two for P·V. The design, as
+// the backward's K4 (flash_attention_bwd.cu), on the tiles and fragments of flash_tiles.cuh:
 //   * A block owns 128 query rows of one batch·head, eight warps of 16 (the m16 of
 //     m16n8k8), and loops over the tiles of 32 keys they attend (16 for d <= 128). S of a
 //     tile, the online-softmax state (m, l) and the output accumulator stay in registers,
@@ -31,8 +44,8 @@
 //     `load_q`). k, the B operand, is key-major, the "col" layout m16n8k8 wants, and is
 //     read with ldmatrix. P, the S accumulator, feeds straight back as
 //     the A operand of P·V with k permuted within each 8-wide chunk (tf32x3::from_acc),
-//     split into its TF32 parts (P stays f32, where heat_tpu rounds it to v's type: a
-//     recorded deviation); v is read down its columns to match.
+//     split into its TF32 parts (P stays f32: f32 inputs, and the ring attentions' blocks
+//     of 2-byte ones); v is read down its columns to match.
 //   * k and v tiles come through a cp.async ring of two stages in the input type: the next
 //     tile's copies are issued after the barrier that opens a step and land while the step
 //     computes (full 16-byte rows of d = 64 or 128 take copies whose indices are known at
@@ -68,6 +81,7 @@
 #include <atomic>
 #include <cstdint>
 
+#include "flash_fwd_16bit.cuh"
 #include "flash_tiles.cuh"
 
 using namespace flash;
@@ -131,6 +145,16 @@ __global__ void __launch_bounds__(kThreads, Shape<DP>::kBlocks) flash_attention_
     else finalize<T, DP>(st, static_cast<T*>(o), lse, bh, at.r_lo, tq, d, t);
 }
 
+// K2 for bf16 and f16 on wgmma: O and LSE for fwd16::kRows query rows of one batch·head
+// (flash_fwd_16bit.cuh), each tile's two products one after the other
+template <typename T, int DP>
+__global__ void __launch_bounds__(fwd16::kThreads, 1) flash_attention_fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+    const __grid_constant__ CUtensorMap map_v, const float* __restrict__ bias, void* __restrict__ o,
+    float* __restrict__ lse, int bh, int tq, int tk, int d, float scale, int causal, int group) {
+    fwd16::forward<T, DP, false>(&map_q, &map_k, &map_v, bias, o, lse, bh, tq, tk, d, scale, causal, group);
+}
+
 namespace {
 
 template <typename T, int DP>
@@ -156,13 +180,39 @@ cudaError_t launch_d(int device, const void* q, const void* k, const void* v, co
     return launch<T, 128>(device, q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, out_f32, stream);
 }
 
-// the entry points' checks and dispatch on the input type
+template <typename T, int DP>
+int launch_wgmma(int device, const void* q, const void* k, const void* v, const float* bias, void* o, float* lse,
+                 int bh, int tq, int tk, int d, float scale, int causal, cudaStream_t stream) {
+    static std::atomic<unsigned long long> done{0};
+    constexpr size_t smem = fwd16::Smem<DP>::kBytes;
+    const long long blocks = fwd16::grid_blocks(bh, tq);
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+    CUtensorMap maps[3];
+    const int rc = fwd16::make_maps<T>(maps, q, k, v, bh, tq, tk, d);
+    if (rc != 0) return rc;
+    const cudaError_t err = opt_in(flash_attention_fwd_wgmma_kernel<T, DP>, smem, device, done);
+    if (err != cudaSuccess) return err;
+    flash_attention_fwd_wgmma_kernel<T, DP><<<(unsigned)blocks, fwd16::kThreads, smem, stream>>>(
+        maps[0], maps[1], maps[2], bias, o, lse, bh, tq, tk, d, scale, causal, fwd16::group(bias, bh));
+    return cudaGetLastError();
+}
+
+// the entry points' checks and dispatch on the input type: 2-byte inputs with an output in
+// their type take the wgmma kernel, whose inputs TMA must take (the wrapper pads and copies);
+// f32 inputs, and 2-byte ones with an f32 output (the ring attentions' blocks), the 3xTF32 one
 int dispatch(int device, int dtype, const void* q, const void* k, const void* v, const float* bias, void* o,
              float* lse, int bh, int tq, int tk, int d, float scale, int causal, void* stream, int out_f32) {
     if (d < 1 || d > 128 || bh < 1 || tq < 1 || tk < 1) return cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if ((dtype == 1 || dtype == 2) && !out_f32) {
+        if (!wg16::tma_ready(d, q, k, v)) return cudaErrorInvalidValue;
+#define HT_K2(T) (d > 64 ? launch_wgmma<T, 128>(device, q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, s) \
+                         : launch_wgmma<T, 64>(device, q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, s))
+        return dtype == 1 ? HT_K2(__nv_bfloat16) : HT_K2(__half);
+#undef HT_K2
+    }
     switch (dtype) {
         case 0: return launch_d<float>(device, q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, out_f32, s);
         case 1: return launch_d<__nv_bfloat16>(device, q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, out_f32, s);
@@ -177,8 +227,8 @@ extern "C" {
 
 // dtype: 0 float32, 1 bfloat16, 2 float16. q (bh, tq, d), k and v (bh, tk, d) contiguous in
 // that type, bias (tq, tk) f32 contiguous or null, o (bh, tq, d) in that type and lse (bh, tq)
-// f32 allocated by the caller; 1 <= d <= 128. The kernel runs on `stream`; nothing is
-// synchronised.
+// f32 allocated by the caller; 1 <= d <= 128, and for 2-byte types d a multiple of 8 and q, k
+// and v 16-byte aligned (TMA's). The kernel runs on `stream`; nothing is synchronised.
 int flash_attention_fwd_launch(int device, int dtype, const void* q, const void* k, const void* v,
                                const float* bias, void* o, float* lse, int bh, int tq, int tk, int d,
                                float scale, int causal, void* stream) {
@@ -186,13 +236,15 @@ int flash_attention_fwd_launch(int device, int dtype, const void* q, const void*
 }
 
 // The same with o (bh, tq, d) f32 whatever the input type: blocks that a caller merges
-// by their LSEs (the ring attentions) round once, at the end, and not once a block.
+// by their LSEs (the ring attentions) round once, at the end, and not once a block. 2-byte
+// inputs keep the 3xTF32 kernel and P in f32 here, as heat_tpu's ring keeps its blocks' P in
+// f32 (`_online_attend`, heat_tpu/nn/attention.py:198, :211-214).
 int flash_attention_fwd_f32_launch(int device, int dtype, const void* q, const void* k, const void* v,
                                const float* bias, void* o, float* lse, int bh, int tq, int tk, int d,
                                float scale, int causal, void* stream) {
     return dispatch(device, dtype, q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, stream, 1);
 }
 
-const char* flash_attention_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }
+const char* flash_attention_error_string(int code) { return tc_error_string(code); }
 
 }  // extern "C"

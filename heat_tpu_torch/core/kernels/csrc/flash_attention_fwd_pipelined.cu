@@ -1,4 +1,5 @@
-// K3 for Hopper: the pipelined flash-attention forward, on the tensor cores in 3xTF32.
+// K3 for Hopper: the pipelined flash-attention forward, on the tensor cores: bf16 and f16 on
+// wgmma, f32 in 3xTF32.
 //
 // Replaces the Pallas TPU kernel heat_tpu/core/kernels/flash_attention.py:238
 // (`_kernel_pipelined`, launched by `_flash_pallas` under HEAT_TPU_FLASH_PIPELINE=1 over the
@@ -10,9 +11,19 @@
 //   lse (bh, tq)    f32         : max(m, NEG_INF/2) + log(max(l, 1e-30)), m the row maximum
 // Causal attention is top-left aligned (row i attends columns j <= i) for any tq, tk.
 //
-// What bounds it on an H100: as K2, arithmetic, 4·d operations per attended (query, key)
-// pair, every product an m16n8k8 TF32 mma.sync in 3xTF32 (mma_tf32x3.cuh), so the 3xTF32
-// rate of 165 TFLOP/s: 1.666 ms at the encoder shape 64 × 4096² × 64 f32 (4.103 ms at the
+// Two kernels, by the input type, as K2's:
+//   * flash_attention_fwd_pipelined_wgmma_kernel, for bf16 and f16 with o in their type: K2's
+//     16-bit block (flash_fwd_16bit.cuh: P rounded to the input type before P·V as heat_tpu
+//     rounds it, wgmma fed by TMA) with the one-step skew below, S_{j+1} in flight on the
+//     tensor cores while the softmax of tile j runs. It walks K2's tiles with K2's
+//     arithmetic, so the two give the same bits.
+//   * flash_attention_fwd_pipelined_kernel, below, for f32, and for bf16 and f16 through the
+//     `_f32_launch` entry point (the ring attentions' blocks, whose P stays f32 as in
+//     heat_tpu's ring).
+//
+// What bounds the f32 kernel on an H100: as K2's, arithmetic, 4·d operations per attended
+// (query, key) pair, every product an m16n8k8 TF32 mma.sync in 3xTF32 (mma_tf32x3.cuh), so
+// the 3xTF32 rate of 165 TFLOP/s: 1.666 ms at the encoder shape 64 × 4096² × 64 f32 (4.103 ms at the
 // fp32 FMA rate that bounded this kernel before). It shares K2's tiles, fragments, products
 // and softmax step (flash_tiles.cuh); what makes it K3 and not a second K2 is the TPU
 // kernel's one-step skew:
@@ -34,8 +45,8 @@
 //     blocks share an SM (one at d <= 128; above 48 KB the shared memory is opted into
 //     once per instance and device). Two sets of score fragments of 32 keys cost what one
 //     of 64 would.
-//   * As K2: the softmax in log2 units with MUFU.EX2, P f32 (heat_tpu rounds it to v's
-//     type), causal tiles above the diagonal skipped by the loop bound and only straddling
+//   * As K2: the softmax in log2 units with MUFU.EX2, P f32, causal tiles above the
+//     diagonal skipped by the loop bound and only straddling
 //     ones masked, the longest causal blocks first, key rows past tk zero-filled and given
 //     weight 0, rows of 2-byte values with an odd d copied with plain loads into the ring.
 // Deterministic: no reduction crosses blocks and each row sums its keys in a fixed order.
@@ -51,6 +62,7 @@
 #include <atomic>
 #include <cstdint>
 
+#include "flash_fwd_16bit.cuh"
 #include "flash_tiles.cuh"
 
 using namespace flash;
@@ -163,6 +175,16 @@ __global__ void __launch_bounds__(kThreads, Shape<DP>::kBlocks) flash_attention_
     else finalize<T, DP>(st, static_cast<T*>(o), lse, bh, at.r_lo, tq, d, t);
 }
 
+// K3 for bf16 and f16 on wgmma: K2's block (flash_fwd_16bit.cuh) with heat_tpu's one-step
+// skew, S_{j+1} in flight on the tensor cores while the softmax of tile j runs
+template <typename T, int DP>
+__global__ void __launch_bounds__(fwd16::kThreads, 1) flash_attention_fwd_pipelined_wgmma_kernel(
+    const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+    const __grid_constant__ CUtensorMap map_v, const float* __restrict__ bias, void* __restrict__ o,
+    float* __restrict__ lse, int bh, int tq, int tk, int d, float scale, int causal, int group) {
+    fwd16::forward<T, DP, true>(&map_q, &map_k, &map_v, bias, o, lse, bh, tq, tk, d, scale, causal, group);
+}
+
 namespace {
 
 template <typename T, int DP>
@@ -188,13 +210,39 @@ cudaError_t launch_d(int device, const void* q, const void* k, const void* v, co
     return launch<T, 128>(device, q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, out_f32, stream);
 }
 
-// the entry points' checks and dispatch on the input type
+template <typename T, int DP>
+int launch_wgmma(int device, const void* q, const void* k, const void* v, const float* bias, void* o, float* lse,
+                 int bh, int tq, int tk, int d, float scale, int causal, cudaStream_t stream) {
+    static std::atomic<unsigned long long> done{0};
+    constexpr size_t smem = fwd16::Smem<DP>::kBytes;
+    const long long blocks = fwd16::grid_blocks(bh, tq);
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+    CUtensorMap maps[3];
+    const int rc = fwd16::make_maps<T>(maps, q, k, v, bh, tq, tk, d);
+    if (rc != 0) return rc;
+    const cudaError_t err = opt_in(flash_attention_fwd_pipelined_wgmma_kernel<T, DP>, smem, device, done);
+    if (err != cudaSuccess) return err;
+    flash_attention_fwd_pipelined_wgmma_kernel<T, DP><<<(unsigned)blocks, fwd16::kThreads, smem, stream>>>(
+        maps[0], maps[1], maps[2], bias, o, lse, bh, tq, tk, d, scale, causal, fwd16::group(bias, bh));
+    return cudaGetLastError();
+}
+
+// the entry points' checks and dispatch on the input type: 2-byte inputs with an output in
+// their type take the wgmma kernel, whose inputs TMA must take (the wrapper pads and copies);
+// f32 inputs, and 2-byte ones with an f32 output (the ring attentions' blocks), the 3xTF32 one
 int dispatch(int device, int dtype, const void* q, const void* k, const void* v, const float* bias, void* o,
              float* lse, int bh, int tq, int tk, int d, float scale, int causal, void* stream, int out_f32) {
     if (d < 1 || d > 128 || bh < 1 || tq < 1 || tk < 1) return cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if ((dtype == 1 || dtype == 2) && !out_f32) {
+        if (!wg16::tma_ready(d, q, k, v)) return cudaErrorInvalidValue;
+#define HT_K3(T) (d > 64 ? launch_wgmma<T, 128>(device, q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, s) \
+                         : launch_wgmma<T, 64>(device, q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, s))
+        return dtype == 1 ? HT_K3(__nv_bfloat16) : HT_K3(__half);
+#undef HT_K3
+    }
     switch (dtype) {
         case 0: return launch_d<float>(device, q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, out_f32, s);
         case 1: return launch_d<__nv_bfloat16>(device, q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, out_f32, s);
@@ -209,8 +257,8 @@ extern "C" {
 
 // dtype: 0 float32, 1 bfloat16, 2 float16. q (bh, tq, d), k and v (bh, tk, d) contiguous in
 // that type, bias (tq, tk) f32 contiguous or null, o (bh, tq, d) in that type and lse (bh, tq)
-// f32 allocated by the caller; 1 <= d <= 128. The kernel runs on `stream`; nothing is
-// synchronised.
+// f32 allocated by the caller; 1 <= d <= 128, and for 2-byte types d a multiple of 8 and q, k
+// and v 16-byte aligned (TMA's). The kernel runs on `stream`; nothing is synchronised.
 int flash_attention_fwd_pipelined_launch(int device, int dtype, const void* q, const void* k, const void* v,
                                          const float* bias, void* o, float* lse, int bh, int tq, int tk, int d,
                                          float scale, int causal, void* stream) {
@@ -218,15 +266,15 @@ int flash_attention_fwd_pipelined_launch(int device, int dtype, const void* q, c
 }
 
 // The same with o (bh, tq, d) f32 whatever the input type: blocks that a caller merges
-// by their LSEs (the ring attentions) round once, at the end, and not once a block.
+// by their LSEs (the ring attentions) round once, at the end, and not once a block. 2-byte
+// inputs keep the 3xTF32 kernel and P in f32 here, as heat_tpu's ring keeps its blocks' P in
+// f32 (`_online_attend`, heat_tpu/nn/attention.py:198, :211-214).
 int flash_attention_fwd_pipelined_f32_launch(int device, int dtype, const void* q, const void* k, const void* v,
                                          const float* bias, void* o, float* lse, int bh, int tq, int tk, int d,
                                          float scale, int causal, void* stream) {
     return dispatch(device, dtype, q, k, v, bias, o, lse, bh, tq, tk, d, scale, causal, stream, 1);
 }
 
-const char* flash_attention_fwd_pipelined_error_string(int code) {
-    return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
+const char* flash_attention_fwd_pipelined_error_string(int code) { return tc_error_string(code); }
 
 }  // extern "C"

@@ -1,6 +1,8 @@
-// The 16-bit tensor-core machinery of the attention backward's bf16 and f16 instances (K4 and K5
-// in flash_attention_bwd.cu): wgmma m64nNk16 with f32 accumulation, its shared-memory
-// descriptors for operands stored K-major and MN-major in the 128-byte swizzle, the 3-D TMA
+// The 16-bit tensor-core machinery of the attention kernels' bf16 and f16 instances (K2 and K3
+// in flash_attention_fwd.cu and flash_attention_fwd_pipelined.cu through flash_fwd_16bit.cuh,
+// K4 and K5 in flash_attention_bwd.cu): wgmma m64nNk16 with f32 accumulation, its shared-memory
+// descriptors for operands stored K-major and MN-major in the 128-byte swizzle, the products
+// of a warpgroup's own rows by a ring tile and of a register tile by a ring tile, the 3-D TMA
 // load that fills them, and the host's tensor maps of (batch·head, rows, head dim) tensors.
 //
 // A tile in shared memory is what TMA writes for a box of 64 columns (128 bytes) by R rows,
@@ -155,6 +157,69 @@ __device__ __forceinline__ void rs_m64k16(float (&d)[N / 2], const uint32_t (&a)
             WG16_RS_M64N128K16_TB("f16");
         }
     }
+}
+
+// ------------------------------------------------- the attention kernels' tiles (K2, K3, K4, K5)
+//
+// A box is 64 columns by 64 rows of 2-byte values. A block's own rows (those of its two
+// consumer warpgroups, kOwnRows) lie as DP / 64 column blocks of kOwnRows / 64 boxes each,
+// kOwnBlock bytes apart; a ring tile of 64 rows as DP / 64 boxes, kBox bytes apart.
+constexpr int kBox = 64 * 64 * 2;
+constexpr int kOwnRows = 128;
+constexpr int kOwnBlock = (kOwnRows / 64) * kBox;
+
+// W (a warpgroup's 64 x 64 accumulator, f32) as the A operand of a product over its 64
+// columns: for each k16 step kk, the accumulator's fragment of columns 16·kk .. packed in pairs
+// into T, then fenced, so that every register is written before wgmma.fence
+template <typename T>
+__device__ __forceinline__ void a_frags(uint32_t (&a)[4][4], const float (&w)[32]) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            a[kk][i] = pack2<T>(w[8 * kk + 2 * i], w[8 * kk + 2 * i + 1]);
+            asm volatile("" : "+r"(a[kk][i])::"memory");
+        }
+    }
+}
+
+// X (64 x 64) = A·Bᵀ over the padded head dim for A a warpgroup's 64 own rows (at `a`, a
+// column block every kOwnBlock bytes) and B a ring tile (at `b`, a box every kBox bytes), both
+// K-major
+template <typename T, int DP>
+__device__ __forceinline__ void own_by_tile(float (&x)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t at = (kk / 4) * kOwnBlock + (kk % 4) * 32;
+        const uint32_t bt = (kk / 4) * kBox + (kk % 4) * 32;
+        ss_m64n64k16<T>(x, desc_k_major(a + at), desc_k_major(b + bt), kk > 0);
+    }
+}
+
+// acc (64 x DP) += W·B for W (64 x 64) in a_frags' registers and B a ring tile (64 rows of the
+// padded head dim, at `b`), MN-major
+template <typename T, int DP>
+__device__ __forceinline__ void acc_by_tile(float (&acc)[DP / 2], const uint32_t (&a)[4][4], uint32_t b) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) rs_m64k16<T, DP>(acc, a[kk], desc_mn_major(b + kk * 16 * 128, kBox));
+}
+
+// two neighbouring values of an output row, in T or in f32
+template <typename T>
+__device__ __forceinline__ void store_pair(void* out, long long off, float x, float y, int out_f32) {
+    if (out_f32) {
+        *reinterpret_cast<float2*>(static_cast<float*>(out) + off) = make_float2(x, y);
+    } else {
+        *reinterpret_cast<uint32_t*>(static_cast<T*>(out) + off) = pack2<T>(x, y);
+    }
+}
+
+// what TMA takes: a head dim of 8·n values (16-byte row strides) and 16-byte aligned tensors;
+// the wrappers pad any other head dim and copy a tensor that is not aligned
+template <typename... Ptr>
+bool tma_ready(int d, Ptr... tensors) {
+    const uintptr_t bits = (reinterpret_cast<uintptr_t>(tensors) | ...);
+    return d % 8 == 0 && bits % 16 == 0;
 }
 
 template <typename T> constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;

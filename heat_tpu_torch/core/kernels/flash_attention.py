@@ -11,8 +11,12 @@ memory. K3 computes what K2 computes, with heat_tpu's one-step skew: the scores 
 tile are formed beside the exp and P·V of the tile before it. ``HEAT_TPU_FLASH_PIPELINE=1``
 selects it for every forward, as it selects ``_kernel_pipelined`` in heat_tpu; the port
 reads the variable on every call. The sources, ``csrc/flash_attention_fwd.cu``,
-``csrc/flash_attention_fwd_pipelined.cu`` and ``csrc/flash_attention_bwd.cu``, say what
-bounds each kernel on the card and how its design answers.
+``csrc/flash_attention_fwd_pipelined.cu`` (their bf16 and f16 kernels through
+``csrc/flash_fwd_16bit.cuh``) and ``csrc/flash_attention_bwd.cu``, say what bounds each
+kernel on the card and how its design answers. Every kernel computes heat_tpu's arithmetic
+in every type: f32 products in 3xTF32, bf16 and f16 ones on the 16-bit tensor cores (wgmma,
+fed by TMA) with P (and dS) rounded to the input type before their products, as heat_tpu's
+kernels round them.
 
 :class:`_FlashAttention` is the ``torch.autograd.Function`` around them (heat_tpu's
 ``custom_vjp``, flash_attention.py:722-775): K2 or K3 forward, saving q, k, v, O and LSE;
@@ -27,7 +31,9 @@ three kernels.
 The ring attentions (``heat_tpu_torch.nn.attention``) call the kernels block by block
 through :func:`block_fwd`, :func:`block_d` and :func:`block_bwd`: K2/K3, K4 and K5 then
 write their outputs in f32 (a second C entry point of each source, ``*_f32_launch``), so
-the blocks' merged outputs and summed gradients round once, at the end.
+the blocks' merged outputs and summed gradients round once, at the end. For 2-byte inputs
+K2's and K3's f32-output blocks keep P in f32 (the 3xTF32 kernels), as heat_tpu's ring does
+(``_online_attend``, heat_tpu/nn/attention.py:198, :211-214).
 """
 
 from __future__ import annotations
@@ -80,7 +86,7 @@ bwd_dkv = types.SimpleNamespace(SOURCE=BWD_SOURCE, launches=0)
 # K3, the pipelined forward
 fwd_pipelined = types.SimpleNamespace(SOURCE=PIPELINED_SOURCE, launches=0)
 tma_copies = 0
-"""Inputs of the 2-byte K4 and K5 copied into padded or aligned tensors for TMA (see
+"""Inputs of the 2-byte K2, K3, K4 and K5 copied into padded or aligned tensors for TMA (see
 :func:`_tma_ready`) since import."""
 
 _NEG_INF = float(torch.finfo(torch.float32).min)
@@ -138,21 +144,29 @@ def flash_attention_reference(
     bias: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K2: (out in q's dtype, lse f32) for q (..., Tq, D) and
-    k, v (..., Tk, D), in full fp32 whatever the input type.
+    k, v (..., Tk, D), in fp32 with heat_tpu's rounding of P.
 
-    Mirrors heat_tpu's ``flash_attention_reference`` (flash_attention.py:118) extended to
-    the kernel's whole function: the additive ``bias`` (broadcast over the leading dims)
-    and the fully-masked-row rule of ``_attention_weights`` (nn/attention.py:64-84: the
-    row maximum is clamped at NEG_INF/2, so such rows give 0, not NaN), and the LSE of the
-    kernel's finalize (flash_attention.py:223). Causal is top-left aligned (row i attends
-    columns <= i), for any Tq, Tk."""
+    heat_tpu's ``flash_attention_reference`` (flash_attention.py:118) extended to the
+    kernel's whole function: the additive ``bias`` (broadcast over the leading dims), the
+    fully-masked-row rule of ``_attention_weights`` (nn/attention.py:64-84: the row maximum
+    is clamped at NEG_INF/2, so such rows give 0, not NaN), the LSE of the kernel's finalize
+    (flash_attention.py:223), and, for 16-bit inputs, P = exp(s − m) rounded to v's type
+    before P·V (to nearest even), with l the sum of the unrounded P, as the kernel rounds it
+    (``_online_softmax_update``, :147-151); f32 P stays f32. Here m is the whole row's
+    maximum: that is heat_tpu's kernel where one key tile covers the row, and where it walks
+    several, its P is relative to a running maximum and may round the other way, one unit
+    of the type. tests/test_torch_flash_fwd_bf16.py holds this to heat_tpu's interpret-mode
+    kernel (``_flash_pallas``) within one unit of the type of |O| and a share of max|O|, and
+    bit for bit in most elements with one key tile. heat_tpu's own
+    ``flash_attention_reference`` does not round P. Causal is top-left aligned (row i
+    attends columns <= i), for any Tq, Tk."""
     qf, vf = q.float(), v.float()
     scores = _scores(qf, k.float(), _scale(q, scale), causal, bias)
     m = torch.clamp_min(torch.amax(scores, dim=-1, keepdim=True), _NEG_INF / 2)
     p = torch.exp(scores - m)
     l = torch.clamp_min(torch.sum(p, dim=-1, keepdim=True), 1e-30)
     with full_fp32_matmul():
-        out = torch.matmul(p, vf) / l
+        out = torch.matmul(_rounded(p, v.dtype), vf) / l
     lse = (m + torch.log(l)).squeeze(-1)
     return out.to(q.dtype), lse
 
@@ -191,19 +205,20 @@ def _pair_schedule_pipelined(nq: int, nk: int, bq: int, bk: int, causal: bool):
     return np.asarray(out_im, np.int32), np.asarray(out_jm, np.int32), np.asarray(out_fl, np.int32)
 
 
-def _online_softmax_update(s, vb, acc, m, l, has_bias: bool):
+def _online_softmax_update(s, vb, acc, m, l, has_bias: bool, dtype: torch.dtype):
     """One tile of the online-softmax recurrence (heat_tpu's ``_online_softmax_update``,
     flash_attention.py:135-153) on scores ``s`` (bh, bq, bk) f32 and values ``vb`` (bh, bk,
-    D) f32: returns the new (acc, m, l). A bias may mask a whole row, so with one the row
-    maximum is clamped at NEG_INF/2 and such a row keeps l = 0. P stays f32 for P·V, where
-    heat_tpu rounds it to v's type."""
+    D) of v's type ``dtype`` widened to f32: returns the new (acc, m, l). A bias may mask a
+    whole row, so with one the row maximum is clamped at NEG_INF/2 and such a row keeps
+    l = 0. l sums the f32 P; for P·V, P is rounded to ``dtype`` (to nearest even) where that
+    is a 16-bit type, as heat_tpu rounds it (:147-151), and the sum is f32."""
     m_new = torch.maximum(m, torch.amax(s, dim=-1, keepdim=True))
     m_safe = torch.clamp_min(m_new, _NEG_INF / 2) if has_bias else m_new
     p = torch.exp(s - m_safe)
     corr = torch.exp(m - m_safe)
     l = l * corr + torch.sum(p, dim=-1, keepdim=True)
     with full_fp32_matmul():
-        acc = acc * corr + torch.matmul(p, vb)
+        acc = acc * corr + torch.matmul(_rounded(p, dtype), vb)
     return acc, m_new, l
 
 
@@ -218,11 +233,13 @@ def flash_attention_pipelined_reference(
     bk: int = 128,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K3: (out in q's dtype, lse f32) for q (..., Tq, D) and k, v
-    (..., Tk, D), in fp32 whatever the input type, by heat_tpu's ``_kernel_pipelined``
+    (..., Tk, D), in fp32 with heat_tpu's rounding of P, by heat_tpu's ``_kernel_pipelined``
     (flash_attention.py:238-300) walked tile by tile over ``_pair_schedule_pipelined``
     with (bq, bk) blocks: the first step of a row only forms S₀; each later step forms S_p
     and runs the online-softmax update on S_{p−1}, masked by the previous pair's flag bit
-    4; the flush step (bit 8) only updates and finalizes. Every batch·head walks at once.
+    4 (for 16-bit inputs P rounded to v's type before P·V, per tile, as heat_tpu's kernel
+    rounds it); the flush step (bit 8) only updates and finalizes. Every batch·head walks
+    at once.
 
     Any Tq and Tk: the last blocks are padded, padded keys get −inf (weight exactly 0, as
     K2 and K3 mask a ragged edge) and padded rows are dropped. Causal is top-left aligned.
@@ -257,7 +274,7 @@ def flash_attention_pipelined_reference(
             pi, pj, pf = int(im[p - 1]), int(jm[p - 1]), int(flags[p - 1])
             if pf & 4:
                 s_prev = s_prev.masked_fill(pi * bq + rows < pj * bk + cols, _NEG_INF)
-            acc, m, l = _online_softmax_update(s_prev, vf[:, pj * bk:(pj + 1) * bk], acc, m, l, has_bias)
+            acc, m, l = _online_softmax_update(s_prev, vf[:, pj * bk:(pj + 1) * bk], acc, m, l, has_bias, v.dtype)
         if not f & 8:
             with full_fp32_matmul():
                 s_prev = torch.matmul(qf[:, qs], kf[:, ks].transpose(-1, -2)) * s
@@ -457,45 +474,45 @@ def _card(t: torch.Tensor) -> Tuple[int, int]:
     return dev, torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _k2(q, k, v, causal: bool, scale: float, bias, out_f32: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2 on contiguous (bh, Tq, D), (bh, Tk, D) CUDA tensors; O in q's dtype, or in f32
-    with ``out_f32`` (blocks that the ring attentions merge)."""
-    global launches
+def _forward(lib, entry: str, error_string: str, q, k, v, causal: bool, scale: float, bias, out_f32: bool):
+    """One launch of K2 or K3 (``entry`` and ``error_string`` name the C entry points of
+    ``lib``) on contiguous (bh, Tq, D), (bh, Tk, D) CUDA tensors: O in q's dtype, or in f32
+    with ``out_f32`` (blocks that the ring attentions merge), and LSE. The 2-byte kernels
+    that write O in q's type read through TMA (:func:`_tma_ready`); O's padded columns are
+    cut off."""
     bh, tq, d = q.shape
-    tk = k.shape[1]
-    lib = _lib()
+    if q.dtype != torch.float32 and not out_f32:
+        q, k, v = _tma_ready(q, k, v)
+    dp = q.shape[-1]
     dev, stream = _card(q)
-    out = torch.empty((bh, tq, d), dtype=torch.float32 if out_f32 else q.dtype, device=q.device)
+    out = torch.empty((bh, tq, dp), dtype=torch.float32 if out_f32 else q.dtype, device=q.device)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
     _launch(
-        lib.flash_attention_fwd_f32_launch if out_f32 else lib.flash_attention_fwd_launch,
-        lib.flash_attention_error_string, dev, _DTYPES[q.dtype],
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), bh, tq, tk, d, scale, int(causal), stream,
+        getattr(lib, f"{entry}_f32_launch" if out_f32 else f"{entry}_launch"), getattr(lib, error_string), dev,
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), bh, tq, k.shape[1], dp, scale, int(causal), stream,
     )
+    return (out if dp == d else out[..., :d].contiguous()), lse
+
+
+def _k2(q, k, v, causal: bool, scale: float, bias, out_f32: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 (:func:`_forward`): the 3xTF32 kernel for f32 and for ``out_f32``, the wgmma one
+    for 2-byte types."""
+    global launches
+    out = _forward(_lib(), "flash_attention_fwd", "flash_attention_error_string", q, k, v, causal, scale, bias,
+                   out_f32)
     with _count_lock:
         launches += 1
-    return out, lse
+    return out
 
 
 def _k3(q, k, v, causal: bool, scale: float, bias, out_f32: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3 on contiguous (bh, Tq, D), (bh, Tk, D) CUDA tensors; O in q's dtype, or in f32
-    with ``out_f32``."""
-    bh, tq, d = q.shape
-    tk = k.shape[1]
-    lib = _pipelined_lib()
-    dev, stream = _card(q)
-    out = torch.empty((bh, tq, d), dtype=torch.float32 if out_f32 else q.dtype, device=q.device)
-    lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
-    _launch(
-        lib.flash_attention_fwd_pipelined_f32_launch if out_f32 else lib.flash_attention_fwd_pipelined_launch,
-        lib.flash_attention_fwd_pipelined_error_string, dev,
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), bh, tq, tk, d, scale, int(causal), stream,
-    )
+    """K3 (:func:`_forward`), as :func:`_k2` by route."""
+    out = _forward(_pipelined_lib(), "flash_attention_fwd_pipelined", "flash_attention_fwd_pipelined_error_string",
+                   q, k, v, causal, scale, bias, out_f32)
     with _count_lock:
         fwd_pipelined.launches += 1
-    return out, lse
+    return out
 
 
 def _d_pass(o, do) -> torch.Tensor:
@@ -511,19 +528,20 @@ def _d_pass(o, do) -> torch.Tensor:
     return dd
 
 
-def _tma_ready(q, k, v, do) -> Tuple[torch.Tensor, ...]:
-    """q, k, v and dO as the 2-byte K4 and K5 take them: TMA reads rows of 16-byte strides
-    from 16-byte aligned tensors. A head dim that is not a multiple of 8 is padded with zero
-    columns (they add nothing to a product, and the padded columns of the gradients are cut
-    off), and a tensor that is not aligned is copied; ``tma_copies`` counts the copies. f32
-    tensors pass as they are (K4 and K5 read them with cp.async)."""
+def _tma_ready(*tensors) -> Tuple[torch.Tensor, ...]:
+    """``tensors`` (q, k and v of the forward; q, k, v and dO of the backward) as the 2-byte
+    K2, K3, K4 and K5 take them: TMA reads rows of 16-byte strides from 16-byte aligned
+    tensors. A head dim that is not a multiple of 8 is padded with zero columns (they add
+    nothing to a product, and the padded columns of the outputs are cut off), and a tensor
+    that is not aligned is copied; ``tma_copies`` counts the copies. f32 tensors pass as
+    they are (the f32 kernels read them with cp.async)."""
     global tma_copies
-    if q.dtype == torch.float32:
-        return q, k, v, do
-    pad = -q.shape[-1] % 8
+    if tensors[0].dtype == torch.float32:
+        return tensors
+    pad = -tensors[0].shape[-1] % 8
     out = tuple(torch.nn.functional.pad(t, (0, pad)) if pad else t.clone() if t.data_ptr() % 16 else t
-                for t in (q, k, v, do))
-    copies = sum(a is not b for a, b in zip(out, (q, k, v, do)))
+                for t in tensors)
+    copies = sum(a is not b for a, b in zip(out, tensors))
     if copies:
         with _count_lock:
             tma_copies += copies

@@ -106,10 +106,14 @@ def _next_key(nelem: int) -> Tuple[int, int]:
     return _fold_in(_fold_in(_key(sd), (base >> 32) & M32), base & M32)
 
 
-def _counters(shape, split, comm, device) -> torch.Tensor:
+def _counters(shape, split, comm, device, slices=None) -> torch.Tensor:
     """This rank's chunk of the row-major iota over the global ``shape`` (int64): a slice
-    of the flat element indices, strided for ``split`` != 0."""
-    _, lshape, slices = comm.chunk(shape, split)
+    of the flat element indices, strided for ``split`` != 0; or, with ``slices`` (one
+    slice an axis), the block that they cut."""
+    if slices is None:
+        _, lshape, slices = comm.chunk(shape, split)
+    else:
+        lshape = tuple(s.stop - s.start for s in slices)
     idx = torch.zeros(lshape, dtype=torch.int64, device=device)
     stride = 1
     for d in range(len(shape) - 1, -1, -1):
@@ -120,9 +124,10 @@ def _counters(shape, split, comm, device) -> torch.Tensor:
     return idx
 
 
-def _bits(key, shape, split, comm, device):
-    """The two 32-bit halves of every element's hash, for this rank's chunk."""
-    idx = _counters(shape, split, comm, device)
+def _bits(key, shape, split, comm, device, slices=None):
+    """The two 32-bit halves of every element's hash, for this rank's chunk (or the block
+    that ``slices`` cut)."""
+    idx = _counters(shape, split, comm, device, slices)
     return threefry2x32(key, idx >> 32, idx & M32)
 
 
@@ -131,10 +136,10 @@ def _bits32(key, shape, split, comm, device) -> torch.Tensor:
     return b1 ^ b2
 
 
-def _uniform01(key, shape, dtype, split, comm, device) -> torch.Tensor:
+def _uniform01(key, shape, dtype, split, comm, device, slices=None) -> torch.Tensor:
     """Floats in [0, 1): random mantissa bits under the exponent of 1.0, minus 1 (jax
     ``_uniform``)."""
-    b1, b2 = _bits(key, shape, split, comm, device)
+    b1, b2 = _bits(key, shape, split, comm, device, slices)
     if dtype is types.float32:
         bits = ((b1 ^ b2) >> 9) | 0x3F800000
         return bits.to(torch.int32).view(torch.float32) - 1.0

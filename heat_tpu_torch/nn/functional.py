@@ -22,12 +22,17 @@ and ``dropout2d`` take heat_tpu's PRNG key, given as the two uint32 words of
 ``jax.random.key_data(key)``, and draw the mask ``uniform(key, shape) < 1 - p`` with the
 port's Threefry-2x32 (``core/random.py``), so it equals heat_tpu's ``jax.random.bernoulli``
 mask bit for bit (its float64 uniforms, as heat_tpu runs with x64 on); a split array draws
-its own chunk of the global mask. Matrix products and convolutions run in full fp32 (TF32
+its own chunk of the global mask. Inside :func:`batch_rows` (the data-parallel optimizers'
+steps hand their loss this rank's rows of a batch that heat_tpu's one program holds whole),
+a mask over a plain tensor with this rank's rows along the batch axis is drawn over the
+whole batch and cut to those rows. Matrix products and convolutions run in full fp32 (TF32
 off for cuBLAS and cuDNN), as heat_tpu's f32 is.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -175,11 +180,39 @@ def _subkeys(key, num: int):
     return _random._split(_key(key), num)
 
 
+# (axis, first row, rows here, rows in all) of the batch whose rows this rank's tensors
+# hold, while a data-parallel step runs its loss on them (see batch_rows)
+_BATCH_ROWS: contextvars.ContextVar = contextvars.ContextVar("heat_tpu_torch_batch_rows", default=None)
+
+
+@contextlib.contextmanager
+def batch_rows(axis: int, first: int, count: int, total: int):
+    """Within the block, this rank's plain tensors hold rows ``first .. first + count - 1``
+    of a batch of ``total`` rows along ``axis``: a keyed mask (``dropout``, ``dropout2d``,
+    attention dropout) over a plain tensor with ``count`` rows along ``axis`` is drawn
+    over ``total`` rows and cut to this rank's, so it equals the rows of heat_tpu's mask,
+    which its one program draws over the whole batch. ``DataParallelOptimizer.step`` and
+    ``DASO.step`` set it around ``loss_fn``."""
+    token = _BATCH_ROWS.set((axis, first, count, total))
+    try:
+        yield
+    finally:
+        _BATCH_ROWS.reset(token)
+
+
 def _keep(key, shape, p: float, device, split=None, comm=None) -> torch.Tensor:
     """``jax.random.bernoulli(key, 1 - p, shape)``: float64 uniforms below 1 - p (heat_tpu
-    runs with x64, so the probability is a float64), this rank's chunk along ``split``."""
-    comm = sanitize_comm(comm)
-    u = _random._uniform01(_key(key), tuple(shape), types.float64, split, comm, device)
+    runs with x64, so the probability is a float64), this rank's chunk along ``split``; a
+    plain tensor's mask (no ``comm``) inside :func:`batch_rows`, its rows of the batch's."""
+    shape = tuple(shape)
+    rows = _BATCH_ROWS.get()
+    if comm is None and rows is not None and len(shape) > rows[0] and shape[rows[0]] == rows[2]:
+        axis, first, count, total = rows
+        whole = shape[:axis] + (total,) + shape[axis + 1:]
+        cut = tuple(slice(first, first + count) if a == axis else slice(0, n) for a, n in enumerate(whole))
+        u = _random._uniform01(_key(key), whole, types.float64, None, None, device, cut)
+    else:
+        u = _random._uniform01(_key(key), shape, types.float64, split, sanitize_comm(comm), device)
     return u < (1.0 - p)
 
 

@@ -15,6 +15,7 @@ deltas rounded to bfloat16 for the wire.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -23,6 +24,7 @@ import torch
 from ..core.communication import TorchCommunication, sanitize_comm
 from ..core.devices import full_fp32_matmul
 from ..core.dndarray import DNDarray
+from ..nn.functional import batch_rows
 from .utils import DetectMetricPlateau
 
 __all__ = ["DataParallelOptimizer", "DASO"]
@@ -31,19 +33,24 @@ __all__ = ["DataParallelOptimizer", "DASO"]
 _BY_NAME = {"sgd": torch.optim.SGD, "adam": torch.optim.Adam}
 
 
-def _local_batch(batch) -> Tuple[tuple, float]:
-    """This rank's tensors of ``batch`` and their weight in the global mean: a DNDarray
-    becomes its local tensor, anything else passes as it is; the weight is this rank's
-    share n_local / n of the rows along the split axis of the split DNDarrays (1 when
-    none is split), which must agree in their length along it."""
+def _local_batch(batch) -> Tuple[tuple, float, Optional[tuple]]:
+    """This rank's tensors of ``batch``, their weight in the global mean and their rows: a
+    DNDarray becomes its local tensor, anything else passes as it is; the weight is this
+    rank's share n_local / n of the rows along the split axis of the split DNDarrays (1
+    when none is split), which must agree in their split axis and length along it; the rows
+    are (split axis, first row, n_local, n) for :func:`~heat_tpu_torch.nn.functional.batch_rows`,
+    None when none is split."""
     local = tuple(b.larray if isinstance(b, DNDarray) else b for b in batch)
-    extents = {(b.lshape[b.split], b.gshape[b.split]) for b in batch if isinstance(b, DNDarray) and b.split is not None}
+    extents = {
+        (b.split, b.comm.chunk(b.gshape, b.split)[0], b.lshape[b.split], b.gshape[b.split])
+        for b in batch if isinstance(b, DNDarray) and b.split is not None
+    }
     if len(extents) > 1:
         raise ValueError(f"the split batch arrays disagree in their split extent: {sorted(extents)}")
     if not extents:
-        return local, 1.0
-    n_local, n = extents.pop()
-    return local, (n_local / n if n else 0.0)
+        return local, 1.0, None
+    rows = extents.pop()
+    return local, (rows[2] / rows[3] if rows[3] else 0.0), rows
 
 
 class DataParallelOptimizer:
@@ -135,18 +142,22 @@ class DataParallelOptimizer:
             raise RuntimeError("optimizer is not attached to a DataParallel model")
         if loss_fn is None:
             raise TypeError("step() requires loss_fn(model, *batch)")
-        local, weight = _local_batch(batch)
-        return self._reduced_step(loss_fn, local, weight, self._model.comm)
+        local, weight, rows = _local_batch(batch)
+        return self._reduced_step(loss_fn, local, weight, self._model.comm, rows)
 
-    def _reduced_step(self, loss_fn: Callable, local: tuple, weight: float, comm: TorchCommunication) -> torch.Tensor:
+    def _reduced_step(self, loss_fn: Callable, local: tuple, weight: float, comm: TorchCommunication,
+                      rows: Optional[tuple] = None) -> torch.Tensor:
         """Steps 2-5 of :meth:`step` over ``comm``: this rank's rows ``local`` carry the
-        share ``weight`` of the rows that ``comm``'s ranks train on together. Returns the
-        loss over those rows."""
+        share ``weight`` of the rows that ``comm``'s ranks train on together. ``rows``
+        (axis, first row, rows here, rows in all) places them in the batch that heat_tpu's
+        program holds whole, so that keyed masks drawn in ``loss_fn`` are that batch's
+        (:func:`~heat_tpu_torch.nn.functional.batch_rows`). Returns the loss over those
+        rows."""
         params = [p for group in self.local_optimizer.param_groups for p in group["params"]]
         self.local_optimizer.zero_grad(set_to_none=True)
         loss = torch.zeros((), dtype=torch.float32, device=params[0].device)
         if weight > 0:
-            with full_fp32_matmul():
+            with full_fp32_matmul(), batch_rows(*rows) if rows is not None else contextlib.nullcontext():
                 value = loss_fn(self._model, *local)
                 value.backward()
             loss = value.detach()
@@ -381,12 +392,14 @@ class DASO:
             return True
         return self._batch_in_epoch % self.global_skip == 0
 
-    def _node_rows(self, batch) -> Tuple[tuple, float]:
+    def _node_rows(self, batch) -> Tuple[tuple, float, tuple]:
         """This rank's rows of its node's share of ``batch``, and their weight in the
         node's mean: node ``j`` takes rows ``[j·B/n, (j+1)·B/n)`` of every array, chunked
         over the node's ranks by the ceil-division rule. A split DNDarray moves there by
         one ``redistribute`` (none when its chunks are already those); an unsplit one or
-        a tensor, whole on every rank, is sliced."""
+        a tensor, whole on every rank, is sliced. Also returns this rank's rows of the
+        node's batch (0, first, count, rows of the node): heat_tpu maps one program over
+        the node batches, with one key, so each node draws its mask over its own rows."""
         comm, n = self.comm, self.n_nodes
         per_node, node, local_rank = comm.node_size, comm.node, comm.local_rank
         out, rows = [], None
@@ -398,7 +411,7 @@ class DASO:
             m = total // n
             c = -(-m // per_node) if m else 0
             lo, hi = min(local_rank * c, m), min((local_rank + 1) * c, m)
-            rows = (hi - lo, m)
+            rows = (lo, hi - lo, m)
             if isinstance(b, DNDarray) and b.split is not None:
                 if b.split != 0:
                     raise ValueError(f"DASO splits the batch along axis 0, got an array split along {b.split}")
@@ -414,8 +427,8 @@ class DASO:
                     out.append(b.comm.redistribute(b.larray, b.gshape, 0, src, counts, dst_displs=displs))
             else:
                 out.append(whole[node * m + lo : node * m + hi])
-        n_local, m = rows if rows is not None else (0, 0)
-        return tuple(out), (n_local / m if m else 0.0)
+        first, n_local, m = rows if rows is not None else (0, 0, 0)
+        return tuple(out), (n_local / m if m else 0.0), (0, first, n_local, m)
 
     def step(self, loss_fn: Optional[Callable] = None, *batch) -> torch.Tensor:
         """A node-local optimizer step on each node's replica and, on the phase machine's
@@ -431,8 +444,8 @@ class DASO:
             return loss
         if self.local_optimizer._model is None:
             raise RuntimeError("DASO's local optimizer is not attached to a model")
-        local, weight = self._node_rows(batch)
-        loss = self.local_optimizer._reduced_step(loss_fn, local, weight, self.comm.node_comm)
+        local, weight, rows = self._node_rows(batch)
+        loss = self.local_optimizer._reduced_step(loss_fn, local, weight, self.comm.node_comm, rows)
         loss = self.comm.cross_comm.all_reduce(loss.reshape(1).clone(), "sum")[0] / self.n_nodes
         if self._should_global_sync():
             self._global_sync()

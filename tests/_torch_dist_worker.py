@@ -148,6 +148,24 @@ def run(inputs) -> dict:
     out.update(run_domain(inputs))
     out.update(run_nn(inputs, comm))
     out.update(run_runtime(inputs))
+    out.update(run_dp_dropout(inputs))
+    return out
+
+
+def run_dp_dropout(inputs) -> dict:
+    """One DataParallelOptimizer("sgd") step of a train-mode encoder layer (dropout 0.1, one
+    key) on a batch of 7 split 3, 3, 1: every mask is drawn over the whole batch."""
+    out = {}
+    params = {k[len("dpdrop_param_"):]: inputs[k] for k in inputs.files if k.startswith("dpdrop_param_")}
+    layer = load_jax_params(ht.nn.TransformerEncoderLayer(**DP_DROPOUT_LAYER), params).train()
+    opt = ht.optim.DataParallelOptimizer("sgd", lr=float(inputs["dp_lr"]))
+    ht.nn.DataParallel(layer, optimizer=opt)
+    xd, yd = ht.array(inputs["dpdrop_x"], split=0), ht.array(inputs["dpdrop_y"], split=0)
+    key = inputs["drop_key"]
+    loss = opt.step(lambda m, xb, yb: torch.mean((m(xb, key=key) - yb) ** 2), xd, yd)
+    out["nn_dpdrop_loss"], out["nn_dpdrop_rows"] = np.array(float(loss)), np.array(xd.lshape[0])
+    for name, p in layer.named_parameters():
+        out[f"nn_dpdrop_grad_{name}"] = p.grad.numpy()
     return out
 
 
@@ -216,6 +234,7 @@ def run_runtime(inputs) -> dict:
 
 
 TRANSFORMER = dict(d_model=16, nhead=4, num_encoder_layers=1, num_decoder_layers=1, dim_feedforward=32, dropout=0.0)
+DP_DROPOUT_LAYER = dict(d_model=8, nhead=2, dim_feedforward=16, dropout=0.1)  # tests/test_torch_distributed.py's
 
 
 def run_nn(inputs, comm) -> dict:

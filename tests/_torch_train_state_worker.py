@@ -40,13 +40,23 @@ def loss_fn(model, x, y):
     return torch.nn.functional.cross_entropy(model(x), y)
 
 
+def dropout_loss_fn(key):
+    """loss_fn with dropout 0.1 on the hidden layer under the key ``key`` (two uint32 words)."""
+    def loss(model, x, y):
+        seq = model.module
+        h = ht.nn.functional.dropout(seq[1](seq[0](x)), 0.1, key=key)
+        return torch.nn.functional.cross_entropy(seq[2](h), y)
+
+    return loss
+
+
 def stacked(daso) -> dict:
     return {n: t.numpy().copy() for n, t in daso.stacked_params.items()}
 
 
-def record_steps(out, tag, daso, steps, batch):
+def record_steps(out, tag, daso, steps, batch, fn=loss_fn):
     for _ in range(steps):
-        loss = daso.step(loss_fn, *batch)
+        loss = daso.step(fn, *batch)
         out.setdefault(f"{tag}_loss", []).append(float(loss))
         for n, v in stacked(daso).items():
             out.setdefault(f"{tag}_p_{n}", []).append(v)
@@ -98,6 +108,9 @@ def run_daso(inputs, out):
     daso._global_sync()
     out.update({f"divsync_p_{n}": v for n, v in stacked(daso).items()})
     out["div_consolidated"] = np.concatenate([v.numpy().ravel() for v in daso.consolidated_params().values()])
+    # dropout under one key: each node's mask is drawn over its 8 rows, each rank keeps its 4
+    daso = make_daso(inputs)
+    record_steps(out, "drop", daso, 2, (x, y), dropout_loss_fn(inputs["drop_key"]))
     # a ragged batch (10 rows: node chunks 3, 2 | 3, 2 against the world's 3, 3, 3, 1)
     daso = make_daso(inputs)
     xr, yr = ht.array(inputs["x10"], split=0), ht.array(inputs["y10"], split=0)

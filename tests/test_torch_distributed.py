@@ -21,7 +21,9 @@ from heat_tpu.core import _executor
 from heat_tpu.core.communication import MeshCommunication
 from heat_tpu.core.linalg import comm_plan as jplan
 
+import heat_tpu_torch as htt
 from heat_tpu_torch.cluster._kcluster import CHECK_EVERY
+from heat_tpu_torch.interop import load_jax_params
 from heat_tpu_torch.testing import assert_record_equal
 
 WORLD = 3
@@ -146,12 +148,24 @@ def _nn_inputs(rng):
         tr_src=f32(2, 12, 16),
         tr_tgt=f32(2, 9, 16),
     )
+    # the data-parallel dropout step's batch, from a generator of its own so that the
+    # inputs drawn after these stay as they were
+    own = np.random.default_rng(23)
+    out.update(dpdrop_x=own.standard_normal((7, 5, 8)).astype(np.float32),
+               dpdrop_y=own.standard_normal((7, 5, 8)).astype(np.float32))
     tree = ht.nn.Transformer(**TRANSFORMER).init(jax.random.key(4))
     out.update({f"tr_param_{k}": v for k, v in _dotted(tree).items()})
+    out.update({f"dpdrop_param_{k}": v for k, v in _dotted(_dp_dropout_params()).items()})
     return out
 
 
 TRANSFORMER = dict(d_model=16, nhead=4, num_encoder_layers=1, num_decoder_layers=1, dim_feedforward=32, dropout=0.0)
+# the train-mode layer of the data-parallel dropout step (tests/_torch_dist_worker.py's)
+DP_DROPOUT_LAYER = dict(d_model=8, nhead=2, dim_feedforward=16, dropout=0.1)
+
+
+def _dp_dropout_params():
+    return ht.nn.TransformerEncoderLayer(**DP_DROPOUT_LAYER).init(jax.random.key(9))
 
 
 def _dotted(tree, prefix=""):
@@ -1234,6 +1248,40 @@ def test_sequence_split_sdpa_and_mha_at_three_ranks(ranks, comm3, tag):
         np.testing.assert_allclose(r[f"nn_sdpa_{tag}"], want.numpy(), rtol=1e-5, atol=1e-5)
         assert list(r[f"nn_mha_{tag}_meta"]) == ["1", calls] and want_mha.split == 1
         np.testing.assert_allclose(r[f"nn_mha_{tag}"], want_mha.numpy(), rtol=2e-5, atol=2e-5)
+
+
+def test_data_parallel_step_with_keyed_dropout_matches_heat_tpu(ranks, comm3):
+    """One DataParallelOptimizer("sgd") step of a train-mode TransformerEncoderLayer
+    (dropout 0.1 on the attention weights, the feed-forward and both residuals, one key)
+    on a batch of 7 split 3, 3, 1, from heat_tpu's ``init`` parameters: heat_tpu's one
+    program draws every mask over the whole batch, and each rank's loss draws its rows of
+    those masks, so the global loss and every reduced gradient equal heat_tpu's step on its
+    three-device mesh within 1e-5 (fp32 summed in other orders). A rank that drew its masks
+    over its own rows alone would differ wherever its rows are not the batch's first."""
+    inputs, res = ranks
+    params = _dp_dropout_params()
+    layer = ht.nn.TransformerEncoderLayer(**DP_DROPOUT_LAYER)
+    layer.params = params
+    opt = ht.optim.DataParallelOptimizer("sgd", lr=DP_LR)
+    ht.nn.DataParallel(layer, comm=comm3, optimizer=opt)
+    x = ht.array(inputs["dpdrop_x"], split=0, comm=comm3)
+    y = ht.array(inputs["dpdrop_y"], split=0, comm=comm3)
+
+    def loss_fn(p, xb, yb):
+        return jnp.mean((layer.apply(p, xb, key=NN_KEY, train=True) - yb) ** 2)
+
+    _, grads = jax.value_and_grad(loss_fn)(params, x.larray, y.larray)  # the values heat_tpu's step takes
+    loss = opt.step(loss_fn, x, y)
+    htt.use_device("cpu")
+    by_name = load_jax_params(htt.nn.TransformerEncoderLayer(**DP_DROPOUT_LAYER), _dotted(grads))
+    want = {n: p.detach().numpy() for n, p in by_name.named_parameters()}
+    lmap = comm3.lshape_map((7, 5, 8), 0)
+    for rank, r in enumerate(res):
+        assert int(r["nn_dpdrop_rows"]) == lmap[rank, 0]
+        np.testing.assert_allclose(float(r["nn_dpdrop_loss"]), float(loss), rtol=1e-5, atol=1e-5)
+        for name, g in want.items():
+            np.testing.assert_allclose(r[f"nn_dpdrop_grad_{name}"], g, rtol=1e-5, atol=1e-5, err_msg=name)
+    assert list(lmap[:, 0]) == [3, 3, 1]
 
 
 @pytest.mark.parametrize("name", ["dropout_s0", "dropout_s1", "dropout2d"])

@@ -45,6 +45,18 @@ class _Pkg:
         return self.exec.executor_stats()["result_cache"]
 
 
+def _fresh(rc) -> None:
+    """A result cache with no entries, no tallies and no registrations. ``clear()`` keeps
+    the tallies and the generation table, and heat_tpu's own tests name their tag families
+    ``t0``, ``t1``, ... as this file does: a tag that an earlier file of the same process
+    raised to generation 2 keeps that live generation (``register_generation`` takes the
+    larger), so this file's generation-1 entries under the same name would fail closed."""
+    rc.reset_stats()
+    with rc._lock:
+        rc._registry.clear()
+        rc._tag_gen.clear()
+
+
 @pytest.fixture
 def pkgs(monkeypatch):
     import jax
@@ -54,6 +66,8 @@ def pkgs(monkeypatch):
     monkeypatch.setenv("HEAT_TPU_RESULT_CACHE", "1")
     for ex in (_executor, jexec):
         ex.clear_executor_cache()
+    for rc in (_result_cache, jrc):
+        _fresh(rc)
     comm1 = ht.MeshCommunication(jax.devices()[:1])
     yield (_Pkg(ht, jexec, jrc, lambda a: a.parray, comm1), _Pkg(htt, _executor, _result_cache, lambda a: a.larray))
     monkeypatch.undo()

@@ -9,8 +9,9 @@ file in the test's own temporary directory) runs:
   devices=jax.devices()[:4])``: every node replica after every step within ``PARAM_TOL``,
   the losses within ``LOSS_TOL`` (tests/test_torch_training.py), the same steps synced and
   the same phase, skips and wait after each epoch; the re-averaging of de-synchronised
-  replicas, the sub-ulp case, the divergence between syncs, and a ragged batch (held to
-  heat_tpu at one device a node, which gives the same node batches);
+  replicas, the sub-ulp case, the divergence between syncs, dropout under one key (each
+  node's mask over its own batch), and a ragged batch (held to heat_tpu at one device a
+  node, which gives the same node batches);
 - a checkpoint saved at 4 ranks, restored at 4 onto other splits, at one rank here and by
   heat_tpu on a 4-device mesh, byte-equal to heat_tpu's 4-device checkpoint of the same
   tree; heat_tpu's checkpoint restored at 4 ranks; a manager over 4 ranks;
@@ -128,6 +129,16 @@ def _jax_reference(inputs) -> dict:
     rec.update({f"divsync_p_{n}": v for n, v in _named(daso.stacked_params).items()})
     cons = _named(daso.consolidated_params())
     rec["div_consolidated"] = np.concatenate([cons[n].ravel() for n in NAMES])
+    # dropout 0.1 under one key: heat_tpu maps one program over the node batches
+    daso, _, _ = _jax_daso(comm)
+    lin1, lin2, crit = jht.nn.Linear(8, 16), jht.nn.Linear(16, 4), jht.nn.CrossEntropyLoss()
+    key = jax.random.wrap_key_data(jnp.asarray(inputs["drop_key"]))
+
+    def dropout_loss(params, xb, yb):
+        h = jht.nn.functional.dropout(jnp.maximum(lin1.apply(params[0], xb), 0.0), 0.1, key=key)
+        return crit(lin2.apply(params[2], h), yb)
+
+    _record(rec, "drop", daso, dropout_loss, 2, (x, y))
     # the ragged batch: one device a node gives heat_tpu the port's node batches
     daso, _, loss_fn = _jax_daso(MeshCommunication.hierarchical(2, devices=jax.devices()[:2]))
     xr, yr = jnp.asarray(inputs["x10"]), jnp.asarray(inputs["y10"])
@@ -167,6 +178,7 @@ def spawned(tmp_path_factory):
         **{f"param_{n}": v.astype(np.float32) for n, v in _named(model.params).items()},
         "x16": rng.standard_normal((16, 8)).astype(np.float32), "y16": rng.integers(0, 4, 16),
         "x10": rng.standard_normal((10, 8)).astype(np.float32), "y10": rng.integers(0, 4, 10),
+        "drop_key": np.asarray(jax.random.key_data(jax.random.key(23))),
         **_ckpt_values(),
     }
     jax_ckpt = str(tmp / "j4")
@@ -209,9 +221,11 @@ def test_hierarchical_communicator(spawned):
         MeshCommunication.hierarchical(len(jax.devices()) + 1)
 
 
-@pytest.mark.parametrize("tag", ["cad", "div", "rag"])
+@pytest.mark.parametrize("tag", ["cad", "div", "rag", "drop"])
 def test_daso_steps_match_heat_tpu(spawned, tag):
-    """Every node replica after every step and the losses, at 2 nodes x 2 ranks."""
+    """Every node replica after every step and the losses, at 2 nodes x 2 ranks; "drop" with
+    dropout under one key, whose mask heat_tpu draws over each node's batch: a rank draws its
+    rows of it."""
     _, _, ranks, want = spawned
     for r in ranks:
         np.testing.assert_allclose(r[f"{tag}_loss"], want[f"{tag}_loss"], **LOSS_TOL)

@@ -14,12 +14,13 @@ inputs:
 
 - at each shape, each other version's O and LSE (K2, K3) and dQ, dK, dV (D, K4, K5) are
   compared bit for bit with this checkout's, and every version's forward is held to the
-  plain version (``_measure.fwd_err``'s tolerances, chip_smoke.py's). The bf16 and f16 K4
-  and K5 round P and dS to the input type before their products, as heat_tpu does, where
-  earlier builds kept them f32: for 2-byte inputs two such builds differ by that rounding, so the line gives each version's distance from the plain
-  backward (which rounds them) as a share of each gradient's largest magnitude beside the
-  bit comparison, and only f32 gradients are expected to be bit-equal across builds of the
-  same arithmetic;
+  plain version (chip_smoke.py's tolerances: ``_measure.fwd_err`` for f32, the 16-bit rule
+  ``_measure.fwd16_err`` for bf16 and f16, with the share of max|O| each version needed).
+  The bf16 and f16 K2, K3, K4 and K5 round P (and dS) to the input type before their
+  products, as heat_tpu does, where earlier builds kept them f32: for 2-byte inputs two such
+  builds differ by that rounding, so the line gives each version's distance from the plain
+  versions (which round them) beside the bit comparison, and only f32 outputs are expected
+  to be bit-equal across builds of the same arithmetic;
 - each kernel is timed in turns with this checkout's, other, this, this, other (median
   of CUDA-event-timed launches), beside ``scaled_dot_product_attention`` on the same
   inputs (its forward; its backward beside K4 and K5). ``--bwd-only`` times only D, K4
@@ -48,25 +49,27 @@ import torch  # noqa: E402
 
 from heat_tpu_torch.core.kernels import _nvcc  # noqa: E402
 from heat_tpu_torch.core.kernels import flash_attention as fa  # noqa: E402
-from heat_tpu_torch.core.kernels._measure import cuda_ms, fwd_err, k2_inputs, ptxas_summary  # noqa: E402
+from heat_tpu_torch.core.kernels._measure import cuda_ms, fwd16_err, fwd_err, k2_inputs, ptxas_summary  # noqa: E402
 
 CSRC = Path("heat_tpu_torch/core/kernels/csrc")
 FWD = ("flash_attention_fwd.cu", "flash_attention_fwd_launch")
 PIPELINED = ("flash_attention_fwd_pipelined.cu", "flash_attention_fwd_pipelined_launch")
 BWD = "flash_attention_bwd.cu"
 
-# (name, bh, tq, tk, d, causal, dtype): the Transformer forward's three attention shapes,
-# the training step's two (the first also in bf16) and bench.py's causal one in bf16 and f16;
-# the backward runs at the step's and bench.py's
+# (name, bh, tq, tk, d, causal, dtype, padding): the Transformer forward's three attention
+# shapes, the training step's two (the first also in bf16), bench.py's causal one in bf16 and
+# f16 and its padding mask (the last T/8 keys, bench.py:248) in bf16; the backward runs at the
+# step's and bench.py's causal ones
 SHAPES = (
-    ("encoder_self", 64, 4096, 4096, 64, False, torch.float32),
-    ("decoder_cross", 64, 2048, 4096, 64, False, torch.float32),
-    ("decoder_self_causal", 64, 2048, 2048, 64, True, torch.float32),
-    ("step_self", 96, 2048, 2048, 64, False, torch.float32),
-    ("step_self_causal", 96, 2048, 2048, 64, True, torch.float32),
-    ("step_self_bf16", 96, 2048, 2048, 64, False, torch.bfloat16),
-    ("bench_causal_bf16", 128, 4096, 4096, 64, True, torch.bfloat16),
-    ("bench_causal_f16", 128, 4096, 4096, 64, True, torch.float16),
+    ("encoder_self", 64, 4096, 4096, 64, False, torch.float32, False),
+    ("decoder_cross", 64, 2048, 4096, 64, False, torch.float32, False),
+    ("decoder_self_causal", 64, 2048, 2048, 64, True, torch.float32, False),
+    ("step_self", 96, 2048, 2048, 64, False, torch.float32, False),
+    ("step_self_causal", 96, 2048, 2048, 64, True, torch.float32, False),
+    ("step_self_bf16", 96, 2048, 2048, 64, False, torch.bfloat16, False),
+    ("bench_causal_bf16", 128, 4096, 4096, 64, True, torch.bfloat16, False),
+    ("bench_causal_f16", 128, 4096, 4096, 64, True, torch.float16, False),
+    ("padding_mask_bf16", 128, 4096, 4096, 64, False, torch.bfloat16, True),
 )
 
 
@@ -80,13 +83,13 @@ class Version:
         if root / CSRC / BWD in builds:
             self.bwd = fa.bind(ctypes.CDLL(str(builds[root / CSRC / BWD]["path"])))
 
-    def forward(self, source, q, k, v, causal, scale):
+    def forward(self, source, q, k, v, causal, scale, bias=None):
         bh, tq, d = q.shape
         o = torch.empty_like(q)
         lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
-        rc = self.fwd[source](0, fa._DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), None, o.data_ptr(),
-                              lse.data_ptr(), bh, tq, k.shape[1], d, scale, int(causal),
-                              torch.cuda.current_stream().cuda_stream)
+        rc = self.fwd[source](0, fa._DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              None if bias is None else bias.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, tq,
+                              k.shape[1], d, scale, int(causal), torch.cuda.current_stream().cuda_stream)
         assert rc == 0, f"{source}: launch failed ({rc})"
         return o, lse
 
@@ -119,15 +122,17 @@ class Version:
         return dk, dv
 
 
-def plain_err(q, k, v, causal, o, lse) -> float:
-    """Worst err/tol of (o, lse) against the plain version, in chunks of batch·heads."""
+def plain_err(q, k, v, causal, bias, o, lse) -> dict:
+    """Worst err/tol of (o, lse) against the plain version (for bf16 and f16 with the share
+    of max|O| needed), the plain version run in chunks of batch·heads."""
     chunk = max(1, (1 << 28) // (q.shape[1] * k.shape[1]))
-    worst = 0.0
-    for s0 in range(0, q.shape[0], chunk):
-        sl = slice(s0, s0 + chunk)
-        ro, rl = fa.flash_attention_reference(q[sl], k[sl], v[sl], causal)
-        worst = max(worst, fwd_err(o[sl], lse[sl], ro, rl)[2])
-    return worst
+    refs = [fa.flash_attention_reference(q[s0:s0 + chunk], k[s0:s0 + chunk], v[s0:s0 + chunk], causal, None, bias)
+            for s0 in range(0, q.shape[0], chunk)]
+    ro, rl = torch.cat([r[0] for r in refs]), torch.cat([r[1] for r in refs])
+    if q.dtype == torch.float32:
+        return {"err_over_tol": fwd_err(o, lse, ro, rl)[2]}
+    _, _, worst, need = fwd16_err(o, lse, ro, rl)
+    return {"err_over_tol": worst, "share_needed": need}
 
 
 def bwd_share(q, k, v, o, do, lse, causal, grads) -> dict:
@@ -179,24 +184,28 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     results = []
     with torch.no_grad():
-        for i, (name, bh, tq, tk, d, causal, dtype) in enumerate(SHAPES):
+        for i, (name, bh, tq, tk, d, causal, dtype, padding) in enumerate(SHAPES):
             q, k, v = k2_inputs(bh, tq, tk, d, dtype, 10 + i, dev)
             scale = d**-0.5
-            row = {"shape": name, "dims": [bh, tq, tk, d], "causal": causal, "dtype": str(dtype).split(".")[-1]}
+            mask = (torch.arange(tk, device=dev)[None, :] < tk - tk // 8).expand(tq, tk).contiguous() if padding else None
+            bias = None if mask is None else fa._as_bias(mask).contiguous()
+            row = {"shape": name, "dims": [bh, tq, tk, d], "causal": causal, "dtype": str(dtype).split(".")[-1],
+                   "padding_mask": padding}
             backward = not args.fwd_only and (name.startswith("step") or name.startswith("bench"))
             if args.bwd_only and not backward:
                 continue
             for source, label in () if args.bwd_only else ((FWD[0], "k2"), (PIPELINED[0], "k3")):
-                outs = {n: v_.forward(source, q, k, v, causal, scale) for n, v_ in ver.items()}
+                outs = {n: v_.forward(source, q, k, v, causal, scale, bias) for n, v_ in ver.items()}
                 row[f"{label}_bits_equal"] = {o: all(torch.equal(a, b) for a, b in zip(outs[o], outs["change"]))
                                               for o in others}
-                row[f"{label}_err_over_tol"] = {n: plain_err(q, k, v, causal, *o) for n, o in outs.items()}
+                row[f"{label}_vs_plain"] = {n: plain_err(q, k, v, causal, bias, *o) for n, o in outs.items()}
                 del outs
-                row[f"{label}_ms"] = turns(lambda n: ver[n].forward(source, q, k, v, causal, scale))
+                row[f"{label}_ms"] = turns(lambda n: ver[n].forward(source, q, k, v, causal, scale, bias))
             q4, k4, v4 = (t.view(bh // 8, 8, t.shape[1], d) for t in (q, k, v))
             if not args.bwd_only:
                 row["library_ms"] = cuda_ms(
-                    lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, is_causal=causal), reps=5, warmup=1)
+                    lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, is_causal=causal),
+                    reps=5, warmup=1)
             if backward:
                 o, lse = ver["change"].forward(FWD[0], q, k, v, causal, scale)
                 do = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(600), device=dev).to(dtype)
