@@ -84,8 +84,11 @@ Phases, one line each:
      d of 8 to 128, 33 and 100 among them, lengths one off the kernels' tiles of both
      designs, 63 to 193, bool masks with a fully masked row in f32, bf16 and f16), 16-bit
      inputs by the rule of ``check_bwd`` (P and dS rounded on both sides); bit-identical
-     across two runs; and autograd through the port's ``flash_attention`` equal to autograd
-     through the plain forward;
+     across two runs; the D pass alone at each of these shapes against its plain version
+     (``check_d``: within 2·γ_d·Σ|dO∘O|, two runs bit-equal), and at its 16-byte loads'
+     edges (``[d_pass_edges]``: d of 1, 8, 33, 72, 100 and 256, O and dO off a 16-byte
+     boundary alike and unlike, fewer rows than a block); and autograd through the port's
+     ``flash_attention`` equal to autograd through the plain forward;
  10. the training path: counts zeroed, one step (forward, backward, Adam), counts read
      (K2, D, K4 and K5 exactly 18 times each); TF32 off inside the forward and the
      backward; the loss and every gradient finite and the parameters changed; a
@@ -107,7 +110,11 @@ Phases, one line each:
      launch), in turns with ``scaled_dot_product_attention``'s forward and backward;
  12. the D pass, K4 and K5 timed at the step's two shapes in f32 and its first in bf16 and
      at bench.py's in bf16 and f16, in turns with the backward of
-     ``scaled_dot_product_attention`` on the same inputs;
+     ``scaled_dot_product_attention`` on the same inputs; ``[k2_bwd_time_d]``: D at each of
+     those shapes (queued behind a sleep kernel, as its launch takes longer than it does)
+     beside its bytes bound, its plain version and the fastest single PyTorch expression
+     that gives the same f32 D (``d_library``; the line names it), and the shapes under
+     half the bound;
  12b. the rest of heat_tpu.nn (``nn_phases``): ``[ring_attention]``, ring attention (causal
      and full) and zigzag attention at bench.py's (8, 16, 4096, 64) in f32 and bf16 over
      P = 4 virtual ranks and at (1, 8, 32768, 64) f32 causal over P = 8, the ring's
@@ -316,6 +323,13 @@ Phases, one line each:
      ``[array_gaps]``, ``randint(0, 2**40, 40M, int64)``, a split-1 mask assignment from a
      split-0 value and pad's computed modes at 1000 x 40,000 f32, bit for bit against the
      CPU path;
+ 18c. (in the same child process) ``[dist_forms]`` (``dist_forms_phase``): the split-axis
+     forms (roll, tile, pad, diagonal/diag, tril/triu, trace, vdot, the norms, cov,
+     integer-array indexing and assignment) at one rank on config #3's 10M x 64 f32 points
+     and a 40M f32 vector (diag and a vector's triangles at 16,384: their results are
+     square), each against the CPU path (data moves exactly, sums within their rounding),
+     with its device-to-host bytes (none beyond a scalar), best of 3 and device ms beside its
+     bound, and its peak device memory beside its input and output bytes;
  19. one JSON line listing every ported kernel with its launches on its path (K1's on
      every clustering path too), its time, its bound on this card (f32 attention work at
      the 3xTF32 rate, with the fp32 FMA rate's bound beside it), its plain version's time
@@ -353,7 +367,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 try:
     from heat_tpu_torch.core.kernels._measure import (FWD_SHARE_16, cuda_ms, fwd16_err, fwd_err, k2_inputs,
-                                                      ptxas_summary, sass, sass_counts)
+                                                      ptxas_summary, queued_ms, sass, sass_counts)
 except ImportError as exc:
     sys.exit(f"chip_smoke: the heat_tpu_torch package is not beside this script ({exc})")
 
@@ -408,6 +422,8 @@ WGMMA_KERNELS = {
     "flash_attention_fwd.cu": {"flash_attention_fwd_wgmma_kernel": "HGMMA"},
     "flash_attention_fwd_pipelined.cu": {"flash_attention_fwd_pipelined_wgmma_kernel": "HGMMA"},
 }
+# the kernels, by source, of which every instance (one a type: f32, bf16, f16) spills nothing
+NO_SPILL_KERNELS = {"flash_attention_bwd.cu": ("flash_attention_bwd_d_kernel",)}
 # K4 and K5 (every kernel of flash_attention_bwd.cu named flash_attention_bwd_dq_...kernel or
 # flash_attention_bwd_dkv_...kernel) by the type of an instance: the f32 ones take 3xTF32
 # mma.sync (HMMA), the bf16 and f16 ones wgmma (HGMMA); each type has an instance of each
@@ -726,6 +742,10 @@ def bwd_bounds_ms(bh: int, tq: int, tk: int, d: int, causal: bool, itemsize: int
     return {name: roof_ms(nbytes, flops, rate) for name, (nbytes, flops, rate) in work.items()}
 
 
+# the D pass's edge cases (rows, d, dtype, element offset of O, of dO) in [d_pass_edges]
+D_EDGES = [(1000, 1, "float32", 0, 0), (1000, 33, "bfloat16", 0, 0), (777, 72, "float16", 0, 0),
+           (1000, 100, "float32", 1, 1), (1000, 64, "bfloat16", 3, 3), (999, 64, "bfloat16", 1, 2),
+           (513, 256, "float32", 0, 0), (5, 64, "float16", 0, 0), (1000, 8, "bfloat16", 0, 0)]
 # the 16-bit rule of the flash backward: a share of each gradient's largest magnitude, beside
 # one unit in the last place of the element; tests/test_torch_flash_bwd_bf16.py holds heat_tpu's
 # own Pallas backward to the plain one by the same rule
@@ -757,7 +777,7 @@ def check_bwd(k2, q, k, v, causal: bool, mask, seed: int) -> dict:
     (tests/test_torch_flash_bwd_bf16.py), and an arithmetic that keeps P and dS f32 is
     not. Key rows that no query attends (causal with Tk > Tq) must be exactly 0 and every
     value finite. Two runs must be identical. The plain version runs in chunks of
-    batch·heads to bound its memory."""
+    batch·heads to bound its memory. The D pass is also held alone: :func:`check_d`."""
     import torch
 
     gen = torch.Generator(device=q.device).manual_seed(seed)
@@ -770,6 +790,7 @@ def check_bwd(k2, q, k, v, causal: bool, mask, seed: int) -> dict:
         again = k2.flash_attention_bwd(q, k, v, o, do, lse, causal, None, mask)
         torch.cuda.synchronize()
         check(all(torch.equal(a, b) for a, b in zip(got, again)), "the flash backward is not deterministic")
+        d_check = check_d(k2, o, do)
         bh, tq, _ = q.shape
         tk = k.shape[1]
         chunk = max(1, (1 << 28) // (tq * tk))
@@ -798,7 +819,47 @@ def check_bwd(k2, q, k, v, causal: bool, mask, seed: int) -> dict:
         if causal and tk > tq:
             check(float(got[1][:, tq:].abs().max()) == 0.0 and float(got[2][:, tq:].abs().max()) == 0.0,
                   "key rows that no query attends did not get zero dK and dV")
-    return {**out, "err_over_tol": worst, "share": share, "tma_copies": copies}
+    return {**out, "err_over_tol": worst, "share": share, "tma_copies": copies, **d_check}
+
+
+def check_d(k2, o, do) -> dict:
+    """The D pass alone against its plain version (``d_pass_reference``: the f32 sum of the
+    f32 products by torch) on the same card and inputs. Both sum d products of the same f32
+    values in another order, each error within γ_d·Σ|dO∘O| (Higham), so they must agree
+    within 2·γ_d·Σ|dO_c·O_c| a row. Two runs must give the same bits."""
+    import torch
+
+    dd = k2.d_pass(o, do)
+    again = k2.d_pass(o, do)
+    torch.cuda.synchronize()
+    check(torch.equal(dd, again), "the D pass is not deterministic")
+    ref = k2.d_pass_reference(o, do)
+    tol = 2 * gamma(o.shape[-1]) * k2.d_pass_reference(o.abs(), do.abs()) + 1e-30
+    err = (dd - ref).abs()
+    ratio = float((err / tol).max()) if err.numel() else 0.0
+    check(ratio <= 1.0 and bool(torch.isfinite(dd).all()), f"the D pass disagrees with its plain version: "
+          f"err/tol {ratio}")
+    return {"d_max_abs_err": float(err.max()) if err.numel() else 0.0, "d_err_over_tol": ratio}
+
+
+def d_library(o, do) -> dict:
+    """{expression: callable} of single PyTorch expressions that give the D pass's f32 D of
+    (bh, T, d) ``o`` and ``do``, for [k2_bwd_time]'s library time: the fastest one that
+    agrees with the plain version by :func:`check_d`'s rule counts. In f32 one call does it
+    (``torch.linalg.vecdot``, ``torch.einsum``); 2-byte inputs are widened first, as a
+    product in their type would round each term."""
+    import torch
+
+    out = {
+        "(o.float() * do.float()).sum(-1)": lambda: (o.float() * do.float()).sum(-1),
+        "torch.linalg.vecdot(o.float(), do.float())": lambda: torch.linalg.vecdot(o.float(), do.float()),
+        "torch.einsum('btd,btd->bt', o.float(), do.float())": lambda: torch.einsum("btd,btd->bt", o.float(),
+                                                                                    do.float()),
+    }
+    if o.dtype == torch.float32:
+        out["torch.linalg.vecdot(o, do)"] = lambda: torch.linalg.vecdot(o, do)
+        out["torch.einsum('btd,btd->bt', o, do)"] = lambda: torch.einsum("btd,btd->bt", o, do)
+    return out
 
 
 KERNEL_KINDS = (
@@ -4613,10 +4674,153 @@ def dtype_phases(ht, dev) -> dict:
             "array_gaps": array_gaps_phase(ht, dev, smi)}
 
 
+# [dist_forms]: config #3's points (N x D f32, split 0), a 40M f32 vector for the 1-D forms,
+# and a 16,384-element one for diag and the triangles of a vector, whose results are its
+# square (40M² would not fit)
+DIST_VEC, DIST_SQUARE = 40_000_000, 16_384
+DIST_SUM_U = 4 * U32  # times √n: a float32 sum of n terms in an order the library decides
+
+
+def dist_forms_phase(ht, dev, rows: int = N, vec: int = DIST_VEC, square: int = DIST_SQUARE) -> dict:
+    """[dist_forms]: each split-axis form of the array API (roll, tile, pad, diagonal/diag,
+    tril/triu, trace, vdot, the norms, cov, integer-array indexing and assignment) on the
+    card at one rank, on config #3's data: equal to the port's CPU path on a CPU copy, the
+    data moves and the extremes bit for bit; the sums against the CPU path on float64 copies
+    of the same data (the CPU's own float32 sums of 10M terms, in BLAS's or torch's order,
+    err more than the card's: their distance is reported), each within DIST_SUM_U·√n of the
+    sum of its n terms' magnitudes (a float32 sum whose order the library decides: Higham's
+    rule of thumb √n·u for roundings that walk at random, 4x over): the value itself for
+    norms and sums of squares, Σ|diagonal| for trace, N·√(c_kk·c_ll) for cov entry (k, l)
+    (Cauchy–Schwarz), twice for its means; its device-to-host bytes
+    (:func:`d2h_bytes`: none beyond a scalar result), best of 3 wall and device ms beside
+    its bound (its input read once and its output written once at 3.35 TB/s; cov's products
+    at the fp32 rate where they take longer), and the peak of ``max_memory_allocated`` above
+    what was allocated before the call, beside its input and output bytes. At one rank no
+    form moves anything: the split-axis code paths run at three gloo ranks in the tests."""
+    import torch
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    t_phase = time.perf_counter()
+    x_t, _, _ = blobs(rows, D, K, SEED, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3000)
+    v_t = torch.randn(vec, generator=gen, device=dev)
+    keys = torch.randint(-rows, rows, (1 << 20,), generator=gen, device=dev).cpu()
+    keys[1::7] = keys[::7][: keys[1::7].numel()]  # duplicates
+    cols = torch.randint(-D, D, (1 << 20,), generator=gen, device=dev).cpu()
+    card = {"X": ht.array(x_t, split=0), "V": ht.array(v_t, split=0), "S": ht.array(v_t[:square].clone(), split=0)}
+    host = {k: ht.array(a.larray.cpu(), split=0, device="cpu") for k, a in card.items()}
+    wide = {k: ht.array(a.larray.double(), split=0, device="cpu") for k, a in host.items()}
+    del x_t, v_t
+
+    def assigned(a):
+        out = a["X"].copy()
+        out[keys.numpy(), cols.numpy()] = 7.0
+        out[:, [D - 1, 0, 0, -5]] = -1.0
+        return out
+
+    B = 4 * rows * D
+    cov_flops = 2.0 * rows * D * D
+    forms = {
+        # name: (fn of the arrays, rule, bytes in + out); a sum's terms: SUM_TERMS
+        "roll_rows": (lambda a: ht.roll(a["X"], rows // 3 + 1, 0), "exact", 2 * B),
+        "roll_flat": (lambda a: ht.roll(a["X"], -(rows * D // 7)), "exact", 2 * B),
+        "roll_vector": (lambda a: ht.roll(a["V"], vec // 6 + 1), "exact", 8 * vec),
+        "tile_rows": (lambda a: ht.tile(a["X"], (2, 1)), "exact", 3 * B),
+        "pad_reflect": (lambda a: ht.pad(a["X"], ((5, 7), (0, 0)), mode="reflect"), "exact", 2 * B),
+        "pad_edge": (lambda a: ht.pad(a["X"], ((2, 2), (1, 3)), mode="edge"), "exact", B + 4 * (rows + 4) * (D + 4)),
+        "pad_maximum": (lambda a: ht.pad(a["X"], ((1, 1), (0, 0)), mode="maximum"), "exact", 2 * B),
+        "pad_linear_ramp": (lambda a: ht.pad(a["X"], ((2, 2), (0, 0)), mode="linear_ramp"), "exact", 2 * B),
+        "pad_median_vector": (lambda a: ht.pad(a["V"], (3, 4), mode="median"), "exact", 8 * vec),
+        "pad_mean": (lambda a: ht.pad(a["X"], ((3, 3), (0, 0)), mode="mean"), "sum", 2 * B),
+        "diagonal": (lambda a: ht.diagonal(a["X"], -3), "exact", 4 * D),
+        "diag_vector": (lambda a: ht.diag(a["S"], 5), "exact", 4 * square + 4 * (square + 5) ** 2),
+        "tril": (lambda a: ht.tril(a["X"], 10), "exact", 2 * B),
+        "triu": (lambda a: ht.triu(a["X"], -5), "exact", 2 * B),
+        "tril_vector": (lambda a: ht.tril(a["S"], 3), "exact", 4 * square + 4 * square**2),
+        "trace": (lambda a: ht.array(ht.trace(a["X"], 1), device=a["X"].device), "trace", 4 * D),
+        "vdot": (lambda a: ht.vdot(a["X"], a["X"]), "sum", B),
+        "vdot_vector": (lambda a: ht.vdot(a["V"], a["V"]), "sum", 4 * vec),
+        # (ord 0 counts the nonzero elements in float32: a sum of ones, past 2^24 inexact)
+        **{f"vector_norm_{o}": (lambda a, o=o: ht.vector_norm(a["X"], ord=o), "sum" if o in (0, 1, 3) else "exact", B)
+           for o in (1, 3, float("inf"), float("-inf"), 0)},
+        **{f"matrix_norm_{o}": (lambda a, o=o: ht.matrix_norm(a["X"], ord=o), "sum", B)
+           for o in ("fro", 1, -1, float("inf"), float("-inf"))},
+        "cov": (lambda a: ht.cov(a["X"], rowvar=False), "cov", B + 4 * D * D),
+        "get_int_keys": (lambda a: a["X"][keys.numpy(), cols.numpy()], "exact", 2 * 4 * keys.numel()),
+        "get_int_cols": (lambda a: a["X"][:, [D - 1, 0, 0, -5]], "exact", 2 * 4 * rows * 4),
+        "set_int_keys": (assigned, "exact", 2 * B),
+    }
+    # the terms a value of each sum adds: every element, a column's (rows), a row's (D)
+    terms = {"pad_mean": rows, "trace": D, "vdot": rows * D, "vdot_vector": vec, "vector_norm_0": rows * D,
+             "vector_norm_1": rows * D, "vector_norm_3": rows * D, "matrix_norm_fro": rows * D, "matrix_norm_1": rows, "matrix_norm_-1": rows,
+             "matrix_norm_inf": D, "matrix_norm_-inf": D, "cov": rows}
+    res = {"nvidia_smi": smi, "forms": {}}
+    for name, (fn, rule, nbytes) in forms.items():
+        moved = []
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with d2h_bytes(moved):
+            got = fn(card)
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        scalar = got.gshape == ()
+        check(got.larray.is_cuda, f"[dist_forms] {name}: the result is not on the card")
+        check(sum(moved) <= (8 if scalar else 0), f"[dist_forms] {name}: {sum(moved)} bytes came back to the host")
+        want = fn(host)
+        check(got.gshape == want.gshape and got.split == want.split and got.dtype is want.dtype,
+              f"[dist_forms] {name}: {got.gshape} split {got.split} {got.dtype} against the CPU path's "
+              f"{want.gshape} split {want.split} {want.dtype}")
+        g, w = got.larray.cpu(), want.larray
+        if rule == "exact":
+            check(torch.equal(g, w) or (torch.isnan(g) == torch.isnan(w)).all() and torch.equal(
+                torch.nan_to_num(g), torch.nan_to_num(w)), f"[dist_forms] {name}: differs from the CPU path")
+            err, tol = 0.0, 0.0
+        else:
+            w64 = fn(wide).larray
+            if rule == "sum":
+                magnitude = w64.abs()
+            elif rule == "trace":
+                magnitude = torch.diagonal(wide["X"].larray, 1).abs().sum()
+            else:  # cov
+                c = w64.diagonal()
+                magnitude = 2 * (c[:, None] * c[None, :]).sqrt() * rows / (rows - 1)
+            tol = DIST_SUM_U * terms[name] ** 0.5 * magnitude
+            diff = (g.double() - w64).abs()
+            err = float(diff.max())
+            cpu_f32_err = float((w.double() - w64).abs().max())
+            check(bool((diff <= tol + 1e-30).all()), f"[dist_forms] {name}: {err} off the CPU path in float64 "
+                  f"(the CPU's float32 is {cpu_f32_err} off it)")
+            tol = float(torch.as_tensor(tol).max())
+        best, _ = best_s(lambda: fn(card), 3)
+        dev_ms = cuda_ms(lambda: fn(card), reps=3, warmup=1)
+        bound = 1e3 * nbytes / PEAK_BYTES_PER_S
+        bound_by = "bytes"
+        if name == "cov" and 1e3 * cov_flops / PEAK_FP32_FLOPS > bound:
+            bound, bound_by = 1e3 * cov_flops / PEAK_FP32_FLOPS, "operations"
+        out_bytes = got.larray.numel() * got.larray.element_size()
+        entry = {"rule": rule, "max_abs_err": err, "tol": tol, **({} if rule == "exact" else {
+                     "cpu_float32_err": cpu_f32_err}), "best_of_3_ms": 1e3 * best, "device_ms": dev_ms,
+                 "bytes": nbytes, "bound_ms": bound, "bound_by": bound_by, "bound_share": bound / dev_ms,
+                 "d2h_bytes": sum(moved), "peak_bytes": peak, "in_out_bytes": nbytes, "out_bytes": out_bytes,
+                 "peak_over_in_out": peak / max(nbytes, 1), "shape": list(got.gshape)}
+        res["forms"][name] = entry
+        phase("dist_forms", form=name, **{k: (json.dumps(v) if isinstance(v, (list, dict)) else v)
+                                          for k, v in entry.items()})
+        del got, want, g, w
+        torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    phase("dist_forms", forms=len(forms), phase_s=repr(res["phase_s"]))
+    return res
+
+
 def linalg_child(out_path: str) -> int:
-    """The child process of phases 13-18b: the card, the package, :func:`linalg_phases`,
-    :func:`array_phases`, :func:`cluster_phases`, :func:`domain_phases` and
-    :func:`dtype_phases`; their results go to ``out_path`` as JSON."""
+    """The child process of phases 13-18c: the card, the package, :func:`linalg_phases`,
+    :func:`array_phases`, :func:`cluster_phases`, :func:`domain_phases`,
+    :func:`dtype_phases` and :func:`dist_forms_phase`; their results go to ``out_path`` as
+    JSON."""
     import torch
 
     import heat_tpu_torch as ht
@@ -4629,13 +4833,14 @@ def linalg_child(out_path: str) -> int:
     out["cluster"] = cluster_phases(ht, dev)
     out["domain"] = domain_phases(ht, dev)
     out["dtype"] = dtype_phases(ht, dev)
+    out["dist_forms"] = dist_forms_phase(ht, dev)
     with open(out_path, "w") as fh:
         json.dump(out, fh)
     return 0
 
 
 def run_linalg_child() -> dict:
-    """Phases 13-18b in a fresh process of this script (its phase lines go to this
+    """Phases 13-18c in a fresh process of this script (its phase lines go to this
     stdout); fails unless it ends with code 0."""
     import tempfile
 
@@ -4734,6 +4939,11 @@ def main() -> int:
                       f"{source.name}: no instance, or one without {opcode}: {summary}")
                 spills = [row for row in ptxas if kname in row[0] and (row[2] or row[3])]
                 check(not spills, f"{kname} in {source.name}: instances that spill: {spills}")
+            for kname in NO_SPILL_KERNELS.get(source.name, ()):
+                rows = [row for row in ptxas if kname in row[0]]
+                spills = [row for row in rows if row[2] or row[3]]
+                check(len(rows) == 3 and not spills, f"{kname} in {source.name}: {len(rows)} instances (want 3), "
+                      f"spills {spills}")
             if source == k2.BWD_SOURCE:
                 by_type = bwd_instances(mix)
                 check(set(by_type) == set(BWD_OPCODES) and all(
@@ -5156,6 +5366,20 @@ def main() -> int:
             bwd_data[cname] = (q, k, v, causal)
         else:
             del q, k, v
+    # the D pass alone where its 16-byte loads meet their edges: rows that are not a whole
+    # number of chunks (d of 1, 33, 72, 100), rows off a 16-byte boundary (O and dO offset
+    # alike, and offset differently, which reads every element singly), wide rows (d = 256 f32:
+    # two chunks a lane), and fewer rows than a block holds
+    d_edges = {}
+    for i, (rows, dh, dtype, off_o, off_g) in enumerate(D_EDGES):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 700 + i)
+        store = torch.randn(2, rows * dh + 8, generator=gen, device=dev).to(getattr(torch, dtype))
+        o_ = store[0, off_o:off_o + rows * dh].view(1, rows, dh)
+        g_ = store[1, off_g:off_g + rows * dh].view(1, rows, dh)
+        d_edges[f"{rows}x{dh}_{dtype}_off{off_o}_{off_g}"] = check_d(k2, o_, g_)
+        del store, o_, g_
+    phase("d_pass_edges", cases=json.dumps(d_edges))
+
     # autograd through the port's flash_attention (K2, then D, K4, K5) against autograd
     # through the plain forward
     qa, ka, va = (t.view(2, 8, 512, 64).requires_grad_() for t in k2_inputs(16, 512, 512, 64, f32, SEED + 500, dev))
@@ -5425,6 +5649,7 @@ def main() -> int:
     # scaled_dot_product_attention on the same inputs, timed in turns (library, kernels,
     # kernels, library); the plain version at the encoder shape
     bwd_ms, bwd_bounds, bwd_simt, bwd_library_ms = {}, {}, {}, {}
+    d_plain_ms, d_library_ms, d_library_expr, d_library_all = {}, {}, {}, {}
     with torch.no_grad():
         for cname, (q, k, v, causal) in bwd_data.items():
             o, lse = k2.flash_attention_fwd(q, k, v, causal)
@@ -5435,7 +5660,8 @@ def main() -> int:
 
             def kernels_ms():
                 return {
-                    "flash_attention_bwd_d": cuda_ms(lambda: k2._d_pass(o, do), reps=10),
+                    # D is shorter than its host launch: timed with the enqueue taken out
+                    "flash_attention_bwd_d": queued_ms(lambda: k2._d_pass(o, do), reps=10),
                     "flash_attention_bwd_dq": cuda_ms(lambda: k2._k4(q, k, v, do, lse, dd, causal, sc, None), reps=5, warmup=1),
                     "flash_attention_bwd_dkv": cuda_ms(lambda: k2._k5(q, k, v, do, lse, dd, causal, sc, None), reps=5, warmup=1),
                 }
@@ -5458,13 +5684,32 @@ def main() -> int:
             bwd_simt[cname] = bwd_bounds_ms(bh, tq, k.shape[1], dh, causal, q.element_size(), simt=True)
             if cname == "encoder_self":
                 bwd_plain_ms = cuda_ms(lambda: k2.flash_attention_bwd_reference(q, k, v, o, do, lse, False), reps=3, warmup=1)
-            del o, lse, do, dd
+            # D against the fastest single PyTorch expression that gives the same f32 D
+            d_ref = k2.d_pass_reference(o, do)
+            d_tol = 2 * gamma(dh) * k2.d_pass_reference(o.abs(), do.abs()) + 1e-30
+            d_lib = {}
+            for expr, fn in d_library(o, do).items():
+                if bool(((fn() - d_ref).abs() <= d_tol).all()):
+                    d_lib[expr] = queued_ms(fn, reps=10)
+            check(bool(d_lib), f"[k2_bwd_time] {cname}: no library expression gives D")
+            d_plain_ms[cname] = queued_ms(lambda: k2.d_pass_reference(o, do), reps=10)
+            d_library_expr[cname] = min(d_lib, key=d_lib.get)
+            d_library_ms[cname] = d_lib[d_library_expr[cname]]
+            d_library_all[cname] = d_lib
+            del o, lse, do, dd, d_ref, d_tol
     bwd_total = {c: sum(v[n] for n in flash[1:]) for c, v in bwd_ms.items()}
     phase("k2_bwd_time", ms=json.dumps(bwd_ms), d_k4_k5_ms=json.dumps(bwd_total), plain_ms=repr(bwd_plain_ms),
           library_ms_in_turns=json.dumps(bwd_library_ms),
           over_library=json.dumps({c: bwd_total[c] / bwd_library_ms[c] for c in bwd_total}),
           bounds_ms=json.dumps({c: {n: b[0] for n, b in v.items()} for c, v in bwd_bounds.items()}),
           bounds_simt_ms=json.dumps({c: {n: b[0] for n, b in v.items()} for c, v in bwd_simt.items()}))
+    d_name = "flash_attention_bwd_d"
+    d_share = {c: bwd_bounds[c][d_name][0] / v[d_name] for c, v in bwd_ms.items()}
+    phase("k2_bwd_time_d", ms=json.dumps({c: v[d_name] for c, v in bwd_ms.items()}),
+          bound_ms=json.dumps({c: v[d_name][0] for c, v in bwd_bounds.items()}), bound_share=json.dumps(d_share),
+          under_half_of_bound=json.dumps(sorted(c for c, x in d_share.items() if x < 0.5)),
+          plain_ms=json.dumps(d_plain_ms), library_ms=json.dumps(d_library_ms),
+          library_expr=json.dumps(d_library_expr), library_candidates_ms=json.dumps(d_library_all))
     del bwd_data
     torch.cuda.empty_cache()
 
@@ -5797,6 +6042,22 @@ def main() -> int:
             },
         ]
     }
+    # the D pass's own numbers: its error alone, its plain version and the fastest single
+    # PyTorch expression that gives the same f32 D, in place of the whole backward's
+    d_entry = next(e for e in line["kernels"] if e["name"] == "flash_attention_bwd_d")
+    d_entry.update({
+        "max_abs_err": bwd_checks["encoder_self"]["d_max_abs_err"],
+        "max_abs_err_of": "D against d_pass_reference (the f32 sum by torch), encoder shape; rule 2·γ_d·Σ|dO∘O|",
+        "err_over_tol": bwd_checks["encoder_self"]["d_err_over_tol"],
+        "plain_ms": d_plain_ms["encoder_self"],
+        "plain_note": "d_pass_reference: torch.sum(dO.float() * O.float(), -1)",
+        "plain_ms_by_shape": d_plain_ms,
+        "library_ms": d_library_ms["encoder_self"],
+        "library_note": f"the fastest single PyTorch expression giving the same f32 D, timed only: "
+                        f"{d_library_expr['encoder_self']}",
+        "library_ms_by_shape": d_library_ms,
+        "library_expr_by_shape": d_library_expr,
+    })
     print(json.dumps(line), flush=True)
     if args.json_out:
         os.makedirs(os.path.dirname(os.path.abspath(args.json_out)), exist_ok=True)

@@ -441,17 +441,20 @@ class TorchCommunication:
 
     @_collective
     def take(
-        self, local: torch.Tensor, axis: int, counts: Sequence[int], index: torch.Tensor, replicate: bool = False
+        self, local: torch.Tensor, axis: int, counts: Sequence[int], index: torch.Tensor, replicate: bool = False,
+        ranges: Optional[Sequence[Tuple[int, int]]] = None,
     ) -> torch.Tensor:
         """The slices along ``axis`` at the global positions ``index`` (int64, the same on
         every rank) of an array whose rank ``r`` holds ``counts[r]`` consecutive slices:
-        this rank's canonical chunk of the result, or with ``replicate`` all of it, in
-        ``index`` order. One ``all_to_all_single``; each rank sends only the slices asked
-        of it, never its whole chunk."""
+        this rank's canonical chunk of the result, or with ``replicate`` all of it, or
+        ``index[lo:hi]`` for this rank's ``ranges[rank] = (lo, hi)`` (every rank's range
+        given, the same on every rank), in ``index`` order. One ``all_to_all_single``; each
+        rank sends only the slices asked of it, never its whole chunk."""
         counts = [int(c) for c in counts]
         index = index.to(torch.int64).reshape(-1)
         if self.size == 1:
-            return local.index_select(axis, index.to(local.device))
+            lo, hi = (0, index.numel()) if ranges is None or replicate else ranges[0]
+            return local.index_select(axis, index[lo:hi].to(local.device))
         index = index.to(local.device)
         m, rank = index.numel(), self.rank
         ends = torch.tensor(np.cumsum(counts), dtype=torch.int64, device=local.device)
@@ -459,6 +462,8 @@ class TorchCommunication:
         start = int(sum(counts[:rank]))
         if replicate:
             ranges = [(0, m)] * self.size
+        elif ranges is not None:
+            ranges = [(int(lo), int(hi)) for lo, hi in ranges]
         else:
             c = -(-m // self.size) if m else 0
             ranges = [(min(r * c, m), min((r + 1) * c, m)) for r in range(self.size)]

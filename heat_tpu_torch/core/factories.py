@@ -195,7 +195,8 @@ def logspace(start, stop, num=50, endpoint=True, base=10.0, dtype=None, split=No
 
 def meshgrid(*arrays, indexing: str = "xy"):
     """Coordinate matrices from coordinate vectors; the output is split along the axis
-    that carried a split input ('xy' swaps the first two)."""
+    that carried a split input ('xy' swaps the first two). The vectors are gathered: each
+    is whole along its axis of every output."""
     if indexing not in ("xy", "ij"):
         raise ValueError(f"indexing must be 'xy' or 'ij', got {indexing}")
     arrs = [asarray(a) for a in arrays]

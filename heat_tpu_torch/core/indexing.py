@@ -12,14 +12,20 @@ A split array is indexed where its chunks lie:
 - a boolean mask of the array's shape selects on each rank; heat_tpu's result of a mask
   is not split, so the selected elements are gathered in order (a variable-length
   all-gather of the selection, not of the array);
-- integer arrays along the split axis gather the array first, as heat_tpu's one global
-  program does (later work, ROADMAP).
+- integer arrays (and masks of another shape) beside or on the split axis: every rank
+  computes the coordinates the key reads (:func:`_coords`, as many integers as the result
+  has elements), each result element is fetched from the rank holding it
+  (``TorchCommunication.take`` over the ranks' chunks in rank order), and each rank receives
+  its chunk of the result (all of it where heat_tpu's result is unsplit), never the array.
 
-``__setitem__`` writes only the local elements the key hits, with the value cut to them.
+``__setitem__`` writes only the local elements the key hits, with the value cut to them; for
+integer arrays each rank writes the coordinates that fall in its chunk, in the key's order,
+so duplicate keys end as they would on the whole array.
 """
 
 from __future__ import annotations
 
+import builtins
 from typing import List
 
 import numpy as np
@@ -277,10 +283,67 @@ def _getitem(x: DNDarray, key) -> DNDarray:
         idx = torch.where(idx < 0, idx + x.gshape[x.split], idx)
         counts = x.comm.counts_displs_shape(x.gshape, x.split)[0]
         return _operations.wrap_global(x.comm.take(x.larray, x.split, counts, idx, replicate=True), x, new_split)
-    # other integer arrays (or a mask of another shape) on the split axis: gather, as
-    # heat_tpu's global program does
-    result = _index(x._relayout(None), _global_key(x, keys))
-    return _operations.wrap_global(result, x, new_split)
+    # other integer arrays (or a mask of another shape): each result element from its rank
+    coords = _coords(x.gshape, _global_key(x, keys), x.larray.device)
+    shape = tuple(coords[0].shape)
+    flat = _chunk_positions(x, coords).reshape(-1)
+    numels = [int(np.prod(ls)) for ls in x.comm.lshape_map(x.gshape, x.split).tolist()]
+    split = new_split if new_split is not None and new_split < len(shape) else None
+    if split is None:
+        value = x.comm.take(x.larray.reshape(-1), 0, numels, flat, replicate=True).view(shape)
+        return DNDarray(value, shape, x.dtype, None, x.device, x.comm, True)
+    # this rank's chunk of the result along its split: positions in the result moved so
+    # that the split axis leads, whose chunks are then ranges of the flat order
+    order = torch.arange(flat.numel(), device=flat.device).view(shape).movedim(split, 0).reshape(-1)
+    counts, displs, lshape = x.comm.counts_displs_shape(shape, split)
+    inner = int(np.prod(shape)) // builtins.max(shape[split], 1) if shape[split] else 0
+    ranges = [(d * inner, (d + c) * inner) for c, d in zip(counts, displs)]
+    value = x.comm.take(x.larray.reshape(-1), 0, numels, flat[order], ranges=ranges)
+    moved = (lshape[split],) + tuple(sz for d, sz in enumerate(shape) if d != split)
+    return DNDarray(value.view(moved).movedim(0, split).contiguous(), shape, x.dtype, split, x.device, x.comm, True)
+
+
+def _coords(gshape, keys, device) -> List[torch.Tensor]:
+    """For each axis of an array of ``gshape``, the coordinate along that axis of each
+    element that ``_index(array, keys)`` reads, in the result's shape: the key applied to
+    each axis's ``arange`` broadcast over the array (a view, never the array's size; a
+    negative step reverses the axis's ``arange`` and takes the slice forward, as ``_index``
+    does)."""
+    keys, dim, bases = list(keys), 0, [torch.arange(n, device=device) for n in gshape]
+    for i, k in enumerate(keys):
+        if k is None:
+            continue
+        if isinstance(k, slice) and k.step is not None and k.step < 0:
+            n = gshape[dim]
+            r = range(*k.indices(n))
+            bases[dim] = bases[dim].flip(0)
+            keys[i] = slice(n - 1 - r[0], n - r[-1], -k.step) if len(r) else slice(0, 0)
+        dim += _width(k)
+    out = []
+    for d, b in enumerate(bases):
+        view = [1] * len(gshape)
+        view[d] = gshape[d]
+        out.append(b.view(view).expand(tuple(gshape))[tuple(keys)])
+    return out
+
+
+def _chunk_positions(x: DNDarray, coords: List[torch.Tensor]) -> torch.Tensor:
+    """The positions of the elements at ``coords`` in the ranks' chunks of ``x`` laid end to
+    end in rank order (each chunk in C order): where ``take`` over the flat chunks finds them."""
+    counts, displs, _ = x.comm.counts_displs_shape(x.gshape, x.split)
+    dev = coords[0].device
+    c = -(-x.gshape[x.split] // x.comm.size) if x.gshape[x.split] else 1
+    owner = torch.div(coords[x.split], c, rounding_mode="floor")
+    count = torch.tensor(counts, dtype=torch.int64, device=dev)[owner]
+    inner = int(np.prod(x.gshape[x.split + 1:]))
+    before = int(np.prod(x.gshape[:x.split]))
+    base = torch.tensor(np.cumsum([0] + [n * before * inner for n in counts[:-1]]), dtype=torch.int64, device=dev)
+    pos = base[owner] + (coords[x.split] - torch.tensor(displs, dtype=torch.int64, device=dev)[owner]) * inner
+    for d in range(x.split + 1, x.ndim):
+        pos = pos + coords[d] * int(np.prod(x.gshape[d + 1:]))
+    for d in range(x.split):
+        pos = pos + coords[d] * int(np.prod(x.gshape[d + 1:x.split])) * count * inner
+    return pos
 
 
 def _take_rows(x: DNDarray, rows: torch.Tensor) -> DNDarray:
@@ -370,8 +433,12 @@ def _setitem(x: DNDarray, key, value) -> None:
             lkeys[pos] = i - offset
             _assign(x.larray, lkeys, value)
         return
-    # integer arrays on the split axis: write the gathered array, keep this rank's chunk
-    full = x._relayout(None).clone()
-    _assign(full, _global_key(x, keys), value)
-    _, _, slices = x.comm.chunk(x.gshape, x.split)
-    x.larray[...] = full[slices]
+    # integer arrays (or a mask of another shape): each rank writes the coordinates in its
+    # chunk with the matching elements of the broadcast value, in the key's order
+    coords = _coords(x.gshape, _global_key(x, keys), dev)
+    shape = tuple(coords[0].shape)
+    v = value.reshape(shape) if value.ndim > len(shape) else value
+    mine = (coords[x.split] >= offset) & (coords[x.split] < offset + lshape[x.split])
+    local = [c[mine] for c in coords]
+    local[x.split] = local[x.split] - offset
+    x.larray[tuple(local)] = torch.broadcast_to(v, shape)[mine]

@@ -34,7 +34,8 @@
 // latency: in trials on the card, the time fell as the warps an SM rose from four to
 // eight to twelve, the last step gained at the non-causal shapes and lost some at the
 // causal one (PERF.md). The D pass reads O and dO once
-// and writes one float per row: it is bound by bytes. The f32 design:
+// and writes one float per row: it is bound by bytes, in every type one kernel of 16-byte
+// loads with several rows in flight a lane (its design beside it, below). The f32 design:
 //   * K4 owns 96 query rows of one batch·head (6 warps of 16: one m16 row block each) and
 //     loops over the tiles of 32 keys they attend (`_pair_schedule`'s bound); K5 owns 96
 //     key rows and loops over the tiles of 32 queries that attend them
@@ -140,7 +141,8 @@ constexpr int kThreads = 32 * kWarps;  // threads per block of K4 and K5
 constexpr int kRows = 16 * kWarps;     // query rows of a K4 block, key rows of a K5 block
 constexpr int kTile = 32;              // keys per tile in K4, queries per tile in K5
 constexpr int kStages = 2;             // stages of the ring
-constexpr int kDWarps = 8;             // rows (one warp each) per block of the D pass
+constexpr int kDThreads = 256;         // threads per block of the D pass
+constexpr int kDRows = 4;              // rows of the D pass a thread's lane group owns at once
 
 // Shared memory of K4 (K5 in brackets), for the head dim padded to DP:
 //   own   : q and dO (k and v) of the block's kRows rows as f32, (kRows, DP) words each
@@ -204,20 +206,93 @@ __device__ __forceinline__ void two_products(const uint32_t* a, Parts b, const u
 
 }  // namespace
 
-// D_i = Σ_c dO_ic·O_ic: one warp per row, lanes over columns, a fixed butterfly order
+// The D pass: D_i = Σ_c dO_ic·O_ic in f32, one float a row of (rows, d) O and dO. It reads
+// both once and writes 4 bytes a row: bound by bytes (4·d + 4 bytes a row in 2-byte types).
+// A row is cut into 16-byte chunks (8 bf16/f16 or 4 f32 elements) and spread over L lanes,
+// L the power of two at or above its chunk count, at most 32; a warp holds 32 / L rows side
+// by side (at d = 64 in bf16, 8 lanes a row and 4 rows a warp), and each lane group owns
+// kDRows rows at once, whose 16-byte loads it issues together before any product: 2·kDRows
+// loads in flight a lane (x the chunks a lane walks). The elements before a row's first
+// 16-byte boundary and after its last whole chunk (a row length or an address that does not
+// allow 16-byte loads; O and dO with different offsets take every element so) are read one
+// by one by the same lanes. Order, fixed, so two runs give the same bits: each lane sums its
+// chunks in order, each chunk's elements in order by fmaf, then its single elements; the
+// group adds its lanes by a butterfly of xor-shuffles.
 template <typename T>
-__global__ void __launch_bounds__(kDWarps * 32) flash_attention_bwd_d_kernel(
-    const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ dd, long long rows, int d) {
-    const long long row = (long long)blockIdx.x * kDWarps + threadIdx.x / 32;
-    const int lane = threadIdx.x % 32;
-    if (row >= rows) return;
-    const T* orow = o + row * d;
-    const T* grow = dout + row * d;
-    float acc = 0.f;
-    for (int c = lane; c < d; c += 32) acc = fmaf(to_f32(orow[c]), to_f32(grow[c]), acc);
+__device__ __forceinline__ float fma_chunk(const uint4& a, const uint4& b, float acc) {
+    const uint32_t aw[4] = {a.x, a.y, a.z, a.w};
+    const uint32_t bw[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(kFull, acc, off);
-    if (lane == 0) dd[row] = acc;
+    for (int i = 0; i < 4; ++i) {
+        if constexpr (sizeof(T) == 4) {
+            acc = fmaf(__uint_as_float(aw[i]), __uint_as_float(bw[i]), acc);
+        } else {
+            const T* ah = reinterpret_cast<const T*>(&aw[i]);
+            const T* bh = reinterpret_cast<const T*>(&bw[i]);
+            acc = fmaf(to_f32(ah[0]), to_f32(bh[0]), acc);
+            acc = fmaf(to_f32(ah[1]), to_f32(bh[1]), acc);
+        }
+    }
+    return acc;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kDThreads) flash_attention_bwd_d_kernel(
+    const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ dd, long long rows, int d, int lanes) {
+    constexpr int V = 16 / sizeof(T);  // elements a chunk
+    const int lane = threadIdx.x % 32;
+    const int sub = lane % lanes;                          // this lane's place in its row's group
+    const int groups = kDThreads / lanes;                  // lane groups a block
+    const int group = threadIdx.x / lanes;
+    const long long first = ((long long)blockIdx.x * groups + group) * kDRows;
+    // every row has the same byte offset from a 16-byte boundary only when a row is a whole
+    // number of chunks; otherwise each row finds its own
+    const bool same_offset = ((reinterpret_cast<uintptr_t>(o) ^ reinterpret_cast<uintptr_t>(dout)) & 15) == 0;
+    float acc[kDRows];
+    int head[kDRows], chunks[kDRows];
+    const T* orow[kDRows];
+    const T* grow[kDRows];
+    int most = 0;
+#pragma unroll
+    for (int r = 0; r < kDRows; ++r) {
+        acc[r] = 0.f;
+        const long long row = first + r < rows ? first + r : rows - 1;  // a repeat past the end, not stored
+        orow[r] = o + row * d;
+        grow[r] = dout + row * d;
+        const int off = (int)((reinterpret_cast<uintptr_t>(orow[r]) & 15) / sizeof(T));
+        head[r] = same_offset ? min(d, (V - off) % V) : d;
+        chunks[r] = same_offset ? (d - head[r]) / V : 0;
+        most = max(most, chunks[r]);
+    }
+    for (int c = sub; c < most; c += lanes) {
+        uint4 a[kDRows], b[kDRows];
+#pragma unroll
+        for (int r = 0; r < kDRows; ++r) {
+            if (c < chunks[r]) {
+                a[r] = __ldg(reinterpret_cast<const uint4*>(orow[r] + head[r]) + c);
+                b[r] = __ldg(reinterpret_cast<const uint4*>(grow[r] + head[r]) + c);
+            }
+        }
+#pragma unroll
+        for (int r = 0; r < kDRows; ++r) {
+            if (c < chunks[r]) acc[r] = fma_chunk<T>(a[r], b[r], acc[r]);
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < kDRows; ++r) {
+        // the single elements: the head, then the tail past the last whole chunk
+        const int body = head[r] + chunks[r] * V;
+        const int singles = head[r] + (d - body);
+        for (int j = sub; j < singles; j += lanes) {
+            const int col = j < head[r] ? j : body + (j - head[r]);
+            acc[r] = fmaf(to_f32(orow[r][col]), to_f32(grow[r][col]), acc[r]);
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < kDRows; ++r) {
+        for (int off = lanes / 2; off > 0; off >>= 1) acc[r] += __shfl_xor_sync(kFull, acc[r], off);
+        if (sub == 0 && first + r < rows) dd[first + r] = acc[r];
+    }
 }
 
 
@@ -838,10 +913,14 @@ cudaError_t launch_dkv(int device, const void* q, const void* k, const void* v, 
 
 template <typename T>
 cudaError_t launch_d(const void* o, const void* dout, float* dd, long long rows, int d, cudaStream_t stream) {
-    const long long blocks = (rows + kDWarps - 1) / kDWarps;
+    const int per_row = (int)((d * (long long)sizeof(T) + 15) / 16);  // 16-byte chunks a row
+    int lanes = 1;
+    while (lanes < per_row && lanes < 32) lanes *= 2;
+    const long long rows_a_block = (long long)(kDThreads / lanes) * kDRows;
+    const long long blocks = (rows + rows_a_block - 1) / rows_a_block;
     if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-    flash_attention_bwd_d_kernel<T><<<(unsigned)blocks, kDWarps * 32, 0, stream>>>(
-        static_cast<const T*>(o), static_cast<const T*>(dout), dd, rows, d);
+    flash_attention_bwd_d_kernel<T><<<(unsigned)blocks, kDThreads, 0, stream>>>(
+        static_cast<const T*>(o), static_cast<const T*>(dout), dd, rows, d, lanes);
     return cudaGetLastError();
 }
 

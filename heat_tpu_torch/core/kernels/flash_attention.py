@@ -58,6 +58,8 @@ __all__ = [
     "block_bwd",
     "block_d",
     "block_fwd",
+    "d_pass",
+    "d_pass_reference",
     "flash_attention",
     "flash_attention_bwd",
     "flash_attention_bwd_reference",
@@ -316,7 +318,7 @@ def flash_attention_bwd_reference(
     qf, kf, vf, of, gf = (t.float() for t in (q, k, v, o, do))
     scores = _scores(qf, kf, s, causal, bias)
     p = torch.exp(scores - lse.to(torch.float32).unsqueeze(-1))
-    dd = torch.sum(gf * of, dim=-1, keepdim=True)
+    dd = d_pass_reference(o, do).unsqueeze(-1)
     with full_fp32_matmul():
         ds = _rounded(p * (torch.matmul(gf, vf.transpose(-1, -2)) - dd), q.dtype)
         dq = torch.matmul(ds, kf) * s
@@ -513,6 +515,21 @@ def _k3(q, k, v, causal: bool, scale: float, bias, out_f32: bool = False) -> Tup
     with _count_lock:
         fwd_pipelined.launches += 1
     return out
+
+
+def d_pass_reference(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the D pass (heat_tpu's jnp pre-pass, flash_attention.py:592-596):
+    D = Σ_c f32(dO)·f32(O) over the last axis, f32."""
+    return torch.sum(do.float() * o.float(), dim=-1)
+
+
+def d_pass(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """The D pass of (bh, Tq, D) ``o`` and ``do`` of one dtype: D (bh, Tq) f32. A CUDA tensor
+    launches the kernel (``flash_attention_bwd_d_kernel``); a CPU tensor takes
+    :func:`d_pass_reference`."""
+    if o.device.type != "cuda":
+        return d_pass_reference(o, do)
+    return _d_pass(o.contiguous(), do.to(o.dtype).contiguous())
 
 
 def _d_pass(o, do) -> torch.Tensor:

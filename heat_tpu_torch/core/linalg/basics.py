@@ -12,13 +12,17 @@ Each rank holds its chunk, so the data movement heat_tpu leaves to XLA is writte
 collective matmul, the reduce-scatter contraction, or the general path below). The
 general path keeps what is local local: a row-split ``a`` multiplies its rows by the whole
 ``b``, a column-split ``b`` its columns by the whole ``a``, contraction-dim splits add
-their partial products in one all-reduce; any other layout gathers. The small dense
-operations (``det``, ``inv``, ``cross``, ``trace``, the triangles, the matrix norms) work
-on the gathered value and keep this rank's chunk of the result.
+their partial products in one all-reduce; any other layout gathers. ``vdot``, ``trace``, the
+triangles, the vector norms and the matrix norms 'fro', ±1 and ±inf of a split array work on
+each rank's chunk, with one all-reduce of a total where the split axis is summed. The dense
+factorisations (``det``, ``inv``), ``cross``, ``outer`` and the matrix norms 2, −2 and 'nuc'
+(the singular values of the whole matrix) work on the gathered value and keep this rank's
+chunk of the result.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Union
 
 import torch
@@ -178,17 +182,33 @@ def vecdot(x1: DNDarray, x2: DNDarray, axis: Optional[int] = None, keepdims: boo
 
 
 def vdot(x1: DNDarray, x2: DNDarray) -> DNDarray:
-    """Dot of the flattened operands, the first conjugated."""
+    """Dot of the flattened operands, the first conjugated. Split operands are brought to
+    one layout (the second reshaped to the first's shape, then relaid to its split: an
+    all-to-all, or this rank's chunk of an unsplit one), each rank takes the dot of its
+    chunks and one all-reduce sums them; integer and bool operands through ``_dot``."""
+    from ..manipulations import reshape
+
     ct = types.promote_types(x1.dtype, x2.dtype).torch_type()
-    a, b = x1._relayout(None).reshape(-1).to(ct), x2._relayout(None).reshape(-1).to(ct)
+    split = x1.split if x1.split is not None else x2.split
+    if split is None or x1.comm.size == 1:
+        a, b = x1._relayout(None).reshape(-1).to(ct), x2._relayout(None).reshape(-1).to(ct)
+        value = torch.vdot(a, b) if a.is_complex() or a.is_floating_point() else _dot(a, b)
+        return _operations.wrap_global(value, x1, None)
+    if x1.size != x2.size:
+        raise ValueError(f"vdot: operands of {x1.size} and {x2.size} elements")
+    shape = x1.gshape if x1.split is not None else x2.gshape
+    x1, x2 = (x if x.gshape == shape else reshape(x, shape, new_split=split if x.split is not None else None)
+              for x in (x1, x2))
+    a, b = x1._relayout(split).reshape(-1).to(ct), x2._relayout(split).reshape(-1).to(ct)
     value = torch.vdot(a, b) if a.is_complex() or a.is_floating_point() else _dot(a, b)
-    return _operations.wrap_global(value, x1, None)
+    return _operations.wrap_global(x1.comm.all_reduce(value, "sum"), x1, None)
 
 
 def outer(a: DNDarray, b: DNDarray, out: Optional[DNDarray] = None, split: Optional[int] = None) -> DNDarray:
     """Outer product of two vectors (operands of more dimensions are flattened first, as
     numpy's are); split 0 if ``a`` is split, else 1 if ``b`` is, unless ``split`` says
-    otherwise."""
+    otherwise. The other vector is gathered: every row or column of the result needs all of
+    it."""
     from ..manipulations import flatten
 
     sanitation.sanitize_in(a)
@@ -208,7 +228,8 @@ def outer(a: DNDarray, b: DNDarray, out: Optional[DNDarray] = None, split: Optio
 
 
 def cross(a: DNDarray, b: DNDarray, axisa: int = -1, axisb: int = -1, axisc: int = -1, axis: int = -1) -> DNDarray:
-    """Cross product of 3-vectors (2-vectors as numpy's), result split as ``a``."""
+    """Cross product of 3-vectors (2-vectors as numpy's), result split as ``a``; both
+    operands are gathered (whole by definition: their vectors run along any axis)."""
     ct = types.promote_types(a.dtype, b.dtype).torch_type()
     av, bv = a._relayout(None).to(ct), b._relayout(None).to(ct)
     if axis != -1:
@@ -249,9 +270,25 @@ def inv(a: DNDarray) -> DNDarray:
 
 
 def trace(a: DNDarray, offset: int = 0, axis1: int = 0, axis2: int = 1, dtype=None, out=None) -> Union[DNDarray, float]:
-    """Sum along a diagonal; a Python scalar for a 2-D input without ``out``."""
+    """Sum along a diagonal; a Python scalar for a 2-D input without ``out``. A split array
+    sums the piece of the diagonal in its chunk, then one all-reduce (split ``axis1`` or
+    ``axis2``) or one gather of the result's pieces (another split) gives it whole, exact
+    for integers and bools as the sum of the whole diagonal."""
+    from ..manipulations import diagonal
+
     sanitation.sanitize_in(a)
-    value = torch.diagonal(a._relayout(None), offset=offset, dim1=axis1, dim2=axis2).sum(-1)
+    axis1, axis2 = sanitize_axis(a.gshape, axis1), sanitize_axis(a.gshape, axis2)
+    if a.split is not None and a.is_distributed():
+        piece = diagonal(a, offset, axis1, axis2) if a.split not in (axis1, axis2) else None
+        if piece is None:
+            start, _, _ = a.comm.chunk(a.gshape, a.split)
+            local = offset + start if a.split == axis1 else offset - start
+            value = a.comm.all_reduce(torch.diagonal(a.larray, local, axis1, axis2).sum(-1), "sum")
+        else:  # the diagonals of another split axis: each rank sums its own, one gather of the sums
+            value = a.comm.all_gather_v(piece.larray.sum(-1).movedim(piece.split, 0).contiguous()).movedim(
+                0, piece.split)
+    else:
+        value = torch.diagonal(a._relayout(None), offset=offset, dim1=axis1, dim2=axis2).sum(-1)
     if dtype is not None:
         value = value.to(types.canonical_heat_type(dtype).torch_type())
     elif types.heat_type_is_exact(a.dtype) and a.dtype not in (types.uint8, types.bool):
@@ -261,7 +298,7 @@ def trace(a: DNDarray, offset: int = 0, axis1: int = 0, axis2: int = 1, dtype=No
         out.larray = res.larray.to(out.dtype.torch_type())
         return out
     if res.ndim == 0:
-        return res.item()
+        return res.larray.item()  # whole on every rank
     return res
 
 
@@ -280,14 +317,41 @@ def transpose(a: DNDarray, axes: Optional[Sequence[int]] = None) -> DNDarray:
 
 
 def _tri_op(a: DNDarray, k: int, op) -> DNDarray:
-    """The lower or upper triangle; a vector first becomes the square matrix of its rows.
-    Computed on the gathered value, because a chunk's triangle depends on its offset."""
+    """The lower or upper triangle of the last two axes; a vector first becomes the square
+    matrix of its rows (split 0 if the vector is split). Each rank takes the triangle of its
+    chunk with ``k`` moved by the chunk's first global row (split on the rows) or column
+    (split on the columns); a split vector's rank builds only its own rows, from the
+    elements that survive in them (:func:`..manipulations._vector_range`)."""
+    from ..manipulations import _vector_range
+
     sanitation.sanitize_in(a)
+    k = int(k)
     if a.ndim == 1:
         n = a.gshape[0]
-        value = op(a._relayout(None).expand(n, n), diagonal=k)
-        return _operations.wrap_global(value.contiguous(), a, 0 if a.split is not None else None)
-    return _operations.wrap_global(op(a._relayout(None), diagonal=k), a, a.split)
+        if a.split is None or not a.is_distributed():
+            value = op(a._relayout(None).expand(n, n), diagonal=k)
+            return _operations.wrap_global(value.contiguous(), a, 0 if a.split is not None else None)
+        counts, displs, _ = a.comm.counts_displs_shape((n, n), 0)
+
+        def cols_of(c, d):
+            # the columns rows [d, d + c) keep: j <= i + k (tril), j >= i + k (triu)
+            if c == 0:
+                return (0, 0)
+            lo, hi = (0, d + c + k) if op is torch.tril else (d + k, n)
+            lo, hi = min(max(lo, 0), n), min(max(hi, 0), n)
+            return (lo, max(lo, hi))
+
+        ranges = [cols_of(c, d) for c, d in zip(counts, displs)]
+        lo, hi = ranges[a.comm.rank]
+        row = torch.zeros(n, dtype=a.larray.dtype, device=a.larray.device)
+        row[lo:hi] = _vector_range(a, ranges)
+        start, count = displs[a.comm.rank], counts[a.comm.rank]
+        value = op(row.expand(count, n), diagonal=k + start).contiguous()
+        return DNDarray(value, (n, n), a.dtype, 0, a.device, a.comm, True)
+    start, _, _ = a.comm.chunk(a.gshape, a.split) if a.split is not None else (0, None, None)
+    rows, cols = a.ndim - 2, a.ndim - 1
+    shift = start if a.split == rows else (-start if a.split == cols else 0)
+    return DNDarray(op(a.larray, diagonal=k + shift), a.gshape, a.dtype, a.split, a.device, a.comm, True)
 
 
 def tril(m: DNDarray, k: int = 0) -> DNDarray:
@@ -326,29 +390,75 @@ def _vector_norm(x: DNDarray, axis, keepdims: bool, ord, rt: torch.dtype) -> DND
         gshape = tuple(s for d, s in enumerate(x.gshape) if d not in axes)
     if split is not None and split >= len(gshape):
         split = None
+    v = x.larray
+    across = x.is_distributed() and x.split in axes
     if ord in (None, 2):
-        v = x.larray
         # complex: jnp's real(x·conj(x)), the squares of both parts
         sq = v.real * v.real + v.imag * v.imag if v.is_complex() else v.to(rt) * v.to(rt)
         sq = torch.sum(sq, dim=axes, keepdim=keepdims) if x.ndim else sq
-        if x.is_distributed() and x.split in axes:
+        if across:
             x.comm.all_reduce(sq, "sum")
         return _wrap_local(torch.sqrt(sq), x, split, gshape)
-    whole = x._relayout(None)
-    value = torch.linalg.vector_norm(whole if whole.is_complex() else whole.to(rt), ord=ord, dim=axes, keepdim=keepdims)
-    return _operations.wrap_global(value, x, split)
+    if not across:  # the reduced axes are whole on this rank
+        value = torch.linalg.vector_norm(v if v.is_complex() else v.to(rt), ord=ord, dim=axes, keepdim=keepdims)
+        return _wrap_local(value, x, split, gshape)
+    from ..manipulations import _extreme
+
+    mag = v.abs().to(rt) if v.is_complex() else v.to(rt).abs()
+    ord = float(ord)
+    if math.isinf(ord):  # the largest or smallest |x|, NaN winning
+        value = _extreme(mag, axes, "max" if ord > 0 else "min", x.comm)
+    elif ord == 0:  # the count of nonzero elements
+        value = x.comm.all_reduce(torch.sum((mag != 0).to(rt), dim=axes, keepdim=True), "sum")
+    else:  # (Σ|x|^p)^(1/p), the sum all-reduced
+        value = x.comm.all_reduce(torch.sum(mag ** ord, dim=axes, keepdim=True), "sum") ** (1.0 / ord)
+    if not keepdims:
+        value = value.reshape([s for d, s in enumerate(value.shape) if d not in axes])
+    return _wrap_local(value, x, split, gshape)
 
 
 def matrix_norm(x: DNDarray, axis=None, keepdims: bool = False, ord=None) -> DNDarray:
-    """Matrix norm of the last two axes (Frobenius by default), whole on every rank."""
+    """Matrix norm of the last two axes (Frobenius by default), whole on every rank. As
+    heat_tpu's (jnp.linalg.matrix_norm), it takes the last two axes whatever ``axis`` says;
+    :func:`norm` takes the two axes it is given."""
     sanitation.sanitize_in(x)
-    if axis is None:
-        if x.ndim < 2:
-            raise ValueError("matrix_norm requires at least 2 dimensions")
-        axis = (x.ndim - 2, x.ndim - 1)
+    if x.ndim < 2:
+        raise ValueError("matrix_norm requires at least 2 dimensions")
+    return _matrix_norm(x, (x.ndim - 2, x.ndim - 1), keepdims, ord)
+
+
+def _matrix_norm(x: DNDarray, axis, keepdims: bool, ord) -> DNDarray:
+    """The matrix norm over the two axes ``axis``. For a split array 'fro', 1, −1, inf and
+    −inf take the sums of |x| along rows or columns locally, then a sum across ranks where
+    the summed axis is split, or a max / min across ranks where the other one is (a split
+    batch axis: one gather of the result's pieces); 2, −2 and 'nuc' need the singular values
+    of the whole matrix, so they gather it."""
     rt = _operations._inexact(x.dtype).torch_type()
-    value = torch.linalg.matrix_norm(x._relayout(None).to(rt), ord=ord if ord is not None else "fro", dim=tuple(axis), keepdim=keepdims)
-    return _operations.wrap_global(value, x, None)
+    ord = ord if ord is not None else "fro"
+    r, c = (sanitize_axis(x.gshape, ax) for ax in axis)
+    if x.split is None or not x.is_distributed() or ord not in ("fro", 1, -1, float("inf"), float("-inf")):
+        value = torch.linalg.matrix_norm(x._relayout(None).to(rt), ord=ord, dim=(r, c), keepdim=keepdims)
+        return _operations.wrap_global(value, x, None)
+    from ..manipulations import _extreme
+
+    mag = x.larray.to(rt).abs()
+    if ord == "fro":
+        value = torch.sum(mag * mag, dim=(r, c), keepdim=True)
+        if x.split in (r, c):
+            x.comm.all_reduce(value, "sum")
+        value = torch.sqrt(value)
+    else:
+        summed, other = (r, c) if ord in (1, -1) else (c, r)  # 1: the largest column sum, inf: row sum
+        kind = "max" if ord in (1, float("inf")) else "min"
+        sums = torch.sum(mag, dim=summed, keepdim=True)
+        if x.split == summed:
+            x.comm.all_reduce(sums, "sum")
+        value = _extreme(sums, other, kind, x.comm if x.split == other else None)
+    if x.split not in (r, c):  # a split batch axis: each rank holds its matrices' norms
+        value = x.comm.all_gather_v(value.movedim(x.split, 0).contiguous()).movedim(0, x.split)
+    if not keepdims:
+        value = value.squeeze(max(r, c)).squeeze(min(r, c))
+    return _operations.wrap_global(value.contiguous(), x, None)
 
 
 def norm(x: DNDarray, axis=None, keepdims: bool = False, ord=None) -> DNDarray:
@@ -362,7 +472,7 @@ def norm(x: DNDarray, axis=None, keepdims: bool = False, ord=None) -> DNDarray:
     if axis is None:
         axis = tuple(range(x.ndim))
     if isinstance(axis, tuple) and len(axis) == 2:
-        return matrix_norm(x, axis=axis, keepdims=keepdims, ord=ord)
+        return _matrix_norm(x, axis, keepdims, ord)
     if isinstance(axis, tuple):
         axis = axis[0]
     return _vector_norm(x, axis, keepdims, ord, rt)

@@ -33,7 +33,7 @@ def _into(out: DNDarray, value: torch.Tensor) -> DNDarray:
 def cg(A: DNDarray, b: DNDarray, x0: DNDarray, out: Optional[DNDarray] = None) -> DNDarray:
     """Conjugate gradients for the SPD system ``A x = b`` (heat_tpu solver.py:25): at most
     ``n`` iterations, until the residual's norm falls below 1e-10. The result is split as
-    ``b``."""
+    ``b``. A, b and x0 are gathered: a dense solve on the whole system."""
     if not isinstance(A, DNDarray) or not isinstance(b, DNDarray) or not isinstance(x0, DNDarray):
         raise TypeError(f"A, b, x0 need to be DNDarrays, but were {type(A)}, {type(b)}, {type(x0)}")
     if A.ndim != 2:
@@ -77,7 +77,7 @@ def lanczos(
     T)`` with ``V`` n × m orthonormal and ``T`` m × m tridiagonal, with full
     reorthogonalisation each step. ``v0`` defaults to ones; a vanishing β restarts from a
     normal vector drawn from ``generator`` (a CPU ``torch.Generator``; seeded 17 when
-    None)."""
+    None). A row-split matrix multiplies by its rows; another layout gathers the matrix."""
     if not isinstance(A, DNDarray):
         raise TypeError(f"A needs to be a DNDarray, got {type(A)}")
     if not isinstance(m, (int, float)):

@@ -28,7 +28,8 @@ def svd(A: DNDarray, full_matrices: bool = False, compute_uv: bool = True):
     """Reduced SVD ``A = U @ diag(S) @ Vh`` of a 2-D DNDarray (heat_tpu svd.py:40).
 
     Returns ``SVD(U, S, Vh)``, U split as A's rows (split 0) and S, Vh whole; with
-    ``compute_uv=False`` only S. ``full_matrices=True`` is not supported."""
+    ``compute_uv=False`` only S. ``full_matrices=True`` is not supported. A row-split A goes
+    through TSQR; another layout gathers A (a dense factorisation)."""
     if not isinstance(A, DNDarray):
         raise TypeError(f"'A' must be a DNDarray, got {type(A)}")
     if A.ndim != 2:

@@ -9,11 +9,11 @@ Here each rank holds its chunk, so each manipulation moves what it must:
    ``TorchCommunication.redistribute``, so lshape maps equal heat_tpu's.
 
 On ``reshape(new_split=...)``, ``concatenate``, ``resplit``, ``sort`` and ``topk`` along the
-split axis, ``unique`` and ``flip`` no rank gathers the array: each moves and holds O(n/P)
-(``unique`` and ``topk`` gather only their per-rank candidates). Where a function's result
-reorders the split axis in a way not yet ported (``roll`` and ``tile`` along it, ``pad``
-in another mode than constant, splitting along it, ``diag``), it gathers the array as
-heat_tpu's global program does; ROADMAP lists these as later work.
+split axis, ``unique``, ``flip``, ``roll``, ``tile``, ``pad`` and ``diag`` no rank gathers
+the array: each moves and holds O(n/P) (``unique`` and ``topk`` gather only their per-rank
+candidates, ``diagonal`` of the split axis the diagonal, ``pad``'s computed modes a plane of
+totals or the two edge planes). Splitting along the split axis gathers the array: heat_tpu's
+parts are unsplit, so together they are the array.
 """
 
 from __future__ import annotations
@@ -359,7 +359,8 @@ def _sections(n: int, indices_or_sections) -> List[int]:
 
 def split(x: DNDarray, indices_or_sections, axis: int = 0) -> List[DNDarray]:
     """Split into sub-arrays along ``axis``; along another axis than the split each rank
-    cuts its chunk, along the split axis the parts are unsplit (heat_tpu's rule)."""
+    cuts its chunk, along the split axis the parts are unsplit (heat_tpu's rule), so the
+    array is gathered: together the parts are the whole array on every rank."""
     sanitation.sanitize_in(x)
     axis = sanitize_axis(x.gshape, axis)
     if isinstance(indices_or_sections, DNDarray):
@@ -422,23 +423,58 @@ def flipud(a: DNDarray) -> DNDarray:
     return flip(a, 0)
 
 
+def _rolled(comm, local: torch.Tensor, axis: int, counts: Sequence[int], dst: Sequence[Tuple[int, int]],
+            shift: int) -> torch.Tensor:
+    """Result positions ``dst[rank]`` = [lo, hi) of an axis of extent N = sum(counts) rolled
+    by ``shift``, whose rank ``r`` holds ``counts[r]`` consecutive slices: position i takes
+    source (i − shift) mod N. With s = shift mod N the sources cover [s, s + N) of a doubled
+    axis, so [max(lo, s), hi) comes from one ``redistribute`` and [lo, min(hi, s)) from a
+    second one over [lo + N, min(hi, s) + N): each rank receives its range, nothing more."""
+    n = int(builtins.sum(counts))
+    s = int(shift) % n if n else 0
+    gshape = list(local.shape)
+    gshape[axis] = n
+    src = [d + s for d in np.cumsum([0] + list(counts[:-1])).tolist()]
+    tail = [builtins.max(0, hi - builtins.max(lo, s)) for lo, hi in dst]
+    head = [builtins.max(0, builtins.min(hi, s) - lo) for lo, hi in dst]
+    late = comm.redistribute(local, gshape, axis, counts, tail, src_displs=src,
+                             dst_displs=[builtins.max(lo, s) for lo, _ in dst])
+    early = comm.redistribute(local, gshape, axis, counts, head, src_displs=src, dst_displs=[lo + n for lo, _ in dst])
+    return torch.cat([early, late], dim=axis)
+
+
 def roll(x: DNDarray, shift, axis=None) -> DNDarray:
-    """Roll elements along ``axis``: local when the split axis does not move; along the
-    split axis (or flat) the array is gathered (later work)."""
+    """Roll elements along ``axis`` (None: the flattened array), as numpy's roll. The
+    other axes roll locally. Along the split axis this rank's chunk of the result is at
+    most two ranges of the source, which two ``redistribute`` calls bring (:func:`_rolled`);
+    the flattened order of a split-0 array is rank-major, so a flat roll is the same on the
+    flat chunks, and another split is relaid to split 0 (an all-to-all) and back."""
     sanitation.sanitize_in(x)
-    if axis is not None:
-        axis = (tuple(sanitize_axis(x.gshape, ax) for ax in axis) if isinstance(axis, (tuple, list))
-                else sanitize_axis(x.gshape, axis))
-    axes = axis if isinstance(axis, tuple) else (axis,)
-    if axis is not None and (x.split is None or x.split not in axes):
-        shifts = tuple(shift) if isinstance(shift, (tuple, list)) else shift
-        return _wrap(torch.roll(x.larray, shifts, axis), x.gshape, x, x.split)
-    full = x._relayout(None)
+    comm = x.comm
     if axis is None:
-        value = torch.roll(full.reshape(-1), shift if isinstance(shift, int) else int(np.sum(shift))).reshape(full.shape)
-    else:
-        value = torch.roll(full, tuple(shift) if isinstance(shift, (tuple, list)) else shift, axis)
-    return _operations.wrap_global(value, x, x.split)
+        total = int(np.sum(shift))
+        if x.split is None or not x.is_distributed():
+            whole = x.larray if x.split is None else x._relayout(None)
+            value = torch.roll(whole.reshape(-1), total).reshape(whole.shape)
+            return _operations.wrap_global(value, x, x.split)
+        local = x.larray if x.split == 0 else x._relayout(0)
+        inner = int(np.prod(x.gshape[1:]))
+        counts, displs, _ = comm.counts_displs_shape(x.gshape, 0)
+        dst = [(d * inner, (d + c) * inner) for c, d in zip(counts, displs)]
+        flat = _rolled(comm, local.reshape(-1), 0, [c * inner for c in counts], dst, total)
+        rolled = DNDarray(flat.reshape(local.shape), x.gshape, x.dtype, 0, x.device, comm, True)
+        return rolled if x.split == 0 else _wrap(rolled._relayout(x.split), x.gshape, x, x.split)
+    axes = [sanitize_axis(x.gshape, ax) for ax in (axis if isinstance(axis, (tuple, list)) else (axis,))]
+    shifts, axes = np.broadcast_arrays(np.atleast_1d(np.asarray(shift)), np.asarray(axes))  # numpy's pairing
+    local_pairs = [(int(sh), int(ax)) for sh, ax in zip(shifts, axes) if ax != x.split or not x.is_distributed()]
+    value = x.larray
+    if local_pairs:
+        value = torch.roll(value, [p[0] for p in local_pairs], [p[1] for p in local_pairs])
+    along = [int(sh) for sh, ax in zip(shifts, axes) if ax == x.split and x.is_distributed()]
+    if along:
+        counts, displs, _ = comm.counts_displs_shape(x.gshape, x.split)
+        value = _rolled(comm, value, x.split, counts, [(d, d + c) for c, d in zip(counts, displs)], builtins.sum(along))
+    return _wrap(value, x.gshape, x, x.split)
 
 
 def rot90(m: DNDarray, k: int = 1, axes: Sequence[int] = (0, 1)) -> DNDarray:
@@ -500,12 +536,60 @@ def _median(v: torch.Tensor, axis: int) -> torch.Tensor:
     return torch.where(torch.isnan(v).any(axis, keepdim=True), float("nan"), mid)
 
 
-def _pad_fill(v: torch.Tensor, axis: int, b: int, e: int, mode: str):
+def _extreme(v: torch.Tensor, axis, kind: str, comm=None) -> torch.Tensor:
+    """torch.amax / amin along ``axis`` (an int or a tuple, kept), a NaN winning as in jnp;
+    with ``comm``, of the chunks every rank holds along ``axis`` (one all-reduce; an empty
+    chunk gives the operation's identity, and a NaN anywhere is carried by a second, one
+    flag a value)."""
+    op = torch.amax if kind == "max" else torch.amin
+    if comm is None:
+        return op(v, axis, keepdim=True)
+    axes = axis if isinstance(axis, tuple) else (axis,)
+    shape = [1 if d in axes else n for d, n in enumerate(v.shape)]
+    if v.numel():
+        stat = op(v, axis, keepdim=True)
+    elif v.dtype.is_floating_point:
+        stat = torch.full(shape, float("-inf") if kind == "max" else float("inf"), dtype=v.dtype, device=v.device)
+    elif v.dtype == torch.bool:
+        stat = torch.full(shape, kind == "min", dtype=v.dtype, device=v.device)
+    else:
+        info = torch.iinfo(v.dtype)
+        stat = torch.full(shape, info.min if kind == "max" else info.max, dtype=v.dtype, device=v.device)
+    comm.all_reduce(stat, kind)
+    if v.dtype.is_floating_point:
+        nan = torch.isnan(v).any(axis, keepdim=True) if v.numel() else torch.zeros(shape, dtype=torch.bool,
+                                                                                   device=v.device)
+        comm.all_reduce(nan, "max")
+        stat = torch.where(nan, torch.full_like(stat, float("nan")), stat)
+    return stat
+
+
+def _split_median(v: torch.Tensor, axis: int, n: int, comm) -> torch.Tensor:
+    """:func:`_median` of the chunks the ranks hold along ``axis`` (extent ``n``): the
+    distributed sort keeps each rank's chunk, the two middle planes come from their owners
+    (``take``, bit for bit), and a NaN anywhere is one flag a plane, all-reduced."""
+    from . import dist_sort
+
+    sv, _ = dist_sort.distributed_sort(comm, v, n, axis)
+    counts = comm.counts_displs_shape([n if d == axis else s for d, s in enumerate(v.shape)], axis)[0]
+    mid = comm.take(sv, axis, counts, torch.tensor([(n - 1) // 2, n // 2]), replicate=True)
+    nan = torch.isnan(v).any(axis, keepdim=True) if v.shape[axis] else torch.zeros(
+        mid.narrow(axis, 0, 1).shape, dtype=torch.bool, device=v.device)
+    comm.all_reduce(nan, "max")
+    return torch.where(nan, float("nan"), (mid.narrow(axis, 0, 1) + mid.narrow(axis, 1, 1)) * 0.5)
+
+
+def _pad_fill(v: torch.Tensor, axis: int, b: int, e: int, mode: str, across=None):
     """The ``b`` leading and ``e`` trailing slices of ``v`` padded along ``axis`` in one of
     numpy's computed modes, as jnp.pad computes them (``_pad_stats``, ``_pad_linear_ramp``,
     ``_pad_empty``) with its defaults (every element counted, end values 0). A float mean
-    is summed in float64 and rounded once, so the sum's order cannot change its bits."""
-    n = v.shape[axis]
+    is summed in float64 and rounded once, so the sum's order cannot change its bits.
+    ``across`` = (comm, counts): ``v`` is this rank's chunk along ``axis`` of an array whose
+    ranks hold ``counts`` slices there; each statistic is then taken across the ranks (the
+    sums and counts all-reduced, the extremes all-reduced, the median on the distributed
+    sort, the ramp's two edge planes fetched from their owners), never by a gather."""
+    comm, counts = across if across is not None else (None, None)
+    n = v.shape[axis] if comm is None else int(builtins.sum(counts))
     integer = not (v.dtype.is_floating_point or v.dtype.is_complex or v.dtype == torch.bool)
 
     def slab(fill: torch.Tensor, count: int) -> torch.Tensor:
@@ -521,6 +605,11 @@ def _pad_fill(v: torch.Tensor, axis: int, b: int, e: int, mode: str):
         raise ValueError(f"can't extend an empty axis with mode {mode!r}")
     if mode == "linear_ramp":
         ct = _operations._inexact(types.canonical_heat_type(v.dtype)).torch_type()
+        if comm is None:
+            first, last = v.narrow(axis, 0, 1), v.narrow(axis, n - 1, 1)
+        else:
+            edges = comm.take(v, axis, counts, torch.tensor([0, n - 1]), replicate=True)
+            first, last = edges.narrow(axis, 0, 1), edges.narrow(axis, 1, 1)
 
         def ramp(edge: torch.Tensor, num: int) -> torch.Tensor:
             # jnp.linspace(0, edge, num, endpoint=False): 0·(1 − t) + edge·t, t = i / num
@@ -530,16 +619,20 @@ def _pad_fill(v: torch.Tensor, axis: int, b: int, e: int, mode: str):
             out = 0 * (1 - t) + edge.to(ct) * t
             return (torch.floor(out) if integer else out).to(v.dtype)
 
-        return ramp(v.narrow(axis, 0, 1), b), torch.flip(ramp(v.narrow(axis, n - 1, 1), e), [axis])
+        return ramp(first, b), torch.flip(ramp(last, e), [axis])
     if mode in ("maximum", "minimum"):
-        stat = (torch.amax if mode == "maximum" else torch.amin)(v, axis, keepdim=True)
+        stat = _extreme(v, axis, "max" if mode == "maximum" else "min", comm)
     else:
         ct = _operations._inexact(types.canonical_heat_type(v.dtype)).torch_type()
         if mode == "mean":
             acc = torch.float64 if ct in (torch.float16, torch.bfloat16, torch.float32) else ct
-            stat = torch.mean(v.to(acc), axis, keepdim=True).to(ct)
+            if comm is None:
+                stat = torch.mean(v.to(acc), axis, keepdim=True).to(ct)
+            else:
+                total = comm.all_reduce(torch.sum(v.to(acc), axis, keepdim=True), "sum")
+                stat = (total / n).to(ct)
         else:
-            stat = _median(v.to(ct), axis)
+            stat = _median(v.to(ct), axis) if comm is None else _split_median(v.to(ct), axis, n, comm)
         if integer:
             stat = torch.round(stat)
         stat = stat.to(v.dtype)
@@ -549,34 +642,52 @@ def _pad_fill(v: torch.Tensor, axis: int, b: int, e: int, mode: str):
 def pad(array: DNDarray, pad_width, mode: str = "constant", constant_values=0) -> DNDarray:
     """Pad an array (numpy's widths). Constant padding is local, the first rank taking
     the leading pad of the split axis and the last the trailing one, then rebalanced.
-    The modes that copy elements (edge, wrap, reflect, symmetric) gather the array and
-    index it on its device (later work: a halo); the computed modes (mean, median,
-    maximum, minimum, linear_ramp, empty) gather it and compute each axis's pad from the
-    array padded so far, by torch ops on its device, as jnp.pad does."""
+    The modes that copy elements (edge, wrap, reflect, symmetric) index each other axis
+    locally; along the split axis this rank's chunk of the result is the source rows
+    ``_pad_index`` gives for its range, fetched from their owners (``take``: also for pads
+    wider than a chunk or than the axis, and with an empty rank). The computed modes
+    (mean, median, maximum, minimum, linear_ramp, empty) pad axis by axis, each from the
+    array padded so far, as jnp.pad does, by torch ops on its device; along the split axis
+    each statistic is taken across the ranks (:func:`_pad_fill`) and the padded chunks are
+    rebalanced."""
     sanitation.sanitize_in(array)
     widths = _pad_widths(pad_width, array.ndim)
-    if mode in ("edge", "wrap", "reflect", "symmetric"):
-        value = array._relayout(None)
+    comm = array.comm
+    distributed = array.split is not None and array.is_distributed()
+    if mode in ("edge", "wrap", "reflect", "symmetric", "mean", "median", "maximum", "minimum", "linear_ramp",
+                "empty"):
+        value, gshape = array.larray, list(array.gshape)
         for axis, (b, e) in enumerate(widths):
-            value = value.index_select(axis, _pad_index(value.shape[axis], b, e, mode, value.device))
-        return _operations.wrap_global(value, array, array.split)
-    if mode in ("mean", "median", "maximum", "minimum", "linear_ramp", "empty"):
-        value = array._relayout(None)
-        for axis, (b, e) in enumerate(widths):
-            before, after = _pad_fill(value, axis, b, e, mode)
-            value = torch.cat([before, value, after], dim=axis)
-        return _operations.wrap_global(value, array, array.split)
+            if not (distributed and axis == array.split):
+                if mode in ("edge", "wrap", "reflect", "symmetric"):
+                    value = value.index_select(axis, _pad_index(value.shape[axis], b, e, mode, value.device))
+                else:
+                    before, after = _pad_fill(value, axis, b, e, mode)
+                    value = torch.cat([before, value, after], dim=axis)
+                gshape[axis] += b + e
+                continue
+            counts = comm.counts_displs_shape(gshape, axis)[0]
+            if mode in ("edge", "wrap", "reflect", "symmetric"):
+                value = comm.take(value, axis, counts, _pad_index(gshape[axis], b, e, mode, value.device))
+            else:
+                before, after = _pad_fill(value, axis, b, e, mode, across=(comm, counts))
+                parts = [before] if comm.rank == 0 else []
+                parts += [value] + ([after] if comm.rank == comm.size - 1 else [])
+                value = _operations.rebalance(torch.cat(parts, dim=axis), axis, array).larray
+            gshape[axis] += b + e
+        if not distributed:
+            return _operations.wrap_global(value, array, array.split)
+        return _wrap(value, gshape, array, array.split)
     if mode != "constant":
         raise ValueError(f"mode {mode!r} is not supported")
-    comm = array.comm
     local_widths = list(widths)
-    if array.split is not None and array.is_distributed():
+    if distributed:
         b, e = widths[array.split]
         local_widths[array.split] = (b if comm.rank == 0 else 0, e if comm.rank == comm.size - 1 else 0)
     lshape = [s + b + e for s, (b, e) in zip(array.larray.shape, local_widths)]
     value = torch.full(lshape, constant_values, dtype=array.larray.dtype, device=array.larray.device)
     value[tuple(slice(b, b + s) for s, (b, _) in zip(array.larray.shape, local_widths))] = array.larray
-    if array.split is None or not array.is_distributed():
+    if not distributed:
         return _wrap(value, value.shape if array.split is None else
                      [s + b + e for s, (b, e) in zip(array.gshape, widths)], array, array.split)
     return _operations.rebalance(value, array.split, array)
@@ -610,42 +721,87 @@ def repeat(a: DNDarray, repeats, axis: Optional[int] = None) -> DNDarray:
 
 
 def tile(x: DNDarray, reps: Sequence[int]) -> DNDarray:
-    """Repeat the whole array ``reps`` times along each axis. Local unless the split axis
-    repeats, which gathers (later work)."""
+    """Repeat the whole array ``reps`` times along each axis. The other axes repeat
+    locally; along the split axis this rank's chunk of the result is the source rows
+    i mod n of its range, fetched from their owners (``TorchCommunication.take``)."""
     sanitation.sanitize_in(x)
     reps = (reps,) if isinstance(reps, int) else tuple(int(r) for r in reps)
     nd = builtins.max(x.ndim, len(reps))
     full_reps = (1,) * (nd - len(reps)) + reps
     split = None if x.split is None else x.split + (nd - x.ndim)
     gshape = tuple(s * r for s, r in zip((1,) * (nd - x.ndim) + x.gshape, full_reps))
-    if split is None or full_reps[split] == 1:
+    if split is None or full_reps[split] == 1 or not x.is_distributed():
         return _wrap(torch.tile(x.larray, reps), gshape, x, split)
-    return _operations.wrap_global(torch.tile(x._relayout(None), reps), x, split)
+    value = torch.tile(x.larray, full_reps[:split] + (1,) + full_reps[split + 1:])
+    n = x.gshape[x.split]
+    counts = x.comm.counts_displs_shape(x.gshape, x.split)[0]
+    rows = torch.arange(gshape[split], device=value.device) % builtins.max(n, 1)
+    return _wrap(x.comm.take(value, split, counts, rows), gshape, x, split)
 
 
 def diagonal(a: DNDarray, offset: int = 0, dim1: int = 0, dim2: int = 1) -> DNDarray:
     """The diagonals of the planes ``(dim1, dim2)``, appended as the last axis; local when
-    the split is another axis."""
+    the split is another axis. When the split is ``dim1`` or ``dim2`` each rank takes the
+    piece of the diagonal that lies in its chunk (the offset moved by the chunk's first row
+    or column), and one ``all_gather_v`` of the pieces, in rank order, gives the unsplit
+    result (heat_tpu's rule)."""
     sanitation.sanitize_in(a)
     if a.ndim < 2:
         raise ValueError("diagonal requires at least 2 dimensions")
     dim1, dim2 = sanitize_axis(a.gshape, dim1), sanitize_axis(a.gshape, dim2)
     if dim1 == dim2:
         raise ValueError("dim1 and dim2 must be different")
-    if a.split is None or a.split in (dim1, dim2):
+    if a.split is None or (a.split in (dim1, dim2) and not a.is_distributed()):
         return _operations.wrap_global(torch.diagonal(a._relayout(None), offset, dim1, dim2).contiguous(), a, None)
+    if a.split in (dim1, dim2):
+        start, _, _ = a.comm.chunk(a.gshape, a.split)
+        piece = torch.diagonal(a.larray, offset + start if a.split == dim1 else offset - start, dim1, dim2)
+        value = a.comm.all_gather_v(piece.movedim(-1, 0).contiguous()).movedim(0, -1).contiguous()
+        return _operations.wrap_global(value, a, None)
     split = a.split - builtins.sum(1 for d in (dim1, dim2) if d < a.split)
     value = torch.diagonal(a.larray, offset, dim1, dim2).contiguous()
     probe = torch.diagonal(torch.empty(a.gshape, device="meta"), offset, dim1, dim2)
     return _wrap(value, probe.shape, a, split)
 
 
+def _vector_range(v: DNDarray, ranges: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """Elements [lo, hi) = ``ranges[rank]`` of the split vector ``v`` on this rank, where
+    every rank asks for its own range (``ranges``, the same on every rank; empty ranges
+    allowed): one
+    ``redistribute`` whose destination ranges may overlap, so each rank receives its range
+    and nothing more."""
+    counts = v.comm.counts_displs_shape(v.gshape, 0)[0]
+    dst = [builtins.max(0, h - l) for l, h in ranges]
+    return v.comm.redistribute(v.larray, v.gshape, 0, counts, dst, dst_displs=[l for l, _ in ranges])
+
+
 def diag(a: DNDarray, offset: int = 0) -> DNDarray:
-    """A vector's diagonal matrix (split as the vector's), or a matrix's diagonal."""
+    """A vector's diagonal matrix (split as the vector's), or a matrix's diagonal. For a
+    split vector each rank builds only its own rows of the (n + |k|)² result, from the
+    elements those rows hold (:func:`_vector_range`)."""
     sanitation.sanitize_in(a)
-    if a.ndim == 1:
+    if a.ndim != 1:
+        return diagonal(a, offset=offset)
+    if a.split is None or not a.is_distributed():
         return _operations.wrap_global(torch.diag(a._relayout(None), offset), a, a.split)
-    return diagonal(a, offset=offset)
+    n, k = a.gshape[0], int(offset)
+    m = n + builtins.abs(k)
+    counts, displs, _ = a.comm.counts_displs_shape((m, m), 0)
+    # row j holds v[j] (k >= 0) or v[j + k] (k < 0), for the j where that element exists
+    shift = builtins.min(k, 0)
+
+    def rows_of(c, d):
+        lo, hi = builtins.max(d + shift, 0), builtins.min(d + c + shift, n)
+        return (lo, builtins.max(lo, hi))
+
+    ranges = [rows_of(c, d) for c, d in zip(counts, displs)]
+    lo, hi = ranges[a.comm.rank]
+    vals = _vector_range(a, ranges)
+    start, count = displs[a.comm.rank], counts[a.comm.rank]
+    value = torch.zeros((count, m), dtype=a.larray.dtype, device=a.larray.device)
+    i = torch.arange(lo, hi, device=value.device)  # element i sits at row i − shift, column i + max(k, 0)
+    value[i - shift - start, i + builtins.max(k, 0)] = vals
+    return _wrap(value, (m, m), a, 0)
 
 
 # --------------------------------------------------------------------------- sorting
@@ -802,7 +958,7 @@ def unique(a: DNDarray, sorted: bool = False, return_inverse: bool = False, axis
     the device by one variable-length all-gather of the partials (heat_tpu merges them on
     the host); the result is unsplit, and the inverse keeps the input's split. NaNs count
     as one value, as jnp.unique's do. ``axis`` uniques are computed on the gathered
-    array."""
+    array: a sort of whole rows whose order the data decides."""
     sanitation.sanitize_in(a)
     if axis is not None:
         axis = sanitize_axis(a.gshape, axis)

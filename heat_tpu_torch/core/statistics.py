@@ -368,34 +368,64 @@ def histc(input: DNDarray, bins: int = 100, min: float = 0.0, max: float = 0.0, 
     return _operations.handle_out(hist.astype(input.dtype), out)
 
 
+def _variables(v, rowvar: bool, proto: DNDarray) -> DNDarray:
+    """``m`` or ``y`` of :func:`cov` as a (variables, observations) DNDarray: a vector is one
+    variable, ``rowvar`` False transposes (both local: the split moves with its axis); an
+    array-like is unsplit on ``proto``'s device."""
+    from . import manipulations
+    from .linalg import transpose
+
+    if not isinstance(v, DNDarray):
+        t = torch.as_tensor(np.asarray(v), device=proto.larray.device)
+        v = DNDarray(t, tuple(t.shape), types.canonical_heat_type(t.dtype), None, proto.device, proto.comm, True)
+    if v.ndim > 2:
+        raise ValueError(f"{'m' if v is proto else 'y'} has more than 2 dimensions")
+    if v.ndim == 1:
+        return manipulations.expand_dims(v, 0)
+    return v if rowvar or v.gshape[0] == 1 else transpose(v)
+
+
 def cov(m: DNDarray, y: Optional[DNDarray] = None, rowvar: bool = True, bias: bool = False, ddof: Optional[int] = None) -> DNDarray:
-    """The covariance matrix of the variables (rows, or columns with ``rowvar`` False),
-    computed on the gathered observations in full fp32 products (later work: a
-    distributed product over the observations)."""
+    """The covariance matrix of the variables (rows, or columns with ``rowvar`` False), in
+    full fp32 products; unsplit, as heat_tpu's. ``y`` joins the variables by
+    ``concatenate`` (which keeps the split). Observations split: the means by one
+    all-reduce of the sums, then each rank's X_c·X_cᴴ and one all-reduce of the (vars ×
+    vars) sums. Variables split: each rank computes its block rows X_c,r·X_cᴴ against every
+    rank's centred block, passed around the ring (``ring_shift``), then one ``all_gather_v``
+    of the block rows; no rank ever holds the observations of another's variables beside its
+    own block and the one in flight."""
+    from . import manipulations
     from .devices import full_fp32_matmul
 
     sanitation.sanitize_in(m)
-    if m.ndim > 2:
-        raise ValueError("m has more than 2 dimensions")
-    x = m._relayout(None)
-    x = x.reshape(1, -1) if x.ndim == 1 else x
-    if not rowvar and x.shape[0] != 1:
-        x = x.T
+    x = _variables(m, rowvar, m)
     if y is not None:
-        yv = y._relayout(None) if isinstance(y, DNDarray) else torch.as_tensor(np.asarray(y))
-        if yv.ndim > 2:
-            raise ValueError("y has more than 2 dimensions")
-        yv = yv.reshape(1, -1) if yv.ndim == 1 else yv
-        if not rowvar and yv.shape[0] != 1:
-            yv = yv.T
-        x = torch.cat([x, yv.to(x.device)], 0)
+        x = manipulations.concatenate([x, _variables(y, rowvar, m)], axis=0)
     if ddof is None:
         ddof = 0 if bias else 1
-    if not (x.is_floating_point() or x.is_complex()):
-        x = x.to(_operations._inexact(types.canonical_heat_type(x.dtype)).torch_type())
-    xm = x - x.mean(1, keepdim=True)
-    with full_fp32_matmul():
-        res = (xm @ xm.conj().T) / builtins_max(x.shape[1] - ddof, 0)
+    local = x.larray
+    if not (local.is_floating_point() or local.is_complex()):
+        local = local.to(_operations._inexact(x.dtype).torch_type())
+    n_obs = x.gshape[1]
+    if x.split is None or not x.is_distributed():
+        xv = x._relayout(None) if x.split is not None else local
+        xv = xv.to(local.dtype)
+        xm = xv - xv.mean(1, keepdim=True)
+        with full_fp32_matmul():
+            res = (xm @ xm.conj().T) / builtins_max(n_obs - ddof, 0)
+    elif x.split == 1:  # the observations are split
+        mean = x.comm.all_reduce(local.sum(1, keepdim=True), "sum") / n_obs
+        xm = local - mean
+        with full_fp32_matmul():
+            res = x.comm.all_reduce(xm @ xm.conj().T, "sum") / builtins_max(n_obs - ddof, 0)
+    else:  # the variables are split: block rows by the ring
+        xm = local - local.mean(1, keepdim=True)
+        counts, displs, _ = x.comm.counts_displs_shape(x.gshape, 0)
+        block = torch.empty((xm.shape[0], x.gshape[0]), dtype=xm.dtype, device=xm.device)
+        with full_fp32_matmul():
+            for src, other in x.comm.ring_blocks(xm, lambda r: (counts[r], n_obs)):
+                block[:, displs[src]: displs[src] + counts[src]] = xm @ other.conj().T
+        res = x.comm.all_gather_v(block, counts) / builtins_max(n_obs - ddof, 0)
     if res.shape == (1, 1):
         res = res.reshape(())
     return DNDarray(res, tuple(res.shape), types.canonical_heat_type(res.dtype), None, m.device, m.comm, True)

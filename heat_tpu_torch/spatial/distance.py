@@ -76,7 +76,8 @@ def _dist(X: DNDarray, Y: Optional[DNDarray], metric: str) -> DNDarray:
 
 def cdist(X: DNDarray, Y: Optional[DNDarray] = None, quadratic_expansion: bool = False) -> DNDarray:
     """Euclidean distance matrix between the rows of X and Y (Y defaults to X). The
-    quadratic expansion is always used, as in heat_tpu."""
+    quadratic expansion is always used, as in heat_tpu. Both row-split: the ring; else the
+    operand whose rows are not the result's split is gathered whole."""
     return _dist(X, Y, "euclidean")
 
 

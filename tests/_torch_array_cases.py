@@ -77,6 +77,9 @@ INPUTS["mm_i8"] = _rng.integers(60, 128, (7, 300)).astype(np.int8)
 INPUTS["mm_i8t"] = _rng.integers(60, 128, (300, 5)).astype(np.int8)
 INPUTS["mm_i32"] = _rng.integers(2**19, 2**21, (7, 11)).astype(np.int32)
 INPUTS["mm_i32t"] = _rng.integers(2**19, 2**21, (11, 5)).astype(np.int32)
+# the split-axis forms: an integer cube (exact traces) and an integer vector (exact triangles)
+INPUTS["icube"] = _rng.integers(-9, 9, (4, 7, 3)).astype(np.int64)
+INPUTS["ivec"] = _rng.integers(-50, 50, 8).astype(np.int32)
 
 
 
@@ -93,6 +96,11 @@ def _drawn(m, seed, draw):
 def _kmeans(m, x):
     km = m.cluster.KMeans(n_clusters=3, init="random", random_state=4, max_iter=6, tol=-1.0).fit(x)
     return km.cluster_centers_, km.labels_
+
+
+def _f64(m, arr, s):
+    """"a" in float64 (sums in another order stay within RTOL of each entry)."""
+    return arr("a", s).astype(m.float64)
 
 
 class Arrays:
@@ -294,6 +302,71 @@ CASES = {
                                          for mode in ("mean", "median", "maximum", "minimum", "linear_ramp", "empty")),
     "pad_stats_int": lambda m, arr, s: tuple(m.pad(arr("ints", s), ((2, 1), (0, 2)), mode=mode)
                                              for mode in ("mean", "median", "maximum", "linear_ramp")),
+    # the split-axis forms: shifts longer than a chunk and negative, flat rolls of every split
+    "roll_long": lambda m, arr, s: (m.roll(arr("a", s), 5, 0), m.roll(arr("a", s), -8, 0), m.roll(arr("a", s), 17)),
+    "roll_flat": lambda m, arr, s: (m.roll(arr("a", s), -11), m.roll(arr("cube", s), 40), m.roll(arr("small", s), 4)),
+    "roll_axes": lambda m, arr, s: (m.roll(arr("cube", s), (3, -9, 1), (0, 1, 2)), m.roll(arr("a", s), (2, 3), (0, 0)),
+                                    m.roll(arr("a", s), 4, (0, 1)), m.roll(arr("small", s), -3, 0)),
+    # pads wider than a chunk and than the axis in each copy mode; computed modes with an empty rank
+    "pad_copies_a": lambda m, arr, s: tuple(m.pad(arr("a", s), ((4, 9), (2, 6)), mode=mode)
+                                            for mode in ("edge", "reflect", "symmetric", "wrap")),
+    "pad_copies_cube": lambda m, arr, s: tuple(m.pad(arr("icube", s), ((0, 5), (8, 1), (2, 2)), mode=mode)
+                                               for mode in ("edge", "reflect", "symmetric", "wrap")),
+    "pad_stats_small": lambda m, arr, s: tuple(m.pad(arr("small", s), ((2, 3), (1, 2)), mode=mode)
+                                               for mode in ("mean", "median", "maximum", "minimum", "linear_ramp",
+                                                            "empty")),
+    "pad_stats_cube": lambda m, arr, s: tuple(m.pad(arr("icube", s), ((1, 1), (2, 0), (0, 3)), mode=mode)
+                                              for mode in ("mean", "median", "maximum", "minimum", "linear_ramp")),
+    # tile on ragged chunks (7 rows: 3, 3, 1), more reps than ranks, a new leading axis
+    "tile_ragged": lambda m, arr, s: (m.tile(arr("a", s), (3, 2)), m.tile(arr("cube", s), (2, 1, 3)),
+                                      m.tile(arr("small", s), (4, 1)), m.tile(arr("a", s), (2, 1, 1))),
+    # diagonals, traces and triangles with offsets across the chunk boundaries
+    "diag_offsets": lambda m, arr, s: (m.diag(arr("ivec", s), 2), m.diag(arr("ivec", s), -3), m.diag(arr("vec", s), 9)),
+    "diagonal_offsets": lambda m, arr, s: (m.diagonal(arr("a", s), 2), m.diagonal(arr("a", s), -4),
+                                           m.diagonal(arr("icube", s), 1, 0, 1), m.diagonal(arr("icube", s), -2, 2, 1),
+                                           m.diag(arr("ints", s), -5)),
+    "trace_offsets": lambda m, arr, s: (m.array([m.trace(arr("ints", s), k) for k in (0, 2, -4, 9)], **arr.kw),
+                                        m.trace(arr("icube", s), 1, 1, 2), m.trace(arr("icube", s), -1, 0, 1),
+                                        m.array(m.trace(arr("bools", s), -2), **arr.kw)),
+    "tri_offsets": lambda m, arr, s: (m.tril(arr("a", s), 2), m.tril(arr("a", s), -3), m.triu(arr("a", s), 4),
+                                      m.triu(arr("a", s), -1), m.tril(arr("icube", s), 1), m.triu(arr("icube", s), -2)),
+    "tri_vec": lambda m, arr, s: (m.tril(arr("ivec", s), 1), m.triu(arr("ivec", s), -2), m.tril(arr("ivec", s), -9),
+                                  m.triu(arr("ivec", s), 3)),
+    "vdot_layouts": lambda m, arr, s: (m.vdot(arr("ints", s), arr("ints", None)), m.vdot(arr("ints", s), arr("ints", 1)),
+                                       m.vdot(arr("bools", s), arr("bools", 0)),
+                                       m.vdot(arr("icube", s), m.reshape(arr("icube", None), (12, 7)))),
+    "vdot_float": lambda m, arr, s: (m.vdot(arr("a", s), arr("a", 0)), m.vdot(arr("cplx", s), arr("cplx", 1))),
+    # the norms of every order a split array now takes without a gather
+    "norm_orders": lambda m, arr, s: (*(m.vector_norm(arr("a", s), ord=o) for o in (1, 3, np.inf, -np.inf, 0, -1)),
+                                      m.vector_norm(arr("a", s), axis=0, ord=1), m.vector_norm(arr("a", s), axis=1,
+                                                                                               ord=np.inf),
+                                      m.vector_norm(arr("cube", s), axis=(0, 2), ord=3, keepdims=True),
+                                      *(m.matrix_norm(arr("a", s), ord=o) for o in ("fro", 1, -1, np.inf, -np.inf)),
+                                      m.matrix_norm(arr("cube", s), axis=(1, 2), ord=1),
+                                      m.norm(arr("cube", s), axis=(2, 0), ord=-np.inf, keepdims=True),
+                                      m.matrix_norm(arr("cube", s), axis=(2, 0), ord="fro"),
+                                      m.norm(arr("a", s), ord=np.inf, axis=1)),
+    # cov: variables split (the ring), observations split, y, rowvar False, ddof and bias
+    "cov_forms": lambda m, arr, s: (m.cov(_f64(m, arr, s)), m.cov(_f64(m, arr, s), rowvar=False),
+                                    m.cov(_f64(m, arr, s), m.sqrt(m.abs(_f64(m, arr, s))), ddof=3),
+                                    m.cov(_f64(m, arr, s), _f64(m, arr, None), rowvar=False, bias=True),
+                                    m.cov(arr("ints", s))),
+    "cov_vec": lambda m, arr, s: (m.cov(arr("long", s).astype(m.float64)),
+                                  m.cov(arr("long", s).astype(m.float64), arr("long", None).astype(m.float64), ddof=0)),
+    # integer keys with negatives and duplicates, beside and on the split axis
+    "get_int_keys": lambda m, arr, s: (arr("a", s)[[-1, 2, 2, -7, 5]], arr("a", s)[:, [-1, 0, 0]],
+                                       arr("a", s)[[1, -2], [3, -1]], arr("a", s)[[[0, 6], [-1, 3]]],
+                                       arr("icube", s)[[2, -1], :, [0, 2]], arr("icube", s)[:, [6, -7, 6]],
+                                       arr("a", s)[[0, 3], 1:4], arr("icube", s)[1:, [4, 4], ::-1],
+                                       arr("a", s)[arr("bools", s)[:, 0]]),
+    # (a key written twice gets one value here: torch leaves which of two values a duplicate
+    # keeps undefined on CUDA; the last write wins on the CPU, tests/test_torch_distributed.py's
+    # test_duplicate_keys_keep_the_last_write)
+    "set_int_keys": lambda m, arr, s: (_set(arr("a", s), [-1, 2, 2, -7], 5.0),
+                                       _set(arr("a", s), (slice(None), [-1, 0, 0]), arr("a", None)[:, 0:1]),
+                                       _set(arr("icube", s), ([2, -1, 2], slice(None), [0, 2, 0]), 99),
+                                       _set(arr("icube", s), (slice(1, None), [4, -3], slice(None, None, -1)), -5),
+                                       _set(arr("a", s), ([1, -2], [3, -1]), arr("a", None)[0, 0:2])),
     # the dtype sweep: common operations over every input type, and their sums (heat_tpu's
     # sums of uint8 are uint64, which neither package has)
     **{f"dtype_{name}": (lambda name: lambda m, arr, s: _sweep(m, arr, s, name))(name)
@@ -337,7 +410,8 @@ def _sums(m, arr, s, name):
 
 FLOAT = {"convolve_full", "convolve_same", "kmeans_random", "cumsum1", "percentile", "percentile_axis0", "percentile_axis1", "median", "median_all", "median_ints",
          "percentile_nan", "edge_vector_norm_int", "edge_var_complex", "edge_norm_complex", "edge_moments_f16", "edge_round_complex_decimals",
-         "pad_stats", "dtype_sums_cplx", "dtype_sums_cplx128"}
+         "pad_stats", "dtype_sums_cplx", "dtype_sums_cplx128", "vdot_float", "norm_orders", "cov_forms", "cov_vec",
+         "pad_stats_small"}
 RTOL = 1e-6
 # cases held within a wider tolerance than RTOL, with the reason: the float16 moments are
 # float32 sums in another order, and kurtosis' unbiased correction subtracts 3(n - 1) from
@@ -363,4 +437,4 @@ def splits_of(name):
                                  "convolve_full", "convolve_same", "convolve_valid",
                                  "kmeans_random", "edge_sign_nan", "edge_histogram_bool", "edge_bincount_bool",
                                  "edge_int_div_zero", "edge_dot_bool", "edge_sort_complex_nan",
-                                 "edge_unique_complex_nan") else (None, 0, 1)
+                                 "edge_unique_complex_nan", "diag_offsets", "tri_vec", "cov_vec") else (None, 0, 1)

@@ -227,6 +227,18 @@ def run_runtime(inputs) -> dict:
     out.update(results)
     st = _executor.executor_stats()
     out["rt_stats"] = np.array([st["misses"], st["hits"], st["reexecuted"], st["eager_fallbacks"]])
+    # the same chain on more inputs, after the threads (the parent holds it to the stepwise
+    # float32 chain and heat_tpu's to the fused one)
+    for key in sorted(k for k in inputs if k.startswith("rt_x_seed")):
+        seed = key[len("rt_x_seed"):]
+        xs, ys = ht.array(inputs[key], split=0), ht.array(inputs[f"rt_y_seed{seed}"], split=0)
+        for i in range(RUNTIME_THREADS):
+            c = xs
+            for _ in range(4):
+                c = c * float(i + 1)
+                c = c + ys
+                c = c - 0.5
+            out[f"rt_seed{seed}_{i}"] = c.numpy()
     out["rt_requests"] = np.array(profiler.report()["requests_total"])
     profiler.disable()
     profiler.reset()
@@ -674,6 +686,13 @@ def run_array_api(comm) -> dict:
         out[f"halo_{name}_prev"] = np.array([]) if x.halo_prev is None else x.halo_prev.numpy()
         out[f"halo_{name}_next"] = np.array([]) if x.halo_next is None else x.halo_next.numpy()
 
+    # integer keys written twice with different values, at every split: the last write wins
+    for split in (None, 0, 1):
+        x = ht.array(INPUTS["a"], split=split)
+        x[:, [-1, 0, 0]] = ht.array(INPUTS["a"][:, 0:3])
+        x[[2, -5, 2]] = ht.array(INPUTS["a"][4:7])
+        _record(out, f"dup_set_{split}", x)
+
     # is_split with chunks of 1, 5 and 1 rows: rebalanced to the canonical 3, 3, 1
     rows = [(0, 1), (1, 6), (6, 7)][rank]
     _record(out, "is_split", ht.array(INPUTS["a"][rows[0]:rows[1]], is_split=0))
@@ -690,26 +709,46 @@ def run_array_api(comm) -> dict:
         out[f"print_small_{split}"] = np.array(str(ht.array(INPUTS["a"], split=split)))
 
     # the paths that must not gather the array, with the whole-array gather made to raise
-    # and the bytes this rank receives from the small gathers (all_gather_stacked, under
-    # all_gather_counts and all_gather_v) counted: one value a rank (counts) apart from
-    # the rest (candidates, halos, totals, selections)
+    # and the bytes this rank receives counted: from the small gathers (all_gather_stacked,
+    # under all_gather_counts and all_gather_v) one value a rank (counts) apart from the
+    # rest (candidates, halos, totals, selections), and what the moves hand this rank
+    # (redistribute, take, fetch, ring_shift, all_to_all, exchange: the tensor each returns
+    # or, for ring_shift, receives, which holds what arrived and at most what it kept)
     def refuse(self, *args, **kwargs):
         raise RuntimeError("whole-array all_gather")
 
-    gathered = [0, 0]
+    gathered = [0, 0, 0]
     stacked = communication.TorchCommunication.all_gather_stacked
+    TC = communication.TorchCommunication
+    moves = {name: getattr(TC, name) for name in ("redistribute", "take", "fetch", "all_to_all", "exchange")}
+    ring_shift = TC.ring_shift
 
     def counted(self, tensor):
         res = stacked(self, tensor)
         gathered[tensor.numel() > 1] += res.numel() * res.element_size()
         return res
 
+    def counting(move):
+        def wrapped(self, *args, **kwargs):
+            res = move(self, *args, **kwargs)
+            gathered[2] += res.numel() * res.element_size()
+            return res
+        return wrapped
+
+    def counted_shift(self, tensor, shift=1, recv_shape=None, async_op=False):
+        if self.size > 1 and shift % self.size:
+            gathered[2] += int(np.prod(tensor.shape if recv_shape is None else recv_shape)) * tensor.element_size()
+        return ring_shift(self, tensor, shift, recv_shape, async_op)
+
     orig = communication.TorchCommunication.all_gather
     communication.TorchCommunication.all_gather = refuse
     communication.TorchCommunication.all_gather_stacked = counted
+    for name, move in moves.items():
+        setattr(TC, name, counting(move))
+    TC.ring_shift = counted_shift
     try:
         for name, fn in NO_GATHER.items():
-            gathered[:] = [0, 0]
+            gathered[:] = [0, 0, 0]
             try:
                 res = fn(ht, arr)
                 out[f"no_gather_{name}"] = np.array("ok")
@@ -718,10 +757,14 @@ def run_array_api(comm) -> dict:
                 continue
             res = res[0] if isinstance(res, tuple) else res
             nbytes = res.size * res.larray.element_size() if isinstance(res, ht.DNDarray) else 0
-            out[f"no_gather_{name}_bytes"] = np.array(gathered + [nbytes])
+            local = res.larray.numel() * res.larray.element_size() if isinstance(res, ht.DNDarray) else 0
+            out[f"no_gather_{name}_bytes"] = np.array(gathered[:2] + [nbytes, gathered[2], local])
     finally:
         communication.TorchCommunication.all_gather = orig
         communication.TorchCommunication.all_gather_stacked = stacked
+        for name, move in moves.items():
+            setattr(TC, name, move)
+        TC.ring_shift = ring_shift
     return out
 
 
@@ -775,6 +818,45 @@ NO_GATHER = {
     "convolve": lambda m, arr: m.convolve(arr("long", 0), m.array([1.0, 2.0, 1.0]), mode="same"),
     "print": lambda m, arr: str(m.array(PRINTED, split=0)),
     "set_mask_split_value": lambda m, arr: arr("a", 1).__setitem__(arr("mask_a", 1), arr("mask_vals", 0)),
+    # the split-axis forms (tests/test_torch_distributed.py bounds what each moves: MOVED)
+    "roll_0": lambda m, arr: m.roll(arr("a", 0), 5, 0),
+    "roll_1": lambda m, arr: m.roll(arr("a", 1), -3, 1),
+    "roll_flat_0": lambda m, arr: m.roll(arr("a", 0), 11),
+    "roll_flat_1": lambda m, arr: m.roll(arr("a", 1), -11),
+    "tile_0": lambda m, arr: m.tile(arr("a", 0), (3, 1)),
+    "tile_1": lambda m, arr: m.tile(arr("a", 1), (1, 2)),
+    "pad_reflect_0": lambda m, arr: m.pad(arr("a", 0), ((4, 9), (2, 6)), mode="reflect"),
+    "pad_wrap_1": lambda m, arr: m.pad(arr("a", 1), ((4, 9), (2, 6)), mode="wrap"),
+    "pad_mean_0": lambda m, arr: m.pad(arr("small", 0), ((2, 3), (1, 2)), mode="mean"),
+    "pad_maximum_1": lambda m, arr: m.pad(arr("a", 1), ((1, 2), (3, 1)), mode="maximum"),
+    "pad_median_0": lambda m, arr: m.pad(arr("a", 0), ((1, 2), (3, 1)), mode="median"),
+    "pad_linear_ramp_1": lambda m, arr: m.pad(arr("a", 1), ((1, 2), (3, 1)), mode="linear_ramp"),
+    "diagonal_0": lambda m, arr: m.diagonal(arr("a", 0), 1),
+    "diagonal_1": lambda m, arr: m.diagonal(arr("cube", 1), -2, 2, 1),
+    "diag_0": lambda m, arr: m.diag(arr("ivec", 0), -3),
+    "trace_0": lambda m, arr: m.trace(arr("ints", 0), 2),
+    "trace_1": lambda m, arr: m.trace(arr("ints", 1), -1),
+    "trace_batch_2": lambda m, arr: m.trace(arr("icube", 2), 1, 0, 1),
+    "tril_0": lambda m, arr: m.tril(arr("a", 0), 2),
+    "triu_1": lambda m, arr: m.triu(arr("a", 1), -1),
+    "tril_vec_0": lambda m, arr: m.tril(arr("ivec", 0), 1),
+    "vdot_0": lambda m, arr: m.vdot(arr("a", 0), arr("a", 0)),
+    "vdot_0_1": lambda m, arr: m.vdot(arr("ints", 0), arr("ints", 1)),
+    "vector_norm_1_0": lambda m, arr: m.vector_norm(arr("a", 0), ord=1),
+    "vector_norm_inf_1": lambda m, arr: m.vector_norm(arr("a", 1), ord=np.inf),
+    "matrix_norm_1_0": lambda m, arr: m.matrix_norm(arr("a", 0), ord=1),
+    "matrix_norm_ninf_1": lambda m, arr: m.matrix_norm(arr("a", 1), ord=-np.inf),
+    "matrix_norm_fro_1": lambda m, arr: m.matrix_norm(arr("a", 1)),
+    "norm_batch_0": lambda m, arr: m.norm(arr("cube", 0), axis=(1, 2), ord=-1),
+    "cov_obs_1": lambda m, arr: m.cov(arr("a", 1)),
+    "cov_obs_0": lambda m, arr: m.cov(arr("a", 0), rowvar=False),
+    "cov_vars_0": lambda m, arr: m.cov(arr("a", 0)),
+    "cov_vars_1_y": lambda m, arr: m.cov(arr("a", 1), arr("a", 1), rowvar=False),
+    "get_int_keys_0": lambda m, arr: arr("a", 0)[[1, -2], [3, -1]],
+    "get_int_keys_cols_0": lambda m, arr: arr("a", 0)[:, [-1, 0, 0]],
+    "get_int_keys_1": lambda m, arr: arr("cube", 1)[[2, -1], :, [0, 2]],
+    "set_int_keys_0": lambda m, arr: arr("a", 0).__setitem__(([1, -2, 1], [3, -1, 3]), 7.0),
+    "set_int_keys_1": lambda m, arr: arr("a", 1).__setitem__((slice(None), [-1, 0, 0]), arr("a", None)[:, 0:3]),
 }
 
 PRINTED = np.arange(40 * 50, dtype=np.float32).reshape(40, 50) / 7

@@ -116,7 +116,29 @@ def _inputs():
         # the threaded requests of the runtime: 10 rows split 4, 4, 2
         "rt_x": rng.standard_normal((10, 6)).astype(np.float32),
         "rt_y": rng.standard_normal((10, 6)).astype(np.float32),
+        # the same chain on more inputs, each from a generator of its own seed
+        **{f"rt_{v}_seed{seed}": np.random.default_rng(seed).standard_normal((2, 10, 6)).astype(np.float32)[j]
+           for seed in RT_SEEDS for j, v in enumerate(("x", "y"))},
     }
+
+
+# the chain's extra seeds: where heat_tpu's chain leaves the stepwise float32 one most (0, 9:
+# 108 and 80 ulp for the multiplier 3) and least (1: 10 ulp)
+RT_SEEDS = (0, 1, 9)
+
+
+def _chain_f32(x, y, k: float, fused: bool):
+    """The runtime's chain c = ((c·k + y) − 0.5) four times from c = x in float32: each
+    operation rounded (``fused`` False, the port's), or c·k + y rounded once, as one fused
+    multiply-add (c·k is exact in float64, and so is its sum with y at these magnitudes)."""
+    c = x.copy()
+    for _ in range(4):
+        if fused:
+            c = (c.astype(np.float64) * k + y.astype(np.float64)).astype(np.float32)
+        else:
+            c = (c * np.float32(k)).astype(np.float32) + y
+        c = (c - np.float32(0.5)).astype(np.float32)
+    return c
 
 
 NN_KEY = jax.random.key(21)
@@ -787,6 +809,20 @@ def test_is_split_non_canonical(ranks, comm3):
         assert_record_equal(_rec(r, "is_split"), want, rtol=0)
 
 
+@pytest.mark.parametrize("split", [None, 0, 1])
+def test_duplicate_keys_keep_the_last_write(ranks, comm3, split):
+    """Integer keys that write one element two or three times with different values (a
+    column twice, a row as 2, −5 and 2 of 7) keep the last write at three ranks, as the
+    whole array's assignment does on the CPU and as heat_tpu's does on its three-device mesh
+    (on CUDA torch leaves the winner undefined)."""
+    _, res = ranks
+    want = ht.array(INPUTS["a"], split=split, comm=comm3)
+    want[:, [-1, 0, 0]] = ht.array(INPUTS["a"][:, 0:3], comm=comm3)
+    want[[2, -5, 2]] = ht.array(INPUTS["a"][4:7], comm=comm3)
+    for r in res:
+        assert_record_equal(_rec(r, f"dup_set_{split}"), want, rtol=0)
+
+
 @pytest.mark.parametrize("dtype,ulps", [("float32", 4), ("float64", 32)])
 def test_normal_stream(ranks, comm3, dtype, ulps):
     """randn on three ranks against heat_tpu's on three devices: within 4 ulp in float32
@@ -807,6 +843,37 @@ NO_GATHER = ["reshape_new_split", "reshape_flat", "concatenate_1_none_1", "respl
              "unique", "percentile", "median", "slice", "slice_neg", "mask", "setitem", "flip", "cumsum", "diff",
              "nonzero", "nonzero_split1", "row_take", "permutation", "convolve", "print"]
 
+# the split-axis forms, and what the moves (redistribute, take, fetch, ring_shift, all_to_all,
+# exchange) may hand a rank beside L, its share of the result in bytes, from P ranks and the
+# result's bytes R: nothing for the forms that fetch only their share (a roll's two ranges,
+# tile's and the copy pads' source rows, diag's and a vector triangle's elements, the
+# integer keys' elements) or move nothing (the triangles, trace, vdot of one layout, the
+# norms, cov with the observations split, the assignments)
+MOVED = {name: lambda P, L, R: L for name in (
+    "roll_0", "roll_1", "roll_flat_0", "tile_0", "tile_1", "pad_reflect_0", "pad_wrap_1", "pad_mean_0",
+    "pad_maximum_1", "diagonal_0", "diagonal_1", "diag_0", "trace_0", "trace_1", "trace_batch_2", "tril_0", "triu_1",
+    "tril_vec_0", "vdot_0", "vector_norm_1_0", "vector_norm_inf_1", "matrix_norm_1_0", "matrix_norm_ninf_1",
+    "matrix_norm_fro_1", "norm_batch_0", "cov_obs_1", "cov_obs_0", "get_int_keys_0", "get_int_keys_cols_0",
+    "get_int_keys_1", "set_int_keys_0", "set_int_keys_1")}
+MOVED.update({
+    # a flat roll of split 1: the relayout to split 0 and the roll there each hand a rank a
+    # split-0 chunk of "a" (at most 3 of its 7 rows), then the relayout back its share
+    "roll_flat_1": lambda P, L, R: L + 2 * (3 * R // 7),
+    # linear_ramp: the two edge planes along the split axis (of the 9 padded columns)
+    "pad_linear_ramp_1": lambda P, L, R: L + 2 * (R // 9),
+    # median: the distributed sort's P rounds of a chunk (at most 3 rows of 5 float32 values
+    # and their int64 indices), then the two middle planes (5 float32)
+    "pad_median_0": lambda P, L, R: L + P * 3 * 5 * (4 + 8) + 2 * 5 * 4,
+    # vdot of two layouts: the second operand's split-0 chunk (3 of 7 rows of 5 int32)
+    "vdot_0_1": lambda P, L, R: L + 3 * 5 * 4,
+    # cov with the variables split: the other ranks' centred blocks around the ring (at most
+    # 3 of 7 rows of 5 float32 each), and with y first the joined variables' chunk (4 of 10
+    # rows of 7 float32, by concatenate)
+    "cov_vars_0": lambda P, L, R: L + (P - 1) * 3 * 5 * 4,
+    "cov_vars_1_y": lambda P, L, R: L + P * 4 * 7 * 4,
+})
+NO_GATHER += list(MOVED)
+
 # what the small gathers may bring a rank beside the counts, by design, from P ranks and
 # the result's bytes R: topk's P·k candidates (a float32 value and an int64 index each,
 # k = 5), cumsum's exscan of one plane of totals a rank (5 float32), convolve's two
@@ -817,22 +884,30 @@ SMALL_GATHERS = {"topk": lambda P, R: P * 5 * (4 + 8), "cumsum": lambda P, R: P 
                  "convolve": lambda P, R: 2 * P * 2 * 8, "mask": lambda P, R: P * R, "unique": lambda P, R: P * R,
                  "nonzero_split1": lambda P, R: 3 * P * R // 2,
                  # the hits of each of the mask's 7 rows a rank, and the P·P request counts
-                 "set_mask_split_value": lambda P, R: P * 7 * 8 + P * P * 8}
+                 "set_mask_split_value": lambda P, R: P * 7 * 8 + P * P * 8,
+                 # the pieces of a result whole on every rank, each padded to the largest
+                 # (at most P·R): the diagonals' pieces, a batch split's norms, cov's block rows
+                 **{n: lambda P, R: P * R for n in ("diagonal_0", "diagonal_1", "norm_batch_0", "cov_vars_0",
+                                                    "cov_vars_1_y")}}
 
 
 @pytest.mark.parametrize("name", NO_GATHER)
 def test_no_whole_array_gather(ranks, name):
-    """The benchmark's paths run on split arrays with TorchCommunication.all_gather (the
-    whole-array gather) made to raise, and what the small gathers bring a rank is counted:
-    at most four gathers of one count a rank, and beside them only candidates, halos,
-    totals or the result's own selection (SMALL_GATHERS), never the array."""
+    """The benchmark's paths and the split-axis forms run on split arrays with
+    TorchCommunication.all_gather (the whole-array gather) made to raise, and what the small
+    gathers bring a rank is counted: at most four gathers of one count a rank, and beside
+    them only candidates, halos, totals or the result's own selection (SMALL_GATHERS), never
+    the array. For the split-axis forms the moves are counted too: a rank's share of the
+    result and what the form needs beside it (MOVED)."""
     _, res = ranks
     P = len(res)
     for r in res:
         assert str(r[f"no_gather_{name}"]) == "ok"
-        counts, rest, result = r[f"no_gather_{name}_bytes"].tolist()
+        counts, rest, result, moved, local = r[f"no_gather_{name}_bytes"].tolist()
         assert counts <= 4 * P * 8
         assert rest <= SMALL_GATHERS.get(name, lambda P, R: 0)(P, result)
+        if name in MOVED:
+            assert moved <= MOVED[name](P, local, result), (moved, local, result)
 
 
 SORT_CASES = [(n, s) for n in ("sort0", "sort1", "sort_ties", "sort_ties_desc", "sort_ties2d", "sort_ints",
@@ -1390,6 +1465,26 @@ def test_threaded_requests_match_heat_tpu(ranks, comm3):
             np.testing.assert_array_max_ulp(r[f"rt{i}_chain"], want["chain"], maxulp=4)
             for key in ("sum0", "cumsum0", "max"):
                 np.testing.assert_allclose(r[f"rt{i}_{key}"], want[key], rtol=1e-5, atol=1e-5)
+    # more seeds: the port's chain is the stepwise float32 chain bit for bit on every rank;
+    # heat_tpu's is the chain with c·k + y fused (XLA contracts the multiply and the add into
+    # one FMA), within one ulp, and for k = 3 (not a power of two, so c·3 rounds) it leaves
+    # the stepwise chain by more than the 4 ulp held above (ROADMAP Queue 3, the reference's
+    # own differences)
+    for seed in RT_SEEDS:
+        xs, ys = inputs[f"rt_x_seed{seed}"], inputs[f"rt_y_seed{seed}"]
+        for i in range(RT_THREADS):
+            stepwise, fused = _chain_f32(xs, ys, float(i + 1), False), _chain_f32(xs, ys, float(i + 1), True)
+            for r in res:
+                np.testing.assert_array_equal(r[f"rt_seed{seed}_{i}"], stepwise)
+            c = ht.array(xs, split=0, comm=comm3)
+            for _ in range(4):
+                c = c * float(i + 1)
+                c = c + ht.array(ys, split=0, comm=comm3)
+                c = c - 0.5
+            np.testing.assert_array_max_ulp(c.numpy(), fused, maxulp=1)
+            if i == 2:
+                assert np.max(np.abs(c.numpy().view(np.int32).astype(np.int64)
+                                     - stepwise.view(np.int32).astype(np.int64))) > 4
 
 
 def test_supervised_restart_after_a_dead_peer(ranks):

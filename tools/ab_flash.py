@@ -22,7 +22,8 @@ inputs:
   versions (which round them) beside the bit comparison, and only f32 outputs are expected
   to be bit-equal across builds of the same arithmetic;
 - each kernel is timed in turns with this checkout's, other, this, this, other (median
-  of CUDA-event-timed launches), beside ``scaled_dot_product_attention`` on the same
+  of CUDA-event-timed launches; the D pass, shorter than its host launch, queued behind a
+  sleep kernel: ``_measure.queued_ms``), beside ``scaled_dot_product_attention`` on the same
   inputs (its forward; its backward beside K4 and K5). ``--bwd-only`` times only D, K4
   and K5 (the forward that feeds them is this checkout's K2).
 
@@ -49,7 +50,8 @@ import torch  # noqa: E402
 
 from heat_tpu_torch.core.kernels import _nvcc  # noqa: E402
 from heat_tpu_torch.core.kernels import flash_attention as fa  # noqa: E402
-from heat_tpu_torch.core.kernels._measure import cuda_ms, fwd16_err, fwd_err, k2_inputs, ptxas_summary  # noqa: E402
+from heat_tpu_torch.core.kernels._measure import (cuda_ms, fwd16_err, fwd_err, k2_inputs, ptxas_summary,  # noqa: E402
+                                                   queued_ms)
 
 CSRC = Path("heat_tpu_torch/core/kernels/csrc")
 FWD = ("flash_attention_fwd.cu", "flash_attention_fwd_launch")
@@ -173,11 +175,11 @@ def main() -> int:
                       "ptxas": {f"{n}:{s}": ptxas_summary(builds[r / CSRC / s]["log"]) for n, r in roots.items()
                                 for s in names}}), flush=True)
 
-    def turns(fn) -> dict:
+    def turns(fn, timer=cuda_ms) -> dict:
         """Each other version timed in turns with this checkout's: other, this, this, other."""
         out = {}
         for o in others:
-            t = [cuda_ms(lambda: fn(n), reps=5, warmup=1) for n in (o, "change", "change", o)]
+            t = [timer(lambda: fn(n), reps=5, warmup=1) for n in (o, "change", "change", o)]
             out[o], out[f"change_vs_{o}"] = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
         return out
 
@@ -219,7 +221,8 @@ def main() -> int:
                     row["bwd_share_from_plain"] = {n: bwd_share(q, k, v, o, do, lse, causal, g[1:]) for n, g in grads.items()}
                 dd = grads["change"][0]
                 del grads
-                row["d_ms"] = turns(lambda n: ver[n].d_pass(o, do))
+                # D is shorter than its host launch: its time with the enqueue taken out
+                row["d_ms"] = turns(lambda n: ver[n].d_pass(o, do), queued_ms)
                 row["k4_ms"] = turns(lambda n: ver[n].dq(q, k, v, do, lse, dd, causal, scale))
                 row["k5_ms"] = turns(lambda n: ver[n].dkv(q, k, v, do, lse, dd, causal, scale))
                 with torch.enable_grad():
