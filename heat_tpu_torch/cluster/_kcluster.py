@@ -14,6 +14,14 @@ offers it (KMeans), else the estimator's metric and argmin — and then the esti
 centroid update (:meth:`_update_centroids_local`): for KMeans ONE ``all_reduce`` of the
 packed (k·d + k + 1) record of sums, counts and sse, the single collective of
 heat_tpu/cluster/kmeans.py:80-97.
+
+Phases (``ht.profiler``, recorded while it is enabled or a ``torch.profiler`` session
+runs): ``fit.entry`` up to the first pass; one ``lloyd.pass`` a pass, in two parts,
+``lloyd.assign`` (the assignment step) and ``lloyd.update`` (the reduction, the masked
+mean, the loop's ``where`` and shift); ``lloyd.check``, each host read of ``active``;
+``fit.readback``, the final assignment and the reads of the results. The counter
+``lloyd.host_reads`` counts the loop's reads of the device: each ``active`` and the two
+results (the initialisation's own, for ``"kmeans++"`` or ``"random"``, are not counted).
 """
 
 from __future__ import annotations
@@ -22,7 +30,7 @@ from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from ..core import types
+from ..core import profiler, types
 from ..core.base import BaseEstimator, ClusteringMixin
 from ..core.dndarray import DNDarray
 from ..core.statistics import argmin
@@ -179,7 +187,9 @@ class _KCluster(ClusteringMixin, BaseEstimator):
 
     def _pass(self, xv: torch.Tensor, centers: torch.Tensor, rows: _Rows, step, update: bool = True):
         """One Lloyd pass: (labels, the updated centers or None, the sse on every rank)."""
+        profiler.part("lloyd.assign")
         labels, mind = self._assign_local(xv, centers)
+        profiler.part("lloyd.update")
         sse = rows.sum(torch.sum(mind**2).reshape(1))[0]
         new = self._update_centroids_local(xv, labels, centers, rows) if update else None
         return labels, new, sse
@@ -190,34 +200,42 @@ class _KCluster(ClusteringMixin, BaseEstimator):
         the inertia."""
         if not isinstance(x, DNDarray):
             raise ValueError(f"input needs to be a DNDarray, but was {type(x)}")
-        if x.split not in (None, 0):
-            x = x.resplit(0)  # the loop runs over row chunks
-        self._initialize_cluster_centers(x)
-        promoted = types.promote_types(x.dtype, types.float32)
-        tt = promoted.torch_type()
-        xv = x.larray.to(tt).contiguous()
-        centers = self._cluster_centers.larray.to(device=xv.device, dtype=tt).contiguous()
-        rows = _rows_of(x)
-        step = self._fused_step(x, promoted)
-        tol = float(self.tol)
-        i = torch.zeros((), dtype=torch.int64, device=xv.device)
-        shift = torch.full((), float("inf"), dtype=tt, device=xv.device)
+        with profiler.phase("fit.entry"):
+            if x.split not in (None, 0):
+                x = x.resplit(0)  # the loop runs over row chunks
+            self._initialize_cluster_centers(x)
+            promoted = types.promote_types(x.dtype, types.float32)
+            tt = promoted.torch_type()
+            xv = x.larray.to(tt).contiguous()
+            centers = self._cluster_centers.larray.to(device=xv.device, dtype=tt).contiguous()
+            rows = _rows_of(x)
+            step = self._fused_step(x, promoted)
+            tol = float(self.tol)
+            i = torch.zeros((), dtype=torch.int64, device=xv.device)
+            shift = torch.full((), float("inf"), dtype=tt, device=xv.device)
         for p in range(self.max_iter):
             active = shift > tol  # and i < max_iter, which holds: i <= p
-            if p and p % self._check_every == 0 and tol >= 0 and not bool(active):
-                break  # the host's read of the loop's condition
-            _, new, _ = self._pass(xv, centers, rows, step)
-            moved = torch.sum((centers - new) ** 2)
-            centers = torch.where(active, new, centers)
-            shift = torch.where(active, moved, shift)
-            i = i + active.to(torch.int64)
-        labels, _, sse = self._pass(xv, centers, rows, step, update=False)
-
-        k, d = centers.shape
-        self._n_iter = int(i)
-        self._cluster_centers = DNDarray(centers, (k, d), promoted, None, x.device, x.comm, True)
-        self._labels = DNDarray(labels.to(torch.int64), (x.gshape[0],), types.int64, x.split, x.device, x.comm, True)
-        self._inertia = float(sse)
+            if p and p % self._check_every == 0 and tol >= 0:
+                with profiler.phase("lloyd.check"):
+                    profiler.count("lloyd.host_reads")
+                    go = bool(active)  # the host's read of the loop's condition
+                if not go:
+                    break
+            with profiler.phase("lloyd.pass", parts=True):
+                _, new, _ = self._pass(xv, centers, rows, step)
+                moved = torch.sum((centers - new) ** 2)
+                centers = torch.where(active, new, centers)
+                shift = torch.where(active, moved, shift)
+                i = i + active.to(torch.int64)
+        with profiler.phase("fit.readback"):
+            labels, _, sse = self._pass(xv, centers, rows, step, update=False)
+            k, d = centers.shape
+            profiler.count("lloyd.host_reads", 2)
+            self._n_iter = int(i)
+            self._cluster_centers = DNDarray(centers, (k, d), promoted, None, x.device, x.comm, True)
+            self._labels = DNDarray(labels.to(torch.int64), (x.gshape[0],), types.int64, x.split, x.device, x.comm,
+                                    True)
+            self._inertia = float(sse)
         return self
 
     def _assign_to_cluster(self, x: DNDarray, eval_functional_value: bool = False) -> DNDarray:

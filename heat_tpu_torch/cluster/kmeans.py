@@ -6,7 +6,7 @@ from typing import Optional, Union
 
 import torch
 
-from ..core import types
+from ..core import profiler, types
 from ..core.dndarray import DNDarray
 from ..core.kernels import kmeans as k1
 from ..spatial.distance import _pairwise, cdist
@@ -64,7 +64,9 @@ class KMeans(_KCluster):
         """One pass: K1 (or the generic step) per rank, then the one all_reduce of the
         packed record; the masked mean keeps an empty cluster's old center."""
         k, d = centers.shape
+        profiler.part("lloyd.assign")
         labels, packed = (step or self._generic_step)(xv, centers)
+        profiler.part("lloyd.update")
         rows.sum(packed)  # the one collective of the pass
         sums, counts, sse = k1.unpack(packed, k, d)
         new = None

@@ -9,7 +9,8 @@ Every collective of :class:`TorchCommunication` runs through the one guarded cho
 (:func:`_guarded`, heat_tpu/core/communication.py:42-100): the supervision plane's
 sentinel poll and watchdog, the fault plan and site policies of ``ht.resilience``, the
 telemetry plane's collective window, the forensics plane's collective timer and the
-profiler's ``collective`` slice, each one module-attribute read when its plane is off.
+profiler's ``collective`` slice, each one module-attribute read when its plane is off (the
+profiler's slice records while it is enabled or a ``torch.profiler`` session runs: two).
 The site of a collective is ``comm.<method>``.
 
 Chunking follows heat_tpu's ceil-division rule (heat_tpu/core/communication.py:311-337):
@@ -123,7 +124,7 @@ def _guarded_forensics(site, fn, *args, **kwargs):
 
 
 def _guarded_run(site, fn, *args, **kwargs):
-    if profiler._active:
+    if profiler.recording():  # enabled, or inside a torch.profiler session
         with profiler.scope("collective", site):
             if resilience._active:
                 return resilience.guard(site, fn, *args, **kwargs)

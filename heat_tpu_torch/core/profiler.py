@@ -23,10 +23,28 @@ heat_tpu/core/profiler.py, which loads with the stdlib alone).
   samples the bytes the force touched (leaf inputs + emitted outputs);
   ``report()["memory"]`` keeps the last and the peak sample. It is the
   framework's view of its working set, not an allocator readout.
+- **Program phases** (:func:`phase`, :func:`part`, :func:`count`): the
+  estimator's and the trainer's own spans (``fit.entry``, ``lloyd.pass``,
+  ``step.forward``, ...) and counters (``lloyd.host_reads``). They record while
+  the profiler is enabled AND while a ``torch.profiler`` session runs, so a
+  device trace carries the program's phases without a switch of its own; they
+  are no ``torch.profiler`` annotations, which would show on the device
+  timeline as operations. A phase given a CUDA device also times the device's
+  share: one CUDA event at each edge, from a reused pool, resolved only when
+  :func:`phases` is read. :func:`phases` returns each phase's count, host
+  seconds and device seconds, and the counters.
 
 Zero-cost contract: disabled (the default), every hook is one module-attribute
-read (``profiler._active``) and a branch not taken. All timing is host-side,
-around dispatch; nothing is added to the operations a program runs.
+read (``profiler._active``) and a branch not taken; a phase hook reads one
+more (``torch.autograd.profiler._is_profiler_enabled``). All timing is on the
+host, around dispatch, but for the phases' CUDA events; nothing is added to the
+operations a program runs.
+
+One clock: timestamps are microseconds of CLOCK_REALTIME (``time.time_ns``)
+from :data:`_T0_NS`, fixed at import. ``torch.profiler`` stamps its events on
+that clock too (its chrome trace's ``baseTimeNanoseconds`` plus ``ts``), and
+:func:`dump_trace` writes ``baseTimeNanoseconds`` the same way, so the
+program's slices lie on the device trace's timeline.
 
 Request deadlines: ``request(tag, deadline_s=...)`` also arms a wall-clock
 deadline in a second contextvar scoped like the request id. ``current_deadline()``
@@ -55,6 +73,7 @@ import itertools
 import json
 import math
 import os
+import sys
 import threading
 import time
 from collections import OrderedDict, deque
@@ -76,6 +95,11 @@ __all__ = [
     "attribution_active",
     "request_slices",
     "scope",
+    "recording",
+    "phase",
+    "part",
+    "count",
+    "phases",
     "observe",
     "histogram_snapshots",
     "record_counter",
@@ -94,6 +118,25 @@ TRACE_SCHEMA = "heat-tpu-profiler-trace/1"
 # Hot-path hooks read this module attribute directly (`profiler._active`):
 # one attribute load + branch when off — the zero-cost-when-disabled contract.
 _active: bool = False
+
+
+class _TorchProfilerFlag:
+    """Stands in for ``torch.autograd.profiler`` until torch is loaded (this
+    module loads with the stdlib alone): its ``_is_profiler_enabled`` reads
+    False, and from the first read with torch loaded the module's attribute is
+    the real one, a plain module boolean the phase hooks read."""
+
+    @property
+    def _is_profiler_enabled(self) -> bool:
+        global _torch_profiler
+        real = sys.modules.get("torch.autograd.profiler")
+        if real is None:
+            return False
+        _torch_profiler = real
+        return real._is_profiler_enabled
+
+
+_torch_profiler = sys.modules.get("torch.autograd.profiler") or _TorchProfilerFlag()
 
 _lock = threading.RLock()
 
@@ -138,13 +181,15 @@ _deadline_seen: bool = False
 # histograms. Forensics calls happen OUTSIDE `_lock`.
 _forensics = None
 
-# perf_counter origin for trace timestamps; rebased on enable() so a long-lived
-# process's trace starts near zero. Microseconds, Chrome's native unit.
-_t0 = time.perf_counter()
+# Trace timestamps: microseconds (Chrome's native unit) of CLOCK_REALTIME, the
+# clock torch.profiler stamps its events on, from this origin. Fixed at import:
+# every slice of the process shares one timeline, whatever enable() and
+# disable() do in between.
+_T0_NS = time.time_ns()
 
 
 def _now_us() -> float:
-    return (time.perf_counter() - _t0) * 1e6
+    return (time.time_ns() - _T0_NS) / 1e3
 
 
 # ------------------------------------------------------------------ histograms
@@ -339,16 +384,10 @@ def _round_opt(v: Optional[float]) -> Optional[float]:
 
 # ------------------------------------------------------------------ switches
 def enable() -> None:
-    """Turn the profiler on. On a fresh (or :func:`reset`) profiler the
-    timestamp origin rebases to now, so the exported trace starts near t=0;
-    when collected data exists the origin is KEPT — slices from before and
-    after a disable/enable cycle must share one timeline or the exported
-    B/E stream would interleave two origins."""
-    global _active, _t0
-    with _lock:
-        if not _active and not _slices and not _requests and not _counter_events:
-            _t0 = time.perf_counter()
-        _active = True
+    """Turn the profiler on. The timestamp origin stays :data:`_T0_NS`, so
+    slices from before and after a disable/enable cycle share one timeline."""
+    global _active
+    _active = True
 
 
 def disable() -> None:
@@ -363,6 +402,12 @@ def active() -> bool:
     return _active
 
 
+def recording() -> bool:
+    """Whether the phase and collective hooks record: while the profiler is
+    enabled, or while a ``torch.profiler`` session runs."""
+    return _active or _torch_profiler._is_profiler_enabled
+
+
 def reset() -> None:
     """Drop every collected slice, request, histogram, counter and memory
     sample. The enabled switch is kept."""
@@ -372,6 +417,8 @@ def reset() -> None:
         _requests.clear()
         _hists.clear()
         _counters.clear()
+        _phase_tallies.clear()
+        _event_pool.clear()
         _mem["forces"] = 0
         _mem["last_force_live_bytes"] = 0
         _mem["peak_force_live_bytes"] = 0
@@ -516,8 +563,11 @@ def scope(cat: str, name: str, req: Optional[int] = None):
     Yields a control handle: setting ``handle["keep"] = False`` before the
     block exits discards the slice. The executor uses this for a force that
     lost the plan race and had nothing to execute — recording it would put a
-    phantom empty ``force`` on the timeline."""
-    if not _active:
+    phantom empty ``force`` on the timeline.
+
+    Records while :func:`recording`: enabled, or inside a ``torch.profiler``
+    session."""
+    if not (_active or _torch_profiler._is_profiler_enabled):
         yield {"keep": True}
         return
     token = None
@@ -535,6 +585,153 @@ def scope(cat: str, name: str, req: Optional[int] = None):
                 _slices.append((rid, threading.get_ident(), str(cat), str(name), t0, t1))
         if token is not None:
             _current_request.reset(token)
+
+
+# ------------------------------------------------------------------ program phases
+# name -> [count, host seconds, device seconds (None: timed on the host alone),
+# pending (start, end) CUDA event pairs, oldest first]
+_phase_tallies: Dict[str, list] = {}
+_MAX_PENDING = 1024  # pairs a phase holds before it folds the completed ones
+_event_pool: list = []  # CUDA events whose times were read, for reuse
+_open: Dict[int, "_Phase"] = {}  # thread id -> its innermost open phase
+_OFF = contextlib.nullcontext()
+_time_ns = time.time_ns
+
+
+def _cuda_event(stream):
+    try:
+        event = _event_pool.pop()
+    except IndexError:
+        import torch
+
+        event = torch.cuda.Event(enable_timing=True)
+    event.record(stream)
+    return event
+
+
+def _fold_locked(tally: list) -> None:
+    # callers hold _lock: add the device seconds of the completed prefix of the
+    # pending pairs (one stream completes its events in order), pool the events
+    pending = tally[3]
+    done = 0
+    while done < len(pending) and pending[done][1].query():
+        done += 1
+    if done:
+        ms = sum(start.elapsed_time(end) for start, end in pending[:done])
+        tally[2] = (tally[2] or 0.0) + ms / 1e3
+        _event_pool.extend(e for pair in pending[:done] for e in pair)
+        del pending[:done]
+
+
+class _Phase:
+    """One open phase: its request and thread, its host start, its start event
+    on ``stream`` (None: timed on the host alone), and its current part's name,
+    start and event (:func:`part`). The hot path stamps the clock inline."""
+
+    __slots__ = ("name", "stream", "parts", "rid", "tid", "outer", "t0", "ev0", "part", "part_t0", "part_ev0")
+
+    def __init__(self, name: str, stream, parts: bool):
+        self.name, self.stream, self.parts, self.part = name, stream, parts, None
+
+    def record(self, name: str, t0: float, t1: float, events) -> None:
+        with _lock:
+            _slices.append((self.rid, self.tid, "phase", name, t0, t1))
+            tally = _phase_tallies.get(name)
+            if tally is None:
+                tally = _phase_tallies[name] = [0, 0.0, None, []]
+            tally[0] += 1
+            tally[1] += (t1 - t0) / 1e6
+            if events is not None:
+                tally[3].append(events)
+                if len(tally[3]) >= _MAX_PENDING:
+                    _fold_locked(tally)
+
+    def __enter__(self) -> "_Phase":
+        self.rid = _current_request.get()
+        self.tid = tid = threading.get_ident()
+        self.outer = _open.get(tid)
+        _open[tid] = self
+        self.ev0 = None if self.stream is None else _cuda_event(self.stream)
+        self.t0 = (_time_ns() - _T0_NS) / 1e3
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        ev1 = None if self.stream is None else _cuda_event(self.stream)
+        t1 = (_time_ns() - _T0_NS) / 1e3
+        if self.outer is None:
+            del _open[self.tid]
+        else:
+            _open[self.tid] = self.outer
+        if self.part is not None:  # the last part ends with the phase
+            self.record(self.part, self.part_t0, t1, None if ev1 is None else (self.part_ev0, ev1))
+        self.record(self.name, self.t0, t1, None if ev1 is None else (self.ev0, ev1))
+        return False
+
+
+def phase(name: str, device: Optional["torch.device"] = None, parts: bool = False):
+    """A context that records the program phase ``name`` while
+    :func:`recording`, as a ``phase`` slice on the timeline and in the tallies
+    :func:`phases` reads; otherwise one shared no-op context.
+
+    ``device``: on a CUDA device the phase also times the device's share, one
+    CUDA event on the current stream at each edge (never a synchronisation).
+    ``parts``: :func:`part` calls made inside the phase, in callees too, split
+    it into consecutive parts."""
+    if not (_active or _torch_profiler._is_profiler_enabled):
+        return _OFF
+    stream = None
+    if device is not None and device.type == "cuda":
+        import torch
+
+        stream = torch.cuda.current_stream(device)
+    return _Phase(name, stream, parts)
+
+
+def part(name: str) -> None:
+    """End the current part of this thread's innermost open phase, where that
+    phase was opened with ``parts=True``, and start its part ``name``, which
+    lasts until the next call or the phase's end. A no-op elsewhere and while
+    not :func:`recording`."""
+    if not (_active or _torch_profiler._is_profiler_enabled):
+        return
+    outer = _open.get(threading.get_ident())
+    if outer is None or not outer.parts:
+        return
+    event = None if outer.stream is None else _cuda_event(outer.stream)
+    t = (_time_ns() - _T0_NS) / 1e3
+    if outer.part is not None:  # parts follow one another without a gap
+        outer.record(outer.part, outer.part_t0, t, None if event is None else (outer.part_ev0, event))
+    outer.part, outer.part_t0, outer.part_ev0 = name, t, event
+
+
+def count(name: str, n: float = 1) -> None:
+    """Add ``n`` to the cumulative counter ``name`` (``report()["counters"]``
+    and a counter track) while :func:`recording`."""
+    if not (_active or _torch_profiler._is_profiler_enabled):
+        return
+    with _lock:
+        value = _counters[name] = _counters.get(name, 0.0) + n
+        _counter_events.append((name, _now_us(), value))
+
+
+def phases() -> dict:
+    """``{"spans": {name: {"count", "host_s", "device_s"}}, "counters":
+    {name: value}}`` of every phase recorded since :func:`reset`, with
+    ``device_s`` None for a phase timed on the host alone. Reading resolves the
+    phases' device times: read after the device has run their work (a
+    synchronisation), or the read waits for it."""
+    with _lock:
+        last = [t[3][-1][1] for t in _phase_tallies.values() if t[3]]
+    for event in last:
+        event.synchronize()
+    with _lock:
+        for tally in _phase_tallies.values():
+            _fold_locked(tally)
+        return {
+            "spans": {name: {"count": t[0], "host_s": t[1], "device_s": t[2]}
+                      for name, t in _phase_tallies.items()},
+            "counters": dict(_counters),
+        }
 
 
 # ------------------------------------------------------------------ metrics feeds
@@ -700,20 +897,28 @@ def _trace_events_locked() -> List[dict]:
     return trace_events(_snapshot_locked())
 
 
-def dump_trace(path: str) -> dict:
+def dump_trace(path: str, base_ns: Optional[int] = None) -> dict:
     """Write the recorded timeline as Chrome trace-event JSON (the object
     format: ``{"traceEvents": [...]}``) loadable in Perfetto /
     ``chrome://tracing``. Returns the written object (tests schema-check it
     without re-reading the file).
 
+    ``baseTimeNanoseconds`` is the CLOCK_REALTIME instant of ``ts`` 0, as in
+    ``torch.profiler``'s chrome trace. ``base_ns`` (default: the profiler's
+    origin) sets it: given a device trace's ``baseTimeNanoseconds``, the two
+    files' events share one time base, and their ``traceEvents`` lists merge
+    into one timeline.
+
     The write goes through ``resilience.atomic_write`` (site
     ``profiler.trace``): a crash mid-dump leaves the previous artifact (or
     nothing), never a torn half-JSON."""
+    base = _T0_NS if base_ns is None else int(base_ns)
     with _lock:
         obj = {
             "schema": TRACE_SCHEMA,
             "displayTimeUnit": "ms",
-            "traceEvents": _trace_events_locked(),
+            "baseTimeNanoseconds": base,
+            "traceEvents": trace_events(_snapshot_locked(), ts_shift_us=(_T0_NS - base) / 1e3),
         }
 
     def _write(target: str) -> None:

@@ -384,10 +384,11 @@ def _clock_payload() -> Dict[str, Any]:
             "dumped_at_monotonic_ns": now_ns,
         }
     if profiler is not None:
-        # The profiler timeline's origin expressed on the monotonic clock:
-        # perf_counter and monotonic are the same clock source here, so the
-        # difference sampled once converts any profiler timestamp to a
-        # monotonic instant (and from there, via the anchor, to aligned time).
+        # The profiler timeline's origin expressed on the monotonic clock: the
+        # profiler stamps CLOCK_REALTIME, which runs at the monotonic clock's
+        # rate unless stepped, so the difference sampled once converts any
+        # profiler timestamp to a monotonic instant (and from there, via the
+        # anchor, to aligned time).
         payload["profiler_origin_monotonic_us"] = now_ns / 1e3 - profiler._now_us()
     return payload
 

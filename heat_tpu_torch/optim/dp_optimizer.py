@@ -21,6 +21,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core import profiler
 from ..core.communication import TorchCommunication, sanitize_comm
 from ..core.devices import full_fp32_matmul
 from ..core.dndarray import DNDarray
@@ -152,22 +153,31 @@ class DataParallelOptimizer:
         (axis, first row, rows here, rows in all) places them in the batch that heat_tpu's
         program holds whole, so that keyed masks drawn in ``loss_fn`` are that batch's
         (:func:`~heat_tpu_torch.nn.functional.batch_rows`). Returns the loss over those
-        rows."""
+        rows.
+
+        Phases (``ht.profiler``, each also timed on a CUDA device): ``step.forward``
+        (``loss_fn``), ``step.backward``, ``step.reduce`` (the all-reduce, at world > 1)
+        and ``step.update`` (the gradients set and the local optimizer's step)."""
         params = [p for group in self.local_optimizer.param_groups for p in group["params"]]
+        device = params[0].device
         self.local_optimizer.zero_grad(set_to_none=True)
-        loss = torch.zeros((), dtype=torch.float32, device=params[0].device)
+        loss = torch.zeros((), dtype=torch.float32, device=device)
         if weight > 0:
             with full_fp32_matmul(), batch_rows(*rows) if rows is not None else contextlib.nullcontext():
-                value = loss_fn(self._model, *local)
-                value.backward()
+                with profiler.phase("step.forward", device):
+                    value = loss_fn(self._model, *local)
+                with profiler.phase("step.backward", device):
+                    value.backward()
             loss = value.detach()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
         if comm.is_distributed():
-            reduced = comm.all_reduce_packed([g * weight for g in grads] + [(loss * weight).reshape(1)])
-            grads, loss = reduced[:-1], reduced[-1][0]
-        for p, g in zip(params, grads):
-            p.grad = g
-        self.local_optimizer.step()
+            with profiler.phase("step.reduce", device):
+                reduced = comm.all_reduce_packed([g * weight for g in grads] + [(loss * weight).reshape(1)])
+                grads, loss = reduced[:-1], reduced[-1][0]
+        with profiler.phase("step.update", device):
+            for p, g in zip(params, grads):
+                p.grad = g
+            self.local_optimizer.step()
         return loss
 
 

@@ -1,0 +1,9 @@
+"""backward_ms (``backward_ms.train``): device milliseconds a training step spends in the
+program's ``step.backward`` phase (``backward()`` of the loss), timed by the program's CUDA
+events at the phase's edges on the step's stream; over the traced steps."""
+
+from portbench.lib import phases
+
+
+def read(run):
+    return phases.per_iteration(run, "step.backward", "device_s", 1e3)
