@@ -5009,6 +5009,9 @@ def main() -> int:
     km.fit(X)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
+    fit_tma = k1.launches_tma
+    route = k1.route(k1.plan(D, K), x)
+    check(fit_tma == (counts["kmeans_assign"] if route == "bulk" else 0), f"K1 bulk-copy launches {fit_tma} ({route})")
     check(km.n_iter_ == MAX_ITER, f"the fit ran {km.n_iter_} iterations")
     check(counts["kmeans_assign"] == MAX_ITER + 1, f"launches on the KMeans path: {counts}")
     centers = km.cluster_centers_.larray
@@ -5776,6 +5779,11 @@ def main() -> int:
                 "source": "heat_tpu_torch/core/kernels/csrc/kmeans_assign.cu",
                 "replaces": "heat_tpu/core/kernels/kmeans.py:44",
                 "launches": counts["kmeans_assign"],
+                "launches_tma": fit_tma,
+                "launches_tma_note": f"the fit's launches whose tiles came by TMA bulk copies; its route here: {route} "
+                                     "(one bulk copy a tile where x is 16-byte aligned, d % 4 == 0 and a tile row needs "
+                                     "no padding, as with the centers in registers; 16-byte cp.async into padded rows "
+                                     "otherwise)",
                 "launches_by_path": {
                     "kmeans_fit": counts["kmeans_assign"],
                     "kmeans_pp_fit": pp["k1_launches"],

@@ -62,3 +62,4 @@ def reset_launch_counts() -> None:
     with flash_attention._count_lock, int_matmul._count_lock, kmeans._count_lock:
         for mod in KERNELS.values():
             mod.launches = 0
+        kmeans.launches_tma = 0

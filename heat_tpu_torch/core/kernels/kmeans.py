@@ -9,12 +9,14 @@ device memory. The source, ``csrc/kmeans_assign.cu``, says what bounds it on the
 
 The wrapper takes the plain PyTorch version, :func:`fused_assign_update_reference`, only
 for tensors that lie on the CPU. A CUDA tensor launches the kernel or raises: there is no
-fallback. ``launches`` counts the kernel's launches, one a call.
+fallback. ``launches`` counts the kernel's launches, one a call, and ``launches_tma`` those
+whose tiles reached shared memory by TMA bulk copies (:func:`route`).
 
 The kernel's summation order, which this module writes out for the checks (see
 :func:`rounding_depths` and :func:`ordered_sums`): rows come in tiles of
 ``plan.rows_per_tile`` consecutive rows, and block ``b`` of a grid of ``G`` takes tiles
-``b, b + G, b + 2G, ...``. Within a tile, the rows of cluster ``j`` are summed in row order
+``b, b + G, b + 2G, ...`` (one CTA an SM hosts ``plan.per_cta`` of these blocks, which
+changes nothing of the order). Within a tile, the rows of cluster ``j`` are summed in row order
 into a partial that starts at 0; the block adds each tile's partial to its record in tile
 order. The blocks' records are folded in groups of 16 consecutive blocks, each group's in
 block order, then the groups' sums in group order (with one group, its sum is the output).
@@ -49,6 +51,7 @@ __all__ = [
     "ordered_sums",
     "plan",
     "rounding_depths",
+    "route",
     "unpack",
 ]
 
@@ -56,7 +59,9 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "kmeans_assign.cu"
 
 launches = 0
 """Launches of the CUDA kernel since import (or since a caller reset it to 0)."""
-# the count moves under this lock: request threads launch the kernel concurrently
+launches_tma = 0
+"""Of those, the launches whose tiles came by TMA bulk copies (the route ``"bulk"``)."""
+# the counts move under this lock: request threads launch the kernel concurrently
 _count_lock = threading.Lock()
 
 _MAX_D = 256
@@ -64,8 +69,12 @@ _MAX_D = 256
 _SMEM_BUDGET = 232_448
 # the most clusters whose centers a thread keeps in registers (the source's kRegK)
 _REG_K = 8
-# the launch the planner starts from, shrunk until it fits (chosen by tools/ab_k1.py trials)
-_THREADS, _STAGES = 256, 3
+# the launch the planner starts from, shrunk until it fits: assigning threads a block (as
+# many accumulate, and copy the tiles in) and the ring's stages (depths of 3 to 8 moved
+# nothing at d = 28 and 64 on an H100)
+_THREADS, _STAGES = 256, 4
+# how the producer fills a stage: the source's kRouteBulk, kRouteChunks, kRouteWords
+ROUTES = ("bulk", "chunks", "words")
 # the source's kFoldGroup and kMaxGroups: blocks whose records one block folds, and groups
 # the ticket counters cover
 _FOLD_GROUP, _MAX_GROUPS = 16, 512
@@ -80,7 +89,7 @@ class Plan(NamedTuple):
     kernel's bound on d (32, 64, 128 or 256); ``reg`` whether each thread keeps its columns
     of every center in registers (d <= 64 and k <= 8), ``tpr`` the threads that share a
     row's columns (4 then; else 1 up to d = 64 and 64 columns a thread above); ``threads``
-    a block and ``stages`` of the ring."""
+    the assigning threads a block (as many accumulate) and ``stages`` of the ring."""
 
     d: int
     k: int
@@ -92,9 +101,9 @@ class Plan(NamedTuple):
 
     @property
     def rows_per_tile(self) -> int:
-        """Rows in a tile, each with its own slot of the block's sse: one a thread with the
-        centers in registers (a quad computes four rows together), else one a group of
-        ``tpr`` threads."""
+        """Rows in a tile, each with its own slot of the block's sse: one an assigning thread
+        with the centers in registers (a quad computes four rows together), else one a group
+        of ``tpr`` threads."""
         return self.threads if self.reg else self.threads // self.tpr
 
     @property
@@ -104,23 +113,35 @@ class Plan(NamedTuple):
 
     @property
     def row_stride4(self) -> int:
-        """A tile row's stride in 16-byte chunks (the source's ``row_stride4``)."""
-        s = 1 if self.reg else self.tpr
+        """A tile row's stride in 16-byte chunks (the source's ``row_stride4``): unpadded
+        with the centers in registers, so that a tile is one span for one bulk copy; else
+        padded to ``tpr`` modulo ``2 * tpr`` chunks, so that 16-byte reads of neighbouring
+        rows fall on distinct banks."""
         p = self.chunks
-        while p % (2 * s) != s:
+        while not self.reg and p % (2 * self.tpr) != self.tpr:
             p += 1
         return p
 
     @property
+    def per_cta(self) -> int:
+        """Blocks of the order one CTA hosts (the source's ``per_cta_of``): 2 where the launch
+        before the TMA ring kept two blocks resident on an SM (the centers in registers, rows
+        of at most 7 chunks), so that its order and bits stay; else 1. A launch whose blocks
+        hold at most one tile each has a CTA a block (the same order)."""
+        return 2 if self.reg and self.row_stride4 <= 7 else 1
+
+    @property
     def smem_bytes(self) -> int:
         """Shared memory of one block (the source's ``smem_bytes``): the ring of ``stages``
-        tiles of padded rows and the centers, in 16-byte chunks; then a list of a tile's
-        rows for each warp, |c|², the (k, d) record, the counts, two sets of a mask per
-        cluster and warp, a sum per row slot and one flag."""
-        d, k, bn, warps = self.d, self.k, self.rows_per_tile, self.threads // 32
+        tiles of padded rows and the centers, in 16-byte chunks; a list of a tile's rows for
+        each accumulating warp in 4-byte words; two mbarriers a stage (full, assigned); then a
+        ticket a stage, |c|², the (k, d) record and the counts of each hosted block, a label
+        slot per tile row and stage, a sum per row slot and hosted block, and one flag in
+        4-byte words."""
+        d, k, bn, warps, v = self.d, self.k, self.rows_per_tile, self.threads // 32, self.per_cta
         chunks = self.stages * bn * self.row_stride4 + k * self.chunks
-        words = k + k * d + k + 2 * warps * k + bn + warps * bn + 1
-        return 16 * chunks + 4 * words
+        words = warps * bn + self.stages + k + v * k * d + v * k + self.stages * bn + v * bn + 1
+        return 16 * chunks + 8 * 2 * self.stages + 4 * words
 
 
 def _shape(d: int, k: int, threads: int, stages: int) -> Plan:
@@ -131,26 +152,39 @@ def _shape(d: int, k: int, threads: int, stages: int) -> Plan:
 
 
 def smem_bytes(d: int, k: int, threads: int = _THREADS, stages: int = _STAGES) -> int:
-    """Shared memory of one block of ``threads`` threads and a ring of ``stages`` tiles."""
+    """Shared memory of one block of ``threads`` assigning threads and a ring of ``stages``
+    tiles."""
     return _shape(d, k, threads, stages).smem_bytes
 
 
 @functools.lru_cache(maxsize=1024)
 def plan(d: int, k: int, threads: int = _THREADS, stages: int = _STAGES) -> Optional[Plan]:
     """The launch for (d, k), or None beyond the kernel's gate: from the given shape, fewer
-    stages (down to 2), then fewer threads (down to one warp), until the block's shared
-    memory fits."""
+    stages (down to 2), then fewer assigning threads (down to one warp; whole warpgroups with
+    the centers in registers, whose roles trade registers), until the block's shared memory
+    fits."""
     if not (1 <= d <= _MAX_D and k >= 1):
         return None
     p = _shape(d, k, threads, stages)
     while p.smem_bytes > _SMEM_BUDGET:
         if p.stages > 2:
             p = p._replace(stages=p.stages - 1)
-        elif p.threads > 32:
-            p = p._replace(threads=max(32, p.threads // 2))
+        elif p.threads > (128 if p.reg else 32):
+            p = p._replace(threads=p.threads // 2)
         else:
             return None
     return p
+
+
+def route(p: Plan, x: torch.Tensor) -> str:
+    """How the kernel fills a stage for ``x`` under the plan ``p``: ``"bulk"``
+    (one TMA bulk copy a tile) where x is 16-byte aligned, d % 4 == 0 and a tile row's padded
+    stride is its natural one, so that a tile is one contiguous span in both places;
+    ``"chunks"`` (16-byte cp.async into the padded rows) where only the first two hold;
+    ``"words"`` (4-byte cp.async) for any other x."""
+    if x.data_ptr() % 16 or p.d % 4:
+        return "words"
+    return "bulk" if p.row_stride4 == p.chunks else "chunks"
 
 
 def fits_smem(d: int, k: int) -> bool:
@@ -160,8 +194,9 @@ def fits_smem(d: int, k: int) -> bool:
 
 
 def grid_blocks(n: int, d: int, k: int, device: torch.device) -> Tuple[int, int]:
-    """(blocks, warps per block) of the launch for ``n`` rows on a CUDA ``device``: the
-    blocks resident on the card at once, fewer when there are fewer tiles."""
+    """(blocks, assigning warps per block) of the launch for ``n`` rows on a CUDA
+    ``device``: the blocks of the order, ``per_cta`` of them on each SM's one CTA, fewer
+    when there are fewer tiles."""
     p = plan(d, k)
     dev = device.index if device.index is not None else torch.cuda.current_device()
     return _grid(n, p, dev), p.threads // 32
@@ -309,7 +344,7 @@ def _lib() -> ctypes.CDLL:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.kmeans_assign_max_blocks.argtypes = [i, i, i, i, i, ctypes.POINTER(i)]
         lib.kmeans_assign_max_blocks.restype = i
-        lib.kmeans_assign_launch.argtypes = [i, p, p, ll, i, i, p, p, i, p, p, i, i, p]
+        lib.kmeans_assign_launch.argtypes = [i, p, p, ll, i, i, p, p, i, p, p, i, i, i, p]
         lib.kmeans_assign_launch.restype = i
         lib.kmeans_assign_smem_bytes.argtypes = [i, i, i, i]
         lib.kmeans_assign_smem_bytes.restype = ll
@@ -340,7 +375,7 @@ def fused_assign_update_packed(x: torch.Tensor, centers: torch.Tensor) -> Tuple[
     CPU tensors take the plain version; CUDA tensors launch K1 (one kernel) on the current
     stream without synchronising, and count one launch. Raises on a dtype other than f32,
     on non-contiguous input and, on the card, on shapes beyond :func:`fits_smem`."""
-    global launches
+    global launches, launches_tma
     _check(x, centers)
     n, d = x.shape
     k = centers.shape[0]
@@ -361,6 +396,7 @@ def fused_assign_update_packed(x: torch.Tensor, centers: torch.Tensor) -> Tuple[
     m4 = -(-m // 4) * 4  # the scratch's rows start 16-byte aligned
     groups = -(-blocks // _FOLD_GROUP)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    how = route(p, x)
     # allocated on the stream the kernel runs on: when `scratch` is freed on return, the
     # caching allocator hands its memory only to work queued after it on that stream
     labels = torch.empty(n, dtype=torch.int32, device=x.device)
@@ -368,11 +404,12 @@ def fused_assign_update_packed(x: torch.Tensor, centers: torch.Tensor) -> Tuple[
     packed = torch.empty(m, dtype=torch.float32, device=x.device)
     rc = lib.kmeans_assign_launch(
         dev, x.data_ptr(), centers.data_ptr(), n, d, k, labels.data_ptr(), scratch.data_ptr(), blocks,
-        packed.data_ptr(), _counter(dev, stream, x.device).data_ptr(), p.threads, p.stages, stream,
+        packed.data_ptr(), _counter(dev, stream, x.device).data_ptr(), p.threads, p.stages, ROUTES.index(how), stream,
     )
     _raise_on(lib, rc, "launch")
     with _count_lock:
         launches += 1
+        launches_tma += how == "bulk"
     return labels, packed
 
 

@@ -12,22 +12,25 @@ once, and called through its C entry points on the same inputs: this checkout's 
 the package's wrapper, another through its own interface (the single-record one of this
 checkout, or the two-kernel one that PR 1 to 6 built, which has no ``kmeans_assign_abi``).
 
-At the main path's shape (10M x 64 x 8, Gaussian blobs from a seed), at the edge shapes
-chip_smoke.py checks (n below one tile and one row past it, d = 7, 10, 48, 100 and 256,
-k = 1 and 12, x 4 bytes past a 16-byte boundary) and at edges of the same kinds with
-50,000 to 100,000 rows:
+At the benchmark's shape (11M x 28 x 8) and the main path's (10M x 64 x 8), at 10M x 10 x 8
+and at 10M x 64 x 8 with x 4 bytes past a 16-byte boundary, Gaussian blobs from a seed, at
+the edge shapes chip_smoke.py checks (n below one tile and one row past it,
+d = 7, 10, 48, 100 and 256, k = 1 and 12, x 4 bytes past a 16-byte boundary), at edges of
+the same kinds with 50,000 to 100,000 rows, and where shared memory holds one warp a role:
 
 - labels and counts of each other version must equal this checkout's, and its sums must
   lie within (γ(h) + γ(h')) Σ|x| of this checkout's, h and h' the two orders' rounding
   depths (``kmeans.rounding_depths``, and for the two-kernel version its warp-per-row
-  order: the rows of a warp slot, the warps of a block, the blocks);
+  order: the rows of a warp slot, the warps of a block, the blocks); whether the labels
+  and the packed record (sums, counts, sse) are equal bit for bit is reported beside
+  (``labels_equal``, ``packed_bits_equal``): they are where both versions keep one order;
 - each kernel is timed in turns with this checkout's, other, this, this, other (median of
   CUDA-event-timed launches, each queued behind a sleep kernel so that the host's time to
   launch does not count: ``_measure.queued_ms``);
-- each ``--config T,S`` (threads a block, ring stages) runs this
+- each ``--config T,S`` (assigning threads a block, ring stages) runs this
   checkout's kernel with that launch: its labels and counts must equal the default's and
   its sums lie within both orders' bounds, and it is timed in turns with the default at the
-  main shape.
+  four shapes of 10M rows or more where it fits shared memory.
 
 ``--sass`` also prints the SASS opcode mix of every K1 instance of every build (static
 counts, and those of the largest loop). The card's name and power limit come last. Fails
@@ -56,10 +59,14 @@ from heat_tpu_torch.core.kernels._measure import ptxas_summary, queued_ms, sass,
 SOURCE = Path("heat_tpu_torch/core/kernels/csrc/kmeans_assign.cu")
 U32 = 2.0**-24
 
-# (name, n, d, k, misaligned): the main path's shape, chip_smoke.py's edge shapes, and the
-# same kinds of edge at 50,000 to 100,000 rows
+# (name, n, d, k, misaligned): the benchmark's and the main path's shapes, the two copy
+# routes of K1 other than bulk copies at 10M rows (d % 4 != 0, x off a 16-byte boundary),
+# chip_smoke.py's edge shapes, and the same kinds of edge at 50,000 to 100,000 rows
 SHAPES = (
+    ("cell_11Mx28x8", 11_000_000, 28, 8, False),
     ("main_10Mx64x8", 10_000_000, 64, 8, False),
+    ("d10_10Mx10x8", 10_000_000, 10, 8, False),
+    ("misaligned_10Mx64x8", 10_000_000, 64, 8, True),
     ("below_one_tile", 200, 64, 8, False),
     ("one_row_past_a_tile", 257, 64, 8, False),
     ("d10_130", 130, 10, 3, False),
@@ -74,6 +81,8 @@ SHAPES = (
     ("d256", 50_000, 256, 8, False),
     ("k1", 100_000, 64, 1, False),
     ("misaligned_4B", 100_000, 64, 8, True),
+    ("gate_d64_k350", 20_000, 64, 350, False),  # shared memory holds one warp a role
+    ("gate_d256_k90", 5_000, 256, 90, False),
 )
 
 
@@ -95,27 +104,47 @@ def blobs(n, d, k, seed, misaligned):
 
 
 class Other:
-    """Another checkout's K1, bound by the interface its library exports."""
+    """Another checkout's K1, bound by the interface its library exports: 3 (this one's:
+    assigning threads, stages and the copy route, planned by this checkout), 2 (the one
+    launch before the TMA ring: threads and stages, planned as those checkouts planned, from
+    256 threads and 3 stages down to what fits) or none (the first, two-kernel interface)."""
 
     def __init__(self, path: Path):
         lib = ctypes.CDLL(str(path))
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         self.single = hasattr(lib, "kmeans_assign_abi")
+        self.abi = lib.kmeans_assign_abi() if self.single else 1
         if self.single:
             lib.kmeans_assign_max_blocks.argtypes = [i, i, i, i, i, ctypes.POINTER(i)]
-            lib.kmeans_assign_launch.argtypes = [i, p, p, ll, i, i, p, p, i, p, p, i, i, p]
+            lib.kmeans_assign_smem_bytes.argtypes = [i, i, i, i]
+            lib.kmeans_assign_smem_bytes.restype = ll
+            route = [i] if self.abi >= 3 else []
+            lib.kmeans_assign_launch.argtypes = [i, p, p, ll, i, i, p, p, i, p, p, i, i, *route, p]
         else:
             lib.kmeans_assign_max_blocks.argtypes = [i, i, i, ctypes.POINTER(i)]
             lib.kmeans_assign_launch.argtypes = [i, p, p, ll, i, i, p, p, i, p, p]
         self.lib = lib
         self.counter = torch.zeros(1 + k1._MAX_GROUPS, dtype=torch.int32, device="cuda")
 
+    def plan(self, d, k):
+        """(threads, stages, rows a tile) of this version's launch for (d, k)."""
+        if self.abi >= 3:
+            p = k1.plan(d, k)
+            return p.threads, p.stages, p.rows_per_tile
+        threads, stages = 256, 3
+        while self.lib.kmeans_assign_smem_bytes(d, k, threads, stages) > k1._SMEM_BUDGET:
+            if stages > 2:
+                stages -= 1
+            else:
+                threads //= 2
+        p = k1._shape(d, k, threads, stages)
+        return threads, stages, (threads if p.reg else threads // p.tpr)
+
     def grid(self, n, d, k):
         out = ctypes.c_int(0)
         if self.single:
-            p = k1.plan(d, k)
-            rc = self.lib.kmeans_assign_max_blocks(0, d, k, p.threads, p.stages, ctypes.byref(out))
-            per = p.rows_per_tile
+            threads, stages, per = self.plan(d, k)
+            rc = self.lib.kmeans_assign_max_blocks(0, d, k, threads, stages, ctypes.byref(out))
         else:
             rc = self.lib.kmeans_assign_max_blocks(0, d, k, ctypes.byref(out))
             per = 8
@@ -132,10 +161,11 @@ class Other:
         out = torch.empty(m, device="cuda")
         stream = torch.cuda.current_stream().cuda_stream
         if self.single:
-            p = k1.plan(d, k)
+            threads, stages, _ = self.plan(d, k)
+            route = [k1.ROUTES.index(k1.route(k1.plan(d, k), x))] if self.abi >= 3 else []
             rc = self.lib.kmeans_assign_launch(0, x.data_ptr(), c.data_ptr(), n, d, k, labels.data_ptr(),
                                                scratch.data_ptr(), blocks, out.data_ptr(), self.counter.data_ptr(),
-                                               p.threads, p.stages, stream)
+                                               threads, stages, *route, stream)
         else:
             rc = self.lib.kmeans_assign_launch(0, x.data_ptr(), c.data_ptr(), n, d, k, labels.data_ptr(),
                                                scratch.data_ptr(), blocks, out.data_ptr(), stream)
@@ -145,7 +175,9 @@ class Other:
     def depth(self, n, d, k, labels):
         """h of this version's order for the sums."""
         if self.single:
-            return k1.rounding_depths(n, d, k, labels, self.grid(n, d, k))["h_sums"]
+            threads, stages, _ = self.plan(d, k)
+            launch = k1._shape(d, k, threads, stages)
+            return k1.rounding_depths(n, d, k, labels, self.grid(n, d, k), launch=launch)["h_sums"]
         blocks = self.grid(n, d, k)
         slots = blocks * 8  # row r is summed by warp r % slots; then 8 warps, then the blocks
         slot = torch.arange(n, device=labels.device) % slots
@@ -159,7 +191,8 @@ def with_config(x, c, threads, stages):
     lib = k1._lib()
     out = ctypes.c_int(0)
     k1._raise_on(lib, lib.kmeans_assign_max_blocks(0, d, k, threads, stages, ctypes.byref(out)), "occupancy query")
-    per = k1.plan(d, k, threads, stages).rows_per_tile
+    p = k1.plan(d, k, threads, stages)
+    per = p.rows_per_tile
     blocks = max(1, min(out.value, -(-n // per)))
     m = k * d + k + 1
     labels = torch.empty(n, dtype=torch.int32, device="cuda")
@@ -168,7 +201,7 @@ def with_config(x, c, threads, stages):
     counter = k1._counter(0, torch.cuda.current_stream().cuda_stream, x.device)
     rc = lib.kmeans_assign_launch(0, x.data_ptr(), c.data_ptr(), n, d, k, labels.data_ptr(), scratch.data_ptr(),
                                   blocks, packed.data_ptr(), counter.data_ptr(), threads, stages,
-                                  torch.cuda.current_stream().cuda_stream)
+                                  k1.ROUTES.index(k1.route(p, x)), torch.cuda.current_stream().cuda_stream)
     k1._raise_on(lib, rc, "launch")
     return labels, packed, blocks
 
@@ -185,6 +218,7 @@ def compare(x, c, mine, theirs, h_mine, h_theirs) -> dict:
     tol = (gamma(h_mine) + gamma(h_theirs)) * abs64 + 1e-30
     res = {
         "labels_equal": bool(torch.equal(l0, l1)),
+        "packed_bits_equal": bool(torch.equal(p0.view(torch.int32), p1.view(torch.int32))),
         "counts_equal": bool(torch.equal(n0, n1)),
         "sums_err_over_tol": float((err / tol).max()),
         "sse_rel": abs(float(e0) - float(e1)) / max(abs(float(e0)), 1e-30),
@@ -198,7 +232,7 @@ def main() -> int:
     parser.add_argument("--parent", action="append", default=[], type=Path, help="another checkout (repeats)")
     parser.add_argument("--config", action="append", default=[], help="T,S: threads and stages of a launch of this checkout to try")
     parser.add_argument("--sass", action="store_true", help="print each K1 instance's SASS opcode mix")
-    parser.add_argument("--main-only", action="store_true", help="only the main path's shape")
+    parser.add_argument("--main-only", action="store_true", help="only the four shapes of 10M rows or more")
     parser.add_argument("--json-out", default=None)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -223,7 +257,7 @@ def main() -> int:
     others = {p.name: Other(b["path"]) for p, b in zip(args.parent, builds[1:])}
 
     rows = []
-    for name, n, d, k, misaligned in SHAPES[:1] if args.main_only else SHAPES:
+    for name, n, d, k, misaligned in SHAPES[:4] if args.main_only else SHAPES:
         x, c = blobs(n, d, k, 7 + n + d, misaligned)
         this = k1.fused_assign_update_packed(x, c)
         again = k1.fused_assign_update_packed(x, c)
@@ -242,10 +276,12 @@ def main() -> int:
             row[oname]["this_ms"] = (turns[1] + turns[2]) / 2
             row[oname]["other_ms"] = (turns[0] + turns[3]) / 2
         print(json.dumps(row), flush=True)
-        if name == SHAPES[0][0]:
+        if n >= 10_000_000:
             p = k1.plan(d, k)
             for cfg in args.config:
                 t, s = (int(v) for v in cfg.split(","))
+                if k1.smem_bytes(d, k, t, s) > k1._SMEM_BUDGET:
+                    continue  # beyond shared memory at this shape
                 lab, packed, blocks = with_config(x, c, t, s)
                 h_cfg = k1.rounding_depths(n, d, k, lab, blocks, launch=k1.plan(d, k, t, s))["h_sums"]
                 res = compare(x, c, this, (lab, packed), h_this, h_cfg)

@@ -2,12 +2,17 @@
 """Where K1's time goes on one CUDA card: the streaming floor of its access pattern, and
 its phases and segments timed by building copies of its source with parts taken out.
 
-    python3 tools/k1_probe.py [--stream] [--phases] [--segments] [--json-out FILE]
+    python3 tools/k1_probe.py [--shape N,D,K] [--stream] [--phases] [--segments] [--json-out FILE]
 
-- ``--stream``: x (10M, 64) f32 read once by the three routes of tools/k1_stream_floor.cu
-  (K1's cp.async ring into padded rows, a ring filled by 1-D TMA bulk copies, plain 16-byte
-  loads), each with a trivial sum: the floor K1's reads can reach.
-- ``--phases``: at 10M x 64 x 8 (Gaussian blobs from a seed), K1 as built, and copies
+The shape is the main one, 10M x 64 x 8 unless ``--shape`` names another (the benchmark's
+KMeans cell runs 11M x 28 x 8).
+
+- ``--stream``: x (N, D) f32 (D a multiple of 4) read once by the routes of
+  tools/k1_stream_floor.cu (every thread's cp.async into K1's padded rows, one TMA bulk copy
+  a tile into unpadded rows, one bulk copy a row into K1's padded rows, plain 16-byte
+  loads), each with a trivial sum and at every ring depth that fits shared memory: the
+  floor K1's reads can reach.
+- ``--phases``: at the shape (Gaussian blobs from a seed), K1 as built, and copies
   without its accumulation, without its assignment (each thread's label then a fixed
   pattern over the clusters, so that the accumulation sees a realistic mix), and without
   both, timed in turns: which phase holds a tile longer than its bytes take to arrive.
@@ -43,16 +48,15 @@ from heat_tpu_torch.core.kernels import _nvcc  # noqa: E402
 from heat_tpu_torch.core.kernels import kmeans as k1  # noqa: E402
 from heat_tpu_torch.core.kernels._measure import queued_ms  # noqa: E402
 
-N, D, K = 10_000_000, 64, 8
-EDGES = ((200, 64, 8), (257, 64, 8), (1500, 7, 5), (3001, 256, 8), (N, D, K))
+EDGES = ((200, 64, 8), (257, 64, 8), (1500, 7, 5), (3001, 256, 8))
 
 # marked lines of csrc/kmeans_assign.cu and what a copy puts in their place
-ACCUMULATE = "            for (int it = tid; it < 32 * k; it += T) {"
+ACCUMULATE = "            for (int j = aw; j < k; j += wa) {"
 ASSIGN = "#pragma unroll 1\n                for (int rr = 0; rr < TPR; ++rr) {"
 HOLDER = "                row = tid;\n                holder = true;"
-LOOP = "    // Software-pipelined:"
-AFTER_LOOP = "    if (REG || q == 0) ssep[REG ? tid : rho] = sse;"
-FOLD = "    if (G == 1) return;"
+LOOP = "    if (warp >= wa) {"
+AFTER_LOOP = "        // each hosted block's record"
+FOLD = "        if (G == 1) return;"
 STOP = "    if (a.k > 0) return;\n"  # an early return the compiler cannot see through
 
 
@@ -60,32 +64,36 @@ def variants(src: str, phases: bool) -> dict:
     for line in (ACCUMULATE, ASSIGN, HOLDER, LOOP, AFTER_LOOP, FOLD):
         if line not in src:
             sys.exit(f"k1_probe: csrc/kmeans_assign.cu no longer holds {line.strip()!r}")
-    no_acc = src.replace(ACCUMULATE, ACCUMULATE.replace("it < 32 * k", "it < 0"))
+    no_acc = src.replace(ACCUMULATE, ACCUMULATE.replace("j < k", "j < 0"))
     no_assign = src.replace(ASSIGN, ASSIGN.replace("rr < TPR", "rr < 0")).replace(
         HOLDER, HOLDER + " label = (tid * 5 + 3) & 7;")
     if phases:
         return {"full": src, "no_accumulate": no_acc, "no_assign": no_assign,
-                "neither": no_assign.replace(ACCUMULATE, ACCUMULATE.replace("it < 32 * k", "it < 0"))}
+                "neither": no_assign.replace(ACCUMULATE, ACCUMULATE.replace("j < k", "j < 0"))}
     return {"full": src, "setup_only": src.replace(LOOP, STOP + LOOP),
             "loop_no_record": src.replace(AFTER_LOOP, STOP + AFTER_LOOP),
             "record_no_fold": src.replace(FOLD, STOP + FOLD)}
 
 
 def build(sources: dict) -> dict:
-    # the copies' sources live in a temporary directory: only their libraries stay, in _build/
+    # the copies' sources live in a temporary directory, each beside the headers it includes:
+    # only their libraries stay, in _build/
+    headers = {h.name: h.read_text() for h in k1.SOURCE.parent.glob("*.cuh")}
     with tempfile.TemporaryDirectory() as tmp:
         paths = {}
         for name, text in sources.items():
             (Path(tmp) / name).mkdir()
             paths[name] = Path(tmp) / name / "kmeans_assign.cu"
             paths[name].write_text(text)
+            for h, body in headers.items():
+                (Path(tmp) / name / h).write_text(body)
         with ThreadPoolExecutor(max_workers=len(paths)) as pool:
             built = dict(zip(paths, pool.map(_nvcc.build, paths.values())))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     libs = {}
     for name, b in built.items():
         lib = ctypes.CDLL(str(b["path"]))
-        lib.kmeans_assign_launch.argtypes = [i, p, p, ll, i, i, p, p, i, p, p, i, i, p]
+        lib.kmeans_assign_launch.argtypes = [i, p, p, ll, i, i, p, p, i, p, p, i, i, i, p]
         libs[name] = lib
     return libs
 
@@ -109,38 +117,47 @@ def launcher(lib, x, c):
     out = torch.empty(m4, device="cuda")
     counter = torch.zeros(1 + k1._MAX_GROUPS, dtype=torch.int32, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
+    route = k1.ROUTES.index(k1.route(p, x))
 
     def call():
         rc = lib.kmeans_assign_launch(0, x.data_ptr(), c.data_ptr(), n, d, k, labels.data_ptr(), scratch.data_ptr(),
-                                      blocks, out.data_ptr(), counter.data_ptr(), p.threads, p.stages, stream)
+                                      blocks, out.data_ptr(), counter.data_ptr(), p.threads, p.stages, route, stream)
         if rc:
             raise RuntimeError(f"k1_probe: launch failed ({rc})")
     return call  # the copies return before drawing a ticket, so the tickets stay at zero
 
 
-def stream_floor() -> dict:
+def stream_floor(n: int, d: int, k: int) -> dict:
+    if d % 4:
+        sys.exit(f"k1_probe: --stream needs D a multiple of 4, got {d}")
     lib = ctypes.CDLL(str(_nvcc.build(ROOT / "tools" / "k1_stream_floor.cu")["path"]))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.run.argtypes = [i, p, ll, i, p, i, p]
+    lib.run.argtypes = [i, p, ll, i, i, i, p, i, p]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    x = torch.randn(N, 64, device="cuda")
+    d4, p4 = d // 4, k1.plan(d, k).row_stride4
+    x = torch.randn(n, d, device="cuda")
     out = torch.empty(8 * sms * 256, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
-    res = {}
-    for name, route, stages, blocks in (("cp_async_ring_2", 0, 2, sms), ("cp_async_ring_3", 0, 3, sms),
-                                        ("tma_bulk_ring_2", 1, 2, sms), ("tma_bulk_ring_3", 1, 3, sms),
-                                        ("plain_loads", 2, 0, 8 * sms)):
+    fits = lambda stages, chunks: stages * 256 * chunks * 16 <= k1._SMEM_BUDGET  # noqa: E731
+    routes = [(f"cp_async_ring_{s}", 0, s, p4, sms) for s in range(3, 9) if fits(s, p4)]
+    routes += [(f"tma_bulk_ring_{s}", 1, s, d4, sms) for s in range(2, 9) if fits(s, d4)]
+    if p4 != d4:
+        routes += [(f"tma_row_ring_{s}", 3, s, p4, sms) for s in range(2, 9) if fits(s, p4)]
+    routes.append(("plain_loads", 2, 2, d4, 8 * sms))
+    res = {"d4": d4, "p4": p4, "bound_ms": 4 * n * d / 3.35e12 * 1e3}
+    for name, route, stages, chunks, blocks in routes:
         def call():
-            rc = lib.run(route, x.data_ptr(), N, stages, out.data_ptr(), blocks, stream)
+            rc = lib.run(route, x.data_ptr(), n, d4, chunks, stages, out.data_ptr(), blocks, stream)
             if rc:
                 raise RuntimeError(f"k1_probe: stream route {name} failed ({rc})")
         ms = queued_ms(call, 20)
-        res[name] = {"ms": ms, "bytes_per_s": 4 * N * 64 / (ms * 1e-3)}
+        res[name] = {"ms": ms, "bytes_per_s": 4 * n * d / (ms * 1e-3)}
     return res
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--shape", default="10000000,64,8", help="N,D,K of the main shape")
     parser.add_argument("--stream", action="store_true")
     parser.add_argument("--phases", action="store_true")
     parser.add_argument("--segments", action="store_true")
@@ -149,14 +166,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("k1_probe: no CUDA card")
     torch.cuda.set_device(0)
+    n_main, d_main, k_main = (int(v) for v in args.shape.split(","))
     src = (ROOT / "heat_tpu_torch/core/kernels/csrc/kmeans_assign.cu").read_text()
     report = {}
     if args.stream:
-        report["stream"] = stream_floor()
+        report["stream"] = stream_floor(n_main, d_main, k_main)
         print(json.dumps({"stream": report["stream"]}), flush=True)
     if args.phases:
         libs = build(variants(src, phases=True))
-        x, c = data(N, D, K, 0)
+        x, c = data(n_main, d_main, k_main, 0)
         calls = {name: launcher(lib, x, c) for name, lib in libs.items()}
         turns = {name: [] for name in calls}
         for order in (list(calls), list(reversed(calls))):
@@ -168,9 +186,9 @@ def main() -> int:
     if args.segments:
         libs = build(variants(src, phases=False))
         report["segments"] = {}
-        for n, d, k in EDGES:
+        for n, d, k in EDGES + ((n_main, d_main, k_main),):
             x, c = data(n, d, k, n + d)
-            row = {name: queued_ms(launcher(lib, x, c), 20 if n == N else 100) for name, lib in libs.items()}
+            row = {name: queued_ms(launcher(lib, x, c), 20 if n == n_main else 100) for name, lib in libs.items()}
             row["blocks"] = k1.grid_blocks(n, d, k, x.device)[0]
             report["segments"][f"{n}x{d}x{k}"] = row
             print(json.dumps({"segments": {f"{n}x{d}x{k}": row}}), flush=True)
